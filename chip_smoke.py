@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from meshclust2_tpu_torch/csrc, holds it
-against its plain PyTorch version and an int64 numpy oracle, times both at
-the main path's shapes, then clusters med2000 and the 10,000-sequence bench
-dataset through `meshclust2_tpu_torch.cli` on the card and checks each
+Builds the port's CUDA kernels from meshclust2_tpu_torch/csrc (one nvcc
+per source, in parallel), holds each against its plain PyTorch version and
+a numpy reference, times both at the main path's shapes, then clusters
+med2000 and the 10,000-sequence bench dataset through
+`meshclust2_tpu_torch.cli` on the card, on both update paths (the default
+TorchDeviceUpdater and MC2_NO_DEVICE_UPDATE_BATCH=1), and checks each run
 against its reference CLSTR and engine counters.  For comparison it runs
 the JAX package's native host path (`--device host`) on the same file, in
 a subprocess.
@@ -28,16 +30,28 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
 
-# engine counters of the recover path at the two datasets, equal to a run
-# with the native host scorer: windows scored, pairs scored, clusters before
-# the update phase, update iterations
-MED2000_COUNTERS = (146, 62_376, 305, 6)
-BENCH10K_COUNTERS = (590, 789_698, 1_147, 7)
+# engine counters of the recover path (windows scored, pairs scored,
+# clusters before the update phase, update iterations) and the updater's
+# scored pairs, as the JAX package's sessionless device configuration counts
+# them: with its DeviceUpdater (the default path), and under
+# MC2_NO_DEVICE_UPDATE_BATCH=1, where every update pair goes through the
+# scorer and the engine's memo (the counters of the native host scorer)
+MED2000_COUNTERS = {"default": (146, 152_619, 305, 6),
+                    "no_update_batch": (146, 62_376, 305, 6)}
+MED2000_UPDATER_PAIRS = 116_481
+BENCH10K_COUNTERS = {"default": (590, 1_386_736, 1_147, 7),
+                     "no_update_batch": (590, 789_698, 1_147, 7)}
+BENCH10K_UPDATER_PAIRS = 708_385
 BENCH10K_CLUSTERS = 788
+NO_UPDATE_BATCH = "MC2_NO_DEVICE_UPDATE_BATCH"
+TIE_MARGIN = 1e-12
 
 
 def phase(tag: str, msg: str) -> None:
@@ -94,6 +108,41 @@ def window(clock_stamps) -> float:
     return clock_stamps["done"] - clock_stamps["read_in_points"]
 
 
+def window_parts(stamps, n: int) -> str:
+    """The clustering window and its accumulate and update parts, in
+    seconds and sequences per second."""
+    total = window(stamps)
+    acc = stamps["accumulate"] - stamps["read_in_points"]
+    upd = stamps["update"] - stamps["accumulate"]
+    return (f"window {total:.3f} s = {n / total:.1f} seqs/s (accumulate "
+            f"{acc:.3f} s, update {upd:.3f} s)")
+
+
+def run_path(torch_cli, path: str, argv):
+    """cli.run on one update path: the default, or MC2_NO_DEVICE_UPDATE_BATCH=1."""
+    if path == "no_update_batch":
+        os.environ[NO_UPDATE_BATCH] = "1"
+    try:
+        return torch_cli.run(argv)
+    finally:
+        os.environ.pop(NO_UPDATE_BATCH, None)
+
+
+def segments(rng, n_rows: int, n_segs: int, mean_size: int):
+    """Ragged nondecreasing segments over random rows: empty and one-row
+    segments among them, rows repeated inside a segment (exact ties), and
+    80 % of the pairs kept."""
+    sizes = rng.integers(0, 2 * mean_size, n_segs)
+    sizes[rng.choice(n_segs, n_segs // 6, replace=False)] = 0
+    sizes[rng.choice(n_segs, n_segs // 6, replace=False)] = 1
+    seg = np.repeat(np.arange(n_segs), sizes)
+    rows = rng.integers(0, n_rows, len(seg))
+    dup = rng.choice(len(seg) - 1, len(seg) // 8, replace=False)
+    dup = dup[seg[dup + 1] == seg[dup]]
+    rows[dup + 1] = rows[dup]
+    return rows.astype(np.int64), seg.astype(np.int64), rng.random(len(seg)) < 0.8
+
+
 def main() -> int:
     import torch
 
@@ -102,10 +151,10 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import numpy as np
-
+    from meshclust2_tpu.cluster.engine import distance_d
     from meshclust2_tpu_torch import cli as torch_cli
     from meshclust2_tpu_torch.ops import _build
+    from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
     from meshclust2_tpu_torch.ops.pair_stats import (
         center_block_stats, pair_stats, pair_stats_ref)
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
@@ -122,14 +171,17 @@ def main() -> int:
                f"{torch.version.cuda}, nvcc {nvcc_v.strip().splitlines()[-1]}, "
                f"python {sys.version.split()[0]}")
 
-    # (b) the build
+    # (b) the builds, one nvcc per source, started together
     t0 = time.perf_counter()
-    built = _build.load("pair_stats")
-    ptxas = "; ".join(ln.strip() for ln in built.log.splitlines()
-                      if "registers" in ln or "spill" in ln)
-    phase("b", f"built {os.path.relpath(built.path, ROOT)} in "
-               f"{time.perf_counter() - t0:.3f} s (nvcc {built.seconds:.3f} s); "
-               f"ptxas: {ptxas}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = dict(zip(("pair_stats", "closest_mean"),
+                          pool.map(_build.load, ("pair_stats", "closest_mean"))))
+    for built in builds.values():
+        ptxas = "; ".join(ln.strip() for ln in built.log.splitlines()
+                          if "registers" in ln or "spill" in ln)
+        phase("b", f"built {os.path.relpath(built.path, ROOT)} (nvcc "
+                   f"{built.seconds:.3f} s); ptxas: {ptxas}")
+    phase("b", f"both builds in {time.perf_counter() - t0:.3f} s")
 
     # (c) kernel = plain version = int64 oracle, bit for bit
     def oracle(counts, a, b):
@@ -175,6 +227,51 @@ def main() -> int:
                f"cases (uint8/uint16, D in 16/256/1024/4096, center and pair "
                f"forms, ragged P)")
 
+    # (c2) closest_mean kernel = plain version (first and unc) = a numpy
+    # reference (distance_d over each segment's kept rows, first strict
+    # minimum) wherever unc is False
+    def closest_ref(counts, rows, seg, keep, n_segs):
+        first = np.full(n_segs, len(rows), np.int64)
+        for c in range(n_segs):
+            pos = np.nonzero((seg == c) & keep)[0]
+            if len(pos):
+                cg = counts[rows[pos]]
+                first[c] = pos[int(np.argmin(distance_d(
+                    cg, cg.astype(np.float64).mean(axis=0))))]
+        return first
+
+    def closest_args(counts, rows, seg, keep):
+        mags = counts.sum(axis=1, dtype=np.int64).astype(np.float64)
+        return [torch.from_numpy(a).to(dev) for a in (counts, mags, rows, seg, keep)]
+
+    cm_err = 0
+    n_cases = n_unc = 0
+    for dtype in (np.uint8, np.uint16):
+        for d in (16, 256, 1024, 4096):
+            counts = rng.integers(0, np.iinfo(dtype).max + 1, (300, d)).astype(dtype)
+            rows, seg, keep = segments(rng, 300, 77, 20)
+            args = closest_args(counts, rows, seg, keep)
+            if dtype == np.uint8 and d == 256:
+                # a store that starts off a 16-byte boundary: the bin-wise path
+                raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
+                args[0] = raw[1:].view(300, d).copy_(args[0])
+            kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
+            first, unc = closest_mean(*args, 77, **kw)
+            torch.cuda.synchronize()
+            p_first, p_unc = closest_mean_ref(*args, 77, **kw)
+            want = closest_ref(counts, rows, seg, keep, 77)
+            f, u = first.cpu().numpy(), unc.cpu().numpy()
+            if not (torch.equal(first, p_first) and torch.equal(unc, p_unc)
+                    and np.array_equal(f[~u], want[~u])):
+                raise AssertionError(f"closest_mean differs: {dtype.__name__} D={d}")
+            cm_err = max(cm_err, int((first - p_first).abs().max()))
+            n_cases += 1
+            n_unc += int(u.sum())
+    phase("c2", f"closest_mean kernel == plain (first, unc) == numpy distance_d "
+                f"argmin in {n_cases} cases (uint8/uint16, D in 16/256/1024/4096, "
+                f"77 ragged segments with empty, one-row and duplicated rows, an "
+                f"unaligned store); {n_unc} segments uncertain")
+
     # (d) kernel vs plain version at the main path's shapes: a 10,000-row
     # uint8 store at D = 1,024 (k = 5), center form P = 2,048, pair form
     # P = 98,304 (the largest update batch)
@@ -201,23 +298,52 @@ def main() -> int:
                    f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events; "
                    f"{card})")
 
+    # (d2) closest_mean vs its plain version at the main path's shape: the
+    # same store, P = 98,304 pairs (the largest update batch) in 1,000
+    # segments of uneven size
+    n_pairs, n_segs = 98_304, 1_000
+    cuts = np.sort(rng.integers(0, n_pairs + 1, n_segs - 1))
+    seg = np.searchsorted(cuts, np.arange(n_pairs), side="right").astype(np.int64)
+    rows = rng.integers(0, 10_000, n_pairs)
+    keep = rng.random(n_pairs) < 0.8
+    mags = store.sum(dim=1, dtype=torch.int64).to(torch.float64)
+    cm_args = [store, mags] + [torch.from_numpy(a).to(dev) for a in (rows, seg, keep)]
+    kw = dict(maxc=int(store.max()), tie_margin=TIE_MARGIN)
+    got = closest_mean(*cm_args, n_segs, **kw)
+    plain = closest_mean_ref(*cm_args, n_segs, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+        raise AssertionError("closest_mean differs at the main-path shape")
+    cm_k = cuda_ms(lambda: closest_mean(*cm_args, n_segs, **kw), reps=50)
+    cm_p = cuda_ms(lambda: closest_mean_ref(*cm_args, n_segs, **kw), reps=10)
+    phase("d2", f"closest_mean P={len(rows)} C={n_segs} D=1024 uint8: kernel "
+                f"{cm_k:.4f} ms, plain {cm_p:.4f} ms (median, CUDA events; {card})")
+
     with tempfile.TemporaryDirectory(prefix="mc2_smoke_") as tmp:
-        # (e) med2000 through the port's CLI on the card
+        # (e) med2000 through the port's CLI on the card, on both update paths
         # (cli.run is cli.main's body, returning the engine beside the code)
-        out = os.path.join(tmp, "med2000.clstr")
-        res = torch_cli.run(["--device", "cuda", "--recover",
-                             os.path.join(FIX, "med2000_weights.txt"),
-                             "--output", out, os.path.join(FIX, "med2000.fasta")])
-        if res.rc != 0:
-            raise AssertionError(f"port CLI exited {res.rc} on med2000")
-        with open(out) as f, open(os.path.join(FIX, "med2000_ref.clstr")) as g:
-            if sorted(f.readlines()) != sorted(g.readlines()):
-                raise AssertionError("med2000 CLSTR differs from med2000_ref.clstr")
-        if counters(res) != MED2000_COUNTERS:
-            raise AssertionError(f"med2000 counters {counters(res)} != "
-                                 f"{MED2000_COUNTERS}")
-        phase("e", f"med2000: sorted CLSTR == med2000_ref.clstr, counters "
-                   f"{counters(res)}, window {window(res.clock.stamps):.3f} s")
+        for path in ("default", "no_update_batch"):
+            out = os.path.join(tmp, f"med2000_{path}.clstr")
+            res = run_path(torch_cli, path, [
+                "--device", "cuda", "--recover",
+                os.path.join(FIX, "med2000_weights.txt"), "--output", out,
+                os.path.join(FIX, "med2000.fasta")])
+            if res.rc != 0:
+                raise AssertionError(f"port CLI exited {res.rc} on med2000 ({path})")
+            with open(out) as f, open(os.path.join(FIX, "med2000_ref.clstr")) as g:
+                if sorted(f.readlines()) != sorted(g.readlines()):
+                    raise AssertionError(f"med2000 CLSTR differs from "
+                                         f"med2000_ref.clstr ({path})")
+            if counters(res) != MED2000_COUNTERS[path]:
+                raise AssertionError(f"med2000 counters {counters(res)} != "
+                                     f"{MED2000_COUNTERS[path]} ({path})")
+            upd = "no updater" if res.updater is None else \
+                f"updater pairs {res.updater.scored_pairs}"
+            if path == "default" and res.updater.scored_pairs != MED2000_UPDATER_PAIRS:
+                raise AssertionError(f"med2000 {upd} != {MED2000_UPDATER_PAIRS}")
+            phase("e", f"med2000 ({path}): sorted CLSTR == med2000_ref.clstr, "
+                       f"counters {counters(res)}, {upd}, "
+                       f"{window_parts(res.clock.stamps, 2000)}")
 
         # (f) the 10k bench dataset: the slice's main path, counted
         import bench
@@ -227,33 +353,49 @@ def main() -> int:
             raise AssertionError("BENCH_N_SEQS / seed overridden")
         bench.ensure_dataset(fasta)
         weights = os.path.join(FIX, "bench10k_weights.txt")
-        out = os.path.join(tmp, "bench10k.clstr")
-        pair_stats.launches = 0
-        res = torch_cli.run(["--device", "cuda", "--recover", weights,
-                             "--output", out, fasta])
-        launches = pair_stats.launches
-        if res.rc != 0:
-            raise AssertionError(f"port CLI exited {res.rc} on the 10k dataset")
-        if launches <= 0:
-            raise AssertionError("the main path launched no pair_stats kernel")
         ref_path = os.path.join(tmp, "ref.clstr")
         with gzip.open(os.path.join(FIX, "bench10k_ref_t1.clstr.gz"), "rb") as f, \
                 open(ref_path, "wb") as g:
             g.write(f.read())
-        got = read_clstr(out)
-        if len(got) != BENCH10K_CLUSTERS or signature(got) != signature(
-                read_clstr(ref_path)):
-            raise AssertionError(f"10k signature differs ({len(got)} clusters)")
-        if counters(res) != BENCH10K_COUNTERS:
-            raise AssertionError(f"10k counters {counters(res)} != "
-                                 f"{BENCH10K_COUNTERS}")
-        port_win = window(res.clock.stamps)
-        phase("f", f"bench 10k: signature == bench10k_ref_t1 ({len(got)} "
-                   f"clusters), counters {counters(res)}; clustering window "
-                   f"{port_win:.3f} s = {10_000 / port_win:.1f} seqs/s on "
-                   f"{card}; kernel launches {launches}, scored pairs "
-                   f"{res.scorer.scored_pairs}, re-checked pairs "
-                   f"{res.scorer.rechecked_pairs}")
+        ref_sig = signature(read_clstr(ref_path))
+        launches = {}
+        for path in ("default", "no_update_batch"):
+            out = os.path.join(tmp, f"bench10k_{path}.clstr")
+            pair_stats.launches = 0
+            closest_mean.launches = 0
+            res = run_path(torch_cli, path, ["--device", "cuda", "--recover",
+                                             weights, "--output", out, fasta])
+            launches[path] = {"pair_stats": pair_stats.launches,
+                              "closest_mean": closest_mean.launches}
+            if res.rc != 0:
+                raise AssertionError(f"port CLI exited {res.rc} on the 10k "
+                                     f"dataset ({path})")
+            need = ("pair_stats", "closest_mean") if path == "default" else ("pair_stats",)
+            for name in need:
+                if launches[path][name] <= 0:
+                    raise AssertionError(f"the {path} path launched no {name} kernel")
+            got = read_clstr(out)
+            if len(got) != BENCH10K_CLUSTERS or signature(got) != ref_sig:
+                raise AssertionError(f"10k signature differs ({len(got)} "
+                                     f"clusters, {path})")
+            if counters(res) != BENCH10K_COUNTERS[path]:
+                raise AssertionError(f"10k counters {counters(res)} != "
+                                     f"{BENCH10K_COUNTERS[path]} ({path})")
+            if path == "default":
+                if res.updater.scored_pairs != BENCH10K_UPDATER_PAIRS:
+                    raise AssertionError(f"10k updater pairs "
+                                         f"{res.updater.scored_pairs} != "
+                                         f"{BENCH10K_UPDATER_PAIRS}")
+                upd = (f"updater pairs {res.updater.scored_pairs}, re-checked "
+                       f"{res.updater.rechecked_pairs}")
+            else:
+                upd = "no updater"
+            phase("f", f"bench 10k ({path}): signature == bench10k_ref_t1 "
+                       f"({len(got)} clusters), counters {counters(res)}; "
+                       f"{window_parts(res.clock.stamps, 10_000)} on {card}; "
+                       f"launches {launches[path]}; scorer pairs "
+                       f"{res.scorer.scored_pairs}, re-checked "
+                       f"{res.scorer.rechecked_pairs}; {upd}")
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -268,10 +410,9 @@ def main() -> int:
             r"^timestamp (\S+) (\S+)$", proc.stdout, re.M)}
         if signature(read_clstr(host_out)) != signature(got):
             raise AssertionError("host path and port disagree on the 10k run")
-        host_win = window(stamps)
-        phase("g", f"JAX package --device host, same file: clustering window "
-                   f"{host_win:.3f} s = {10_000 / host_win:.1f} seqs/s "
-                   f"(host CPU of the {card} machine, {os.cpu_count()} cores)")
+        phase("g", f"JAX package --device host, same file: "
+                   f"{window_parts(stamps, 10_000)} (host CPU of the {card} "
+                   f"machine, {os.cpu_count()} cores)")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -281,10 +422,19 @@ def main() -> int:
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
         "replaces": "meshclust2_tpu/ops/pallas_stats.py:39",
-        "launches": launches,
+        "launches": launches["default"]["pair_stats"],
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "closest_mean",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
+        "replaces": "meshclust2_tpu/cluster/device_update.py:290",
+        "launches": launches["default"]["closest_mean"],
+        "max_abs_err": cm_err,
+        "ms": cm_k,
+        "plain_ms": cm_p,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

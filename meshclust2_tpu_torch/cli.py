@@ -6,18 +6,24 @@
 Mirrors the recover branch of meshclust2_tpu/cli.py:_main_impl (lines
 361-509) with the JAX package's own host code: FASTA reading, k-mer
 counting and sorting, the weights file, CompiledModel, MeanShiftEngine and
-the CLSTR writer.  The engine's scorer is TorchDeviceScorer, so every
-center-vs-window and update/merge batch runs through the pair-statistics
-kernel; closest-to-mean stays the engine's native host argmin.
+the CLSTR writer.  A TorchDeviceSession holds the one store upload: its
+scorer runs every accumulate window through the pair-statistics kernel, and
+its updater runs each update iteration's filter and closest-to-mean, and
+each merge pass, as one batch on the card (the closest-to-mean kernel).
+With MC2_NO_DEVICE_UPDATE_BATCH set, as in the JAX engine
+(cluster/engine.py:684), the session has no updater and the update phase
+goes through the scorer and the engine's native host argmin instead.
 
-The store upload, the kernel build and one warm-up launch happen before the
-`read_in_points` stamp, so the window from it to `done` holds clustering
-only (BASELINE.md methodology).  Training is not ported: without
+The store upload, the kernel builds and one warm-up call of each batch
+happen before the `read_in_points` stamp, so the window from it to `done`
+holds clustering only (BASELINE.md methodology); the engine stamps
+`accumulate` between the two phases.  Training is not ported: without
 --recover the command exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from dataclasses import dataclass
 from typing import List, Optional
@@ -29,6 +35,8 @@ from meshclust2_tpu.model.classifier import CompiledModel
 from meshclust2_tpu.model.weights import load_weights
 from meshclust2_tpu.utils.clock import Clock
 
+from .cluster.device_session import TorchDeviceSession
+from .cluster.device_update import TorchDeviceUpdater
 from .ops.device_features import TorchDeviceScorer
 from .runtime import resolve_device
 
@@ -58,12 +66,13 @@ class ClusterRun:
     rc: int
     engine: Optional[MeanShiftEngine] = None
     scorer: Optional[TorchDeviceScorer] = None
+    updater: Optional[TorchDeviceUpdater] = None
     clock: Optional[Clock] = None
 
 
 def run(argv: Optional[List[str]] = None) -> ClusterRun:
     """Everything `main` does, returning the engine (its counters), the
-    scorer and the clock stamps beside the exit code."""
+    scorer, the updater and the clock stamps beside the exit code."""
     args = build_parser().parse_args(argv)
     if not args.recover:
         print("meshclust2-torch: --recover WEIGHTS is required; training on "
@@ -87,18 +96,23 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
         return ClusterRun(rc=1, clock=clock)
     print(f"Using {ps.counts.dtype.itemsize * 8} bit histograms")
     model = CompiledModel(recovered.classifier, bias=args.bias)
-    scorer = TorchDeviceScorer(ps, model, device)
-    scorer.warm_up()
+    session = TorchDeviceSession(
+        ps, model, device,
+        update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"))
+    session.warm_up()
     clock.stamp("read_in_points")
 
     ps.seqs = None
-    engine = MeanShiftEngine(ps, model, recovered.id_cutoff, scorer=scorer,
-                             delta=args.delta, iterations=args.iterations)
+    engine = MeanShiftEngine(ps, model, recovered.id_cutoff,
+                             scorer=session.scorer, delta=args.delta,
+                             iterations=args.iterations,
+                             device_session=session)
     clusters = engine.run(clock=clock)
     write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
-    return ClusterRun(rc=0, engine=engine, scorer=scorer, clock=clock)
+    return ClusterRun(rc=0, engine=engine, scorer=session.scorer,
+                      updater=session.updater, clock=clock)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -3,7 +3,8 @@
 The counterpart of meshclust2_tpu/cluster/device_session.py:DeviceStore
 (lines 42-86), without `force()`, the touch program or `from_global`: one
 upload of the natural-order uint8/uint16 counts and the float64 per-row
-moments that `derive_singles` reads.  The exact-integer envelope is the JAX
+moments that `derive_singles` reads, shared by the scorer and the updater
+(cluster/device_session.py).  The exact-integer envelope is the JAX
 package's own (`envelope_check`), and outside it, or for uint32/uint64
 histograms, the store raises `DeviceLoopUnsupported`.
 """
@@ -25,6 +26,7 @@ class DeviceStore:
     selfdot: torch.Tensor     # float64 [N] sum_i counts_i^2 (exact integers)
     lens: torch.Tensor        # float64 [N] effective lengths
     stddevs: torch.Tensor     # float64 [N]
+    maxc: int                 # the largest count (closest-to-mean guards)
 
     @classmethod
     def from_pointset(cls, ps: PointSet, device) -> "DeviceStore":
@@ -42,4 +44,5 @@ class DeviceStore:
             selfdot=up(self_dots.astype(np.float64)),
             lens=up(ps.lengths.astype(np.float64)),
             stddevs=up(ps.stddevs.astype(np.float64)),
+            maxc=int(ps.counts.max()) if ps.n else 0,
         )

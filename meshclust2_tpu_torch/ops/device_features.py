@@ -14,7 +14,7 @@ inside the engine's host-driven loops instead.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ from meshclust2_tpu.kmer.counting import PointSet
 from meshclust2_tpu.model.classifier import CompiledModel
 
 from ..cluster.device_store import DeviceStore
-from ..model.classifier import decision_from_raw, model_to_torch
+from ..model.classifier import TorchModel, decision_from_raw, model_to_torch
 from .pair_stats import derive_singles, pair_stats
 
 # singles derivable from the kernel's (sum-min, dot, EMD) plus per-row
@@ -55,6 +55,33 @@ DIST_REL_BAND = 1e-4
 DIST_TIE_BAND = 1e-9
 
 
+def check_fused(model: CompiledModel) -> None:
+    """Raise DeviceLoopUnsupported unless every single of the model derives
+    from the pair statistics and per-row moments."""
+    bad = set(model.singles) - _FUSED_DERIVABLE
+    if bad:
+        names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
+        raise DeviceLoopUnsupported(
+            f"features {names} are not derivable from the pair statistics")
+
+
+def pair_decision(store: DeviceStore, params: TorchModel, singles,
+                  a_idx: torch.Tensor, b_idx: torch.Tensor,
+                  stats: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(GLM sum, prob, dist), each float64 [P] on the store's device, for
+    pairs (a_idx[p], b_idx[p]): the pair-statistics kernel (unless `stats`
+    are given), `derive_singles` and the classifier epilogue."""
+    st = store
+    if stats is None:
+        stats = pair_stats(st.counts, a_idx, b_idx)
+    raw = derive_singles(
+        stats, st.mags[a_idx], st.mags[b_idx], st.selfdot[a_idx],
+        st.selfdot[b_idx], st.stddevs[a_idx], st.stddevs[b_idx],
+        st.lens[a_idx], st.lens[b_idx], st.counts.shape[1], singles)
+    return decision_from_raw(params, raw)
+
+
 def recheck_mask(prob: np.ndarray, dist: np.ndarray) -> np.ndarray:
     """Pairs of one scoring call whose decision or rank needs the exact
     float64 oracle: rules (i), (ii) and (iii) above."""
@@ -76,16 +103,14 @@ class TorchDeviceScorer:
 
     prefers_device_loop = False
 
-    def __init__(self, ps: PointSet, model: CompiledModel, device):
-        bad = set(model.singles) - _FUSED_DERIVABLE
-        if bad:
-            names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
-            raise DeviceLoopUnsupported(
-                f"features {names} are not derivable from the pair statistics")
+    def __init__(self, ps: PointSet, model: CompiledModel, device,
+                 store: Optional[DeviceStore] = None):
+        check_fused(model)
         self.ps = ps
         self.model = model
         self.device = torch.device(device)
-        self.store = DeviceStore.from_pointset(ps, self.device)
+        self.store = (DeviceStore.from_pointset(ps, self.device)
+                      if store is None else store)
         self.params = model_to_torch(model, self.device)
         self._host = HostScorer(ps, model)
         self.scored_pairs = 0
@@ -100,16 +125,10 @@ class TorchDeviceScorer:
 
     def _device_decision(self, a: np.ndarray, b: np.ndarray
                          ) -> Tuple[np.ndarray, np.ndarray]:
-        st = self.store
         ai = torch.from_numpy(a).to(self.device)
         bi = torch.from_numpy(b).to(self.device)
-        raw = derive_singles(
-            pair_stats(st.counts, ai, bi),
-            st.mags[ai], st.mags[bi], st.selfdot[ai], st.selfdot[bi],
-            st.stddevs[ai], st.stddevs[bi], st.lens[ai], st.lens[bi],
-            st.counts.shape[1], self.model.singles,
-        )
-        _, prob, dist = decision_from_raw(self.params, raw)
+        _, prob, dist = pair_decision(self.store, self.params,
+                                      self.model.singles, ai, bi)
         both = torch.stack([prob, dist]).cpu().numpy()
         return both[0], both[1]
 

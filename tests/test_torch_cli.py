@@ -1,5 +1,7 @@
 """The port's recover-path CLI with --device cpu (the kernels' plain
-versions) against the JAX package and the reference goldens."""
+versions) against the JAX package and the reference goldens, on both update
+paths: the default (TorchDeviceUpdater) and MC2_NO_DEVICE_UPDATE_BATCH=1
+(the update phase through TorchDeviceScorer)."""
 import gzip
 import os
 import shutil
@@ -9,7 +11,6 @@ import torch
 
 from meshclust2_tpu.io.clstr import parse_clstr
 from meshclust2_tpu_torch import cli as torch_cli
-from tests.test_cluster_parity import cluster_signature
 
 torch.set_num_threads(2)
 
@@ -39,14 +40,22 @@ def port_run(fixtures_dir, tmp_path, fasta, weights, device="cpu"):
     return out, res
 
 
-def test_small_equals_jax_reference_configuration(fixtures_dir, tmp_path,
-                                                  monkeypatch):
+def counters(res):
+    s = res.engine.stats
+    return (s.windows_scored, s.pairs_scored, s.clusters_before_update,
+            s.update_iterations)
+
+
+def jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch):
+    """The JAX package on the small fixture in the sessionless device
+    configuration: with update_batch, the update phase goes through its
+    DeviceUpdater; without, through DeviceScorer."""
     from meshclust2_tpu.cli import main as jax_main
 
-    out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
-                        "small_ref_weights.txt")
     for k, v in JAX_REFERENCE_ENV.items():
         monkeypatch.setenv(k, v)
+    if update_batch:
+        monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH")
     jax_out = tmp_path / "jax.clstr"
     assert jax_main([
         "--device", "tpu",
@@ -54,27 +63,75 @@ def test_small_equals_jax_reference_configuration(fixtures_dir, tmp_path,
         "--output", str(jax_out),
         os.path.join(fixtures_dir, "small.fasta"),
     ]) == 0
+    return jax_out
+
+
+def test_small_equals_jax_reference_configuration(fixtures_dir, tmp_path,
+                                                  monkeypatch):
+    # imported here, not at the top: the card's machine may hold another
+    # top-level `tests` package, and its cuda-marked run collects this file
+    from tests.test_cluster_parity import cluster_signature
+
+    monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
+    out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
+                        "small_ref_weights.txt")
+    assert res.updater is None
+    jax_out = jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch=False)
     assert out.read_bytes() == jax_out.read_bytes()
     ref = parse_clstr(os.path.join(fixtures_dir, "small_ref.clstr"))
     assert cluster_signature(parse_clstr(str(out))) == cluster_signature(ref)
     assert res.scorer.scored_pairs == res.engine.stats.pairs_scored
 
 
-def test_med2000_equals_reference(fixtures_dir, tmp_path):
+def test_small_default_path_equals_jax_updater_configuration(
+        fixtures_dir, tmp_path, monkeypatch):
+    monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH", raising=False)
+    out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
+                        "small_ref_weights.txt")
+    jax_out = jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch=True)
+    assert out.read_bytes() == jax_out.read_bytes()
+    assert counters(res) == (38, 6_977, 21, 3)
+    # accumulate windows through the scorer, every update pair through the
+    # updater
+    assert res.updater.scored_pairs == 5_085
+    assert res.scorer.scored_pairs + res.updater.scored_pairs == 6_977
+
+
+def test_med2000_equals_reference(fixtures_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
     out, res = port_run(fixtures_dir, tmp_path, "med2000.fasta",
                         "med2000_weights.txt")
     with open(os.path.join(fixtures_dir, "med2000_ref.clstr")) as f:
         want = sorted(f.readlines())
     with open(out) as f:
         assert sorted(f.readlines()) == want
-    s = res.engine.stats
-    assert (s.windows_scored, s.pairs_scored, s.clusters_before_update,
-            s.update_iterations) == (146, 62_376, 305, 6)
+    assert counters(res) == (146, 62_376, 305, 6)
     assert res.scorer.scored_pairs == 62_376
 
 
-@pytest.mark.slow
-def test_bench10k_equals_reference(fixtures_dir, tmp_path):
+@pytest.mark.parametrize("margin", [None, "3e-3"])
+def test_med2000_default_path_equals_reference(fixtures_dir, tmp_path,
+                                               monkeypatch, margin):
+    """The default path: updater pairs as in the JAX updater configuration.
+    A forced decision margin (MC2_DD_MARGIN, read by resolve_margins) sends
+    pairs to the host re-check without changing the result."""
+    monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH", raising=False)
+    if margin is not None:
+        monkeypatch.setenv("MC2_DD_MARGIN", margin)
+    out, res = port_run(fixtures_dir, tmp_path, "med2000.fasta",
+                        "med2000_weights.txt")
+    with open(os.path.join(fixtures_dir, "med2000_ref.clstr")) as f:
+        want = sorted(f.readlines())
+    with open(out) as f:
+        assert sorted(f.readlines()) == want
+    assert counters(res) == (146, 152_619, 305, 6)
+    assert res.updater.scored_pairs == 116_481
+    if margin is not None:
+        assert res.updater.margin == float(margin)
+        assert res.updater.rechecked_pairs > 0
+
+
+def bench10k_run(fixtures_dir, tmp_path):
     import bench
     from tests.test_parity_10k import _signature
 
@@ -90,9 +147,23 @@ def test_bench10k_equals_reference(fixtures_dir, tmp_path):
     got = parse_clstr(str(out))
     assert len(got) == 788
     assert _signature(got) == _signature(parse_clstr(str(ref_txt)))
-    s = res.engine.stats
-    assert (s.windows_scored, s.pairs_scored, s.clusters_before_update,
-            s.update_iterations) == (590, 789_698, 1_147, 7)
+    return res
+
+
+@pytest.mark.slow
+def test_bench10k_equals_reference(fixtures_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
+    res = bench10k_run(fixtures_dir, tmp_path)
+    assert counters(res) == (590, 789_698, 1_147, 7)
+
+
+@pytest.mark.slow
+def test_bench10k_default_path_equals_reference(fixtures_dir, tmp_path,
+                                                monkeypatch):
+    monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH", raising=False)
+    res = bench10k_run(fixtures_dir, tmp_path)
+    assert counters(res) == (590, 1_386_736, 1_147, 7)
+    assert res.updater.scored_pairs == 708_385
 
 
 def test_device_cuda_raises_without_gpu(fixtures_dir, tmp_path, monkeypatch):

@@ -19,7 +19,7 @@ import meshclust2_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 9, names
+assert len(names) >= 13, names
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "triton")))
 assert not bad, bad
 from meshclust2_tpu_torch.ops._build import load
