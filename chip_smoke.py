@@ -7,11 +7,15 @@ Builds the port's CUDA kernels from meshclust2_tpu_torch/csrc (one nvcc
 per source, in parallel), holds each against its plain PyTorch version and
 a numpy reference, times both at the main path's shapes, then clusters
 med2000 and the 10,000-sequence bench dataset through
-`meshclust2_tpu_torch.cli` on the card, on both update paths (the default
-TorchDeviceUpdater and MC2_NO_DEVICE_UPDATE_BATCH=1), and checks each run
-against its reference CLSTR and engine counters.  For comparison it runs
-the JAX package's native host path (`--device host`) on the same file, in
-a subprocess.
+`meshclust2_tpu_torch.cli` on the card, on its three paths: the default
+(TorchDeviceAccumulator and TorchDeviceUpdater), MC2_NO_DEVICE_LOOP=1 (the
+accumulate windows through TorchDeviceScorer) and MC2_NO_DEVICE_LOOP=1
+MC2_NO_DEVICE_UPDATE_BATCH=1 (both phases through the scorer).  Each run is
+checked against its reference CLSTR and engine counters, and each path's
+kernel launches are counted from zero.  A torch.profiler run of the default
+path gives the device's busy share.  For comparison it runs the JAX
+package's native host path (`--device host`) on the same file, in a
+subprocess.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 line before the last is the kernels' JSON record, and the last line is
@@ -30,6 +34,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -37,21 +42,37 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
 
+# the port's three paths and the switches (the JAX package's own) that
+# select them
+PATHS = {
+    "default": {},
+    "no_device_loop": {"MC2_NO_DEVICE_LOOP": "1"},
+    "no_device_loop_no_update_batch": {"MC2_NO_DEVICE_LOOP": "1",
+                                       "MC2_NO_DEVICE_UPDATE_BATCH": "1"},
+}
 # engine counters of the recover path (windows scored, pairs scored,
-# clusters before the update phase, update iterations) and the updater's
-# scored pairs, as the JAX package's sessionless device configuration counts
-# them: with its DeviceUpdater (the default path), and under
-# MC2_NO_DEVICE_UPDATE_BATCH=1, where every update pair goes through the
-# scorer and the engine's memo (the counters of the native host scorer)
-MED2000_COUNTERS = {"default": (146, 152_619, 305, 6),
-                    "no_update_batch": (146, 62_376, 305, 6)}
+# clusters before the update phase, update iterations), as the JAX
+# package's sessionless device configurations count them: its
+# DeviceAccumulator and DeviceUpdater (the default path); its DeviceScorer
+# windows and DeviceUpdater (MC2_NO_DEVICE_LOOP=1); and with
+# MC2_NO_DEVICE_UPDATE_BATCH=1 too, every update pair through the scorer and
+# the engine's memo (the counters of the native host scorer)
+MED2000_COUNTERS = {"default": (146, 165_218, 305, 6),
+                    "no_device_loop": (146, 152_619, 305, 6),
+                    "no_device_loop_no_update_batch": (146, 62_376, 305, 6)}
 MED2000_UPDATER_PAIRS = 116_481
-BENCH10K_COUNTERS = {"default": (590, 1_386_736, 1_147, 7),
-                     "no_update_batch": (590, 789_698, 1_147, 7)}
+BENCH10K_COUNTERS = {"default": (590, 1_635_533, 1_147, 7),
+                     "no_device_loop": (590, 1_386_736, 1_147, 7),
+                     "no_device_loop_no_update_batch": (590, 789_698, 1_147, 7)}
 BENCH10K_UPDATER_PAIRS = 708_385
 BENCH10K_CLUSTERS = 788
-NO_UPDATE_BATCH = "MC2_NO_DEVICE_UPDATE_BATCH"
-TIE_MARGIN = 1e-12
+# the accumulator's (steps, windows, pairs), as the JAX DeviceAccumulator
+# counts them (med2000: its --device host MC2_DEVICE_LOOP=1 run; 10k: the
+# BENCH_r05.json tail)
+MED2000_ACC = (393, 146, 48_737)
+BENCH10K_ACC = (1_503, 590, 927_148)
+MARGIN, TIE_MARGIN = 1e-8, 1e-12
+KERNELS = ("pair_stats", "closest_mean", "window_absorb")
 
 
 def phase(tag: str, msg: str) -> None:
@@ -104,6 +125,11 @@ def counters(res):
             s.update_iterations)
 
 
+def acc_counts(res):
+    acc = res.accumulator
+    return acc.total_steps, acc.last_windows, acc.last_pairs
+
+
 def window(clock_stamps) -> float:
     return clock_stamps["done"] - clock_stamps["read_in_points"]
 
@@ -119,13 +145,13 @@ def window_parts(stamps, n: int) -> str:
 
 
 def run_path(torch_cli, path: str, argv):
-    """cli.run on one update path: the default, or MC2_NO_DEVICE_UPDATE_BATCH=1."""
-    if path == "no_update_batch":
-        os.environ[NO_UPDATE_BATCH] = "1"
+    """cli.run on one of the port's paths (PATHS)."""
+    os.environ.update(PATHS[path])
     try:
         return torch_cli.run(argv)
     finally:
-        os.environ.pop(NO_UPDATE_BATCH, None)
+        for k in PATHS[path]:
+            os.environ.pop(k, None)
 
 
 def segments(rng, n_rows: int, n_segs: int, mean_size: int):
@@ -143,6 +169,70 @@ def segments(rng, n_rows: int, n_segs: int, mean_size: int):
     return rows.astype(np.int64), seg.astype(np.int64), rng.random(len(seg)) < 0.8
 
 
+def absorb_window(rng, n_rows: int, n_cand: int, edge: float):
+    """One window for window_absorb: candidate rows with repeats, sums on,
+    one ulp off and just inside the margin of the edge, dists with exact
+    ties between repeated rows, equal dists of different rows and near
+    ties within the tie margin."""
+    rows = rng.integers(0, n_rows, n_cand).astype(np.int64)
+    s = rng.normal(edge, 2.0, n_cand)
+    dist = rng.random(n_cand)
+    s[np.abs(s - edge) < 1e-6] += 1e-3    # no accidental near-edge sums
+    if n_cand <= 8:
+        return rows, s, dist
+    on_edge, copy, tie = rng.random(3) < 0.6
+    if on_edge:
+        s[::7] = edge
+        s[1::11] = np.nextafter(edge, -np.inf)
+        s[2::13] = edge + 0.5 * MARGIN * max(abs(edge), 1.0)
+    top = int(np.argmax(dist))
+    if copy:
+        rows[-1] = rows[top]
+        dist[-1] = dist[top]                        # an exact copy
+    if tie:
+        if rng.random() < 0.5:
+            dist[n_cand // 2] = dist[top]           # other inputs, equal dist
+        else:
+            dist[n_cand // 3] = dist[top] * (1 - 0.3 * TIE_MARGIN)
+    return rows, s, dist
+
+
+def profile_path(torch_cli, path: str, argv):
+    """One run of `path` with torch.profiler around engine.run (the
+    clustering window): the run, the profiled window's wall time, and the
+    device time (us) and event count by kernel or copy name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine_cls = torch_cli.MeanShiftEngine
+    real = engine_cls.run
+    held = {}
+
+    def profiled(self, *args, **kw):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = real(self, *args, **kw)
+            torch.cuda.synchronize()
+            held["wall"] = time.perf_counter() - t0
+        held["prof"] = prof
+        return out
+
+    engine_cls.run = profiled
+    try:
+        res = run_path(torch_cli, path, argv)
+    finally:
+        engine_cls.run = real
+    by_name = Counter()
+    launches = Counter()
+    for e in held["prof"].events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            launches[e.name] += 1
+    return res, held["wall"], by_name, launches
+
+
 def main() -> int:
     import torch
 
@@ -157,8 +247,12 @@ def main() -> int:
     from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
     from meshclust2_tpu_torch.ops.pair_stats import (
         center_block_stats, pair_stats, pair_stats_ref)
+    from meshclust2_tpu_torch.ops.window_absorb import (
+        window_absorb, window_absorb_ref)
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
 
+    wrappers = {"pair_stats": pair_stats, "closest_mean": closest_mean,
+                "window_absorb": window_absorb}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -173,15 +267,14 @@ def main() -> int:
 
     # (b) the builds, one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = dict(zip(("pair_stats", "closest_mean"),
-                          pool.map(_build.load, ("pair_stats", "closest_mean"))))
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(_build.load, KERNELS)))
     for built in builds.values():
         ptxas = "; ".join(ln.strip() for ln in built.log.splitlines()
                           if "registers" in ln or "spill" in ln)
         phase("b", f"built {os.path.relpath(built.path, ROOT)} (nvcc "
                    f"{built.seconds:.3f} s); ptxas: {ptxas}")
-    phase("b", f"both builds in {time.perf_counter() - t0:.3f} s")
+    phase("b", f"{len(builds)} builds in {time.perf_counter() - t0:.3f} s")
 
     # (c) kernel = plain version = int64 oracle, bit for bit
     def oracle(counts, a, b):
@@ -272,6 +365,84 @@ def main() -> int:
                 f"77 ragged segments with empty, one-row and duplicated rows, an "
                 f"unaligned store); {n_unc} segments uncertain")
 
+    # (c3) the one-segment mode = its plain version = the segmented kernel
+    # on the same rows as one segment = the numpy reference where certain
+    n_cases = n_unc = 0
+    for dtype in (np.uint8, np.uint16):
+        for d in (16, 256, 1024, 4096):
+            counts = rng.integers(0, np.iinfo(dtype).max + 1, (300, d)).astype(dtype)
+            for n_pairs in (1, 700, 20_000):
+                rows = rng.integers(0, 300, n_pairs).astype(np.int64)
+                rows[1::9] = rows[::9][:len(rows[1::9])]
+                keep = rng.random(n_pairs) < 0.9
+                keep[0] = True
+                seg = np.zeros(n_pairs, np.int64)
+                args = closest_args(counts, rows, seg, keep)
+                one = dict(col_sum=torch.from_numpy(
+                    counts[rows[keep]].astype(np.int64).sum(axis=0)).to(dev),
+                    count=torch.tensor([int(keep.sum())], device=dev))
+                kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
+                got = closest_mean(args[0], args[1], args[2], None, args[4], 1,
+                                   **kw, **one)
+                segd = closest_mean(*args, 1, **kw)
+                torch.cuda.synchronize()
+                plain = closest_mean_ref(args[0], args[1], args[2], None,
+                                         args[4], 1, **kw, **one)
+                u = bool(got[1].item())
+                if not all(torch.equal(g, s) and torch.equal(g, p)
+                           for g, s, p in zip(got, segd, plain)):
+                    raise AssertionError(f"closest_mean one-segment differs: "
+                                         f"{dtype.__name__} D={d} P={n_pairs}")
+                if not u and got[0].item() != closest_ref(counts, rows, seg,
+                                                          keep, 1)[0]:
+                    raise AssertionError(f"closest_mean one-segment != numpy: "
+                                         f"{dtype.__name__} D={d} P={n_pairs}")
+                cm_err = max(cm_err, int((got[0] - plain[0]).abs().max()))
+                n_cases += 1
+                n_unc += u
+    phase("c3", f"closest_mean one-segment kernel == plain == segmented kernel "
+                f"(first, unc) == numpy distance_d argmin in {n_cases} cases "
+                f"(uint8/uint16, D in 16/256/1024/4096, P in 1/700/20,000 with "
+                f"repeated and unkept rows); {n_unc} uncertain")
+
+    # (c4) window_absorb kernel = plain version bit for bit (pos, colsum,
+    # bits, npos, best) on ragged windows with exact ties, near ties and
+    # sums on the edge
+    wa_err = 0
+    n_cases = 0
+    bits_seen = Counter()
+    for dtype in (np.uint8, np.uint16):
+        for d in (16, 256, 1024, 4096):
+            n = 333
+            counts = rng.integers(0, np.iinfo(dtype).max + 1, (n, d)).astype(dtype)
+            c_d = torch.from_numpy(counts).to(dev)
+            moments = [torch.from_numpy(rng.integers(1, 30, n).astype(np.float64)).to(dev)
+                       for _ in range(4)]
+            for n_cand in (1, 63, 2_048, int(rng.integers(100, 3_000))):
+                edge = float(rng.normal(0.0, 1.0))
+                rows, s, dist = absorb_window(rng, n, n_cand, edge)
+                r_d = torch.from_numpy(rows).to(dev)
+                center = torch.full_like(r_d, int(rng.integers(0, n)))
+                stats = pair_stats(c_d, r_d, center)
+                args = [c_d, r_d, torch.from_numpy(s).to(dev),
+                        torch.from_numpy(dist).to(dev), stats, *moments]
+                kw = dict(pos_edge=edge, margin=MARGIN, tie_margin=TIE_MARGIN)
+                got = window_absorb(*args, **kw)
+                torch.cuda.synchronize()
+                plain = window_absorb_ref(*args, **kw)
+                if not all(torch.equal(g, p) for g, p in zip(got, plain)):
+                    raise AssertionError(f"window_absorb differs: {dtype.__name__} "
+                                         f"D={d} W={n_cand}")
+                wa_err = max(wa_err, int((got[1] - plain[1]).abs().max()),
+                             int((got[2] - plain[2]).abs().max()))
+                bits_seen[int(got[2][0])] += 1
+                n_cases += 1
+    phase("c4", f"window_absorb kernel == plain (pos, colsum, bits, npos, best) "
+                f"bit for bit in {n_cases} windows (uint8/uint16, D in "
+                f"16/256/1024/4096, W in 1/63/2,048/ragged, sums on and one ulp "
+                f"off the edge, exact and near dist ties); bits seen "
+                f"{dict(sorted(bits_seen.items()))}")
+
     # (d) kernel vs plain version at the main path's shapes: a 10,000-row
     # uint8 store at D = 1,024 (k = 5), center form P = 2,048, pair form
     # P = 98,304 (the largest update batch)
@@ -298,8 +469,8 @@ def main() -> int:
                    f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events; "
                    f"{card})")
 
-    # (d2) closest_mean vs its plain version at the main path's shape: the
-    # same store, P = 98,304 pairs (the largest update batch) in 1,000
+    # (d2) closest_mean vs its plain version at the update phase's shape:
+    # the same store, P = 98,304 pairs (the largest update batch) in 1,000
     # segments of uneven size
     n_pairs, n_segs = 98_304, 1_000
     cuts = np.sort(rng.integers(0, n_pairs + 1, n_segs - 1))
@@ -319,10 +490,84 @@ def main() -> int:
     phase("d2", f"closest_mean P={len(rows)} C={n_segs} D=1024 uint8: kernel "
                 f"{cm_k:.4f} ms, plain {cm_p:.4f} ms (median, CUDA events; {card})")
 
+    # (d3) the one-segment mode at the accumulate loop's largest shape: one
+    # segment of 98,304 rows of the same store, 90 % kept; beside it the
+    # segmented kernel given the same rows as one segment
+    keep1 = torch.from_numpy(rng.random(n_pairs) < 0.9).to(dev)
+    rows1 = cm_args[2]
+    seg1 = torch.zeros(n_pairs, dtype=torch.int64, device=dev)
+    one = dict(col_sum=(store[rows1].to(torch.int64) * keep1[:, None]).sum(dim=0),
+               count=keep1.sum(dtype=torch.int64).view(1))
+    got = closest_mean(store, mags, rows1, None, keep1, 1, **kw, **one)
+    plain = closest_mean_ref(store, mags, rows1, None, keep1, 1, **kw, **one)
+    segd = closest_mean(store, mags, rows1, seg1, keep1, 1, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, p) and torch.equal(g, s)
+               for g, p, s in zip(got, plain, segd)):
+        raise AssertionError("closest_mean one-segment differs at P = 98,304")
+    one_k = cuda_ms(lambda: closest_mean(store, mags, rows1, None, keep1, 1,
+                                         **kw, **one), reps=50)
+    one_p = cuda_ms(lambda: closest_mean_ref(store, mags, rows1, None, keep1, 1,
+                                             **kw, **one), reps=10)
+    one_s = cuda_ms(lambda: closest_mean(store, mags, rows1, seg1, keep1, 1, **kw),
+                    reps=10)
+    phase("d3", f"closest_mean one segment P={n_pairs} D=1024 uint8: one-segment "
+                f"kernel {one_k:.4f} ms, plain {one_p:.4f} ms, segmented kernel "
+                f"{one_s:.4f} ms (median, CUDA events; {card})")
+
+    # (d4) window_absorb at the accumulate scan's shape: W = 2,048
+    # candidates of the same store against one center, ~10 % positive
+    r_w = torch.arange(3_000, 5_048, device=dev)
+    st_w = pair_stats(store, r_w, torch.full_like(r_w, 4_000))
+    wa_args = [store, r_w,
+               torch.from_numpy(rng.normal(-2.5, 2.0, 2_048)).to(dev),
+               torch.from_numpy(rng.random(2_048)).to(dev), st_w, mags,
+               *(torch.from_numpy(rng.random(10_000)).to(dev) for _ in range(3))]
+    wa_kw = dict(pos_edge=0.0, margin=MARGIN, tie_margin=TIE_MARGIN)
+    got = window_absorb(*wa_args, **wa_kw)
+    plain = window_absorb_ref(*wa_args, **wa_kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, p) for g, p in zip(got, plain)):
+        raise AssertionError("window_absorb differs at the main-path shape")
+    wa_k = cuda_ms(lambda: window_absorb(*wa_args, **wa_kw), reps=50)
+    wa_p = cuda_ms(lambda: window_absorb_ref(*wa_args, **wa_kw), reps=10)
+    phase("d4", f"window_absorb W=2048 D=1024 uint8, {int(got[2][1])} positive: "
+                f"kernel {wa_k:.4f} ms, plain {wa_p:.4f} ms (median, CUDA events; "
+                f"{card})")
+
+    def check_launches(path, counted):
+        need = {"default": KERNELS, "no_device_loop": ("pair_stats", "closest_mean"),
+                "no_device_loop_no_update_batch": ("pair_stats",)}[path]
+        for name in need:
+            if counted[name] <= 0:
+                raise AssertionError(f"the {path} path launched no {name} kernel")
+        if path != "default" and counted["window_absorb"]:
+            raise AssertionError(f"the {path} path launched window_absorb")
+
+    def check_accumulator(res, path, want_acc):
+        """The default path ran the accumulator: steps, no scorer pairs;
+        without aborts, the JAX DeviceAccumulator's counts."""
+        acc = res.accumulator
+        if path != "default":
+            if acc is not None:
+                raise AssertionError(f"the {path} path built an accumulator")
+            return "no accumulator"
+        if acc.total_steps <= 0 or acc.error is not None:
+            raise AssertionError(f"accumulator did not run: {acc.total_steps} "
+                                 f"steps, error {acc.error!r}")
+        if res.scorer.scored_pairs != 0:
+            raise AssertionError(f"the default path scored "
+                                 f"{res.scorer.scored_pairs} pairs by the scorer")
+        if acc.aborts == 0 and acc_counts(res) != want_acc:
+            raise AssertionError(f"accumulator (steps, windows, pairs) "
+                                 f"{acc_counts(res)} != {want_acc}")
+        return (f"accumulator steps {acc.total_steps}, windows "
+                f"{acc.last_windows}, pairs {acc.last_pairs}, aborts {acc.aborts}")
+
     with tempfile.TemporaryDirectory(prefix="mc2_smoke_") as tmp:
-        # (e) med2000 through the port's CLI on the card, on both update paths
+        # (e) med2000 through the port's CLI on the card, on its three paths
         # (cli.run is cli.main's body, returning the engine beside the code)
-        for path in ("default", "no_update_batch"):
+        for path in PATHS:
             out = os.path.join(tmp, f"med2000_{path}.clstr")
             res = run_path(torch_cli, path, [
                 "--device", "cuda", "--recover",
@@ -334,18 +579,22 @@ def main() -> int:
                 if sorted(f.readlines()) != sorted(g.readlines()):
                     raise AssertionError(f"med2000 CLSTR differs from "
                                          f"med2000_ref.clstr ({path})")
-            if counters(res) != MED2000_COUNTERS[path]:
+            acc_line = check_accumulator(res, path, MED2000_ACC)
+            aborted = res.accumulator is not None and res.accumulator.aborts
+            if not aborted and counters(res) != MED2000_COUNTERS[path]:
                 raise AssertionError(f"med2000 counters {counters(res)} != "
                                      f"{MED2000_COUNTERS[path]} ({path})")
             upd = "no updater" if res.updater is None else \
                 f"updater pairs {res.updater.scored_pairs}"
-            if path == "default" and res.updater.scored_pairs != MED2000_UPDATER_PAIRS:
+            if res.updater is not None and \
+                    res.updater.scored_pairs != MED2000_UPDATER_PAIRS:
                 raise AssertionError(f"med2000 {upd} != {MED2000_UPDATER_PAIRS}")
             phase("e", f"med2000 ({path}): sorted CLSTR == med2000_ref.clstr, "
-                       f"counters {counters(res)}, {upd}, "
+                       f"counters {counters(res)}, {acc_line}, {upd}, "
                        f"{window_parts(res.clock.stamps, 2000)}")
 
-        # (f) the 10k bench dataset: the slice's main path, counted
+        # (f) the 10k bench dataset on each path, each one's launches counted
+        # from zero; the default path is the slice's main path
         import bench
 
         fasta = os.path.join(tmp, "bench_10000.fasta")
@@ -358,30 +607,28 @@ def main() -> int:
                 open(ref_path, "wb") as g:
             g.write(f.read())
         ref_sig = signature(read_clstr(ref_path))
+        argv = ["--device", "cuda", "--recover", weights, "--output", None, fasta]
         launches = {}
-        for path in ("default", "no_update_batch"):
-            out = os.path.join(tmp, f"bench10k_{path}.clstr")
-            pair_stats.launches = 0
-            closest_mean.launches = 0
-            res = run_path(torch_cli, path, ["--device", "cuda", "--recover",
-                                             weights, "--output", out, fasta])
-            launches[path] = {"pair_stats": pair_stats.launches,
-                              "closest_mean": closest_mean.launches}
+        for path in PATHS:
+            argv[5] = os.path.join(tmp, f"bench10k_{path}.clstr")
+            for fn in wrappers.values():
+                fn.launches = 0
+            res = run_path(torch_cli, path, argv)
+            launches[path] = {name: fn.launches for name, fn in wrappers.items()}
             if res.rc != 0:
                 raise AssertionError(f"port CLI exited {res.rc} on the 10k "
                                      f"dataset ({path})")
-            need = ("pair_stats", "closest_mean") if path == "default" else ("pair_stats",)
-            for name in need:
-                if launches[path][name] <= 0:
-                    raise AssertionError(f"the {path} path launched no {name} kernel")
-            got = read_clstr(out)
+            check_launches(path, launches[path])
+            got = read_clstr(argv[5])
             if len(got) != BENCH10K_CLUSTERS or signature(got) != ref_sig:
                 raise AssertionError(f"10k signature differs ({len(got)} "
                                      f"clusters, {path})")
-            if counters(res) != BENCH10K_COUNTERS[path]:
+            acc_line = check_accumulator(res, path, BENCH10K_ACC)
+            aborted = res.accumulator is not None and res.accumulator.aborts
+            if not aborted and counters(res) != BENCH10K_COUNTERS[path]:
                 raise AssertionError(f"10k counters {counters(res)} != "
                                      f"{BENCH10K_COUNTERS[path]} ({path})")
-            if path == "default":
+            if res.updater is not None:
                 if res.updater.scored_pairs != BENCH10K_UPDATER_PAIRS:
                     raise AssertionError(f"10k updater pairs "
                                          f"{res.updater.scored_pairs} != "
@@ -393,7 +640,7 @@ def main() -> int:
             phase("f", f"bench 10k ({path}): signature == bench10k_ref_t1 "
                        f"({len(got)} clusters), counters {counters(res)}; "
                        f"{window_parts(res.clock.stamps, 10_000)} on {card}; "
-                       f"launches {launches[path]}; scorer pairs "
+                       f"launches {launches[path]}; {acc_line}; scorer pairs "
                        f"{res.scorer.scored_pairs}, re-checked "
                        f"{res.scorer.rechecked_pairs}; {upd}")
 
@@ -414,6 +661,40 @@ def main() -> int:
                    f"{window_parts(stamps, 10_000)} (host CPU of the {card} "
                    f"machine, {os.cpu_count()} cores)")
 
+        # (f2) two more runs of each path, in turns, for the spread
+        for path in list(PATHS)[::-1] + list(PATHS):
+            argv[5] = os.path.join(tmp, f"bench10k_{path}_again.clstr")
+            res = run_path(torch_cli, path, argv)
+            if res.rc != 0 or signature(read_clstr(argv[5])) != ref_sig:
+                raise AssertionError(f"10k repeat differs ({path})")
+            phase("f2", f"bench 10k ({path}) again: "
+                        f"{window_parts(res.clock.stamps, 10_000)}")
+
+        # (h) torch.profiler over the clustering window of the default path
+        # and of MC2_NO_DEVICE_LOOP=1: device busy share, the port's kernels'
+        # device time per launch at the main path's shapes, the busiest names
+        for path in ("default", "no_device_loop"):
+            argv[5] = os.path.join(tmp, f"bench10k_{path}_profiled.clstr")
+            res, wall, by_name, n_by_name = profile_path(torch_cli, path, argv)
+            if signature(read_clstr(argv[5])) != ref_sig:
+                raise AssertionError(f"10k signature differs under the profiler "
+                                     f"({path})")
+            busy = sum(by_name.values()) / 1e6
+            ours = "; ".join(
+                f"{m.group(0)} {by_name[name] / n_by_name[name]:.1f} us x "
+                f"{n_by_name[name]}"
+                for name in sorted(by_name) for m in [re.search(
+                    r"(pair_stats|closest_mean|closest_one_dist|closest_one_final"
+                    r"|window_absorb)_kernel(<[^>]*>)?", name)] if m)
+            top = "; ".join(f"{name[:48]} {us / 1e3:.1f} ms/{n_by_name[name]}"
+                            for name, us in by_name.most_common(6))
+            steps = res.accumulator.total_steps if res.accumulator else 0
+            phase("h", f"torch.profiler, {path}, 10k: device busy {busy:.4f} s of "
+                       f"a {wall:.3f} s profiled engine.run ({100 * busy / wall:.1f} "
+                       f"% busy), {sum(n_by_name.values())} device events "
+                       f"({steps} accumulator steps); the port's kernels (device "
+                       f"time per launch): {ours}; top: {top}")
+
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     k_ms, p_ms = timing["pair"]
@@ -430,11 +711,22 @@ def main() -> int:
         "name": "closest_mean",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
-        "replaces": "meshclust2_tpu/cluster/device_update.py:290",
+        "replaces": "meshclust2_tpu/cluster/device_loop.py:1223",
         "launches": launches["default"]["closest_mean"],
         "max_abs_err": cm_err,
-        "ms": cm_k,
-        "plain_ms": cm_p,
+        "ms": one_k,
+        "plain_ms": one_p,
+        "segmented_ms": cm_k,
+        "segmented_plain_ms": cm_p,
+    }, {
+        "name": "window_absorb",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/window_absorb.cu",
+        "replaces": "meshclust2_tpu/cluster/device_loop.py:1074",
+        "launches": launches["default"]["window_absorb"],
+        "max_abs_err": wa_err,
+        "ms": wa_k,
+        "plain_ms": wa_p,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -7,12 +7,19 @@ Mirrors the recover branch of meshclust2_tpu/cli.py:_main_impl (lines
 361-509) with the JAX package's own host code: FASTA reading, k-mer
 counting and sorting, the weights file, CompiledModel, MeanShiftEngine and
 the CLSTR writer.  A TorchDeviceSession holds the one store upload: its
-scorer runs every accumulate window through the pair-statistics kernel, and
-its updater runs each update iteration's filter and closest-to-mean, and
-each merge pass, as one batch on the card (the closest-to-mean kernel).
-With MC2_NO_DEVICE_UPDATE_BATCH set, as in the JAX engine
-(cluster/engine.py:684), the session has no updater and the update phase
-goes through the scorer and the engine's native host argmin instead.
+accumulator runs the accumulate phase as a step loop on the card (the
+pair-statistics, window-absorb and closest-to-mean kernels), and its
+updater runs each update iteration's filter and closest-to-mean, and each
+merge pass, as one batch on the card.  The JAX package's switches select
+the older paths, as in its engine: MC2_NO_DEVICE_LOOP (engine.py:359) runs
+the accumulate windows through the scorer and the engine's host loop, and
+MC2_NO_DEVICE_UPDATE_BATCH (engine.py:684) the update phase through the
+scorer and the engine's native host argmin.
+
+The engine falls back to its host paths, printing a line, when the device
+accumulate loop raises (engine.py:399-406, 458-472).  Here the error is
+raised again after the run, so the exit code shows it; guarded aborts are
+not errors and resolve on the host by design.
 
 The store upload, the kernel builds and one warm-up call of each batch
 happen before the `read_in_points` stamp, so the window from it to `done`
@@ -35,6 +42,7 @@ from meshclust2_tpu.model.classifier import CompiledModel
 from meshclust2_tpu.model.weights import load_weights
 from meshclust2_tpu.utils.clock import Clock
 
+from .cluster.device_loop import TorchDeviceAccumulator
 from .cluster.device_session import TorchDeviceSession
 from .cluster.device_update import TorchDeviceUpdater
 from .ops.device_features import TorchDeviceScorer
@@ -67,12 +75,14 @@ class ClusterRun:
     engine: Optional[MeanShiftEngine] = None
     scorer: Optional[TorchDeviceScorer] = None
     updater: Optional[TorchDeviceUpdater] = None
+    accumulator: Optional[TorchDeviceAccumulator] = None
     clock: Optional[Clock] = None
 
 
 def run(argv: Optional[List[str]] = None) -> ClusterRun:
     """Everything `main` does, returning the engine (its counters), the
-    scorer, the updater and the clock stamps beside the exit code."""
+    scorer, the accumulator, the updater and the clock stamps beside the
+    exit code."""
     args = build_parser().parse_args(argv)
     if not args.recover:
         print("meshclust2-torch: --recover WEIGHTS is required; training on "
@@ -97,8 +107,9 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
     print(f"Using {ps.counts.dtype.itemsize * 8} bit histograms")
     model = CompiledModel(recovered.classifier, bias=args.bias)
     session = TorchDeviceSession(
-        ps, model, device,
-        update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"))
+        ps, model, device, recovered.id_cutoff,
+        update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"),
+        device_loop=not os.environ.get("MC2_NO_DEVICE_LOOP"))
     session.warm_up()
     clock.stamp("read_in_points")
 
@@ -108,11 +119,15 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
                              iterations=args.iterations,
                              device_session=session)
     clusters = engine.run(clock=clock)
+    acc = session.accumulator
+    if acc is not None and acc.error is not None:
+        raise RuntimeError("the device accumulate loop failed; the engine "
+                           "finished on the host") from acc.error
     write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
     return ClusterRun(rc=0, engine=engine, scorer=session.scorer,
-                      updater=session.updater, clock=clock)
+                      updater=session.updater, accumulator=acc, clock=clock)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -7,10 +7,12 @@ and the classifier epilogue in float64 on the device.  Pairs whose decision
 or ranking the device's rounding could change are re-scored by the float64
 host oracle (`HostScorer`), so clustering decisions equal the host's.
 
-The class is deliberately not named `DeviceScorer` and sets
-`prefers_device_loop = False`: MeanShiftEngine keys its JAX device loop and
-updater on either (cluster/engine.py:362-365, 682-683), and this scorer runs
-inside the engine's host-driven loops instead.
+The class is deliberately not named `DeviceScorer`, and its
+`prefers_device_loop` is False: MeanShiftEngine keys its device accumulate
+loop and updater on either (cluster/engine.py:362-365, 682-683).
+TorchDeviceSession sets the flag on its scorer instance exactly when it
+holds a TorchDeviceAccumulator for the engine to run; a standalone scorer
+serves the engine's host-driven loops.
 """
 from __future__ import annotations
 

@@ -1,7 +1,10 @@
 """The port's recover-path CLI with --device cpu (the kernels' plain
-versions) against the JAX package and the reference goldens, on both update
-paths: the default (TorchDeviceUpdater) and MC2_NO_DEVICE_UPDATE_BATCH=1
-(the update phase through TorchDeviceScorer)."""
+versions) against the JAX package and the reference goldens, on its three
+paths: the default (TorchDeviceAccumulator and TorchDeviceUpdater);
+MC2_NO_DEVICE_LOOP=1 (the accumulate windows through TorchDeviceScorer, the
+update phase through the updater); and MC2_NO_DEVICE_LOOP=1
+MC2_NO_DEVICE_UPDATE_BATCH=1 (both phases through the scorer).  The tests
+that pin MC2_NO_DEVICE_LOOP=1 keep the counters of those two paths."""
 import gzip
 import os
 import shutil
@@ -46,16 +49,20 @@ def counters(res):
             s.update_iterations)
 
 
-def jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch):
+def jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch,
+            device_loop=False):
     """The JAX package on the small fixture in the sessionless device
     configuration: with update_batch, the update phase goes through its
-    DeviceUpdater; without, through DeviceScorer."""
+    DeviceUpdater; without, through DeviceScorer.  With device_loop, the
+    accumulate phase goes through its DeviceAccumulator."""
     from meshclust2_tpu.cli import main as jax_main
 
     for k, v in JAX_REFERENCE_ENV.items():
         monkeypatch.setenv(k, v)
     if update_batch:
         monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH")
+    if device_loop:
+        monkeypatch.delenv("MC2_NO_DEVICE_LOOP")
     jax_out = tmp_path / "jax.clstr"
     assert jax_main([
         "--device", "tpu",
@@ -72,6 +79,7 @@ def test_small_equals_jax_reference_configuration(fixtures_dir, tmp_path,
     # top-level `tests` package, and its cuda-marked run collects this file
     from tests.test_cluster_parity import cluster_signature
 
+    monkeypatch.setenv("MC2_NO_DEVICE_LOOP", "1")
     monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
     out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
                         "small_ref_weights.txt")
@@ -85,9 +93,11 @@ def test_small_equals_jax_reference_configuration(fixtures_dir, tmp_path,
 
 def test_small_default_path_equals_jax_updater_configuration(
         fixtures_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("MC2_NO_DEVICE_LOOP", "1")
     monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH", raising=False)
     out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
                         "small_ref_weights.txt")
+    assert res.accumulator is None
     jax_out = jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch=True)
     assert out.read_bytes() == jax_out.read_bytes()
     assert counters(res) == (38, 6_977, 21, 3)
@@ -98,6 +108,7 @@ def test_small_default_path_equals_jax_updater_configuration(
 
 
 def test_med2000_equals_reference(fixtures_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("MC2_NO_DEVICE_LOOP", "1")
     monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
     out, res = port_run(fixtures_dir, tmp_path, "med2000.fasta",
                         "med2000_weights.txt")
@@ -115,6 +126,7 @@ def test_med2000_default_path_equals_reference(fixtures_dir, tmp_path,
     """The default path: updater pairs as in the JAX updater configuration.
     A forced decision margin (MC2_DD_MARGIN, read by resolve_margins) sends
     pairs to the host re-check without changing the result."""
+    monkeypatch.setenv("MC2_NO_DEVICE_LOOP", "1")
     monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH", raising=False)
     if margin is not None:
         monkeypatch.setenv("MC2_DD_MARGIN", margin)
@@ -152,6 +164,7 @@ def bench10k_run(fixtures_dir, tmp_path):
 
 @pytest.mark.slow
 def test_bench10k_equals_reference(fixtures_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("MC2_NO_DEVICE_LOOP", "1")
     monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
     res = bench10k_run(fixtures_dir, tmp_path)
     assert counters(res) == (590, 789_698, 1_147, 7)
@@ -160,10 +173,76 @@ def test_bench10k_equals_reference(fixtures_dir, tmp_path, monkeypatch):
 @pytest.mark.slow
 def test_bench10k_default_path_equals_reference(fixtures_dir, tmp_path,
                                                 monkeypatch):
+    monkeypatch.setenv("MC2_NO_DEVICE_LOOP", "1")
     monkeypatch.delenv("MC2_NO_DEVICE_UPDATE_BATCH", raising=False)
     res = bench10k_run(fixtures_dir, tmp_path)
     assert counters(res) == (590, 1_386_736, 1_147, 7)
     assert res.updater.scored_pairs == 708_385
+
+
+def test_small_device_loop_path_equals_jax_device_loop_configuration(
+        fixtures_dir, tmp_path, monkeypatch):
+    """The default path: the accumulate phase through TorchDeviceAccumulator
+    and the update phase through TorchDeviceUpdater, against the JAX
+    package's DeviceAccumulator and DeviceUpdater in its sessionless device
+    configuration: the same bytes and the same engine counters."""
+    for k in ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH"):
+        monkeypatch.delenv(k, raising=False)
+    out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
+                        "small_ref_weights.txt")
+    assert res.accumulator is not None and res.scorer.prefers_device_loop
+    jax_out = jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch=True,
+                      device_loop=True)
+    assert out.read_bytes() == jax_out.read_bytes()
+    assert counters(res) == (38, 6_977, 21, 3)
+    assert res.accumulator.last_pairs + res.updater.scored_pairs == 6_977
+    assert res.scorer.scored_pairs == 0
+
+
+def test_med2000_without_update_batch_on_the_device_loop(fixtures_dir,
+                                                         tmp_path, monkeypatch):
+    """The device loop with MC2_NO_DEVICE_UPDATE_BATCH=1: the update phase
+    through the scorer and the engine's memo, the accumulate phase still on
+    the accumulator."""
+    monkeypatch.delenv("MC2_NO_DEVICE_LOOP", raising=False)
+    monkeypatch.setenv("MC2_NO_DEVICE_UPDATE_BATCH", "1")
+    out, res = port_run(fixtures_dir, tmp_path, "med2000.fasta",
+                        "med2000_weights.txt")
+    with open(os.path.join(fixtures_dir, "med2000_ref.clstr")) as f:
+        want = sorted(f.readlines())
+    with open(out) as f:
+        assert sorted(f.readlines()) == want
+    assert res.updater is None and res.accumulator.last_pairs == 48_737
+    assert counters(res) == (146, 48_737 + res.scorer.scored_pairs, 305, 6)
+
+
+def test_accumulator_failure_exits_nonzero(fixtures_dir, tmp_path, monkeypatch,
+                                           capsys):
+    """The engine catches any error of the device accumulate loop and
+    finishes on the host; the CLI raises it again afterwards, so a failure
+    of the device path cannot pass as a success."""
+    from meshclust2_tpu_torch.cluster import device_loop
+
+    def broken(*args, **kw):
+        raise RuntimeError("injected window_absorb failure")
+
+    for k in ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH"):
+        monkeypatch.delenv(k, raising=False)
+    real = device_loop.window_absorb
+    calls = []
+
+    def fail_after_warm_up(*args, **kw):
+        calls.append(1)
+        return (broken if len(calls) > 1 else real)(*args, **kw)
+
+    monkeypatch.setattr(device_loop, "window_absorb", fail_after_warm_up)
+    with pytest.raises(RuntimeError, match="device accumulate loop failed") as e:
+        torch_cli.main(["--device", "cpu", "--recover",
+                        os.path.join(fixtures_dir, "small_ref_weights.txt"),
+                        "--output", str(tmp_path / "out.clstr"),
+                        os.path.join(fixtures_dir, "small.fasta")])
+    assert "injected" in str(e.value.__cause__)
+    assert "falling back to the host paths" in capsys.readouterr().out
 
 
 def test_device_cuda_raises_without_gpu(fixtures_dir, tmp_path, monkeypatch):

@@ -4,8 +4,10 @@
 `meshclust2_tpu.cluster.device_update.DeviceUpdater._closest_core` run by jax
 on the CPU, exactly in `first` and `unc`, and the host engine's
 `distance_d` argmin (first strict minimum) on every segment it does not
-mark uncertain.  The CUDA kernel itself is held against the plain version
-only on a card.
+mark uncertain.  The one-segment mode (given the kept rows' column sums
+and count) must equal the segmented mode on the same rows.  Tolerance:
+exact throughout.  The CUDA kernel itself is held against the plain
+version only on a card.
 """
 import os
 from types import SimpleNamespace
@@ -90,6 +92,19 @@ def port_closest(counts, rows, seg, keep, n_segs):
     return first.numpy(), unc.numpy()
 
 
+def port_closest_one(counts, rows, keep):
+    """The one-segment mode, with the column sums and count it is given."""
+    t = torch.from_numpy
+    col_sum = counts[rows[keep]].astype(np.int64).sum(axis=0)
+    first, unc = closest_mean(
+        t(counts), t(counts.sum(axis=1, dtype=np.int64).astype(np.float64)),
+        t(rows), None, t(keep), 1, maxc=int(counts.max()),
+        tie_margin=TIE_MARGIN, col_sum=t(col_sum),
+        count=torch.tensor([int(keep.sum())]))
+    assert first.shape == unc.shape == (1,)
+    return first.numpy(), unc.numpy()
+
+
 def host_first(counts, rows, seg, keep, c):
     pos = np.nonzero((seg == c) & keep)[0]
     if len(pos) == 0:
@@ -129,6 +144,64 @@ def test_exact_ties_take_the_first_position(fixture_counts):
     first, unc = port_closest(counts, rows, seg, keep, 3)
     np.testing.assert_array_equal(first, [1, 3, 5])
     assert not unc.any()
+
+
+@pytest.mark.parametrize("dtype", ["uint8_t", "uint16_t"])
+@pytest.mark.parametrize("source,n_pairs", [("small", 40), ("med2000", 1),
+                                            ("med2000", 3_000), ("random", 500)])
+def test_one_segment_equals_segmented(fixture_counts, source, n_pairs, dtype):
+    """The accumulate loop's shape: one segment, rows repeated (exact ties),
+    some not kept."""
+    rng = np.random.default_rng(n_pairs + len(dtype))
+    if source == "random":
+        counts = random_counts(5, 300, 256, np.dtype(dtype.removesuffix("_t")))
+    else:
+        counts = fixture_counts[source, dtype]
+    rows = rng.integers(0, len(counts), n_pairs).astype(np.int64)
+    rows[1::9] = rows[::9][:len(rows[1::9])]
+    keep = rng.random(n_pairs) < 0.9
+    keep[0] = True
+    seg = np.zeros(n_pairs, np.int64)
+    first, unc = port_closest_one(counts, rows, keep)
+    want_first, want_unc = port_closest(counts, rows, seg, keep, 1)
+    np.testing.assert_array_equal(first, want_first)
+    np.testing.assert_array_equal(unc, want_unc)
+    if not unc[0]:
+        assert first[0] == host_first(counts, rows, seg, keep, 0)
+
+
+def test_one_segment_without_kept_rows(fixture_counts):
+    counts = fixture_counts["small", "uint8_t"]
+    first, unc = port_closest_one(counts, np.array([3, 4], np.int64),
+                                  np.zeros(2, bool))
+    assert first[0] == 2 and not unc[0]
+
+
+@pytest.mark.parametrize("case", ["count_only", "col_sum_only", "n_segs",
+                                  "col_sum_shape", "count_dtype", "no_seg"])
+def test_one_segment_wrapper_rejects(case):
+    counts = torch.zeros((4, 16), dtype=torch.uint8)
+    mags = torch.zeros(4, dtype=torch.float64)
+    rows = torch.zeros(3, dtype=torch.int64)
+    keep = torch.ones(3, dtype=torch.bool)
+    kw = dict(col_sum=torch.zeros(16, dtype=torch.int64),
+              count=torch.ones(1, dtype=torch.int64))
+    n_segs = 1
+    if case == "count_only":
+        kw.pop("col_sum")
+    elif case == "col_sum_only":
+        kw.pop("count")
+    elif case == "n_segs":
+        n_segs = 2
+    elif case == "col_sum_shape":
+        kw["col_sum"] = kw["col_sum"][:8]
+    elif case == "count_dtype":
+        kw["count"] = kw["count"].to(torch.int32)
+    elif case == "no_seg":
+        kw = {}
+    with pytest.raises((TypeError, ValueError)):
+        closest_mean(counts, mags, rows, None, keep, n_segs, maxc=1,
+                     tie_margin=1e-12, **kw)
 
 
 @pytest.mark.parametrize("case", ["dtype", "mags", "rows_dtype", "keep_dtype",
@@ -177,3 +250,33 @@ def test_cuda_kernel_equals_plain(d, dtype):
     assert closest_mean.launches == before + 1
     want_first, want_unc = closest_mean_ref(*args, 77, **kw)
     assert torch.equal(first, want_first) and torch.equal(unc, want_unc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("d,n_pairs", [(16, 1), (64, 700), (1024, 20_000), (4096, 2_000)])
+def test_cuda_one_segment_equals_plain_and_segmented(d, n_pairs, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    counts = random_counts(d, 300, d, dtype)
+    rng = np.random.default_rng(n_pairs)
+    rows = rng.integers(0, 300, n_pairs).astype(np.int64)
+    rows[1::9] = rows[::9][:len(rows[1::9])]
+    keep = rng.random(n_pairs) < 0.9
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev) for a in (
+        counts, counts.sum(axis=1, dtype=np.int64).astype(np.float64), rows)]
+    keep_d = torch.from_numpy(keep).to(dev)
+    one = dict(col_sum=torch.from_numpy(
+        counts[rows[keep]].astype(np.int64).sum(axis=0)).to(dev),
+        count=torch.tensor([int(keep.sum())], device=dev))
+    kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
+    before = closest_mean.launches
+    got = closest_mean(*args, None, keep_d, 1, **kw, **one)
+    seg = closest_mean(*args, torch.zeros(n_pairs, dtype=torch.int64, device=dev),
+                       keep_d, 1, **kw)
+    torch.cuda.synchronize()
+    assert closest_mean.launches == before + 2
+    plain = closest_mean_ref(*args, None, keep_d, 1, **kw, **one)
+    for g, s_, p in zip(got, seg, plain):
+        assert torch.equal(g, s_) and torch.equal(g, p)
