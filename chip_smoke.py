@@ -5,17 +5,21 @@
 
 Builds the port's CUDA kernels from meshclust2_tpu_torch/csrc (one nvcc
 per source, in parallel), holds each against its plain PyTorch version and
-a numpy reference, times both at the main path's shapes, then clusters
-med2000 and the 10,000-sequence bench dataset through
-`meshclust2_tpu_torch.cli` on the card, on its three paths: the default
-(TorchDeviceAccumulator and TorchDeviceUpdater), MC2_NO_DEVICE_LOOP=1 (the
-accumulate windows through TorchDeviceScorer) and MC2_NO_DEVICE_LOOP=1
-MC2_NO_DEVICE_UPDATE_BATCH=1 (both phases through the scorer).  Each run is
-checked against its reference CLSTR and engine counters, and each path's
-kernel launches are counted from zero.  A torch.profiler run of the default
-path gives the device's busy share.  For comparison it runs the JAX
-package's native host path (`--device host`) on the same file, in a
-subprocess.
+a numpy reference, times both at the main path's shapes beside the least
+time the card could take (its bound), then clusters med2000 and the
+10,000-sequence bench dataset through `meshclust2_tpu_torch.cli` on the
+card, on its three paths: the default (TorchDeviceAccumulator and
+TorchDeviceUpdater), MC2_NO_DEVICE_LOOP=1 (the accumulate windows through
+TorchDeviceScorer) and MC2_NO_DEVICE_LOOP=1 MC2_NO_DEVICE_UPDATE_BATCH=1
+(both phases through the scorer).  Each run is checked against its
+reference CLSTR and engine counters, and each path's kernel launches are
+counted from zero.  Then it trains on the 10k set at the default flags
+(the pair tables through the pair-statistics kernel) and clusters it with
+the trained model, and holds the weights and the CLSTR against the JAX
+package's `--device host` training and host engine.  A torch.profiler run
+of the default path gives the device's busy share.  The JAX package runs
+only as a separate program (`--device host`, its native host path), on the
+same file, as the reference on the same machine.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 line before the last is the kernels' JSON record, and the last line is
@@ -73,6 +77,22 @@ MED2000_ACC = (393, 146, 48_737)
 BENCH10K_ACC = (1_503, 590, 927_148)
 MARGIN, TIE_MARGIN = 1e-8, 1e-12
 KERNELS = ("pair_stats", "closest_mean", "window_absorb")
+# the training run of this slice: the JAX CLI's default training flags
+TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
+               "--sample", "2000", "--num-templates", "300"]
+# the card's peak rates (the on-chip-measurement guide's table: NVIDIA's
+# H100 SXM data sheet, at 700 W): HBM bytes per second, and the float32
+# rate outside the tensor cores, the one non-tensor rate the table gives,
+# taken for the kernels' integer and float64 operations too (no lower than
+# their own rates, so the bound stays a lower bound on the time)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# pair statistics, per pair and element: min, add, multiply, add, subtract,
+# prefix add, abs, add
+PAIR_OPS = 8
+# closest-to-mean, per kept row and element: min against the rounded mean,
+# add, the truncated sum with the mean, add
+CLOSEST_OPS = 4
 
 
 def phase(tag: str, msg: str) -> None:
@@ -117,6 +137,33 @@ def cuda_ms(fn, reps: int, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def tbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(the least time in ms, what bounds it): the bytes over the card's
+    memory rate or the operations over its peak rate, the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pair_stats_bound(store, a, b):
+    """Each referenced row read once, the indices read, [P, 3] int64
+    written; PAIR_OPS per pair and element."""
+    rows = int(torch_unique(a, b))
+    d = store.shape[1]
+    return bound_ms(rows * d * store.element_size() + tbytes(a, b)
+                    + 24 * len(a), PAIR_OPS * len(a) * d)
+
+
+def torch_unique(*ts) -> int:
+    import torch
+
+    return torch.unique(torch.cat(ts)).numel()
 
 
 def counters(res):
@@ -241,8 +288,9 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from meshclust2_tpu.cluster.engine import distance_d
     from meshclust2_tpu_torch import cli as torch_cli
+    from meshclust2_tpu_torch.cluster.engine import distance_d
+    from meshclust2_tpu_torch.model.weights import load_weights
     from meshclust2_tpu_torch.ops import _build
     from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
     from meshclust2_tpu_torch.ops.pair_stats import (
@@ -448,26 +496,33 @@ def main() -> int:
     # P = 98,304 (the largest update batch)
     store = torch.from_numpy(
         rng.integers(1, 40, (10_000, 1024)).astype(np.uint8)).to(dev)
+    # and the training tables' shape: P = 2,200 pairs (one table at the
+    # default flags) over a store of the 10,000 points and 2,200 mutants
+    store_t = torch.from_numpy(
+        rng.integers(1, 40, (12_200, 1024)).astype(np.uint8)).to(dev)
     shapes = {
-        "center": (torch.arange(3_000, 5_048, device=dev),
+        "center": (store, torch.arange(3_000, 5_048, device=dev),
                    torch.full((2_048,), 4_000, dtype=torch.int64, device=dev)),
-        "pair": (torch.from_numpy(rng.integers(0, 10_000, 98_304)).to(dev),
+        "pair": (store, torch.from_numpy(rng.integers(0, 10_000, 98_304)).to(dev),
                  torch.from_numpy(rng.integers(0, 10_000, 98_304)).to(dev)),
+        "train": (store_t, torch.from_numpy(rng.integers(0, 10_000, 2_200)).to(dev),
+                  torch.from_numpy(rng.integers(10_000, 12_200, 2_200)).to(dev)),
     }
     timing = {}
-    for form, (a_d, b_d) in shapes.items():
-        got = pair_stats(store, a_d, b_d)
-        plain = pair_stats_ref(store, a_d, b_d)
+    for form, (st_d, a_d, b_d) in shapes.items():
+        got = pair_stats(st_d, a_d, b_d)
+        plain = pair_stats_ref(st_d, a_d, b_d)
         torch.cuda.synchronize()
         if not torch.equal(got, plain):
             raise AssertionError(f"pair_stats differs at the {form} main-path shape")
         max_err = max(max_err, int((got - plain).abs().max()))
-        k_ms = cuda_ms(lambda: pair_stats(store, a_d, b_d), reps=50)
-        p_ms = cuda_ms(lambda: pair_stats_ref(store, a_d, b_d), reps=10)
-        timing[form] = (k_ms, p_ms)
-        phase("d", f"{form} form P={len(a_d)} D=1024 uint8: kernel "
-                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA events; "
-                   f"{card})")
+        k_ms = cuda_ms(lambda: pair_stats(st_d, a_d, b_d), reps=50)
+        p_ms = cuda_ms(lambda: pair_stats_ref(st_d, a_d, b_d), reps=10)
+        b_ms, b_by = pair_stats_bound(st_d, a_d, b_d)
+        timing[form] = (k_ms, p_ms, b_ms, b_by)
+        phase("d", f"{form} form P={len(a_d)} N={len(st_d)} D=1024 uint8: "
+                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
+                   f"events), bound {b_ms:.4f} ms ({b_by}); {card}")
 
     # (d2) closest_mean vs its plain version at the update phase's shape:
     # the same store, P = 98,304 pairs (the largest update batch) in 1,000
@@ -487,8 +542,22 @@ def main() -> int:
         raise AssertionError("closest_mean differs at the main-path shape")
     cm_k = cuda_ms(lambda: closest_mean(*cm_args, n_segs, **kw), reps=50)
     cm_p = cuda_ms(lambda: closest_mean_ref(*cm_args, n_segs, **kw), reps=10)
+
+    def closest_bound(rows_d, keep_d, extra):
+        """The kept rows read once with their mags, the row list and keep
+        flags read, `extra` bytes more; CLOSEST_OPS per kept row and
+        element, plus the mean."""
+        kept = rows_d[keep_d]
+        uniq = torch_unique(kept)
+        d = store.shape[1]
+        return bound_ms(uniq * (d + 8) + tbytes(rows_d, keep_d) + extra,
+                        CLOSEST_OPS * len(kept) * d + 2 * d)
+
+    cm_b, cm_by = closest_bound(cm_args[2], cm_args[4],
+                                tbytes(cm_args[3]) + 9 * n_segs)
     phase("d2", f"closest_mean P={len(rows)} C={n_segs} D=1024 uint8: kernel "
-                f"{cm_k:.4f} ms, plain {cm_p:.4f} ms (median, CUDA events; {card})")
+                f"{cm_k:.4f} ms, plain {cm_p:.4f} ms (median, CUDA events), "
+                f"bound {cm_b:.4f} ms ({cm_by}); {card}")
 
     # (d3) the one-segment mode at the accumulate loop's largest shape: one
     # segment of 98,304 rows of the same store, 90 % kept; beside it the
@@ -511,9 +580,11 @@ def main() -> int:
                                              **kw, **one), reps=10)
     one_s = cuda_ms(lambda: closest_mean(store, mags, rows1, seg1, keep1, 1, **kw),
                     reps=10)
+    one_b, one_by = closest_bound(rows1, keep1, tbytes(one["col_sum"]) + 17)
     phase("d3", f"closest_mean one segment P={n_pairs} D=1024 uint8: one-segment "
                 f"kernel {one_k:.4f} ms, plain {one_p:.4f} ms, segmented kernel "
-                f"{one_s:.4f} ms (median, CUDA events; {card})")
+                f"{one_s:.4f} ms (median, CUDA events), bound {one_b:.4f} ms "
+                f"({one_by}); {card}")
 
     # (d4) window_absorb at the accumulate scan's shape: W = 2,048
     # candidates of the same store against one center, ~10 % positive
@@ -531,9 +602,17 @@ def main() -> int:
         raise AssertionError("window_absorb differs at the main-path shape")
     wa_k = cuda_ms(lambda: window_absorb(*wa_args, **wa_kw), reps=50)
     wa_p = cuda_ms(lambda: window_absorb_ref(*wa_args, **wa_kw), reps=10)
-    phase("d4", f"window_absorb W=2048 D=1024 uint8, {int(got[2][1])} positive: "
-                f"kernel {wa_k:.4f} ms, plain {wa_p:.4f} ms (median, CUDA events; "
-                f"{card})")
+    # what this window needs: per candidate its row index, s, dist,
+    # statistics and four moments; the positives' rows for the column sums;
+    # the pos flags, column sums and info written; ~20 operations a
+    # candidate and one add per positive element
+    n_pos = int(got[2][1])
+    wa_b, wa_by = bound_ms(2_048 * (8 + 8 + 8 + 24 + 4 * 8 + 1)
+                           + n_pos * 1024 + 1024 * 8 + 24,
+                           20 * 2_048 + n_pos * 1024)
+    phase("d4", f"window_absorb W=2048 D=1024 uint8, {n_pos} positive: "
+                f"kernel {wa_k:.4f} ms, plain {wa_p:.4f} ms (median, CUDA "
+                f"events), bound {wa_b:.6f} ms ({wa_by}); {card}")
 
     def check_launches(path, counted):
         need = {"default": KERNELS, "no_device_loop": ("pair_stats", "closest_mean"),
@@ -661,6 +740,96 @@ def main() -> int:
                    f"{window_parts(stamps, 10_000)} (host CPU of the {card} "
                    f"machine, {os.cpu_count()} cores)")
 
+        # (t) training on the 10k set at the default flags on the card, then
+        # clustering it with the trained model: this slice's main path, its
+        # launches counted from zero.  Beside it the JAX package's --device
+        # host training of the same command, and its host engine with the
+        # port's weights.
+        train_dir = os.path.join(tmp, "train")
+        os.makedirs(train_dir)
+        port_clstr = os.path.join(train_dir, "port.clstr")
+        for fn in wrappers.values():
+            fn.launches = 0
+        cwd = os.getcwd()
+        os.chdir(train_dir)   # a training run writes weights.txt here
+        try:
+            res_t = torch_cli.run(["--device", "cuda", *TRAIN_FLAGS,
+                                   "--output", port_clstr, fasta])
+        finally:
+            os.chdir(cwd)
+        launches["train"] = {name: fn.launches for name, fn in wrappers.items()}
+        if res_t.rc != 0:
+            raise AssertionError(f"port training exited {res_t.rc}")
+        check_launches("default", launches["train"])
+        tab = res_t.tables
+        if tab.tables != 2 or tab.launches < 2 or tab.pairs <= 0:
+            raise AssertionError(f"training tables did not run on the card: {tab}")
+        port_w = os.path.join(train_dir, "weights.txt")
+        host_w = os.path.join(tmp, "host_weights.txt")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "meshclust2_tpu.cli", "--device", "host",
+             *TRAIN_FLAGS, "--dump", host_w, fasta],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        host_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"host training exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-2000:]}")
+        host_st = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^timestamp (\S+) (\S+)$", proc.stdout, re.M)}
+        pw = load_weights(port_w).classifier
+        hw = load_weights(host_w).classifier
+        if pw.combos != hw.combos or pw.singles != hw.singles:
+            raise AssertionError(f"trained feature sets differ: {pw.combos} "
+                                 f"vs {hw.combos}")
+        if not (np.array_equal(pw.mins, hw.mins)
+                and np.array_equal(pw.maxs, hw.maxs)):
+            raise AssertionError("trained normalization bounds differ")
+        if not np.allclose(pw.weights, hw.weights, rtol=1e-7, atol=1e-9):
+            raise AssertionError(f"trained weights differ: {pw.weights} vs "
+                                 f"{hw.weights}")
+        with open(port_w, "rb") as f, open(host_w, "rb") as g:
+            same_bytes = f.read() == g.read()
+        w_rel = float(np.max(np.abs(np.asarray(pw.weights) - hw.weights)
+                             / np.maximum(np.abs(hw.weights), 1e-300)))
+        host_t_clstr = os.path.join(tmp, "host_train.clstr")
+        proc = subprocess.run(
+            [sys.executable, "-m", "meshclust2_tpu.cli", "--device", "host",
+             "--recover", port_w, "--output", host_t_clstr, fasta],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"host run with the port's weights exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+        got_t = read_clstr(port_clstr)
+        if signature(got_t) != signature(read_clstr(host_t_clstr)):
+            raise AssertionError("the port's train-and-cluster run and the host "
+                                 "engine with its weights disagree on 10k")
+        st = res_t.clock.stamps
+        gen = st["data_generation"] - st["read_in_points"]
+        glm = st["GLM"] - st["data_generation"] - tab.device_seconds \
+            - tab.host_seconds
+        phase("t", f"train 10k ({' '.join(TRAIN_FLAGS)}) on the card: weights "
+                   f"== JAX --device host --dump (combos {pw.combos}, bounds "
+                   f"bit-identical, weights max rel diff {w_rel:.3g}, files "
+                   f"byte-identical {same_bytes}); train-and-cluster signature "
+                   f"== host engine with the port's weights ({len(got_t)} "
+                   f"clusters); launches {launches['train']}")
+        phase("t", f"port training split (s): set-up {st['read_in_points']:.3f}, "
+                   f"data generation {gen:.3f}, tables on the card "
+                   f"{tab.device_seconds:.3f} ({tab.tables} tables, {tab.pairs} "
+                   f"pairs, {tab.launches} pair_stats launches) + host re-check "
+                   f"{tab.host_seconds:.3f} ({tab.rechecked_rows} rows), GLM "
+                   f"selection {glm:.3f}; training {st['GLM'] - st['read_in_points']:.3f}, "
+                   f"then clustering {st['done'] - st['GLM']:.3f}; {card}")
+        phase("t", f"JAX --device host training split (s), same file and "
+                   f"machine: set-up {host_st['read_in_points']:.3f}, data "
+                   f"generation {host_st['data_generation'] - host_st['read_in_points']:.3f}, "
+                   f"host tables and GLM selection "
+                   f"{host_st['GLM'] - host_st['data_generation']:.3f}; training "
+                   f"{host_st['GLM'] - host_st['read_in_points']:.3f} (process "
+                   f"wall {host_wall:.3f}); host CPU of the {card} machine, "
+                   f"{os.cpu_count()} cores")
+
         # (f2) two more runs of each path, in turns, for the spread
         for path in list(PATHS)[::-1] + list(PATHS):
             argv[5] = os.path.join(tmp, f"bench10k_{path}_again.clstr")
@@ -695,38 +864,52 @@ def main() -> int:
                        f"({steps} accumulator steps); the port's kernels (device "
                        f"time per launch): {ours}; top: {top}")
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    k_ms, p_ms = timing["pair"]
+    if any(m == "jax" or m.startswith(("jax.", "meshclust2_tpu."))
+           or m == "meshclust2_tpu" for m in sys.modules):
+        raise AssertionError("the port imported jax or the JAX package")
+    k_ms, p_ms, b_ms, b_by = timing["pair"]
+    # launches: this slice's main path (training, then clustering with the
+    # trained model); library_ms: no PyTorch call computes any of these
+    # functions (PERF.md)
     print(json.dumps({"kernels": [{
         "name": "pair_stats",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
         "replaces": "meshclust2_tpu/ops/pallas_stats.py:39",
-        "launches": launches["default"]["pair_stats"],
+        "launches": launches["train"]["pair_stats"],
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
     }, {
         "name": "closest_mean",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
         "replaces": "meshclust2_tpu/cluster/device_loop.py:1223",
-        "launches": launches["default"]["closest_mean"],
+        "launches": launches["train"]["closest_mean"],
         "max_abs_err": cm_err,
         "ms": one_k,
         "plain_ms": one_p,
+        "bound_ms": one_b,
+        "bound_by": one_by,
+        "library_ms": None,
         "segmented_ms": cm_k,
         "segmented_plain_ms": cm_p,
+        "segmented_bound_ms": cm_b,
     }, {
         "name": "window_absorb",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/window_absorb.cu",
         "replaces": "meshclust2_tpu/cluster/device_loop.py:1074",
-        "launches": launches["default"]["window_absorb"],
+        "launches": launches["train"]["window_absorb"],
         "max_abs_err": wa_err,
         "ms": wa_k,
         "plain_ms": wa_p,
+        "bound_ms": wa_b,
+        "bound_by": wa_by,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

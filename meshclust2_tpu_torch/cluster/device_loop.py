@@ -13,14 +13,16 @@ updates, and reads back one small packed vector: the step's decision and
 the next window's size.  The step's cases are applied on the card under
 their decision flags, so the host learns the case only at that one read.
 
-`TorchDeviceAccumulator` subclasses the JAX class for its host-side code,
-none of which imports jax: the envelope checks of `__init__`, `_prepare`
-(order, bins, the truncated length bounds, the in-bin search's start bins),
-`_fresh_carry`, `make_carry` and `consume`.  `run` returns what the JAX
-`run` returns, (clusters_raw, None) or (None, ResumeState) after a guarded
-abort, and MeanShiftEngine._device_accumulate (cluster/engine.py:349-551)
-drives it as it drives the JAX accumulator: it resolves the aborted steps
-on the host and relaunches from `make_carry`.
+The host half of the JAX accumulator is copied here, none of it device
+code: the margins (`resolve_margins`), the exact-integer envelope
+(`envelope_check`), `ResumeState`, and the accumulator's `_prepare`
+(order, bins, the truncated length bounds, the in-bin search's start
+bins), `_fresh_carry`, `make_carry` and `consume`, without the TPU
+program's padding, double-float splits and resume patches.  `run` returns
+what the JAX `run` returns, (clusters_raw, None) or (None, ResumeState)
+after a guarded abort, and MeanShiftEngine._device_accumulate
+(cluster/engine.py) drives it: it resolves the aborted steps on the host
+and relaunches from `make_carry`.
 
 Abort codes: 1, a positive gate within the margin of its edge or a dist
 tie between candidates with different inputs (the window is redone on the
@@ -31,22 +33,105 @@ and are not ported.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import math
+import os
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from meshclust2_tpu.cluster.bvec import BVec
-from meshclust2_tpu.cluster.device_loop import DeviceAccumulator
-from meshclust2_tpu.kmer.counting import PointSet
-from meshclust2_tpu.model.classifier import CompiledModel
-
-from ..model.classifier import model_to_torch
+from ..kmer.counting import PointSet
+from ..model import thresholds as TH
+from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.closest_mean import closest_mean
 from ..ops.device_features import check_fused, pair_decision
 from ..ops.pair_stats import pair_stats
 from ..ops.window_absorb import window_absorb
-from .device_store import DeviceStore
+from .bvec import BVec
+
+
+# relative margin under which a decision is "uncertain" and goes to the host
+# oracle (device_loop.py:84-117).  The identity-form singles differ from the
+# host's direct sums by <~1e-11 relative (worst case: pearson's cancelling
+# covariance), so 1e-8 leaves orders of headroom.  Read at construction
+# time, so tests can force margins per run.
+def DEFAULT_MARGIN() -> float:
+    return float(os.environ.get("MC2_DD_MARGIN", "1e-8"))
+
+
+# tie margin for two values from the same pipeline (dist argmax,
+# distance_d argmin)
+def DEFAULT_TIE_MARGIN() -> float:
+    return float(os.environ.get("MC2_DD_TIE_MARGIN", "1e-12"))
+
+
+def resolve_margins(margin, tie_margin):
+    """(margin, tie_margin) with env defaults and the forced-margin rule:
+    a forced-huge decision margin must drag the tie margin with it."""
+    m = float(DEFAULT_MARGIN() if margin is None else margin)
+    t = float(DEFAULT_TIE_MARGIN() if tie_margin is None else tie_margin)
+    if m > 1e-8:
+        t = max(t, m * 1e-2)
+    return m, t
+
+
+class DeviceLoopUnsupported(Exception):
+    """The data or the model lies outside what the device paths compute
+    exactly."""
+
+
+class ResumeState(NamedTuple):
+    """Host continuation point after a guarded abort."""
+    stage: int                 # 1: redo window scan; 2: redo closest-to-mean
+    clusters_done: list        # list of Cluster (complete)
+    current_rows: list         # members of the open cluster, reference order
+    last_row: int              # current center row
+    bv: BVec                   # pool state at the abort point
+
+
+# the JAX program's widest scan chunk, which sets one bound of the envelope
+_WC = 2048
+
+
+def envelope_check_vals(maxc: int, maxmag: int, maxlen: int,
+                        self_dots: np.ndarray) -> None:
+    """The exact-arithmetic envelope shared by the device programs,
+    checkable from metadata alone."""
+    if maxmag >= 2**24:
+        raise DeviceLoopUnsupported("pseudo-magnitude >= 2^24")
+    if maxc * maxmag >= 2**31:
+        raise DeviceLoopUnsupported("dot product >= 2^31")
+    if maxc * 4 * _WC >= 2**31:  # widest scan chunk (large-pool setting)
+        raise DeviceLoopUnsupported("chunk column sums >= 2^31")
+    if maxlen >= 2**31:
+        raise DeviceLoopUnsupported("length >= 2^31")
+    if len(self_dots) and int(self_dots.max()) >= 2**31:
+        raise DeviceLoopUnsupported("self dot >= 2^31")
+
+
+def envelope_check(ps):
+    """Raise DeviceLoopUnsupported outside the exact-arithmetic envelope
+    shared by the device paths; returns every row's self dot product."""
+    maxc = int(ps.counts.max()) if ps.n else 0
+    maxmag = int(ps.mags.max()) if ps.n else 0
+    self_dots = np.einsum(
+        "ij,ij->i", ps.counts.astype(np.int64), ps.counts.astype(np.int64)
+    )
+    envelope_check_vals(maxc, maxmag, int(ps.lengths.max()) if ps.n else 0,
+                        self_dots)
+    return self_dots
+
+
+def _index_of_vec(bounds: np.ndarray, x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized BVec._index_of (bvec.cpp:122-147): returns (low, high)
+    with the reference's initialization quirks."""
+    nb = len(bounds)
+    hi_cnt = np.searchsorted(bounds, x, side="right")
+    low = np.where(hi_cnt == 0, nb - 1,
+                   np.where(hi_cnt >= nb, nb - 1, hi_cnt - 1))
+    high = np.where(hi_cnt == 0, 0,
+                    np.where(hi_cnt >= nb, nb - 1, hi_cnt - 1))
+    return low, high
 
 # flat positions are sorted by (bin, length): bins are contiguous in flat
 # order and sorted by length inside (BVec.insert_finalize), so the key
@@ -63,24 +148,219 @@ def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx].to(torch.int64) & mask
 
 
-class TorchDeviceAccumulator(DeviceAccumulator):
-    """DeviceAccumulator's interface over the port's kernels: `ensure_ready`,
-    `run`, `make_carry`, `last_steps` / `last_windows` / `last_pairs` and
-    `_ready`, as MeanShiftEngine reads them.  `error` holds the exception a
-    `run` raised (the engine falls back to the host on any), `total_steps`
-    and `aborts` count the steps and guarded aborts since `ensure_ready`."""
+class TorchDeviceAccumulator:
+    """The accumulate phase over the port's kernels: `ensure_ready`, `run`,
+    `make_carry`, `last_steps` / `last_windows` / `last_pairs` and `_ready`,
+    as MeanShiftEngine reads them.  `error` holds the exception a `run`
+    raised (the engine falls back to the host on any), `total_steps` and
+    `aborts` count the steps and guarded aborts since `ensure_ready`."""
 
     def __init__(self, ps: PointSet, model: CompiledModel, sim: float,
-                 store: DeviceStore):
-        check_fused(model)
-        # margins from resolve_margins (MC2_DD_MARGIN, MC2_DD_TIE_MARGIN)
-        super().__init__(ps, model, sim, shared_counts=store.counts)
+                 store: "DeviceStore"):
+        check_fused(model.singles)
+        self.ps = ps
+        self.model = model
+        self.sim = float(sim)
+        # MC2_DD_MARGIN, MC2_DD_TIE_MARGIN
+        self.margin, self.tie_margin = resolve_margins(None, None)
+        edge = TH.positive_edge(model.bias)
+        if not math.isfinite(edge):
+            # the decision is constant in s; a huge finite edge encodes it
+            edge = -1e30 if edge < 0 else 1e30
+        self.pos_edge = float(edge)   # GLM-sum edge of round(prob) > 0
         self.store = store
         self.device = store.counts.device
         self.params = model_to_torch(model, self.device)
         self._ready = None
         self.error: Optional[BaseException] = None
         self.total_steps = self.aborts = 0
+        self.last_steps = self.last_windows = self.last_pairs = 0
+        self.last_abort_cause = 0
+
+    # -- host-side preparation (device_loop.py:736-887, 1611-1619) ------------
+
+    def _prepare(self, bv: BVec):
+        """(host, dev) layouts of the pool `bv` in flat (bvec) order: the
+        order, bins and bounds on the host; per flat position the length,
+        bin, truncated begin/end lengths and the in-bin search's start bins,
+        plus the fresh loop state."""
+        ps = self.ps
+        order = np.concatenate([b for b in bv.bins]) if bv.size() else np.zeros(0, np.int64)
+        n = len(order)
+        if n != ps.n:
+            raise DeviceLoopUnsupported("bvec does not cover the point set")
+        nb = len(bv.bins)
+        bin_sizes = np.array([len(b) for b in bv.bins], dtype=np.int64)
+        bin_start = np.zeros(nb + 1, dtype=np.int64)
+        np.cumsum(bin_sizes, out=bin_start[1:])
+        lens = ps.lengths[order]
+        L = lens.astype(np.float64)
+        blen = (L * self.sim).astype(np.int64)   # uint64 trunc of f64 product
+        elen = (L / self.sim).astype(np.int64)
+        bounds = np.asarray(bv.begin_bounds, dtype=np.int64)
+        fbin0, _ = _index_of_vec(bounds, blen)
+        _, bbin0 = _index_of_vec(bounds, elen)
+        host = {
+            "order": order,
+            "n": n,
+            "nb": nb,
+            "bin_start": bin_start,
+            "bounds": list(bv.begin_bounds),
+        }
+        dev = {
+            "lens": lens,
+            "bin_ids": np.repeat(np.arange(nb, dtype=np.int64), bin_sizes),
+            "blen": blen,
+            "elen": elen,
+            "fbin0": fbin0,
+            "bbin0": bbin0,
+        }
+        dev.update(self._fresh_carry(n, order))
+        return host, dev
+
+    def _fresh_carry(self, n: int, order: np.ndarray) -> dict:
+        """The loop state before the first step: the first pop seeds
+        cluster 0."""
+        alive0 = np.ones(n, bool)
+        assign0 = np.full(n, -1, np.int64)
+        astep0 = np.zeros(n, np.int64)
+        msum0 = np.zeros(self.ps.dim, np.int64)
+        if n:
+            alive0[0] = False
+            assign0[0] = 0
+            msum0[:] = self.ps.counts[order[0]].astype(np.int64)
+        return {
+            "alive0": alive0, "assign0": assign0, "astep0": astep0,
+            "centers0": np.zeros(n, np.int64),
+            "cid0": 0, "stepc0": 1, "cur0": 0, "msum0": msum0,
+            "done0": n == 0,
+        }
+
+    def _ready_matches(self, bv: BVec) -> bool:
+        if self._ready is None:
+            return False
+        order = np.concatenate([b for b in bv.bins]) if bv.size() \
+            else np.zeros(0, np.int64)
+        return (len(order) == self._ready[0]["n"]
+                and np.array_equal(order, self._ready[0]["order"]))
+
+    def make_carry(self, clusters_done, current_rows, last_row,
+                   alive_rows) -> dict:
+        """Loop state equivalent to: `clusters_done` complete, the open
+        cluster holding `current_rows` (reference member order) centered on
+        `last_row`, and `alive_rows` still in the pool.  The engine
+        relaunches from it after resolving aborted steps on the host."""
+        host = self._ready[0]
+        n = host["n"]
+        # natural row -> flat position under the ORIGINAL bvec layout
+        pos = np.empty(self.ps.n, np.int64)
+        pos[host["order"]] = np.arange(n)
+        alive0 = np.zeros(n, bool)
+        if len(alive_rows):
+            alive0[pos[np.asarray(alive_rows, dtype=np.int64)]] = True
+        assign0 = np.full(n, -1, np.int64)
+        astep0 = np.zeros(n, np.int64)
+        centers0 = np.zeros(n, np.int64)
+        cid0 = len(clusters_done)
+        if cid0:
+            lens_c = np.array([len(m) for _, m in clusters_done],
+                              dtype=np.int64)
+            all_members = np.concatenate(
+                [np.asarray(m, dtype=np.int64) for _, m in clusters_done])
+            cl_ids = np.repeat(np.arange(cid0, dtype=np.int64), lens_c)
+            starts = np.cumsum(lens_c) - lens_c
+            positions = (np.arange(len(all_members), dtype=np.int64)
+                         - np.repeat(starts, lens_c))
+            mflat = pos[all_members]
+            assign0[mflat] = cl_ids
+            astep0[mflat] = positions
+            centers0[:cid0] = pos[np.array([c for c, _ in clusters_done],
+                                           dtype=np.int64)]
+        cur = np.asarray(current_rows, dtype=np.int64)
+        cflat = pos[cur]
+        assign0[cflat] = cid0
+        astep0[cflat] = np.arange(len(cur), dtype=np.int64)
+        msum0 = self.ps.counts[cur].astype(np.int64).sum(axis=0)
+        return {
+            "alive0": alive0, "assign0": assign0, "astep0": astep0,
+            "centers0": centers0,
+            "cid0": cid0,
+            # future absorb stamps must exceed every position index used
+            "stepc0": n + 2,
+            "cur0": int(pos[last_row]),
+            "msum0": msum0,
+            "done0": False,
+        }
+
+    def consume(self, packed: np.ndarray, host):
+        """(clusters_raw, None) or (None, ResumeState) from the loop's packed
+        int64 result: (abort, cid, cur, steps, windows, pairs, cause, 0),
+        then per flat position (assign + 1) << 33 | astep << 1 | alive, then
+        the centers' flat positions."""
+        abort, cid, cur, iters, wins, pairs = (int(v) for v in packed[:6])
+        self.last_abort_cause = int(packed[6])
+        n = host["n"]
+        row_pack = packed[8:8 + n]
+        alive = (row_pack & 1).astype(bool)
+        astep = (row_pack >> 1) & 0xFFFFFFFF
+        assign = (row_pack >> 33) - 1
+        centers = packed[8 + n:]
+        self.last_steps = iters
+        self.last_windows = wins
+        self.last_pairs = pairs
+        if os.environ.get("MC2_DEVICE_PROF"):
+            print(f"device accumulate: {iters} steps, {wins} windows, "
+                  f"{pairs} pairs", flush=True)
+        order = host["order"]
+        if iters >= 2 * n + 16:
+            raise RuntimeError("device accumulate exceeded its iteration bound")
+
+        def clusters_upto(n_clusters):
+            """[(center_row, members)] for cluster ids 0..n_clusters-1 in
+            one lexsort."""
+            rows = np.nonzero((assign >= 0) & (assign < n_clusters))[0]
+            key = astep[rows] * (n + 1) + rows
+            srt = np.lexsort((key, assign[rows]))
+            rows_s = rows[srt]
+            asg_s = assign[rows_s]
+            bounds = np.searchsorted(asg_s, np.arange(n_clusters + 1))
+            return [
+                (int(order[centers[c]]),
+                 order[rows_s[bounds[c]:bounds[c + 1]]].tolist())
+                for c in range(n_clusters)
+            ]
+
+        if abort == 0:
+            return clusters_upto(cid), None
+        # guarded abort: reconstruct the exact host state
+        done_clusters = clusters_upto(cid)
+        cur_rows = np.nonzero(assign == cid)[0]
+        key = astep[cur_rows] * (n + 1) + cur_rows
+        cur_flat = cur_rows[np.argsort(key, kind="stable")]
+        current_rows = order[cur_flat].tolist()
+        # a BVec rebuilt from the alive flags (order preserved; __init__
+        # fields are fully overwritten below)
+        bv2 = BVec(self.ps.lengths, bin_size=1000)
+        bv2.begin_bounds = list(host["bounds"])
+        bv2._bounds_arr = np.asarray(bv2.begin_bounds, dtype=np.int64)
+        bv2._lengths = np.asarray(self.ps.lengths, dtype=np.int64)
+        bin_start = host["bin_start"]
+        bins, marks = [], []
+        for b in range(host["nb"]):
+            span = np.arange(bin_start[b], bin_start[b + 1])
+            keep = span[alive[span]]
+            bins.append(order[keep].astype(np.int64))
+            marks.append(np.zeros(len(keep), dtype=bool))
+        bv2.bins = bins
+        bv2.marks = marks
+        state = ResumeState(
+            stage=abort,
+            clusters_done=done_clusters,
+            current_rows=current_rows,
+            last_row=int(order[cur]),
+            bv=bv2,
+        )
+        return None, state
 
     # -- set-up ---------------------------------------------------------------
 
@@ -134,7 +414,7 @@ class TorchDeviceAccumulator(DeviceAccumulator):
         st = self.store
         return window_absorb(st.counts, rows, s, dist, stats, st.mags,
                              st.selfdot, st.lens, st.stddevs,
-                             pos_edge=self.pack.pos_edge, margin=self.margin,
+                             pos_edge=self.pos_edge, margin=self.margin,
                              tie_margin=self.tie_margin)
 
     # -- the loop ----------------------------------------------------------------
@@ -228,7 +508,7 @@ class TorchDeviceAccumulator(DeviceAccumulator):
             row_pack.cpu().numpy(), center_arr])
         self.total_steps += iters
         self.aborts += abort != 0
-        return self.consume(packed, None, host, n)
+        return self.consume(packed, host)
 
     def _window(self, cur_d: torch.Tensor, trip: Optional[torch.Tensor]
                 ) -> Tuple[int, ...]:

@@ -4,15 +4,11 @@ The counterpart of meshclust2_tpu/cluster/device_session.py:DeviceSession
 (lines 378-441) without its whole-run program: one DeviceStore upload,
 shared by the pair scorer, the accumulate loop (`accumulator`, a
 TorchDeviceAccumulator over the pristine pool `bv`) and the update-phase
-batches (`updater`).  The engine reads `accumulator` and `combined`
-(engine.py:369-397) and `updater` (engine.py:676-677); `phase` and
-`combined` are None, since the whole-phase programs are not ported.
-
-The engine enters its device accumulate loop only for a scorer with
-`prefers_device_loop` (engine.py:362-366), so the session sets that flag
-on its scorer exactly when it holds an accumulator.  Without the device
-loop (the JAX package's MC2_NO_DEVICE_LOOP configuration) the accumulate
-windows go through the scorer.
+batches (`updater`).  The engine (cluster/engine.py) runs its device
+accumulate loop exactly when `accumulator` is set and its update batches
+when `updater` is.  Without the device loop (the JAX package's
+MC2_NO_DEVICE_LOOP configuration) the accumulate windows go through the
+scorer.
 """
 from __future__ import annotations
 
@@ -20,11 +16,10 @@ from typing import Optional
 
 import torch
 
-from meshclust2_tpu.cluster.bvec import BVec
-from meshclust2_tpu.kmer.counting import PointSet
-from meshclust2_tpu.model.classifier import CompiledModel
-
+from ..kmer.counting import PointSet
+from ..model.classifier import CompiledModel
 from ..ops.device_features import TorchDeviceScorer
+from .bvec import BVec
 from .device_loop import TorchDeviceAccumulator
 from .device_store import DeviceStore
 from .device_update import TorchDeviceUpdater
@@ -37,9 +32,6 @@ BIN_SIZE = 1000
 class TorchDeviceSession:
     """Store, scorer, accumulator and updater for one run, built before the
     clustering window opens."""
-
-    phase = None
-    combined = None
 
     def __init__(self, ps: PointSet, model: CompiledModel, device, sim: float,
                  update_batch: bool = True, device_loop: bool = True):
@@ -61,7 +53,6 @@ class TorchDeviceSession:
             self.bv.insert_finalize(ps.lengths)
             self.accumulator = TorchDeviceAccumulator(ps, model, sim,
                                                       self.store)
-            self.scorer.prefers_device_loop = True
 
     def warm_up(self) -> None:
         """Build the kernels, run each batch once, and upload the

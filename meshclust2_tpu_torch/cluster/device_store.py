@@ -3,10 +3,11 @@
 The counterpart of meshclust2_tpu/cluster/device_session.py:DeviceStore
 (lines 42-86), without `force()`, the touch program or `from_global`: one
 upload of the natural-order uint8/uint16 counts and the float64 per-row
-moments that `derive_singles` reads, shared by the scorer and the updater
-(cluster/device_session.py).  The exact-integer envelope is the JAX
-package's own (`envelope_check`), and outside it, or for uint32/uint64
-histograms, the store raises `DeviceLoopUnsupported`.
+moments that `derive_singles` reads, shared by the scorer, the accumulator
+and the updater (cluster/device_session.py), and by the training tables
+(train/device_tables.py).  Outside the exact-integer envelope
+(`device_loop.envelope_check`), or for uint32/uint64 histograms, the store
+raises `DeviceLoopUnsupported`.
 """
 from __future__ import annotations
 
@@ -15,8 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from meshclust2_tpu.cluster.device_loop import DeviceLoopUnsupported, envelope_check
-from meshclust2_tpu.kmer.counting import PointSet
+from ..kmer.counting import PointSet
 
 
 @dataclass(frozen=True)
@@ -30,6 +30,9 @@ class DeviceStore:
 
     @classmethod
     def from_pointset(cls, ps: PointSet, device) -> "DeviceStore":
+        # imported here: device_loop imports this module through the scorer
+        from .device_loop import DeviceLoopUnsupported, envelope_check
+
         if ps.counts.dtype not in (np.uint8, np.uint16):
             raise DeviceLoopUnsupported(
                 f"{ps.counts.dtype} histograms (the kernel reads uint8/uint16)")

@@ -31,14 +31,12 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from meshclust2_tpu.cluster.device_loop import resolve_margins
-from meshclust2_tpu.model import thresholds as TH
-from meshclust2_tpu.model.classifier import CompiledModel
-
-from ..model.classifier import model_to_torch
+from ..model import thresholds as TH
+from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.closest_mean import closest_mean
 from ..ops.device_features import check_fused, pair_decision
 from ..ops.pair_stats import pair_stats
+from .device_loop import resolve_margins
 from .device_store import DeviceStore
 
 
@@ -48,7 +46,7 @@ class TorchDeviceUpdater:
 
     def __init__(self, model: CompiledModel, store: DeviceStore,
                  margin=None, tie_margin=None):
-        check_fused(model)
+        check_fused(model.singles)
         self.model = model
         self.store = store
         self.device = store.counts.device

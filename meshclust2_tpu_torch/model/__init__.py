@@ -1,2 +1,2 @@
-"""Classifier parameters and epilogue as float64 torch (the port of
-meshclust2_tpu/model/classifier.py)."""
+"""The weights file, the decision thresholds and the classifier (host and
+float64 torch)."""

@@ -7,12 +7,9 @@ and the classifier epilogue in float64 on the device.  Pairs whose decision
 or ranking the device's rounding could change are re-scored by the float64
 host oracle (`HostScorer`), so clustering decisions equal the host's.
 
-The class is deliberately not named `DeviceScorer`, and its
-`prefers_device_loop` is False: MeanShiftEngine keys its device accumulate
-loop and updater on either (cluster/engine.py:362-365, 682-683).
-TorchDeviceSession sets the flag on its scorer instance exactly when it
-holds a TorchDeviceAccumulator for the engine to run; a standalone scorer
-serves the engine's host-driven loops.
+MeanShiftEngine (cluster/engine.py) runs its device accumulate loop and
+updater exactly when its session holds them; the scorer serves the
+engine's host-driven loops.
 """
 from __future__ import annotations
 
@@ -21,14 +18,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from meshclust2_tpu.cluster.device_loop import DeviceLoopUnsupported
-from meshclust2_tpu.cluster.engine import HostScorer
-from meshclust2_tpu.features import flags as F
-from meshclust2_tpu.kmer.counting import PointSet
-from meshclust2_tpu.model.classifier import CompiledModel
-
 from ..cluster.device_store import DeviceStore
-from ..model.classifier import TorchModel, decision_from_raw, model_to_torch
+from ..cluster.engine import HostScorer
+from ..features import flags as F
+from ..kmer.counting import PointSet
+from ..model.classifier import (CompiledModel, TorchModel, decision_from_raw,
+                                model_to_torch)
 from .pair_stats import derive_singles, pair_stats
 
 # singles derivable from the kernel's (sum-min, dot, EMD) plus per-row
@@ -57,10 +52,13 @@ DIST_REL_BAND = 1e-4
 DIST_TIE_BAND = 1e-9
 
 
-def check_fused(model: CompiledModel) -> None:
-    """Raise DeviceLoopUnsupported unless every single of the model derives
-    from the pair statistics and per-row moments."""
-    bad = set(model.singles) - _FUSED_DERIVABLE
+def check_fused(singles) -> None:
+    """Raise DeviceLoopUnsupported unless every single derives from the
+    pair statistics and per-row moments."""
+    # imported here: device_loop imports this module
+    from ..cluster.device_loop import DeviceLoopUnsupported
+
+    bad = set(singles) - _FUSED_DERIVABLE
     if bad:
         names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
         raise DeviceLoopUnsupported(
@@ -103,11 +101,9 @@ class TorchDeviceScorer:
     """Scorer protocol (cluster/engine.py:Scorer) over the pair-statistics
     kernel, with float64 host re-checks of borderline pairs."""
 
-    prefers_device_loop = False
-
     def __init__(self, ps: PointSet, model: CompiledModel, device,
                  store: Optional[DeviceStore] = None):
-        check_fused(model)
+        check_fused(model.singles)
         self.ps = ps
         self.model = model
         self.device = torch.device(device)

@@ -16,7 +16,7 @@ from typing import Sequence
 
 import torch
 
-from meshclust2_tpu.features import flags as F
+from ..features import flags as F
 
 N_STATS = 3
 # rows of the plain version's int64 temporaries per step (bounds its memory

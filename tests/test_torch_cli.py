@@ -190,7 +190,7 @@ def test_small_device_loop_path_equals_jax_device_loop_configuration(
         monkeypatch.delenv(k, raising=False)
     out, res = port_run(fixtures_dir, tmp_path, "small.fasta",
                         "small_ref_weights.txt")
-    assert res.accumulator is not None and res.scorer.prefers_device_loop
+    assert res.accumulator is not None and res.accumulator.total_steps > 0
     jax_out = jax_run(fixtures_dir, tmp_path, monkeypatch, update_batch=True,
                       device_loop=True)
     assert out.read_bytes() == jax_out.read_bytes()
@@ -252,8 +252,15 @@ def test_device_cuda_raises_without_gpu(fixtures_dir, tmp_path, monkeypatch):
                  "small_ref_weights.txt", device="cuda")
 
 
-def test_without_recover_exits_nonzero(fixtures_dir, capsys):
-    rc = torch_cli.main(["--device", "cpu",
+@pytest.mark.parametrize("feat", ["slow", "extraslow"])
+def test_without_recover_exits_nonzero(fixtures_dir, tmp_path, monkeypatch,
+                                       capsys, feat):
+    """Without --recover the port trains; for the feature sets whose singles
+    the pair statistics cannot derive it exits non-zero with a message
+    before it writes anything, and falls back to no host path."""
+    monkeypatch.chdir(tmp_path)
+    rc = torch_cli.main(["--device", "cpu", "--feat", feat,
                          os.path.join(fixtures_dir, "small.fasta")])
     assert rc != 0
-    assert "--recover" in capsys.readouterr().err
+    assert "--feat fast" in capsys.readouterr().err
+    assert not os.listdir(tmp_path)

@@ -24,14 +24,15 @@ import numpy as np
 import pytest
 import torch
 
-from meshclust2_tpu.cli import load_sorted_points
 from meshclust2_tpu.cluster import device_loop as jax_device_loop
-from meshclust2_tpu.cluster.bvec import BVec
-from meshclust2_tpu.io.clstr import parse_clstr
-from meshclust2_tpu.model.classifier import CompiledModel
-from meshclust2_tpu.model.weights import load_weights
 from meshclust2_tpu_torch import cli as torch_cli
+from meshclust2_tpu_torch.cli import load_sorted_points
+from meshclust2_tpu_torch.cluster.bvec import BVec
 from meshclust2_tpu_torch.cluster.device_loop import TorchDeviceAccumulator
+from meshclust2_tpu_torch.cluster.engine import MeanShiftEngine
+from meshclust2_tpu_torch.io.clstr import parse_clstr
+from meshclust2_tpu_torch.model.classifier import CompiledModel
+from meshclust2_tpu_torch.model.weights import load_weights
 from meshclust2_tpu_torch.cluster.device_session import TorchDeviceSession
 from meshclust2_tpu_torch.cluster.device_store import DeviceStore
 
@@ -146,15 +147,20 @@ def test_window_equals_host_bvec(med_acc, seed):
 
 
 def test_session_sets_the_device_loop_flag_with_an_accumulator(fixtures_dir):
+    """The session's accumulator is the engine's one switch of the device
+    loop: no scorer flag, and without an accumulator the engine's
+    _device_accumulate returns None (the host loop runs)."""
     w = load_weights(os.path.join(fixtures_dir, "small_ref_weights.txt"))
     _, ps = load_sorted_points([os.path.join(fixtures_dir, "small.fasta")],
                                [], w.k, w.datatype, False)
     model = CompiledModel(w.classifier)
     on = TorchDeviceSession(ps, model, "cpu", w.id_cutoff)
     off = TorchDeviceSession(ps, model, "cpu", w.id_cutoff, device_loop=False)
-    assert on.accumulator is not None and on.scorer.prefers_device_loop
-    assert off.accumulator is None and not off.scorer.prefers_device_loop
-    assert on.combined is None and on.phase is None
+    assert on.accumulator is not None and off.accumulator is None
+    assert not hasattr(on.scorer, "prefers_device_loop")
+    engine = MeanShiftEngine(ps, model, w.id_cutoff, scorer=off.scorer,
+                             device_session=off)
+    assert engine._device_accumulate(on.bv, None) is None
 
 
 def test_small_equals_jax_device_loop(fixtures_dir, tmp_path, clean_env):
