@@ -80,8 +80,8 @@ KERNELS = ("pair_stats", "closest_mean", "window_absorb")
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
-# the card's peak rates (the on-chip-measurement guide's table: NVIDIA's
-# H100 SXM data sheet, at 700 W): HBM bytes per second, and the float32
+# the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
+# bytes per second, and the float32
 # rate outside the tensor cores, the one non-tensor rate the table gives,
 # taken for the kernels' integer and float64 operations too (no lower than
 # their own rates, so the bound stays a lower bound on the time)
