@@ -5,8 +5,10 @@
 
 Builds the port's CUDA kernels from meshclust2_tpu_torch/csrc (one nvcc
 per source, in parallel), holds each against its plain PyTorch version and
-a numpy reference, times both at the main path's shapes beside the least
-time the card could take (its bound), then clusters med2000 and the
+a numpy reference (the accumulate step kernel over a sweep of step cases,
+on every state tensor and its trip), times both at the main path's shapes
+beside the least time the card could take (its bound) and the profiler's
+device time per launch, then clusters med2000 and the
 10,000-sequence bench dataset through `meshclust2_tpu_torch.cli` on the
 card, on its three paths: the default (TorchDeviceAccumulator and
 TorchDeviceUpdater), MC2_NO_DEVICE_LOOP=1 (the accumulate windows through
@@ -120,15 +122,20 @@ def signature(clusters):
         for c in clusters)
 
 
-def cuda_ms(fn, reps: int, warm: int = 3) -> float:
-    """Median device time of fn() in ms over `reps` runs, by CUDA events."""
+def cuda_ms(fn, reps: int, warm: int = 3, setup=None) -> float:
+    """Median device time of fn() in ms over `reps` runs, by CUDA events;
+    setup(), when given, runs before each call outside the events."""
     import torch
 
     for _ in range(warm):
+        if setup:
+            setup()
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -136,6 +143,29 @@ def cuda_ms(fn, reps: int, warm: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_us(fn, reps: int = 20, setup=None) -> float:
+    """Median device time in us of fn()'s launches: each call is queued
+    behind a busy wait on the card (torch.cuda._sleep), so the events
+    around it time the card's work and not the wrapper's host work;
+    setup(), when given, runs before each call outside the events."""
+    import torch
+
+    times = []
+    for i in range(reps + 1):
+        if setup:
+            setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)   # ~1 ms of cycles: the host queues meanwhile
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i:   # the first call warms up
+            times.append(start.elapsed_time(end) * 1e3)
     return statistics.median(times)
 
 
@@ -158,6 +188,20 @@ def pair_stats_bound(store, a, b):
     d = store.shape[1]
     return bound_ms(rows * d * store.element_size() + tbytes(a, b)
                     + 24 * len(a), PAIR_OPS * len(a) * d)
+
+
+def step_bound(w: int, npos: int, count: int, d: int, elem: int):
+    """The step at W candidates, npos positives, count members after the
+    absorb: per candidate its index, store row, s, dist, statistics read
+    and its alive, assign and astep written; the positives' member slots
+    written; per member its index, store row, histogram and mags read;
+    msum read and written, the trip written.  Operations: ~20 a candidate
+    (gates, maximum, tie guard, state), one add per positive element, the
+    mean per element, CLOSEST_OPS per member element."""
+    nbytes = (w * (8 + 8 + 8 + 8 + 24 + 1 + 8 + 8) + npos * 8
+              + count * (8 + 8 + d * elem + 8) + 2 * 8 * d + 32)
+    ops = 20 * w + npos * d + 10 * d + CLOSEST_OPS * count * d
+    return bound_ms(nbytes, ops)
 
 
 def torch_unique(*ts) -> int:
@@ -216,32 +260,86 @@ def segments(rng, n_rows: int, n_segs: int, mean_size: int):
     return rows.astype(np.int64), seg.astype(np.int64), rng.random(len(seg)) < 0.8
 
 
-def absorb_window(rng, n_rows: int, n_cand: int, edge: float):
-    """One window for window_absorb: candidate rows with repeats, sums on,
-    one ulp off and just inside the margin of the edge, dists with exact
-    ties between repeated rows, equal dists of different rows and near
-    ties within the tie margin."""
-    rows = rng.integers(0, n_rows, n_cand).astype(np.int64)
-    s = rng.normal(edge, 2.0, n_cand)
-    dist = rng.random(n_cand)
-    s[np.abs(s - edge) < 1e-6] += 1e-3    # no accidental near-edge sums
-    if n_cand <= 8:
-        return rows, s, dist
-    on_edge, copy, tie = rng.random(3) < 0.6
-    if on_edge:
-        s[::7] = edge
-        s[1::11] = np.nextafter(edge, -np.inf)
-        s[2::13] = edge + 0.5 * MARGIN * max(abs(edge), 1.0)
-    top = int(np.argmax(dist))
-    if copy:
-        rows[-1] = rows[top]
-        dist[-1] = dist[top]                        # an exact copy
-    if tie:
-        if rng.random() < 0.5:
-            dist[n_cand // 2] = dist[top]           # other inputs, equal dist
-        else:
-            dist[n_cand // 3] = dist[top] * (1 - 0.3 * TIE_MARGIN)
-    return rows, s, dist
+def skewed_segments(rng, n_rows: int, n_pairs: int, n_segs: int):
+    """One segment with 90 % of the positions, the rest in one-row segments
+    or empty ones, rows repeated (exact ties), 80 % kept, and a few
+    segments with nothing kept."""
+    big = int(0.9 * n_pairs)
+    sizes = np.zeros(n_segs, np.int64)
+    sizes[n_segs // 3] = big
+    others = np.delete(np.arange(n_segs), n_segs // 3)
+    np.add.at(sizes, rng.choice(others, n_pairs - big,
+                                replace=n_pairs - big > len(others)), 1)
+    seg = np.repeat(np.arange(n_segs), sizes).astype(np.int64)
+    rows = rng.integers(0, n_rows, n_pairs).astype(np.int64)
+    rows[1::7] = rows[::7][:len(rows[1::7])]
+    keep = rng.random(n_pairs) < 0.8
+    unkept = rng.choice(np.nonzero(sizes)[0], 3, replace=False)
+    keep[np.isin(seg, unkept[unkept != n_segs // 3])] = False
+    return rows, seg, keep
+
+
+STEP_KINDS = ("absorb", "min", "on_edge", "ulp_below", "tie", "near_tie",
+              "stage2", "full")
+
+
+def step_case(rng, n: int, kind: str, w=None, mcnt=None, npos=None,
+              edge: float = 0.25):
+    """One accumulate step's inputs over a pool of n flat positions (numpy):
+    order, candidates, s, dist, the state (alive, assign, astep, members,
+    msum left to the caller), cur_d and the tie margin.  `kind` shapes the
+    decisions (STEP_KINDS: absorb and min cases, a sum on and one ulp below
+    the edge, an exact and a near dist tie of other inputs, an uncertain
+    mean with the positives absorbed, a member list that reaches n); w,
+    mcnt and npos fix the window, the open cluster and the positives."""
+    order = rng.permutation(n).astype(np.int64)
+    cid = 3
+    flat = rng.permutation(n)
+    mcnt = int(rng.integers(1, 12)) if mcnt is None else mcnt
+    done = 0 if kind == "full" else min(int(rng.integers(5, 30)), n - mcnt - 1)
+    mem, old, free = flat[:mcnt], flat[mcnt:mcnt + done], flat[mcnt + done:]
+    alive = np.zeros(n, bool)
+    alive[free] = True
+    assign = np.full(n, -1, np.int64)
+    astep = np.zeros(n, np.int64)
+    assign[old] = rng.integers(0, cid, len(old))
+    assign[mem] = cid
+    astep[mem] = np.arange(mcnt)
+    members = rng.integers(0, n, n + 1).astype(np.int64)   # stale beyond mcnt
+    members[:mcnt] = mem
+    if w is None:
+        w = len(free) if kind == "full" else int(rng.integers(1, len(free) + 1))
+    cand = np.sort(rng.choice(free, w, replace=False)).astype(np.int64)
+    tie_margin = TIE_MARGIN
+    s = rng.normal(edge, 2.0, w)
+    s[np.abs(s - edge) < 1e-6] += 1e-3
+    dist = rng.random(w)
+    if kind == "min":
+        s = -np.abs(s) - 1.0
+    elif kind in ("absorb", "full", "stage2"):
+        s = edge + 0.5 + np.abs(s)
+        if kind == "absorb":
+            k = w // 2 if npos is None else w - npos
+            s[rng.choice(w, k, replace=False)] = edge - 0.5 - np.abs(s[:k])
+    elif kind == "on_edge":
+        s[w // 2] = edge
+    elif kind == "ulp_below":
+        s[w // 2] = np.nextafter(edge, -np.inf)
+    if kind == "stage2":
+        # every candidate a copy of one row at one dist: no window tie; a
+        # tie margin that takes in every member makes the mean uncertain
+        order[cand] = order[cand[0]]
+        dist[:] = 0.5
+        tie_margin = 1e9
+    if kind in ("tie", "near_tie") and w > 1:
+        top = int(np.argmax(dist))
+        other = (top + 1) % w
+        dist[other] = dist[top] if kind == "tie" else \
+            dist[top] * (1 - 0.5 * TIE_MARGIN)
+    return dict(order=order, cand=cand, s=s, dist=dist, alive=alive,
+                assign=assign, astep=astep, members=members, mem=mem,
+                cur_d=np.array([mem[0]], np.int64), cid=cid, stepc=n + 7,
+                mcnt=mcnt, edge=edge, tie_margin=tie_margin)
 
 
 def profile_path(torch_cli, path: str, argv):
@@ -289,18 +387,21 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from meshclust2_tpu_torch import cli as torch_cli
+    from meshclust2_tpu_torch.cluster import device_update
     from meshclust2_tpu_torch.cluster.engine import distance_d
     from meshclust2_tpu_torch.model.weights import load_weights
     from meshclust2_tpu_torch.ops import _build
-    from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
+    from meshclust2_tpu_torch.ops.closest_mean import (
+        closest_mean, closest_mean_ref, spreads)
     from meshclust2_tpu_torch.ops.pair_stats import (
         center_block_stats, pair_stats, pair_stats_ref)
     from meshclust2_tpu_torch.ops.window_absorb import (
-        window_absorb, window_absorb_ref)
+        StepState, step_scratch, window_step, window_step_ref)
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
 
     wrappers = {"pair_stats": pair_stats, "closest_mean": closest_mean,
-                "window_absorb": window_absorb}
+                "window_absorb": window_step}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -368,9 +469,9 @@ def main() -> int:
                f"cases (uint8/uint16, D in 16/256/1024/4096, center and pair "
                f"forms, ragged P)")
 
-    # (c2) closest_mean kernel = plain version (first and unc) = a numpy
+    # (c2) closest_mean kernel = plain version (first, unc) = a numpy
     # reference (distance_d over each segment's kept rows, first strict
-    # minimum) wherever unc is False
+    # minimum) wherever unc is False; ragged and skewed segments
     def closest_ref(counts, rows, seg, keep, n_segs):
         first = np.full(n_segs, len(rows), np.int64)
         for c in range(n_segs):
@@ -390,106 +491,107 @@ def main() -> int:
     for dtype in (np.uint8, np.uint16):
         for d in (16, 256, 1024, 4096):
             counts = rng.integers(0, np.iinfo(dtype).max + 1, (300, d)).astype(dtype)
-            rows, seg, keep = segments(rng, 300, 77, 20)
-            args = closest_args(counts, rows, seg, keep)
-            if dtype == np.uint8 and d == 256:
-                # a store that starts off a 16-byte boundary: the bin-wise path
-                raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
-                args[0] = raw[1:].view(300, d).copy_(args[0])
-            kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
-            first, unc = closest_mean(*args, 77, **kw)
-            torch.cuda.synchronize()
-            p_first, p_unc = closest_mean_ref(*args, 77, **kw)
-            want = closest_ref(counts, rows, seg, keep, 77)
-            f, u = first.cpu().numpy(), unc.cpu().numpy()
-            if not (torch.equal(first, p_first) and torch.equal(unc, p_unc)
-                    and np.array_equal(f[~u], want[~u])):
-                raise AssertionError(f"closest_mean differs: {dtype.__name__} D={d}")
-            cm_err = max(cm_err, int((first - p_first).abs().max()))
-            n_cases += 1
-            n_unc += int(u.sum())
-    phase("c2", f"closest_mean kernel == plain (first, unc) == numpy distance_d "
-                f"argmin in {n_cases} cases (uint8/uint16, D in 16/256/1024/4096, "
-                f"77 ragged segments with empty, one-row and duplicated rows, an "
-                f"unaligned store); {n_unc} segments uncertain")
-
-    # (c3) the one-segment mode = its plain version = the segmented kernel
-    # on the same rows as one segment = the numpy reference where certain
-    n_cases = n_unc = 0
-    for dtype in (np.uint8, np.uint16):
-        for d in (16, 256, 1024, 4096):
-            counts = rng.integers(0, np.iinfo(dtype).max + 1, (300, d)).astype(dtype)
-            for n_pairs in (1, 700, 20_000):
-                rows = rng.integers(0, 300, n_pairs).astype(np.int64)
-                rows[1::9] = rows[::9][:len(rows[1::9])]
-                keep = rng.random(n_pairs) < 0.9
-                keep[0] = True
-                seg = np.zeros(n_pairs, np.int64)
+            for layout in ("ragged", "skewed"):
+                if layout == "ragged":
+                    rows, seg, keep = segments(rng, 300, 77, 20)
+                else:
+                    rows, seg, keep = skewed_segments(rng, 300, 3_000, 77)
                 args = closest_args(counts, rows, seg, keep)
-                one = dict(col_sum=torch.from_numpy(
-                    counts[rows[keep]].astype(np.int64).sum(axis=0)).to(dev),
-                    count=torch.tensor([int(keep.sum())], device=dev))
+                if dtype == np.uint8 and d == 256:
+                    # a store off a 16-byte boundary: the bin-wise path
+                    raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
+                    args[0] = raw[1:].view(300, d).copy_(args[0])
                 kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
-                got = closest_mean(args[0], args[1], args[2], None, args[4], 1,
-                                   **kw, **one)
-                segd = closest_mean(*args, 1, **kw)
-                torch.cuda.synchronize()
-                plain = closest_mean_ref(args[0], args[1], args[2], None,
-                                         args[4], 1, **kw, **one)
-                u = bool(got[1].item())
-                if not all(torch.equal(g, s) and torch.equal(g, p)
-                           for g, s, p in zip(got, segd, plain)):
-                    raise AssertionError(f"closest_mean one-segment differs: "
-                                         f"{dtype.__name__} D={d} P={n_pairs}")
-                if not u and got[0].item() != closest_ref(counts, rows, seg,
-                                                          keep, 1)[0]:
-                    raise AssertionError(f"closest_mean one-segment != numpy: "
-                                         f"{dtype.__name__} D={d} P={n_pairs}")
-                cm_err = max(cm_err, int((got[0] - plain[0]).abs().max()))
-                n_cases += 1
-                n_unc += u
-    phase("c3", f"closest_mean one-segment kernel == plain == segmented kernel "
-                f"(first, unc) == numpy distance_d argmin in {n_cases} cases "
-                f"(uint8/uint16, D in 16/256/1024/4096, P in 1/700/20,000 with "
-                f"repeated and unkept rows); {n_unc} uncertain")
+                p_first, p_unc = closest_mean_ref(*args, 77, **kw)
+                want = closest_ref(counts, rows, seg, keep, 77)
+                for spread in (False, True):
+                    first, unc = closest_mean(*args, 77, **kw, spread=spread)
+                    torch.cuda.synchronize()
+                    f, u = first.cpu().numpy(), unc.cpu().numpy()
+                    if not (torch.equal(first, p_first) and torch.equal(unc, p_unc)
+                            and np.array_equal(f[~u], want[~u])):
+                        raise AssertionError(f"closest_mean differs: {dtype.__name__} "
+                                             f"D={d} {layout} spread={spread}")
+                    cm_err = max(cm_err, int((first - p_first).abs().max()))
+                    n_cases += 1
+                n_unc += int(u.sum())
+    phase("c2", f"closest_mean kernel == plain (first, unc) == numpy distance_d "
+                f"argmin in {n_cases} cases (both launches: one block a segment "
+                f"and balanced; uint8/uint16, D in 16/256/1024/4096, "
+                f"77 ragged segments with empty, one-row and duplicated rows, and "
+                f"77 skewed segments of 3,000 positions, 90 % in one, a few with "
+                f"nothing kept; an unaligned store); {n_unc} segments uncertain")
 
-    # (c4) window_absorb kernel = plain version bit for bit (pos, colsum,
-    # bits, npos, best) on ragged windows with exact ties, near ties and
-    # sums on the edge
+    # (c4) the step kernel = its plain version on every output (the trip,
+    # alive, assign, astep, members but the plain version's sink, msum)
+    def step_inputs(case, counts, moments):
+        """A step_case on the card: (args, kw) for window_step."""
+        c64 = counts.astype(np.int64)
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        counts_d = up(counts)
+        if counts.dtype == np.uint8 and counts.shape[1] == 256:
+            raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
+            counts_d = raw[1:].view(counts.shape).copy_(counts_d)  # off 16 bytes
+        store = DeviceStore(counts=counts_d,
+                            mags=up(c64.sum(axis=1).astype(np.float64)),
+                            selfdot=up((c64 * c64).sum(axis=1).astype(np.float64)),
+                            lens=moments[0], stddevs=moments[1],
+                            maxc=int(counts.max()))
+        order, cand = up(case["order"]), up(case["cand"])
+        cur_d = up(case["cur_d"])
+        center = order[cur_d].expand(len(cand)).contiguous()
+        stats = pair_stats(store.counts, order[cand], center)
+        state = StepState(up(case["alive"]), up(case["assign"]), up(case["astep"]),
+                          up(case["members"]),
+                          up(c64[case["order"][case["mem"]]].sum(axis=0)))
+        args = (store, order, cand, up(case["s"]), up(case["dist"]), stats, state,
+                cur_d)
+        kw = dict(cid=case["cid"], stepc=case["stepc"], mcnt=case["mcnt"],
+                  pos_edge=case["edge"], margin=MARGIN,
+                  tie_margin=case["tie_margin"])
+        return args, kw
+
+    def fresh(args):
+        """args with a copy of the state (the step updates it in place)."""
+        return args[:6] + (StepState(*(t.clone() for t in args[6])),) + args[7:]
+
+    def step_check(args, kw, what, scratch=None):
+        """Kernel and plain version on copies of the same state; their
+        largest difference over every output, or raise."""
+        got, plain = fresh(args), fresh(args)
+        trip = window_step(*got, **kw, scratch=scratch).clone()
+        torch.cuda.synchronize()
+        want = window_step_ref(*plain, **kw)
+        pairs = [("trip", trip, want)] + [
+            (name, g[:-1], w[:-1]) if name == "members" else (name, g, w)
+            for name, g, w in zip(StepState._fields, got[6], plain[6])]
+        for name, g, w in pairs:
+            if not torch.equal(g, w):
+                raise AssertionError(f"window_step differs in {name}: {what}")
+        return trip, max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                         for _, g, w in pairs)
+
     wa_err = 0
     n_cases = 0
-    bits_seen = Counter()
+    trips = Counter()
     for dtype in (np.uint8, np.uint16):
         for d in (16, 256, 1024, 4096):
-            n = 333
+            n = 3_000 if d <= 1024 else 600
             counts = rng.integers(0, np.iinfo(dtype).max + 1, (n, d)).astype(dtype)
-            c_d = torch.from_numpy(counts).to(dev)
-            moments = [torch.from_numpy(rng.integers(1, 30, n).astype(np.float64)).to(dev)
-                       for _ in range(4)]
-            for n_cand in (1, 63, 2_048, int(rng.integers(100, 3_000))):
-                edge = float(rng.normal(0.0, 1.0))
-                rows, s, dist = absorb_window(rng, n, n_cand, edge)
-                r_d = torch.from_numpy(rows).to(dev)
-                center = torch.full_like(r_d, int(rng.integers(0, n)))
-                stats = pair_stats(c_d, r_d, center)
-                args = [c_d, r_d, torch.from_numpy(s).to(dev),
-                        torch.from_numpy(dist).to(dev), stats, *moments]
-                kw = dict(pos_edge=edge, margin=MARGIN, tie_margin=TIE_MARGIN)
-                got = window_absorb(*args, **kw)
-                torch.cuda.synchronize()
-                plain = window_absorb_ref(*args, **kw)
-                if not all(torch.equal(g, p) for g, p in zip(got, plain)):
-                    raise AssertionError(f"window_absorb differs: {dtype.__name__} "
-                                         f"D={d} W={n_cand}")
-                wa_err = max(wa_err, int((got[1] - plain[1]).abs().max()),
-                             int((got[2] - plain[2]).abs().max()))
-                bits_seen[int(got[2][0])] += 1
+            moments = [torch.from_numpy(rng.random(n) * 30).to(dev) for _ in range(2)]
+            for step_kind in STEP_KINDS:
+                args, kw = step_inputs(step_case(rng, n, step_kind), counts, moments)
+                trip, err = step_check(args, kw, f"{dtype.__name__} D={d} {step_kind}")
+                wa_err = max(wa_err, err)
+                t = trip.tolist()
+                trips["bits %d" % t[0] if t[0] else
+                      ("min" if t[1] == 0 else "absorb, unc" if t[2] else "absorb")] += 1
                 n_cases += 1
-    phase("c4", f"window_absorb kernel == plain (pos, colsum, bits, npos, best) "
-                f"bit for bit in {n_cases} windows (uint8/uint16, D in "
-                f"16/256/1024/4096, W in 1/63/2,048/ragged, sums on and one ulp "
-                f"off the edge, exact and near dist ties); bits seen "
-                f"{dict(sorted(bits_seen.items()))}")
+    phase("c4", f"window_step kernel == plain (trip, alive, assign, astep, members, "
+                f"msum) bit for bit in {n_cases} steps (uint8/uint16, D in "
+                f"16/256/1024/4096, pools of 3,000 / 600, {'/'.join(STEP_KINDS)}, "
+                f"an unaligned store at D = 256); cases seen "
+                f"{dict(sorted(trips.items()))}")
 
     # (d) kernel vs plain version at the main path's shapes: a 10,000-row
     # uint8 store at D = 1,024 (k = 5), center form P = 2,048, pair form
@@ -524,95 +626,117 @@ def main() -> int:
                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
                    f"events), bound {b_ms:.4f} ms ({b_by}); {card}")
 
-    # (d2) closest_mean vs its plain version at the update phase's shape:
-    # the same store, P = 98,304 pairs (the largest update batch) in 1,000
-    # segments of uneven size
+    # (d2) closest_mean's two launches (one block a segment, balanced over
+    # the grid) against each other and the plain version on the same store:
+    # a sweep of equal segments, P = 98,304 uneven cuts, and one segment of
+    # 90 % (the update phase's own batches follow in (f3))
+    mags = store.sum(dim=1, dtype=torch.int64).to(torch.float64)
+    kw = dict(maxc=int(store.max()), tie_margin=TIE_MARGIN)
+
+    def closest_bound(args, n_segs):
+        """The kept rows read once with their mags, the row list, segment
+        ids and keep flags read, first and unc written; CLOSEST_OPS per
+        kept row and element, plus the mean."""
+        counts, rows_d, seg_d, keep_d = args[0], args[2], args[3], args[4]
+        kept = rows_d[keep_d]
+        d = counts.shape[1]
+        return bound_ms(torch_unique(kept) * (d * counts.element_size() + 8)
+                        + tbytes(rows_d, seg_d, keep_d) + 9 * n_segs,
+                        CLOSEST_OPS * len(kept) * d + 2 * d)
+
+    def closest_case(args, n_segs, what, timed=True, kw=kw):
+        """Both launches == the plain version on args, and each one's device
+        us; when timed, also the chosen launch's and the plain version's ms
+        and the bound."""
+        plain = closest_mean_ref(*args, n_segs, **kw)
+        for spread in (False, True):
+            got = closest_mean(*args, n_segs, **kw, spread=spread)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+                raise AssertionError(f"closest_mean differs ({what}, spread={spread})")
+        largest = int(torch.bincount(args[3], minlength=n_segs).max())
+        out = dict(largest=largest, spread=spreads(largest, len(args[2])))
+        for spread in (False, True):
+            out["spread_us" if spread else "block_us"] = device_us(
+                lambda: closest_mean(*args, n_segs, **kw, spread=spread))
+        if timed:
+            out["ms"] = cuda_ms(lambda: closest_mean(*args, n_segs, **kw,
+                                                     largest=largest), reps=50)
+            out["plain_ms"] = cuda_ms(lambda: closest_mean_ref(*args, n_segs, **kw),
+                                      reps=10)
+            out["bound_ms"], out["bound_by"] = closest_bound(args, n_segs)
+        return out
+
+    def closest_line(r):
+        timed = (f"; chosen launch {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+                 f"(median, CUDA events), bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']})") if "ms" in r else ""
+        return (f"largest segment {r['largest']}: device one block a segment "
+                f"{r['block_us']:.2f} us, balanced {r['spread_us']:.2f} us (CUDA "
+                f"events behind a busy wait); spreads() picks "
+                f"{'balanced' if r['spread'] else 'one block a segment'}{timed}; {card}")
+
+    def on_card(*arrays):
+        return [store, mags] + [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                for a in arrays]
+
+    for n_pairs in (24_576, 98_304):
+        for size in (64, 256, 1_024, 4_096, 16_384):
+            for frac in (0.1, 0.8):
+                seg = np.arange(n_pairs, dtype=np.int64) // size
+                r = closest_case(on_card(rng.integers(0, 10_000, n_pairs), seg,
+                                         rng.random(n_pairs) < frac),
+                                 int(seg[-1]) + 1, f"sweep {n_pairs} {size}",
+                                 timed=False)
+                phase("d2", f"closest_mean sweep P={n_pairs}, segments of {size}, "
+                            f"{int(frac * 100)} % kept, D=1024 uint8: {closest_line(r)}")
     n_pairs, n_segs = 98_304, 1_000
     cuts = np.sort(rng.integers(0, n_pairs + 1, n_segs - 1))
     seg = np.searchsorted(cuts, np.arange(n_pairs), side="right").astype(np.int64)
-    rows = rng.integers(0, 10_000, n_pairs)
-    keep = rng.random(n_pairs) < 0.8
-    mags = store.sum(dim=1, dtype=torch.int64).to(torch.float64)
-    cm_args = [store, mags] + [torch.from_numpy(a).to(dev) for a in (rows, seg, keep)]
-    kw = dict(maxc=int(store.max()), tie_margin=TIE_MARGIN)
-    got = closest_mean(*cm_args, n_segs, **kw)
-    plain = closest_mean_ref(*cm_args, n_segs, **kw)
-    torch.cuda.synchronize()
-    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
-        raise AssertionError("closest_mean differs at the main-path shape")
-    cm_k = cuda_ms(lambda: closest_mean(*cm_args, n_segs, **kw), reps=50)
-    cm_p = cuda_ms(lambda: closest_mean_ref(*cm_args, n_segs, **kw), reps=10)
+    cm_cut = closest_case(on_card(rng.integers(0, 10_000, n_pairs), seg,
+                                  rng.random(n_pairs) < 0.8), n_segs, "random cuts")
+    phase("d2", f"closest_mean P={n_pairs} C={n_segs} random cuts, 80 % kept, "
+                f"D=1024 uint8: {closest_line(cm_cut)}")
+    # the same P and C skewed: one segment of 90 % of the pairs
+    cm_skew = closest_case(on_card(*skewed_segments(rng, 10_000, n_pairs, n_segs)),
+                           n_segs, "skewed")
+    phase("d2", f"closest_mean skewed P={n_pairs} C={n_segs}, 80 % kept, D=1024 "
+                f"uint8: {closest_line(cm_skew)}")
 
-    def closest_bound(rows_d, keep_d, extra):
-        """The kept rows read once with their mags, the row list and keep
-        flags read, `extra` bytes more; CLOSEST_OPS per kept row and
-        element, plus the mean."""
-        kept = rows_d[keep_d]
-        uniq = torch_unique(kept)
-        d = store.shape[1]
-        return bound_ms(uniq * (d + 8) + tbytes(rows_d, keep_d) + extra,
-                        CLOSEST_OPS * len(kept) * d + 2 * d)
+    # (d3) the step kernel at the 10k accumulate shapes: a pool of the
+    # 10,000 rows of the same store, W = 1,571 (the mean window) and 2,048,
+    # 15 positives, an open cluster of 9 and of 2,000 members
+    store_np = store.cpu().numpy()
+    st_moments = [torch.from_numpy(rng.random(10_000) * 30).to(dev) for _ in range(2)]
+    # allocated once, as the accumulator does in ensure_ready
+    scratch = step_scratch(10_000, dev)
+    step_timing = {}
+    for w, mcnt in ((1_571, 9), (2_048, 9), (1_571, 2_000), (2_048, 2_000)):
+        case = step_case(rng, 10_000, "absorb", w=w, mcnt=mcnt, npos=15)
+        args, skw = step_inputs(case, store_np, st_moments)
+        trip, _ = step_check(args, skw, f"10k shape W={w} members={mcnt}", scratch)
+        if trip.tolist()[:2] != [0, 15]:
+            raise AssertionError(f"the timed step is no absorb of 15: {trip}")
+        run_args = fresh(args)
+        saved = StepState(*(t.clone() for t in run_args[6]))
 
-    cm_b, cm_by = closest_bound(cm_args[2], cm_args[4],
-                                tbytes(cm_args[3]) + 9 * n_segs)
-    phase("d2", f"closest_mean P={len(rows)} C={n_segs} D=1024 uint8: kernel "
-                f"{cm_k:.4f} ms, plain {cm_p:.4f} ms (median, CUDA events), "
-                f"bound {cm_b:.4f} ms ({cm_by}); {card}")
+        def restore():
+            for t, t0 in zip(run_args[6], saved):
+                t.copy_(t0)
 
-    # (d3) the one-segment mode at the accumulate loop's largest shape: one
-    # segment of 98,304 rows of the same store, 90 % kept; beside it the
-    # segmented kernel given the same rows as one segment
-    keep1 = torch.from_numpy(rng.random(n_pairs) < 0.9).to(dev)
-    rows1 = cm_args[2]
-    seg1 = torch.zeros(n_pairs, dtype=torch.int64, device=dev)
-    one = dict(col_sum=(store[rows1].to(torch.int64) * keep1[:, None]).sum(dim=0),
-               count=keep1.sum(dtype=torch.int64).view(1))
-    got = closest_mean(store, mags, rows1, None, keep1, 1, **kw, **one)
-    plain = closest_mean_ref(store, mags, rows1, None, keep1, 1, **kw, **one)
-    segd = closest_mean(store, mags, rows1, seg1, keep1, 1, **kw)
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, p) and torch.equal(g, s)
-               for g, p, s in zip(got, plain, segd)):
-        raise AssertionError("closest_mean one-segment differs at P = 98,304")
-    one_k = cuda_ms(lambda: closest_mean(store, mags, rows1, None, keep1, 1,
-                                         **kw, **one), reps=50)
-    one_p = cuda_ms(lambda: closest_mean_ref(store, mags, rows1, None, keep1, 1,
-                                             **kw, **one), reps=10)
-    one_s = cuda_ms(lambda: closest_mean(store, mags, rows1, seg1, keep1, 1, **kw),
-                    reps=10)
-    one_b, one_by = closest_bound(rows1, keep1, tbytes(one["col_sum"]) + 17)
-    phase("d3", f"closest_mean one segment P={n_pairs} D=1024 uint8: one-segment "
-                f"kernel {one_k:.4f} ms, plain {one_p:.4f} ms, segmented kernel "
-                f"{one_s:.4f} ms (median, CUDA events), bound {one_b:.4f} ms "
-                f"({one_by}); {card}")
-
-    # (d4) window_absorb at the accumulate scan's shape: W = 2,048
-    # candidates of the same store against one center, ~10 % positive
-    r_w = torch.arange(3_000, 5_048, device=dev)
-    st_w = pair_stats(store, r_w, torch.full_like(r_w, 4_000))
-    wa_args = [store, r_w,
-               torch.from_numpy(rng.normal(-2.5, 2.0, 2_048)).to(dev),
-               torch.from_numpy(rng.random(2_048)).to(dev), st_w, mags,
-               *(torch.from_numpy(rng.random(10_000)).to(dev) for _ in range(3))]
-    wa_kw = dict(pos_edge=0.0, margin=MARGIN, tie_margin=TIE_MARGIN)
-    got = window_absorb(*wa_args, **wa_kw)
-    plain = window_absorb_ref(*wa_args, **wa_kw)
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, p) for g, p in zip(got, plain)):
-        raise AssertionError("window_absorb differs at the main-path shape")
-    wa_k = cuda_ms(lambda: window_absorb(*wa_args, **wa_kw), reps=50)
-    wa_p = cuda_ms(lambda: window_absorb_ref(*wa_args, **wa_kw), reps=10)
-    # what this window needs: per candidate its row index, s, dist,
-    # statistics and four moments; the positives' rows for the column sums;
-    # the pos flags, column sums and info written; ~20 operations a
-    # candidate and one add per positive element
-    n_pos = int(got[2][1])
-    wa_b, wa_by = bound_ms(2_048 * (8 + 8 + 8 + 24 + 4 * 8 + 1)
-                           + n_pos * 1024 + 1024 * 8 + 24,
-                           20 * 2_048 + n_pos * 1024)
-    phase("d4", f"window_absorb W=2048 D=1024 uint8, {n_pos} positive: "
-                f"kernel {wa_k:.4f} ms, plain {wa_p:.4f} ms (median, CUDA "
-                f"events), bound {wa_b:.6f} ms ({wa_by}); {card}")
+        k_ms = cuda_ms(lambda: window_step(*run_args, **skw, scratch=scratch), reps=50,
+                       setup=restore)
+        p_ms = cuda_ms(lambda: window_step_ref(*run_args, **skw), reps=10,
+                       setup=restore)
+        dev_us = device_us(lambda: window_step(*run_args, **skw, scratch=scratch),
+                           setup=restore)
+        b_ms, b_by = step_bound(w, 15, mcnt + 15, 1024, 1)
+        step_timing[w, mcnt] = (k_ms, p_ms, b_ms, b_by, dev_us)
+        phase("d3", f"window_step W={w}, 15 positive, {mcnt} + 15 members, "
+                    f"D=1024 uint8, pool 10,000: kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms (median, CUDA events), device {dev_us:.2f} us "
+                    f"(CUDA events behind a busy wait), bound {b_ms:.6f} ms ({b_by}); "
+                    f"{card}")
 
     def check_launches(path, counted):
         need = {"default": KERNELS, "no_device_loop": ("pair_stats", "closest_mean"),
@@ -688,11 +812,22 @@ def main() -> int:
         ref_sig = signature(read_clstr(ref_path))
         argv = ["--device", "cuda", "--recover", weights, "--output", None, fasta]
         launches = {}
+        # the default path's update batches, kept for (f3)
+        batches = []
+
+        def recording(*args, **kwargs):
+            batches.append((args, kwargs))
+            return closest_mean(*args, **kwargs)
+
         for path in PATHS:
             argv[5] = os.path.join(tmp, f"bench10k_{path}.clstr")
             for fn in wrappers.values():
                 fn.launches = 0
-            res = run_path(torch_cli, path, argv)
+            device_update.closest_mean = recording if path == "default" else closest_mean
+            try:
+                res = run_path(torch_cli, path, argv)
+            finally:
+                device_update.closest_mean = closest_mean
             launches[path] = {name: fn.launches for name, fn in wrappers.items()}
             if res.rc != 0:
                 raise AssertionError(f"port CLI exited {res.rc} on the 10k "
@@ -722,6 +857,26 @@ def main() -> int:
                        f"launches {launches[path]}; {acc_line}; scorer pairs "
                        f"{res.scorer.scored_pairs}, re-checked "
                        f"{res.scorer.rechecked_pairs}; {upd}")
+
+        # (f3) closest_mean's two launches on the default path's own update
+        # batches (the warm-up's one pair left out): equal to the plain
+        # version, each launch's device time, the launch spreads() chose
+        real = []
+        for args, kwargs in batches:
+            if len(args[2]) > 1:
+                ckw = {k: kwargs[k] for k in ("maxc", "tie_margin")}
+                r = closest_case(list(args[:5]), args[5], "10k update batch",
+                                 timed=not real, kw=ckw)
+                r.update(P=len(args[2]), C=args[5], kept=int(args[4].sum()))
+                real.append(r)
+                phase("f3", f"10k update batch {len(real)}: P={r['P']} C={r['C']} "
+                            f"kept {r['kept']}, {closest_line(r)}")
+        if len(real) != 8 or any(r["spread"] for r in real):
+            raise AssertionError(f"the 10k update phase ran {len(real)} batches, "
+                                 f"spread {[r['spread'] for r in real]}")
+        phase("f3", f"10k update batches, sum of device time: one block a segment "
+                    f"{sum(r['block_us'] for r in real):.2f} us, balanced "
+                    f"{sum(r['spread_us'] for r in real):.2f} us; {card}")
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -853,21 +1008,27 @@ def main() -> int:
                 f"{m.group(0)} {by_name[name] / n_by_name[name]:.1f} us x "
                 f"{n_by_name[name]}"
                 for name in sorted(by_name) for m in [re.search(
-                    r"(pair_stats|closest_mean|closest_one_dist|closest_one_final"
-                    r"|window_absorb)_kernel(<[^>]*>)?", name)] if m)
+                    r"(pair_stats|closest_block|closest_spread|window_step)_kernel(<[^>]*>)?",
+                    name)] if m)
             top = "; ".join(f"{name[:48]} {us / 1e3:.1f} ms/{n_by_name[name]}"
                             for name, us in by_name.most_common(6))
             steps = res.accumulator.total_steps if res.accumulator else 0
+            events = sum(n_by_name.values())
+            per_step = f", {events / steps:.1f} a step" if steps else ""
             phase("h", f"torch.profiler, {path}, 10k: device busy {busy:.4f} s of "
                        f"a {wall:.3f} s profiled engine.run ({100 * busy / wall:.1f} "
-                       f"% busy), {sum(n_by_name.values())} device events "
-                       f"({steps} accumulator steps); the port's kernels (device "
-                       f"time per launch): {ours}; top: {top}")
+                       f"% busy), {events} device events ({steps} accumulator "
+                       f"steps{per_step}); the port's kernels (device time per "
+                       f"launch): {ours}; top: {top}; {card}")
 
     if any(m == "jax" or m.startswith(("jax.", "meshclust2_tpu."))
            or m == "meshclust2_tpu" for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     k_ms, p_ms, b_ms, b_by = timing["pair"]
+    # closest_mean at the main path's shape: the 10k update phase's largest
+    # batch, one block a segment as spreads() chose (f3)
+    cm_real = real[0]
+    ws_k, ws_p, ws_b, ws_by, ws_dev = step_timing[1_571, 9]
     # launches: this slice's main path (training, then clustering with the
     # trained model); library_ms: no PyTorch call computes any of these
     # functions (PERF.md)
@@ -887,29 +1048,34 @@ def main() -> int:
         "name": "closest_mean",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
-        "replaces": "meshclust2_tpu/cluster/device_loop.py:1223",
+        "replaces": "meshclust2_tpu/cluster/device_update.py:290",
         "launches": launches["train"]["closest_mean"],
         "max_abs_err": cm_err,
-        "ms": one_k,
-        "plain_ms": one_p,
-        "bound_ms": one_b,
-        "bound_by": one_by,
+        "ms": cm_real["ms"],
+        "plain_ms": cm_real["plain_ms"],
+        "bound_ms": cm_real["bound_ms"],
+        "bound_by": cm_real["bound_by"],
         "library_ms": None,
-        "segmented_ms": cm_k,
-        "segmented_plain_ms": cm_p,
-        "segmented_bound_ms": cm_b,
+        "device_us": cm_real["block_us"],
+        "spread_device_us": cm_real["spread_us"],
+        "skewed_ms": cm_skew["ms"],
+        "skewed_device_us": cm_skew["spread_us"],
+        "skewed_block_device_us": cm_skew["block_us"],
+        "skewed_bound_ms": cm_skew["bound_ms"],
     }, {
         "name": "window_absorb",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/window_absorb.cu",
-        "replaces": "meshclust2_tpu/cluster/device_loop.py:1074",
+        "replaces": "meshclust2_tpu/cluster/device_loop.py:1074, "
+                    "meshclust2_tpu/cluster/device_loop.py:1223",
         "launches": launches["train"]["window_absorb"],
         "max_abs_err": wa_err,
-        "ms": wa_k,
-        "plain_ms": wa_p,
-        "bound_ms": wa_b,
-        "bound_by": wa_by,
+        "ms": ws_k,
+        "plain_ms": ws_p,
+        "bound_ms": ws_b,
+        "bound_by": ws_by,
         "library_ms": None,
+        "device_us": ws_dev,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

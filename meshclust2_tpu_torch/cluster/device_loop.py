@@ -7,11 +7,12 @@ dispatch, because its chip sits behind a slow link; on a locally attached
 card the loop stays in Python and the state stays on the card: the pool's
 alive flags, every row's cluster and absorb stamp, the open cluster's
 member list and column sums, the current center.  Each step launches the
-window bounds, the scan (the pair-statistics kernel, the float64 epilogue,
-the window-absorb kernel), the closest-to-mean kernel and the state
-updates, and reads back one small packed vector: the step's decision and
-the next window's size.  The step's cases are applied on the card under
-their decision flags, so the host learns the case only at that one read.
+window bounds, the pair-statistics kernel and the float64 epilogue, then
+one step kernel (ops/window_absorb.py:window_step) that decides the
+window, applies its case to the state under the decision flags and moves
+the center to the member closest to the mean; the host reads back one
+small packed vector: the step's decision and the next window's size, so
+it learns the case only at that one read.
 
 The host half of the JAX accumulator is copied here, none of it device
 code: the margins (`resolve_margins`), the exact-integer envelope
@@ -43,10 +44,9 @@ import torch
 from ..kmer.counting import PointSet
 from ..model import thresholds as TH
 from ..model.classifier import CompiledModel, model_to_torch
-from ..ops.closest_mean import closest_mean
 from ..ops.device_features import check_fused, pair_decision
 from ..ops.pair_stats import pair_stats
-from ..ops.window_absorb import window_absorb
+from ..ops.window_absorb import StepState, _rows_i64, step_scratch, window_step
 from .bvec import BVec
 
 
@@ -138,14 +138,6 @@ def _index_of_vec(bounds: np.ndarray, x: np.ndarray) -> Tuple[np.ndarray, np.nda
 # bin << _KEY_SHIFT | length turns the in-bin lower bound into one
 # searchsorted over all rows
 _KEY_SHIFT = 40
-
-
-def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """counts[idx] as int64 (CUDA has no uint16 gather: the same bits as
-    int16, masked)."""
-    src, mask = ((counts.view(torch.int16), 0xFFFF)
-                 if counts.dtype == torch.uint16 else (counts, 0xFF))
-    return src[idx].to(torch.int64) & mask
 
 
 class TorchDeviceAccumulator:
@@ -391,31 +383,38 @@ class TorchDeviceAccumulator:
         self._crank0 = torch.zeros(n + 1, dtype=torch.int64, device=d)
         # compacted window: flat positions of the candidates, slot n a sink
         self._cand = torch.zeros(n + 1, dtype=torch.int64, device=d)
+        self._scratch = step_scratch(n, d)   # the step kernel's, once
         self._ready = (host, dev)
         self._warm()
         self.total_steps = self.aborts = 0
         self.error = None
 
     def _warm(self) -> None:
+        """One step of each kernel on a throwaway one-row pool."""
         st = self.store
-        z = torch.zeros(1, dtype=torch.int64, device=self.device)
-        stats = pair_stats(st.counts, z, z)
-        s, _, dist = pair_decision(st, self.params, self.model.singles, z, z,
-                                   stats=stats)
-        self._absorb(z, s, dist, stats)
-        closest_mean(st.counts, st.mags, z, None,
-                     torch.ones(1, dtype=torch.bool, device=self.device), 1,
-                     maxc=st.maxc, tie_margin=self.tie_margin,
-                     col_sum=_rows_i64(st.counts, z)[0], count=z + 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        dev = self.device
+        order = self._s["order"][:1]
+        if not len(order):
+            return
+        z = torch.zeros(1, dtype=torch.int64, device=dev)
+        rows = order[z]
+        stats = pair_stats(st.counts, rows, rows)
+        s, _, dist = pair_decision(st, self.params, self.model.singles, rows,
+                                   rows, stats=stats)
+        state = StepState(torch.ones(1, dtype=torch.bool, device=dev), z - 1,
+                          z.clone(), torch.zeros(2, dtype=torch.int64, device=dev),
+                          torch.zeros(st.counts.shape[1], dtype=torch.int64,
+                                      device=dev))
+        self._step(order, z, s, dist, stats, state, z, 0, 1, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
-    def _absorb(self, rows, s, dist, stats):
-        st = self.store
-        return window_absorb(st.counts, rows, s, dist, stats, st.mags,
-                             st.selfdot, st.lens, st.stddevs,
-                             pos_edge=self.pos_edge, margin=self.margin,
-                             tie_margin=self.tie_margin)
+    def _step(self, order, cand, s, dist, stats, state, cur_d, cid, stepc,
+              mcnt) -> torch.Tensor:
+        return window_step(self.store, order, cand, s, dist, stats, state,
+                           cur_d, cid=cid, stepc=stepc, mcnt=mcnt,
+                           pos_edge=self.pos_edge, margin=self.margin,
+                           tie_margin=self.tie_margin, scratch=self._scratch)
 
     # -- the loop ----------------------------------------------------------------
 
@@ -475,13 +474,14 @@ class TorchDeviceAccumulator:
                     done = True
                     break
                 cur_d = (torch.searchsorted(self._crank0, 1) - 1).view(1)
-                self._seed(cur_d, None, cid + 1, stepc)
+                self._seed(cur_d, cid + 1, stepc)
                 cid += 1
                 stepc += 1
                 mcnt = 1
                 _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
                 continue
-            trip, cur_next = self._scan(n_cand, cur_d, cid, stepc, mcnt)
+            trip = self._scan(n_cand, cur_d, cid, stepc, mcnt)
+            cur_next = trip[3:]
             bits, npos, unc, cur_n, n_cand, have, total = \
                 self._window(cur_next, trip)
             if bits:
@@ -514,8 +514,8 @@ class TorchDeviceAccumulator:
                 ) -> Tuple[int, ...]:
         """The candidates of the window of flat position cur_d into
         `_cand[:W]`, then the step's one read: (bits, npos, closest-to-mean
-        uncertain) from `trip` (zeros without), cur, W, whether the window
-        exists, and the pool's size.
+        uncertain) from the step's `trip` (zeros without), cur, W, whether
+        the window exists, and the pool's size.
 
         device_loop.py:_build_program.body (l. 1358-1405): ranks from the
         alive cumsum; the bvec's in-bin lower bound with `high` starting at
@@ -555,23 +555,23 @@ class TorchDeviceAccumulator:
         have = (total > 0) & (gf[1:] > gf[:1])
         if trip is None:
             trip = torch.zeros(3, dtype=torch.int64, device=self.device)
-        return tuple(torch.cat([trip, cur_d, csum[-1:], have.to(torch.int64),
+        return tuple(torch.cat([trip[:3], cur_d, csum[-1:], have.to(torch.int64),
                                 total]).tolist())
 
     def _scan(self, n_cand: int, cur_d: torch.Tensor, cid: int, stepc: int,
-              mcnt: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One step over the n_cand candidates in `_cand`: the scan, then
-        both of its cases applied under the decision flags, so that an
-        abort changes nothing, a window without positives closes the
-        cluster (`_seed`), and one with positives absorbs them and moves to
-        the member closest to the mean.  Returns ((bits, npos, closest
-        uncertain), the next center), on the card.
+              mcnt: int) -> torch.Tensor:
+        """One step over the n_cand candidates in `_cand`: the pair
+        statistics and the epilogue, then the step kernel, which applies
+        both cases under the decision flags (an abort changes nothing, a
+        window without positives closes the cluster and seeds the next,
+        one with positives absorbs them and moves to the member closest to
+        the mean).  Returns the trip (bits, npos, closest uncertain, next
+        center), on the card.
 
         device_loop.py:_build_program.body (l. 1407-1466) with
         scan_window (l. 1007-1221) and closest_to_mean (l. 1223-1355)."""
         S = self._s
         st = self.store
-        n = len(S["order"])
         cand = self._cand[:n_cand]
         rows = S["order"][cand]
         center = S["order"][cur_d].expand(n_cand).contiguous()
@@ -579,53 +579,16 @@ class TorchDeviceAccumulator:
         stats = pair_stats(st.counts, rows, center)
         s, _, dist = pair_decision(st, self.params, self.model.singles, rows,
                                    center, stats=stats)
-        pos, colsum, info = self._absorb(rows, s, dist, stats)
-        bits, npos, best = info[0:1], info[1:2], info[2:3]
-        ok = bits == 0
-        absorb = ok & (npos > 0)
-        is_min = ok & (npos == 0)
+        state = StepState(self._alive, self._assign, self._astep,
+                          self._members, self._msum)
+        return self._step(S["order"], cand, s, dist, stats, state, cur_d, cid,
+                          stepc, mcnt)
 
-        # absorb: the positives join cluster cid at stamp stepc and are
-        # appended to the member list in flat order.  Candidates are alive,
-        # and alive rows are unassigned with stamp 0 (_fresh_carry,
-        # make_carry), so the else-values need no gather.
-        pa = pos & absorb
-        self._alive[cand] = ~pa
-        self._assign[cand] = torch.where(pa, cid, -1)
-        self._astep[cand] = torch.where(pa, stepc, 0)
-        slot = torch.cumsum(pa, 0, dtype=torch.int64) + (mcnt - 1)
-        self._members.scatter_(0, torch.where(pa, slot, n), cand)
-        msum = self._msum + colsum
-        size = mcnt + n_cand
-        count = npos + mcnt
-        first, unc = closest_mean(
-            st.counts, st.mags, S["order"][self._members[:size]], None,
-            S["arange"][:size] < count, 1, maxc=st.maxc,
-            tie_margin=self.tie_margin, col_sum=msum, count=count)
-        seed = cand[best.clamp(max=n_cand - 1)]
-        cur_next = torch.where(
-            absorb & ~unc, self._members[first.clamp(max=n)],
-            torch.where(is_min, seed, cur_d))
-        self._msum.copy_(torch.where(absorb, msum, self._msum))
-        self._seed(seed, is_min, cid + 1, stepc)
-        return torch.cat([bits, npos, unc.to(torch.int64)]), cur_next
-
-    def _seed(self, seed: torch.Tensor, gate: Optional[torch.Tensor],
-              cid: int, stepc: int) -> None:
-        """The min case's seed: flat position `seed` leaves the pool and
-        opens cluster cid at stamp stepc, alone in the member list.  With a
-        bool [1] `gate`, only where it holds."""
-        st = self.store
-        row = _rows_i64(st.counts, self._s["order"][seed])[0]
-        if gate is None:
-            self._alive[seed] = False
-            self._assign[seed] = cid
-            self._astep[seed] = stepc
-            self._members[:1] = seed
-            self._msum.copy_(row)
-            return
-        self._alive[seed] = self._alive[seed] & ~gate
-        self._assign[seed] = torch.where(gate, cid, self._assign[seed])
-        self._astep[seed] = torch.where(gate, stepc, self._astep[seed])
-        self._members[:1] = torch.where(gate, seed, self._members[:1])
-        self._msum.copy_(torch.where(gate, row, self._msum))
+    def _seed(self, seed: torch.Tensor, cid: int, stepc: int) -> None:
+        """A step without candidates: flat position `seed` leaves the pool
+        and opens cluster cid at stamp stepc, alone in the member list."""
+        self._alive[seed] = False
+        self._assign[seed] = cid
+        self._astep[seed] = stepc
+        self._members[:1] = seed
+        self._msum.copy_(_rows_i64(self.store.counts, self._s["order"][seed])[0])

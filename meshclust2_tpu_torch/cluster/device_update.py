@@ -144,7 +144,8 @@ class TorchDeviceUpdater:
         inb, unc = self._band(s, self.band0)
         keep = ~inb
         first, cunc = closest_mean(st.counts, st.mags, b, sg, keep, C,
-                                   maxc=st.maxc, tie_margin=self.tie_margin)
+                                   maxc=st.maxc, tie_margin=self.tie_margin,
+                                   largest=int(np.bincount(seg).max()))
         buf = torch.cat([first.view(torch.uint8), keep.view(torch.uint8),
                          unc.view(torch.uint8), cunc.view(torch.uint8)]
                         ).cpu().numpy()

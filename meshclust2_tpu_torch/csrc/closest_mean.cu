@@ -6,8 +6,8 @@
 //   n      = number of kept rows,  num_d = sum of their counts in bin d;
 //   r_d    = floor((2 num_d + n) / (2 n))      the round-half-up mean;
 //   sfloor = sum_d floor(num_d / n);
-//   guard  = a float64 rounding corner in some bin (g1-g3 below): the host's
-//            double-valued mean could round or truncate differently there;
+//   guard  = a float64 rounding corner in some bin (g1-g3, coop.cuh): the
+//            host's double-valued mean could round or truncate differently;
 //   per kept row: dist2 = 2 sum_d min(h_d, r_d),  mag = mags[row] + sfloor,
 //            v = 10000 (1 - (dist2 / mag)^2)    (engine.distance_d);
 //   first[c] = the first position p of the minimum v (P when no row is kept);
@@ -15,51 +15,126 @@
 //              minimum but whose (dist2, mag) differ from the first's.
 // Where unc[c] is 0, first[c] is exactly the host's argmin: dist2 and mag are
 // exact integers equal to the host's, and v is formed with explicitly rounded
-// float64 operations (__ddiv_rn, __dmul_rn, __dsub_rn), so nvcc's default
-// -fmad=true cannot contract 1 - frac^2 into an FMA.
+// float64 operations (coop.cuh:distance_v).
 //
 // Replaces meshclust2_tpu/cluster/device_update.py:DeviceUpdater._closest_core
 // (l. 290-364), an XLA program jitted for the TPU: segment_sum of a gathered
-// [P, D] int32 block, then segment_min over double-float32 values.  The same
-// computation is device_loop.py:_build_program.closest_to_mean (_mc_heavy).
+// [P, D] int32 block, then segment_min over double-float32 values.
 //
 // What bounds it on an H100: it reads every kept row twice (column sums,
-// then the per-row distance), 2 P D sizeof(T) bytes (200 MB at P = 98,304,
-// D = 1,024 uint8), mostly from L2 since a 10,000-row store is 10 MB, and
-// does a few integer operations per byte.  The design:
-//   - one block of 256 threads per segment; two binary searches over seg
-//     give the block its rows, so no host-side offsets are needed;
-//   - column sums: each thread owns 4-byte words of the row (4 uint8 or 2
-//     uint16 bins) and keeps their sums in registers while it walks the
-//     segment's rows; no atomics, the row loads are coalesced;
-//   - the guards and the mean per bin in 64-bit integers, reduced over the
-//     block; the mean r is stored in shared memory in the row's own type
-//     (r <= max count), so the distance pass reads both operands as 16-byte
-//     vectors without bank conflicts;
-//   - the distance pass: one warp per kept row, shuffle reductions, lane 0
-//     writes v, dist2 and mag to scratch; a block argmin (first minimum) and
-//     one more sweep over the scratch for the tie guard.
-// A segment far larger than the rest sets the kernel's tail (one block each);
-// balancing that is later work, as are TMA and wgmma.
+// then the per-row distance), 2 K D sizeof(T) bytes for K kept rows at
+// random rows, and does ~5-10 integer operations a 4-byte word on each
+// pass.  The update phase's batches keep few of their positions (the 10k
+// bench set: ~96,000 positions, ~10,000 kept, in ~800-1,150 segments of at
+// most 550 positions and 50 kept rows), so the positions' keep flags and
+// row indices cost as much as the rows.  Two launches, chosen by the caller
+// from the largest segment's size (ops/closest_mean.py), compute the same
+// results bit for bit:
 //
-// The one-segment mode below (mc2_closest_mean_one_*) is the accumulate
-// loop's closest-to-mean, the port of device_loop.py:_build_program.
-// closest_to_mean / _mc_heavy (l. 1223-1355): the caller keeps the column
-// sums, and the distance pass spreads over many blocks.
+// One block per segment (closest_block_kernel), for segments that one
+// block covers in time (every batch of the update phase so far):
+//   - two binary searches over seg give the block its positions;
+//   - per chunk of 256 positions, the kept rows are listed in shared memory
+//     by a ballot scan; each thread sums its 4-byte words of them, eight
+//     rows' loads in flight (uint8 as two 16-bit lanes a word), into the
+//     segment's int64 column sums in shared memory: no atomics;
+//   - the mean, sfloor and guards per bin; the mean in shared memory in the
+//     row's own type;
+//   - the chunks listed again: one warp per kept row, DPX per-halfword
+//     minima against the mean, v, dist2 and mag to scratch; the block's
+//     first minimum; one sweep over the segment for the tie guard.
+// A segment far larger than the rest sets this launch's tail.
 //
-// Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: each
-// entry point launches on the given stream, allocates nothing, does not
-// synchronise and returns cudaGetLastError().
+// Balanced over the grid (closest_spread_kernel), for a segment too large
+// for one block: one cooperative launch (coop.cuh), phases separated by
+// grid-wide barriers:
+//   0. every segment's count and minimum slots initialised, and the int64
+//      column sums of the segments that span tiles of 256 positions zeroed
+//      (once each, at their first tile boundary);
+//   1. blocks take tiles: the tile's kept rows and its runs of one segment
+//      are listed in shared memory by ballot scans; per run each thread
+//      sums a 4-byte word of the run's rows, eight rows' loads in flight,
+//      uint8 bins as two 16-bit lanes a word (SWAR), then stores the sums
+//      into the [C, D] int64 scratch, or adds them with integer atomics
+//      where the segment spans tiles (the order of addition cannot matter);
+//   2. per segment (strided over blocks): the mean into a [C, D] scratch in
+//      the row's own type, sfloor and the guards, the divisions by the count
+//      through its float64 reciprocal and one exact integer step;
+//   3. distances: a warp loads 32 positions' indices at once, then takes
+//      their kept rows four at a time, eight lanes a row; the per-bin
+//      minimum is Hopper's DPX __vimin3_u16x2 on 16-bit lanes; dist2, mag
+//      and v go to scratch, and each warp's minimum v per segment into an
+//      atomicMin of v's order-preserving key;
+//   4. per kept row: v equal to the segment's minimum -> atomicMin of its
+//      position (the first minimum); v within the tie margin -> atomicMin
+//      and atomicMax of its (dist2 << 32 | mag) key.  Some near row differs
+//      from the first's integers iff the two keys differ (the first is near;
+//      dist2 and mag are below 2^32 inside the envelope, mags < 2^24);
+//   5. the last block to finish (a count in the scratch) writes unc.
+// Minimum and position are exact whatever the order, so both launches give
+// the same results.
+//
+// Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: the
+// entry points launch on the given stream, allocate nothing, do not
+// synchronise and return the launch's error.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "coop.cuh"
 
 namespace {
 
-constexpr int kWarpSize = 32;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / kWarpSize;
-constexpr unsigned kFullMask = 0xffffffffu;
+using namespace mc2;
+
+constexpr int kTile = kThreads;  // positions a tile, one a thread
+constexpr int kBatch = 8;        // rows a thread loads at once (column sums)
+constexpr int kGroup = 8;        // lanes a row (distances): four rows a warp
+
+// int64 offsets of the scratch's arrays
+struct Layout {
+  long long num, cnt, sfloor, guard, vkey, kmin, kmax, done, v, d2, mag, mean, total;
+};
+
+__host__ __device__ inline Layout layout(int d, long long P, long long C, int elem) {
+  Layout L;
+  long long o = 0;
+  L.num = o;     o += C * d;
+  L.cnt = o;     o += C;
+  L.sfloor = o;  o += C;
+  L.guard = o;   o += C;
+  L.vkey = o;    o += C;
+  L.kmin = o;    o += C;
+  L.kmax = o;    o += C;
+  L.done = o;    o += 1;
+  L.v = o;       o += P;
+  L.d2 = o;      o += P;
+  L.mag = o;     o += P;
+  o = (o + 1) & ~1LL;  // the mean's rows start on 16-byte boundaries
+  L.mean = o;    o += (C * d * elem + 7) / 8;
+  L.total = o;
+  return L;
+}
+
+struct SegArgs {
+  const void* counts;
+  int d;
+  const double* mags;
+  const long long* rows;
+  const long long* seg;
+  const unsigned char* keep;
+  long long n_pairs;
+  long long n_segs;
+  long long maxc;
+  double tie_margin;
+  long long* scratch;
+  long long* first;
+  unsigned char* unc;
+};
+
+// int64 words of scratch: v, dist2 and mag per position for one block per
+// segment, the Layout for the balanced launch
+__host__ __device__ inline long long scratch_words(int d, long long P, long long C,
+                                                   int elem, bool spread) {
+  return spread ? layout(d, P, C, elem).total : 3 * P;
+}
 
 __device__ __forceinline__ long long lower_bound(const long long* __restrict__ seg,
                                                  long long n, long long key) {
@@ -75,506 +150,491 @@ __device__ __forceinline__ long long lower_bound(const long long* __restrict__ s
   return lo;
 }
 
-__device__ __forceinline__ long long warp_sum(long long x) {
-#pragma unroll
-  for (int o = kWarpSize / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
-
-// Sum over the block; every thread gets the total.  buf holds kWarps values.
-__device__ __forceinline__ long long block_sum(long long x, long long* buf) {
-  x = warp_sum(x);
-  __syncthreads();  // buf may still be read from a previous call
-  if ((threadIdx.x & (kWarpSize - 1)) == 0) buf[threadIdx.x / kWarpSize] = x;
-  __syncthreads();
-  long long t = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) t += buf[w];
-  return t;
-}
-
-// sum_e min(x_e, y_e) over the bins packed in one 32-bit word.
-template <typename T>
-__device__ __forceinline__ unsigned min_sum_word(unsigned x, unsigned y) {
-  constexpr int kBits = 8 * sizeof(T);
-  constexpr unsigned kMask = (1u << kBits) - 1u;
-  unsigned s = 0;
-#pragma unroll
-  for (int k = 0; k < 4 / static_cast<int>(sizeof(T)); ++k) {
-    s += min((x >> (k * kBits)) & kMask, (y >> (k * kBits)) & kMask);
-  }
-  return s;
-}
-
-// VEC: every row starts on a 16-byte boundary (base aligned, D sizeof(T) a
-// multiple of 16): 4-byte words for the column sums, 16-byte vectors for the
-// distance pass.  Otherwise both passes read single bins.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-closest_mean_kernel(const T* __restrict__ counts, int d,
-                    const double* __restrict__ mags,
-                    const long long* __restrict__ rows,
-                    const long long* __restrict__ seg,
-                    const unsigned char* __restrict__ keep, long long n_pairs,
-                    long long maxc, double tie_margin,
-                    double* __restrict__ v_out, long long* __restrict__ d2_out,
-                    long long* __restrict__ mag_out,
-                    long long* __restrict__ first_out,
-                    unsigned char* __restrict__ unc_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  long long* num_s = reinterpret_cast<long long*>(smem);  // [d] column sums
-  T* r_s = reinterpret_cast<T*>(smem + sizeof(long long) * d);  // [d] mean
-  __shared__ long long red[kWarps];
-  __shared__ double best_v_s[kWarps];
-  __shared__ long long best_p_s[kWarps];
-  __shared__ long long bounds[2];
-
-  const long long c = blockIdx.x;
+// List the kept positions among [base, base + kTile) of [lo, hi) in shared
+// memory, in order: their store rows in t_row and, when t_pos is given,
+// their positions.  Returns how many (the same in every thread).
+__device__ __forceinline__ int list_kept(const SegArgs& a, long long base, long long hi,
+                                         long long* t_row, long long* t_pos, int* wk) {
   const int lane = threadIdx.x & (kWarpSize - 1);
   const int warp = threadIdx.x / kWarpSize;
-  if (threadIdx.x == 0) bounds[0] = lower_bound(seg, n_pairs, c);
-  if (threadIdx.x == 1) bounds[1] = lower_bound(seg, n_pairs, c + 1);
+  const long long p = base + threadIdx.x;
+  const bool kept = p < hi && a.keep[p];
+  const unsigned bk = __ballot_sync(kFullMask, kept);
+  __syncthreads();  // the previous chunk's lists are read no more
+  if (lane == 0) wk[warp] = __popc(bk);
+  __syncthreads();
+  int ki = __popc(bk & ((1u << lane) - 1u)), nk = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) ki += wk[w];
+    nk += wk[w];
+  }
+  if (kept) {
+    t_row[ki] = a.rows[p];
+    if (t_pos) t_pos[ki] = p;
+  }
+  __syncthreads();
+  return nk;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) closest_block_kernel(const SegArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* num_s = reinterpret_cast<long long*>(smem);        // [d] column sums
+  T* r_s = reinterpret_cast<T*>(smem + sizeof(long long) * a.d);  // [d] the mean
+  __shared__ long long red[kWarps];
+  __shared__ double red_v[kWarps];
+  __shared__ long long red_p[kWarps];
+  __shared__ long long t_row[kTile];  // a chunk's kept rows, in order
+  __shared__ long long t_pos[kTile];  // and their positions
+  __shared__ int wk[kWarps];
+  __shared__ long long bounds[2];
+
+  const T* counts = static_cast<const T*>(a.counts);
+  const int d = a.d;
+  const int lane = threadIdx.x & (kWarpSize - 1);
+  const int warp = threadIdx.x / kWarpSize;
+  const long long c = blockIdx.x;
+  const long long P = a.n_pairs;
+  double* v_out = reinterpret_cast<double*>(a.scratch);
+  long long* d2_out = a.scratch + P;
+  long long* mag_out = a.scratch + 2 * P;
+  if (threadIdx.x == 0) bounds[0] = lower_bound(a.seg, P, c);
+  if (threadIdx.x == 1) bounds[1] = lower_bound(a.seg, P, c + 1);
+  for (int e = threadIdx.x; e < d; e += kThreads) num_s[e] = 0;
   __syncthreads();
   const long long lo = bounds[0];
   const long long hi = bounds[1];
 
-  // 1. kept-row count and column sums
+  // 1. per chunk: the kept rows listed, each thread adds its words of them
+  // (a thread owns its words across chunks, so no atomics)
   long long cnt = 0;
-  for (long long p = lo + threadIdx.x; p < hi; p += kThreads) cnt += keep[p];
-  cnt = block_sum(cnt, red);
-  if (VEC) {
-    constexpr int kPer = 4 / sizeof(T);
-    constexpr int kBits = 8 * sizeof(T);
-    constexpr unsigned kMask = (1u << kBits) - 1u;
-    const int words = d / kPer;
-    for (int w = threadIdx.x; w < words; w += kThreads) {
-      long long acc[kPer] = {};
-#pragma unroll 4
-      for (long long p = lo; p < hi; ++p) {
-        const unsigned* row = reinterpret_cast<const unsigned*>(counts + rows[p] * d);
-        const unsigned x = keep[p] ? __ldg(row + w) : 0u;
+  for (long long base = lo; base < hi; base += kTile) {
+    const int nk = list_kept(a, base, hi, t_row, nullptr, wk);
+    cnt += nk;
+    if (VEC) {
+      constexpr int kPer = 4 / sizeof(T);
+      const int words = d / kPer;
+      for (int w = threadIdx.x; w < words; w += kThreads) {
+        unsigned acc[kPer] = {}, acc16[2] = {};  // <= 256 rows: both fit
+        for (int k = 0; k < nk; k += kBatch) {   // kBatch loads in flight
+          unsigned x[kBatch];
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) acc[k] += (x >> (k * kBits)) & kMask;
-      }
+          for (int u = 0; u < kBatch; ++u) {
+            x[u] = k + u < nk ? __ldg(reinterpret_cast<const unsigned*>(
+                                          counts + t_row[k + u] * d) + w)
+                              : 0u;
+          }
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) num_s[w * kPer + k] = acc[k];
-    }
-  } else {
-    for (int e = threadIdx.x; e < d; e += kThreads) {
-      long long acc = 0;
-      for (long long p = lo; p < hi; ++p) {
-        if (keep[p]) acc += counts[rows[p] * d + e];
+          for (int u = 0; u < kBatch; ++u) add_word<T>(x[u], acc, acc16);
+        }
+        fold16<T>(acc, acc16);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) num_s[w * kPer + j] += acc[j];
       }
-      num_s[e] = acc;
+    } else {
+      for (int e = threadIdx.x; e < d; e += kThreads) {
+        unsigned acc = 0;
+        for (int k = 0; k < nk; ++k) acc += counts[t_row[k] * d + e];
+        num_s[e] += acc;
+      }
     }
   }
-  __syncthreads();
 
-  // 2. the integer mean, sum of floors and rounding-corner guards per bin
-  // (device_update.py:314-331).  For integer rem and real t, rem <= t iff
-  // rem <= floor(t), so comparing against the floored shifts is exact.
+  __syncthreads();  // every word's sums complete
+
+  // 2. the mean, sfloor and the guards
   const long long den = cnt > 0 ? cnt : 1;
+  const double inv = 1.0 / static_cast<double>(den);
   long long sfloor = 0;
   int guard = 0;
   for (int e = threadIdx.x; e < d; e += kThreads) {
-    const long long num = num_s[e];
-    const long long q = num / den;
-    const long long rem = num - q * den;
-    sfloor += q;
-    const long long half = 2 * rem - den;
-    const long long half_abs = half < 0 ? -half : half;
-    const bool g1 = half_abs != 0 && half_abs <= (((q + 2) * den) >> 51);
-    const bool g2 = rem != 0 && rem <= (((q + 2) * den) >> 52);
-    const bool g3 = rem != 0 && (den - rem) <= (((q + maxc + 2) * den) >> 52);
-    guard |= g1 | g2 | g3;
-    r_s[e] = static_cast<T>((2 * num + den) / (2 * den));
+    const BinMean m = bin_mean(num_s[e], den, inv, a.maxc);
+    sfloor += m.q;
+    guard |= m.guard;
+    r_s[e] = static_cast<T>(m.r);
   }
   sfloor = block_sum(sfloor, red);  // its barriers also publish r_s
-  const int seg_guard = __syncthreads_or(guard);
+  guard = __syncthreads_or(guard);
 
-  // 3. one warp per kept row: dist2, mag, v; the warp's first minimum
-  double best_v = __longlong_as_double(0x7ff0000000000000LL);  // +inf
-  long long best_p = n_pairs;
-  for (long long p = lo + warp; p < hi; p += kWarps) {
-    if (!keep[p]) continue;  // uniform across the warp
-    const long long row = rows[p];
-    long long acc = 0;
-    if (VEC) {
-      const uint4* h4 = reinterpret_cast<const uint4*>(counts + row * d);
-      const uint4* r4 = reinterpret_cast<const uint4*>(r_s);
-      const int chunks = d * static_cast<int>(sizeof(T)) / 16;
-      for (int ch = lane; ch < chunks; ch += kWarpSize) {
-        const uint4 x = __ldg(h4 + ch);
-        const uint4 y = r4[ch];
-        acc += min_sum_word<T>(x.x, y.x) + min_sum_word<T>(x.y, y.y) +
-               min_sum_word<T>(x.z, y.z) + min_sum_word<T>(x.w, y.w);
+  // 3. per chunk: the kept rows listed again, one warp per row; each warp's
+  // rows rise in position, so its first strict minimum is the first
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  double best_v = inf;
+  long long best_p = P;
+  for (long long base = lo; base < hi; base += kTile) {
+    const int nk = list_kept(a, base, hi, t_row, t_pos, wk);
+    for (int k = warp; k < nk; k += kWarps) {
+      const long long row = t_row[k];
+      const long long dist2 =
+          2 * warp_sum(row_min_sum<T, VEC>(counts + row * d, r_s, d, lane));
+      const long long mag = static_cast<long long>(a.mags[row]) + sfloor;
+      const double v = distance_v(dist2, mag);
+      if (lane == 0) {
+        v_out[t_pos[k]] = v;
+        d2_out[t_pos[k]] = dist2;
+        mag_out[t_pos[k]] = mag;
       }
-    } else {
-      const T* h = counts + row * d;
-      for (int e = lane; e < d; e += kWarpSize) {
-        acc += min(static_cast<unsigned>(h[e]), static_cast<unsigned>(r_s[e]));
+      if (v < best_v) {
+        best_v = v;
+        best_p = t_pos[k];
       }
     }
-    const long long dist2 = 2 * warp_sum(acc);
-    const long long mag = static_cast<long long>(mags[row]) + sfloor;
-    const double frac = __ddiv_rn(static_cast<double>(dist2), static_cast<double>(mag));
-    const double v = __dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac)));
-    if (lane == 0) {
-      v_out[p] = v;
-      d2_out[p] = dist2;
-      mag_out[p] = mag;
-    }
-    if (v < best_v) {  // positions rise within the warp: first strict minimum
-      best_v = v;
-      best_p = p;
-    }
   }
-  if (lane == 0) {
-    best_v_s[warp] = best_v;
-    best_p_s[warp] = best_p;
-  }
-  __syncthreads();  // also publishes the scratch rows to the whole block
-  double mv = best_v_s[0];
-  long long fp = best_p_s[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    const double wv = best_v_s[w];
-    const long long wp = best_p_s[w];
-    if (wv < mv || (wv == mv && wp < fp)) {
-      mv = wv;
-      fp = wp;
-    }
-  }
+  block_first<false>(best_v, best_p, red_v, red_p);  // publishes the scratch too
 
   // 4. tie guard: kept rows near the minimum whose integers differ from the
-  // first's (device_update.py:354-363)
+  // first's
   int tie = 0;
-  if (fp < n_pairs) {
-    const long long fd2 = d2_out[fp];
-    const long long fmg = mag_out[fp];
-    const double thr = tie_margin * fmax(fabs(mv), 1.0);
+  if (best_p < P) {
+    const long long fd2 = d2_out[best_p];
+    const long long fmg = mag_out[best_p];
+    const double thr = __dmul_rn(a.tie_margin, fmax(fabs(best_v), 1.0));
     for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
-      if (!keep[p]) continue;
-      const bool near = fabs(v_out[p] - mv) <= thr;
-      const bool same = d2_out[p] == fd2 && mag_out[p] == fmg;
-      tie |= near && !same;
+      if (!a.keep[p]) continue;
+      const bool near = fabs(__dsub_rn(v_out[p], best_v)) <= thr;
+      tie |= near && (d2_out[p] != fd2 || mag_out[p] != fmg);
     }
   }
   tie = __syncthreads_or(tie);
   if (threadIdx.x == 0) {
-    first_out[c] = fp;
-    unc_out[c] = (seg_guard || tie) ? 1 : 0;
+    a.first[c] = best_p;
+    a.unc[c] = (guard || tie) ? 1 : 0;
   }
 }
-
-template <typename T>
-int launch(const void* counts, int d, const void* mags, const void* rows,
-           const void* seg, const void* keep, long long n_pairs,
-           long long n_segs, long long maxc, double tie_margin, void* v_out,
-           void* d2_out, void* mag_out, void* first_out, void* unc_out,
-           void* stream) {
-  if (n_segs <= 0) return static_cast<int>(cudaSuccess);
-  if (d <= 0 || n_segs > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shm = static_cast<size_t>(d) * (sizeof(long long) + sizeof(T));
-  const bool vec = (static_cast<size_t>(d) * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(counts) % 16 == 0;
-  auto kernel = vec ? &closest_mean_kernel<T, true> : &closest_mean_kernel<T, false>;
-  if (shm > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<dim3(static_cast<unsigned>(n_segs)), dim3(kThreads), shm,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(counts), d, static_cast<const double*>(mags),
-      static_cast<const long long*>(rows), static_cast<const long long*>(seg),
-      static_cast<const unsigned char*>(keep), n_pairs, maxc, tie_margin,
-      static_cast<double*>(v_out), static_cast<long long*>(d2_out),
-      static_cast<long long*>(mag_out), static_cast<long long*>(first_out),
-      static_cast<unsigned char*>(unc_out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// One segment over many blocks (the accumulate loop's open cluster).
-//
-// The caller supplies the segment's int64 column sums col_sum [d] and kept
-// row count (*count), which the accumulate loop keeps as it absorbs rows,
-// so the column-sum pass goes.  closest_one_dist_kernel spreads the
-// distance pass over min(ceil(P / kWarps), max_blocks) blocks: each block
-// rebuilds the mean r from col_sum (d int64 reads, from L2), then one warp
-// per kept row (rows strided over all the grid's warps) forms dist2, mag and
-// v as in the segmented kernel and keeps its first minimum; each block
-// writes its (v, position) minimum to part_v / part_p.  A float64 minimum
-// with its position does not fit one atomic word, so closest_one_final_kernel,
-// one block, takes the first minimum over the partials (smaller v, then
-// smaller position), evaluates the g1-g3 guards from col_sum, and sweeps
-// the scratch rows for the tie guard.  The results are bit for bit those of
-// the segmented kernel on the same rows with one segment.
 
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-closest_one_dist_kernel(const T* __restrict__ counts, int d,
-                        const double* __restrict__ mags,
-                        const long long* __restrict__ rows,
-                        const unsigned char* __restrict__ keep, long long n_pairs,
-                        const long long* __restrict__ col_sum,
-                        const long long* __restrict__ count,
-                        double* __restrict__ v_out, long long* __restrict__ d2_out,
-                        long long* __restrict__ mag_out,
-                        double* __restrict__ part_v, long long* __restrict__ part_p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* r_s = reinterpret_cast<T*>(smem);  // [d] mean
+__global__ void __launch_bounds__(kThreads) closest_spread_kernel(const SegArgs a) {
   __shared__ long long red[kWarps];
-  __shared__ double best_v_s[kWarps];
-  __shared__ long long best_p_s[kWarps];
+  __shared__ long long t_row[kTile];    // a tile's kept rows, in order
+  __shared__ long long run_seg[kTile];  // its runs' segments
+  __shared__ int run_lo[kTile + 1];     // its runs' first kept index
+  __shared__ int wk[kWarps], ws[kWarps];
+  __shared__ int last_s;
+
+  cg::grid_group grid = cg::this_grid();
+  const T* counts = static_cast<const T*>(a.counts);
+  const int d = a.d;
   const int lane = threadIdx.x & (kWarpSize - 1);
   const int warp = threadIdx.x / kWarpSize;
+  const int G = gridDim.x;
+  const int b = blockIdx.x;
+  const long long P = a.n_pairs;
+  const long long C = a.n_segs;
+  const long long n_tiles = (P + kTile - 1) / kTile;
+  const Layout L = layout(d, P, C, sizeof(T));
+  long long* num = a.scratch + L.num;
+  long long* cnt = a.scratch + L.cnt;
+  long long* sfloor = a.scratch + L.sfloor;
+  long long* gflag = a.scratch + L.guard;
+  unsigned long long* vkey = reinterpret_cast<unsigned long long*>(a.scratch + L.vkey);
+  unsigned long long* kmin = reinterpret_cast<unsigned long long*>(a.scratch + L.kmin);
+  unsigned long long* kmax = reinterpret_cast<unsigned long long*>(a.scratch + L.kmax);
+  double* v_out = reinterpret_cast<double*>(a.scratch + L.v);
+  long long* d2_out = a.scratch + L.d2;
+  long long* mag_out = a.scratch + L.mag;
+  T* mean = reinterpret_cast<T*>(a.scratch + L.mean);
+  unsigned* done = reinterpret_cast<unsigned*>(a.scratch + L.done);
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
 
-  const long long cnt = *count;
-  const long long den = cnt > 0 ? cnt : 1;
-  long long sfloor = 0;
-  for (int e = threadIdx.x; e < d; e += kThreads) {
-    const long long num = col_sum[e];
-    sfloor += num / den;
-    r_s[e] = static_cast<T>((2 * num + den) / (2 * den));
+  // 0. every segment's count and minimum slots; the sums of the segments
+  // that span tiles, at their first boundary; the blocks-done count
+  for (long long c = static_cast<long long>(b) * kThreads + threadIdx.x; c < C;
+       c += static_cast<long long>(G) * kThreads) {
+    cnt[c] = 0;
+    vkey[c] = order_key(inf);
+    kmin[c] = ~0ULL;
+    kmax[c] = 0;
+    a.first[c] = P;
   }
-  sfloor = block_sum(sfloor, red);  // its barriers also publish r_s
+  if (b == 0 && threadIdx.x == 0) *done = 0;
+  for (long long k = 1 + b; k < n_tiles; k += G) {
+    const long long c = a.seg[k * kTile];
+    if (a.seg[k * kTile - 1] != c) continue;                     // starts here
+    if (k > 1 && a.seg[(k - 1) * kTile - 1] == c) continue;      // spans an earlier one
+    for (int e = threadIdx.x; e < d; e += kThreads) num[c * d + e] = 0;
+  }
+  grid.sync();
 
-  double best_v = __longlong_as_double(0x7ff0000000000000LL);  // +inf
-  long long best_p = n_pairs;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long p = static_cast<long long>(blockIdx.x) * kWarps + warp; p < n_pairs;
-       p += stride) {
-    if (!keep[p]) continue;  // uniform across the warp
-    const long long row = rows[p];
-    long long acc = 0;
-    if (VEC) {
-      const uint4* h4 = reinterpret_cast<const uint4*>(counts + row * d);
-      const uint4* r4 = reinterpret_cast<const uint4*>(r_s);
-      const int chunks = d * static_cast<int>(sizeof(T)) / 16;
-      for (int ch = lane; ch < chunks; ch += kWarpSize) {
-        const uint4 x = __ldg(h4 + ch);
-        const uint4 y = r4[ch];
-        acc += min_sum_word<T>(x.x, y.x) + min_sum_word<T>(x.y, y.y) +
-               min_sum_word<T>(x.z, y.z) + min_sum_word<T>(x.w, y.w);
-      }
-    } else {
-      const T* h = counts + row * d;
-      for (int e = lane; e < d; e += kWarpSize) {
-        acc += min(static_cast<unsigned>(h[e]), static_cast<unsigned>(r_s[e]));
-      }
-    }
-    const long long dist2 = 2 * warp_sum(acc);
-    const long long mag = static_cast<long long>(mags[row]) + sfloor;
-    const double frac = __ddiv_rn(static_cast<double>(dist2), static_cast<double>(mag));
-    const double v = __dmul_rn(10000.0, __dsub_rn(1.0, __dmul_rn(frac, frac)));
+  // 1. per tile and run of one segment: column sums and count of the kept rows
+  for (long long t = b; t < n_tiles; t += G) {
+    const long long lo = t * kTile;
+    const long long hi = min(lo + kTile, P);
+    const long long p = lo + threadIdx.x;
+    const bool valid = p < hi;
+    const long long c = valid ? a.seg[p] : -1;
+    const bool kept = valid && a.keep[p];
+    const bool start = valid && (p == lo || a.seg[p - 1] != c);
+    const unsigned bk = __ballot_sync(kFullMask, kept);
+    const unsigned bs = __ballot_sync(kFullMask, start);
     if (lane == 0) {
-      v_out[p] = v;
-      d2_out[p] = dist2;
-      mag_out[p] = mag;
+      wk[warp] = __popc(bk);
+      ws[warp] = __popc(bs);
     }
-    if (v < best_v) {  // positions rise within the warp: first strict minimum
-      best_v = v;
-      best_p = p;
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+    int ki = __popc(bk & below), si = __popc(bs & below), nk = 0, ns = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) {
+        ki += wk[w];
+        si += ws[w];
+      }
+      nk += wk[w];
+      ns += ws[w];
     }
-  }
-  if (lane == 0) {
-    best_v_s[warp] = best_v;
-    best_p_s[warp] = best_p;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double mv = best_v_s[0];
-    long long fp = best_p_s[0];
-    for (int w = 1; w < kWarps; ++w) {
-      if (best_v_s[w] < mv || (best_v_s[w] == mv && best_p_s[w] < fp)) {
-        mv = best_v_s[w];
-        fp = best_p_s[w];
+    if (kept) t_row[ki] = a.rows[p];
+    if (start) {
+      run_lo[si] = ki;
+      run_seg[si] = c;
+    }
+    if (threadIdx.x == 0) run_lo[ns] = nk;
+    __syncthreads();
+    for (int r = 0; r < ns; ++r) {
+      const long long rc = run_seg[r];
+      const int k0 = run_lo[r], k1 = run_lo[r + 1];
+      const bool spans = (r == 0 && lo > 0 && a.seg[lo - 1] == rc) ||
+                         (r == ns - 1 && hi < P && a.seg[hi] == rc);
+      unsigned long long* dst = reinterpret_cast<unsigned long long*>(num + rc * d);
+      if (VEC) {
+        constexpr int kPer = 4 / sizeof(T);
+        const int words = d / kPer;
+        for (int w = threadIdx.x; w < words; w += kThreads) {
+          unsigned acc[kPer] = {}, acc16[2] = {};  // <= 256 rows: both fit
+          for (int k = k0; k < k1; k += kBatch) {  // kBatch loads in flight
+            unsigned x[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              x[u] = k + u < k1 ? __ldg(reinterpret_cast<const unsigned*>(
+                                            counts + t_row[k + u] * d) + w)
+                                : 0u;
+            }
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) add_word<T>(x[u], acc, acc16);
+          }
+          fold16<T>(acc, acc16);
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            if (!spans) {
+              dst[w * kPer + j] = acc[j];
+            } else if (acc[j]) {
+              atomicAdd(dst + w * kPer + j, static_cast<unsigned long long>(acc[j]));
+            }
+          }
+        }
+      } else {
+        for (int e = threadIdx.x; e < d; e += kThreads) {
+          unsigned acc = 0;
+          for (int k = k0; k < k1; ++k) acc += counts[t_row[k] * d + e];
+          if (!spans) {
+            dst[e] = acc;
+          } else if (acc) {
+            atomicAdd(dst + e, static_cast<unsigned long long>(acc));
+          }
+        }
+      }
+      if (threadIdx.x == 0) {
+        if (!spans) {
+          cnt[rc] = k1 - k0;
+        } else if (k1 > k0) {
+          atomicAdd(reinterpret_cast<unsigned long long*>(cnt + rc),
+                    static_cast<unsigned long long>(k1 - k0));
+        }
       }
     }
-    part_v[blockIdx.x] = mv;
-    part_p[blockIdx.x] = fp;
+    __syncthreads();  // before the tile's lists are reused
   }
-}
+  grid.sync();
 
-__global__ void __launch_bounds__(kThreads)
-closest_one_final_kernel(const unsigned char* __restrict__ keep, long long n_pairs,
-                         int d, const long long* __restrict__ col_sum,
-                         const long long* __restrict__ count, long long maxc,
-                         double tie_margin, const double* __restrict__ v_out,
-                         const long long* __restrict__ d2_out,
-                         const long long* __restrict__ mag_out,
-                         const double* __restrict__ part_v,
-                         const long long* __restrict__ part_p, int n_parts,
-                         long long* __restrict__ first_out,
-                         unsigned char* __restrict__ unc_out) {
-  __shared__ double best_v_s[kWarps];
-  __shared__ long long best_p_s[kWarps];
-  const int lane = threadIdx.x & (kWarpSize - 1);
-  const int warp = threadIdx.x / kWarpSize;
-
-  // the rounding-corner guards, as in step 2 of closest_mean_kernel
-  const long long cnt = *count;
-  const long long den = cnt > 0 ? cnt : 1;
-  int guard = 0;
-  for (int e = threadIdx.x; e < d; e += kThreads) {
-    const long long num = col_sum[e];
-    const long long q = num / den;
-    const long long rem = num - q * den;
-    const long long half = 2 * rem - den;
-    const long long half_abs = half < 0 ? -half : half;
-    const bool g1 = half_abs != 0 && half_abs <= (((q + 2) * den) >> 51);
-    const bool g2 = rem != 0 && rem <= (((q + 2) * den) >> 52);
-    const bool g3 = rem != 0 && (den - rem) <= (((q + maxc + 2) * den) >> 52);
-    guard |= g1 | g2 | g3;
-  }
-  const int seg_guard = __syncthreads_or(guard);
-
-  // the first minimum over the blocks' partials
-  double mv = __longlong_as_double(0x7ff0000000000000LL);  // +inf
-  long long fp = n_pairs;
-  for (int i = threadIdx.x; i < n_parts; i += kThreads) {
-    const double v = part_v[i];
-    const long long p = part_p[i];
-    if (v < mv || (v == mv && p < fp)) {
-      mv = v;
-      fp = p;
+  // 2. per segment: the mean, sfloor and the guards
+  for (long long c = b; c < C; c += G) {
+    const long long n = cnt[c];  // 0: the sums are 0 (or were never written)
+    const long long den = n > 0 ? n : 1;
+    const double inv = 1.0 / static_cast<double>(den);
+    long long sfl = 0;
+    int guard = 0;
+    for (int e = threadIdx.x; e < d; e += kThreads) {
+      const BinMean m = bin_mean(n > 0 ? num[c * d + e] : 0, den, inv, a.maxc);
+      sfl += m.q;
+      guard |= m.guard;
+      mean[c * d + e] = static_cast<T>(m.r);
+    }
+    sfl = block_sum(sfl, red);
+    guard = __syncthreads_or(guard);
+    if (threadIdx.x == 0) {
+      sfloor[c] = sfl;
+      gflag[c] = guard;
     }
   }
-  for (int o = kWarpSize / 2; o > 0; o >>= 1) {
-    const double ov = __shfl_xor_sync(kFullMask, mv, o);
-    const long long op = __shfl_xor_sync(kFullMask, fp, o);
-    if (ov < mv || (ov == mv && op < fp)) {
-      mv = ov;
-      fp = op;
-    }
-  }
-  if (lane == 0) {
-    best_v_s[warp] = mv;
-    best_p_s[warp] = fp;
-  }
-  __syncthreads();
-  mv = best_v_s[0];
-  fp = best_p_s[0];
+  grid.sync();
+
+  // 3. distances: a warp loads 32 positions' indices at once, then takes
+  // their kept rows four at a time, kGroup lanes a row; each warp keeps the
+  // minimum v of its current segment and folds it into the segment's
+  // atomicMin when the segment changes
+  {
+    const int grp = lane / kGroup, gl = lane % kGroup;
+    const long long n_warps = static_cast<long long>(G) * kWarps;
+    const long long n_batches = (P + kWarpSize - 1) / kWarpSize;
+    const long long per = (n_batches + n_warps - 1) / n_warps;
+    const long long gw = static_cast<long long>(b) * kWarps + warp;
+    const long long bt1 = min((gw + 1) * per, n_batches);
+    long long run_c = -1;
+    double run_min = inf;  // lane 0's
+    for (long long bt = gw * per; bt < bt1; ++bt) {
+      const long long p = bt * kWarpSize + lane;
+      const bool kept = p < P && a.keep[p];
+      const long long pc = kept ? a.seg[p] : 0;
+      const long long prow = kept ? a.rows[p] : 0;
+      unsigned mask = __ballot_sync(kFullMask, kept);
+      while (mask) {
+        int src = -1;  // the kept lane whose row this group takes
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    if (best_v_s[w] < mv || (best_v_s[w] == mv && best_p_s[w] < fp)) {
-      mv = best_v_s[w];
-      fp = best_p_s[w];
+        for (int q = 0; q < kWarpSize / kGroup; ++q) {
+          if (mask) {
+            if (q == grp) src = __ffs(mask) - 1;
+            mask &= mask - 1;
+          }
+        }
+        const long long c = __shfl_sync(kFullMask, pc, src < 0 ? 0 : src);
+        const long long row = __shfl_sync(kFullMask, prow, src < 0 ? 0 : src);
+        long long acc = 0;
+        if (src >= 0) {
+          acc = row_min_sum<T, VEC, kGroup>(counts + row * d, mean + c * d, d, gl);
+        }
+#pragma unroll
+        for (int o = kGroup / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFullMask, acc, o);
+        double v = inf;
+        if (src >= 0) {
+          const long long dist2 = 2 * acc;
+          const long long mag = static_cast<long long>(a.mags[row]) + sfloor[c];
+          v = distance_v(dist2, mag);
+          if (gl == 0) {
+            const long long pp = bt * kWarpSize + src;
+            v_out[pp] = v;
+            d2_out[pp] = dist2;
+            mag_out[pp] = mag;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kWarpSize / kGroup; ++q) {  // groups in position order
+          const double vq = __shfl_sync(kFullMask, v, q * kGroup);
+          const long long cq = __shfl_sync(kFullMask, c, q * kGroup);
+          const int took = __shfl_sync(kFullMask, src, q * kGroup) >= 0;
+          if (lane == 0 && took) {
+            if (cq != run_c) {
+              if (run_c >= 0) atomicMin(vkey + run_c, order_key(run_min));
+              run_c = cq;
+              run_min = vq;
+            } else if (vq < run_min) {
+              run_min = vq;
+            }
+          }
+        }
+      }
+    }
+    if (run_c >= 0 && lane == 0) atomicMin(vkey + run_c, order_key(run_min));
+  }
+  grid.sync();
+
+  // 4. per kept row: the first minimum's position, the near rows' keys
+  for (long long p = static_cast<long long>(b) * kThreads + threadIdx.x; p < P;
+       p += static_cast<long long>(G) * kThreads) {
+    if (!a.keep[p]) continue;
+    const long long c = a.seg[p];
+    const double mv = key_value(vkey[c]);
+    const double v = v_out[p];
+    if (v == mv) {
+      atomicMin(reinterpret_cast<unsigned long long*>(a.first) + c,
+                static_cast<unsigned long long>(p));
+    }
+    if (fabs(__dsub_rn(v, mv)) <= __dmul_rn(a.tie_margin, fmax(fabs(mv), 1.0))) {
+      const unsigned long long k = (static_cast<unsigned long long>(d2_out[p]) << 32) |
+                                   static_cast<unsigned long long>(mag_out[p]);
+      atomicMin(kmin + c, k);
+      atomicMax(kmax + c, k);
     }
   }
 
-  // tie guard over every kept row (device_update.py:354-363)
-  int tie = 0;
-  if (fp < n_pairs) {
-    const long long fd2 = d2_out[fp];
-    const long long fmg = mag_out[fp];
-    const double thr = tie_margin * fmax(fabs(mv), 1.0);
-    for (long long p = threadIdx.x; p < n_pairs; p += kThreads) {
-      if (!keep[p]) continue;
-      const bool near = fabs(v_out[p] - mv) <= thr;
-      const bool same = d2_out[p] == fd2 && mag_out[p] == fmg;
-      tie |= near && !same;
-    }
-  }
-  tie = __syncthreads_or(tie);
-  if (threadIdx.x == 0) {
-    first_out[0] = fp;
-    unc_out[0] = (seg_guard || tie) ? 1 : 0;
+  // 5. the last block to finish writes unc per segment (no near row leaves
+  // kmin > kmax)
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(done, 1u) == static_cast<unsigned>(G - 1);
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (long long c = threadIdx.x; c < C; c += kThreads) {
+    a.unc[c] = (__ldcg(gflag + c) || __ldcg(kmin + c) < __ldcg(kmax + c)) ? 1 : 0;
   }
 }
 
 template <typename T>
-int launch_one(const void* counts, int d, const void* mags, const void* rows,
-               const void* keep, long long n_pairs, const void* col_sum,
-               const void* count, long long maxc, double tie_margin, int max_blocks,
-               void* v_out, void* d2_out, void* mag_out, void* part_v, void* part_p,
-               void* first_out, void* unc_out, void* stream) {
-  if (d <= 0 || n_pairs < 0 || max_blocks <= 0) {
+int launch(SegArgs a, bool spread, long long scratch_len, void* stream) {
+  if (a.n_segs <= 0) return static_cast<int>(cudaSuccess);
+  if (a.d <= 0 || a.n_pairs < 0 || a.n_segs > 0x7fffffffLL ||
+      scratch_len < scratch_words(a.d, a.n_pairs, a.n_segs, sizeof(T), spread) ||
+      reinterpret_cast<uintptr_t>(a.scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long want = (n_pairs + kWarps - 1) / kWarps;
-  const int n_parts = static_cast<int>(want < max_blocks ? want : max_blocks);
-  if (n_parts > 0) {
-    const size_t shm = static_cast<size_t>(d) * sizeof(T);
-    const bool vec = (static_cast<size_t>(d) * sizeof(T)) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(counts) % 16 == 0;
-    auto kernel = vec ? &closest_one_dist_kernel<T, true>
-                      : &closest_one_dist_kernel<T, false>;
-    if (shm > 48 * 1024) {
+  const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
+  if (!spread) {
+    auto kernel = vec ? &closest_block_kernel<T, true> : &closest_block_kernel<T, false>;
+    const size_t shm = static_cast<size_t>(a.d) * (sizeof(long long) + sizeof(T));
+    if (shm > 32 * 1024) {  // beside ~4.3 KB of static shared memory
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kernel<<<dim3(static_cast<unsigned>(n_parts)), dim3(kThreads), shm, st>>>(
-        static_cast<const T*>(counts), d, static_cast<const double*>(mags),
-        static_cast<const long long*>(rows), static_cast<const unsigned char*>(keep),
-        n_pairs, static_cast<const long long*>(col_sum),
-        static_cast<const long long*>(count), static_cast<double*>(v_out),
-        static_cast<long long*>(d2_out), static_cast<long long*>(mag_out),
-        static_cast<double*>(part_v), static_cast<long long*>(part_p));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<dim3(static_cast<unsigned>(a.n_segs)), dim3(kThreads), shm,
+             static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  closest_one_final_kernel<<<1, kThreads, 0, st>>>(
-      static_cast<const unsigned char*>(keep), n_pairs, d,
-      static_cast<const long long*>(col_sum), static_cast<const long long*>(count), maxc,
-      tie_margin, static_cast<const double*>(v_out),
-      static_cast<const long long*>(d2_out), static_cast<const long long*>(mag_out),
-      static_cast<const double*>(part_v), static_cast<const long long*>(part_p), n_parts,
-      static_cast<long long*>(first_out), static_cast<unsigned char*>(unc_out));
-  return static_cast<int>(cudaGetLastError());
+  const void* kernel = vec ? reinterpret_cast<const void*>(&closest_spread_kernel<T, true>)
+                           : reinterpret_cast<const void*>(&closest_spread_kernel<T, false>);
+  const long long tiles = (a.n_pairs + kTile - 1) / kTile;
+  void* args[] = {&a};
+  const cudaError_t e = coop_launch(kernel, tiles > a.n_segs ? tiles : a.n_segs, 0, args,
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-int mc2_closest_mean_one_u8(const void* counts, int d, const void* mags,
-                            const void* rows, const void* keep, long long n_pairs,
-                            const void* col_sum, const void* count, long long maxc,
-                            double tie_margin, int max_blocks, void* v_out,
-                            void* d2_out, void* mag_out, void* part_v, void* part_p,
-                            void* first_out, void* unc_out, void* stream) {
-  return launch_one<uint8_t>(counts, d, mags, rows, keep, n_pairs, col_sum, count, maxc,
-                             tie_margin, max_blocks, v_out, d2_out, mag_out, part_v,
-                             part_p, first_out, unc_out, stream);
+// int64 words of scratch for P pairs in C segments of D bins of elem bytes,
+// for one block per segment (spread 0) or the balanced launch (spread 1)
+long long mc2_closest_mean_scratch_len(int d, long long n_pairs, long long n_segs,
+                                       int elem, int spread) {
+  return scratch_words(d, n_pairs, n_segs, elem, spread != 0);
 }
 
-int mc2_closest_mean_one_u16(const void* counts, int d, const void* mags,
-                             const void* rows, const void* keep, long long n_pairs,
-                             const void* col_sum, const void* count, long long maxc,
-                             double tie_margin, int max_blocks, void* v_out,
-                             void* d2_out, void* mag_out, void* part_v, void* part_p,
-                             void* first_out, void* unc_out, void* stream) {
-  return launch_one<uint16_t>(counts, d, mags, rows, keep, n_pairs, col_sum, count,
-                              maxc, tie_margin, max_blocks, v_out, d2_out, mag_out,
-                              part_v, part_p, first_out, unc_out, stream);
-}
+#define MC2_CLOSEST_ENTRY(NAME, T)                                                   \
+  int NAME(const void* counts, int d, const void* mags, const void* rows,            \
+           const void* seg, const void* keep, long long n_pairs, long long n_segs,   \
+           long long maxc, double tie_margin, int spread, void* scratch,             \
+           long long scratch_len, void* first_out, void* unc_out, void* stream) {    \
+    SegArgs a{counts,                                                                \
+              d,                                                                     \
+              static_cast<const double*>(mags),                                      \
+              static_cast<const long long*>(rows),                                   \
+              static_cast<const long long*>(seg),                                    \
+              static_cast<const unsigned char*>(keep),                               \
+              n_pairs,                                                               \
+              n_segs,                                                                \
+              maxc,                                                                  \
+              tie_margin,                                                            \
+              static_cast<long long*>(scratch),                                      \
+              static_cast<long long*>(first_out),                                    \
+              static_cast<unsigned char*>(unc_out)};                                 \
+    return launch<T>(a, spread != 0, scratch_len, stream);                           \
+  }
 
+MC2_CLOSEST_ENTRY(mc2_closest_mean_u8, uint8_t)
+MC2_CLOSEST_ENTRY(mc2_closest_mean_u16, uint16_t)
 
-int mc2_closest_mean_u8(const void* counts, int d, const void* mags,
-                        const void* rows, const void* seg, const void* keep,
-                        long long n_pairs, long long n_segs, long long maxc,
-                        double tie_margin, void* v_out, void* d2_out,
-                        void* mag_out, void* first_out, void* unc_out,
-                        void* stream) {
-  return launch<uint8_t>(counts, d, mags, rows, seg, keep, n_pairs, n_segs, maxc,
-                         tie_margin, v_out, d2_out, mag_out, first_out, unc_out,
-                         stream);
-}
-
-int mc2_closest_mean_u16(const void* counts, int d, const void* mags,
-                         const void* rows, const void* seg, const void* keep,
-                         long long n_pairs, long long n_segs, long long maxc,
-                         double tie_margin, void* v_out, void* d2_out,
-                         void* mag_out, void* first_out, void* unc_out,
-                         void* stream) {
-  return launch<uint16_t>(counts, d, mags, rows, seg, keep, n_pairs, n_segs, maxc,
-                          tie_margin, v_out, d2_out, mag_out, first_out, unc_out,
-                          stream);
-}
+#undef MC2_CLOSEST_ENTRY
 
 }  // extern "C"

@@ -3,9 +3,13 @@ the segment's kept rows.
 
 The port of meshclust2_tpu/cluster/device_update.py:DeviceUpdater._closest_core
 (lines 290-364), an XLA program on the TPU.  On a CUDA tensor
-`closest_mean` launches the hand-written kernel in csrc/closest_mean.cu; on
+`closest_mean` launches a hand-written kernel of csrc/closest_mean.cu; on
 a CPU tensor it runs `closest_mean_ref`, the plain PyTorch version, which
-the CPU tests hold against the JAX program and the host `distance_d`.
+the CPU tests hold against the JAX program and the host `distance_d`.  The
+kernel file has two launches with the same results: one block per segment
+(the update phase's batches), and one cooperative launch that spreads
+every segment's rows over the grid (a segment too large for one block);
+`spreads` chooses from the largest segment's size.
 
 For segment c (the positions p with seg[p] == c and keep[p]):
     first[c] = position p of the first minimum of distance_d(counts[rows[p]],
@@ -16,12 +20,13 @@ For segment c (the positions p with seg[p] == c and keep[p]):
 Where unc[c] is False, first[c] is the host engine's argmin
 (cluster/engine.py:distance_d, first strict minimum).
 
-One-segment mode (the accumulate loop's closest-to-mean, the port of
-device_loop.py:_build_program.closest_to_mean / _mc_heavy, lines 1223-1355):
-with `col_sum` (int64 [D], the kept rows' column sums) and `count` (int64
-[1], their number) given, C is 1, `seg` is not read (it may be None), and
-the kernel skips its column-sum pass and spreads the distance pass over
-many blocks.  The results equal the segmented mode's on the same rows.
+`closest_mean_ref` also has a one-segment mode (the accumulate loop's
+closest-to-mean, the port of device_loop.py:_build_program.closest_to_mean
+/ _mc_heavy, lines 1223-1355): with `col_sum` (int64 [D], the kept rows'
+column sums) and `count` (int64 [1], their number) given, C is 1 and `seg`
+is not read (it may be None).  The plain accumulate step
+(ops/window_absorb.py:window_step_ref) uses it; on the card the step kernel
+computes the same inside its one launch.
 """
 from __future__ import annotations
 
@@ -34,31 +39,24 @@ import torch
 # at 16384 x D x 8 bytes per temporary)
 _REF_CHUNK = 16384
 
-# the one-segment mode's largest grid: each warp then walks ceil(P / 8192)
-# rows, and each block rebuilds the mean from col_sum once
-ONE_MAX_BLOCKS = 1024
-
 _ENTRY = {torch.uint8: "mc2_closest_mean_u8", torch.uint16: "mc2_closest_mean_u16"}
-_ENTRY_ONE = {torch.uint8: "mc2_closest_mean_one_u8",
-              torch.uint16: "mc2_closest_mean_one_u16"}
 
 
-def _kernel(dtype: torch.dtype, one: bool = False):
+def _lib():
     from ._build import load
 
-    fn = getattr(load("closest_mean").lib, (_ENTRY_ONE if one else _ENTRY)[dtype])
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        if one:
-            fn.argtypes = [p, ctypes.c_int, p, p, p, ctypes.c_int64, p, p,
-                           ctypes.c_int64, ctypes.c_double, ctypes.c_int,
-                           p, p, p, p, p, p, p, p]
-        else:
-            fn.argtypes = [p, ctypes.c_int, p, p, p, p, ctypes.c_int64,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
-                           p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = load("closest_mean").lib
+    if lib.mc2_closest_mean_scratch_len.argtypes is None:
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [p, ctypes.c_int, p, p, p, p, i64, i64, i64,
+                           ctypes.c_double, ctypes.c_int, p, i64, p, p, p]
+            fn.restype = ctypes.c_int
+        lib.mc2_closest_mean_scratch_len.argtypes = [ctypes.c_int, i64, i64,
+                                                     ctypes.c_int, ctypes.c_int]
+        lib.mc2_closest_mean_scratch_len.restype = i64
+    return lib
 
 
 def _check(counts, mags, rows, seg, keep, n_segs: int, col_sum, count):
@@ -113,6 +111,7 @@ def closest_mean_ref(counts: torch.Tensor, mags: torch.Tensor,
     """Plain PyTorch closest-to-mean: int64 segment sums by `index_add_`
     (or the given col_sum and count), the same integer guards as the
     kernel, float64 v."""
+    _check(counts, mags, rows, seg, keep, n_segs, col_sum, count)
     n_pairs, d = len(rows), counts.shape[1]
     dev = counts.device
     i64 = dict(dtype=torch.int64, device=dev)
@@ -168,53 +167,62 @@ def closest_mean_ref(counts: torch.Tensor, mags: torch.Tensor,
     return first, seg_unc | tie
 
 
+def spreads(largest: int, n_pairs: int) -> bool:
+    """Whether a batch whose largest segment holds `largest` of its
+    `n_pairs` positions goes to the balanced launch: one block per segment
+    takes time in proportion to the largest segment, the balanced launch
+    to the whole batch plus its grid barriers (PERF.md §6, chip_smoke.py
+    (d2))."""
+    return largest > max(SPREAD_MIN_ROWS, n_pairs // SPREAD_SHARE)
+
+
+# one block per segment up to a segment of this many positions ...
+SPREAD_MIN_ROWS = 2048
+# ... or of this share of the batch, whichever is more
+SPREAD_SHARE = 16
+
+
 def closest_mean(counts: torch.Tensor, mags: torch.Tensor, rows: torch.Tensor,
-                 seg: Optional[torch.Tensor], keep: torch.Tensor, n_segs: int,
-                 *, maxc: int, tie_margin: float,
-                 col_sum: Optional[torch.Tensor] = None,
-                 count: Optional[torch.Tensor] = None
+                 seg: torch.Tensor, keep: torch.Tensor, n_segs: int,
+                 *, maxc: int, tie_margin: float, largest: Optional[int] = None,
+                 spread: Optional[bool] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N, D] uint8/uint16 store, float64 [N] mags (exact integers), int64
     [P] rows and nondecreasing segment ids in [0, C), bool [P] keep ->
     (first int64 [C], unc bool [C]).  `maxc` is the store's largest count.
-    With `col_sum` and `count`, the one-segment mode (module docstring):
-    they must be the kept rows' column sums and number.
 
-    On CUDA the rows must lie in [0, N).  Launches on the current stream
-    without syncing."""
-    _check(counts, mags, rows, seg, keep, n_segs, col_sum, count)
+    On CUDA the rows must lie in [0, N) and the mags below 2^24 (the
+    store's envelope).  One launch on the current stream, without syncing,
+    into a scratch from PyTorch's caching allocator: one block per segment,
+    or (`spread`) one cooperative launch balanced over the grid.  Both give
+    the same results; when `spread` is None, `spreads(largest, P)` picks,
+    with `largest` the most positions of one segment (the caller's count
+    from the host, else read back here at the cost of a sync)."""
+    _check(counts, mags, rows, seg, keep, n_segs, None, None)
     if counts.device.type == "cpu":
         return closest_mean_ref(counts, mags, rows, seg, keep, n_segs,
-                                maxc=maxc, tie_margin=tie_margin,
-                                col_sum=col_sum, count=count)
+                                maxc=maxc, tie_margin=tie_margin)
     dev = counts.device
-    n_pairs = len(rows)
+    n_pairs, d = len(rows), counts.shape[1]
     first = torch.empty(n_segs, dtype=torch.int64, device=dev)
     unc = torch.empty(n_segs, dtype=torch.bool, device=dev)
     if n_segs == 0:
         return first, unc
-    v = torch.empty(n_pairs, dtype=torch.float64, device=dev)
-    d2 = torch.empty(n_pairs, dtype=torch.int64, device=dev)
-    mag = torch.empty(n_pairs, dtype=torch.int64, device=dev)
+    if spread is None:
+        if largest is None:
+            largest = int(torch.bincount(seg, minlength=n_segs).max())
+        spread = spreads(largest, n_pairs)
+    lib = _lib()
+    n_scratch = lib.mc2_closest_mean_scratch_len(d, n_pairs, n_segs,
+                                                 counts.element_size(), int(spread))
+    scratch = torch.empty(n_scratch, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if col_sum is not None:
-        part_v = torch.empty(ONE_MAX_BLOCKS, dtype=torch.float64, device=dev)
-        part_p = torch.empty(ONE_MAX_BLOCKS, dtype=torch.int64, device=dev)
-        with torch.cuda.device(dev):
-            rc = _kernel(counts.dtype, one=True)(
-                counts.data_ptr(), counts.shape[1], mags.data_ptr(),
-                rows.data_ptr(), keep.data_ptr(), n_pairs, col_sum.data_ptr(),
-                count.data_ptr(), int(maxc), float(tie_margin), ONE_MAX_BLOCKS,
-                v.data_ptr(), d2.data_ptr(), mag.data_ptr(), part_v.data_ptr(),
-                part_p.data_ptr(), first.data_ptr(), unc.data_ptr(), stream)
-    else:
-        with torch.cuda.device(dev):
-            rc = _kernel(counts.dtype)(
-                counts.data_ptr(), counts.shape[1], mags.data_ptr(),
-                rows.data_ptr(), seg.data_ptr(), keep.data_ptr(), n_pairs,
-                n_segs, int(maxc), float(tie_margin), v.data_ptr(),
-                d2.data_ptr(), mag.data_ptr(), first.data_ptr(),
-                unc.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, _ENTRY[counts.dtype])(
+            counts.data_ptr(), d, mags.data_ptr(), rows.data_ptr(),
+            seg.data_ptr(), keep.data_ptr(), n_pairs, n_segs, int(maxc),
+            float(tie_margin), int(spread), scratch.data_ptr(), n_scratch,
+            first.data_ptr(), unc.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"closest_mean kernel launch failed: cudaError {rc}")
     closest_mean.launches += 1

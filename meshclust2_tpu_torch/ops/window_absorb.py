@@ -1,48 +1,92 @@
-"""The decision half of one accumulate step: positives, gates, best, absorb.
+"""The accumulate step's tail: the window's decisions, its case applied to
+the loop state, and the next center (closest-to-mean), in one launch.
 
-The port of the decision half of
-meshclust2_tpu/cluster/device_loop.py:_build_program.scan_window._chunk_heavy
-(lines 1112-1209), an XLA program on the TPU.  On a CUDA tensor
-`window_absorb` launches the hand-written kernel in csrc/window_absorb.cu;
-on a CPU tensor it runs `window_absorb_ref`, the plain PyTorch version,
-which the CPU tests hold against a numpy reference.
+The port of what meshclust2_tpu/cluster/device_loop.py's program body
+(lines 1357-1467) does after the pair statistics: the decision half of
+_build_program.scan_window._chunk_heavy (lines 1074-1209), the gated state
+updates, and closest_to_mean / _mc_heavy (lines 1223-1355), XLA programs on
+the TPU.  On CUDA tensors `window_step` launches the hand-written
+cooperative kernel in csrc/window_absorb.cu; on CPU tensors it runs
+`window_step_ref`, the plain PyTorch version, built on `window_absorb_ref`
+(the decisions) and `closest_mean_ref`'s one-segment mode.
 
-For the W candidates of one window (rows[p], in flat order), with their
-float64 GLM sums s, dists and pair statistics against the center:
+For the W >= 1 candidates of one window (cand[p], flat positions in flat
+order; rows[p] = order[cand[p]]), with their float64 GLM sums s, dists and
+pair statistics against the center:
     pos[p]  = s[p] >= pos_edge;
     bits    = 1 when some s[p] lies within margin * max(|s|, |pos_edge|, 1)
               of the edge, | 2 when some candidate lies within
               tie_margin * max(|dist[best]|, 1) of the best dist while its
               (stats, mags, selfdot, lens, stddev) differ from the best's;
-    best    = the first position of the largest dist (W when W = 0);
-    colsum  = the int64 [D] column sum of the positive rows.
-Returns (pos bool [W], colsum int64 [D], info int64 [3] = (bits, npos,
-best)), all on the store's device.
+    best    = the first position of the largest dist;
+    npos    = the number of positives.
+Then, with bits 0, the min case (npos 0: cand[best] opens cluster cid + 1
+at stamp stepc, alone in the member list, msum its row) or the absorb case
+(the positives join cluster cid at stamp stepc, appended to the member
+list after its first mcnt entries, msum += their column sums), and when
+absorbing the member closest to the new mean.  Returns trip = int64 [4]
+(bits, npos, closest-to-mean uncertain (0 unless absorbing), next center).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .closest_mean import closest_mean_ref
 
 # rows of the plain version's int64 temporaries per step
 _REF_CHUNK = 16384
 
-_ENTRY = {torch.uint8: "mc2_window_absorb_u8", torch.uint16: "mc2_window_absorb_u16"}
+_ENTRY = {torch.uint8: "mc2_window_step_u8", torch.uint16: "mc2_window_step_u16"}
 
 
-def _kernel(dtype: torch.dtype):
+class StepState(NamedTuple):
+    """The accumulate loop's state on the card, updated in place."""
+    alive: torch.Tensor    # bool [n]: still in the pool
+    assign: torch.Tensor   # int64 [n]: cluster id, -1 while alive
+    astep: torch.Tensor    # int64 [n]: absorb stamp, 0 while alive
+    members: torch.Tensor  # int64 [n + 1]: the open cluster's flat positions;
+                           # slot n is the plain version's scatter sink
+    msum: torch.Tensor     # int64 [D]: the open cluster's column sums
+
+
+def _lib():
     from ._build import load
 
-    fn = getattr(load("window_absorb").lib, _ENTRY[dtype])
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, ctypes.c_int64, p, p, p, p, p, p, p,
-                       ctypes.c_double, ctypes.c_double, ctypes.c_double,
-                       p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+    lib = load("window_absorb").lib
+    if lib.mc2_window_step_scratch_len.argtypes is None:
+        p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, p, p, p,
+                           f64, f64, f64, i64, p, p, p, p, p, p, i64, i64, i64,
+                           p, i64, i64, p]
+            fn.restype = ctypes.c_int
+        lib.mc2_window_step_scratch_len.argtypes = [i64]
+        lib.mc2_window_step_scratch_len.restype = i64
+    return lib
+
+
+def step_scratch(n: int, device) -> Optional[torch.Tensor]:
+    """The step kernel's scratch for a pool of n flat positions (the trip,
+    per-block partials, per-member distances), allocated once by the
+    caller; None on the CPU, where the plain version needs none."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    # zeroed: it holds the kernel's count of finished blocks
+    return torch.zeros(_lib().mc2_window_step_scratch_len(n),
+                       dtype=torch.int64, device=device)
+
+
+def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """counts[idx] as int64 (CUDA has no uint16 gather: the same bits as
+    int16, masked)."""
+    src, mask = ((counts.view(torch.int16), 0xFFFF)
+                 if counts.dtype == torch.uint16 else (counts, 0xFF))
+    return src[idx].to(torch.int64) & mask
 
 
 def _check(counts, rows, s, dist, stats, moments):
@@ -75,8 +119,11 @@ def _check(counts, rows, s, dist, stats, moments):
 def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs,
                       *, pos_edge: float, margin: float, tie_margin: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: the same float64 operations as the kernel,
-    the column sum in int64 by chunks."""
+    """The decisions of one window in plain PyTorch, the same float64
+    operations as the step kernel's: (pos bool [W], the positives' int64
+    [D] column sum, info int64 [3] = (bits, npos, best)); best is W when W
+    is 0."""
+    _check(counts, rows, s, dist, stats, (mags, selfdot, lens, stddevs))
     n_cand, d = len(rows), counts.shape[1]
     dev = counts.device
     pos = s >= pos_edge
@@ -105,41 +152,133 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
     return pos, colsum, info
 
 
-def window_absorb(counts: torch.Tensor, rows: torch.Tensor, s: torch.Tensor,
-                  dist: torch.Tensor, stats: torch.Tensor, mags: torch.Tensor,
-                  selfdot: torch.Tensor, lens: torch.Tensor,
-                  stddevs: torch.Tensor, *, pos_edge: float, margin: float,
-                  tie_margin: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """[N, D] uint8/uint16 store, int64 [W] candidate rows, float64 [W] s
-    and dist, int64 [W, 3] pair statistics, the store's float64 [N]
-    moments -> (pos, colsum, info) as in the module docstring.
+def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
+                mcnt: int):
+    counts = store.counts
+    _check(counts, cand, s, dist, stats,
+           (store.mags, store.selfdot, store.lens, store.stddevs))
+    n = len(order)
+    want = (("order", order, torch.int64, (n,)),
+            ("cand", cand, torch.int64, (len(cand),)),
+            ("alive", state.alive, torch.bool, (n,)),
+            ("assign", state.assign, torch.int64, (n,)),
+            ("astep", state.astep, torch.int64, (n,)),
+            ("members", state.members, torch.int64, (n + 1,)),
+            ("msum", state.msum, torch.int64, (counts.shape[1],)),
+            ("cur_d", cur_d, torch.int64, (1,)))
+    for name, t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != counts.device:
+            raise ValueError(f"{name} is on {t.device}, counts on {counts.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= len(cand) <= n - mcnt or mcnt < 0:
+        raise ValueError(f"need 1 <= W <= n - mcnt, got W = {len(cand)}, "
+                         f"n = {n}, mcnt = {mcnt}")
 
-    On CUDA the rows must lie in [0, N).  Launches on the current stream
-    without syncing."""
-    moments = (mags, selfdot, lens, stddevs)
-    _check(counts, rows, s, dist, stats, moments)
-    kw = dict(pos_edge=float(pos_edge), margin=float(margin),
+
+def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
+                    cur_d, *, cid: int, stepc: int, mcnt: int, pos_edge: float,
+                    margin: float, tie_margin: float) -> torch.Tensor:
+    """The step in plain PyTorch: `window_absorb_ref`, both cases under
+    the decision flags, and `closest_mean_ref`'s one-segment mode over the
+    first mcnt + W member slots with the first mcnt + npos kept.
+    Candidates are alive, and alive rows are unassigned with stamp 0, so
+    the else-values need no gather."""
+    _check_step(store, order, cand, s, dist, stats, state, cur_d, mcnt)
+    counts = store.counts
+    n, n_cand = len(order), len(cand)
+    i64 = dict(dtype=torch.int64, device=counts.device)
+    alive, assign, astep, members, msum = state
+    pos, colsum, info = window_absorb_ref(
+        counts, order[cand], s, dist, stats, store.mags, store.selfdot,
+        store.lens, store.stddevs, pos_edge=pos_edge, margin=margin,
+        tie_margin=tie_margin)
+    bits, npos, best = info[0:1], info[1:2], info[2:3]
+    ok = bits == 0
+    absorb = ok & (npos > 0)
+    is_min = ok & (npos == 0)
+
+    # absorb: the positives join cluster cid at stamp stepc, appended to
+    # the member list in flat order
+    pa = pos & absorb
+    alive[cand] = ~pa
+    assign[cand] = torch.where(pa, cid, -1)
+    astep[cand] = torch.where(pa, stepc, 0)
+    slot = torch.cumsum(pa, 0, dtype=torch.int64) + (mcnt - 1)
+    members.scatter_(0, torch.where(pa, slot, n), cand)
+    new_sum = msum + colsum
+    size = mcnt + n_cand
+    count = npos + mcnt
+    first, unc = closest_mean_ref(
+        counts, store.mags, order[members[:size]], None,
+        torch.arange(size, **i64) < count, 1, maxc=store.maxc,
+        tie_margin=tie_margin, col_sum=new_sum, count=count)
+    unc = unc & absorb   # the loop reads it only after an absorb
+    seed = cand[best.clamp(max=n_cand - 1)]
+    cur_next = torch.where(absorb & ~unc, members[first.clamp(max=n)],
+                           torch.where(is_min, seed, cur_d))
+    msum.copy_(torch.where(absorb, new_sum, msum))
+
+    # the min case: the seed leaves the pool and opens cluster cid + 1
+    row = _rows_i64(counts, order[seed])[0]
+    alive[seed] = alive[seed] & ~is_min
+    assign[seed] = torch.where(is_min, cid + 1, assign[seed])
+    astep[seed] = torch.where(is_min, stepc, astep[seed])
+    members[:1] = torch.where(is_min, seed, members[:1])
+    msum.copy_(torch.where(is_min, row, msum))
+    return torch.cat([bits, npos, unc.to(torch.int64), cur_next])
+
+
+def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
+                dist: torch.Tensor, stats: torch.Tensor, state: StepState,
+                cur_d: torch.Tensor, *, cid: int, stepc: int, mcnt: int,
+                pos_edge: float, margin: float, tie_margin: float,
+                scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One accumulate step's tail (module docstring) over a DeviceStore
+    `store`, the pool's flat-order `order` (int64 [n], flat position ->
+    store row), the W >= 1 candidates `cand` with their float64 [W] s and
+    dist and int64 [W, 3] statistics, `state` (updated in place) and the
+    center's flat position `cur_d` (int64 [1]) -> trip int64 [4].
+
+    On CUDA one cooperative launch on the current stream, without syncing;
+    `scratch` comes from `step_scratch(n)` (allocated here when None), and
+    the trip returned is a view of it, overwritten by the next launch with
+    the same scratch.  cur_d may be the previous trip's last entry."""
+    _check_step(store, order, cand, s, dist, stats, state, cur_d, mcnt)
+    kw = dict(cid=int(cid), stepc=int(stepc), mcnt=int(mcnt),
+              pos_edge=float(pos_edge), margin=float(margin),
               tie_margin=float(tie_margin))
+    counts = store.counts
     if counts.device.type == "cpu":
-        return window_absorb_ref(counts, rows, s, dist, stats, *moments, **kw)
-    dev = counts.device
-    n_cand = len(rows)
-    pos = torch.empty(n_cand, dtype=torch.bool, device=dev)
-    colsum = torch.zeros(counts.shape[1], dtype=torch.int64, device=dev)
-    info = torch.empty(3, dtype=torch.int64, device=dev)
-    fn = _kernel(counts.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(counts.data_ptr(), counts.shape[1], rows.data_ptr(), n_cand,
-                s.data_ptr(), dist.data_ptr(), stats.data_ptr(),
-                *(m.data_ptr() for m in moments), kw["pos_edge"], kw["margin"],
-                kw["tie_margin"], pos.data_ptr(), colsum.data_ptr(),
-                info.data_ptr(), stream)
+        return window_step_ref(store, order, cand, s, dist, stats, state, cur_d,
+                               **kw)
+    n = len(order)
+    lib = _lib()
+    need = lib.mc2_window_step_scratch_len(n)
+    if scratch is None:
+        scratch = step_scratch(n, counts.device)
+    if (scratch.dtype != torch.int64 or scratch.device != counts.device
+            or scratch.numel() < need or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be int64 [>= {need}] on {counts.device}")
+    stream = torch.cuda.current_stream(counts.device).cuda_stream
+    with torch.cuda.device(counts.device):
+        rc = getattr(lib, _ENTRY[counts.dtype])(
+            counts.data_ptr(), counts.shape[1], store.mags.data_ptr(),
+            store.selfdot.data_ptr(), store.lens.data_ptr(),
+            store.stddevs.data_ptr(), order.data_ptr(), cand.data_ptr(),
+            len(cand), s.data_ptr(), dist.data_ptr(), stats.data_ptr(),
+            kw["pos_edge"], kw["margin"], kw["tie_margin"], int(store.maxc),
+            *(t.data_ptr() for t in state), cur_d.data_ptr(), kw["cid"],
+            kw["stepc"], kw["mcnt"], scratch.data_ptr(), scratch.numel(), n,
+            stream)
     if rc != 0:
-        raise RuntimeError(f"window_absorb kernel launch failed: cudaError {rc}")
-    window_absorb.launches += 1
-    return pos, colsum, info
+        raise RuntimeError(f"window_step kernel launch failed: cudaError {rc}")
+    window_step.launches += 1
+    return scratch[:4]
 
 
-window_absorb.launches = 0  # kernel launches since the last reset
+window_step.launches = 0  # kernel launches since the last reset

@@ -224,18 +224,18 @@ def test_accumulator_failure_exits_nonzero(fixtures_dir, tmp_path, monkeypatch,
     from meshclust2_tpu_torch.cluster import device_loop
 
     def broken(*args, **kw):
-        raise RuntimeError("injected window_absorb failure")
+        raise RuntimeError("injected window_step failure")
 
     for k in ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH"):
         monkeypatch.delenv(k, raising=False)
-    real = device_loop.window_absorb
+    real = device_loop.window_step
     calls = []
 
     def fail_after_warm_up(*args, **kw):
         calls.append(1)
         return (broken if len(calls) > 1 else real)(*args, **kw)
 
-    monkeypatch.setattr(device_loop, "window_absorb", fail_after_warm_up)
+    monkeypatch.setattr(device_loop, "window_step", fail_after_warm_up)
     with pytest.raises(RuntimeError, match="device accumulate loop failed") as e:
         torch_cli.main(["--device", "cpu", "--recover",
                         os.path.join(fixtures_dir, "small_ref_weights.txt"),

@@ -4,10 +4,11 @@
 `meshclust2_tpu.cluster.device_update.DeviceUpdater._closest_core` run by jax
 on the CPU, exactly in `first` and `unc`, and the host engine's
 `distance_d` argmin (first strict minimum) on every segment it does not
-mark uncertain.  The one-segment mode (given the kept rows' column sums
-and count) must equal the segmented mode on the same rows.  Tolerance:
-exact throughout.  The CUDA kernel itself is held against the plain
-version only on a card.
+mark uncertain, also on skewed segments (one holding 90 % of the rows,
+one-row segments, segments with nothing kept).  The plain version's
+one-segment mode (given the kept rows' column sums and count) must equal
+the segmented mode on the same rows.  Tolerance: exact throughout.  The
+CUDA kernel itself is held against the plain version only on a card.
 """
 import os
 from types import SimpleNamespace
@@ -19,7 +20,8 @@ import torch
 from meshclust2_tpu.cli import load_sorted_points
 from meshclust2_tpu.cluster.device_update import DeviceUpdater
 from meshclust2_tpu.cluster.engine import distance_d
-from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
+from meshclust2_tpu_torch.ops.closest_mean import (closest_mean, closest_mean_ref,
+                                                   spreads)
 
 torch.set_num_threads(2)
 
@@ -93,16 +95,35 @@ def port_closest(counts, rows, seg, keep, n_segs):
 
 
 def port_closest_one(counts, rows, keep):
-    """The one-segment mode, with the column sums and count it is given."""
+    """The plain version's one-segment mode, with the column sums and count
+    it is given."""
     t = torch.from_numpy
     col_sum = counts[rows[keep]].astype(np.int64).sum(axis=0)
-    first, unc = closest_mean(
+    first, unc = closest_mean_ref(
         t(counts), t(counts.sum(axis=1, dtype=np.int64).astype(np.float64)),
         t(rows), None, t(keep), 1, maxc=int(counts.max()),
         tie_margin=TIE_MARGIN, col_sum=t(col_sum),
         count=torch.tensor([int(keep.sum())]))
     assert first.shape == unc.shape == (1,)
     return first.numpy(), unc.numpy()
+
+
+def skewed_segments(rng, n_rows, n_pairs, n_segs):
+    """One segment with 90 % of the positions, the rest in segments of one
+    row or empty, and a few segments with nothing kept."""
+    big = int(0.9 * n_pairs)
+    sizes = np.zeros(n_segs, np.int64)
+    sizes[n_segs // 3] = big
+    rest = rng.choice([i for i in range(n_segs) if i != n_segs // 3],
+                      n_pairs - big, replace=n_pairs - big > n_segs - 1)
+    np.add.at(sizes, rest, 1)
+    seg = np.repeat(np.arange(n_segs), sizes)
+    rows = rng.integers(0, n_rows, n_pairs).astype(np.int64)
+    rows[1::7] = rows[::7][:len(rows[1::7])]
+    keep = rng.random(n_pairs) < 0.8
+    unkept = rng.choice(np.nonzero(sizes)[0], 3, replace=False)
+    keep[np.isin(seg, unkept[unkept != n_segs // 3])] = False
+    return rows, seg.astype(np.int64), keep
 
 
 def host_first(counts, rows, seg, keep, c):
@@ -132,6 +153,22 @@ def test_equals_jax_program_and_host(fixture_counts, source, dtype):
         if not unc[c]:
             assert first[c] == host_first(counts, rows, seg, keep, c), c
     assert (first == len(rows)).any() and not unc.all()
+
+
+@pytest.mark.parametrize("dtype", ["uint8_t", "uint16_t"])
+@pytest.mark.parametrize("n_pairs", [300, 2_500])
+def test_skewed_segments_equal_jax_program_and_host(fixture_counts, dtype, n_pairs):
+    counts = fixture_counts["med2000", dtype]
+    rng = np.random.default_rng(n_pairs + len(dtype))
+    rows, seg, keep = skewed_segments(rng, len(counts), n_pairs, 40)
+    first, unc = port_closest(counts, rows, seg, keep, 40)
+    want_first, want_unc = jax_closest(counts, rows, seg, keep, 40)
+    np.testing.assert_array_equal(unc, want_unc)
+    np.testing.assert_array_equal(first, want_first)
+    for c in range(40):
+        if not unc[c]:
+            assert first[c] == host_first(counts, rows, seg, keep, c), c
+    assert (first == len(rows)).sum() >= 2
 
 
 def test_exact_ties_take_the_first_position(fixture_counts):
@@ -200,8 +237,8 @@ def test_one_segment_wrapper_rejects(case):
     elif case == "no_seg":
         kw = {}
     with pytest.raises((TypeError, ValueError)):
-        closest_mean(counts, mags, rows, None, keep, n_segs, maxc=1,
-                     tie_margin=1e-12, **kw)
+        closest_mean_ref(counts, mags, rows, None, keep, n_segs, maxc=1,
+                         tie_margin=1e-12, **kw)
 
 
 @pytest.mark.parametrize("case", ["dtype", "mags", "rows_dtype", "keep_dtype",
@@ -230,10 +267,39 @@ def test_wrapper_rejects(case):
         closest_mean(counts, mags, rows, seg, keep, 1, maxc=1, tie_margin=1e-12)
 
 
+@pytest.mark.parametrize("largest,n_pairs,spread", [
+    (550, 96_004, False),     # the 10k bench set's largest update batch
+    (50, 10_000, False),      # its last one
+    (700, 98_304, False),     # uneven cuts
+    (88_473, 98_304, True),   # one segment of 90 %
+    (2_048, 4_096, False),
+    (2_049, 4_096, True),
+    (60_000, 1_000_000, False),
+    (62_501, 1_000_000, True),
+])
+def test_spreads_from_the_largest_segment(largest, n_pairs, spread):
+    assert spreads(largest, n_pairs) is spread
+
+
+@pytest.mark.parametrize("spread", [None, False, True])
+def test_launch_choice_leaves_the_cpu_result_alone(fixture_counts, spread):
+    counts = fixture_counts["med2000", "uint8_t"]
+    rows, seg, keep = segments(np.random.default_rng(5), len(counts), 30,
+                               with_dups=True)
+    t = torch.from_numpy
+    args = (t(counts), t(counts.sum(axis=1, dtype=np.int64).astype(np.float64)),
+            t(rows), t(seg), t(keep), 30)
+    kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
+    got = closest_mean(*args, **kw, largest=len(rows), spread=spread)
+    want = closest_mean_ref(*args, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("spread", [None, False, True])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 @pytest.mark.parametrize("d", [16, 64, 256, 1024, 4096])
-def test_cuda_kernel_equals_plain(d, dtype):
+def test_cuda_kernel_equals_plain(d, dtype, spread):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     counts = random_counts(d, 300, d, dtype)
@@ -245,7 +311,7 @@ def test_cuda_kernel_equals_plain(d, dtype):
         rows, seg, keep)]
     kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
     before = closest_mean.launches
-    first, unc = closest_mean(*args, 77, **kw)
+    first, unc = closest_mean(*args, 77, **kw, spread=spread)
     torch.cuda.synchronize()
     assert closest_mean.launches == before + 1
     want_first, want_unc = closest_mean_ref(*args, 77, **kw)
@@ -253,30 +319,26 @@ def test_cuda_kernel_equals_plain(d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spread", [None, False, True])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
-@pytest.mark.parametrize("d,n_pairs", [(16, 1), (64, 700), (1024, 20_000), (4096, 2_000)])
-def test_cuda_one_segment_equals_plain_and_segmented(d, n_pairs, dtype):
+@pytest.mark.parametrize("d,n_pairs", [(16, 40), (256, 3_000), (1024, 20_000),
+                                       (4096, 2_000)])
+def test_cuda_kernel_equals_plain_on_skewed_segments(d, n_pairs, dtype, spread):
+    """One segment spanning many tiles (and many chunks of one block),
+    one-row and unkept segments."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    counts = random_counts(d, 300, d, dtype)
+    counts = random_counts(d + 1, 300, d, dtype)
     rng = np.random.default_rng(n_pairs)
-    rows = rng.integers(0, 300, n_pairs).astype(np.int64)
-    rows[1::9] = rows[::9][:len(rows[1::9])]
-    keep = rng.random(n_pairs) < 0.9
+    rows, seg, keep = skewed_segments(rng, 300, n_pairs, 31)
     dev = torch.device("cuda")
     args = [torch.from_numpy(a).to(dev) for a in (
-        counts, counts.sum(axis=1, dtype=np.int64).astype(np.float64), rows)]
-    keep_d = torch.from_numpy(keep).to(dev)
-    one = dict(col_sum=torch.from_numpy(
-        counts[rows[keep]].astype(np.int64).sum(axis=0)).to(dev),
-        count=torch.tensor([int(keep.sum())], device=dev))
+        counts, counts.sum(axis=1, dtype=np.int64).astype(np.float64),
+        rows, seg, keep)]
     kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
     before = closest_mean.launches
-    got = closest_mean(*args, None, keep_d, 1, **kw, **one)
-    seg = closest_mean(*args, torch.zeros(n_pairs, dtype=torch.int64, device=dev),
-                       keep_d, 1, **kw)
+    first, unc = closest_mean(*args, 31, **kw, spread=spread)
     torch.cuda.synchronize()
-    assert closest_mean.launches == before + 2
-    plain = closest_mean_ref(*args, None, keep_d, 1, **kw, **one)
-    for g, s_, p in zip(got, seg, plain):
-        assert torch.equal(g, s_) and torch.equal(g, p)
+    assert closest_mean.launches == before + 1
+    want_first, want_unc = closest_mean_ref(*args, 31, **kw)
+    assert torch.equal(first, want_first) and torch.equal(unc, want_unc)

@@ -203,13 +203,14 @@ def test_forced_margin_aborts_resolve_to_the_host_output(fixtures_dir, tmp_path,
     ("med2000.fasta", "med2000_weights.txt")])
 def test_uncertain_closest_to_mean_aborts_at_stage_2(fixtures_dir, tmp_path,
                                                       clean_env, fasta, weights):
-    """closest_mean marking the mean uncertain from its 20th launch on: the
-    next absorb aborts at stage 2 (absorb applied, center kept), the
-    engine redoes the mean and the following steps on the host and
-    relaunches from make_carry, and the output stays the host engine's."""
-    from meshclust2_tpu_torch.cluster import device_loop
+    """The plain step's closest-to-mean marking the mean uncertain from its
+    20th call on: the next absorb aborts at stage 2 (absorb applied, center
+    kept), the engine redoes the mean and the following steps on the host
+    and relaunches from make_carry, and the output stays the host
+    engine's."""
+    from meshclust2_tpu_torch.ops import window_absorb
 
-    real = device_loop.closest_mean
+    real = window_absorb.closest_mean_ref
     calls = []
 
     def doubtful(*args, **kw):
@@ -225,7 +226,7 @@ def test_uncertain_closest_to_mean_aborts_at_stage_2(fixtures_dir, tmp_path,
         stages.append(0 if out[1] is None else out[1].stage)
         return out
 
-    clean_env.setattr(device_loop, "closest_mean", doubtful)
+    clean_env.setattr(window_absorb, "closest_mean_ref", doubtful)
     clean_env.setattr(TorchDeviceAccumulator, "consume", record)
     out, res = port_run(fixtures_dir, tmp_path, fasta, weights)
     clean_env.undo()
