@@ -392,7 +392,7 @@ def main() -> int:
     from meshclust2_tpu_torch.model.weights import load_weights
     from meshclust2_tpu_torch.ops import _build
     from meshclust2_tpu_torch.ops.closest_mean import (
-        closest_mean, closest_mean_ref, spreads)
+        closest_mean, closest_mean_ref)
     from meshclust2_tpu_torch.ops.pair_stats import (
         center_block_stats, pair_stats, pair_stats_ref)
     from meshclust2_tpu_torch.ops.window_absorb import (
@@ -502,22 +502,20 @@ def main() -> int:
                     raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
                     args[0] = raw[1:].view(300, d).copy_(args[0])
                 kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
+                first, unc = closest_mean(*args, 77, **kw)
+                torch.cuda.synchronize()
                 p_first, p_unc = closest_mean_ref(*args, 77, **kw)
                 want = closest_ref(counts, rows, seg, keep, 77)
-                for spread in (False, True):
-                    first, unc = closest_mean(*args, 77, **kw, spread=spread)
-                    torch.cuda.synchronize()
-                    f, u = first.cpu().numpy(), unc.cpu().numpy()
-                    if not (torch.equal(first, p_first) and torch.equal(unc, p_unc)
-                            and np.array_equal(f[~u], want[~u])):
-                        raise AssertionError(f"closest_mean differs: {dtype.__name__} "
-                                             f"D={d} {layout} spread={spread}")
-                    cm_err = max(cm_err, int((first - p_first).abs().max()))
-                    n_cases += 1
+                f, u = first.cpu().numpy(), unc.cpu().numpy()
+                if not (torch.equal(first, p_first) and torch.equal(unc, p_unc)
+                        and np.array_equal(f[~u], want[~u])):
+                    raise AssertionError(f"closest_mean differs: {dtype.__name__} "
+                                         f"D={d} {layout}")
+                cm_err = max(cm_err, int((first - p_first).abs().max()))
+                n_cases += 1
                 n_unc += int(u.sum())
     phase("c2", f"closest_mean kernel == plain (first, unc) == numpy distance_d "
-                f"argmin in {n_cases} cases (both launches: one block a segment "
-                f"and balanced; uint8/uint16, D in 16/256/1024/4096, "
+                f"argmin in {n_cases} cases (uint8/uint16, D in 16/256/1024/4096, "
                 f"77 ragged segments with empty, one-row and duplicated rows, and "
                 f"77 skewed segments of 3,000 positions, 90 % in one, a few with "
                 f"nothing kept; an unaligned store); {n_unc} segments uncertain")
@@ -626,10 +624,10 @@ def main() -> int:
                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
                    f"events), bound {b_ms:.4f} ms ({b_by}); {card}")
 
-    # (d2) closest_mean's two launches (one block a segment, balanced over
-    # the grid) against each other and the plain version on the same store:
-    # a sweep of equal segments, P = 98,304 uneven cuts, and one segment of
-    # 90 % (the update phase's own batches follow in (f3))
+    # (d2) closest_mean against its plain version on the same store:
+    # P = 98,304 pairs in 1,000 uneven segments, 80 % kept, and the same P
+    # and C with one segment of 90 % (the launch's tail); the update phase's
+    # own batches follow in (f3)
     mags = store.sum(dim=1, dtype=torch.int64).to(torch.float64)
     kw = dict(maxc=int(store.max()), tie_margin=TIE_MARGIN)
 
@@ -645,51 +643,37 @@ def main() -> int:
                         CLOSEST_OPS * len(kept) * d + 2 * d)
 
     def closest_case(args, n_segs, what, timed=True, kw=kw):
-        """Both launches == the plain version on args, and each one's device
-        us; when timed, also the chosen launch's and the plain version's ms
-        and the bound."""
+        """The kernel == the plain version on args, and its device us; when
+        timed, also its and the plain version's ms and the bound."""
         plain = closest_mean_ref(*args, n_segs, **kw)
-        for spread in (False, True):
-            got = closest_mean(*args, n_segs, **kw, spread=spread)
-            torch.cuda.synchronize()
-            if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
-                raise AssertionError(f"closest_mean differs ({what}, spread={spread})")
-        largest = int(torch.bincount(args[3], minlength=n_segs).max())
-        out = dict(largest=largest, spread=spreads(largest, len(args[2])))
-        for spread in (False, True):
-            out["spread_us" if spread else "block_us"] = device_us(
-                lambda: closest_mean(*args, n_segs, **kw, spread=spread))
+        got = closest_mean(*args, n_segs, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+            raise AssertionError(f"closest_mean differs ({what})")
+        out = dict(largest=int(torch.bincount(args[3], minlength=n_segs).max()),
+                   largest_kept=int(torch.bincount(
+                       args[3], weights=args[4].to(torch.float64),
+                       minlength=n_segs).max()),
+                   device_us=device_us(lambda: closest_mean(*args, n_segs, **kw)))
         if timed:
-            out["ms"] = cuda_ms(lambda: closest_mean(*args, n_segs, **kw,
-                                                     largest=largest), reps=50)
+            out["ms"] = cuda_ms(lambda: closest_mean(*args, n_segs, **kw), reps=50)
             out["plain_ms"] = cuda_ms(lambda: closest_mean_ref(*args, n_segs, **kw),
                                       reps=10)
             out["bound_ms"], out["bound_by"] = closest_bound(args, n_segs)
         return out
 
     def closest_line(r):
-        timed = (f"; chosen launch {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+        timed = (f", kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
                  f"(median, CUDA events), bound {r['bound_ms']:.4f} ms "
                  f"({r['bound_by']})") if "ms" in r else ""
-        return (f"largest segment {r['largest']}: device one block a segment "
-                f"{r['block_us']:.2f} us, balanced {r['spread_us']:.2f} us (CUDA "
-                f"events behind a busy wait); spreads() picks "
-                f"{'balanced' if r['spread'] else 'one block a segment'}{timed}; {card}")
+        return (f"largest segment {r['largest']} positions, {r['largest_kept']} "
+                f"kept: device {r['device_us']:.2f} us "
+                f"(CUDA events behind a busy wait){timed}; {card}")
 
     def on_card(*arrays):
         return [store, mags] + [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                                 for a in arrays]
 
-    for n_pairs in (24_576, 98_304):
-        for size in (64, 256, 1_024, 4_096, 16_384):
-            for frac in (0.1, 0.8):
-                seg = np.arange(n_pairs, dtype=np.int64) // size
-                r = closest_case(on_card(rng.integers(0, 10_000, n_pairs), seg,
-                                         rng.random(n_pairs) < frac),
-                                 int(seg[-1]) + 1, f"sweep {n_pairs} {size}",
-                                 timed=False)
-                phase("d2", f"closest_mean sweep P={n_pairs}, segments of {size}, "
-                            f"{int(frac * 100)} % kept, D=1024 uint8: {closest_line(r)}")
     n_pairs, n_segs = 98_304, 1_000
     cuts = np.sort(rng.integers(0, n_pairs + 1, n_segs - 1))
     seg = np.searchsorted(cuts, np.arange(n_pairs), side="right").astype(np.int64)
@@ -697,7 +681,6 @@ def main() -> int:
                                   rng.random(n_pairs) < 0.8), n_segs, "random cuts")
     phase("d2", f"closest_mean P={n_pairs} C={n_segs} random cuts, 80 % kept, "
                 f"D=1024 uint8: {closest_line(cm_cut)}")
-    # the same P and C skewed: one segment of 90 % of the pairs
     cm_skew = closest_case(on_card(*skewed_segments(rng, 10_000, n_pairs, n_segs)),
                            n_segs, "skewed")
     phase("d2", f"closest_mean skewed P={n_pairs} C={n_segs}, 80 % kept, D=1024 "
@@ -858,9 +841,9 @@ def main() -> int:
                        f"{res.scorer.scored_pairs}, re-checked "
                        f"{res.scorer.rechecked_pairs}; {upd}")
 
-        # (f3) closest_mean's two launches on the default path's own update
-        # batches (the warm-up's one pair left out): equal to the plain
-        # version, each launch's device time, the launch spreads() chose
+        # (f3) closest_mean on the default path's own update batches (the
+        # warm-up's one pair left out): equal to the plain version, its
+        # device time per batch
         real = []
         for args, kwargs in batches:
             if len(args[2]) > 1:
@@ -871,12 +854,10 @@ def main() -> int:
                 real.append(r)
                 phase("f3", f"10k update batch {len(real)}: P={r['P']} C={r['C']} "
                             f"kept {r['kept']}, {closest_line(r)}")
-        if len(real) != 8 or any(r["spread"] for r in real):
-            raise AssertionError(f"the 10k update phase ran {len(real)} batches, "
-                                 f"spread {[r['spread'] for r in real]}")
-        phase("f3", f"10k update batches, sum of device time: one block a segment "
-                    f"{sum(r['block_us'] for r in real):.2f} us, balanced "
-                    f"{sum(r['spread_us'] for r in real):.2f} us; {card}")
+        if len(real) != 8:
+            raise AssertionError(f"the 10k update phase ran {len(real)} batches")
+        phase("f3", f"10k update batches, sum of device time "
+                    f"{sum(r['device_us'] for r in real):.2f} us; {card}")
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -1008,7 +989,7 @@ def main() -> int:
                 f"{m.group(0)} {by_name[name] / n_by_name[name]:.1f} us x "
                 f"{n_by_name[name]}"
                 for name in sorted(by_name) for m in [re.search(
-                    r"(pair_stats|closest_block|closest_spread|window_step)_kernel(<[^>]*>)?",
+                    r"(pair_stats|closest_mean|window_step)_kernel(<[^>]*>)?",
                     name)] if m)
             top = "; ".join(f"{name[:48]} {us / 1e3:.1f} ms/{n_by_name[name]}"
                             for name, us in by_name.most_common(6))
@@ -1026,7 +1007,7 @@ def main() -> int:
         raise AssertionError("the port imported jax or the JAX package")
     k_ms, p_ms, b_ms, b_by = timing["pair"]
     # closest_mean at the main path's shape: the 10k update phase's largest
-    # batch, one block a segment as spreads() chose (f3)
+    # batch (f3)
     cm_real = real[0]
     ws_k, ws_p, ws_b, ws_by, ws_dev = step_timing[1_571, 9]
     # launches: this slice's main path (training, then clustering with the
@@ -1056,11 +1037,9 @@ def main() -> int:
         "bound_ms": cm_real["bound_ms"],
         "bound_by": cm_real["bound_by"],
         "library_ms": None,
-        "device_us": cm_real["block_us"],
-        "spread_device_us": cm_real["spread_us"],
+        "device_us": cm_real["device_us"],
         "skewed_ms": cm_skew["ms"],
-        "skewed_device_us": cm_skew["spread_us"],
-        "skewed_block_device_us": cm_skew["block_us"],
+        "skewed_device_us": cm_skew["device_us"],
         "skewed_bound_ms": cm_skew["bound_ms"],
     }, {
         "name": "window_absorb",

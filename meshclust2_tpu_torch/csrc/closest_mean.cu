@@ -26,53 +26,24 @@
 // random rows, and does ~5-10 integer operations a 4-byte word on each
 // pass.  The update phase's batches keep few of their positions (the 10k
 // bench set: ~96,000 positions, ~10,000 kept, in ~800-1,150 segments of at
-// most 550 positions and 50 kept rows), so the positions' keep flags and
-// row indices cost as much as the rows.  Two launches, chosen by the caller
-// from the largest segment's size (ops/closest_mean.py), compute the same
-// results bit for bit:
-//
-// One block per segment (closest_block_kernel), for segments that one
-// block covers in time (every batch of the update phase so far):
+// most 550 positions and 50 kept rows; the 100k set: ~900,000 positions a
+// batch, at most 5,500 positions and 500 kept rows a segment), so
+// a block that walks every position of its segment row by row spends its
+// time on the keep flags and row indices.  The design, one block of 256
+// threads per segment:
 //   - two binary searches over seg give the block its positions;
 //   - per chunk of 256 positions, the kept rows are listed in shared memory
 //     by a ballot scan; each thread sums its 4-byte words of them, eight
-//     rows' loads in flight (uint8 as two 16-bit lanes a word), into the
-//     segment's int64 column sums in shared memory: no atomics;
-//   - the mean, sfloor and guards per bin; the mean in shared memory in the
-//     row's own type;
-//   - the chunks listed again: one warp per kept row, DPX per-halfword
-//     minima against the mean, v, dist2 and mag to scratch; the block's
-//     first minimum; one sweep over the segment for the tie guard.
-// A segment far larger than the rest sets this launch's tail.
-//
-// Balanced over the grid (closest_spread_kernel), for a segment too large
-// for one block: one cooperative launch (coop.cuh), phases separated by
-// grid-wide barriers:
-//   0. every segment's count and minimum slots initialised, and the int64
-//      column sums of the segments that span tiles of 256 positions zeroed
-//      (once each, at their first tile boundary);
-//   1. blocks take tiles: the tile's kept rows and its runs of one segment
-//      are listed in shared memory by ballot scans; per run each thread
-//      sums a 4-byte word of the run's rows, eight rows' loads in flight,
-//      uint8 bins as two 16-bit lanes a word (SWAR), then stores the sums
-//      into the [C, D] int64 scratch, or adds them with integer atomics
-//      where the segment spans tiles (the order of addition cannot matter);
-//   2. per segment (strided over blocks): the mean into a [C, D] scratch in
-//      the row's own type, sfloor and the guards, the divisions by the count
-//      through its float64 reciprocal and one exact integer step;
-//   3. distances: a warp loads 32 positions' indices at once, then takes
-//      their kept rows four at a time, eight lanes a row; the per-bin
-//      minimum is Hopper's DPX __vimin3_u16x2 on 16-bit lanes; dist2, mag
-//      and v go to scratch, and each warp's minimum v per segment into an
-//      atomicMin of v's order-preserving key;
-//   4. per kept row: v equal to the segment's minimum -> atomicMin of its
-//      position (the first minimum); v within the tie margin -> atomicMin
-//      and atomicMax of its (dist2 << 32 | mag) key.  Some near row differs
-//      from the first's integers iff the two keys differ (the first is near;
-//      dist2 and mag are below 2^32 inside the envelope, mags < 2^24);
-//   5. the last block to finish (a count in the scratch) writes unc.
-// Minimum and position are exact whatever the order, so both launches give
-// the same results.
+//     rows' loads in flight (uint8 as two 16-bit lanes a word, SWAR), into
+//     the segment's int64 column sums in shared memory: no atomics;
+//   - the mean, sfloor and guards per bin, the divisions by the count
+//     through its float64 reciprocal and one exact integer step; the mean
+//     in shared memory in the row's own type;
+//   - the chunks listed again: one warp per kept row, Hopper's DPX
+//     per-halfword minimum (__vimin3_u16x2) against the mean, v, dist2 and
+//     mag to scratch; the block's first minimum; one sweep over the
+//     segment for the tie guard.
+// The largest segment sets the tail: ~0.2 us a kept row on one block.
 //
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: the
 // entry points launch on the given stream, allocate nothing, do not
@@ -84,34 +55,8 @@ namespace {
 
 using namespace mc2;
 
-constexpr int kTile = kThreads;  // positions a tile, one a thread
+constexpr int kTile = kThreads;  // positions a chunk, one a thread
 constexpr int kBatch = 8;        // rows a thread loads at once (column sums)
-constexpr int kGroup = 8;        // lanes a row (distances): four rows a warp
-
-// int64 offsets of the scratch's arrays
-struct Layout {
-  long long num, cnt, sfloor, guard, vkey, kmin, kmax, done, v, d2, mag, mean, total;
-};
-
-__host__ __device__ inline Layout layout(int d, long long P, long long C, int elem) {
-  Layout L;
-  long long o = 0;
-  L.num = o;     o += C * d;
-  L.cnt = o;     o += C;
-  L.sfloor = o;  o += C;
-  L.guard = o;   o += C;
-  L.vkey = o;    o += C;
-  L.kmin = o;    o += C;
-  L.kmax = o;    o += C;
-  L.done = o;    o += 1;
-  L.v = o;       o += P;
-  L.d2 = o;      o += P;
-  L.mag = o;     o += P;
-  o = (o + 1) & ~1LL;  // the mean's rows start on 16-byte boundaries
-  L.mean = o;    o += (C * d * elem + 7) / 8;
-  L.total = o;
-  return L;
-}
 
 struct SegArgs {
   const void* counts;
@@ -128,13 +73,6 @@ struct SegArgs {
   long long* first;
   unsigned char* unc;
 };
-
-// int64 words of scratch: v, dist2 and mag per position for one block per
-// segment, the Layout for the balanced launch
-__host__ __device__ inline long long scratch_words(int d, long long P, long long C,
-                                                   int elem, bool spread) {
-  return spread ? layout(d, P, C, elem).total : 3 * P;
-}
 
 __device__ __forceinline__ long long lower_bound(const long long* __restrict__ seg,
                                                  long long n, long long key) {
@@ -178,7 +116,7 @@ __device__ __forceinline__ int list_kept(const SegArgs& a, long long base, long 
 }
 
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads) closest_block_kernel(const SegArgs a) {
+__global__ void __launch_bounds__(kThreads) closest_mean_kernel(const SegArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   long long* num_s = reinterpret_cast<long long*>(smem);        // [d] column sums
   T* r_s = reinterpret_cast<T*>(smem + sizeof(long long) * a.d);  // [d] the mean
@@ -303,319 +241,37 @@ __global__ void __launch_bounds__(kThreads) closest_block_kernel(const SegArgs a
   }
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads) closest_spread_kernel(const SegArgs a) {
-  __shared__ long long red[kWarps];
-  __shared__ long long t_row[kTile];    // a tile's kept rows, in order
-  __shared__ long long run_seg[kTile];  // its runs' segments
-  __shared__ int run_lo[kTile + 1];     // its runs' first kept index
-  __shared__ int wk[kWarps], ws[kWarps];
-  __shared__ int last_s;
-
-  cg::grid_group grid = cg::this_grid();
-  const T* counts = static_cast<const T*>(a.counts);
-  const int d = a.d;
-  const int lane = threadIdx.x & (kWarpSize - 1);
-  const int warp = threadIdx.x / kWarpSize;
-  const int G = gridDim.x;
-  const int b = blockIdx.x;
-  const long long P = a.n_pairs;
-  const long long C = a.n_segs;
-  const long long n_tiles = (P + kTile - 1) / kTile;
-  const Layout L = layout(d, P, C, sizeof(T));
-  long long* num = a.scratch + L.num;
-  long long* cnt = a.scratch + L.cnt;
-  long long* sfloor = a.scratch + L.sfloor;
-  long long* gflag = a.scratch + L.guard;
-  unsigned long long* vkey = reinterpret_cast<unsigned long long*>(a.scratch + L.vkey);
-  unsigned long long* kmin = reinterpret_cast<unsigned long long*>(a.scratch + L.kmin);
-  unsigned long long* kmax = reinterpret_cast<unsigned long long*>(a.scratch + L.kmax);
-  double* v_out = reinterpret_cast<double*>(a.scratch + L.v);
-  long long* d2_out = a.scratch + L.d2;
-  long long* mag_out = a.scratch + L.mag;
-  T* mean = reinterpret_cast<T*>(a.scratch + L.mean);
-  unsigned* done = reinterpret_cast<unsigned*>(a.scratch + L.done);
-  const double inf = __longlong_as_double(0x7ff0000000000000LL);
-
-  // 0. every segment's count and minimum slots; the sums of the segments
-  // that span tiles, at their first boundary; the blocks-done count
-  for (long long c = static_cast<long long>(b) * kThreads + threadIdx.x; c < C;
-       c += static_cast<long long>(G) * kThreads) {
-    cnt[c] = 0;
-    vkey[c] = order_key(inf);
-    kmin[c] = ~0ULL;
-    kmax[c] = 0;
-    a.first[c] = P;
-  }
-  if (b == 0 && threadIdx.x == 0) *done = 0;
-  for (long long k = 1 + b; k < n_tiles; k += G) {
-    const long long c = a.seg[k * kTile];
-    if (a.seg[k * kTile - 1] != c) continue;                     // starts here
-    if (k > 1 && a.seg[(k - 1) * kTile - 1] == c) continue;      // spans an earlier one
-    for (int e = threadIdx.x; e < d; e += kThreads) num[c * d + e] = 0;
-  }
-  grid.sync();
-
-  // 1. per tile and run of one segment: column sums and count of the kept rows
-  for (long long t = b; t < n_tiles; t += G) {
-    const long long lo = t * kTile;
-    const long long hi = min(lo + kTile, P);
-    const long long p = lo + threadIdx.x;
-    const bool valid = p < hi;
-    const long long c = valid ? a.seg[p] : -1;
-    const bool kept = valid && a.keep[p];
-    const bool start = valid && (p == lo || a.seg[p - 1] != c);
-    const unsigned bk = __ballot_sync(kFullMask, kept);
-    const unsigned bs = __ballot_sync(kFullMask, start);
-    if (lane == 0) {
-      wk[warp] = __popc(bk);
-      ws[warp] = __popc(bs);
-    }
-    __syncthreads();
-    const unsigned below = (1u << lane) - 1u;
-    int ki = __popc(bk & below), si = __popc(bs & below), nk = 0, ns = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) {
-        ki += wk[w];
-        si += ws[w];
-      }
-      nk += wk[w];
-      ns += ws[w];
-    }
-    if (kept) t_row[ki] = a.rows[p];
-    if (start) {
-      run_lo[si] = ki;
-      run_seg[si] = c;
-    }
-    if (threadIdx.x == 0) run_lo[ns] = nk;
-    __syncthreads();
-    for (int r = 0; r < ns; ++r) {
-      const long long rc = run_seg[r];
-      const int k0 = run_lo[r], k1 = run_lo[r + 1];
-      const bool spans = (r == 0 && lo > 0 && a.seg[lo - 1] == rc) ||
-                         (r == ns - 1 && hi < P && a.seg[hi] == rc);
-      unsigned long long* dst = reinterpret_cast<unsigned long long*>(num + rc * d);
-      if (VEC) {
-        constexpr int kPer = 4 / sizeof(T);
-        const int words = d / kPer;
-        for (int w = threadIdx.x; w < words; w += kThreads) {
-          unsigned acc[kPer] = {}, acc16[2] = {};  // <= 256 rows: both fit
-          for (int k = k0; k < k1; k += kBatch) {  // kBatch loads in flight
-            unsigned x[kBatch];
-#pragma unroll
-            for (int u = 0; u < kBatch; ++u) {
-              x[u] = k + u < k1 ? __ldg(reinterpret_cast<const unsigned*>(
-                                            counts + t_row[k + u] * d) + w)
-                                : 0u;
-            }
-#pragma unroll
-            for (int u = 0; u < kBatch; ++u) add_word<T>(x[u], acc, acc16);
-          }
-          fold16<T>(acc, acc16);
-#pragma unroll
-          for (int j = 0; j < kPer; ++j) {
-            if (!spans) {
-              dst[w * kPer + j] = acc[j];
-            } else if (acc[j]) {
-              atomicAdd(dst + w * kPer + j, static_cast<unsigned long long>(acc[j]));
-            }
-          }
-        }
-      } else {
-        for (int e = threadIdx.x; e < d; e += kThreads) {
-          unsigned acc = 0;
-          for (int k = k0; k < k1; ++k) acc += counts[t_row[k] * d + e];
-          if (!spans) {
-            dst[e] = acc;
-          } else if (acc) {
-            atomicAdd(dst + e, static_cast<unsigned long long>(acc));
-          }
-        }
-      }
-      if (threadIdx.x == 0) {
-        if (!spans) {
-          cnt[rc] = k1 - k0;
-        } else if (k1 > k0) {
-          atomicAdd(reinterpret_cast<unsigned long long*>(cnt + rc),
-                    static_cast<unsigned long long>(k1 - k0));
-        }
-      }
-    }
-    __syncthreads();  // before the tile's lists are reused
-  }
-  grid.sync();
-
-  // 2. per segment: the mean, sfloor and the guards
-  for (long long c = b; c < C; c += G) {
-    const long long n = cnt[c];  // 0: the sums are 0 (or were never written)
-    const long long den = n > 0 ? n : 1;
-    const double inv = 1.0 / static_cast<double>(den);
-    long long sfl = 0;
-    int guard = 0;
-    for (int e = threadIdx.x; e < d; e += kThreads) {
-      const BinMean m = bin_mean(n > 0 ? num[c * d + e] : 0, den, inv, a.maxc);
-      sfl += m.q;
-      guard |= m.guard;
-      mean[c * d + e] = static_cast<T>(m.r);
-    }
-    sfl = block_sum(sfl, red);
-    guard = __syncthreads_or(guard);
-    if (threadIdx.x == 0) {
-      sfloor[c] = sfl;
-      gflag[c] = guard;
-    }
-  }
-  grid.sync();
-
-  // 3. distances: a warp loads 32 positions' indices at once, then takes
-  // their kept rows four at a time, kGroup lanes a row; each warp keeps the
-  // minimum v of its current segment and folds it into the segment's
-  // atomicMin when the segment changes
-  {
-    const int grp = lane / kGroup, gl = lane % kGroup;
-    const long long n_warps = static_cast<long long>(G) * kWarps;
-    const long long n_batches = (P + kWarpSize - 1) / kWarpSize;
-    const long long per = (n_batches + n_warps - 1) / n_warps;
-    const long long gw = static_cast<long long>(b) * kWarps + warp;
-    const long long bt1 = min((gw + 1) * per, n_batches);
-    long long run_c = -1;
-    double run_min = inf;  // lane 0's
-    for (long long bt = gw * per; bt < bt1; ++bt) {
-      const long long p = bt * kWarpSize + lane;
-      const bool kept = p < P && a.keep[p];
-      const long long pc = kept ? a.seg[p] : 0;
-      const long long prow = kept ? a.rows[p] : 0;
-      unsigned mask = __ballot_sync(kFullMask, kept);
-      while (mask) {
-        int src = -1;  // the kept lane whose row this group takes
-#pragma unroll
-        for (int q = 0; q < kWarpSize / kGroup; ++q) {
-          if (mask) {
-            if (q == grp) src = __ffs(mask) - 1;
-            mask &= mask - 1;
-          }
-        }
-        const long long c = __shfl_sync(kFullMask, pc, src < 0 ? 0 : src);
-        const long long row = __shfl_sync(kFullMask, prow, src < 0 ? 0 : src);
-        long long acc = 0;
-        if (src >= 0) {
-          acc = row_min_sum<T, VEC, kGroup>(counts + row * d, mean + c * d, d, gl);
-        }
-#pragma unroll
-        for (int o = kGroup / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFullMask, acc, o);
-        double v = inf;
-        if (src >= 0) {
-          const long long dist2 = 2 * acc;
-          const long long mag = static_cast<long long>(a.mags[row]) + sfloor[c];
-          v = distance_v(dist2, mag);
-          if (gl == 0) {
-            const long long pp = bt * kWarpSize + src;
-            v_out[pp] = v;
-            d2_out[pp] = dist2;
-            mag_out[pp] = mag;
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kWarpSize / kGroup; ++q) {  // groups in position order
-          const double vq = __shfl_sync(kFullMask, v, q * kGroup);
-          const long long cq = __shfl_sync(kFullMask, c, q * kGroup);
-          const int took = __shfl_sync(kFullMask, src, q * kGroup) >= 0;
-          if (lane == 0 && took) {
-            if (cq != run_c) {
-              if (run_c >= 0) atomicMin(vkey + run_c, order_key(run_min));
-              run_c = cq;
-              run_min = vq;
-            } else if (vq < run_min) {
-              run_min = vq;
-            }
-          }
-        }
-      }
-    }
-    if (run_c >= 0 && lane == 0) atomicMin(vkey + run_c, order_key(run_min));
-  }
-  grid.sync();
-
-  // 4. per kept row: the first minimum's position, the near rows' keys
-  for (long long p = static_cast<long long>(b) * kThreads + threadIdx.x; p < P;
-       p += static_cast<long long>(G) * kThreads) {
-    if (!a.keep[p]) continue;
-    const long long c = a.seg[p];
-    const double mv = key_value(vkey[c]);
-    const double v = v_out[p];
-    if (v == mv) {
-      atomicMin(reinterpret_cast<unsigned long long*>(a.first) + c,
-                static_cast<unsigned long long>(p));
-    }
-    if (fabs(__dsub_rn(v, mv)) <= __dmul_rn(a.tie_margin, fmax(fabs(mv), 1.0))) {
-      const unsigned long long k = (static_cast<unsigned long long>(d2_out[p]) << 32) |
-                                   static_cast<unsigned long long>(mag_out[p]);
-      atomicMin(kmin + c, k);
-      atomicMax(kmax + c, k);
-    }
-  }
-
-  // 5. the last block to finish writes unc per segment (no near row leaves
-  // kmin > kmax)
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last_s = atomicAdd(done, 1u) == static_cast<unsigned>(G - 1);
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  for (long long c = threadIdx.x; c < C; c += kThreads) {
-    a.unc[c] = (__ldcg(gflag + c) || __ldcg(kmin + c) < __ldcg(kmax + c)) ? 1 : 0;
-  }
-}
-
 template <typename T>
-int launch(SegArgs a, bool spread, long long scratch_len, void* stream) {
+int launch(SegArgs a, long long scratch_len, void* stream) {
   if (a.n_segs <= 0) return static_cast<int>(cudaSuccess);
   if (a.d <= 0 || a.n_pairs < 0 || a.n_segs > 0x7fffffffLL ||
-      scratch_len < scratch_words(a.d, a.n_pairs, a.n_segs, sizeof(T), spread) ||
-      reinterpret_cast<uintptr_t>(a.scratch) % 16 != 0) {
+      scratch_len < 3 * a.n_pairs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
-  if (!spread) {
-    auto kernel = vec ? &closest_block_kernel<T, true> : &closest_block_kernel<T, false>;
-    const size_t shm = static_cast<size_t>(a.d) * (sizeof(long long) + sizeof(T));
-    if (shm > 32 * 1024) {  // beside ~4.3 KB of static shared memory
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kernel<<<dim3(static_cast<unsigned>(a.n_segs)), dim3(kThreads), shm,
-             static_cast<cudaStream_t>(stream)>>>(a);
-    return static_cast<int>(cudaGetLastError());
+  auto kernel = vec ? &closest_mean_kernel<T, true> : &closest_mean_kernel<T, false>;
+  const size_t shm = static_cast<size_t>(a.d) * (sizeof(long long) + sizeof(T));
+  if (shm > 32 * 1024) {  // beside ~4.3 KB of static shared memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const void* kernel = vec ? reinterpret_cast<const void*>(&closest_spread_kernel<T, true>)
-                           : reinterpret_cast<const void*>(&closest_spread_kernel<T, false>);
-  const long long tiles = (a.n_pairs + kTile - 1) / kTile;
-  void* args[] = {&a};
-  const cudaError_t e = coop_launch(kernel, tiles > a.n_segs ? tiles : a.n_segs, 0, args,
-                                    static_cast<cudaStream_t>(stream));
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  kernel<<<dim3(static_cast<unsigned>(a.n_segs)), dim3(kThreads), shm,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// int64 words of scratch for P pairs in C segments of D bins of elem bytes,
-// for one block per segment (spread 0) or the balanced launch (spread 1)
-long long mc2_closest_mean_scratch_len(int d, long long n_pairs, long long n_segs,
-                                       int elem, int spread) {
-  return scratch_words(d, n_pairs, n_segs, elem, spread != 0);
-}
-
+// scratch: int64 [>= 3 P] (v, dist2 and mag per position)
 #define MC2_CLOSEST_ENTRY(NAME, T)                                                   \
   int NAME(const void* counts, int d, const void* mags, const void* rows,            \
            const void* seg, const void* keep, long long n_pairs, long long n_segs,   \
-           long long maxc, double tie_margin, int spread, void* scratch,             \
-           long long scratch_len, void* first_out, void* unc_out, void* stream) {    \
+           long long maxc, double tie_margin, void* scratch, long long scratch_len,  \
+           void* first_out, void* unc_out, void* stream) {                           \
     SegArgs a{counts,                                                                \
               d,                                                                     \
               static_cast<const double*>(mags),                                      \
@@ -629,7 +285,7 @@ long long mc2_closest_mean_scratch_len(int d, long long n_pairs, long long n_seg
               static_cast<long long*>(scratch),                                      \
               static_cast<long long*>(first_out),                                    \
               static_cast<unsigned char*>(unc_out)};                                 \
-    return launch<T>(a, spread != 0, scratch_len, stream);                           \
+    return launch<T>(a, scratch_len, stream);                                        \
   }
 
 MC2_CLOSEST_ENTRY(mc2_closest_mean_u8, uint8_t)

@@ -1,15 +1,14 @@
 // Device and launch helpers shared by closest_mean.cu (the segmented
 // closest-to-mean) and window_absorb.cu (the accumulate step's tail).
 //
-// The step kernel and closest_mean's balanced launch run as one
-// cooperative launch (cudaLaunchCooperativeKernel) whose
-// phases are separated by grid-wide barriers (cooperative_groups::
+// The step kernel runs as one cooperative launch (cudaLaunchCooperativeKernel)
+// whose phases are separated by grid-wide barriers (cooperative_groups::
 // this_grid().sync(), which needs no -rdc since CUDA 11).  A cooperative
-// grid must be co-resident on the card, so coop_launch sizes it to
-// min(the blocks the work wants, the blocks that fit at once by the
-// occupancy calculator, kMaxGrid); the kernels loop over their tiles, so
-// the result does not depend on the grid size.  A refused launch returns
-// its error to the wrapper, which raises: there is no fallback.
+// grid must be co-resident on the card, so coop_launch sizes it to min(the
+// blocks the work wants, the blocks that fit at once by the occupancy
+// calculator, kMaxGrid); the kernel loops over its tiles, so the result
+// does not depend on the grid size.  A refused launch returns its error to
+// the wrapper, which raises: there is no fallback.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -226,18 +225,6 @@ __device__ __forceinline__ BinMean bin_mean(long long num, long long den, double
   const bool g3 = rem != 0 && (den - rem) <= (((q + maxc + 2) * den) >> 52);
   // floor((2 num + den) / (2 den)) = q + (2 rem >= den)
   return {q, q + (2 * rem >= den ? 1 : 0), g1 || g2 || g3};
-}
-
-// A float64 as an unsigned key of the same order (for atomicMin/Max), and back.
-__device__ __forceinline__ unsigned long long order_key(double v) {
-  const long long b = __double_as_longlong(v);
-  return b >= 0 ? static_cast<unsigned long long>(b) | 0x8000000000000000ULL
-                : ~static_cast<unsigned long long>(b);
-}
-
-__device__ __forceinline__ double key_value(unsigned long long k) {
-  return __longlong_as_double(static_cast<long long>(
-      (k & 0x8000000000000000ULL) ? (k & 0x7fffffffffffffffULL) : ~k));
 }
 
 // The most blocks of `kernel` (kThreads threads, shm dynamic bytes) that

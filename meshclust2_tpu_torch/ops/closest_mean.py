@@ -3,13 +3,10 @@ the segment's kept rows.
 
 The port of meshclust2_tpu/cluster/device_update.py:DeviceUpdater._closest_core
 (lines 290-364), an XLA program on the TPU.  On a CUDA tensor
-`closest_mean` launches a hand-written kernel of csrc/closest_mean.cu; on
-a CPU tensor it runs `closest_mean_ref`, the plain PyTorch version, which
-the CPU tests hold against the JAX program and the host `distance_d`.  The
-kernel file has two launches with the same results: one block per segment
-(the update phase's batches), and one cooperative launch that spreads
-every segment's rows over the grid (a segment too large for one block);
-`spreads` chooses from the largest segment's size.
+`closest_mean` launches the hand-written kernel in csrc/closest_mean.cu
+(one block per segment); on a CPU tensor it runs `closest_mean_ref`, the
+plain PyTorch version, which the CPU tests hold against the JAX program
+and the host `distance_d`.
 
 For segment c (the positions p with seg[p] == c and keep[p]):
     first[c] = position p of the first minimum of distance_d(counts[rows[p]],
@@ -46,16 +43,13 @@ def _lib():
     from ._build import load
 
     lib = load("closest_mean").lib
-    if lib.mc2_closest_mean_scratch_len.argtypes is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in _ENTRY.values():
-            fn = getattr(lib, name)
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
             fn.argtypes = [p, ctypes.c_int, p, p, p, p, i64, i64, i64,
-                           ctypes.c_double, ctypes.c_int, p, i64, p, p, p]
+                           ctypes.c_double, p, i64, p, p, p]
             fn.restype = ctypes.c_int
-        lib.mc2_closest_mean_scratch_len.argtypes = [ctypes.c_int, i64, i64,
-                                                     ctypes.c_int, ctypes.c_int]
-        lib.mc2_closest_mean_scratch_len.restype = i64
     return lib
 
 
@@ -167,37 +161,17 @@ def closest_mean_ref(counts: torch.Tensor, mags: torch.Tensor,
     return first, seg_unc | tie
 
 
-def spreads(largest: int, n_pairs: int) -> bool:
-    """Whether a batch whose largest segment holds `largest` of its
-    `n_pairs` positions goes to the balanced launch: one block per segment
-    takes time in proportion to the largest segment, the balanced launch
-    to the whole batch plus its grid barriers (PERF.md §6, chip_smoke.py
-    (d2))."""
-    return largest > max(SPREAD_MIN_ROWS, n_pairs // SPREAD_SHARE)
-
-
-# one block per segment up to a segment of this many positions ...
-SPREAD_MIN_ROWS = 2048
-# ... or of this share of the batch, whichever is more
-SPREAD_SHARE = 16
-
-
 def closest_mean(counts: torch.Tensor, mags: torch.Tensor, rows: torch.Tensor,
                  seg: torch.Tensor, keep: torch.Tensor, n_segs: int,
-                 *, maxc: int, tie_margin: float, largest: Optional[int] = None,
-                 spread: Optional[bool] = None
+                 *, maxc: int, tie_margin: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N, D] uint8/uint16 store, float64 [N] mags (exact integers), int64
     [P] rows and nondecreasing segment ids in [0, C), bool [P] keep ->
     (first int64 [C], unc bool [C]).  `maxc` is the store's largest count.
 
     On CUDA the rows must lie in [0, N) and the mags below 2^24 (the
-    store's envelope).  One launch on the current stream, without syncing,
-    into a scratch from PyTorch's caching allocator: one block per segment,
-    or (`spread`) one cooperative launch balanced over the grid.  Both give
-    the same results; when `spread` is None, `spreads(largest, P)` picks,
-    with `largest` the most positions of one segment (the caller's count
-    from the host, else read back here at the cost of a sync)."""
+    store's envelope); one launch on the current stream, without syncing,
+    into a scratch from PyTorch's caching allocator."""
     _check(counts, mags, rows, seg, keep, n_segs, None, None)
     if counts.device.type == "cpu":
         return closest_mean_ref(counts, mags, rows, seg, keep, n_segs,
@@ -208,20 +182,15 @@ def closest_mean(counts: torch.Tensor, mags: torch.Tensor, rows: torch.Tensor,
     unc = torch.empty(n_segs, dtype=torch.bool, device=dev)
     if n_segs == 0:
         return first, unc
-    if spread is None:
-        if largest is None:
-            largest = int(torch.bincount(seg, minlength=n_segs).max())
-        spread = spreads(largest, n_pairs)
     lib = _lib()
-    n_scratch = lib.mc2_closest_mean_scratch_len(d, n_pairs, n_segs,
-                                                 counts.element_size(), int(spread))
-    scratch = torch.empty(n_scratch, dtype=torch.int64, device=dev)
+    # v, dist2 and mag per position
+    scratch = torch.empty(3 * n_pairs, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = getattr(lib, _ENTRY[counts.dtype])(
             counts.data_ptr(), d, mags.data_ptr(), rows.data_ptr(),
             seg.data_ptr(), keep.data_ptr(), n_pairs, n_segs, int(maxc),
-            float(tie_margin), int(spread), scratch.data_ptr(), n_scratch,
+            float(tie_margin), scratch.data_ptr(), scratch.numel(),
             first.data_ptr(), unc.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"closest_mean kernel launch failed: cudaError {rc}")

@@ -20,8 +20,7 @@ import torch
 from meshclust2_tpu.cli import load_sorted_points
 from meshclust2_tpu.cluster.device_update import DeviceUpdater
 from meshclust2_tpu.cluster.engine import distance_d
-from meshclust2_tpu_torch.ops.closest_mean import (closest_mean, closest_mean_ref,
-                                                   spreads)
+from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
 
 torch.set_num_threads(2)
 
@@ -267,39 +266,10 @@ def test_wrapper_rejects(case):
         closest_mean(counts, mags, rows, seg, keep, 1, maxc=1, tie_margin=1e-12)
 
 
-@pytest.mark.parametrize("largest,n_pairs,spread", [
-    (550, 96_004, False),     # the 10k bench set's largest update batch
-    (50, 10_000, False),      # its last one
-    (700, 98_304, False),     # uneven cuts
-    (88_473, 98_304, True),   # one segment of 90 %
-    (2_048, 4_096, False),
-    (2_049, 4_096, True),
-    (60_000, 1_000_000, False),
-    (62_501, 1_000_000, True),
-])
-def test_spreads_from_the_largest_segment(largest, n_pairs, spread):
-    assert spreads(largest, n_pairs) is spread
-
-
-@pytest.mark.parametrize("spread", [None, False, True])
-def test_launch_choice_leaves_the_cpu_result_alone(fixture_counts, spread):
-    counts = fixture_counts["med2000", "uint8_t"]
-    rows, seg, keep = segments(np.random.default_rng(5), len(counts), 30,
-                               with_dups=True)
-    t = torch.from_numpy
-    args = (t(counts), t(counts.sum(axis=1, dtype=np.int64).astype(np.float64)),
-            t(rows), t(seg), t(keep), 30)
-    kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
-    got = closest_mean(*args, **kw, largest=len(rows), spread=spread)
-    want = closest_mean_ref(*args, **kw)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("spread", [None, False, True])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 @pytest.mark.parametrize("d", [16, 64, 256, 1024, 4096])
-def test_cuda_kernel_equals_plain(d, dtype, spread):
+def test_cuda_kernel_equals_plain(d, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     counts = random_counts(d, 300, d, dtype)
@@ -311,7 +281,7 @@ def test_cuda_kernel_equals_plain(d, dtype, spread):
         rows, seg, keep)]
     kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
     before = closest_mean.launches
-    first, unc = closest_mean(*args, 77, **kw, spread=spread)
+    first, unc = closest_mean(*args, 77, **kw)
     torch.cuda.synchronize()
     assert closest_mean.launches == before + 1
     want_first, want_unc = closest_mean_ref(*args, 77, **kw)
@@ -319,13 +289,12 @@ def test_cuda_kernel_equals_plain(d, dtype, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spread", [None, False, True])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 @pytest.mark.parametrize("d,n_pairs", [(16, 40), (256, 3_000), (1024, 20_000),
                                        (4096, 2_000)])
-def test_cuda_kernel_equals_plain_on_skewed_segments(d, n_pairs, dtype, spread):
-    """One segment spanning many tiles (and many chunks of one block),
-    one-row and unkept segments."""
+def test_cuda_kernel_equals_plain_on_skewed_segments(d, n_pairs, dtype):
+    """One segment spanning many chunks of its block, one-row and unkept
+    segments."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     counts = random_counts(d + 1, 300, d, dtype)
@@ -337,7 +306,7 @@ def test_cuda_kernel_equals_plain_on_skewed_segments(d, n_pairs, dtype, spread):
         rows, seg, keep)]
     kw = dict(maxc=int(counts.max()), tie_margin=TIE_MARGIN)
     before = closest_mean.launches
-    first, unc = closest_mean(*args, 31, **kw, spread=spread)
+    first, unc = closest_mean(*args, 31, **kw)
     torch.cuda.synchronize()
     assert closest_mean.launches == before + 1
     want_first, want_unc = closest_mean_ref(*args, 31, **kw)

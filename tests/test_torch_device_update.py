@@ -107,6 +107,22 @@ def test_filter_closest_equals_jax(med):
         assert (dist <= thr * (1 + 1e-6)).all()
 
 
+def test_filter_closest_records_the_largest_segment(med, monkeypatch):
+    """The profile line's segment shape under MC2_DEVICE_PROF: the most
+    positions and the most kept rows of one segment over the calls since
+    the last reset."""
+    cen_rows, b_rows, seg, C = med.calls["filter"]
+    monkeypatch.setenv("MC2_DEVICE_PROF", "1")
+    med.port._reset_counters()
+    keep = med.port.filter_closest(cen_rows, b_rows, seg, C)[0]
+    sizes = np.bincount(seg, minlength=C)
+    kept = np.bincount(seg, weights=keep, minlength=C)
+    assert med.port.max_segment == sizes.max() > 1
+    assert med.port.max_kept == kept.max() >= 1
+    assert (f"largest segment {sizes.max()} positions, {int(kept.max())} kept"
+            in med.port.prof_line())
+
+
 def test_merge_segmented_equals_jax(med):
     cen_rows, jj, seg, C = med.calls["merge"]
     assert C == 305 and len(jj) > 0
