@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from meshclust2_tpu_torch/csrc (one nvcc
 per source, in parallel), holds each against its plain PyTorch version and
-a numpy reference (the accumulate step kernel over a sweep of step cases,
-on every state tensor and its trip), times both at the main path's shapes
+a numpy reference (the fused pair-statistics-and-decision kernel bit for bit
+on the statistics, s, prob and dist; the accumulate step kernel over a
+sweep of step cases, on every state tensor and its trip), times both at the main path's shapes
 beside the least time the card could take (its bound) and the profiler's
 device time per launch, then clusters med2000 and the
 10,000-sequence bench dataset through `meshclust2_tpu_torch.cli` on the
@@ -78,7 +79,20 @@ BENCH10K_CLUSTERS = 788
 MED2000_ACC = (393, 146, 48_737)
 BENCH10K_ACC = (1_503, 590, 927_148)
 MARGIN, TIE_MARGIN = 1e-8, 1e-12
-KERNELS = ("pair_stats", "closest_mean", "window_absorb")
+# the kernel sources, one nvcc each
+SOURCES = ("pair_stats", "closest_mean", "window_absorb")
+# the kernels each path must launch (their wrappers' counts), and those it
+# must not: the clustering paths take their statistics from the fused
+# kernel, training's tables from the statistics alone
+NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb"),
+         "no_device_loop": ("pair_stats_decision", "closest_mean"),
+         "no_device_loop_no_update_batch": ("pair_stats_decision",),
+         "train": ("pair_stats", "pair_stats_decision", "closest_mean",
+                   "window_absorb")}
+FORBIDS = {"default": ("pair_stats",),
+           "no_device_loop": ("pair_stats", "window_absorb"),
+           "no_device_loop_no_update_batch": ("pair_stats", "window_absorb"),
+           "train": ()}
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -95,6 +109,14 @@ PAIR_OPS = 8
 # closest-to-mean, per kept row and element: min against the rounded mean,
 # add, the truncated sum with the mean, add
 CLOSEST_OPS = 4
+# the fused epilogue's float64 operations per pair: the three conversions,
+# ap, aq and the norm, the clamp, exp, the logistic and the bias (12); per
+# single up to 8 for its formula (euclidean_z's 14 counted as 8 on
+# average) and 3 to normalize it; per combo up to 3 products and 2 for the
+# GLM sum
+EPI_OPS_PAIR = 12
+EPI_OPS_SINGLE = 11
+EPI_OPS_COMBO = 5
 
 
 def phase(tag: str, msg: str) -> None:
@@ -188,6 +210,29 @@ def pair_stats_bound(store, a, b):
     d = store.shape[1]
     return bound_ms(rows * d * store.element_size() + tbytes(a, b)
                     + 24 * len(a), PAIR_OPS * len(a) * d)
+
+
+def decision_bound(store, a, b, n_singles: int, n_combos: int):
+    """pair_stats_bound's bytes and operations, plus each referenced row's
+    four float64 moments read, the parameters read, the float64 (s, prob,
+    dist) written, and the epilogue's operations per pair."""
+    rows = int(torch_unique(a, b))
+    d = store.shape[1]
+    p = len(a)
+    nbytes = (rows * (d * store.element_size() + 32) + tbytes(a, b) + 48 * p
+              + 8 * (4 + 4 * (n_singles + n_combos)))
+    ops = (PAIR_OPS * p * d + p * (EPI_OPS_PAIR + EPI_OPS_SINGLE * n_singles
+                                  + EPI_OPS_COMBO * n_combos))
+    return bound_ms(nbytes, ops)
+
+
+def same_f64(got, want) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    import torch
+
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int64), want[~nan].view(torch.int64)))
 
 
 def step_bound(w: int, npos: int, count: int, d: int, elem: int):
@@ -393,15 +438,20 @@ def main() -> int:
     from meshclust2_tpu_torch.ops import _build
     from meshclust2_tpu_torch.ops.closest_mean import (
         closest_mean, closest_mean_ref)
+    from meshclust2_tpu_torch.features import flags as F
+    from meshclust2_tpu_torch.model.classifier import (
+        SINGLE_CODES, CompiledModel, model_to_torch)
+    from meshclust2_tpu_torch.model.weights import ModelBlock
     from meshclust2_tpu_torch.ops.pair_stats import (
-        center_block_stats, pair_stats, pair_stats_ref)
+        center_block_stats, derive_singles, narrow_sums, pair_stats,
+        pair_stats_decision, pair_stats_decision_ref, pair_stats_ref)
     from meshclust2_tpu_torch.ops.window_absorb import (
         StepState, step_scratch, window_step, window_step_ref)
     from meshclust2_tpu_torch.cluster.device_store import DeviceStore
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
 
-    wrappers = {"pair_stats": pair_stats, "closest_mean": closest_mean,
-                "window_absorb": window_step}
+    wrappers = {"pair_stats": pair_stats, "pair_stats_decision": pair_stats_decision,
+                "closest_mean": closest_mean, "window_absorb": window_step}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -416,8 +466,8 @@ def main() -> int:
 
     # (b) the builds, one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = dict(zip(KERNELS, pool.map(_build.load, KERNELS)))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = dict(zip(SOURCES, pool.map(_build.load, SOURCES)))
     for built in builds.values():
         ptxas = "; ".join(ln.strip() for ln in built.log.splitlines()
                           if "registers" in ln or "spill" in ln)
@@ -446,16 +496,17 @@ def main() -> int:
                            np.full(n - 2, center, dtype=np.int64)),
                 "pair": (rng.integers(0, n, 1001), rng.integers(0, n, 1001)),
             }
-            for form, (a, b) in forms.items():
+            for (form, (a, b)), maxc in ((f, m) for f in forms.items()
+                                         for m in (None, int(counts.max()))):
                 a_d = torch.from_numpy(a).to(dev)
                 b_d = torch.from_numpy(b).to(dev)
-                got = pair_stats(c_d, a_d, b_d)
+                got = pair_stats(c_d, a_d, b_d, maxc=maxc)
                 torch.cuda.synchronize()
                 plain = pair_stats_ref(c_d, a_d, b_d)
                 want = torch.from_numpy(oracle(counts, a, b))
                 if not (torch.equal(got, plain) and torch.equal(got.cpu(), want)):
                     raise AssertionError(f"pair_stats differs: {dtype.__name__} "
-                                         f"D={d} {form} form")
+                                         f"D={d} {form} form, maxc {maxc}")
                 max_err = max(max_err, int((got - plain).abs().max()))
                 n_cases += 1
             block = center_block_stats(c_d[:n - 2], c_d[center])
@@ -467,7 +518,109 @@ def main() -> int:
             n_cases += 1
     phase("c", f"kernel == plain == int64 oracle bit for bit in {n_cases} "
                f"cases (uint8/uint16, D in 16/256/1024/4096, center and pair "
-               f"forms, ragged P)")
+               f"forms, ragged P, with and without the store's largest count)")
+
+    # (c1) the fused kernel = its plain sequence (pair_stats_ref, the
+    # moments, derive_singles, decision_from_raw) bit for bit on stats, s,
+    # prob and dist, and its stats = the int64 oracle: uint8/uint16, D in
+    # 16..4096, both forms, the 32-bit (counts < 40, largest count known)
+    # and 64-bit sums (full range, unknown), the 10k model and a synthetic
+    # one with every derivable single and every combo kind
+    all_singles = sorted(SINGLE_CODES, key=SINGLE_CODES.get)
+    synth_combos = [(F.COMBO_XY, F.FEAT_MANHATTAN | F.FEAT_EMD),
+                    (F.COMBO_XY2, F.FEAT_EUCLIDEAN | F.FEAT_INTERSECTION),
+                    (F.COMBO_X2Y, F.FEAT_KULCZYNSKI2 | F.FEAT_SIMRATIO),
+                    (F.COMBO_X2Y2, F.FEAT_NORMALIZED_VECTORS | F.FEAT_PEARSON_COEFF),
+                    (F.COMBO_XY, F.FEAT_D2z), (F.COMBO_X2Y2, F.FEAT_EUCLIDEAN_Z),
+                    (F.COMBO_X2Y, F.FEAT_LENGTHD | F.FEAT_EMD),
+                    (F.COMBO_XY2, F.FEAT_PEARSON_COEFF | F.FEAT_D2z)]
+    bench_model = CompiledModel(load_weights(
+        os.path.join(FIX, "bench10k_weights.txt")).classifier)
+
+    def moment_store(counts, known_max=True):
+        c64 = counts.astype(np.int64)
+        up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return DeviceStore(counts=up(counts),
+                           mags=up(c64.sum(axis=1).astype(np.float64)),
+                           selfdot=up((c64 * c64).sum(axis=1).astype(np.float64)),
+                           lens=up(rng.integers(700, 1500, len(counts)).astype(np.float64)),
+                           stddevs=up(rng.random(len(counts)) * 3 + 0.5),
+                           maxc=int(counts.max()) if known_max else None)
+
+    def synthetic_model(st, a_d, b_d):
+        """All 11 derivable singles, every combo kind; bounds from the
+        singles' range over these pairs."""
+        b_d = b_d.expand(len(a_d))
+        raw = derive_singles(pair_stats_ref(st.counts, a_d, b_d),
+                             *(getattr(st, m)[i] for m in ("mags", "selfdot", "stddevs")
+                               for i in (a_d, b_d)), st.lens[a_d], st.lens[b_d],
+                             st.counts.shape[1], all_singles).cpu().numpy()
+        lo, hi = np.nanmin(raw, axis=0), np.nanmax(raw, axis=0)
+        return CompiledModel(ModelBlock(
+            combos=synth_combos, weights=rng.normal(0.0, 2.0, len(synth_combos) + 1),
+            singles=all_singles, mins=lo, maxs=np.where(hi > lo, hi, lo + 1.0)))
+
+    def decision_check(st, a_d, b_d, model, what):
+        """The fused kernel against its plain sequence; the largest
+        difference over stats and (s, prob, dist), or raise."""
+        params = model_to_torch(model, dev)
+        stats, dec = pair_stats_decision(st, params, a_d, b_d)
+        torch.cuda.synchronize()
+        p_stats, p_dec = pair_stats_decision_ref(st, params, a_d, b_d)
+        if not (torch.equal(stats, p_stats)
+                and all(same_f64(dec[r], p_dec[r]) for r in range(3))):
+            raise AssertionError(f"pair_stats_decision differs: {what}")
+        fin = torch.isfinite(p_dec)
+        return max(float((stats - p_stats).abs().max()),
+                   float((dec[fin] - p_dec[fin]).abs().max()) if fin.any() else 0.0)
+
+    dec_err = 0.0
+    n_cases = 0
+    for dtype in (np.uint8, np.uint16):
+        for d in (16, 64, 256, 1024, 4096):
+            for sums in ("32-bit", "64-bit"):
+                high = 40 if sums == "32-bit" else np.iinfo(dtype).max + 1
+                counts = rng.integers(0, high, (300, d)).astype(dtype)
+                st = moment_store(counts, known_max=sums == "32-bit")
+                if narrow_sums(d, st.maxc) != (sums == "32-bit"):
+                    raise AssertionError(f"{sums} case does not take that path")
+                a = rng.integers(0, 300, 1001)
+                for form, b in (("center", np.array([int(rng.integers(0, 300))])),
+                                ("pair", rng.integers(0, 300, 1001))):
+                    a_d, b_d = (torch.from_numpy(x).to(dev) for x in (a, b))
+                    for name, model in (("10k model", bench_model),
+                                        ("synthetic", synthetic_model(st, a_d, b_d))):
+                        what = f"{dtype.__name__} D={d} {sums} {form} form, {name}"
+                        dec_err = max(dec_err, decision_check(st, a_d, b_d, model, what))
+                        stats, _ = pair_stats_decision(st, model_to_torch(model, dev),
+                                                       a_d, b_d)
+                        if not np.array_equal(stats.cpu().numpy(), oracle(
+                                counts, a, np.broadcast_to(b, a.shape))):
+                            raise AssertionError(f"stats differ from the oracle: {what}")
+                        n_cases += 1
+    # a store off a 16-byte boundary (the element loop), and indices outside
+    # [0, N): -1 statistics, NaN decisions, in both forms
+    counts = rng.integers(0, 50, (200, 1024)).astype(np.uint8)
+    st = moment_store(counts)
+    raw_buf = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
+    st = DeviceStore(**{**st.__dict__, "counts": raw_buf[1:].view(200, 1024).copy_(st.counts)})
+    a_d = torch.from_numpy(rng.integers(0, 200, 777)).to(dev)
+    b_d = torch.from_numpy(rng.integers(0, 200, 777)).to(dev)
+    dec_err = max(dec_err, decision_check(st, a_d, b_d, bench_model, "unaligned store"))
+    n_cases += 1
+    params = model_to_torch(bench_model, dev)
+    for b_bad in ([-1, 200, 5], [200]):
+        stats, dec = pair_stats_decision(st, params, torch.tensor([3, 4, 200], device=dev),
+                                         torch.tensor(b_bad, device=dev))
+        torch.cuda.synchronize()
+        if not ((stats == -1).all() and torch.isnan(dec).all()):
+            raise AssertionError(f"invalid indices {b_bad}: {stats}, {dec}")
+        n_cases += 1
+    phase("c1", f"pair_stats_decision kernel == plain (stats, s, prob, dist bit for "
+                f"bit) == int64 oracle (stats) in {n_cases} cases (uint8/uint16, D in "
+                f"16/64/256/1024/4096, 32- and 64-bit sums, center and pair forms, "
+                f"the 10k model and a synthetic one with all 11 derivable singles "
+                f"and every combo kind; an unaligned store; invalid indices)")
 
     # (c2) closest_mean kernel = plain version (first, unc) = a numpy
     # reference (distance_d over each segment's kept rows, first strict
@@ -610,19 +763,58 @@ def main() -> int:
     }
     timing = {}
     for form, (st_d, a_d, b_d) in shapes.items():
-        got = pair_stats(st_d, a_d, b_d)
+        maxc = int(st_d.max())   # the stores' largest count, as training passes it
+        got = pair_stats(st_d, a_d, b_d, maxc=maxc)
         plain = pair_stats_ref(st_d, a_d, b_d)
         torch.cuda.synchronize()
         if not torch.equal(got, plain):
             raise AssertionError(f"pair_stats differs at the {form} main-path shape")
         max_err = max(max_err, int((got - plain).abs().max()))
-        k_ms = cuda_ms(lambda: pair_stats(st_d, a_d, b_d), reps=50)
+        k_ms = cuda_ms(lambda: pair_stats(st_d, a_d, b_d, maxc=maxc), reps=50)
         p_ms = cuda_ms(lambda: pair_stats_ref(st_d, a_d, b_d), reps=10)
         b_ms, b_by = pair_stats_bound(st_d, a_d, b_d)
         timing[form] = (k_ms, p_ms, b_ms, b_by)
         phase("d", f"{form} form P={len(a_d)} N={len(st_d)} D=1024 uint8: "
                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
                    f"events), bound {b_ms:.4f} ms ({b_by}); {card}")
+
+    # (d1) the fused kernel at the main path's shapes, with the 10k model:
+    # the center form at W = 1,571 (the 10k mean window) and 2,048, the pair
+    # form at P = 98,304; against its plain sequence and the statistics-only
+    # kernel on the same pairs
+    c64 = store.cpu().numpy().astype(np.int64)
+    st10k = DeviceStore(
+        counts=store, mags=torch.from_numpy(c64.sum(axis=1).astype(np.float64)).to(dev),
+        selfdot=torch.from_numpy((c64 * c64).sum(axis=1).astype(np.float64)).to(dev),
+        lens=torch.from_numpy(rng.integers(800, 1500, 10_000).astype(np.float64)).to(dev),
+        stddevs=torch.from_numpy(rng.random(10_000) * 3 + 0.5).to(dev),
+        maxc=int(store.max()))
+    params10k = model_to_torch(bench_model, dev)
+    n_s, n_c = len(bench_model.singles), len(bench_model.combos)
+    center_row = torch.tensor([4_000], device=dev)
+    dshapes = {
+        "center W=1571": (torch.arange(3_000, 4_571, device=dev), center_row),
+        "center W=2048": (torch.arange(3_000, 5_048, device=dev), center_row),
+        "pair P=98304": shapes["pair"][1:],
+    }
+    dec_timing = {}
+    for form, (a_d, b_d) in dshapes.items():
+        decision_check(st10k, a_d, b_d, bench_model, f"10k shape {form}")
+        k_ms = cuda_ms(lambda: pair_stats_decision(st10k, params10k, a_d, b_d), reps=50)
+        p_ms = cuda_ms(lambda: pair_stats_decision_ref(st10k, params10k, a_d, b_d),
+                       reps=10)
+        s_ms = cuda_ms(lambda: pair_stats(store, a_d, b_d, maxc=st10k.maxc), reps=50)
+        dev_us = device_us(lambda: pair_stats_decision(st10k, params10k, a_d, b_d))
+        s_us = device_us(lambda: pair_stats(store, a_d, b_d, maxc=st10k.maxc))
+        b_ms, b_by = decision_bound(store, a_d, b_d, n_s, n_c)
+        dec_timing[form] = dict(ms=k_ms, plain_ms=p_ms, stats_ms=s_ms, device_us=dev_us,
+                                stats_device_us=s_us, bound_ms=b_ms, bound_by=b_by)
+        phase("d1", f"pair_stats_decision {form}, N=10,000 D=1024 uint8, the 10k "
+                    f"model ({n_s} singles, {n_c} combos): kernel {k_ms:.4f} ms, plain "
+                    f"{p_ms:.4f} ms, statistics-only kernel {s_ms:.4f} ms (median, CUDA "
+                    f"events); device {dev_us:.2f} us, statistics-only {s_us:.2f} us "
+                    f"(CUDA events behind a busy wait); bound {b_ms:.6f} ms ({b_by}); "
+                    f"{card}")
 
     # (d2) closest_mean against its plain version on the same store:
     # P = 98,304 pairs in 1,000 uneven segments, 80 % kept, and the same P
@@ -722,13 +914,13 @@ def main() -> int:
                     f"{card}")
 
     def check_launches(path, counted):
-        need = {"default": KERNELS, "no_device_loop": ("pair_stats", "closest_mean"),
-                "no_device_loop_no_update_batch": ("pair_stats",)}[path]
-        for name in need:
+        for name in NEEDS[path]:
             if counted[name] <= 0:
                 raise AssertionError(f"the {path} path launched no {name} kernel")
-        if path != "default" and counted["window_absorb"]:
-            raise AssertionError(f"the {path} path launched window_absorb")
+        for name in FORBIDS[path]:
+            if counted[name]:
+                raise AssertionError(f"the {path} path launched {name} "
+                                     f"{counted[name]} times")
 
     def check_accumulator(res, path, want_acc):
         """The default path ran the accumulator: steps, no scorer pairs;
@@ -896,7 +1088,7 @@ def main() -> int:
         launches["train"] = {name: fn.launches for name, fn in wrappers.items()}
         if res_t.rc != 0:
             raise AssertionError(f"port training exited {res_t.rc}")
-        check_launches("default", launches["train"])
+        check_launches("train", launches["train"])
         tab = res_t.tables
         if tab.tables != 2 or tab.launches < 2 or tab.pairs <= 0:
             raise AssertionError(f"training tables did not run on the card: {tab}")
@@ -995,7 +1187,9 @@ def main() -> int:
                             for name, us in by_name.most_common(6))
             steps = res.accumulator.total_steps if res.accumulator else 0
             events = sum(n_by_name.values())
-            per_step = f", {events / steps:.1f} a step" if steps else ""
+            fused = sum(n for name, n in n_by_name.items() if "pair_stats_kernel" in name)
+            per_step = (f", {events / steps:.1f} a step, {fused} pair_stats_kernel "
+                        f"launches") if steps else ""
             phase("h", f"torch.profiler, {path}, 10k: device busy {busy:.4f} s of "
                        f"a {wall:.3f} s profiled engine.run ({100 * busy / wall:.1f} "
                        f"% busy), {events} device events ({steps} accumulator "
@@ -1010,6 +1204,9 @@ def main() -> int:
     # batch (f3)
     cm_real = real[0]
     ws_k, ws_p, ws_b, ws_by, ws_dev = step_timing[1_571, 9]
+    # the fused kernel at the 10k mean window (the main path's launches) and
+    # in the pair form
+    dc, dp = dec_timing["center W=1571"], dec_timing["pair P=98304"]
     # launches: this slice's main path (training, then clustering with the
     # trained model); library_ms: no PyTorch call computes any of these
     # functions (PERF.md)
@@ -1025,6 +1222,26 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+    }, {
+        "name": "pair_stats_decision",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
+        "replaces": "meshclust2_tpu/ops/pallas_stats.py:39, "
+                    "meshclust2_tpu/cluster/device_loop.py:478, "
+                    "meshclust2_tpu/cluster/device_loop.py:606, "
+                    "meshclust2_tpu/cluster/device_update.py:159",
+        "launches": launches["train"]["pair_stats_decision"],
+        "max_abs_err": dec_err,
+        "ms": dc["ms"],
+        "plain_ms": dc["plain_ms"],
+        "bound_ms": dc["bound_ms"],
+        "bound_by": dc["bound_by"],
+        "library_ms": None,
+        "device_us": dc["device_us"],
+        "pair_ms": dp["ms"],
+        "pair_plain_ms": dp["plain_ms"],
+        "pair_bound_ms": dp["bound_ms"],
+        "pair_device_us": dp["device_us"],
     }, {
         "name": "closest_mean",
         "route": "cuda",

@@ -20,6 +20,14 @@ MC2_NO_DEVICE_LOOP runs the accumulate windows through the scorer and the
 engine's host loop, and MC2_NO_DEVICE_UPDATE_BATCH the update phase through
 the scorer and the engine's native host argmin.
 
+A pool that the kernels do not take (uint32/uint64 histograms, or counts
+outside the exact-integer envelope, `device_store.store_refusal`) gets no
+session: it is clustered by the engine copy on the port's native host
+scorer, as the JAX CLI's `--device host` clusters it, with one stderr line
+naming the reason; its training tables come from the host oracle.  This
+is routing by input type, decided before any device work; a kernel that
+fails on a pool it takes still raises.
+
 The engine falls back to its host paths, printing a line, when the device
 accumulate loop raises.  Here the error is raised again after the run, so
 the exit code shows it; guarded aborts are not errors and resolve on the
@@ -45,8 +53,9 @@ import numpy as np
 
 from .cluster.device_loop import DeviceLoopUnsupported, TorchDeviceAccumulator
 from .cluster.device_session import TorchDeviceSession
+from .cluster.device_store import store_refusal
 from .cluster.device_update import TorchDeviceUpdater
-from .cluster.engine import MeanShiftEngine
+from .cluster.engine import HostScorer, MeanShiftEngine, Scorer
 from .features import flags as F
 from .io.clstr import write_clstr
 from .io.fasta import read_fasta
@@ -54,7 +63,7 @@ from .kmer.counting import (PointSet, build_point_set, concat_point_sets,
                             find_k, largest_pseudocount, select_datatype)
 from .model.classifier import CompiledModel
 from .model.weights import PredictorModel, load_weights, save_weights
-from .ops.device_features import TorchDeviceScorer, check_fused
+from .ops.device_features import check_fused
 from .runtime import resolve_device
 from .train.device_tables import TableStats
 from .utils.clock import Clock
@@ -189,7 +198,7 @@ def sort_points(ps: PointSet) -> PointSet:
 class ClusterRun:
     rc: int
     engine: Optional[MeanShiftEngine] = None
-    scorer: Optional[TorchDeviceScorer] = None
+    scorer: Optional[Scorer] = None    # TorchDeviceScorer, or a host scorer
     updater: Optional[TorchDeviceUpdater] = None
     accumulator: Optional[TorchDeviceAccumulator] = None
     clock: Optional[Clock] = None
@@ -198,7 +207,15 @@ class ClusterRun:
 
 
 def _session(ps: PointSet, model: CompiledModel, device, sim: float
-             ) -> TorchDeviceSession:
+             ) -> Optional[TorchDeviceSession]:
+    """The run's device session, or None for a pool that the kernels do
+    not take: that one is clustered on the host scorer, and stderr says
+    why."""
+    why = store_refusal(ps)
+    if why is not None:
+        print(f"meshclust2-torch: {why}: clustering on the host scorer",
+              file=sys.stderr)
+        return None
     session = TorchDeviceSession(
         ps, model, device, sim,
         update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"),
@@ -326,20 +343,27 @@ def _run(args, files: List[str], device, clock: Clock) -> ClusterRun:
 
     # clustering runs on all points, sequences dropped
     all_ps.seqs = None
+    if session is None:
+        # the JAX CLI's --device host scorer (meshclust2_tpu/cli.py:267-270)
+        from .native import NativeScorer
+
+        scorer = NativeScorer.create(all_ps, model) or HostScorer(all_ps, model)
+        updater = acc = None
+    else:
+        scorer, updater, acc = session.scorer, session.updater, session.accumulator
     engine = MeanShiftEngine(all_ps, model, similarity,
-                             scorer=session.scorer, delta=args.delta,
+                             scorer=scorer, delta=args.delta,
                              iterations=args.iterations,
                              device_session=session)
     clusters = engine.run(clock=clock)
-    acc = session.accumulator
     if acc is not None and acc.error is not None:
         raise RuntimeError("the device accumulate loop failed; the engine "
                            "finished on the host") from acc.error
     write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
-    return ClusterRun(rc=0, engine=engine, scorer=session.scorer,
-                      updater=session.updater, accumulator=acc, clock=clock,
+    return ClusterRun(rc=0, engine=engine, scorer=scorer,
+                      updater=updater, accumulator=acc, clock=clock,
                       trained=trained, tables=tables)
 
 

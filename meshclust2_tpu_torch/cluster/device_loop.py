@@ -7,10 +7,10 @@ dispatch, because its chip sits behind a slow link; on a locally attached
 card the loop stays in Python and the state stays on the card: the pool's
 alive flags, every row's cluster and absorb stamp, the open cluster's
 member list and column sums, the current center.  Each step launches the
-window bounds, the pair-statistics kernel and the float64 epilogue, then
-one step kernel (ops/window_absorb.py:window_step) that decides the
-window, applies its case to the state under the decision flags and moves
-the center to the member closest to the mean; the host reads back one
+window bounds, the pair-statistics kernel with the float64 epilogue fused
+in (one launch), then one step kernel (ops/window_absorb.py:window_step)
+that decides the window, applies its case to the state under the decision
+flags and moves the center to the member closest to the mean; the host reads back one
 small packed vector: the step's decision and the next window's size, so
 it learns the case only at that one read.
 
@@ -44,8 +44,8 @@ import torch
 from ..kmer.counting import PointSet
 from ..model import thresholds as TH
 from ..model.classifier import CompiledModel, model_to_torch
-from ..ops.device_features import check_fused, pair_decision
-from ..ops.pair_stats import pair_stats
+from ..ops.device_features import check_fused
+from ..ops.pair_stats import pair_stats_decision
 from ..ops.window_absorb import StepState, _rows_i64, step_scratch, window_step
 from .bvec import BVec
 
@@ -398,14 +398,12 @@ class TorchDeviceAccumulator:
             return
         z = torch.zeros(1, dtype=torch.int64, device=dev)
         rows = order[z]
-        stats = pair_stats(st.counts, rows, rows)
-        s, _, dist = pair_decision(st, self.params, self.model.singles, rows,
-                                   rows, stats=stats)
+        stats, dec = pair_stats_decision(st, self.params, rows, rows)
         state = StepState(torch.ones(1, dtype=torch.bool, device=dev), z - 1,
                           z.clone(), torch.zeros(2, dtype=torch.int64, device=dev),
                           torch.zeros(st.counts.shape[1], dtype=torch.int64,
                                       device=dev))
-        self._step(order, z, s, dist, stats, state, z, 0, 1, 0)
+        self._step(order, z, dec[0], dec[2], stats, state, z, 0, 1, 0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -561,11 +559,11 @@ class TorchDeviceAccumulator:
     def _scan(self, n_cand: int, cur_d: torch.Tensor, cid: int, stepc: int,
               mcnt: int) -> torch.Tensor:
         """One step over the n_cand candidates in `_cand`: the pair
-        statistics and the epilogue, then the step kernel, which applies
-        both cases under the decision flags (an abort changes nothing, a
-        window without positives closes the cluster and seeds the next,
-        one with positives absorbs them and moves to the member closest to
-        the mean).  Returns the trip (bits, npos, closest uncertain, next
+        statistics and the epilogue in one fused launch (the center form),
+        then the step kernel, which applies both cases under the decision
+        flags (an abort changes nothing, a window without positives closes
+        the cluster and seeds the next, one with positives absorbs them and
+        moves to the member closest to the mean).  Returns the trip (bits, npos, closest uncertain, next
         center), on the card.
 
         device_loop.py:_build_program.body (l. 1407-1466) with
@@ -574,15 +572,13 @@ class TorchDeviceAccumulator:
         st = self.store
         cand = self._cand[:n_cand]
         rows = S["order"][cand]
-        center = S["order"][cur_d].expand(n_cand).contiguous()
         # reference order: feat->compute(candidate, center)
-        stats = pair_stats(st.counts, rows, center)
-        s, _, dist = pair_decision(st, self.params, self.model.singles, rows,
-                                   center, stats=stats)
+        stats, dec = pair_stats_decision(st, self.params, rows,
+                                         S["order"][cur_d])
         state = StepState(self._alive, self._assign, self._astep,
                           self._members, self._msum)
-        return self._step(S["order"], cand, s, dist, stats, state, cur_d, cid,
-                          stepc, mcnt)
+        return self._step(S["order"], cand, dec[0], dec[2], stats, state,
+                          cur_d, cid, stepc, mcnt)
 
     def _seed(self, seed: torch.Tensor, cid: int, stepc: int) -> None:
         """A step without candidates: flat position `seed` leaves the pool

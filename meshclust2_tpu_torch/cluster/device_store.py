@@ -7,16 +7,34 @@ moments that `derive_singles` reads, shared by the scorer, the accumulator
 and the updater (cluster/device_session.py), and by the training tables
 (train/device_tables.py).  Outside the exact-integer envelope
 (`device_loop.envelope_check`), or for uint32/uint64 histograms, the store
-raises `DeviceLoopUnsupported`.
+raises `DeviceLoopUnsupported`; `store_refusal` names the reason before any
+upload, so that callers route such pools to the host.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..kmer.counting import PointSet
+
+
+def store_refusal(ps: PointSet) -> Optional[str]:
+    """Why DeviceStore does not take the pool `ps`, or None when it does:
+    the kernels read uint8/uint16 histograms inside the exact-integer
+    envelope (device_loop.envelope_check_vals)."""
+    # imported here: device_loop imports this module through the scorer
+    from .device_loop import DeviceLoopUnsupported, envelope_check
+
+    if ps.counts.dtype not in (np.uint8, np.uint16):
+        return f"{ps.counts.dtype} histograms (the kernels read uint8/uint16)"
+    try:
+        envelope_check(ps)
+    except DeviceLoopUnsupported as e:
+        return f"{e} (outside the kernels' exact-integer envelope)"
+    return None
 
 
 @dataclass(frozen=True)

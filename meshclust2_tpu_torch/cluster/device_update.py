@@ -35,8 +35,8 @@ import torch
 from ..model import thresholds as TH
 from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.closest_mean import closest_mean
-from ..ops.device_features import check_fused, pair_decision
-from ..ops.pair_stats import pair_stats
+from ..ops.device_features import check_fused
+from ..ops.pair_stats import pair_stats_decision
 from .device_loop import resolve_margins
 from .device_store import DeviceStore
 
@@ -126,13 +126,12 @@ class TorchDeviceUpdater:
             return np.zeros(0), np.zeros(0)
         t0 = time.perf_counter()
         ai, bi = self._upload(a, b)
-        s, _, dist = pair_decision(self.store, self.params, self.model.singles,
-                                   ai, bi)
-        both = torch.stack([s, dist]).cpu().numpy()
+        _, dec = pair_stats_decision(self.store, self.params, ai, bi)
+        both = dec.cpu().numpy()
         self.scored_pairs += n
         self.t_score += time.perf_counter() - t0
         self.n_score += 1
-        return both[0], both[1]
+        return both[0], both[2]
 
     def filter_closest(self, cen_rows: np.ndarray, b_rows: np.ndarray,
                        seg: np.ndarray, C: int):
@@ -147,8 +146,8 @@ class TorchDeviceUpdater:
         t0 = time.perf_counter()
         st = self.store
         cen, b, sg = self._upload(cen_rows, b_rows, seg)
-        s, _, _ = pair_decision(st, self.params, self.model.singles, cen[sg], b)
-        inb, unc = self._band(s, self.band0)
+        _, dec = pair_stats_decision(st, self.params, cen[sg], b)
+        inb, unc = self._band(dec[0], self.band0)
         keep = ~inb
         first, cunc = closest_mean(st.counts, st.mags, b, sg, keep, C,
                                    maxc=st.maxc, tie_margin=self.tie_margin)
@@ -184,10 +183,9 @@ class TorchDeviceUpdater:
         cen, j, sg = self._upload(cen_rows, jj, seg)
         a_idx = cen[j]
         b_idx = cen[sg]
-        stats = pair_stats(st.counts, a_idx, b_idx)
-        s, _, dist = pair_decision(st, self.params, self.model.singles,
-                                   a_idx, b_idx, stats=stats)
-        res1, unc = self._band(s, self.band1)
+        stats, dec = pair_stats_decision(st, self.params, a_idx, b_idx)
+        dist = dec[2]
+        res1, unc = self._band(dec[0], self.band1)
         f64 = dict(dtype=torch.float64, device=self.device)
         i64 = dict(dtype=torch.int64, device=self.device)
         d = torch.where(res1, dist, torch.full_like(dist, -np.inf))

@@ -1,43 +1,74 @@
-// Pair statistics over a device-resident k-mer histogram store.
+// Pair statistics over a device-resident k-mer histogram store, with the
+// classifier's float64 epilogue fused in.
 //
-// For each pair p, with h = counts[a_idx[p]] and c = counts[b_idx[p]]:
-//   out[p][0] = sum_i min(h_i, c_i)
-//   out[p][1] = sum_i h_i * c_i
-//   out[p][2] = sum_j |sum_{i<=j} (h_i - c_i)|        (EMD)
-// as exact int64.  These three integers, plus per-row moments, are all the
-// default feature preset needs (ops/pair_stats.py:derive_singles).
+// For each pair p, with h = counts[a_idx[p]] and c = counts[b_idx[p]]
+// (c = counts[b_idx[0]] for every p in the center form):
+//   stats[p][0] = sum_i min(h_i, c_i)
+//   stats[p][1] = sum_i h_i * c_i
+//   stats[p][2] = sum_j |sum_{i<=j} (h_i - c_i)|        (EMD)
+// as exact int64, and, in the fused entry, from those three integers and the
+// per-row float64 moments of both rows (mags, self dots, stddevs, lens):
+//   the model's raw singles (ops/pair_stats.py:derive_singles), their min/max
+//   normalization, the combos and the GLM sum s, then
+//   prob = 1 / (1 + exp(-clamp(s, +-709))) + bias and dist = combo 0
+//   (model/classifier.py:decision_from_raw), written as dec[0][p] = s,
+//   dec[1][p] = prob, dec[2][p] = dist.
 //
 // Replaces meshclust2_tpu/ops/pallas_stats.py:_build.kernel, the TPU kernel
 // that streams a [tile_b, D] block of candidate rows against ONE center row
-// and forms the EMD prefix with 128x128 triangular MXU matmuls and a carry.
-// This kernel computes the same three statistics but serves both entry
-// shapes with one gather: block-vs-one-center (b_idx constant) and
-// row-vs-row (the update phase's filter and merge batches).
+// and forms the EMD prefix with 128x128 triangular MXU matmuls and a carry,
+// together with the epilogue XLA fuses behind it on the TPU
+// (meshclust2_tpu/cluster/device_loop.py:derive_singles_dd, epilogue_dd;
+// meshclust2_tpu/cluster/device_update.py:DeviceUpdater._score_core).
 //
-// What bounds it on an H100: bytes of HBM.  Each pair reads two rows of D
-// narrow counts (2 KiB at D = 1024, uint8) and does ~10 integer operations
-// per element, far below the card's integer rate, so the kernel is
-// read-bound.  The design keeps the rows narrow all the way into registers:
-//   - one warp per pair; lane l owns the contiguous slice
-//     [l * D/32, (l + 1) * D/32) of both rows and loads it as 16-byte vectors
-//     where the slice allows, widening to int only in registers;
-//   - pass 1 forms the lane's sum-min, dot and the total of its diffs;
-//   - a __shfl_up_sync warp scan of those totals gives each lane the prefix
-//     that precedes its slice;
-//   - pass 2 re-reads the slice (an L1/L2 hit, not HBM) and sums
-//     |offset + local prefix|;
-//   - __shfl_xor_sync reductions, and lane 0 writes the three int64s.
-// The center form re-reads one center row per pair, which stays in L1/L2;
-// only the candidate rows cost HBM.
+// What bounds it on an H100.  In the pair form (the update batches, ~10^5
+// pairs) the bytes of the two rows a pair, from L2 (a 10,000-row store is
+// 10 MB); in the center form (one accumulate window, ~1,600 pairs against one
+// center) the latency of one launch and of one warp's chain.  The design:
+//   - one warp computes a pair's statistics; lane l owns a contiguous slice
+//     of both rows.  Where the slice is whole 16-byte vectors of at most 32
+//     counts (D = 1,024 uint8: two vectors; uint16: up to four), it is loaded
+//     once and held in registers: sum-min, dot and the slice's diff total
+//     come from registers (uint8 with 32-bit sums: four counts a word by
+//     __vminu4 and __dp4a), a __shfl_up_sync scan gives the prefix before
+//     the slice, and the EMD pass reads the registers again.  Wider slices
+//     (D = 4,096, which spill at 64 counts a lane) and unaligned stores keep
+//     the two-pass loop, whose second pass re-reads the slice from L1;
+//   - 32-bit lane sums when the wrapper proves them exact from the store's
+//     largest count (D maxc^2 < 2^31 bounds sum-min, dot and every prefix;
+//     ceil(D/32) D maxc < 2^32 bounds a lane's EMD part); the EMD is widened
+//     to 64 bits for the warp reduction only.  Otherwise every sum is 64-bit;
+//   - the center form stages the center row once a block in shared memory
+//     with 16-byte loads;
+//   - a warp takes G consecutive pairs, G chosen so that the grid is one
+//     wave of the warps the card holds at once (G = 1 for an accumulate
+//     window, so every pair has its own warp; ~47 for an update batch of
+//     ~10^5 pairs).  In the one-pass path the next pair's rows are loaded
+//     while this pair's are summed, and the warp's first pair's rows while
+//     the block stages the center.  The xor reductions leave each pair's
+//     statistics on every lane; lane j keeps the round's pair j, and after
+//     each round of 32 pairs the lanes run their pairs' epilogues side by
+//     side, the moments loaded before the round's statistics.  A round of
+//     one pair (the center form's one pair a warp) spreads its epilogue over
+//     the warp instead: a lane a single, a lane a combo, the GLM sum in
+//     combo order from shuffles;
+//   - the model's parameters (one packed float64 buffer,
+//     model/classifier.py:packed_params) are copied into shared memory once
+//     a block, or read from global memory when they do not fit.
 //
-// Exactness: sum-min and dot are summed in 64 bits (each u16 x u16 product
-// fits 32 unsigned bits), the running prefix and the EMD in 64 bits, so the
-// result is exact for any D and either width.  Inside the device envelope
-// (cluster/device_loop.py:envelope_check) sum-min and dot are < 2^31, but
-// D * max magnitude can exceed 2^31, so the EMD needs the 64-bit total.
+// Exactness.  The statistics are exact integers for any D and either width.
+// The epilogue repeats the plain PyTorch sequence (ops/pair_stats.py:
+// derive_singles, model/classifier.py:decision_from_raw) operation for
+// operation with explicitly rounded intrinsics, so that nvcc contracts
+// nothing into an FMA: a float64 result here equals the plain version's on
+// the card bit for bit.  Where PyTorch's CUDA kernels round otherwise than
+// the Python reads, this follows PyTorch: mags / d is mags * (1 / d) (a
+// division by a host scalar), x**2 is x * x, 1 / x is a correctly rounded
+// division, and exp is the CUDA math library's, which PyTorch calls too.
 //
-// An index outside [0, n_rows) writes -1 into all three outputs of its pair
-// (every real statistic is >= 0); callers validate indices before launch.
+// An index outside [0, n_rows) writes -1 into the three statistics of its
+// pair and NaN into its s, prob and dist; callers validate indices before
+// launch.
 //
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: each
 // entry point launches on the given stream, allocates nothing, does not
@@ -46,177 +77,714 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarpSize = 32;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = kWarpSize * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
+// the derivable singles (model/classifier.py:SINGLE_CODES)
+constexpr int kMaxSingles = 11;
+enum Single {
+  kManhattan = 0, kEuclidean, kIntersection, kKulczynski2, kSimratio,
+  kNormalizedVectors, kPearson, kD2z, kEuclideanZ, kEmd, kLengthd,
+};
+enum Combo { kXY = 0, kXY2 = 1, kX2Y = 2, kX2Y2 = 3 };
+// packed parameters: [S, C, bias, w0], then 4 a single (code, min,
+// max - min, is_sim), then 4 a combo (kind, i0, i1 or -1, weight)
+constexpr int kHead = 4;
+constexpr int kStride = 4;
 
-// 16 bytes of T, for vector loads of the lane's slice.
+struct Args {
+  const void* counts;
+  long long n_rows;
+  int d;
+  const long long* a_idx;
+  const long long* b_idx;
+  long long n_pairs;
+  int center;          // 1: b_idx holds one index, the center of every pair
+  int center_shared;   // 1: stage the center row in shared memory
+  int group;           // G, pairs a warp
+  // the fused epilogue; dec == nullptr for the statistics alone
+  const double* mags;
+  const double* selfdot;
+  const double* stddevs;
+  const double* lens;
+  const double* prm;
+  int n_prm;
+  int prm_shared;      // 1: copy prm into shared memory
+  double inv_d;        // 1 / d, as PyTorch divides by a host scalar
+  long long* stats;    // [P, 3]
+  double* dec;         // [3, P]: s, prob, dist
+};
+
 template <typename T>
 union Vec16 {
   uint4 raw;
   T e[16 / sizeof(T)];
 };
 
-struct LaneStats {
-  long long smin;
-  unsigned long long dot;
-  long long diff_total;
+template <bool NARROW>
+struct Acc {
+  using U = typename std::conditional<NARROW, unsigned, unsigned long long>::type;
+  using S = typename std::conditional<NARROW, int, long long>::type;
 };
 
-// Pass 1 over the lane's slice [0, n) of h and c.
-template <typename T, bool VEC>
-__device__ __forceinline__ LaneStats lane_pass1(const T* __restrict__ h,
-                                                const T* __restrict__ c,
-                                                int n) {
-  LaneStats s{0, 0ull, 0};
+// warp sum of v, on every lane
+template <typename V>
+__device__ __forceinline__ V warp_sum(V v) {
+#pragma unroll
+  for (int delta = kWarpSize / 2; delta > 0; delta >>= 1)
+    v += __shfl_xor_sync(kFullMask, v, delta);
+  return v;
+}
+
+// exclusive warp prefix of v (lane order)
+template <typename V>
+__device__ __forceinline__ V warp_exclusive(V v, int lane) {
+  V incl = v;
+#pragma unroll
+  for (int delta = 1; delta < kWarpSize; delta <<= 1) {
+    const V up = __shfl_up_sync(kFullMask, incl, delta);
+    if (lane >= delta) incl += up;
+  }
+  return incl - v;
+}
+
+// the warp's totals (sum-min, dot, EMD) from the lanes' parts
+template <bool NARROW>
+__device__ __forceinline__ void finish(typename Acc<NARROW>::U smin,
+                                       typename Acc<NARROW>::U dot,
+                                       typename Acc<NARROW>::U emd,
+                                       long long* out) {
+  // in the narrow path sum-min and dot totals are < 2^31 too; only the EMD
+  // total can pass 2^32
+  out[0] = static_cast<long long>(warp_sum(smin));
+  out[1] = static_cast<long long>(warp_sum(dot));
+  out[2] = static_cast<long long>(warp_sum(static_cast<unsigned long long>(emd)));
+}
+
+// Lane l's slice of a row for the one-pass path: NV 16-byte vectors at
+// vector l * NV.
+template <typename T, int NV>
+__device__ __forceinline__ void load_slice(Vec16<T>* v, const T* row, int lane) {
+  const uint4* p = reinterpret_cast<const uint4*>(row) + lane * NV;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) v[k].raw = p[k];
+}
+
+// One pass over slices held in registers: sum-min, dot and the diff total,
+// the warp scan, then the EMD part from the same registers.
+template <typename T, int NV, bool NARROW>
+__device__ __forceinline__ void stats_reg(const Vec16<T>* hv, const Vec16<T>* cv,
+                                          int lane, long long* out) {
+  using U = typename Acc<NARROW>::U;
+  using S = typename Acc<NARROW>::S;
+  constexpr int E = 16 / sizeof(T);
+  U smin = 0, dot = 0;
+  S diff = 0;
+  if constexpr (sizeof(T) == 1 && NARROW) {
+    // four counts a word: byte-wise minimum and dot products into 32 bits
+    constexpr unsigned kOnes = 0x01010101u;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const unsigned hw[4] = {hv[k].raw.x, hv[k].raw.y, hv[k].raw.z, hv[k].raw.w};
+      const unsigned cw[4] = {cv[k].raw.x, cv[k].raw.y, cv[k].raw.z, cv[k].raw.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        smin = __dp4a(__vminu4(hw[w], cw[w]), kOnes, smin);
+        dot = __dp4a(hw[w], cw[w], dot);
+        diff += static_cast<S>(__dp4a(hw[w], kOnes, 0u)) -
+                static_cast<S>(__dp4a(cw[w], kOnes, 0u));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned x = hv[k].e[e];
+        const unsigned y = cv[k].e[e];
+        smin += min(x, y);
+        dot += static_cast<U>(x * y);
+        diff += static_cast<S>(x) - static_cast<S>(y);
+      }
+    }
+  }
+  S run = warp_exclusive(diff, lane);
+  U emd = 0;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      run += static_cast<S>(hv[k].e[e]) - static_cast<S>(cv[k].e[e]);
+      emd += static_cast<U>(run < 0 ? -run : run);
+    }
+  }
+  finish<NARROW>(smin, dot, emd, out);
+}
+
+// Two passes over lane l's slice [l * per, (l + 1) * per) clipped to d, as
+// 16-byte vectors (VEC) or elements; the second re-reads it from L1.
+template <typename T, bool VEC, bool NARROW>
+__device__ __forceinline__ void stats_loop(const T* __restrict__ h, const T* c,
+                                           int d, int lane, long long* out) {
+  using U = typename Acc<NARROW>::U;
+  using S = typename Acc<NARROW>::S;
+  constexpr int E = 16 / sizeof(T);
+  const int per = (d + kWarpSize - 1) / kWarpSize;
+  const int start = lane * per;
+  const int n = max(0, min(per, d - start));
+  h += start;
+  c += start;
+  U smin = 0, dot = 0;
+  S diff = 0;
   if (VEC) {
-    constexpr int E = 16 / sizeof(T);
     for (int off = 0; off < n; off += E) {
       Vec16<T> hv, cv;
-      hv.raw = *reinterpret_cast<const uint4*>(h + off);
+      hv.raw = __ldg(reinterpret_cast<const uint4*>(h + off));
       cv.raw = *reinterpret_cast<const uint4*>(c + off);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const unsigned x = hv.e[e];
         const unsigned y = cv.e[e];
-        s.smin += min(x, y);
-        s.dot += static_cast<unsigned long long>(x * y);
-        s.diff_total += static_cast<long long>(x) - static_cast<long long>(y);
+        smin += min(x, y);
+        dot += static_cast<U>(x * y);
+        diff += static_cast<S>(x) - static_cast<S>(y);
       }
     }
   } else {
     for (int i = 0; i < n; ++i) {
       const unsigned x = h[i];
       const unsigned y = c[i];
-      s.smin += min(x, y);
-      s.dot += static_cast<unsigned long long>(x * y);
-      s.diff_total += static_cast<long long>(x) - static_cast<long long>(y);
+      smin += min(x, y);
+      dot += static_cast<U>(x * y);
+      diff += static_cast<S>(x) - static_cast<S>(y);
     }
   }
-  return s;
-}
-
-// Pass 2: sum_j |offset + sum_{i<=j} (h_i - c_i)| over the lane's slice.
-template <typename T, bool VEC>
-__device__ __forceinline__ unsigned long long lane_pass2(
-    const T* __restrict__ h, const T* __restrict__ c, int n, long long run) {
-  unsigned long long emd = 0ull;
+  S run = warp_exclusive(diff, lane);
+  U emd = 0;
   if (VEC) {
-    constexpr int E = 16 / sizeof(T);
     for (int off = 0; off < n; off += E) {
       Vec16<T> hv, cv;
-      hv.raw = *reinterpret_cast<const uint4*>(h + off);
+      hv.raw = __ldg(reinterpret_cast<const uint4*>(h + off));
       cv.raw = *reinterpret_cast<const uint4*>(c + off);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        run += static_cast<long long>(hv.e[e]) - static_cast<long long>(cv.e[e]);
-        emd += static_cast<unsigned long long>(run < 0 ? -run : run);
+        run += static_cast<S>(hv.e[e]) - static_cast<S>(cv.e[e]);
+        emd += static_cast<U>(run < 0 ? -run : run);
       }
     }
   } else {
     for (int i = 0; i < n; ++i) {
-      run += static_cast<long long>(h[i]) - static_cast<long long>(c[i]);
-      emd += static_cast<unsigned long long>(run < 0 ? -run : run);
+      run += static_cast<S>(h[i]) - static_cast<S>(c[i]);
+      emd += static_cast<U>(run < 0 ? -run : run);
     }
   }
-  return emd;
+  finish<NARROW>(smin, dot, emd, out);
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kWarpSize * kWarpsPerBlock)
-pair_stats_kernel(const T* __restrict__ counts, long long n_rows, int d,
-                  const long long* __restrict__ a_idx,
-                  const long long* __restrict__ b_idx, long long n_pairs,
-                  long long* __restrict__ out) {
-  const int lane = threadIdx.x % kWarpSize;
-  const long long p =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarpSize;
-  if (p >= n_pairs) return;  // uniform across the warp
-  const long long a = a_idx[p];
-  const long long b = b_idx[p];
-  if (a < 0 || a >= n_rows || b < 0 || b >= n_rows) {
-    if (lane == 0) {
-      out[3 * p + 0] = -1;
-      out[3 * p + 1] = -1;
-      out[3 * p + 2] = -1;
+// The float64 moments of a pair's two rows.
+struct Moments {
+  double ma, mb, sa, sb, ta, tb, la, lb;   // mags, self dots, stddevs, lens
+};
+
+// What every single reads: the statistics as float64, ap, aq and the norm.
+struct Derived {
+  double summin, dot, emd, ap, aq, norm2;
+};
+
+__device__ __forceinline__ Derived derive(const long long* st, const Moments& m,
+                                          double inv_d) {
+  Derived v;
+  v.summin = __ll2double_rn(st[0]);
+  v.dot = __ll2double_rn(st[1]);
+  v.emd = __ll2double_rn(st[2]);
+  v.ap = __dmul_rn(m.ma, inv_d);
+  v.aq = __dmul_rn(m.mb, inv_d);
+  v.norm2 = __dsub_rn(__dadd_rn(m.sa, m.sb), __dmul_rn(2.0, v.dot));
+  return v;
+}
+
+// One raw single, in ops/pair_stats.py:derive_singles' operation order.
+__device__ __forceinline__ double single_raw(int code, const Derived& v,
+                                             const Moments& m, double d) {
+  const double dot = v.dot, ap = v.ap, aq = v.aq;
+  switch (code) {
+    case kManhattan:
+      return __dsub_rn(__dadd_rn(m.ma, m.mb), __dmul_rn(2.0, v.summin));
+    case kEuclidean:
+      return __dsqrt_rn(v.norm2);
+    case kIntersection:
+      return __ddiv_rn(__dmul_rn(2.0, v.summin), __dadd_rn(m.ma, m.mb));
+    case kKulczynski2:
+      return __dmul_rn(__ddiv_rn(__dmul_rn(d, __dadd_rn(ap, aq)),
+                                 __dmul_rn(__dmul_rn(2.0, ap), aq)),
+                       v.summin);
+    case kSimratio:
+      return __ddiv_rn(dot, __dadd_rn(dot, __dsqrt_rn(v.norm2)));
+    case kNormalizedVectors:
+      return __ddiv_rn(dot, __dsqrt_rn(__dmul_rn(m.sa, m.sb)));
+    case kPearson: {
+      const double cov = __dsub_rn(dot, __dmul_rn(__dmul_rn(d, ap), aq));
+      const double va = __dsub_rn(m.sa, __dmul_rn(d, __dmul_rn(ap, ap)));
+      const double vb = __dsub_rn(m.sb, __dmul_rn(d, __dmul_rn(aq, aq)));
+      return __ddiv_rn(cov, __dsqrt_rn(__dmul_rn(va, vb)));
     }
-    return;
+    case kD2z:
+      return __ddiv_rn(__dsub_rn(dot, __dmul_rn(__dmul_rn(d, ap), aq)),
+                       __dmul_rn(m.ta, m.tb));
+    case kEuclideanZ: {
+      const double na = __ddiv_rn(__dsub_rn(m.sa, __dmul_rn(d, __dmul_rn(ap, ap))),
+                                  __dmul_rn(m.ta, m.ta));
+      const double nb = __ddiv_rn(__dsub_rn(m.sb, __dmul_rn(d, __dmul_rn(aq, aq))),
+                                  __dmul_rn(m.tb, m.tb));
+      const double dz = __ddiv_rn(__dsub_rn(dot, __dmul_rn(__dmul_rn(d, ap), aq)),
+                                  __dmul_rn(m.ta, m.tb));
+      return __dsqrt_rn(__dsub_rn(__dadd_rn(na, nb), __dmul_rn(2.0, dz)));
+    }
+    case kEmd:
+      return v.emd;
+    case kLengthd:
+      return fabs(__dsub_rn(m.la, m.lb));
   }
-  // lane slice: ceil(d / 32) elements from lane * per, clipped to d
-  const int per = (d + kWarpSize - 1) / kWarpSize;
-  const int start = lane * per;
-  const int n = max(0, min(per, d - start));
-  const T* h = counts + a * d + start;
-  const T* c = counts + b * d + start;
+  return __longlong_as_double(0x7ff8000000000000LL);   // unreachable: checked
+}
 
-  LaneStats s = lane_pass1<T, VEC>(h, c, n);
+// Single k of the model, normalized: (raw - min) / (max - min), and
+// 1 - that for a distance (model/classifier.py:decision_from_raw).
+__device__ __forceinline__ double single_normalized(const double* prm, int k,
+                                                    const Derived& v,
+                                                    const Moments& m, double d) {
+  const double* q = prm + kHead + kStride * k;
+  const double raw = single_raw(static_cast<int>(q[0]), v, m, d);
+  const double x = __ddiv_rn(__dsub_rn(raw, q[1]), q[2]);
+  return q[3] != 0.0 ? x : __dsub_rn(1.0, x);
+}
 
-  // inclusive warp scan of the lane diff totals -> exclusive offset
-  long long incl = s.diff_total;
+// A combo's value from its singles' normalized values (has_y false: a
+// combo of one single, whose product runs over x alone).
+__device__ __forceinline__ double combo_value(int kind, double x, double y, bool has_y) {
+  if (kind == kXY) return has_y ? __dmul_rn(x, y) : x;
+  if (kind == kX2Y2) return has_y ? __dmul_rn(__dmul_rn(x, x), __dmul_rn(y, y)) : __dmul_rn(x, x);
+  if (kind == kXY2) return __dmul_rn(__dmul_rn(x, y), y);
+  return __dmul_rn(__dmul_rn(x, x), y);
+}
+
+// s = w0 + the GLM dot (w0 alone without combos), prob, dist.
+__device__ __forceinline__ void write_decision(const double* prm, int n_c, double glm,
+                                               double dist, double* s_out,
+                                               double* prob_out, double* dist_out) {
+  const double s = n_c ? __dadd_rn(prm[3], glm) : prm[3];
+  // torch.clamp keeps a NaN
+  const double sc = isnan(s) ? s : fmin(fmax(s, -709.0), 709.0);
+  *s_out = s;
+  *prob_out = __dadd_rn(__ddiv_rn(1.0, __dadd_rn(1.0, exp(-sc))), prm[2]);
+  *dist_out = n_c ? dist : 0.0;
+}
+
+// The epilogue of one pair on one lane: (s, prob, dist) in
+// model/classifier.py:decision_from_raw's operation order, the GLM dot in
+// combo order.
+__device__ __forceinline__ void epilogue(const double* __restrict__ prm,
+                                         const long long* st, const Moments& m,
+                                         double d, double inv_d, double* s_out,
+                                         double* prob_out, double* dist_out) {
+  const int n_s = static_cast<int>(prm[0]);
+  const int n_c = static_cast<int>(prm[1]);
+  const Derived v = derive(st, m, inv_d);
+  double nv[kMaxSingles];
+  for (int k = 0; k < n_s; ++k) nv[k] = single_normalized(prm, k, v, m, d);
+  const double* cq = prm + kHead + kStride * n_s;
+  double glm = 0.0, dist = 0.0;
+  for (int j = 0; j < n_c; ++j, cq += kStride) {
+    const int i1 = static_cast<int>(cq[2]);
+    const double c = combo_value(static_cast<int>(cq[0]), nv[static_cast<int>(cq[1])],
+                                 i1 >= 0 ? nv[i1] : 1.0, i1 >= 0);
+    if (j == 0) {
+      glm = __dmul_rn(c, cq[3]);
+      dist = c;
+    } else {
+      glm = __dadd_rn(glm, __dmul_rn(c, cq[3]));
+    }
+  }
+  write_decision(prm, n_c, glm, dist, s_out, prob_out, dist_out);
+}
+
+// The same epilogue of one pair spread over the warp, for a round of one
+// pair (the center form's one pair a warp): lane k normalizes single k,
+// lane j forms combo j and its product with its weight, and every lane
+// adds the products in combo order from shuffles; lane 0 writes.  Every
+// lane holds the pair's statistics and moments.  The values and their
+// order of operations are the one-lane epilogue's, so the bits are too.
+__device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
+                                              const long long* st, const Moments& m,
+                                              double d, double inv_d, int lane,
+                                              double* s_out, double* prob_out,
+                                              double* dist_out) {
+  const int n_s = static_cast<int>(prm[0]);
+  const int n_c = static_cast<int>(prm[1]);
+  const Derived v = derive(st, m, inv_d);
+  const double nv = lane < n_s ? single_normalized(prm, lane, v, m, d) : 0.0;
+  const double* cq0 = prm + kHead + kStride * n_s;
+  double glm = 0.0, dist = 0.0;
+  for (int cb = 0; cb < n_c; cb += kWarpSize) {   // uniform
+    const int j = cb + lane;
+    int kind = kXY, i0 = 0, i1 = -1;
+    double w = 0.0;
+    if (j < n_c) {
+      const double* cq = cq0 + kStride * j;
+      kind = static_cast<int>(cq[0]);
+      i0 = static_cast<int>(cq[1]);
+      i1 = static_cast<int>(cq[2]);
+      w = cq[3];
+    }
+    const double x = __shfl_sync(kFullMask, nv, i0);
+    const double y = __shfl_sync(kFullMask, nv, i1 >= 0 ? i1 : 0);
+    const double c = combo_value(kind, x, i1 >= 0 ? y : 1.0, i1 >= 0);
+    const double prod = __dmul_rn(c, w);
+    const int n = min(kWarpSize, n_c - cb);
+    for (int t = 0; t < n; ++t) {
+      const double ct = __shfl_sync(kFullMask, c, t);
+      const double pt = __shfl_sync(kFullMask, prod, t);
+      if (cb + t == 0) {
+        glm = pt;
+        dist = ct;
+      } else {
+        glm = __dadd_rn(glm, pt);
+      }
+    }
+  }
+  if (lane == 0) write_decision(prm, n_c, glm, dist, s_out, prob_out, dist_out);
+}
+
+// A pair's two rows and whether both indices are in range.
+struct Pair {
+  long long a, b;
+  bool ok;
+};
+
+__device__ __forceinline__ Pair pair_at(const Args& args, long long p, bool c_ok) {
+  Pair q;
+  q.a = args.a_idx[p];
+  q.b = args.center ? args.b_idx[0] : args.b_idx[p];
+  q.ok = q.a >= 0 && q.a < args.n_rows &&
+         (args.center ? c_ok : q.b >= 0 && q.b < args.n_rows);
+  return q;
+}
+
+// NV > 0: the one-pass register path with NV vectors a lane, the next
+// pair's rows loaded while this one's are summed; NV == 0: the two-pass
+// loop over 16-byte vectors; NV == -1: the two-pass loop over elements.
+// A warp takes `group` consecutive pairs in rounds of 32: lane j keeps the
+// statistics of the round's pair j, then lanes 0..31 run the round's
+// epilogues, their moments loaded before the round's statistics; a round
+// of one pair runs its epilogue over the whole warp (epilogue_warp).
+template <typename T, int NV, bool NARROW>
+__global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % kWarpSize;
+  const int warp = threadIdx.x / kWarpSize;
+  const T* counts = static_cast<const T*>(args.counts);
+  const int d = args.d;
+  const long long n_pairs = args.n_pairs;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp) * args.group;
+  const long long last = min(first + args.group, n_pairs);   // exclusive
+
+  bool c_ok = true;
+  if (args.center) {
+    const long long b = args.b_idx[0];
+    c_ok = b >= 0 && b < args.n_rows;
+  }
+  // the warp's first pair's rows, in flight while the block stages the
+  // center and the parameters
+  constexpr int kNV = NV > 0 ? NV : 1;
+  Vec16<T> hn[kNV], cn[kNV];
+  Pair next{-1, -1, false};
+  if constexpr (NV > 0) {
+    if (first < last) {
+      next = pair_at(args, first, c_ok);
+      if (next.ok) {
+        load_slice<T, NV>(hn, counts + next.a * d, lane);
+        if (!args.center) load_slice<T, NV>(cn, counts + next.b * d, lane);
+      }
+    }
+  }
+
+  // each lane's pair of the round (in a round of one pair, that pair on
+  // every lane): its indices and moments, the first round's before the
+  // barrier, so that their loads overlap the statistics
+  Pair mine{-1, -1, false};
+  Moments mom{};
+  auto load_mine = [&](long long base, bool solo) {
+    const long long p = base + (solo ? 0 : lane);
+    mine = Pair{-1, -1, false};
+    if (p < last) {
+      mine = pair_at(args, p, c_ok);
+      if (mine.ok && args.dec != nullptr) {
+        mom = Moments{args.mags[mine.a],    args.mags[mine.b],
+                      args.selfdot[mine.a], args.selfdot[mine.b],
+                      args.stddevs[mine.a], args.stddevs[mine.b],
+                      args.lens[mine.a],    args.lens[mine.b]};
+      }
+    }
+  };
+  if (first < last) load_mine(first, last - first == 1);
+
+  const double* prm = args.prm;
+  int used = 0;
+  if (args.dec != nullptr && args.prm_shared) {
+    double* s_prm = reinterpret_cast<double*>(smem);
+    for (int i = threadIdx.x; i < args.n_prm; i += kThreads) s_prm[i] = args.prm[i];
+    prm = s_prm;
+    used = (args.n_prm * 8 + 15) / 16 * 16;
+  }
+  const T* crow = nullptr;
+  if (args.center && c_ok) {
+    crow = counts + args.b_idx[0] * d;
+    if (args.center_shared) {
+      T* s_row = reinterpret_cast<T*>(smem + used);
+      const int bytes = d * static_cast<int>(sizeof(T));
+      if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(crow) % 16 == 0) {
+        const uint4* src = reinterpret_cast<const uint4*>(crow);
+        uint4* dst = reinterpret_cast<uint4*>(s_row);
+        for (int i = threadIdx.x; i < bytes / 16; i += kThreads) dst[i] = __ldg(src + i);
+      } else {
+        for (int i = threadIdx.x; i < d; i += kThreads) s_row[i] = crow[i];
+      }
+      crow = s_row;
+    }
+  }
+  __syncthreads();
+  if (first >= last) return;   // uniform across the warp; no barrier follows
+  if constexpr (NV > 0) {
+    if (args.center && c_ok) load_slice<T, NV>(cn, crow, lane);
+  }
+
+  for (long long base = first; base < last; base += kWarpSize) {
+    const int count = static_cast<int>(min(static_cast<long long>(kWarpSize), last - base));
+    // a round of one pair: the epilogue spreads over the warp
+    const bool solo = count == 1;
+    if (base != first) load_mine(base, solo);
+    long long kept[3] = {-1, -1, -1};
+    for (int j = 0; j < count; ++j) {
+      long long st[3] = {-1, -1, -1};
+      if constexpr (NV > 0) {
+        Vec16<T> hv[NV], cv[NV];
+        const Pair cur = next;
 #pragma unroll
-  for (int delta = 1; delta < kWarpSize; delta <<= 1) {
-    const long long up = __shfl_up_sync(kFullMask, incl, delta);
-    if (lane >= delta) incl += up;
+        for (int k = 0; k < NV; ++k) {
+          hv[k] = hn[k];
+          cv[k] = cn[k];
+        }
+        // the next pair's rows go in flight before this one is summed
+        if (base + j + 1 < last) {
+          next = pair_at(args, base + j + 1, c_ok);
+          if (next.ok) {
+            load_slice<T, NV>(hn, counts + next.a * d, lane);
+            if (!args.center) load_slice<T, NV>(cn, counts + next.b * d, lane);
+          }
+        }
+        if (cur.ok) stats_reg<T, NV, NARROW>(hv, cv, lane, st);   // uniform
+      } else {
+        const Pair cur = pair_at(args, base + j, c_ok);
+        if (cur.ok) {   // uniform
+          const T* c = args.center ? crow : counts + cur.b * d;
+          stats_loop<T, NV == 0, NARROW>(counts + cur.a * d, c, d, lane, st);
+        }
+      }
+      // the xor reductions left the totals on every lane
+      if (lane == j || solo) {
+        kept[0] = st[0];
+        kept[1] = st[1];
+        kept[2] = st[2];
+      }
+    }
+    const long long p = base + (solo ? 0 : lane);
+    if (lane < count) {
+      long long* so = args.stats + 3 * p;
+      so[0] = kept[0];
+      so[1] = kept[1];
+      so[2] = kept[2];
+    }
+    if (args.dec == nullptr) continue;   // uniform
+    double* s_out = args.dec + p;
+    double* prob_out = s_out + n_pairs;
+    double* dist_out = prob_out + n_pairs;
+    if (!mine.ok) {
+      if (lane < count) {
+        const double nan = __longlong_as_double(0x7ff8000000000000LL);
+        *s_out = nan;
+        *prob_out = nan;
+        *dist_out = nan;
+      }
+    } else if (solo) {   // uniform: every lane holds the one pair
+      epilogue_warp(prm, kept, mom, static_cast<double>(d), args.inv_d, lane, s_out,
+                    prob_out, dist_out);
+    } else if (lane < count) {
+      epilogue(prm, kept, mom, static_cast<double>(d), args.inv_d, s_out, prob_out,
+               dist_out);
+    }
   }
-  unsigned long long emd = lane_pass2<T, VEC>(h, c, n, incl - s.diff_total);
+}
 
-  long long smin = s.smin;
-  unsigned long long dot = s.dot;
-#pragma unroll
-  for (int delta = kWarpSize / 2; delta > 0; delta >>= 1) {
-    smin += __shfl_xor_sync(kFullMask, smin, delta);
-    dot += __shfl_xor_sync(kFullMask, dot, delta);
-    emd += __shfl_xor_sync(kFullMask, emd, delta);
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms <= 0)
+      sms = 132;
   }
-  if (lane == 0) {
-    out[3 * p + 0] = smin;
-    out[3 * p + 1] = static_cast<long long>(dot);
-    out[3 * p + 2] = static_cast<long long>(emd);
+  return sms;
+}
+
+int smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess ||
+        bytes <= 0)
+      bytes = 48 * 1024;
   }
+  return bytes;
+}
+
+// Launches one instantiation: G (pairs a warp) so that the grid is at
+// most one wave of the warps the card holds at once, one pair a warp while
+// they suffice.
+template <typename T, int NV, bool NARROW>
+int launch_with(Args args, int smem, cudaStream_t st) {
+  auto kern = pair_stats_kernel<T, NV, NARROW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  static int cached_smem = -1, per_sm = 0;
+  if (smem != cached_smem) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cached_smem = smem;
+  }
+  const long long resident =
+      static_cast<long long>(per_sm > 0 ? per_sm : 1) * kWarpsPerBlock * sm_count();
+  const long long g = (args.n_pairs + resident - 1) / resident;
+  if (g > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  args.group = static_cast<int>(g);
+  const long long per_block = static_cast<long long>(kWarpsPerBlock) * g;
+  const long long blocks = (args.n_pairs + per_block - 1) / per_block;
+  kern<<<dim3(static_cast<unsigned>(blocks)), kThreads, smem, st>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool NARROW>
+int dispatch(const Args& args, int smem, cudaStream_t st) {
+  const int row_bytes = args.d * static_cast<int>(sizeof(T));
+  const bool aligned = reinterpret_cast<uintptr_t>(args.counts) % 16 == 0;
+  // the register path: at most 32 counts a lane
+  if (aligned && row_bytes % (kWarpSize * 16) == 0) {
+    const int nv = row_bytes / (kWarpSize * 16);
+    if (nv == 1) return launch_with<T, 1, NARROW>(args, smem, st);
+    if (nv == 2) return launch_with<T, 2, NARROW>(args, smem, st);
+    if constexpr (sizeof(T) == 2) {
+      if (nv == 4) return launch_with<T, 4, NARROW>(args, smem, st);
+    }
+  }
+  // 16-byte loads need every lane slice to be whole, aligned vectors
+  if (aligned && args.d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0)
+    return launch_with<T, 0, NARROW>(args, smem, st);
+  return launch_with<T, -1, NARROW>(args, smem, st);
 }
 
 template <typename T>
 int launch(const void* counts, long long n_rows, int d, const void* a_idx,
-           const void* b_idx, long long n_pairs, void* out, void* stream) {
+           const void* b_idx, int center, long long n_pairs, const void* mags,
+           const void* selfdot, const void* stddevs, const void* lens,
+           const void* prm, int n_prm, double inv_d, int narrow, void* stats,
+           void* dec, void* stream) {
   if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
-  const long long blocks = (n_pairs + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (d <= 0 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(kWarpSize * kWarpsPerBlock);
+  if (d <= 0 || (dec != nullptr && n_prm < kHead)) return static_cast<int>(cudaErrorInvalidValue);
+  Args args{};
+  args.counts = counts;
+  args.n_rows = n_rows;
+  args.d = d;
+  args.a_idx = static_cast<const long long*>(a_idx);
+  args.b_idx = static_cast<const long long*>(b_idx);
+  args.n_pairs = n_pairs;
+  args.center = center;
+  args.mags = static_cast<const double*>(mags);
+  args.selfdot = static_cast<const double*>(selfdot);
+  args.stddevs = static_cast<const double*>(stddevs);
+  args.lens = static_cast<const double*>(lens);
+  args.prm = static_cast<const double*>(prm);
+  args.n_prm = n_prm;
+  args.inv_d = inv_d;
+  args.stats = static_cast<long long*>(stats);
+  args.dec = static_cast<double*>(dec);
+  // shared memory: the parameters, then the center row, each where it fits
+  const int limit = smem_optin();
+  const int prm_bytes = dec != nullptr ? (n_prm * 8 + 15) / 16 * 16 : 0;
+  const long long row_bytes =
+      center ? (static_cast<long long>(d) * sizeof(T) + 15) / 16 * 16 : 0;
+  args.prm_shared = prm_bytes > 0 && prm_bytes <= limit;
+  int smem = args.prm_shared ? prm_bytes : 0;
+  args.center_shared = center && smem + row_bytes <= limit;
+  if (args.center_shared) smem += static_cast<int>(row_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* cp = static_cast<const T*>(counts);
-  const long long* ap = static_cast<const long long*>(a_idx);
-  const long long* bp = static_cast<const long long*>(b_idx);
-  long long* op = static_cast<long long*>(out);
-  // 16-byte loads need every lane slice to be whole, aligned vectors: that
-  // holds when d is a multiple of 32 * (16 / sizeof(T)) and the base is
-  // 16-byte aligned (rows are then aligned too)
-  const bool vec = d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0 &&
-                   reinterpret_cast<uintptr_t>(counts) % 16 == 0;
-  if (vec) {
-    pair_stats_kernel<T, true><<<grid, block, 0, st>>>(cp, n_rows, d, ap, bp, n_pairs, op);
-  } else {
-    pair_stats_kernel<T, false><<<grid, block, 0, st>>>(cp, n_rows, d, ap, bp, n_pairs, op);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return narrow ? dispatch<T, true>(args, smem, st) : dispatch<T, false>(args, smem, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// The statistics alone (training tables, the smoke's oracle checks).
 int mc2_pair_stats_u8(const void* counts, long long n_rows, int d,
-                      const void* a_idx, const void* b_idx, long long n_pairs,
-                      void* out, void* stream) {
-  return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, n_pairs, out, stream);
+                      const void* a_idx, const void* b_idx, int center,
+                      long long n_pairs, int narrow, void* stats, void* stream) {
+  return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0,
+                         narrow, stats, nullptr, stream);
 }
 
 int mc2_pair_stats_u16(const void* counts, long long n_rows, int d,
-                       const void* a_idx, const void* b_idx, long long n_pairs,
-                       void* out, void* stream) {
-  return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, n_pairs, out, stream);
+                       const void* a_idx, const void* b_idx, int center,
+                       long long n_pairs, int narrow, void* stats, void* stream) {
+  return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs,
+                          nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0,
+                          narrow, stats, nullptr, stream);
+}
+
+// The statistics and the classifier epilogue: stats [P, 3] int64 and dec
+// [3, P] float64 (s, prob, dist).
+int mc2_pair_decision_u8(const void* counts, long long n_rows, int d,
+                         const void* a_idx, const void* b_idx, int center,
+                         long long n_pairs, const void* mags, const void* selfdot,
+                         const void* stddevs, const void* lens, const void* prm,
+                         int n_prm, double inv_d, int narrow, void* stats,
+                         void* dec, void* stream) {
+  return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs, mags,
+                         selfdot, stddevs, lens, prm, n_prm, inv_d, narrow, stats,
+                         dec, stream);
+}
+
+int mc2_pair_decision_u16(const void* counts, long long n_rows, int d,
+                          const void* a_idx, const void* b_idx, int center,
+                          long long n_pairs, const void* mags, const void* selfdot,
+                          const void* stddevs, const void* lens, const void* prm,
+                          int n_prm, double inv_d, int narrow, void* stats,
+                          void* dec, void* stream) {
+  return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs, mags,
+                          selfdot, stddevs, lens, prm, n_prm, inv_d, narrow, stats,
+                          dec, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,10 @@
 `decision_from_raw` below is the same epilogue in float64 torch on the
 card: the parameters are CompiledModel's numpy ones, carried over as
 tensors by `model_to_torch`, and the formulas keep CompiledModel's
-operation order, with the GLM dot written out in index order.
+operation order, with the GLM dot written out in index order.  It is the
+plain version of the epilogue that csrc/pair_stats.cu fuses behind the
+pair statistics; `packed_params` lays the same parameters out for that
+kernel, and `model_to_torch` uploads them once per model.
 """
 from __future__ import annotations
 
@@ -116,6 +119,43 @@ class CompiledModel:
         return np.clip(s, 0.0, 1.0)
 
 
+# the singles the fused kernel derives from the pair statistics and the
+# per-row moments, by their code in its parameter buffer (csrc/pair_stats.cu
+# enum Single)
+SINGLE_CODES = {flag: code for code, flag in enumerate((
+    F.FEAT_MANHATTAN, F.FEAT_EUCLIDEAN, F.FEAT_INTERSECTION,
+    F.FEAT_KULCZYNSKI2, F.FEAT_SIMRATIO, F.FEAT_NORMALIZED_VECTORS,
+    F.FEAT_PEARSON_COEFF, F.FEAT_D2z, F.FEAT_EUCLIDEAN_Z, F.FEAT_EMD,
+    F.FEAT_LENGTHD))}
+# the parameter buffer: a head, then 4 float64 a single, then 4 a combo
+PARAM_HEAD = 4
+PARAM_STRIDE = 4
+
+
+def packed_params(model: CompiledModel) -> np.ndarray:
+    """The fused kernel's float64 parameter buffer: [S, C, bias, w0], then
+    per single (code, min, max - min, is_sim), then per combo (kind code,
+    i0, i1 or -1, weight).  A single the kernel cannot derive gets code -1,
+    which its wrapper refuses."""
+    singles, combos = model.singles, model.combos
+    buf = np.zeros(PARAM_HEAD + PARAM_STRIDE * (len(singles) + len(combos)))
+    buf[:PARAM_HEAD] = (len(singles), len(combos), model.bias, model.weights[0])
+    rng = model.maxs - model.mins
+    for k, flag in enumerate(singles):
+        q = PARAM_HEAD + PARAM_STRIDE * k
+        buf[q:q + PARAM_STRIDE] = (SINGLE_CODES.get(flag, -1), model.mins[k],
+                                   rng[k], bool(model.is_sim[k]))
+    for j, (kind, idxs) in enumerate(combos):
+        if not 1 <= len(idxs) <= 2 or (kind in (F.COMBO_XY2, F.COMBO_X2Y)
+                                       and len(idxs) != 2):
+            raise ValueError(f"combo {kind} over singles {list(idxs)}")
+        q = PARAM_HEAD + PARAM_STRIDE * (len(singles) + j)
+        buf[q:q + PARAM_STRIDE] = (F.COMBO_TO_CODE[kind], idxs[0],
+                                   idxs[1] if len(idxs) == 2 else -1,
+                                   model.weights[j + 1])
+    return buf
+
+
 @dataclass(frozen=True)
 class TorchModel:
     mins: torch.Tensor        # float64 [S]
@@ -124,6 +164,8 @@ class TorchModel:
     combos: tuple             # ((kind, (single indices...)), ...)
     weights: torch.Tensor     # float64 [1 + C], [0] = intercept
     bias: float
+    singles: tuple            # the singles' flags, in model order
+    packed: torch.Tensor      # float64, packed_params(model)
 
 
 def model_to_torch(model: CompiledModel, device) -> TorchModel:
@@ -135,6 +177,8 @@ def model_to_torch(model: CompiledModel, device) -> TorchModel:
         combos=tuple((kind, tuple(idxs)) for kind, idxs in model.combos),
         weights=torch.as_tensor(model.weights, **f64),
         bias=float(model.bias),
+        singles=tuple(model.singles),
+        packed=torch.as_tensor(packed_params(model), **f64),
     )
 
 

@@ -2,10 +2,12 @@
 
 The counterpart of meshclust2_tpu/ops/device_features.py:DeviceScorer (lines
 433-507) in its fused configuration: every batch, block-vs-one-center or
-row-vs-row, goes through the pair-statistics kernel, then `derive_singles`
-and the classifier epilogue in float64 on the device.  Pairs whose decision
-or ranking the device's rounding could change are re-scored by the float64
-host oracle (`HostScorer`), so clustering decisions equal the host's.
+row-vs-row, goes through one launch of the fused pair-statistics kernel
+(ops/pair_stats.py:pair_stats_decision: the statistics, `derive_singles`
+and the classifier epilogue in float64 on the device).  Pairs whose
+decision or ranking the device's rounding could change are re-scored by
+the float64 host oracle (`HostScorer`), so clustering decisions equal the
+host's.
 
 MeanShiftEngine (cluster/engine.py) runs its device accumulate loop and
 updater exactly when its session holds them; the scorer serves the
@@ -22,18 +24,12 @@ from ..cluster.device_store import DeviceStore
 from ..cluster.engine import HostScorer
 from ..features import flags as F
 from ..kmer.counting import PointSet
-from ..model.classifier import (CompiledModel, TorchModel, decision_from_raw,
-                                model_to_torch)
-from .pair_stats import derive_singles, pair_stats
+from ..model.classifier import SINGLE_CODES, CompiledModel, model_to_torch
+from .pair_stats import pair_stats_decision
 
 # singles derivable from the kernel's (sum-min, dot, EMD) plus per-row
 # moments (meshclust2_tpu/ops/device_features.py:39-44)
-_FUSED_DERIVABLE = frozenset({
-    F.FEAT_MANHATTAN, F.FEAT_EUCLIDEAN, F.FEAT_INTERSECTION,
-    F.FEAT_KULCZYNSKI2, F.FEAT_SIMRATIO, F.FEAT_NORMALIZED_VECTORS,
-    F.FEAT_PEARSON_COEFF, F.FEAT_D2z, F.FEAT_EUCLIDEAN_Z, F.FEAT_EMD,
-    F.FEAT_LENGTHD,
-})
+_FUSED_DERIVABLE = frozenset(SINGLE_CODES)
 
 # (i) decisions closer than this to a rounding threshold (round(prob) at
 # 0.5 / 1.5) are re-checked, as in the JAX DeviceScorer
@@ -63,23 +59,6 @@ def check_fused(singles) -> None:
         names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
         raise DeviceLoopUnsupported(
             f"features {names} are not derivable from the pair statistics")
-
-
-def pair_decision(store: DeviceStore, params: TorchModel, singles,
-                  a_idx: torch.Tensor, b_idx: torch.Tensor,
-                  stats: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(GLM sum, prob, dist), each float64 [P] on the store's device, for
-    pairs (a_idx[p], b_idx[p]): the pair-statistics kernel (unless `stats`
-    are given), `derive_singles` and the classifier epilogue."""
-    st = store
-    if stats is None:
-        stats = pair_stats(st.counts, a_idx, b_idx)
-    raw = derive_singles(
-        stats, st.mags[a_idx], st.mags[b_idx], st.selfdot[a_idx],
-        st.selfdot[b_idx], st.stddevs[a_idx], st.stddevs[b_idx],
-        st.lens[a_idx], st.lens[b_idx], st.counts.shape[1], singles)
-    return decision_from_raw(params, raw)
 
 
 def recheck_mask(prob: np.ndarray, dist: np.ndarray) -> np.ndarray:
@@ -123,16 +102,19 @@ class TorchDeviceScorer:
 
     def _device_decision(self, a: np.ndarray, b: np.ndarray
                          ) -> Tuple[np.ndarray, np.ndarray]:
-        ai = torch.from_numpy(a).to(self.device)
-        bi = torch.from_numpy(b).to(self.device)
-        _, prob, dist = pair_decision(self.store, self.params,
-                                      self.model.singles, ai, bi)
-        both = torch.stack([prob, dist]).cpu().numpy()
+        """(prob, dist) of the pairs (a[p], b[p]), b of length 1 for one
+        center, in one upload and one read-back."""
+        idx = torch.from_numpy(np.concatenate([a, b])).to(self.device)
+        _, dec = pair_stats_decision(self.store, self.params, idx[:len(a)],
+                                     idx[len(a):])
+        both = dec[1:].cpu().numpy()
         return both[0], both[1]
 
     def score(self, a_rows, b_rows) -> Tuple[np.ndarray, np.ndarray]:
         a = np.atleast_1d(np.asarray(a_rows, dtype=np.int64))
         b = np.atleast_1d(np.asarray(b_rows, dtype=np.int64))
+        # one center: the kernel's center form
+        b_dev = b if len(b) == 1 else None
         if len(b) == 1 and len(a) > 1:
             b = np.broadcast_to(b, a.shape)
         if len(a) == 1 and len(b) > 1:
@@ -147,7 +129,7 @@ class TorchDeviceScorer:
         hi = max(a.max(), b.max())
         if lo < 0 or hi >= self.ps.n:
             raise IndexError(f"row index out of [0, {self.ps.n}): {lo}..{hi}")
-        prob, dist = self._device_decision(a, b)
+        prob, dist = self._device_decision(a, b if b_dev is None else b_dev)
         self.scored_pairs += len(a)
         idx = np.nonzero(recheck_mask(prob, dist))[0]
         if len(idx):

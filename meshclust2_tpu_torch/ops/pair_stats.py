@@ -1,45 +1,71 @@
-"""Pair statistics: sum-min, dot and EMD of two histogram rows.
+"""Pair statistics: sum-min, dot and EMD of two histogram rows, and the
+classifier's float64 epilogue fused behind them.
 
 The port of meshclust2_tpu/ops/pallas_stats.py (`center_block_stats`, line
 114, over the Pallas kernel `_build.kernel`, line 39; `derive_singles`, line
-148).  On a CUDA tensor `pair_stats` launches the hand-written kernel in
-csrc/pair_stats.cu; on a CPU tensor it runs `pair_stats_ref`, the plain
-PyTorch version, which the CPU tests hold against the JAX kernel.
+148), with the epilogue that XLA fuses behind the Pallas kernel on the TPU
+(meshclust2_tpu/cluster/device_loop.py:derive_singles_dd, epilogue_dd).
+Two wrappers launch the hand-written kernel in csrc/pair_stats.cu on CUDA
+tensors and run their plain PyTorch versions on CPU tensors, which the CPU
+tests hold against the JAX package:
 
-Results are int64 [P, 3]: (sum_i min(h_i, c_i), sum_i h_i c_i,
-sum_j |prefix_j(h - c)|), exact for uint8 and uint16 rows.
+- `pair_stats`: int64 [P, 3] (sum_i min(h_i, c_i), sum_i h_i c_i,
+  sum_j |prefix_j(h - c)|), exact for uint8 and uint16 rows; plain version
+  `pair_stats_ref`.  Training's tables and the kernel checks use it.
+- `pair_stats_decision`: the same statistics and, from them and the rows'
+  float64 moments, the GLM sum, prob and dist of a model (`derive_singles`,
+  then model/classifier.py:decision_from_raw), in one launch; plain version
+  `pair_stats_decision_ref`.  The scorer, the accumulate step and the
+  updater use it.
+
+A `b_idx` of length 1 is the center form: every pair's second row is
+b_idx[0].
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..features import flags as F
+from ..model.classifier import SINGLE_CODES, TorchModel, decision_from_raw
 
 N_STATS = 3
 # rows of the plain version's int64 temporaries per step (bounds its memory
 # at 16384 x D x 8 bytes per temporary)
 _REF_CHUNK = 16384
 
-_ENTRY = {torch.uint8: "mc2_pair_stats_u8", torch.uint16: "mc2_pair_stats_u16"}
+_DTYPES = {torch.uint8: "u8", torch.uint16: "u16"}
 
 
-def _kernel(dtype: torch.dtype):
+def _kernel(name: str, dtype: torch.dtype):
     from ._build import load
 
-    fn = getattr(load("pair_stats").lib, _ENTRY[dtype])
+    fn = getattr(load("pair_stats").lib, f"mc2_{name}_{_DTYPES[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        head = [p, i64, i32, p, p, i32, i64]
+        if name == "pair_stats":
+            fn.argtypes = head + [i32, p, p]
+        else:
+            fn.argtypes = head + [p, p, p, p, p, i32, ctypes.c_double, i32,
+                                  p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def narrow_sums(d: int, maxc: Optional[int]) -> bool:
+    """Whether 32-bit lane sums are exact for rows of d counts <= maxc:
+    D maxc^2 < 2^31 bounds sum-min, dot and every EMD prefix, and
+    ceil(D / 32) D maxc < 2^32 a lane's EMD part.  None: unknown, 64 bits."""
+    if maxc is None:
+        return False
+    return d * maxc * maxc < 2**31 and -(-d // 32) * d * maxc < 2**32
+
+
 def _check(counts: torch.Tensor, a_idx: torch.Tensor, b_idx: torch.Tensor):
-    if counts.dtype not in _ENTRY:
+    if counts.dtype not in _DTYPES:
         raise TypeError(f"counts must be uint8 or uint16, got {counts.dtype}")
     if counts.dim() != 2:
         raise ValueError(f"counts must be [N, D], got shape {tuple(counts.shape)}")
@@ -50,7 +76,7 @@ def _check(counts: torch.Tensor, a_idx: torch.Tensor, b_idx: torch.Tensor):
             raise ValueError(f"{name} must be [P], got shape {tuple(t.shape)}")
         if t.device != counts.device:
             raise ValueError(f"{name} is on {t.device}, counts on {counts.device}")
-    if a_idx.shape != b_idx.shape:
+    if a_idx.shape != b_idx.shape and len(b_idx) != 1:
         raise ValueError(f"a_idx {tuple(a_idx.shape)} and b_idx "
                          f"{tuple(b_idx.shape)} differ in length")
     for name, t in (("counts", counts), ("a_idx", a_idx), ("b_idx", b_idx)):
@@ -60,10 +86,16 @@ def _check(counts: torch.Tensor, a_idx: torch.Tensor, b_idx: torch.Tensor):
         raise ValueError(f"unsupported device {counts.device}")
 
 
+def _pairs(a_idx: torch.Tensor, b_idx: torch.Tensor) -> torch.Tensor:
+    """b_idx as one index a pair (the center form expanded)."""
+    return b_idx.expand(len(a_idx)) if len(b_idx) != len(a_idx) else b_idx
+
+
 def pair_stats_ref(counts: torch.Tensor, a_idx: torch.Tensor,
                    b_idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch pair statistics: gather, minimum, product and cumsum,
     all in int64."""
+    b_idx = _pairs(a_idx, b_idx)
     out = torch.empty((len(a_idx), N_STATS), dtype=torch.int64,
                       device=counts.device)
     # CUDA has no uint16 gather: gather the same bits as int16 and mask
@@ -78,29 +110,38 @@ def pair_stats_ref(counts: torch.Tensor, a_idx: torch.Tensor,
     return out
 
 
-def pair_stats(counts: torch.Tensor, a_idx: torch.Tensor,
-               b_idx: torch.Tensor) -> torch.Tensor:
-    """[N, D] uint8/uint16 store, int64 [P] row indices -> int64 [P, 3]
-    statistics of (counts[a_idx[p]], counts[b_idx[p]]).
+def _launch(name: str, counts: torch.Tensor, a_idx: torch.Tensor,
+            b_idx: torch.Tensor, maxc: Optional[int], extra, outs):
+    fn = _kernel(name, counts.dtype)
+    n, d = counts.shape
+    center = int(len(b_idx) != len(a_idx))
+    narrow = int(narrow_sums(d, maxc))
+    stream = torch.cuda.current_stream(counts.device).cuda_stream
+    with torch.cuda.device(counts.device):
+        rc = fn(counts.data_ptr(), n, d, a_idx.data_ptr(), b_idx.data_ptr(),
+                center, len(a_idx), *extra, narrow,
+                *(t.data_ptr() for t in outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def pair_stats(counts: torch.Tensor, a_idx: torch.Tensor, b_idx: torch.Tensor,
+               maxc: Optional[int] = None) -> torch.Tensor:
+    """[N, D] uint8/uint16 store, int64 [P] row indices a_idx and b_idx (or
+    [1], the center form) -> int64 [P, 3] statistics of (counts[a_idx[p]],
+    counts[b_idx[p]]).  maxc, the store's largest count when known, lets
+    the kernel sum in 32 bits (`narrow_sums`).
 
     On CUDA the indices must lie in [0, N): the kernel writes -1 rows for
     any that do not.  Launches on the current stream without syncing."""
     _check(counts, a_idx, b_idx)
     if counts.device.type == "cpu":
         return pair_stats_ref(counts, a_idx, b_idx)
-    n_pairs = len(a_idx)
-    out = torch.empty((n_pairs, N_STATS), dtype=torch.int64,
+    out = torch.empty((len(a_idx), N_STATS), dtype=torch.int64,
                       device=counts.device)
-    if n_pairs == 0:
+    if len(a_idx) == 0:
         return out
-    fn = _kernel(counts.dtype)
-    stream = torch.cuda.current_stream(counts.device).cuda_stream
-    with torch.cuda.device(counts.device):
-        rc = fn(counts.data_ptr(), counts.shape[0], counts.shape[1],
-                a_idx.data_ptr(), b_idx.data_ptr(), n_pairs,
-                out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"pair_stats kernel launch failed: cudaError {rc}")
+    _launch("pair_stats", counts, a_idx, b_idx, maxc, (), (out,))
     pair_stats.launches += 1
     return out
 
@@ -116,7 +157,7 @@ def center_block_stats(h_block: torch.Tensor, center: torch.Tensor) -> torch.Ten
         raise ValueError(f"center must be [{d}], got {tuple(center.shape)}")
     store = torch.cat([h_block, center.reshape(1, d)]).contiguous()
     a_idx = torch.arange(b, dtype=torch.int64, device=h_block.device)
-    b_idx = torch.full((b,), b, dtype=torch.int64, device=h_block.device)
+    b_idx = torch.full((1,), b, dtype=torch.int64, device=h_block.device)
     return pair_stats(store, a_idx, b_idx)
 
 
@@ -163,3 +204,86 @@ def derive_singles(stats: torch.Tensor, mags_a, mags_b, self_a, self_b,
         else:
             raise ValueError(f"flag {flag} not derivable from fused stats")
     return torch.stack(out, dim=1)
+
+
+def _check_decision(store, params: TorchModel, a_idx, b_idx):
+    _check(store.counts, a_idx, b_idx)
+    n = store.counts.shape[0]
+    for name in ("mags", "selfdot", "stddevs", "lens"):
+        t = getattr(store, name)
+        if t.dtype != torch.float64 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be float64 [{n}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != store.counts.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {store.counts.device}")
+    pk = params.packed
+    if (pk.dtype != torch.float64 or pk.dim() != 1 or not pk.is_contiguous()
+            or pk.device != store.counts.device):
+        raise ValueError(f"params.packed must be contiguous float64 [K] on "
+                         f"{store.counts.device}")
+    bad = [F.FEAT_NAMES.get(s, hex(s)) for s in params.singles
+           if s not in SINGLE_CODES]
+    if len(set(params.singles)) != len(params.singles):
+        raise ValueError(f"singles {list(params.singles)} repeat")
+    if bad:
+        raise ValueError(f"singles {bad} are not derivable from the pair "
+                         f"statistics")
+
+
+def _decision_out(n_pairs: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One buffer: int64 stats [P, 3], then float64 (s, prob, dist) [3, P]."""
+    buf = torch.empty(6 * n_pairs, dtype=torch.int64, device=device)
+    return (buf[:3 * n_pairs].view(n_pairs, N_STATS),
+            buf[3 * n_pairs:].view(torch.float64).view(3, n_pairs))
+
+
+def pair_stats_decision_ref(store, params: TorchModel, a_idx: torch.Tensor,
+                            b_idx: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain sequence: `pair_stats_ref`, the moments gathered,
+    `derive_singles`, `decision_from_raw`."""
+    stats, dec = _decision_out(len(a_idx), store.counts.device)
+    if not len(a_idx):
+        return stats, dec
+    b_idx = _pairs(a_idx, b_idx)
+    stats.copy_(pair_stats_ref(store.counts, a_idx, b_idx))
+    raw = derive_singles(
+        stats, store.mags[a_idx], store.mags[b_idx], store.selfdot[a_idx],
+        store.selfdot[b_idx], store.stddevs[a_idx], store.stddevs[b_idx],
+        store.lens[a_idx], store.lens[b_idx], store.counts.shape[1],
+        params.singles)
+    for row, v in zip(dec, decision_from_raw(params, raw)):
+        row.copy_(v)
+    return stats, dec
+
+
+def pair_stats_decision(store, params: TorchModel, a_idx: torch.Tensor,
+                        b_idx: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair statistics and the classifier's decision values of the pairs
+    (store.counts[a_idx[p]], store.counts[b_idx[p]]) (b_idx [1]: the center
+    form), over a DeviceStore-like `store` (counts, float64 mags, selfdot,
+    stddevs, lens, maxc) and `params` from model_to_torch: (int64 stats
+    [P, 3], float64 dec [3, P] = (GLM sum, prob, dist)), views of one
+    buffer.
+
+    On CUDA one launch on the current stream, without syncing; an index
+    outside [0, N) gives -1 statistics and NaN decisions."""
+    _check_decision(store, params, a_idx, b_idx)
+    counts = store.counts
+    if counts.device.type == "cpu":
+        return pair_stats_decision_ref(store, params, a_idx, b_idx)
+    stats, dec = _decision_out(len(a_idx), counts.device)
+    if len(a_idx) == 0:
+        return stats, dec
+    pk = params.packed
+    extra = (store.mags.data_ptr(), store.selfdot.data_ptr(),
+             store.stddevs.data_ptr(), store.lens.data_ptr(), pk.data_ptr(),
+             pk.numel(), 1.0 / counts.shape[1])
+    _launch("pair_decision", counts, a_idx, b_idx, store.maxc, extra,
+            (stats, dec))
+    pair_stats_decision.launches += 1
+    return stats, dec
+
+
+pair_stats_decision.launches = 0  # kernel launches since the last reset

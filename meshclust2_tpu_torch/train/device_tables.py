@@ -157,7 +157,9 @@ class TorchDeviceTableBuilder:
         for s in range(0, n, self.MAX_CHUNK):
             a = idx[s:min(n, s + self.MAX_CHUNK)]
             b = idx[n + s:n + min(n, s + self.MAX_CHUNK)]
-            stats = pair_stats(st.counts, a, b)
+            # the stats-only entry: 32-bit lane sums where the store's
+            # largest count allows (ops/pair_stats.py:narrow_sums)
+            stats = pair_stats(st.counts, a, b, maxc=st.maxc)
             moments = (st.mags[a], st.mags[b], st.selfdot[a], st.selfdot[b],
                        st.stddevs[a], st.stddevs[b])
             raw = derive_singles(stats, *moments, st.lens[a], st.lens[b],

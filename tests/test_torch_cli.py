@@ -4,7 +4,10 @@ paths: the default (TorchDeviceAccumulator and TorchDeviceUpdater);
 MC2_NO_DEVICE_LOOP=1 (the accumulate windows through TorchDeviceScorer, the
 update phase through the updater); and MC2_NO_DEVICE_LOOP=1
 MC2_NO_DEVICE_UPDATE_BATCH=1 (both phases through the scorer).  The tests
-that pin MC2_NO_DEVICE_LOOP=1 keep the counters of those two paths."""
+that pin MC2_NO_DEVICE_LOOP=1 keep the counters of those two paths.  Pools
+the kernels do not take (uint32, or outside the exact-integer envelope) go
+to the host scorer and host training tables, against the JAX CLI's
+--device host."""
 import gzip
 import os
 import shutil
@@ -264,3 +267,69 @@ def test_without_recover_exits_nonzero(fixtures_dir, tmp_path, monkeypatch,
     assert rc != 0
     assert "--feat fast" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+def _host_reference(tmp_path, monkeypatch, argv):
+    """The JAX CLI's --device host run of argv (its native host scorer)."""
+    from meshclust2_tpu.cli import main as jax_main
+
+    for k in JAX_REFERENCE_ENV:
+        monkeypatch.delenv(k, raising=False)
+    assert jax_main(["--device", "host", *argv]) == 0
+
+
+@pytest.mark.parametrize("pool", ["uint32", "envelope"])
+def test_pool_the_kernels_do_not_take_clusters_on_the_host(
+        fixtures_dir, tmp_path, monkeypatch, capsys, pool):
+    """A uint32 pool, and a uint16 pool whose homopolymer row puts the dot
+    product past 2^31: no device session; the engine copy on the native
+    host scorer gives the JAX CLI's --device host CLSTR byte for byte, and
+    stderr names the reason."""
+    src = os.path.join(fixtures_dir, "small.fasta")
+    with open(os.path.join(fixtures_dir, "small_ref_weights.txt")) as f:
+        weights = f.read()
+    if pool == "uint32":
+        fasta = src
+        weights = weights.replace("Datatype: uint8_t", "Datatype: uint32_t")
+        reason = "uint32 histograms"
+    else:
+        fasta = str(tmp_path / "poly_a.fasta")
+        poly = "A" * 47_000
+        with open(src) as f, open(fasta, "w") as g:
+            g.write(f.read())
+            g.write(">poly_a\n" + "\n".join(poly[i:i + 80] for i in
+                                           range(0, len(poly), 80)) + "\n")
+        weights = weights.replace("Datatype: uint8_t", "Datatype: uint16_t")
+        reason = "dot product >= 2^31"
+    w = tmp_path / "weights.txt"
+    w.write_text(weights)
+    out = tmp_path / "port.clstr"
+    res = torch_cli.run(["--device", "cpu", "--recover", str(w), "--output",
+                         str(out), fasta])
+    err = capsys.readouterr().err
+    assert res.rc == 0
+    assert f"meshclust2-torch: {reason}" in err and "host scorer" in err
+    assert res.accumulator is None and res.updater is None
+    assert type(res.scorer).__name__ == "NativeScorer"
+    jax_out = tmp_path / "jax.clstr"
+    _host_reference(tmp_path, monkeypatch, ["--recover", str(w), "--output",
+                                            str(jax_out), fasta])
+    assert out.read_bytes() == jax_out.read_bytes()
+    if pool == "envelope":
+        assert "poly_a" in out.read_text()
+
+
+def test_training_on_a_uint32_pool_builds_host_tables(fixtures_dir, tmp_path,
+                                                     monkeypatch, capsys):
+    """--datatype 32 without --recover: the training tables come from the
+    host oracle, and the weights equal the JAX CLI's --device host
+    training byte for byte."""
+    flags = ["--datatype", "32", "--id", "0.9", "--kmer", "5", "--mut-type",
+             "single", os.path.join(fixtures_dir, "small.fasta")]
+    port_w, jax_w = tmp_path / "port_w.txt", tmp_path / "jax_w.txt"
+    res = torch_cli.run(["--device", "cpu", "--dump", str(port_w), *flags])
+    assert res.rc == 0
+    assert "uint32 histograms" in capsys.readouterr().err
+    assert res.tables.tables == 0
+    _host_reference(tmp_path, monkeypatch, ["--dump", str(jax_w), *flags])
+    assert port_w.read_bytes() == jax_w.read_bytes()

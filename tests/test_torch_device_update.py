@@ -176,21 +176,21 @@ def test_merge_tie_with_different_inputs_is_ambiguous(med, monkeypatch):
     assert found, "no merge-positive candidate pair in the largest cluster"
     i0, j1, j2 = found
     clusters = [Cluster(center_row=r, members=[r]) for r in (i0, j1, j2)]
-    real = port_update.pair_decision
+    real = port_update.pair_stats_decision
     applied = []
 
-    def tied(store, params, singles, a_idx, b_idx, stats=None):
+    def tied(store, params, a_idx, b_idx):
         # give (j2, i0) the device dist of (j1, i0)
-        s, prob, dist = real(store, params, singles, a_idx, b_idx, stats=stats)
+        stats, dec = real(store, params, a_idx, b_idx)
         p1 = torch.nonzero((a_idx == j1) & (b_idx == i0)).flatten()
         p2 = torch.nonzero((a_idx == j2) & (b_idx == i0)).flatten()
         if len(p1) and len(p2):
-            dist = dist.clone()
-            dist[p2] = dist[p1]
+            dec = dec.clone()
+            dec[2, p2] = dec[2, p1]
             applied.append(True)
-        return s, prob, dist
+        return stats, dec
 
-    monkeypatch.setattr(port_update, "pair_decision", tied)
+    monkeypatch.setattr(port_update, "pair_stats_decision", tied)
     cen_rows = np.array([i0, j1, j2], np.int64)
     jj, seg = np.array([1, 2, 2], np.int64), np.array([0, 0, 1], np.int64)
     unc, any_m, best, amb = med.port.merge_segmented(cen_rows, jj, seg, 3)

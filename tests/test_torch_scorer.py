@@ -2,6 +2,11 @@
 
 - `derive_singles` + `decision_from_raw` in torch equal the JAX package's
   numpy versions to 1e-12: the formulas and their order are the same.
+- `pair_stats_decision` (the fused kernel's plain sequence, what it runs on
+  CPU tensors) equals the JAX Pallas kernel in interpret mode, the JAX
+  `derive_singles` and the JAX CompiledModel's epilogue: the statistics
+  exactly, s, prob and dist to 1e-12, for two fixture models and a
+  synthetic one with every combo kind and every derivable single.
 - TorchDeviceScorer rounds every decision as the JAX DeviceScorer and the
   float64 HostScorer do, and picks the same dist argmax, for the three
   fixture models.
@@ -19,10 +24,17 @@ from meshclust2_tpu.cluster.engine import HostScorer
 from meshclust2_tpu.model.classifier import CompiledModel
 from meshclust2_tpu.model.weights import load_weights
 from meshclust2_tpu.ops.device_features import DeviceScorer
+from meshclust2_tpu.model.weights import ModelBlock as JaxModelBlock
+from meshclust2_tpu.ops.pallas_stats import center_block_stats as jax_center_block_stats
 from meshclust2_tpu.ops.pallas_stats import derive_singles as jax_derive_singles
+from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+from meshclust2_tpu_torch.model.classifier import CompiledModel as PortCompiledModel
+from meshclust2_tpu_torch.model.weights import ModelBlock as PortModelBlock
+from meshclust2_tpu_torch.model.weights import load_weights as port_load_weights
 from meshclust2_tpu_torch.model.classifier import decision_from_raw, model_to_torch
 from meshclust2_tpu_torch.ops.device_features import TorchDeviceScorer, recheck_mask
-from meshclust2_tpu_torch.ops.pair_stats import derive_singles, pair_stats
+from meshclust2_tpu_torch.ops.pair_stats import (derive_singles, pair_stats,
+                                                  pair_stats_decision)
 
 torch.set_num_threads(2)
 
@@ -76,6 +88,54 @@ def test_epilogue_matches_jax_numpy(fixtures_dir, med_ps, name):
     got = decision_from_raw(model_to_torch(model, "cpu"), t(want_raw))
     for g, w in zip(got, want):
         assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("form", ["center", "pair"])
+@pytest.mark.parametrize("name", ["med2000_weights.txt", "bench10k_weights.txt",
+                                  "synthetic"])
+def test_fused_decision_matches_jax(fixtures_dir, med_ps, name, form):
+    """The fused decision's plain sequence against the JAX chain: the
+    Pallas kernel (interpret mode; its center form, per center in the pair
+    form), the JAX derive_singles, the JAX CompiledModel epilogue."""
+    # imported here, not at the top: the card's machine may hold another
+    # top-level `tests` package, and its cuda-marked run collects this file
+    from tests.test_torch_pair_stats import ALL_SINGLES, synthetic_block
+
+    ps = med_ps
+    a, b = pair_sample(ps.n, 3)
+    a, b = (a[:300], b[:1]) if form == "center" else (a[300:], b[300:])
+    bb = np.broadcast_to(b, a.shape)
+    stats = np.zeros((len(a), 3), np.int64)
+    for c in np.unique(bb):
+        sel = np.nonzero(bb == c)[0]
+        stats[sel] = jax_center_block_stats(ps.counts[a[sel]], ps.counts[c],
+                                            tile_b=8, interpret=True)
+    mags = ps.mags.astype(np.float64)
+    selfd = np.einsum("ij,ij->i", ps.counts.astype(np.float64),
+                      ps.counts.astype(np.float64))
+    lens = ps.lengths.astype(np.float64)
+    std = ps.stddevs
+
+    def jax_raw(singles):
+        return jax_derive_singles(stats, mags[a], mags[bb], selfd[a], selfd[bb],
+                                  std[a], std[bb], lens[a], lens[bb], ps.dim,
+                                  list(singles))
+
+    if name == "synthetic":
+        raw_all = jax_raw(ALL_SINGLES)
+        jax_model = CompiledModel(synthetic_block(JaxModelBlock, raw_all, 11))
+        port_model = PortCompiledModel(synthetic_block(PortModelBlock, raw_all, 11))
+    else:
+        jax_model = compiled(fixtures_dir, name)
+        port_model = PortCompiledModel(port_load_weights(
+            os.path.join(fixtures_dir, name)).classifier)
+    want = jax_model.decision_from_raw(jax_raw(jax_model.singles))
+    store = DeviceStore.from_pointset(ps, "cpu")
+    got_stats, dec = pair_stats_decision(store, model_to_torch(port_model, "cpu"),
+                                         torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got_stats.numpy(), stats)
+    for g, w in zip(dec, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-12, atol=1e-12)
 
 

@@ -29,9 +29,8 @@ from meshclust2_tpu.model.classifier import CompiledModel
 from meshclust2_tpu.model.weights import load_weights
 from meshclust2_tpu_torch.cluster.device_store import DeviceStore
 from meshclust2_tpu_torch.model.classifier import model_to_torch
-from meshclust2_tpu_torch.ops.device_features import pair_decision
 from meshclust2_tpu_torch.ops.closest_mean import closest_mean_ref
-from meshclust2_tpu_torch.ops.pair_stats import pair_stats_ref
+from meshclust2_tpu_torch.ops.pair_stats import pair_stats_decision, pair_stats_ref
 from meshclust2_tpu_torch.ops.window_absorb import (
     StepState, window_absorb_ref, window_step, window_step_ref)
 
@@ -163,7 +162,8 @@ def test_med2000_windows_agree_with_host_scorer(fixtures_dir):
         rows = np.arange(max(0, center - 300), min(ps.n, center + 300))
         a = torch.from_numpy(rows)
         b = torch.full_like(a, center)
-        s, _, dist = pair_decision(store, params, model.singles, a, b)
+        _, dec = pair_stats_decision(store, params, a, b)
+        s, dist = dec[0], dec[2]
         stats = pair_stats_ref(store.counts, a, b)
         pos, colsum, info = window_absorb_ref(
             store.counts, a, s, dist, stats, store.mags, store.selfdot,
