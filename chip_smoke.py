@@ -19,10 +19,15 @@ reference CLSTR and engine counters, and each path's kernel launches are
 counted from zero.  Then it trains on the 10k set at the default flags
 (the pair tables through the pair-statistics kernel) and clusters it with
 the trained model, and holds the weights and the CLSTR against the JAX
-package's `--device host` training and host engine.  A torch.profiler run
-of the default path gives the device's busy share.  The JAX package runs
-only as a separate program (`--device host`, its native host path), on the
-same file, as the reference on the same machine.
+package's `--device host` training and host engine.  Then fastcar
+(`meshclust2_tpu_torch.fastcar`) on the 10k set: its default training with
+--dump, and an all-vs-all --recover search through the fused kernel in
+slices, each held byte for byte against the JAX package's fastcar (its
+host route), with both programs' search windows and the kernel at the
+search's largest slice.  A torch.profiler run of the default path gives
+the device's busy share.  The JAX package runs only as a separate program
+(the CLI's `--device host`, fastcar's default; its native host path), on
+the same file, as the reference on the same machine.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 line before the last is the kernels' JSON record, and the last line is
@@ -88,14 +93,50 @@ NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb"),
          "no_device_loop": ("pair_stats_decision", "closest_mean"),
          "no_device_loop_no_update_batch": ("pair_stats_decision",),
          "train": ("pair_stats", "pair_stats_decision", "closest_mean",
-                   "window_absorb")}
+                   "window_absorb"),
+         "fastcar_train": ("pair_stats",),
+         "fastcar": ("pair_stats_decision",)}
 FORBIDS = {"default": ("pair_stats",),
            "no_device_loop": ("pair_stats", "window_absorb"),
            "no_device_loop_no_update_batch": ("pair_stats", "window_absorb"),
-           "train": ()}
+           "train": (),
+           "fastcar_train": ("pair_stats_decision", "closest_mean",
+                             "window_absorb"),
+           "fastcar": ("pair_stats", "closest_mean", "window_absorb")}
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
+# fastcar's default training (its -m rc and --mut-type single defaults,
+# spelled out)
+FASTCAR_TRAIN_FLAGS = ["--id", "0.9", "-m", "rc", "--mut-type", "single",
+                       "--sample", "300"]
+# the JAX package's fastcar as a separate program, its `before loop` and
+# `after loop` prints followed by a line with the host clock
+JAX_FASTCAR_STAMPED = """
+import sys, time
+import meshclust2_tpu.fastcar as fc
+from meshclust2_tpu.native import NativeScorer
+spent = {"search": 0.0, "score": 0.0}
+def timed(key, fn):
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            spent[key] += time.perf_counter() - t0
+    return call
+fc.search = timed("search", fc.search)
+NativeScorer.score = timed("score", NativeScorer.score)
+printed = fc.mem_used
+def stamped(prefix):
+    printed(prefix)
+    print(f"stamp {prefix}: {time.perf_counter()!r}", flush=True)
+    if prefix == "after loop":
+        for key, seconds in spent.items():
+            print(f"stamp {key} seconds: {seconds!r}", flush=True)
+fc.mem_used = stamped
+sys.exit(fc.main(sys.argv[1:]))
+"""
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
 # bytes per second, and the float32
 # rate outside the tensor cores, the one non-tensor rate the table gives,
@@ -421,6 +462,184 @@ def profile_path(torch_cli, path: str, argv):
             by_name[e.name] += e.time_range.elapsed_us()
             launches[e.name] += 1
     return res, held["wall"], by_name, launches
+
+
+def check_launches(path: str, counted: dict) -> None:
+    """Each kernel NEEDS[path] launched, none of FORBIDS[path]."""
+    for name in NEEDS[path]:
+        if counted[name] <= 0:
+            raise AssertionError(f"the {path} path launched no {name} kernel")
+    for name in FORBIDS[path]:
+        if counted[name]:
+            raise AssertionError(f"the {path} path launched {name} "
+                                 f"{counted[name]} times")
+
+
+def fastcar_phase(fasta: str, tmp: str, card: str, wrappers: dict,
+                  launches: dict) -> dict:
+    """(fc) fastcar on the 10k set `fasta`.  Its default training with
+    --dump on the card (the pair tables through the statistics-only
+    kernel), held byte for byte against the JAX fastcar's --dump; then an
+    all-vs-all --recover search (db = queries = the 10k file: one block)
+    through the fused kernel in slices, held byte for byte against the JAX
+    fastcar's default host route; each run's launches counted from zero
+    into `launches`; the kernel against its plain version, timed and
+    bounded at the search's largest slice.  Returns the kernels line's
+    record of that slice."""
+    import torch
+    from meshclust2_tpu_torch.cluster import device_update
+    from meshclust2_tpu_torch.model.weights import load_weights
+    from meshclust2_tpu_torch.ops.pair_stats import (
+        pair_stats_decision, pair_stats_decision_ref)
+    from meshclust2_tpu_torch import fastcar as torch_fastcar
+
+    fc_dir = os.path.join(tmp, "fastcar")
+    os.makedirs(fc_dir)
+    jax_env = {k: v for k, v in os.environ.items() if k != "MC2_FASTCAR_DEVICE"}
+    port_fw = os.path.join(fc_dir, "port_weights.txt")
+    host_fw = os.path.join(fc_dir, "host_weights.txt")
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res_ft = torch_fastcar.run(["--device", "cuda", fasta, "-q", fasta,
+                                *FASTCAR_TRAIN_FLAGS, "--dump", port_fw])
+    port_train_wall = time.perf_counter() - t0
+    launches["fastcar_train"] = {name: fn.launches for name, fn in wrappers.items()}
+    if res_ft.rc != 0:
+        raise AssertionError(f"port fastcar training exited {res_ft.rc}")
+    check_launches("fastcar_train", launches["fastcar_train"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "meshclust2_tpu.fastcar", fasta, "-q", fasta,
+         *FASTCAR_TRAIN_FLAGS, "--dump", host_fw],
+        cwd=ROOT, env=jax_env, capture_output=True, text=True, timeout=900)
+    host_train_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"JAX fastcar training exited {proc.returncode}:\n"
+                             f"{proc.stderr[-2000:]}")
+    with open(port_fw, "rb") as f, open(host_fw, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("fastcar weights differ from the JAX fastcar's")
+    fw = load_weights(port_fw)
+    phase("fc", f"fastcar training, 10k ({' '.join(FASTCAR_TRAIN_FLAGS)}) on "
+                f"the card: weights == JAX fastcar --dump byte for byte "
+                f"(classifier {fw.classifier.combos}, regressor "
+                f"{fw.regressor.combos}); launches {launches['fastcar_train']}; "
+                f"process wall: port (in process) {port_train_wall:.3f} s, "
+                f"JAX {host_train_wall:.3f} s; {card}")
+
+    port_fo = os.path.join(fc_dir, "port.search")
+    host_fo = os.path.join(fc_dir, "host.search")
+    fc_slices = []
+
+    def recording_decision(store_, params_, a_, b_):
+        """pair_stats_decision, keeping the largest call's inputs."""
+        if not fc_slices or len(a_) > len(fc_slices[-1][2]):
+            fc_slices.append((store_, params_, a_, b_))
+        return pair_stats_decision(store_, params_, a_, b_)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    device_update.pair_stats_decision = recording_decision
+    try:
+        res_fs = torch_fastcar.run(["--device", "cuda", fasta, "-q", fasta,
+                                    "--recover", port_fw, "-o", port_fo])
+    finally:
+        device_update.pair_stats_decision = pair_stats_decision
+    launches["fastcar"] = {name: fn.launches for name, fn in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if res_fs.rc != 0:
+        raise AssertionError(f"port fastcar search exited {res_fs.rc}")
+    check_launches("fastcar", launches["fastcar"])
+    fst = res_fs.stats
+    if (fst.blocks, fst.device_blocks, fst.host_reasons) != (1, 1, []):
+        raise AssertionError(f"the fastcar search did not run on the card: {fst}")
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_FASTCAR_STAMPED, fasta, "-q", fasta,
+         "--recover", port_fw, "-o", host_fo],
+        cwd=ROOT, env=jax_env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"JAX fastcar search exited {proc.returncode}:\n"
+                             f"{proc.stderr[-2000:]}")
+    host_st = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^stamp ([a-z ]+): (\S+)$", proc.stdout, re.M)}
+    host_pos = re.findall(r"^# of predicted positive: \d+$", proc.stdout, re.M)
+    if host_pos != [f"# of predicted positive: {res_fs.positives}"]:
+        raise AssertionError(f"predicted positives differ: {host_pos} vs "
+                             f"{res_fs.positives}")
+    with open(port_fo + "0", "rb") as f, open(host_fo + "0", "rb") as g:
+        port_bytes = f.read()
+        if port_bytes != g.read():
+            raise AssertionError("fastcar <output>0 differs from the JAX host run")
+    fc_lines = port_bytes.count(b"\n")
+    host_s = host_st["after loop"] - host_st["before loop"]
+    port_s = res_fs.search_seconds
+    phase("fc", f"fastcar all-vs-all --recover search, 10k: {fst.pairs} window "
+                f"pairs in {fst.blocks} block, {res_fs.positives} predicted "
+                f"positive, <output>0 == JAX host run byte for byte "
+                f"({fc_lines} lines); search window (before "
+                f"loop to after loop): port --device cuda {port_s:.3f} s = "
+                f"{fst.pairs / port_s:.1f} pairs/s, JAX host route "
+                f"{host_s:.3f} s = {fst.pairs / host_s:.1f} pairs/s; host "
+                f"re-checks {fst.rechecked_c} classifier, {fst.rechecked_r} "
+                f"regression; launches {launches['fastcar']}; peak device memory "
+                f"{peak_gb:.3f} GB allocated (the largest slice's inputs kept "
+                f"for the check below included); {card}, host {os.cpu_count()} "
+                f"cores")
+    in_search = fst.pairs_seconds + fst.score_seconds + fst.write_seconds
+    phase("fc", f"search window split (s): port: reading and counting the chunks "
+                f"{port_s - in_search:.3f}, window pairs {fst.pairs_seconds:.3f}, "
+                f"scoring on the card with host re-checks {fst.score_seconds:.3f}, "
+                f"output lines {fst.write_seconds:.3f}; JAX host route: reading and "
+                f"counting {host_s - host_st['search seconds']:.3f}, search "
+                f"{host_st['search seconds']:.3f} of it native scoring "
+                f"{host_st['score seconds']:.3f}")
+
+    st_f, prm_f, a_f, b_f = fc_slices[-1]
+    stats_k, dec_k = pair_stats_decision(st_f, prm_f, a_f, b_f)
+    torch.cuda.synchronize()
+    stats_p, dec_p = pair_stats_decision_ref(st_f, prm_f, a_f, b_f)
+    if not (torch.equal(stats_k, stats_p)
+            and all(same_f64(dec_k[r], dec_p[r]) for r in range(3))):
+        raise AssertionError("pair_stats_decision differs at the search slice")
+    fin = torch.isfinite(dec_p)
+    fc_err = max(float((stats_k - stats_p).abs().max()),
+                 float((dec_k[fin] - dec_p[fin]).abs().max()))
+    del stats_k, dec_k, stats_p, dec_p, fin
+    fc_ms = cuda_ms(lambda: pair_stats_decision(st_f, prm_f, a_f, b_f), reps=10)
+    fc_plain_ms = cuda_ms(lambda: pair_stats_decision_ref(st_f, prm_f, a_f, b_f),
+                          reps=3, warm=1)
+    fc_dev_us = device_us(lambda: pair_stats_decision(st_f, prm_f, a_f, b_f),
+                          reps=10)
+    fc_ns, fc_nc = len(prm_f.singles), len(prm_f.combos)
+    fc_bound, fc_by = decision_bound(st_f.counts, a_f, b_f, fc_ns, fc_nc)
+    phase("fc", f"pair_stats_decision at the search's largest slice, P={len(a_f)} "
+                f"pairs, N={len(st_f.counts)} D={st_f.counts.shape[1]} "
+                f"{st_f.counts.dtype}, the fastcar classifier ({fc_ns} singles, "
+                f"{fc_nc} combos): kernel == plain bit for bit; kernel "
+                f"{fc_ms:.4f} ms, plain {fc_plain_ms:.4f} ms (median, CUDA "
+                f"events), device {fc_dev_us:.2f} us (CUDA events behind a "
+                f"busy wait), bound {fc_bound:.4f} ms ({fc_by}); {card}")
+    fc_pairs = len(a_f)
+    del fc_slices, st_f, prm_f, a_f, b_f
+    return {
+        "name": "pair_stats_decision",
+        "path": "fastcar search",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
+        "replaces": "meshclust2_tpu/ops/pallas_stats.py:39, "
+                    "meshclust2_tpu/cluster/device_update.py:159",
+        "launches": launches["fastcar"]["pair_stats_decision"],
+        "max_abs_err": fc_err,
+        "ms": fc_ms,
+        "plain_ms": fc_plain_ms,
+        "bound_ms": fc_bound,
+        "bound_by": fc_by,
+        "library_ms": None,
+        "device_us": fc_dev_us,
+        "pairs": fc_pairs,
+    }
 
 
 def main() -> int:
@@ -913,15 +1132,6 @@ def main() -> int:
                     f"(CUDA events behind a busy wait), bound {b_ms:.6f} ms ({b_by}); "
                     f"{card}")
 
-    def check_launches(path, counted):
-        for name in NEEDS[path]:
-            if counted[name] <= 0:
-                raise AssertionError(f"the {path} path launched no {name} kernel")
-        for name in FORBIDS[path]:
-            if counted[name]:
-                raise AssertionError(f"the {path} path launched {name} "
-                                     f"{counted[name]} times")
-
     def check_accumulator(res, path, want_acc):
         """The default path ran the accumulator: steps, no scorer pairs;
         without aborts, the JAX DeviceAccumulator's counts."""
@@ -1158,6 +1368,9 @@ def main() -> int:
                    f"wall {host_wall:.3f}); host CPU of the {card} machine, "
                    f"{os.cpu_count()} cores")
 
+        # (fc) fastcar on the 10k set
+        fc_record = fastcar_phase(fasta, tmp, card, wrappers, launches)
+
         # (f2) two more runs of each path, in turns, for the spread
         for path in list(PATHS)[::-1] + list(PATHS):
             argv[5] = os.path.join(tmp, f"bench10k_{path}_again.clstr")
@@ -1207,11 +1420,13 @@ def main() -> int:
     # the fused kernel at the 10k mean window (the main path's launches) and
     # in the pair form
     dc, dp = dec_timing["center W=1571"], dec_timing["pair P=98304"]
-    # launches: this slice's main path (training, then clustering with the
-    # trained model); library_ms: no PyTorch call computes any of these
-    # functions (PERF.md)
+    # launches: each record's path (training, then clustering with the
+    # trained model; the last record: fastcar's search, at its largest
+    # slice); library_ms: no PyTorch call computes any of these functions
+    # (PERF.md)
     print(json.dumps({"kernels": [{
         "name": "pair_stats",
+        "path": "training, then clustering, 10k",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
         "replaces": "meshclust2_tpu/ops/pallas_stats.py:39",
@@ -1224,6 +1439,7 @@ def main() -> int:
         "library_ms": None,
     }, {
         "name": "pair_stats_decision",
+        "path": "training, then clustering, 10k",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
         "replaces": "meshclust2_tpu/ops/pallas_stats.py:39, "
@@ -1244,6 +1460,7 @@ def main() -> int:
         "pair_device_us": dp["device_us"],
     }, {
         "name": "closest_mean",
+        "path": "training, then clustering, 10k",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
         "replaces": "meshclust2_tpu/cluster/device_update.py:290",
@@ -1260,6 +1477,7 @@ def main() -> int:
         "skewed_bound_ms": cm_skew["bound_ms"],
     }, {
         "name": "window_absorb",
+        "path": "training, then clustering, 10k",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/window_absorb.cu",
         "replaces": "meshclust2_tpu/cluster/device_loop.py:1074, "
@@ -1272,7 +1490,7 @@ def main() -> int:
         "bound_by": ws_by,
         "library_ms": None,
         "device_us": ws_dev,
-    }]}), flush=True)
+    }, fc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

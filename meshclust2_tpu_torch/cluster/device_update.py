@@ -5,8 +5,10 @@ The port of meshclust2_tpu/cluster/device_update.py:DeviceUpdater (lines
 (one call per update iteration: the classifier filter of every center
 against its neighbourhood, then each center's closest-to-mean over the kept
 members), `merge_segmented` (the merge pass's decisions and per-center best
-candidate), `score_sum_dist`, the `scored_pairs` / `rechecked_pairs`
-counters and `prof_line()`.  MeanShiftEngine drives it through a session's
+candidate), the `scored_pairs` / `rechecked_pairs` counters and
+`prof_line()`.  In the place of `score_sum_dist` and its `last_serr`,
+`score_sums` gives fastcar's search (cluster/device_search.py) the GLM
+sums alone, in slices.  MeanShiftEngine drives it through a session's
 `updater` (cluster/engine.py:671-677, 801-839, 900-935) and re-checks on
 the host whatever a call marks uncertain.
 
@@ -15,8 +17,8 @@ meshclust2_tpu/model/thresholds.py (`nonzero_bands`, `merge_band`); a pair
 whose sum lies within `margin * max(|edge|, 1)` of an edge is uncertain.
 The margins are the JAX package's (`resolve_margins`: 1e-8, ties 1e-12,
 `MC2_DD_MARGIN` / `MC2_DD_TIE_MARGIN`).  The card's float64 differs from
-the host oracle only by operation order, so the double-float error terms of
-the TPU version are zero here (`last_serr`).
+the host oracle only by operation order, so the TPU version's double-float
+error terms have no counterpart here.
 
 Dropped as TPU artefacts: the pair and segment buckets, the `valid`
 padding, the MAX_ITER_PAIRS / MAX_PAIR_CHUNK splits and the jit cache.
@@ -40,6 +42,9 @@ from ..ops.pair_stats import pair_stats_decision
 from .device_loop import resolve_margins
 from .device_store import DeviceStore
 
+# pairs a launch of `score_sums` (fastcar's search slices)
+SEARCH_SLICE = 1 << 24
+
 
 class TorchDeviceUpdater:
     """Batched filter, closest-to-mean and merge decisions for the update
@@ -55,7 +60,6 @@ class TorchDeviceUpdater:
         self.margin, self.tie_margin = resolve_margins(margin, tie_margin)
         self.band0 = TH.nonzero_bands(model.bias)   # c_round(prob) != 0
         self.band1 = TH.merge_band(model.bias)      # c_round(prob) == 1
-        self.last_serr = np.zeros(0)
         self._reset_counters()
 
     def _reset_counters(self) -> None:
@@ -113,25 +117,27 @@ class TorchDeviceUpdater:
 
     # -- batches ------------------------------------------------------------
 
-    def score_sum_dist(self, a_rows, b_rows) -> Tuple[np.ndarray, np.ndarray]:
-        """(GLM sum, dist) as float64 for pairs (a_rows[i], b_rows[i]) in the
-        reference's argument order.  Decisions from them are trusted only
-        outside `margin` of an edge; `last_serr` is zero (float64 on the
-        card carries no double-float error term)."""
+    def score_sums(self, a_rows, b_rows, slice_pairs: int = SEARCH_SLICE
+                   ) -> np.ndarray:
+        """The float64 GLM sums of pairs (a_rows[i], b_rows[i]) in the
+        reference's argument order, in launches of at most `slice_pairs`
+        pairs: each uploads its slice's indices, runs the fused kernel and
+        reads back s only.  A slice holds ~64 bytes a pair on the card
+        (indices 16, statistics 24, decisions 24).  A decision from them is
+        trusted only outside `margin` of an edge (float64 on the card
+        carries no double-float error term)."""
         a = np.asarray(a_rows, dtype=np.int64)
         b = np.asarray(b_rows, dtype=np.int64)
-        n = len(a)
-        self.last_serr = np.zeros(n)
-        if n == 0:
-            return np.zeros(0), np.zeros(0)
+        out = np.empty(len(a))
         t0 = time.perf_counter()
-        ai, bi = self._upload(a, b)
-        _, dec = pair_stats_decision(self.store, self.params, ai, bi)
-        both = dec.cpu().numpy()
-        self.scored_pairs += n
+        for s in range(0, len(a), slice_pairs):
+            ai, bi = self._upload(a[s:s + slice_pairs], b[s:s + slice_pairs])
+            _, dec = pair_stats_decision(self.store, self.params, ai, bi)
+            out[s:s + len(ai)] = dec[0].cpu().numpy()
+            self.n_score += 1
+        self.scored_pairs += len(a)
         self.t_score += time.perf_counter() - t0
-        self.n_score += 1
-        return both[0], both[2]
+        return out
 
     def filter_closest(self, cen_rows: np.ndarray, b_rows: np.ndarray,
                        seg: np.ndarray, C: int):

@@ -142,13 +142,16 @@ def test_merge_segmented_equals_jax(med):
 
 
 def test_score_sum_dist_is_float64_with_zero_error(med):
+    """score_sums, which took score_sum_dist's place: float64 GLM sums equal
+    to the host's within float64 rounding, the same in any slicing."""
     cen_rows, b_rows, seg, _ = med.calls["filter"]
     a, b = cen_rows[seg[:500]], b_rows[:500]
-    s, dist = med.port.score_sum_dist(a, b)
-    assert s.dtype == np.float64 and dist.shape == (500,)
+    s = med.port.score_sums(a, b)
+    assert s.dtype == np.float64 and s.shape == (500,)
     np.testing.assert_allclose(s, host_sum(med.ps, med.model, a, b),
                                rtol=1e-9, atol=1e-9)
-    assert not med.port.last_serr.any() and len(med.port.last_serr) == 500
+    assert np.array_equal(med.port.score_sums(a, b, slice_pairs=77), s)
+    assert len(med.port.score_sums(a[:0], b[:0])) == 0
 
 
 def test_merge_tie_with_different_inputs_is_ambiguous(med, monkeypatch):
