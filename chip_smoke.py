@@ -16,7 +16,13 @@ TorchDeviceUpdater), MC2_NO_DEVICE_LOOP=1 (the accumulate windows through
 TorchDeviceScorer) and MC2_NO_DEVICE_LOOP=1 MC2_NO_DEVICE_UPDATE_BATCH=1
 (both phases through the scorer).  Each run is checked against its
 reference CLSTR and engine counters, and each path's kernel launches are
-counted from zero.  Then it trains on the 10k set at the default flags
+counted from zero.  The fused kernel's FULL instantiation (models with
+full-vector singles) is held against its plain version and a numpy host
+oracle within its error bounds (c5) and timed beside its bound (d4); two
+such models, built over each set with the port's host formulas, cluster
+med2000 and the 10k set on the three paths byte for byte as the JAX
+package's --device host run (e2, f4), and a --feat slow training on the
+10k set gives its weights (t2).  Then it trains on the 10k set at the default flags
 (the pair tables through the pair-statistics kernel) and clusters it with
 the trained model, and holds the weights and the CLSTR against the JAX
 package's `--device host` training and host engine.  Then fastcar
@@ -89,23 +95,46 @@ SOURCES = ("pair_stats", "closest_mean", "window_absorb")
 # the kernels each path must launch (their wrappers' counts), and those it
 # must not: the clustering paths take their statistics from the fused
 # kernel, training's tables from the statistics alone
+# (pair_stats_decision_full counts the fused kernel's FULL launches, those
+# of a model with full-vector singles; the fast paths launch none)
 NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb"),
          "no_device_loop": ("pair_stats_decision", "closest_mean"),
          "no_device_loop_no_update_batch": ("pair_stats_decision",),
          "train": ("pair_stats", "pair_stats_decision", "closest_mean",
                    "window_absorb"),
          "fastcar_train": ("pair_stats",),
-         "fastcar": ("pair_stats_decision",)}
-FORBIDS = {"default": ("pair_stats",),
-           "no_device_loop": ("pair_stats", "window_absorb"),
-           "no_device_loop_no_update_batch": ("pair_stats", "window_absorb"),
-           "train": (),
+         "fastcar": ("pair_stats_decision",),
+         "full_default": ("pair_stats_decision", "pair_stats_decision_full",
+                          "closest_mean", "window_absorb"),
+         "full_no_device_loop": ("pair_stats_decision",
+                                 "pair_stats_decision_full", "closest_mean"),
+         "full_no_device_loop_no_update_batch": ("pair_stats_decision",
+                                                 "pair_stats_decision_full"),
+         "train_slow": ()}
+FORBIDS = {"default": ("pair_stats", "pair_stats_decision_full"),
+           "no_device_loop": ("pair_stats", "window_absorb",
+                              "pair_stats_decision_full"),
+           "no_device_loop_no_update_batch": ("pair_stats", "window_absorb",
+                                              "pair_stats_decision_full"),
+           "train": ("pair_stats_decision_full",),
            "fastcar_train": ("pair_stats_decision", "closest_mean",
-                             "window_absorb"),
-           "fastcar": ("pair_stats", "closest_mean", "window_absorb")}
+                             "window_absorb", "pair_stats_decision_full"),
+           "fastcar": ("pair_stats", "closest_mean", "window_absorb",
+                       "pair_stats_decision_full"),
+           "full_default": ("pair_stats",),
+           "full_no_device_loop": ("pair_stats", "window_absorb"),
+           "full_no_device_loop_no_update_batch": ("pair_stats", "window_absorb"),
+           # its tables come from the host oracle
+           "train_slow": ("pair_stats", "pair_stats_decision", "closest_mean",
+                          "window_absorb", "pair_stats_decision_full")}
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
+# the same training with the slow feature set (the log divergences), whose
+# tables come from the host oracle
+TRAIN_SLOW_FLAGS = [("slow" if f == "fast" else f) for f in TRAIN_FLAGS]
+# the slice's models with full-vector singles (smoke_model)
+FULL_MODELS = ("slow", "blockwise")
 # fastcar's default training (its -m rc and --mut-type single defaults,
 # spelled out)
 FASTCAR_TRAIN_FLAGS = ["--id", "0.9", "-m", "rc", "--mut-type", "single",
@@ -137,6 +166,22 @@ def stamped(prefix):
 fc.mem_used = stamped
 sys.exit(fc.main(sys.argv[1:]))
 """
+# the JAX package's CLI as a separate program, its engine counters printed
+# after the run
+JAX_CLI_COUNTED = """
+import sys
+import meshclust2_tpu.cli as cli
+from meshclust2_tpu.cluster.engine import MeanShiftEngine
+real = MeanShiftEngine.run
+def run(self, *args, **kw):
+    out = real(self, *args, **kw)
+    s = self.stats
+    print(f"counters {s.windows_scored} {s.pairs_scored} "
+          f"{s.clusters_before_update} {s.update_iterations}", flush=True)
+    return out
+MeanShiftEngine.run = run
+sys.exit(cli.main(sys.argv[1:]))
+"""
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
 # bytes per second, and the float32
 # rate outside the tensor cores, the one non-tensor rate the table gives,
@@ -158,6 +203,19 @@ CLOSEST_OPS = 4
 EPI_OPS_PAIR = 12
 EPI_OPS_SINGLE = 11
 EPI_OPS_COMBO = 5
+# the float64 rate outside the tensor cores (the same data sheet), for the
+# FULL pass's per-element float64 work
+F64_OPS_PER_S = 34e12
+# probe kernels whose float64 instructions give what one log, one division
+# and one square root compile to (sass_counts)
+PROBE_SRC = r"""
+extern "C" __global__ void base(const double* x, double* y) { y[threadIdx.x] = x[threadIdx.x]; }
+extern "C" __global__ void f_log(const double* x, double* y) { y[threadIdx.x] = log(x[threadIdx.x]); }
+extern "C" __global__ void f_div(const double* x, double* y) {
+  y[threadIdx.x] = __ddiv_rn(x[threadIdx.x], x[threadIdx.x + 32]);
+}
+extern "C" __global__ void f_sqrt(const double* x, double* y) { y[threadIdx.x] = __dsqrt_rn(x[threadIdx.x]); }
+"""
 
 
 def phase(tag: str, msg: str) -> None:
@@ -475,6 +533,337 @@ def check_launches(path: str, counted: dict) -> None:
                                  f"{counted[name]} times")
 
 
+class FullCount:
+    """The fused kernel's FULL launches, read and reset like a wrapper's
+    count (pair_stats_decision.full_launches)."""
+
+    @property
+    def launches(self) -> int:
+        from meshclust2_tpu_torch.ops.pair_stats import pair_stats_decision
+
+        return pair_stats_decision.full_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        from meshclust2_tpu_torch.ops.pair_stats import pair_stats_decision
+
+        pair_stats_decision.full_launches = value
+
+
+def full_specs() -> dict:
+    """FULL_MODELS' (singles, combos)."""
+    from meshclust2_tpu_torch.features import flags as F
+
+    return {
+        "slow": ([F.FEAT_MANHATTAN, F.FEAT_INTERSECTION, F.FEAT_JEFFEREY_DIV,
+                  F.FEAT_JENSEN_SHANNON],
+                 [("xy", F.FEAT_INTERSECTION),
+                  ("xy", F.FEAT_JEFFEREY_DIV | F.FEAT_MANHATTAN),
+                  ("x2y2", F.FEAT_JENSEN_SHANNON)]),
+        "blockwise": ([F.FEAT_INTERSECTION, F.FEAT_HELLINGER, F.FEAT_CHI_SQUARED,
+                       F.FEAT_KL_COND, F.FEAT_MISMATCH],
+                      [("xy", F.FEAT_INTERSECTION),
+                       ("xy", F.FEAT_HELLINGER | F.FEAT_CHI_SQUARED),
+                       ("xy", F.FEAT_KL_COND | F.FEAT_MISMATCH)]),
+    }
+
+
+def smoke_model(ps, name: str, sim: float = 0.9):
+    """One of FULL_MODELS over the port's PointSet `ps`, built with the
+    port's host formulas the way tests/test_device_slow_feats.py:_slow_model
+    ("slow": manhattan, intersection, jefferey, jensen-shannon) and
+    tests/test_device_extraslow.py:_extraslow_model ("blockwise":
+    intersection, hellinger, chi^2, kl_cond, mismatch) build theirs: seed 0,
+    600 random pairs, labels from the template_T headers, a least-squares
+    fit of +-4 on the combos."""
+    from meshclust2_tpu_torch.features import flags as F
+    from meshclust2_tpu_torch.features import host as H
+    from meshclust2_tpu_torch.model.weights import ModelBlock, PredictorModel
+
+    singles, combos = full_specs()[name]
+    if name == "slow":
+        cols = lambda z: [z[:, 1], z[:, 2] * z[:, 0], z[:, 3] ** 2]
+    else:
+        cols = lambda z: [z[:, 0], z[:, 1] * z[:, 2], z[:, 3] * z[:, 4]]
+    rng = np.random.default_rng(0)
+    a_rows = rng.integers(0, ps.n, 600)
+    b_rows = rng.integers(0, ps.n, 600)
+    keep = a_rows != b_rows
+    a_rows, b_rows = a_rows[keep], b_rows[keep]
+    raw = H.compute_singles(singles, H.side_from_pointset(ps, a_rows),
+                            H.side_from_pointset(ps, b_rows))
+    mins, maxs = raw.min(axis=0), raw.max(axis=0)
+    z = (raw - mins) / np.where(maxs > mins, maxs - mins, 1.0)
+    is_sim = np.array([bool(F.FEAT_IS_SIM[s]) for s in singles])
+    z = np.where(is_sim[None, :], z, 1.0 - z)
+    label = lambda rows: np.array([ps.headers[r].split("_")[0] for r in rows])
+    y = np.where(label(a_rows) == label(b_rows), 1.0, -1.0)
+    w, *_ = np.linalg.lstsq(np.column_stack([np.ones(len(y))] + cols(z)),
+                            y * 4.0, rcond=None)
+    return PredictorModel(k=ps.k, mode=1, max_features=4, id_cutoff=sim,
+                          datatype="uint8_t",
+                          feature_set=int(np.bitwise_or.reduce(singles)),
+                          classifier=ModelBlock(combos=combos, weights=w,
+                                                singles=singles, mins=mins,
+                                                maxs=maxs))
+
+
+def sass_counts(tmp: str, nvcc: str) -> dict:
+    """{"log", "div", "sqrt"}: the float64-pipe instructions (D* and MUFU
+    opcodes) that one double log, one __ddiv_rn and one __dsqrt_rn compile
+    to for sm_90a, from cuobjdump -sass of PROBE_SRC against its copy
+    kernel.  Static counts: a slow path for special operands is counted
+    too."""
+    src = os.path.join(tmp, "probe.cu")
+    cubin = os.path.join(tmp, "probe.cubin")
+    with open(src, "w") as f:
+        f.write(PROBE_SRC)
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-o", cubin, src], check=True, capture_output=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", cubin], check=True, capture_output=True,
+                          text=True).stdout
+    per, cur = Counter(), None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur and m and (m.group(1).startswith("D") or m.group(1).startswith("MUFU")):
+            per[cur] += 1
+    return {k: per[f"f_{k}"] - per["base"] for k in ("log", "div", "sqrt")}
+
+
+def full_element_ops(singles, c: dict) -> float:
+    """float64 operations per element of the FULL pass for a model's
+    singles, counted from csrc/pair_stats.cu:full_group (the shared
+    products once; each log, division and square root as `c` gives it)."""
+    from meshclust2_tpu_torch.features import flags as F
+
+    s = set(singles)
+    lg, dv, sq = c["log"], c["div"], c["sqrt"]
+    ops = 2.0   # the two counts to float64
+    if s & {F.FEAT_JEFFEREY_DIV, F.FEAT_JENSEN_SHANNON, F.FEAT_K_DIV}:
+        ops += 2                                  # a mB, b mA
+    if F.FEAT_JEFFEREY_DIV in s:
+        ops += 1 + dv + lg + 1 + 2 + 5            # difference, log, term, sums
+    if s & {F.FEAT_JENSEN_SHANNON, F.FEAT_K_DIV}:
+        ops += 2 + dv + lg + 1 + 3
+    if F.FEAT_JENSEN_SHANNON in s:
+        ops += 1 + dv + lg + 1 + 3
+    if F.FEAT_KL_COND in s:
+        ops += 2 + dv + lg + 2 + 6 + 1            # group sums, a quarter each
+    if F.FEAT_HELLINGER in s:
+        ops += 2 * (1 + dv + sq) + 1 + 2 + 4
+    if F.FEAT_SQCHORD in s:
+        ops += 4 + sq
+    ops += sum(3 + dv for f in (F.FEAT_CHI_SQUARED, F.FEAT_CANBERRA,
+                                F.FEAT_KULCZYNSKI1, F.FEAT_HARMONIC_MEAN)
+               if f in s)
+    ops += sum(2 for f in (F.FEAT_MISMATCH, F.FEAT_JACCARD) if f in s)
+    return ops
+
+
+def full_bound(store, a, b, singles, n_combos: int, c: dict):
+    """The FULL kernel's least time: decision_bound's bytes with the two
+    bounds also written (40 bytes a pair out), and its operations: the
+    statistics' at OPS_PER_S plus the FULL pass's float64 operations at
+    F64_OPS_PER_S, each element once."""
+    rows = int(torch_unique(a, b))
+    d = store.shape[1]
+    p = len(a)
+    nbytes = (rows * (d * store.element_size() + 32) + tbytes(a, b) + 64 * p
+              + 8 * (4 + 4 * (len(singles) + n_combos)))
+    t_ops = ((PAIR_OPS * p * d + p * (EPI_OPS_PAIR + EPI_OPS_SINGLE * len(singles)
+                                      + EPI_OPS_COMBO * n_combos)) / OPS_PER_S
+             + full_element_ops(singles, c) * p * d / F64_OPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def full_kernel_checks(dev, rng) -> float:
+    """(c5) The fused kernel's FULL instantiation on random rows with eight
+    near-identical pairs, uint8 and uint16, the register and the loop paths,
+    both forms: its statistics bit for bit the plain version's; each
+    full-vector single, through a probe model whose dist is the single
+    itself, and s and dist of the two FULL_MODELS, within their bounds of
+    the plain version (the sum of both bounds) and of the port's numpy host
+    oracle (features/host.py; the kernel's bound).  Returns the largest
+    |kernel - plain| over s and dist."""
+    import dataclasses
+
+    import torch
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.features import flags as F
+    from meshclust2_tpu_torch.features import host as H
+    from meshclust2_tpu_torch.model.classifier import (
+        PARAM_HEAD, VECTOR_SINGLES, CompiledModel, model_to_torch)
+    from meshclust2_tpu_torch.model.weights import ModelBlock
+    from meshclust2_tpu_torch.ops.pair_stats import (
+        pair_stats_decision, pair_stats_decision_ref)
+
+    def probe(flag):
+        """dist = the single's raw value, dist_err its bound: min 0, max 1,
+        read as a similarity."""
+        params = model_to_torch(CompiledModel(ModelBlock(
+            combos=[("xy", flag)], weights=[0.0, 1.0], singles=[flag],
+            mins=[0.0], maxs=[1.0])), dev)
+        pk = params.packed.clone()
+        pk[PARAM_HEAD + 3] = 1.0
+        return dataclasses.replace(params, packed=pk,
+                                   is_sim=torch.ones_like(params.is_sim))
+
+    def side(counts, mags, idx):
+        return H.PairSide(counts=counts[idx].astype(np.float64), mags=mags[idx],
+                          one_mers=np.zeros((len(idx), 4)),
+                          stddevs=np.ones(len(idx)), lengths=np.ones(len(idx)),
+                          k=1)
+
+    worst, n_cases = 0.0, 0
+    for dtype, d, high in ((np.uint8, 16, 60), (np.uint8, 512, 60),
+                           (np.uint8, 1024, 60), (np.uint8, 4096, 60),
+                           (np.uint16, 16, 3000), (np.uint16, 256, 3000),
+                           (np.uint16, 1024, 3000)):
+        n = 300
+        counts = rng.integers(1, high, (n, d))
+        counts[8:16] = counts[:8]
+        counts[8:16, : max(2, d // 100)] += 1
+        counts = counts.astype(dtype)
+        c64 = counts.astype(np.int64)
+        mags = c64.sum(axis=1).astype(np.float64)
+        up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        st = DeviceStore(counts=up(counts), mags=up(mags),
+                         selfdot=up((c64 * c64).sum(axis=1).astype(np.float64)),
+                         lens=up(rng.integers(700, 1500, n).astype(np.float64)),
+                         stddevs=up(rng.random(n) * 3 + 0.5), maxc=int(counts.max()))
+        a = np.concatenate([np.arange(8), rng.integers(0, n, 400)])
+        forms = {"pair": (a, np.concatenate([np.arange(8, 16),
+                                              rng.integers(0, n, 400)])),
+                 "center": (a, np.full(len(a), 8))}
+        for form, (a_np, b_np) in forms.items():
+            a_d = up(a_np)
+            b_d = up(b_np[:1] if form == "center" else b_np)
+            A, B = side(counts, mags, a_np), side(counts, mags, b_np)
+            models = {H_name: probe(f) for f, H_name in
+                      ((f, F.FEAT_NAMES[f]) for f in VECTOR_SINGLES)}
+            host = {F.FEAT_NAMES[f]: H.compute_singles([f], A, B)[:, 0]
+                    for f in VECTOR_SINGLES}
+            for name, (singles, combos) in full_specs().items():
+                raw = H.compute_singles(singles, A, B)
+                lo, hi = raw.min(axis=0), raw.max(axis=0)
+                cm = CompiledModel(ModelBlock(
+                    combos=combos, weights=rng.normal(0.0, 2.0, len(combos) + 1),
+                    singles=singles, mins=lo, maxs=np.where(hi > lo, hi, lo + 1.0)))
+                models[name] = model_to_torch(cm, dev)
+                host[name] = cm.decision_from_raw(raw)
+            for name, params in models.items():
+                what = f"{np.dtype(dtype).name} D={d} {form} form, {name}"
+                stats, dec = pair_stats_decision(st, params, a_d, b_d)
+                torch.cuda.synchronize()
+                p_stats, p_dec = pair_stats_decision_ref(st, params, a_d, b_d)
+                if not torch.equal(stats, p_stats):
+                    raise AssertionError(f"FULL statistics differ: {what}")
+                k, pl = dec.cpu().numpy(), p_dec.cpu().numpy()
+                for r, e in ((0, 3), (2, 4)):
+                    diff = np.abs(k[r] - pl[r])
+                    if not (diff <= k[e] + pl[e]).all():
+                        raise AssertionError(f"FULL kernel and plain differ beyond "
+                                             f"their bounds (row {r}): {what}")
+                    worst = max(worst, float(diff.max()))
+                want = host[name]
+                if isinstance(want, tuple):   # (s, prob, dist) of a model
+                    ok = ((np.abs(k[0] - want[0]) <= k[3]).all()
+                          and (np.abs(k[2] - want[2]) <= k[4]).all())
+                else:                         # a probe: dist is the single
+                    ok = (np.abs(k[2] - want) <= k[4]).all()
+                if not ok:
+                    raise AssertionError(f"FULL kernel beyond its bound of the "
+                                         f"host oracle: {what}")
+                n_cases += 1
+    phase("c5", f"pair_stats_decision FULL kernel: statistics == plain bit for bit, "
+                f"each of the 12 full-vector singles (probe models) and s, dist of "
+                f"the slow and blockwise models within their bounds of the plain "
+                f"version and of the numpy host oracle, in {n_cases} cases "
+                f"(uint8 D 16/512/1024/4096, uint16 D 16/256/1024, eight "
+                f"near-identical pairs among 408, center and pair forms); "
+                f"largest |kernel - plain| {worst:.3g}")
+    return worst
+
+
+def full_model_phase(tag: str, torch_cli, fasta: str, n_seqs: int, tmp: str,
+                     card: str, wrappers: dict, launches: dict) -> None:
+    """(e2) / (f4): both FULL_MODELS, built over `fasta`'s pool, on the
+    port's three paths on the card, each held against the JAX package's
+    --device host run of the same weights on the same machine: the whole
+    CLSTR byte for byte, the clusters before update and update
+    iterations, and the windows but those the host redid after an abort;
+    each run's launches counted from zero into
+    `launches`, its host re-checks and accumulator aborts printed."""
+    from meshclust2_tpu_torch.model.weights import save_weights
+
+    _, ps = torch_cli.load_sorted_points([fasta], [], 5, "uint8_t", False,
+                                         keep_seqs_train=False)
+    for name in FULL_MODELS:
+        w = os.path.join(tmp, f"{tag}_{name}_weights.txt")
+        save_weights(w, smoke_model(ps, name))
+        host_out = os.path.join(tmp, f"{tag}_{name}_host.clstr")
+        proc = subprocess.run(
+            [sys.executable, "-c", JAX_CLI_COUNTED, "--device", "host",
+             "--recover", w, "--output", host_out, fasta],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"JAX host run ({tag} {name}) exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+        host_c = tuple(int(x) for x in re.search(
+            r"^counters (\d+) (\d+) (\d+) (\d+)$", proc.stdout, re.M).groups())
+        host_st = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^timestamp (\S+) (\S+)$", proc.stdout, re.M)}
+        with open(host_out, "rb") as f:
+            want = f.read()
+        for path in PATHS:
+            out = os.path.join(tmp, f"{tag}_{name}_{path}.clstr")
+            for fn in wrappers.values():
+                fn.launches = 0
+            res = run_path(torch_cli, path, ["--device", "cuda", "--recover", w,
+                                             "--output", out, fasta])
+            counted = {k: fn.launches for k, fn in wrappers.items()}
+            launches[f"{tag}_{name}_{path}"] = counted
+            if res.rc != 0:
+                raise AssertionError(f"port CLI exited {res.rc} ({tag} {name} {path})")
+            check_launches("full_" + path, counted)
+            with open(out, "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"{tag} {name} CLSTR differs from the "
+                                         f"JAX --device host run ({path})")
+            c = counters(res)
+            acc = res.accumulator
+            # a window the accumulator aborted is counted again when the
+            # host redoes it (the JAX DeviceAccumulator counts it too): at
+            # most one window an abort
+            redone = c[0] - host_c[0]
+            if ((c[2], c[3]) != (host_c[2], host_c[3]) or redone < 0
+                    or redone > (acc.aborts if acc is not None else 0)):
+                raise AssertionError(f"{tag} {name} counters {c} vs the JAX "
+                                     f"host run's {host_c} ({path})")
+            acc_line = ("no accumulator" if acc is None else
+                        f"accumulator steps {acc.total_steps}, aborts {acc.aborts}")
+            if acc is not None and acc.error is not None:
+                raise AssertionError(f"accumulator failed: {acc.error!r}")
+            upd = ("no updater" if res.updater is None else
+                   f"updater pairs {res.updater.scored_pairs}, re-checked "
+                   f"{res.updater.rechecked_pairs}")
+            phase(tag, f"{os.path.basename(fasta)}, {name} model ({path}): CLSTR "
+                       f"== JAX --device host byte for byte, counters {c} (JAX "
+                       f"host {host_c}); scorer pairs {res.scorer.scored_pairs}, "
+                       f"re-checked {res.scorer.rechecked_pairs}; {upd}; "
+                       f"{acc_line}; {window_parts(res.clock.stamps, n_seqs)}; "
+                       f"launches {counted}; {card}")
+        phase(tag, f"{os.path.basename(fasta)}, {name} model: JAX package "
+                   f"--device host, same file and machine: "
+                   f"{window_parts(host_st, n_seqs)}")
+
+
 def fastcar_phase(fasta: str, tmp: str, card: str, wrappers: dict,
                   launches: dict) -> dict:
     """(fc) fastcar on the 10k set `fasta`.  Its default training with
@@ -659,7 +1048,7 @@ def main() -> int:
         closest_mean, closest_mean_ref)
     from meshclust2_tpu_torch.features import flags as F
     from meshclust2_tpu_torch.model.classifier import (
-        SINGLE_CODES, CompiledModel, model_to_torch)
+        STATS_SINGLES, CompiledModel, model_to_torch)
     from meshclust2_tpu_torch.model.weights import ModelBlock
     from meshclust2_tpu_torch.ops.pair_stats import (
         center_block_stats, derive_singles, narrow_sums, pair_stats,
@@ -670,7 +1059,8 @@ def main() -> int:
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
 
     wrappers = {"pair_stats": pair_stats, "pair_stats_decision": pair_stats_decision,
-                "closest_mean": closest_mean, "window_absorb": window_step}
+                "closest_mean": closest_mean, "window_absorb": window_step,
+                "pair_stats_decision_full": FullCount()}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -745,7 +1135,7 @@ def main() -> int:
     # 16..4096, both forms, the 32-bit (counts < 40, largest count known)
     # and 64-bit sums (full range, unknown), the 10k model and a synthetic
     # one with every derivable single and every combo kind
-    all_singles = sorted(SINGLE_CODES, key=SINGLE_CODES.get)
+    all_singles = list(STATS_SINGLES)
     synth_combos = [(F.COMBO_XY, F.FEAT_MANHATTAN | F.FEAT_EMD),
                     (F.COMBO_XY2, F.FEAT_EUCLIDEAN | F.FEAT_INTERSECTION),
                     (F.COMBO_X2Y, F.FEAT_KULCZYNSKI2 | F.FEAT_SIMRATIO),
@@ -789,6 +1179,9 @@ def main() -> int:
         if not (torch.equal(stats, p_stats)
                 and all(same_f64(dec[r], p_dec[r]) for r in range(3))):
             raise AssertionError(f"pair_stats_decision differs: {what}")
+        if torch.count_nonzero(dec[3:][torch.isfinite(p_dec[3:])]):
+            raise AssertionError(f"a model without full-vector singles got "
+                                 f"bounds: {what}")
         fin = torch.isfinite(p_dec)
         return max(float((stats - p_stats).abs().max()),
                    float((dec[fin] - p_dec[fin]).abs().max()) if fin.any() else 0.0)
@@ -963,6 +1356,10 @@ def main() -> int:
                 f"an unaligned store at D = 256); cases seen "
                 f"{dict(sorted(trips.items()))}")
 
+    # (c5) the FULL instantiation against its plain version and the port's
+    # numpy host oracle
+    full_err = full_kernel_checks(dev, rng)
+
     # (d) kernel vs plain version at the main path's shapes: a 10,000-row
     # uint8 store at D = 1,024 (k = 5), center form P = 2,048, pair form
     # P = 98,304 (the largest update batch)
@@ -1132,6 +1529,61 @@ def main() -> int:
                     f"(CUDA events behind a busy wait), bound {b_ms:.6f} ms ({b_by}); "
                     f"{card}")
 
+    # (d4) the FULL kernel at the main path's shapes, on the same store: the
+    # 10k mean window (center form, W = 1,571) and P = 98,304, for both
+    # FULL_MODELS (bounds from the store's own singles), against its plain
+    # version, its bound and the fast 10k model's time at the same shape (d1)
+    from meshclust2_tpu_torch.model.classifier import VECTOR_SINGLES
+    from meshclust2_tpu_torch.ops.pair_stats import vector_singles_ref
+
+    with tempfile.TemporaryDirectory(prefix="mc2_probe_") as ptmp:
+        sass = sass_counts(ptmp, _build.nvcc_path())
+    phase("d4", f"float64 instructions a call compiles to for sm_90a (cuobjdump "
+                f"-sass of probe kernels, static): log {sass['log']}, division "
+                f"{sass['div']}, square root {sass['sqrt']}")
+    full_timing = {}
+    for name, (singles, combos) in full_specs().items():
+        a_s, b_s = dshapes["pair P=98304"]
+        a_s, b_s = a_s[:2_000], b_s[:2_000]
+        vf = [f for f in singles if f in VECTOR_SINGLES]
+        vals, _ = vector_singles_ref(store, a_s, b_s, st10k.mags, vf)
+        raw = derive_singles(
+            pair_stats_ref(store, a_s, b_s),
+            *(getattr(st10k, m)[i] for m in ("mags", "selfdot", "stddevs")
+              for i in (a_s, b_s)), st10k.lens[a_s], st10k.lens[b_s], 1024,
+            singles, dict(zip(vf, vals.T))).cpu().numpy()
+        lo, hi = raw.min(axis=0), raw.max(axis=0)
+        fmodel = CompiledModel(ModelBlock(
+            combos=combos, weights=rng.normal(0.0, 2.0, len(combos) + 1),
+            singles=singles, mins=lo, maxs=np.where(hi > lo, hi, lo + 1.0)))
+        fparams = model_to_torch(fmodel, dev)
+        for form in ("center W=1571", "pair P=98304"):
+            a_d, b_d = dshapes[form]
+            stats, dec = pair_stats_decision(st10k, fparams, a_d, b_d)
+            torch.cuda.synchronize()
+            p_stats, p_dec = pair_stats_decision_ref(st10k, fparams, a_d, b_d)
+            if not (torch.equal(stats, p_stats)
+                    and bool(((dec[0] - p_dec[0]).abs() <= dec[3] + p_dec[3]).all())
+                    and bool(((dec[2] - p_dec[2]).abs() <= dec[4] + p_dec[4]).all())):
+                raise AssertionError(f"FULL kernel beyond its bounds at the 10k "
+                                     f"shape {form} ({name})")
+            k_ms = cuda_ms(lambda: pair_stats_decision(st10k, fparams, a_d, b_d),
+                           reps=30)
+            p_ms = cuda_ms(lambda: pair_stats_decision_ref(st10k, fparams, a_d, b_d),
+                           reps=3, warm=1)
+            dev_us = device_us(lambda: pair_stats_decision(st10k, fparams, a_d, b_d))
+            b_ms, b_by = full_bound(store, a_d, b_d, singles, len(combos), sass)
+            full_timing[name, form] = dict(ms=k_ms, plain_ms=p_ms, device_us=dev_us,
+                                           bound_ms=b_ms, bound_by=b_by)
+            phase("d4", f"pair_stats_decision FULL {form}, N=10,000 D=1024 uint8, the "
+                        f"{name} model ({len(singles)} singles, {len(combos)} combos): "
+                        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
+                        f"events); device {dev_us:.2f} us (CUDA events behind a busy "
+                        f"wait); bound {b_ms:.6f} ms ({b_by}, "
+                        f"{full_element_ops(singles, sass):.0f} float64 operations "
+                        f"an element); the fast 10k model here: device "
+                        f"{dec_timing[form]['device_us']:.2f} us; {card}")
+
     def check_accumulator(res, path, want_acc):
         """The default path ran the accumulator: steps, no scorer pairs;
         without aborts, the JAX DeviceAccumulator's counts."""
@@ -1153,6 +1605,7 @@ def main() -> int:
                 f"{acc.last_windows}, pairs {acc.last_pairs}, aborts {acc.aborts}")
 
     with tempfile.TemporaryDirectory(prefix="mc2_smoke_") as tmp:
+        launches = {}
         # (e) med2000 through the port's CLI on the card, on its three paths
         # (cli.run is cli.main's body, returning the engine beside the code)
         for path in PATHS:
@@ -1181,6 +1634,10 @@ def main() -> int:
                        f"counters {counters(res)}, {acc_line}, {upd}, "
                        f"{window_parts(res.clock.stamps, 2000)}")
 
+        # (e2) med2000 with the two full-vector models on the three paths
+        full_model_phase("e2", torch_cli, os.path.join(FIX, "med2000.fasta"), 2000,
+                         tmp, card, wrappers, launches)
+
         # (f) the 10k bench dataset on each path, each one's launches counted
         # from zero; the default path is the slice's main path
         import bench
@@ -1196,7 +1653,6 @@ def main() -> int:
             g.write(f.read())
         ref_sig = signature(read_clstr(ref_path))
         argv = ["--device", "cuda", "--recover", weights, "--output", None, fasta]
-        launches = {}
         # the default path's update batches, kept for (f3)
         batches = []
 
@@ -1277,6 +1733,11 @@ def main() -> int:
         phase("g", f"JAX package --device host, same file: "
                    f"{window_parts(stamps, 10_000)} (host CPU of the {card} "
                    f"machine, {os.cpu_count()} cores)")
+
+        # (f4) the 10k set with the two full-vector models on the three paths,
+        # one run a path
+        full_model_phase("f4", torch_cli, fasta, 10_000, tmp, card, wrappers,
+                         launches)
 
         # (t) training on the 10k set at the default flags on the card, then
         # clustering it with the trained model: this slice's main path, its
@@ -1368,6 +1829,42 @@ def main() -> int:
                    f"wall {host_wall:.3f}); host CPU of the {card} machine, "
                    f"{os.cpu_count()} cores")
 
+        # (t2) --feat slow training on the 10k set: its tables from the host
+        # oracle (the log divergences do not derive from the statistics),
+        # held byte for byte against the JAX package's --device host
+        # training of the same command
+        port_ws = os.path.join(train_dir, "slow_weights.txt")
+        host_ws = os.path.join(tmp, "host_slow_weights.txt")
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res_s = torch_cli.run(["--device", "cuda", *TRAIN_SLOW_FLAGS, "--dump",
+                               port_ws, fasta])
+        port_s_wall = time.perf_counter() - t0
+        launches["train_slow"] = {k: fn.launches for k, fn in wrappers.items()}
+        if res_s.rc != 0:
+            raise AssertionError(f"port --feat slow training exited {res_s.rc}")
+        check_launches("train_slow", launches["train_slow"])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "meshclust2_tpu.cli", "--device", "host",
+             *TRAIN_SLOW_FLAGS, "--dump", host_ws, fasta],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        host_s_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"host --feat slow training exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+        with open(port_ws, "rb") as f, open(host_ws, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("--feat slow weights differ from the JAX "
+                                     "--device host training's")
+        sw = load_weights(port_ws).classifier
+        phase("t2", f"train 10k ({' '.join(TRAIN_SLOW_FLAGS)}): weights == JAX "
+                    f"--device host --dump byte for byte; selected singles "
+                    f"{[F.FEAT_NAMES[x] for x in sw.singles]}, combos {sw.combos}; "
+                    f"tables on the host (launches {launches['train_slow']}); wall: "
+                    f"port (in process) {port_s_wall:.3f} s, JAX {host_s_wall:.3f} s")
+
         # (fc) fastcar on the 10k set
         fc_record = fastcar_phase(fasta, tmp, card, wrappers, launches)
 
@@ -1420,6 +1917,10 @@ def main() -> int:
     # the fused kernel at the 10k mean window (the main path's launches) and
     # in the pair form
     dc, dp = dec_timing["center W=1571"], dec_timing["pair P=98304"]
+    # the FULL kernel at the same shapes, the slow and the blockwise models
+    fc_slow, fp_slow = (full_timing["slow", f] for f in ("center W=1571", "pair P=98304"))
+    fc_block, fp_block = (full_timing["blockwise", f]
+                          for f in ("center W=1571", "pair P=98304"))
     # launches: each record's path (training, then clustering with the
     # trained model; the last record: fastcar's search, at its largest
     # slice); library_ms: no PyTorch call computes any of these functions
@@ -1458,6 +1959,30 @@ def main() -> int:
         "pair_plain_ms": dp["plain_ms"],
         "pair_bound_ms": dp["bound_ms"],
         "pair_device_us": dp["device_us"],
+    }, {
+        "name": "pair_stats_decision (FULL)",
+        "path": "the slow model on the 10k default path (f4)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
+        "replaces": "meshclust2_tpu/cluster/device_loop.py:167, "
+                    "meshclust2_tpu/cluster/device_loop.py:217",
+        "launches": launches["f4_slow_default"]["pair_stats_decision_full"],
+        "max_abs_err": full_err,
+        "ms": fc_slow["ms"],
+        "plain_ms": fc_slow["plain_ms"],
+        "bound_ms": fc_slow["bound_ms"],
+        "bound_by": fc_slow["bound_by"],
+        "library_ms": None,
+        "device_us": fc_slow["device_us"],
+        "pair_ms": fp_slow["ms"],
+        "pair_plain_ms": fp_slow["plain_ms"],
+        "pair_bound_ms": fp_slow["bound_ms"],
+        "pair_device_us": fp_slow["device_us"],
+        "blockwise_launches": launches["f4_blockwise_default"]["pair_stats_decision_full"],
+        "blockwise_device_us": fc_block["device_us"],
+        "blockwise_bound_ms": fc_block["bound_ms"],
+        "blockwise_pair_device_us": fp_block["device_us"],
+        "blockwise_pair_bound_ms": fp_block["bound_ms"],
     }, {
         "name": "closest_mean",
         "path": "training, then clustering, 10k",

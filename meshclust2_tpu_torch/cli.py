@@ -20,20 +20,25 @@ MC2_NO_DEVICE_LOOP runs the accumulate windows through the scorer and the
 engine's host loop, and MC2_NO_DEVICE_UPDATE_BATCH the update phase through
 the scorer and the engine's native host argmin.
 
-A pool that the kernels do not take (uint32/uint64 histograms, or counts
-outside the exact-integer envelope, `device_store.store_refusal`) gets no
-session: it is clustered by the engine copy on the port's native host
-scorer, as the JAX CLI's `--device host` clusters it, with one stderr line
-naming the reason; its training tables come from the host oracle.  This
-is routing by input type, decided before any device work; a kernel that
-fails on a pool it takes still raises.
+The device paths take the singles the pair statistics derive and the
+full-vector ones (the log divergences and the blockwise singles of `--feat
+slow` and `extraslow`: the fused kernel's FULL instantiation).  A model
+with a single that has none (markov, sim_mm, rre_k_r, spearman, d2s, d2*,
+afd, n2r*: `device_features.model_refusal`), and a pool that the kernels
+do not take (uint32/uint64 histograms, or counts outside the exact-integer
+envelope, `device_store.store_refusal`), get no session: they are
+clustered by the engine copy on the port's native host scorer, as the JAX
+CLI's `--device host` clusters them, with one stderr line naming the
+reason.  Training tables come from the host oracle for such a pool, and
+for a feature set with singles the statistics do not derive
+(train/device_tables.py:stats_refusal), as in the JAX package.  This is
+routing by input, decided before any device work; a kernel that fails on
+input it takes still raises.
 
 The engine falls back to its host paths, printing a line, when the device
 accumulate loop raises.  Here the error is raised again after the run, so
 the exit code shows it; guarded aborts are not errors and resolve on the
-host by design.  Models with singles the pair statistics cannot derive
-(`--feat slow`, `--feat extraslow`) exit non-zero: the port has no device
-path for them and no quiet host fallback.
+host by design.
 
 `-l/--list`, `--no-train-list`, `-t/--threads` (the native host
 library's threads), `--checkpoint` and `--resume-cluster` are the JAX
@@ -55,7 +60,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .cluster.device_loop import DeviceLoopUnsupported, TorchDeviceAccumulator
+from .cluster.device_loop import TorchDeviceAccumulator
 from .cluster.device_session import TorchDeviceSession
 from .cluster.device_store import store_refusal
 from .cluster.device_update import TorchDeviceUpdater
@@ -67,7 +72,7 @@ from .kmer.counting import (PointSet, build_point_set, concat_point_sets,
                             find_k, largest_pseudocount, select_datatype)
 from .model.classifier import CompiledModel
 from .model.weights import PredictorModel, load_weights, save_weights
-from .ops.device_features import check_fused
+from .ops.device_features import model_refusal
 from .runtime import resolve_device
 from .train.device_tables import TableStats
 from .utils.clock import Clock
@@ -226,10 +231,11 @@ class ClusterRun:
 
 def _session(ps: PointSet, model: CompiledModel, device, sim: float
              ) -> Optional[TorchDeviceSession]:
-    """The run's device session, or None for a pool that the kernels do
-    not take: that one is clustered on the host scorer, and stderr says
-    why."""
-    why = store_refusal(ps)
+    """The run's device session, or None for a model with singles that have
+    no device implementation or a pool that the kernels do not take: that
+    one is clustered on the host scorer, and stderr says why, before any
+    device work."""
+    why = model_refusal(model.singles) or store_refusal(ps)
     if why is not None:
         print(f"meshclust2-torch: {why}: clustering on the host scorer",
               file=sys.stderr)
@@ -269,23 +275,11 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
         from .native import set_num_threads
 
         set_num_threads(args.threads)
-    clock = Clock()
-    try:
-        return _run(args, train_files, notrain_files, device, clock)
-    except DeviceLoopUnsupported as e:
-        print(f"meshclust2-torch: {e}: the port computes only the singles "
-              f"that derive from the pair statistics (--feat fast); models "
-              f"with others cannot be trained or clustered by it yet",
-              file=sys.stderr)
-        return ClusterRun(rc=2, clock=clock)
+    return _run(args, train_files, notrain_files, device, Clock())
 
 
 def _run(args, train_files: List[str], notrain_files: List[str], device,
          clock: Clock) -> ClusterRun:
-    if not args.recover:
-        # the tables of every single of the feature set are built on the
-        # card: fail before any work when one is not derivable
-        check_fused(F.split_flags(FEAT_SETS[args.feat]))
     recovered: Optional[PredictorModel] = None
     k = args.kmer
     similarity = args.identity

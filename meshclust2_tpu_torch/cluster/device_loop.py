@@ -45,7 +45,7 @@ from ..kmer.counting import PointSet
 from ..model import thresholds as TH
 from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.device_features import check_fused
-from ..ops.pair_stats import pair_stats_decision
+from ..ops.pair_stats import has_vector, pair_stats_decision
 from ..ops.window_absorb import StepState, _rows_i64, step_scratch, window_step
 from .bvec import BVec
 
@@ -163,6 +163,9 @@ class TorchDeviceAccumulator:
         self.store = store
         self.device = store.counts.device
         self.params = model_to_torch(model, self.device)
+        # a model with full-vector singles: the step's gates take the fused
+        # kernel's error bounds, and an exact tie needs equal rows
+        self.full = has_vector(self.params)
         self._ready = None
         self.error: Optional[BaseException] = None
         self.total_steps = self.aborts = 0
@@ -403,16 +406,21 @@ class TorchDeviceAccumulator:
                           z.clone(), torch.zeros(2, dtype=torch.int64, device=dev),
                           torch.zeros(st.counts.shape[1], dtype=torch.int64,
                                       device=dev))
-        self._step(order, z, dec[0], dec[2], stats, state, z, 0, 1, 0)
+        self._step(order, z, dec, stats, state, z, 0, 1, 0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def _step(self, order, cand, s, dist, stats, state, cur_d, cid, stepc,
+    def _step(self, order, cand, dec, stats, state, cur_d, cid, stepc,
               mcnt) -> torch.Tensor:
-        return window_step(self.store, order, cand, s, dist, stats, state,
+        """window_step over the fused kernel's decisions `dec` [5, W]: its
+        bounds go to the gates of a model with full-vector singles (they
+        are 0 for any other)."""
+        errs = dict(s_err=dec[3], dist_err=dec[4], full=True) if self.full else {}
+        return window_step(self.store, order, cand, dec[0], dec[2], stats, state,
                            cur_d, cid=cid, stepc=stepc, mcnt=mcnt,
                            pos_edge=self.pos_edge, margin=self.margin,
-                           tie_margin=self.tie_margin, scratch=self._scratch)
+                           tie_margin=self.tie_margin, scratch=self._scratch,
+                           **errs)
 
     # -- the loop ----------------------------------------------------------------
 
@@ -577,8 +585,8 @@ class TorchDeviceAccumulator:
                                          S["order"][cur_d])
         state = StepState(self._alive, self._assign, self._astep,
                           self._members, self._msum)
-        return self._step(S["order"], cand, dec[0], dec[2], stats, state,
-                          cur_d, cid, stepc, mcnt)
+        return self._step(S["order"], cand, dec, stats, state, cur_d, cid,
+                          stepc, mcnt)
 
     def _seed(self, seed: torch.Tensor, cid: int, stepc: int) -> None:
         """A step without candidates: flat position `seed` leaves the pool

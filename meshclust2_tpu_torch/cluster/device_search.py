@@ -20,13 +20,17 @@ regression value clip(s, 0, 1).  The card's float64 differs from the
 oracle's by operation order and, for pearson, d2z and euclidean_z, by the
 identity form of their cancelling sums (train/device_tables.py), so a pair
 goes to the oracle when:
-  - its classifier sum lies within margin * max(|edge|, 1) of the edge;
+  - its classifier sum lies within max(8 s_err, margin * max(|edge|, 1))
+    of the edge;
   - its regression value's printed form, f"{100 * v:g}", could change
-    within margin * max(|s|, 1) of its sum, or the sum lies that near 0 or
-    1 (the JAX package's band is 8 * max(serr, 1e-13) for its double-float
-    sums; the port takes the updater's float64 margin, `resolve_margins`,
-    so that MC2_DD_MARGIN forces every pair through the re-check);
+    within max(8 s_err, margin * max(|s|, 1)) of its sum, or the sum lies
+    that near 0 or 1 (the JAX package's band is 8 * max(serr, 1e-13) for
+    its double-float sums; the port takes the updater's float64 margin,
+    `resolve_margins`, so that MC2_DD_MARGIN forces every pair through the
+    re-check);
   - either sum is not finite.
+s_err, the fused kernel's bound on a sum of a model with full-vector
+singles, is 0 for any other model.
 """
 from __future__ import annotations
 
@@ -122,12 +126,21 @@ def printed_may_differ(s: np.ndarray, eps) -> np.ndarray:
             | crosses)
 
 
+def _sums(upd: TorchDeviceUpdater, a: np.ndarray, b: np.ndarray):
+    """(s, s_err) of the pairs; s_err is read back only for a model with
+    full-vector singles (0 for any other)."""
+    if upd.full:
+        return upd.score_sums(a, b, with_err=True)
+    return upd.score_sums(a, b), 0.0
+
+
 class TorchDeviceSearch:
     """The window pairs of one block on the card, over one DeviceStore of
     the block's combined point set.  Raises DeviceLoopUnsupported for a
-    model whose singles the pair statistics cannot derive, or a pool the
+    model with a single that has no device implementation, or a pool the
     store does not take (callers route those by
-    device_store.store_refusal first)."""
+    ops/device_features.py:model_refusal and device_store.store_refusal
+    first)."""
 
     def __init__(self, combined: PointSet, model_c: Optional[CompiledModel],
                  model_r: Optional[CompiledModel], device):
@@ -142,11 +155,11 @@ class TorchDeviceSearch:
         """(keep, sim) of pairs (a[i], b[i]), as `host_search` gives them."""
         keep = np.ones(len(a), dtype=bool)
         if self.upd_c is not None:
-            s = self.upd_c.score_sums(a, b)
+            s, s_err = _sums(self.upd_c, a, b)
             edge = TH.positive_edge(self.upd_c.model.bias)
             keep = s >= edge
-            unc = ~np.isfinite(s) | (np.abs(s - edge) <= self.upd_c.margin
-                                     * max(abs(edge), 1.0))
+            thr = np.maximum(8 * s_err, self.upd_c.margin * max(abs(edge), 1.0))
+            unc = ~np.isfinite(s) | (np.abs(s - edge) <= thr)
             idx = np.nonzero(unc)[0]
             if len(idx):
                 keep[idx] = oracle.keep(a[idx], b[idx])
@@ -154,9 +167,10 @@ class TorchDeviceSearch:
         sim = np.ones(len(a))
         if self.upd_r is not None and keep.any():
             sel = np.nonzero(keep)[0]
-            s_r = self.upd_r.score_sums(a[sel], b[sel])
+            s_r, s_err = _sums(self.upd_r, a[sel], b[sel])
             vals = np.clip(s_r, 0.0, 1.0)
-            eps = self.upd_r.margin * np.maximum(np.abs(s_r), 1.0)
+            eps = np.maximum(8 * s_err,
+                             self.upd_r.margin * np.maximum(np.abs(s_r), 1.0))
             idx = np.nonzero(printed_may_differ(s_r, eps))[0]
             if len(idx):
                 vals[idx] = oracle.value(a[sel[idx]], b[sel[idx]])

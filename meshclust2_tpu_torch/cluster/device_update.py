@@ -16,9 +16,13 @@ Decisions come from the float64 GLM sum against the exact float64 edges of
 meshclust2_tpu/model/thresholds.py (`nonzero_bands`, `merge_band`); a pair
 whose sum lies within `margin * max(|edge|, 1)` of an edge is uncertain.
 The margins are the JAX package's (`resolve_margins`: 1e-8, ties 1e-12,
-`MC2_DD_MARGIN` / `MC2_DD_TIE_MARGIN`).  The card's float64 differs from
-the host oracle only by operation order, so the TPU version's double-float
-error terms have no counterpart here.
+`MC2_DD_MARGIN` / `MC2_DD_TIE_MARGIN`).  For the statistics-derived singles
+the card's float64 differs from the host oracle only by operation order,
+so the TPU version's double-float error terms have no counterpart here;
+a model with full-vector singles takes the fused kernel's bounds s_err and
+dist_err into the bands as 8 s_err and 8 dist_err, as the JAX version
+takes its own (`_band_device`, the merge pass's near-tie guard), and an
+exact merge tie then needs equal candidate rows.
 
 Dropped as TPU artefacts: the pair and segment buckets, the `valid`
 padding, the MAX_ITER_PAIRS / MAX_PAIR_CHUNK splits and the jit cache.
@@ -38,7 +42,8 @@ from ..model import thresholds as TH
 from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.closest_mean import closest_mean
 from ..ops.device_features import check_fused
-from ..ops.pair_stats import pair_stats_decision
+from ..ops.pair_stats import has_vector, pair_stats_decision
+from ..ops.window_absorb import _rows_i64
 from .device_loop import resolve_margins
 from .device_store import DeviceStore
 
@@ -57,6 +62,8 @@ class TorchDeviceUpdater:
         self.store = store
         self.device = store.counts.device
         self.params = model_to_torch(model, self.device)
+        # a model with full-vector singles: its bounds widen the bands
+        self.full = has_vector(self.params)
         self.margin, self.tie_margin = resolve_margins(margin, tie_margin)
         self.band0 = TH.nonzero_bands(model.bias)   # c_round(prob) != 0
         self.band1 = TH.merge_band(model.bias)      # c_round(prob) == 1
@@ -100,16 +107,21 @@ class TorchDeviceUpdater:
         dev = torch.from_numpy(flat).to(self.device)
         return list(torch.split(dev, [len(a) for a in arrays]))
 
-    def _band(self, s: torch.Tensor, band) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(in-band, uncertain) masks of float64 sums s against [lo, hi)
-        (device_update.py:_band_decide)."""
+    def _band(self, dec: torch.Tensor, band) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(in-band, uncertain) masks of the float64 sums dec[0] against
+        [lo, hi) (device_update.py:_band_decide); uncertain within
+        max(8 s_err, margin * max(|edge|, 1)) of an edge (_band_device)."""
+        s = dec[0]
         lo, hi = band
         inb = torch.ones_like(s, dtype=torch.bool)
         unc = torch.zeros_like(inb)
         for edge, ge in ((lo, True), (hi, False)):
             if np.isfinite(edge):
                 inb &= (s >= edge) if ge else (s < edge)
-                unc |= (s - edge).abs() <= self.margin * max(abs(edge), 1.0)
+                thr = self.margin * max(abs(edge), 1.0)
+                if self.full:
+                    thr = torch.clamp(8 * dec[3], min=thr)
+                unc |= (s - edge).abs() <= thr
             elif (edge == -np.inf) != ge:
                 # hi == -inf or lo == +inf: the band is empty
                 inb.zero_()
@@ -117,27 +129,30 @@ class TorchDeviceUpdater:
 
     # -- batches ------------------------------------------------------------
 
-    def score_sums(self, a_rows, b_rows, slice_pairs: int = SEARCH_SLICE
-                   ) -> np.ndarray:
+    def score_sums(self, a_rows, b_rows, slice_pairs: int = SEARCH_SLICE,
+                   with_err: bool = False):
         """The float64 GLM sums of pairs (a_rows[i], b_rows[i]) in the
         reference's argument order, in launches of at most `slice_pairs`
         pairs: each uploads its slice's indices, runs the fused kernel and
-        reads back s only.  A slice holds ~64 bytes a pair on the card
-        (indices 16, statistics 24, decisions 24).  A decision from them is
-        trusted only outside `margin` of an edge (float64 on the card
-        carries no double-float error term)."""
+        reads back s only (with_err: (s, s_err), the sums' absolute bounds,
+        0 without full-vector singles).  A slice holds ~80 bytes a pair on
+        the card (indices 16, statistics 24, decisions 40).  A decision
+        from them is trusted only outside max(8 s_err, margin) of an
+        edge."""
         a = np.asarray(a_rows, dtype=np.int64)
         b = np.asarray(b_rows, dtype=np.int64)
-        out = np.empty(len(a))
+        out = np.empty((2, len(a)))
+        rows = slice(0, 4, 3) if with_err else slice(0, 1)   # s (and s_err)
         t0 = time.perf_counter()
         for s in range(0, len(a), slice_pairs):
             ai, bi = self._upload(a[s:s + slice_pairs], b[s:s + slice_pairs])
             _, dec = pair_stats_decision(self.store, self.params, ai, bi)
-            out[s:s + len(ai)] = dec[0].cpu().numpy()
+            got = dec[rows].cpu().numpy()
+            out[:len(got), s:s + len(ai)] = got
             self.n_score += 1
         self.scored_pairs += len(a)
         self.t_score += time.perf_counter() - t0
-        return out
+        return (out[0], out[1]) if with_err else out[0]
 
     def filter_closest(self, cen_rows: np.ndarray, b_rows: np.ndarray,
                        seg: np.ndarray, C: int):
@@ -153,7 +168,7 @@ class TorchDeviceUpdater:
         st = self.store
         cen, b, sg = self._upload(cen_rows, b_rows, seg)
         _, dec = pair_stats_decision(st, self.params, cen[sg], b)
-        inb, unc = self._band(dec[0], self.band0)
+        inb, unc = self._band(dec, self.band0)
         keep = ~inb
         first, cunc = closest_mean(st.counts, st.mags, b, sg, keep, C,
                                    maxc=st.maxc, tie_margin=self.tie_margin)
@@ -191,7 +206,7 @@ class TorchDeviceUpdater:
         b_idx = cen[sg]
         stats, dec = pair_stats_decision(st, self.params, a_idx, b_idx)
         dist = dec[2]
-        res1, unc = self._band(dec[0], self.band1)
+        res1, unc = self._band(dec, self.band1)
         f64 = dict(dtype=torch.float64, device=self.device)
         i64 = dict(dtype=torch.int64, device=self.device)
         d = torch.where(res1, dist, torch.full_like(dist, -np.inf))
@@ -212,7 +227,21 @@ class TorchDeviceUpdater:
         same = (stats == stats[bp]).all(dim=1)
         for m in (st.mags, st.selfdot, st.stddevs, st.lens):
             same &= m[a_idx] == m[a_best]
-        near = res1 & ((d - dmax).abs() <= self.tie_margin * dmax.abs().clamp(min=1.0))
+        thr = self.tie_margin * dmax.abs().clamp(min=1.0)
+        if self.full:
+            # the bounds of the candidate and of the segment's largest
+            # (meshclust2_tpu/cluster/device_update.py:422-430)
+            derr = dec[4]
+            emax = torch.zeros(C, **f64).scatter_reduce(
+                0, sg, torch.where(res1, derr, 0.0), "amax")[sg]
+            thr = torch.fmax(8 * (derr + emax), thr)
+        near = res1 & ((d - dmax).abs() <= thr)
+        if self.full:
+            # the statistics and moments do not determine a full-vector
+            # single: a near candidate's row must equal the best's
+            idx = torch.nonzero(near & same).view(-1)
+            same[idx] = (_rows_i64(st.counts, a_idx[idx])
+                         == _rows_i64(st.counts, a_best[idx])).all(dim=1)
         amb = torch.zeros(C, **i64).scatter_reduce(
             0, sg, (near & ~same).to(torch.int64), "amax") > 0
         buf = torch.cat([best.view(torch.uint8), unc.view(torch.uint8),

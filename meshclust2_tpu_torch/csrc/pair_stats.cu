@@ -12,7 +12,25 @@
 //   normalization, the combos and the GLM sum s, then
 //   prob = 1 / (1 + exp(-clamp(s, +-709))) + bias and dist = combo 0
 //   (model/classifier.py:decision_from_raw), written as dec[0][p] = s,
-//   dec[1][p] = prob, dec[2][p] = dist.
+//   dec[1][p] = prob, dec[2][p] = dist, dec[3][p] = s_err and dec[4][p] =
+//   dist_err (0 in this instantiation).
+//
+// The FULL instantiation serves a model with full-vector singles (the log
+// divergences jefferey, jensen-shannon, k_div, kl_cond and the blockwise
+// hellinger, squared chord, chi^2, canberra, kulczynski1, harmonic mean,
+// mismatch, jaccard: ops/pair_stats.py:vector_singles_ref).  After a
+// pair's statistics, each lane sums in float64 the per-element terms of
+// the model's full-vector singles over groups of 4 consecutive counts
+// (kl_cond's groups; D = 4^k) of the two rows, with their companion |term|
+// sums, selected by a mask the block reads from the packed parameters; the
+// warp reduces them and runs the pair's epilogue over its lanes, which
+// derives each such single with an absolute error bound and propagates the
+// bounds through the normalization, the combos and the GLM sum into s_err
+// and dist_err (model/classifier.py:decision_errors).  A log's argument is
+// a ratio of exact integer products, (h_i mB) / (c_i mA) in place of
+// (h_i / mA) / (c_i / mB), so it rounds once.  Its sums run in another
+// order than the plain version's, so its values agree with it within the
+// bounds, not bit for bit; its statistics are the same integers.
 //
 // Replaces meshclust2_tpu/ops/pallas_stats.py:_build.kernel, the TPU kernel
 // that streams a [tile_b, D] block of candidate rows against ONE center row
@@ -66,9 +84,18 @@
 // division by a host scalar), x**2 is x * x, 1 / x is a correctly rounded
 // division, and exp is the CUDA math library's, which PyTorch calls too.
 //
+// The FULL pass replaces the XLA programs meshclust2_tpu/cluster/
+// device_loop.py:log_div_stats (l. 167) and block_singles_stats (l. 217),
+// which the JAX package runs in float32 with error bounds behind the Pallas
+// kernel.  What bounds it: operations.  Per pair and element up to four
+// float64 logs, three square roots and ten divisions, a few hundred
+// float64 instructions, at the card's float64 rate; the rows come from L1
+// after the statistics pass.  A simple design: one warp a pair, as the
+// statistics; a lane's groups strided over the row.
+//
 // An index outside [0, n_rows) writes -1 into the three statistics of its
-// pair and NaN into its s, prob and dist; callers validate indices before
-// launch.
+// pair and NaN into its s, prob, dist and bounds; callers validate indices
+// before launch.
 //
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: each
 // entry point launches on the given stream, allocates nothing, does not
@@ -85,12 +112,21 @@ constexpr int kWarpSize = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpSize * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
-// the derivable singles (model/classifier.py:SINGLE_CODES)
-constexpr int kMaxSingles = 11;
+// the singles the kernel computes (model/classifier.py:SINGLE_CODES): the
+// statistics-derived ones, then the full-vector ones from kJefferey on.  A
+// model's singles are distinct, so it has at most kMaxSingles
+constexpr int kMaxSingles = 23;
+static_assert(kMaxSingles <= kWarpSize, "the warp epilogue gives a single a lane");
 enum Single {
   kManhattan = 0, kEuclidean, kIntersection, kKulczynski2, kSimratio,
   kNormalizedVectors, kPearson, kD2z, kEuclideanZ, kEmd, kLengthd,
+  kJefferey, kJensenShannon, kKDiv, kKlCond, kHellinger, kSqchord, kChi2,
+  kCanberra, kKulczynski1, kHarmonic, kMismatch, kJaccard,
 };
+// a full-vector single's bit in the FULL pass's mask
+__host__ __device__ constexpr unsigned bit(int code) {
+  return 1u << (code - kJefferey);
+}
 enum Combo { kXY = 0, kXY2 = 1, kX2Y = 2, kX2Y2 = 3 };
 // packed parameters: [S, C, bias, w0], then 4 a single (code, min,
 // max - min, is_sim), then 4 a combo (kind, i0, i1 or -1, weight)
@@ -117,7 +153,7 @@ struct Args {
   int prm_shared;      // 1: copy prm into shared memory
   double inv_d;        // 1 / d, as PyTorch divides by a host scalar
   long long* stats;    // [P, 3]
-  double* dec;         // [3, P]: s, prob, dist
+  double* dec;         // [5, P]: s, prob, dist, s_err, dist_err
 };
 
 template <typename T>
@@ -353,6 +389,236 @@ __device__ __forceinline__ double single_raw(int code, const Derived& v,
   return __longlong_as_double(0x7ff8000000000000LL);   // unreachable: checked
 }
 
+// The FULL pass's per-lane, then per-warp, sums over a pair's two rows.
+struct FullSums {
+  double jd, jd_abs, jd_comp;     // jefferey: terms, |terms|, companion
+  double ta, ta_abs, tb, tb_abs;  // jensen-shannon's two sides, k_div the first
+  double kp, kp_abs, kq, kq_abs;  // kl_cond's two sides
+  double hs, hc;                  // hellinger: squared differences, companion
+  double sq, chi, can, kul, har;  // sums of nonnegative terms
+  double mis, jac;                // counts
+};
+
+// The terms of one group of 4 consecutive counts x (row a) and y (row b),
+// ma and mb the rows' count sums: ops/pair_stats.py:_vector_terms, term
+// for term in the same operations.  The companion sums feed only the
+// bounds and may round freely.
+__device__ __forceinline__ void full_group(unsigned mask, const unsigned* x,
+                                           const unsigned* y, double ma, double mb,
+                                           double d, FullSums& f) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const double a = x[j], b = y[j];
+    if (mask & (bit(kJefferey) | bit(kJensenShannon) | bit(kKDiv))) {
+      // exact integer products (< 2^40): p_j / q_j = (a mb) / (b ma)
+      const double ppn = __dmul_rn(a, mb), pqn = __dmul_rn(b, ma);
+      if (mask & bit(kJefferey)) {
+        const double dnum = __dsub_rn(ppn, pqn);
+        const double lr = log(__ddiv_rn(ppn, pqn));
+        const double t = __dmul_rn(dnum, lr);
+        f.jd = __dadd_rn(f.jd, t);
+        f.jd_abs += fabs(t);
+        f.jd_comp += fabs(dnum) + (ppn + pqn) * fabs(lr);
+      }
+      if (mask & (bit(kJensenShannon) | bit(kKDiv))) {
+        const double sn = __dadd_rn(ppn, pqn);
+        const double ta = __dmul_rn(a, log(__ddiv_rn(__dmul_rn(2.0, ppn), sn)));
+        f.ta = __dadd_rn(f.ta, ta);
+        f.ta_abs += fabs(ta);
+        if (mask & bit(kJensenShannon)) {
+          const double tb = __dmul_rn(b, log(__ddiv_rn(__dmul_rn(2.0, pqn), sn)));
+          f.tb = __dadd_rn(f.tb, tb);
+          f.tb_abs += fabs(tb);
+        }
+      }
+    }
+    if (mask & bit(kHellinger)) {
+      const double xa = __dsqrt_rn(__ddiv_rn(__dmul_rn(a, d), ma));
+      const double xb = __dsqrt_rn(__ddiv_rn(__dmul_rn(b, d), mb));
+      const double df = __dsub_rn(xa, xb);
+      f.hs = __dadd_rn(f.hs, __dmul_rn(df, df));
+      f.hc += fabs(df) * (xa + xb);
+    }
+    if (mask & bit(kSqchord)) {
+      f.sq = __dadd_rn(f.sq, __dsub_rn(__dadd_rn(a, b),
+                                       __dmul_rn(2.0, __dsqrt_rn(__dmul_rn(a, b)))));
+    }
+    const double df = __dsub_rn(a, b);   // exact
+    if (mask & bit(kChi2))
+      f.chi = __dadd_rn(f.chi, __ddiv_rn(__dmul_rn(df, df), __dadd_rn(a, b)));
+    if (mask & bit(kCanberra)) f.can = __dadd_rn(f.can, __ddiv_rn(fabs(df), __dadd_rn(a, b)));
+    if (mask & bit(kKulczynski1)) f.kul = __dadd_rn(f.kul, __ddiv_rn(fabs(df), fmin(a, b)));
+    if (mask & bit(kHarmonic))
+      f.har = __dadd_rn(f.har, __ddiv_rn(__dmul_rn(a, b), __dadd_rn(a, b)));
+    if (mask & bit(kMismatch)) f.mis += x[j] != y[j] ? 1.0 : 0.0;
+    if (mask & bit(kJaccard)) f.jac += x[j] == y[j] && x[j] > 1 ? 1.0 : 0.0;
+  }
+  if (mask & bit(kKlCond)) {
+    // log(cp_j / cq_j) = log((x_j sq) / (y_j sp)): exact integer products
+    const double sp = static_cast<double>(x[0] + x[1] + x[2] + x[3]);
+    const double sq = static_cast<double>(y[0] + y[1] + y[2] + y[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double a = x[j], b = y[j];
+      const double lg = log(__ddiv_rn(__dmul_rn(a, sq), __dmul_rn(b, sp)));
+      const double tp = __dmul_rn(a, lg), tq = __dmul_rn(b, lg);
+      f.kp = __dadd_rn(f.kp, tp);
+      f.kp_abs += fabs(tp);
+      f.kq = __dadd_rn(f.kq, tq);
+      f.kq_abs += fabs(tq);
+    }
+  }
+}
+
+// Lane l's groups g = l, l + 32, ... of rows h and c (D a multiple of 4),
+// read as elements: the rows were just read by the statistics pass.
+template <typename T>
+__device__ __forceinline__ void full_loop(unsigned mask, const T* __restrict__ h,
+                                          const T* c, int d, int lane, double ma,
+                                          double mb, FullSums& f) {
+  const double dd = static_cast<double>(d);
+  for (int g = lane; g < d / 4; g += kWarpSize) {
+    unsigned x[4], y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[j] = h[4 * g + j];
+      y[j] = c[4 * g + j];
+    }
+    full_group(mask, x, y, ma, mb, dd, f);
+  }
+}
+
+// The warp's sums of the masked singles, on every lane (the xor butterfly
+// leaves the same bits on every lane).
+__device__ __forceinline__ void full_reduce(unsigned mask, FullSums& f) {
+  if (mask & bit(kJefferey)) {
+    f.jd = warp_sum(f.jd);
+    f.jd_abs = warp_sum(f.jd_abs);
+    f.jd_comp = warp_sum(f.jd_comp);
+  }
+  if (mask & (bit(kJensenShannon) | bit(kKDiv))) {
+    f.ta = warp_sum(f.ta);
+    f.ta_abs = warp_sum(f.ta_abs);
+  }
+  if (mask & bit(kJensenShannon)) {
+    f.tb = warp_sum(f.tb);
+    f.tb_abs = warp_sum(f.tb_abs);
+  }
+  if (mask & bit(kKlCond)) {
+    f.kp = warp_sum(f.kp);
+    f.kp_abs = warp_sum(f.kp_abs);
+    f.kq = warp_sum(f.kq);
+    f.kq_abs = warp_sum(f.kq_abs);
+  }
+  if (mask & bit(kHellinger)) {
+    f.hs = warp_sum(f.hs);
+    f.hc = warp_sum(f.hc);
+  }
+  if (mask & bit(kSqchord)) f.sq = warp_sum(f.sq);
+  if (mask & bit(kChi2)) f.chi = warp_sum(f.chi);
+  if (mask & bit(kCanberra)) f.can = warp_sum(f.can);
+  if (mask & bit(kKulczynski1)) f.kul = warp_sum(f.kul);
+  if (mask & bit(kHarmonic)) f.har = warp_sum(f.har);
+  if (mask & bit(kMismatch)) f.mis = warp_sum(f.mis);
+  if (mask & bit(kJaccard)) f.jac = warp_sum(f.jac);
+}
+
+// A full-vector single from the warp's sums, and into *err its absolute
+// bound on |value - the host's|: ops/pair_stats.py:_vector_terms.  hs =
+// (D + 64) u covers either side's sum of D terms, e16 = 16 u the roundings
+// of a term on both sides (u = 2^-53); the count sums ma, mb make the
+// constant parts.
+__device__ __forceinline__ double full_single(int code, const FullSums& f, double ma,
+                                              double mb, double d, double inv_d,
+                                              double* err) {
+  constexpr double u = 1.0 / 9007199254740992.0;   // 2^-53
+  const double hs = (d + 64.0) * u, e16 = 16.0 * u;
+  switch (code) {
+    case kJefferey: {
+      const double mm = __dmul_rn(ma, mb);
+      *err = (hs * f.jd_abs + e16 * f.jd_comp) / mm;
+      return __ddiv_rn(f.jd, mm);
+    }
+    case kJensenShannon: {
+      const double t = 0.5 * (f.ta_abs / ma + f.tb_abs / mb);
+      *err = hs * t + e16 * (t + 1.0);
+      return __dmul_rn(0.5, __dadd_rn(__ddiv_rn(f.ta, ma), __ddiv_rn(f.tb, mb)));
+    }
+    case kKDiv: {
+      const double t = f.ta_abs / ma;
+      *err = hs * t + e16 * (t + 1.0);
+      return __ddiv_rn(f.ta, ma);
+    }
+    case kKlCond: {
+      const double t = 0.5 * (f.kp_abs / ma + f.kq_abs / mb);
+      *err = hs * t + e16 * (t + 1.0);
+      return __dmul_rn(0.5, __dsub_rn(__ddiv_rn(f.kp, ma), __ddiv_rn(f.kq, mb)));
+    }
+    case kHellinger: {
+      const double v = __dsqrt_rn(__dmul_rn(2.0, f.hs));
+      const double es = hs * f.hs + e16 * f.hc;
+      // |sqrt(2 s1) - sqrt(2 s2)| <= 2 e / max(v, sqrt(2 e)) for |s1 - s2| <= e
+      *err = (es > 0.0 ? 2.0 * es / fmax(v, sqrt(2.0 * es)) : 0.0) + 4.0 * u * v;
+      return v;
+    }
+    case kSqchord:
+      *err = hs * f.sq + e16 * (ma + mb);
+      return f.sq;
+    case kChi2:
+      *err = (hs + e16) * f.chi;
+      return f.chi;
+    case kCanberra:
+      *err = (hs + e16) * f.can;
+      return f.can;
+    case kKulczynski1:
+      *err = (hs + e16) * f.kul;
+      return f.kul;
+    case kHarmonic: {
+      const double v = __dmul_rn(2.0, f.har);
+      *err = (hs + e16) * v;
+      return v;
+    }
+    case kMismatch:
+      *err = 0.0;
+      return f.mis;
+    case kJaccard:
+      *err = 0.0;
+      return __dmul_rn(f.jac, inv_d);   // 1 / d is a power of two: exact
+  }
+  *err = 0.0;
+  return __longlong_as_double(0x7ff8000000000000LL);   // unreachable: checked
+}
+
+// The product c z and its first-order absolute error bound from ce and ze
+// (model/classifier.py:_mul_err).
+__device__ __forceinline__ void mul_err(double& c, double& ce, double z, double ze) {
+  ce = __dadd_rn(__dmul_rn(ce, fabs(z)), __dmul_rn(ze, fabs(c)));
+  c = __dmul_rn(c, z);
+}
+
+// A combo's error bound from its singles' normalized values x, y and
+// bounds xe, ye (model/classifier.py:_combo_err).
+__device__ __forceinline__ double combo_err(int kind, double x, double xe, double y,
+                                            double ye, bool has_y) {
+  double c = x, ce = xe;
+  if (kind == kXY) {
+    if (has_y) mul_err(c, ce, y, ye);
+  } else if (kind == kX2Y2) {
+    mul_err(c, ce, x, xe);
+    if (has_y) {
+      mul_err(c, ce, y, ye);
+      mul_err(c, ce, y, ye);
+    }
+  } else if (kind == kXY2) {
+    mul_err(c, ce, y, ye);
+    mul_err(c, ce, y, ye);
+  } else {
+    mul_err(c, ce, x, xe);
+    mul_err(c, ce, y, ye);
+  }
+  return ce;
+}
+
 // Single k of the model, normalized: (raw - min) / (max - min), and
 // 1 - that for a distance (model/classifier.py:decision_from_raw).
 __device__ __forceinline__ double single_normalized(const double* prm, int k,
@@ -373,25 +639,34 @@ __device__ __forceinline__ double combo_value(int kind, double x, double y, bool
   return __dmul_rn(__dmul_rn(x, x), y);
 }
 
-// s = w0 + the GLM dot (w0 alone without combos), prob, dist.
+// A pair's five outputs, each n_pairs apart from the last.
+struct Out {
+  double* p;
+  long long n;
+  __device__ __forceinline__ void write(int row, double v) const { p[row * n] = v; }
+};
+
+// s = w0 + the GLM dot (w0 alone without combos), prob, dist and the
+// bounds s_err, dist_err.
 __device__ __forceinline__ void write_decision(const double* prm, int n_c, double glm,
-                                               double dist, double* s_out,
-                                               double* prob_out, double* dist_out) {
+                                               double dist, double s_err, double dist_err,
+                                               const Out& out) {
   const double s = n_c ? __dadd_rn(prm[3], glm) : prm[3];
   // torch.clamp keeps a NaN
   const double sc = isnan(s) ? s : fmin(fmax(s, -709.0), 709.0);
-  *s_out = s;
-  *prob_out = __dadd_rn(__ddiv_rn(1.0, __dadd_rn(1.0, exp(-sc))), prm[2]);
-  *dist_out = n_c ? dist : 0.0;
+  out.write(0, s);
+  out.write(1, __dadd_rn(__ddiv_rn(1.0, __dadd_rn(1.0, exp(-sc))), prm[2]));
+  out.write(2, n_c ? dist : 0.0);
+  out.write(3, n_c ? s_err : 0.0);
+  out.write(4, n_c ? dist_err : 0.0);
 }
 
 // The epilogue of one pair on one lane: (s, prob, dist) in
 // model/classifier.py:decision_from_raw's operation order, the GLM dot in
-// combo order.
+// combo order; a model without full-vector singles, whose bounds are 0.
 __device__ __forceinline__ void epilogue(const double* __restrict__ prm,
                                          const long long* st, const Moments& m,
-                                         double d, double inv_d, double* s_out,
-                                         double* prob_out, double* dist_out) {
+                                         double d, double inv_d, const Out& out) {
   const int n_s = static_cast<int>(prm[0]);
   const int n_c = static_cast<int>(prm[1]);
   const Derived v = derive(st, m, inv_d);
@@ -410,26 +685,45 @@ __device__ __forceinline__ void epilogue(const double* __restrict__ prm,
       glm = __dadd_rn(glm, __dmul_rn(c, cq[3]));
     }
   }
-  write_decision(prm, n_c, glm, dist, s_out, prob_out, dist_out);
+  write_decision(prm, n_c, glm, dist, 0.0, 0.0, out);
 }
 
 // The same epilogue of one pair spread over the warp, for a round of one
-// pair (the center form's one pair a warp): lane k normalizes single k,
-// lane j forms combo j and its product with its weight, and every lane
-// adds the products in combo order from shuffles; lane 0 writes.  Every
-// lane holds the pair's statistics and moments.  The values and their
-// order of operations are the one-lane epilogue's, so the bits are too.
+// pair (the center form's one pair a warp, and every pair of the FULL
+// pass): lane k normalizes single k, lane j forms combo j and its product
+// with its weight, and every lane adds the products in combo order from
+// shuffles; lane 0 writes.  Every lane holds the pair's statistics,
+// moments and, with FULL, the full-vector sums.  Without FULL the values
+// and their order of operations are the one-lane epilogue's, so the bits
+// are too, and the bounds are 0.  With FULL, lane k also carries single
+// k's bound over |max - min|, lane j combo j's bound (combo_err) and its
+// product with |w_j|, added in combo order into s_err; dist_err is combo
+// 0's bound (model/classifier.py:decision_errors).
+template <bool FULL>
 __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
                                               const long long* st, const Moments& m,
-                                              double d, double inv_d, int lane,
-                                              double* s_out, double* prob_out,
-                                              double* dist_out) {
+                                              const FullSums& fs, double d, double inv_d,
+                                              int lane, const Out& out) {
   const int n_s = static_cast<int>(prm[0]);
   const int n_c = static_cast<int>(prm[1]);
   const Derived v = derive(st, m, inv_d);
-  const double nv = lane < n_s ? single_normalized(prm, lane, v, m, d) : 0.0;
+  double nv = 0.0, ne = 0.0;
+  if (lane < n_s) {
+    if constexpr (FULL) {
+      const double* q = prm + kHead + kStride * lane;
+      const int code = static_cast<int>(q[0]);
+      double err = 0.0;
+      const double raw = code >= kJefferey ? full_single(code, fs, m.ma, m.mb, d, inv_d, &err)
+                                           : single_raw(code, v, m, d);
+      const double x = __ddiv_rn(__dsub_rn(raw, q[1]), q[2]);
+      nv = q[3] != 0.0 ? x : __dsub_rn(1.0, x);
+      ne = __ddiv_rn(err, fabs(q[2]));
+    } else {
+      nv = single_normalized(prm, lane, v, m, d);
+    }
+  }
   const double* cq0 = prm + kHead + kStride * n_s;
-  double glm = 0.0, dist = 0.0;
+  double glm = 0.0, dist = 0.0, s_err = 0.0, dist_err = 0.0;
   for (int cb = 0; cb < n_c; cb += kWarpSize) {   // uniform
     const int j = cb + lane;
     int kind = kXY, i0 = 0, i1 = -1;
@@ -445,6 +739,13 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
     const double y = __shfl_sync(kFullMask, nv, i1 >= 0 ? i1 : 0);
     const double c = combo_value(kind, x, i1 >= 0 ? y : 1.0, i1 >= 0);
     const double prod = __dmul_rn(c, w);
+    double ce = 0.0, pe = 0.0;
+    if constexpr (FULL) {
+      const double xe = __shfl_sync(kFullMask, ne, i0);
+      const double ye = __shfl_sync(kFullMask, ne, i1 >= 0 ? i1 : 0);
+      ce = combo_err(kind, x, xe, i1 >= 0 ? y : 1.0, ye, i1 >= 0);
+      pe = __dmul_rn(ce, fabs(w));
+    }
     const int n = min(kWarpSize, n_c - cb);
     for (int t = 0; t < n; ++t) {
       const double ct = __shfl_sync(kFullMask, c, t);
@@ -455,9 +756,18 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
       } else {
         glm = __dadd_rn(glm, pt);
       }
+      if constexpr (FULL) {
+        const double et = __shfl_sync(kFullMask, pe, t);
+        if (cb + t == 0) {
+          s_err = et;
+          dist_err = __shfl_sync(kFullMask, ce, 0);
+        } else {
+          s_err = __dadd_rn(s_err, et);
+        }
+      }
     }
   }
-  if (lane == 0) write_decision(prm, n_c, glm, dist, s_out, prob_out, dist_out);
+  if (lane == 0) write_decision(prm, n_c, glm, dist, s_err, dist_err, out);
 }
 
 // A pair's two rows and whether both indices are in range.
@@ -475,14 +785,74 @@ __device__ __forceinline__ Pair pair_at(const Args& args, long long p, bool c_ok
   return q;
 }
 
+// FULL: the pairs one at a time, each pair's statistics (from registers or
+// the loop, as below), its full-vector sums (full_loop) and its epilogue
+// over the warp.
+template <typename T, int NV, bool NARROW>
+__device__ __forceinline__ void full_pairs(const Args& args, const T* counts, const T* crow,
+                                           const Vec16<T>* cn, const double* prm,
+                                           long long first, long long last, bool c_ok,
+                                           int lane) {
+  const int d = args.d;
+  // the model's full-vector singles, by their bits
+  unsigned mask = 0;
+  const int n_s = static_cast<int>(prm[0]);
+  for (int k = 0; k < n_s; ++k) {
+    const int code = static_cast<int>(prm[kHead + kStride * k]);
+    if (code >= kJefferey) mask |= bit(code);
+  }
+  for (long long p = first; p < last; ++p) {
+    const Pair cur = pair_at(args, p, c_ok);
+    const Out out{args.dec + p, args.n_pairs};
+    long long* so = args.stats + 3 * p;
+    if (!cur.ok) {   // uniform
+      if (lane == 0) {
+        so[0] = so[1] = so[2] = -1;
+        for (int r = 0; r < 5; ++r) out.write(r, __longlong_as_double(0x7ff8000000000000LL));
+      }
+      continue;
+    }
+    const T* h = counts + cur.a * d;
+    const T* c = args.center ? crow : counts + cur.b * d;
+    long long st[3];
+    if constexpr (NV > 0) {
+      Vec16<T> hv[NV], cv[NV];
+      load_slice<T, NV>(hv, h, lane);
+      if (args.center) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) cv[k] = cn[k];
+      } else {
+        load_slice<T, NV>(cv, c, lane);
+      }
+      stats_reg<T, NV, NARROW>(hv, cv, lane, st);
+    } else {
+      stats_loop<T, NV == 0, NARROW>(h, c, d, lane, st);
+    }
+    const Moments mom{args.mags[cur.a],    args.mags[cur.b],
+                      args.selfdot[cur.a], args.selfdot[cur.b],
+                      args.stddevs[cur.a], args.stddevs[cur.b],
+                      args.lens[cur.a],    args.lens[cur.b]};
+    FullSums fs{};
+    full_loop<T>(mask, h, c, d, lane, mom.ma, mom.mb, fs);
+    full_reduce(mask, fs);
+    if (lane == 0) {
+      so[0] = st[0];
+      so[1] = st[1];
+      so[2] = st[2];
+    }
+    epilogue_warp<true>(prm, st, mom, fs, static_cast<double>(d), args.inv_d, lane, out);
+  }
+}
+
 // NV > 0: the one-pass register path with NV vectors a lane, the next
 // pair's rows loaded while this one's are summed; NV == 0: the two-pass
 // loop over 16-byte vectors; NV == -1: the two-pass loop over elements.
 // A warp takes `group` consecutive pairs in rounds of 32: lane j keeps the
 // statistics of the round's pair j, then lanes 0..31 run the round's
 // epilogues, their moments loaded before the round's statistics; a round
-// of one pair runs its epilogue over the whole warp (epilogue_warp).
-template <typename T, int NV, bool NARROW>
+// of one pair runs its epilogue over the whole warp (epilogue_warp).  The
+// FULL instantiation takes its pairs through full_pairs instead.
+template <typename T, int NV, bool NARROW, bool FULL>
 __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % kWarpSize;
@@ -504,7 +874,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
   constexpr int kNV = NV > 0 ? NV : 1;
   Vec16<T> hn[kNV], cn[kNV];
   Pair next{-1, -1, false};
-  if constexpr (NV > 0) {
+  if constexpr (NV > 0 && !FULL) {
     if (first < last) {
       next = pair_at(args, first, c_ok);
       if (next.ok) {
@@ -532,7 +902,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
       }
     }
   };
-  if (first < last) load_mine(first, last - first == 1);
+  if (!FULL && first < last) load_mine(first, last - first == 1);
 
   const double* prm = args.prm;
   int used = 0;
@@ -562,6 +932,10 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
   if (first >= last) return;   // uniform across the warp; no barrier follows
   if constexpr (NV > 0) {
     if (args.center && c_ok) load_slice<T, NV>(cn, crow, lane);
+  }
+  if constexpr (FULL) {
+    full_pairs<T, NV, NARROW>(args, counts, crow, cn, prm, first, last, c_ok, lane);
+    return;
   }
 
   for (long long base = first; base < last; base += kWarpSize) {
@@ -611,22 +985,16 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
       so[2] = kept[2];
     }
     if (args.dec == nullptr) continue;   // uniform
-    double* s_out = args.dec + p;
-    double* prob_out = s_out + n_pairs;
-    double* dist_out = prob_out + n_pairs;
+    const Out out{args.dec + p, n_pairs};
     if (!mine.ok) {
       if (lane < count) {
-        const double nan = __longlong_as_double(0x7ff8000000000000LL);
-        *s_out = nan;
-        *prob_out = nan;
-        *dist_out = nan;
+        for (int r = 0; r < 5; ++r) out.write(r, __longlong_as_double(0x7ff8000000000000LL));
       }
     } else if (solo) {   // uniform: every lane holds the one pair
-      epilogue_warp(prm, kept, mom, static_cast<double>(d), args.inv_d, lane, s_out,
-                    prob_out, dist_out);
+      epilogue_warp<false>(prm, kept, mom, FullSums{}, static_cast<double>(d), args.inv_d,
+                           lane, out);
     } else if (lane < count) {
-      epilogue(prm, kept, mom, static_cast<double>(d), args.inv_d, s_out, prob_out,
-               dist_out);
+      epilogue(prm, kept, mom, static_cast<double>(d), args.inv_d, out);
     }
   }
 }
@@ -659,9 +1027,9 @@ int smem_optin() {
 // Launches one instantiation: G (pairs a warp) so that the grid is at
 // most one wave of the warps the card holds at once, one pair a warp while
 // they suffice.
-template <typename T, int NV, bool NARROW>
+template <typename T, int NV, bool NARROW, bool FULL>
 int launch_with(Args args, int smem, cudaStream_t st) {
-  auto kern = pair_stats_kernel<T, NV, NARROW>;
+  auto kern = pair_stats_kernel<T, NV, NARROW, FULL>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -685,33 +1053,35 @@ int launch_with(Args args, int smem, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool NARROW>
+template <typename T, bool NARROW, bool FULL>
 int dispatch(const Args& args, int smem, cudaStream_t st) {
   const int row_bytes = args.d * static_cast<int>(sizeof(T));
   const bool aligned = reinterpret_cast<uintptr_t>(args.counts) % 16 == 0;
   // the register path: at most 32 counts a lane
   if (aligned && row_bytes % (kWarpSize * 16) == 0) {
     const int nv = row_bytes / (kWarpSize * 16);
-    if (nv == 1) return launch_with<T, 1, NARROW>(args, smem, st);
-    if (nv == 2) return launch_with<T, 2, NARROW>(args, smem, st);
+    if (nv == 1) return launch_with<T, 1, NARROW, FULL>(args, smem, st);
+    if (nv == 2) return launch_with<T, 2, NARROW, FULL>(args, smem, st);
     if constexpr (sizeof(T) == 2) {
-      if (nv == 4) return launch_with<T, 4, NARROW>(args, smem, st);
+      if (nv == 4) return launch_with<T, 4, NARROW, FULL>(args, smem, st);
     }
   }
   // 16-byte loads need every lane slice to be whole, aligned vectors
   if (aligned && args.d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0)
-    return launch_with<T, 0, NARROW>(args, smem, st);
-  return launch_with<T, -1, NARROW>(args, smem, st);
+    return launch_with<T, 0, NARROW, FULL>(args, smem, st);
+  return launch_with<T, -1, NARROW, FULL>(args, smem, st);
 }
 
 template <typename T>
 int launch(const void* counts, long long n_rows, int d, const void* a_idx,
            const void* b_idx, int center, long long n_pairs, const void* mags,
            const void* selfdot, const void* stddevs, const void* lens,
-           const void* prm, int n_prm, double inv_d, int narrow, void* stats,
+           const void* prm, int n_prm, double inv_d, int full, int narrow, void* stats,
            void* dec, void* stream) {
   if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
-  if (d <= 0 || (dec != nullptr && n_prm < kHead)) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 0 || (dec != nullptr && n_prm < kHead) ||
+      (full && (dec == nullptr || d % 4 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args args{};
   args.counts = counts;
   args.n_rows = n_rows;
@@ -739,7 +1109,11 @@ int launch(const void* counts, long long n_rows, int d, const void* a_idx,
   args.center_shared = center && smem + row_bytes <= limit;
   if (args.center_shared) smem += static_cast<int>(row_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return narrow ? dispatch<T, true>(args, smem, st) : dispatch<T, false>(args, smem, st);
+  if (full)
+    return narrow ? dispatch<T, true, true>(args, smem, st)
+                  : dispatch<T, false, true>(args, smem, st);
+  return narrow ? dispatch<T, true, false>(args, smem, st)
+                : dispatch<T, false, false>(args, smem, st);
 }
 
 }  // namespace
@@ -751,7 +1125,7 @@ int mc2_pair_stats_u8(const void* counts, long long n_rows, int d,
                       const void* a_idx, const void* b_idx, int center,
                       long long n_pairs, int narrow, void* stats, void* stream) {
   return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs,
-                         nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0, 0,
                          narrow, stats, nullptr, stream);
 }
 
@@ -759,32 +1133,33 @@ int mc2_pair_stats_u16(const void* counts, long long n_rows, int d,
                        const void* a_idx, const void* b_idx, int center,
                        long long n_pairs, int narrow, void* stats, void* stream) {
   return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs,
-                          nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0,
+                          nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0, 0,
                           narrow, stats, nullptr, stream);
 }
 
 // The statistics and the classifier epilogue: stats [P, 3] int64 and dec
-// [3, P] float64 (s, prob, dist).
+// [5, P] float64 (s, prob, dist, s_err, dist_err); full = 1 (the model has
+// full-vector singles) launches the FULL instantiation.
 int mc2_pair_decision_u8(const void* counts, long long n_rows, int d,
                          const void* a_idx, const void* b_idx, int center,
                          long long n_pairs, const void* mags, const void* selfdot,
                          const void* stddevs, const void* lens, const void* prm,
-                         int n_prm, double inv_d, int narrow, void* stats,
+                         int n_prm, double inv_d, int full, int narrow, void* stats,
                          void* dec, void* stream) {
   return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs, mags,
-                         selfdot, stddevs, lens, prm, n_prm, inv_d, narrow, stats,
-                         dec, stream);
+                         selfdot, stddevs, lens, prm, n_prm, inv_d, full, narrow,
+                         stats, dec, stream);
 }
 
 int mc2_pair_decision_u16(const void* counts, long long n_rows, int d,
                           const void* a_idx, const void* b_idx, int center,
                           long long n_pairs, const void* mags, const void* selfdot,
                           const void* stddevs, const void* lens, const void* prm,
-                          int n_prm, double inv_d, int narrow, void* stats,
+                          int n_prm, double inv_d, int full, int narrow, void* stats,
                           void* dec, void* stream) {
   return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs, mags,
-                          selfdot, stddevs, lens, prm, n_prm, inv_d, narrow, stats,
-                          dec, stream);
+                          selfdot, stddevs, lens, prm, n_prm, inv_d, full, narrow,
+                          stats, dec, stream);
 }
 
 }  // extern "C"

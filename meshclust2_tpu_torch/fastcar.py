@@ -22,10 +22,13 @@ switch: the device route is the default.  A block the kernels do not take
 (uint32/uint64 histograms, or counts outside the exact-integer envelope,
 `device_store.store_refusal`) is searched by the host route, with one
 stderr line naming the reason; training builds its pair tables on the
-same device (train/device_tables.py), on the host for such a pool.
-Training with singles the pair statistics cannot derive (`--feat slow`)
-exits non-zero: the port has no device route for them and no quiet host
-fallback.
+same device (train/device_tables.py), on the host for such a pool and
+for `--feat slow`, whose log divergences the pair statistics do not derive
+(as the JAX package builds them).  The search takes those singles on the
+card (the fused kernel's FULL instantiation, with error bounds on the
+sums); a recovered model with a single that has no device implementation
+(`device_features.model_refusal`) is searched by the host route, with one
+stderr line naming the features.
 """
 from __future__ import annotations
 
@@ -39,7 +42,6 @@ from typing import List, Optional
 import numpy as np
 
 from .cli import DATATYPES, MUT_TYPES
-from .cluster.device_loop import DeviceLoopUnsupported
 from .cluster.device_search import HostOracle, TorchDeviceSearch, host_search
 from .cluster.device_store import store_refusal
 from .features import flags as F
@@ -49,7 +51,7 @@ from .kmer.counting import (PointSet, build_point_set, concat_point_sets,
 from .model.classifier import CompiledModel
 from .model.weights import (PRED_MODE_CLASS, PRED_MODE_REGR, PredictorModel,
                             load_weights, save_weights)
-from .ops.device_features import check_fused
+from .ops.device_features import model_refusal
 from .runtime import resolve_device
 
 FEAT_SETS = {"fast": F.PRED_FEAT_FAST, "slow": F.PRED_FEAT_FAST | F.PRED_FEAT_DIV}
@@ -161,9 +163,11 @@ def search(
     do_format: bool,
     device,
     stats: SearchStats,
+    host_why: Optional[str] = None,
 ) -> int:
     """One db-chunk x query-chunk block (FC_Runner.cpp:426-471), batched:
-    on `device` when the kernels take the block, else by the host route."""
+    on `device` when the kernels take the block and the models (host_why,
+    the models' `model_refusal`, is None), else by the host route."""
     from .native import sort_perm
 
     t0 = time.perf_counter()
@@ -201,10 +205,11 @@ def search(
     oracle = HostOracle(combined, model_c, model_r)
     t1 = time.perf_counter()
     stats.pairs_seconds += t1 - t0
-    why = store_refusal(combined)
+    why = host_why or store_refusal(combined)
     if why is not None:
-        print(f"fastcar-torch: {why}: searching on the host scorer",
-              file=sys.stderr)
+        if host_why is None:   # the models' reason is printed once, by _run
+            print(f"fastcar-torch: {why}: searching on the host scorer",
+                  file=sys.stderr)
         stats.host_reasons.append(why)
         keep, sim = host_search(oracle, a_arr, b_arr)
     else:
@@ -260,15 +265,7 @@ def run(argv: Optional[List[str]] = None) -> FastcarRun:
     if not args.files or not args.query:
         build_parser().print_help()
         return FastcarRun(rc=1)
-    device = resolve_device(args.device)
-    try:
-        return _run(args, device)
-    except DeviceLoopUnsupported as e:
-        print(f"fastcar-torch: {e}: the port computes only the singles that "
-              f"derive from the pair statistics (--feat fast); models with "
-              f"others cannot be trained or searched by it yet",
-              file=sys.stderr)
-        return FastcarRun(rc=2)
+    return _run(args, resolve_device(args.device))
 
 
 def _run(args, device) -> FastcarRun:
@@ -284,10 +281,6 @@ def _run(args, device) -> FastcarRun:
         datatype = recovered.datatype
         similarity = recovered.id_cutoff
         mode = recovered.mode
-    else:
-        # the tables of every single of the feature set are built on the
-        # device: fail before any work when one is not derivable
-        check_fused(F.split_flags(FEAT_SETS[args.feat]))
 
     # The first <=10000 sequences serve both the k/datatype scan AND the
     # training-template pool — the reference caps the pool at 10k regardless
@@ -374,6 +367,11 @@ def _run(args, device) -> FastcarRun:
 
     model_c = CompiledModel(model.classifier) if model.classifier else None
     model_r = CompiledModel(model.regressor) if model.regressor else None
+    host_why = model_refusal([s for m in (model_c, model_r) if m is not None
+                              for s in m.singles])
+    if host_why is not None:
+        print(f"fastcar-torch: {host_why}: searching on the host scorer",
+              file=sys.stderr)
 
     delim = "!" if args.noformat else "\t"
     n_pos = 0
@@ -393,7 +391,7 @@ def _run(args, device) -> FastcarRun:
                 n_pos += search(
                     db_ps, q_ps, model_c, model_r,
                     similarity if similarity > 0 else model.id_cutoff,
-                    out, delim, not args.noformat, device, stats,
+                    out, delim, not args.noformat, device, stats, host_why,
                 )
             mem_used("mid loop")  # FC_Runner.cpp:602
     seconds = time.perf_counter() - t0

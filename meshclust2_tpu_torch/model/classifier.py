@@ -18,6 +18,8 @@ operation order, with the GLM dot written out in index order.  It is the
 plain version of the epilogue that csrc/pair_stats.cu fuses behind the
 pair statistics; `packed_params` lays the same parameters out for that
 kernel, and `model_to_torch` uploads them once per model.
+`decision_errors`, its error-propagating twin, turns the full-vector
+singles' absolute error bounds into bounds on the GLM sum and on dist.
 """
 from __future__ import annotations
 
@@ -120,13 +122,23 @@ class CompiledModel:
 
 
 # the singles the fused kernel derives from the pair statistics and the
-# per-row moments, by their code in its parameter buffer (csrc/pair_stats.cu
-# enum Single)
-SINGLE_CODES = {flag: code for code, flag in enumerate((
+# per-row moments (meshclust2_tpu/cluster/device_loop.py:DD_DERIVABLE)
+STATS_SINGLES = (
     F.FEAT_MANHATTAN, F.FEAT_EUCLIDEAN, F.FEAT_INTERSECTION,
     F.FEAT_KULCZYNSKI2, F.FEAT_SIMRATIO, F.FEAT_NORMALIZED_VECTORS,
     F.FEAT_PEARSON_COEFF, F.FEAT_D2z, F.FEAT_EUCLIDEAN_Z, F.FEAT_EMD,
-    F.FEAT_LENGTHD))}
+    F.FEAT_LENGTHD)
+# the singles it sums over the two full rows, each with an absolute error
+# bound (ops/pair_stats.py:vector_singles_ref; the JAX package's
+# LOG_DERIVABLE and BLOCK_DERIVABLE)
+VECTOR_SINGLES = (
+    F.FEAT_JEFFEREY_DIV, F.FEAT_JENSEN_SHANNON, F.FEAT_K_DIV, F.FEAT_KL_COND,
+    F.FEAT_HELLINGER, F.FEAT_SQCHORD, F.FEAT_CHI_SQUARED, F.FEAT_CANBERRA,
+    F.FEAT_KULCZYNSKI1, F.FEAT_HARMONIC_MEAN, F.FEAT_MISMATCH, F.FEAT_JACCARD)
+# every single the kernel computes, by its code in the parameter buffer
+# (csrc/pair_stats.cu enum Single)
+SINGLE_CODES = {flag: code for code, flag in
+                enumerate(STATS_SINGLES + VECTOR_SINGLES)}
 # the parameter buffer: a head, then 4 float64 a single, then 4 a combo
 PARAM_HEAD = 4
 PARAM_STRIDE = 4
@@ -213,3 +225,55 @@ def decision_from_raw(m: TorchModel, raw: torch.Tensor
     prob = 1.0 / (1.0 + torch.exp(-torch.clamp(s, -709.0, 709.0))) + m.bias
     dist = combo[0] if combo else torch.zeros_like(s)
     return s, prob, dist
+
+
+def _mul_err(c, ce, z, ze):
+    """The product c z and its first-order absolute error bound."""
+    return c * z, ce * z.abs() + ze * c.abs()
+
+
+def _combo_err(z, ze, kind: str, idxs) -> torch.Tensor:
+    """A combo's error bound from its singles' normalized values and
+    bounds, product by product (meshclust2_tpu/cluster/device_loop.py:
+    epilogue_dd)."""
+    i0, i1 = idxs[0], (idxs[1] if len(idxs) == 2 else None)
+    if kind == F.COMBO_XY:
+        c, ce = z[:, i0], ze[:, i0]
+        if i1 is not None:
+            c, ce = _mul_err(c, ce, z[:, i1], ze[:, i1])
+    elif kind == F.COMBO_X2Y2:
+        c, ce = _mul_err(z[:, i0], ze[:, i0], z[:, i0], ze[:, i0])
+        if i1 is not None:
+            c, ce = _mul_err(c, ce, z[:, i1], ze[:, i1])
+            c, ce = _mul_err(c, ce, z[:, i1], ze[:, i1])
+    elif kind == F.COMBO_XY2:
+        c, ce = _mul_err(z[:, i0], ze[:, i0], z[:, i1], ze[:, i1])
+        c, ce = _mul_err(c, ce, z[:, i1], ze[:, i1])
+    elif kind == F.COMBO_X2Y:
+        c, ce = _mul_err(z[:, i0], ze[:, i0], z[:, i0], ze[:, i0])
+        c, ce = _mul_err(c, ce, z[:, i1], ze[:, i1])
+    else:
+        raise ValueError(kind)
+    return ce
+
+
+def decision_errors(m: TorchModel, raw: torch.Tensor, err: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[P, S] float64 raw singles and their absolute error bounds -> the
+    first-order bounds (s_err, dist_err) of the GLM sum and of dist, in
+    the order of meshclust2_tpu/cluster/device_loop.py:epilogue_dd: each
+    bound over |max - min| (the flip keeps it), each combo's products,
+    then the GLM sum, |w_j| times combo j's bound in combo order.  The
+    roundings of the epilogue itself are left to the relative margins,
+    as for the statistics-derived singles, whose bounds are 0."""
+    v = (raw - m.mins[None, :]) / (m.maxs - m.mins)[None, :]
+    z = torch.where(m.is_sim[None, :], v, 1.0 - v)
+    ze = err / (m.maxs - m.mins).abs()[None, :]
+    cerr = [_combo_err(z, ze, kind, idxs) for kind, idxs in m.combos]
+    if not cerr:
+        zero = torch.zeros(raw.shape[0], dtype=torch.float64, device=raw.device)
+        return zero, zero.clone()
+    s_err = cerr[0] * m.weights[1].abs()
+    for j in range(1, len(cerr)):
+        s_err = s_err + cerr[j] * m.weights[j + 1].abs()
+    return s_err, cerr[0]

@@ -3,11 +3,17 @@
 The counterpart of meshclust2_tpu/ops/device_features.py:DeviceScorer (lines
 433-507) in its fused configuration: every batch, block-vs-one-center or
 row-vs-row, goes through one launch of the fused pair-statistics kernel
-(ops/pair_stats.py:pair_stats_decision: the statistics, `derive_singles`
-and the classifier epilogue in float64 on the device).  Pairs whose
-decision or ranking the device's rounding could change are re-scored by
-the float64 host oracle (`HostScorer`), so clustering decisions equal the
-host's.
+(ops/pair_stats.py:pair_stats_decision: the statistics, the full-vector
+singles where the model has them, `derive_singles` and the classifier
+epilogue in float64 on the device).  Pairs whose decision or ranking the
+device's rounding could change are re-scored by the float64 host oracle
+(`HostScorer`), so clustering decisions equal the host's.
+
+The device paths take every single of model/classifier.py:SINGLE_CODES.
+A model with any other (markov, sim_mm, rre_k_r, spearman, d2s, d2*, afd,
+n2r/n2rc/n2rrc: the JAX package's plane singles) is refused by
+`check_fused`; the CLI and fastcar send it to the host scorer first
+(`model_refusal`).
 
 MeanShiftEngine (cluster/engine.py) runs its device accumulate loop and
 updater exactly when its session holds them; the scorer serves the
@@ -25,11 +31,12 @@ from ..cluster.engine import HostScorer
 from ..features import flags as F
 from ..kmer.counting import PointSet
 from ..model.classifier import SINGLE_CODES, CompiledModel, model_to_torch
-from .pair_stats import pair_stats_decision
+from .pair_stats import has_vector, pair_stats_decision
 
-# singles derivable from the kernel's (sum-min, dot, EMD) plus per-row
-# moments (meshclust2_tpu/ops/device_features.py:39-44)
-_FUSED_DERIVABLE = frozenset(SINGLE_CODES)
+# the singles the device paths compute: those the kernel derives from its
+# (sum-min, dot, EMD) plus per-row moments, and the full-vector ones it sums
+# over the two rows (meshclust2_tpu/cluster/device_loop.py:57-82)
+DEVICE_SINGLES = frozenset(SINGLE_CODES)
 
 # (i) decisions closer than this to a rounding threshold (round(prob) at
 # 0.5 / 1.5) are re-checked, as in the JAX DeviceScorer
@@ -41,36 +48,58 @@ DIST_REL_BAND = 1e-4
 # sorted dists are re-checked.  The merge pass takes a per-center argmax over
 # subsets of one call (cluster/engine.py:876-890), and the accumulate
 # window's same-center cache over subsets of an earlier call, which (ii)
-# does not protect.  The device's float64 values differ from the host
-# oracle's only by rounding in another operation order (~1e-15 relative),
-# so two dists further apart than 1e-9 * max(|max|, 1) rank alike on both,
-# and exact ties (equal inputs) always fall inside the band.
+# does not protect.  The device's float64 values of the statistics-derived
+# singles differ from the host oracle's only by rounding in another
+# operation order (~1e-15 relative), so two dists further apart than
+# 1e-9 * max(|max|, 1) rank alike on both, and exact ties (equal inputs)
+# always fall inside the band.  A model with full-vector singles carries
+# the bounds s_err and dist_err: each rule's band widens to 8 times them.
 DIST_TIE_BAND = 1e-9
 
 
+def model_refusal(singles) -> Optional[str]:
+    """Why the device paths do not take a model with these singles (it has
+    singles without a device implementation), or None when they do."""
+    bad = set(singles) - DEVICE_SINGLES
+    if not bad:
+        return None
+    names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
+    return f"features {names} have no device implementation"
+
+
 def check_fused(singles) -> None:
-    """Raise DeviceLoopUnsupported unless every single derives from the
-    pair statistics and per-row moments."""
+    """Raise DeviceLoopUnsupported for a model with a single that has no
+    device implementation (`model_refusal`)."""
     # imported here: device_loop imports this module
     from ..cluster.device_loop import DeviceLoopUnsupported
 
-    bad = set(singles) - _FUSED_DERIVABLE
-    if bad:
-        names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
-        raise DeviceLoopUnsupported(
-            f"features {names} are not derivable from the pair statistics")
+    why = model_refusal(singles)
+    if why is not None:
+        raise DeviceLoopUnsupported(why)
 
 
-def recheck_mask(prob: np.ndarray, dist: np.ndarray) -> np.ndarray:
+def recheck_mask(prob: np.ndarray, dist: np.ndarray, s_err=None,
+                 dist_err=None) -> np.ndarray:
     """Pairs of one scoring call whose decision or rank needs the exact
-    float64 oracle: rules (i), (ii) and (iii) above."""
-    mask = np.abs(prob - np.floor(prob) - 0.5) < PROB_MARGIN
+    float64 oracle: rules (i), (ii) and (iii) above; with the bounds
+    s_err and dist_err, rule (i)'s band is at least 8 s_err (prob moves by
+    at most a quarter of s's error), rule (ii)'s at least 8 (dist_err +
+    the maximum's dist_err) and rule (iii)'s at least 8 times the two
+    neighbours' dist_err."""
+    band = PROB_MARGIN if s_err is None else np.maximum(PROB_MARGIN, 8 * s_err)
+    mask = np.abs(prob - np.floor(prob) - 0.5) < band
     if len(dist):
         m = dist.max()
         scale = max(abs(m), 1.0)
-        mask |= dist >= m - DIST_REL_BAND * scale
+        rel = DIST_REL_BAND * scale
+        tie_band = DIST_TIE_BAND * scale
         order = np.argsort(dist, kind="stable")
-        tie = np.diff(dist[order]) <= DIST_TIE_BAND * scale
+        if dist_err is not None:
+            rel = np.maximum(rel, 8 * (dist_err + dist_err[np.argmax(dist)]))
+            tie_band = np.maximum(tie_band, 8 * (dist_err[order[1:]]
+                                                 + dist_err[order[:-1]]))
+        mask |= dist >= m - rel
+        tie = np.diff(dist[order]) <= tie_band
         mask[order[1:][tie]] = True
         mask[order[:-1][tie]] = True
     return mask
@@ -89,6 +118,8 @@ class TorchDeviceScorer:
         self.store = (DeviceStore.from_pointset(ps, self.device)
                       if store is None else store)
         self.params = model_to_torch(model, self.device)
+        # a model with full-vector singles: its bounds widen the rules
+        self.full = has_vector(self.params)
         self._host = HostScorer(ps, model)
         self.scored_pairs = 0
         self.rechecked_pairs = 0
@@ -100,15 +131,18 @@ class TorchDeviceScorer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _device_decision(self, a: np.ndarray, b: np.ndarray
-                         ) -> Tuple[np.ndarray, np.ndarray]:
-        """(prob, dist) of the pairs (a[p], b[p]), b of length 1 for one
-        center, in one upload and one read-back."""
+    def _device_decision(self, a: np.ndarray, b: np.ndarray):
+        """(prob, dist, s_err, dist_err) of the pairs (a[p], b[p]), b of
+        length 1 for one center, in one upload and one read-back; the
+        bounds are None for a model without full-vector singles."""
         idx = torch.from_numpy(np.concatenate([a, b])).to(self.device)
         _, dec = pair_stats_decision(self.store, self.params, idx[:len(a)],
                                      idx[len(a):])
-        both = dec[1:].cpu().numpy()
-        return both[0], both[1]
+        if not self.full:
+            both = dec[1:3].cpu().numpy()
+            return both[0], both[1], None, None
+        got = dec[1:].cpu().numpy()
+        return got[0], got[1], got[2], got[3]
 
     def score(self, a_rows, b_rows) -> Tuple[np.ndarray, np.ndarray]:
         a = np.atleast_1d(np.asarray(a_rows, dtype=np.int64))
@@ -129,9 +163,10 @@ class TorchDeviceScorer:
         hi = max(a.max(), b.max())
         if lo < 0 or hi >= self.ps.n:
             raise IndexError(f"row index out of [0, {self.ps.n}): {lo}..{hi}")
-        prob, dist = self._device_decision(a, b if b_dev is None else b_dev)
+        prob, dist, s_err, dist_err = self._device_decision(
+            a, b if b_dev is None else b_dev)
         self.scored_pairs += len(a)
-        idx = np.nonzero(recheck_mask(prob, dist))[0]
+        idx = np.nonzero(recheck_mask(prob, dist, s_err, dist_err))[0]
         if len(idx):
             self.rechecked_pairs += len(idx)
             p2, d2 = self._host.score(a[idx], b[idx])

@@ -16,7 +16,13 @@ tests hold against the JAX package:
   float64 moments, the GLM sum, prob and dist of a model (`derive_singles`,
   then model/classifier.py:decision_from_raw), in one launch; plain version
   `pair_stats_decision_ref`.  The scorer, the accumulate step and the
-  updater use it.
+  updater use it.  A model with full-vector singles (the log divergences
+  and the blockwise singles, `vector_singles_ref`, the port of
+  meshclust2_tpu/cluster/device_loop.py:log_div_stats and
+  block_singles_stats) launches the kernel's FULL instantiation, which
+  sums their terms over the two rows in the same pass and also returns
+  absolute error bounds on s and dist (model/classifier.py:
+  decision_errors); every other model's bounds are 0.
 
 A `b_idx` of length 1 is the center form: every pair's second row is
 b_idx[0].
@@ -24,12 +30,13 @@ b_idx[0].
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..features import flags as F
-from ..model.classifier import SINGLE_CODES, TorchModel, decision_from_raw
+from ..model.classifier import (SINGLE_CODES, VECTOR_SINGLES, TorchModel,
+                                decision_errors, decision_from_raw)
 
 N_STATS = 3
 # rows of the plain version's int64 temporaries per step (bounds its memory
@@ -50,7 +57,7 @@ def _kernel(name: str, dtype: torch.dtype):
             fn.argtypes = head + [i32, p, p]
         else:
             fn.argtypes = head + [p, p, p, p, p, i32, ctypes.c_double, i32,
-                                  p, p, p]
+                                  i32, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -161,12 +168,138 @@ def center_block_stats(h_block: torch.Tensor, center: torch.Tensor) -> torch.Ten
     return pair_stats(store, a_idx, b_idx)
 
 
+_U = 2.0 ** -53   # unit roundoff of float64
+# rows of the plain full-vector pass's float64 temporaries per step
+_VEC_CHUNK = 4096
+
+
+def _vector_terms(x: torch.Tensor, y: torch.Tensor, mA: torch.Tensor,
+                  mB: torch.Tensor, d: int, need) -> Dict[int, tuple]:
+    """{flag: (value, bound)} float64 [P] of the full-vector singles in
+    `need` for count rows x, y [P, d] (float64) with count sums mA, mB [P];
+    the per-term formulas of csrc/pair_stats.cu:full_group."""
+    out = {}
+    hs = (d + 64) * _U   # either side's sum of d terms, in any order
+    e16 = 16 * _U        # both sides' roundings of one term
+    ma, mb = mA[:, None], mB[:, None]
+    if need & {F.FEAT_JEFFEREY_DIV, F.FEAT_JENSEN_SHANNON, F.FEAT_K_DIV}:
+        # exact integer products (< 2^40): p_i / q_i = (x mB) / (y mA)
+        ppn, pqn = x * mb, y * ma
+        if F.FEAT_JEFFEREY_DIV in need:
+            dnum = ppn - pqn
+            lr = torch.log(ppn / pqn)
+            t = dnum * lr
+            mm = mA * mB
+            comp = (dnum.abs() + (ppn + pqn) * lr.abs()).sum(1)
+            out[F.FEAT_JEFFEREY_DIV] = (t.sum(1) / mm,
+                                        (hs * t.abs().sum(1) + e16 * comp) / mm)
+        if need & {F.FEAT_JENSEN_SHANNON, F.FEAT_K_DIV}:
+            sn = ppn + pqn
+            ta = x * torch.log((2 * ppn) / sn)
+            sa, aa = ta.sum(1) / mA, ta.abs().sum(1) / mA
+            # sum_i x_i / mA == 1: the roundings' constant part
+            out[F.FEAT_K_DIV] = (sa, hs * aa + e16 * (aa + 1))
+            if F.FEAT_JENSEN_SHANNON in need:
+                tb = y * torch.log((2 * pqn) / sn)
+                t_abs = 0.5 * (aa + tb.abs().sum(1) / mB)
+                out[F.FEAT_JENSEN_SHANNON] = (0.5 * (sa + tb.sum(1) / mB),
+                                              hs * t_abs + e16 * (t_abs + 1))
+    if F.FEAT_KL_COND in need:
+        gx, gy = x.view(len(x), d // 4, 4), y.view(len(y), d // 4, 4)
+        sp, sq = gx.sum(2, keepdim=True), gy.sum(2, keepdim=True)
+        lg = torch.log((gx * sq) / (gy * sp))
+        tp, tq = gx * lg, gy * lg
+        t_abs = 0.5 * (tp.abs().sum((1, 2)) / mA + tq.abs().sum((1, 2)) / mB)
+        out[F.FEAT_KL_COND] = (0.5 * (tp.sum((1, 2)) / mA - tq.sum((1, 2)) / mB),
+                               hs * t_abs + e16 * (t_abs + 1))
+    if F.FEAT_HELLINGER in need:
+        xa, xb = torch.sqrt((x * d) / ma), torch.sqrt((y * d) / mb)
+        df = xa - xb
+        ssq = (df * df).sum(1)
+        e_s = hs * ssq + e16 * (df.abs() * (xa + xb)).sum(1)
+        v = torch.sqrt(2 * ssq)
+        # |sqrt(2 s1) - sqrt(2 s2)| <= 2 e / max(v, sqrt(2 e)), |s1 - s2| <= e
+        err = torch.where(e_s > 0, 2 * e_s / torch.maximum(v, torch.sqrt(2 * e_s)),
+                          torch.zeros_like(v))
+        out[F.FEAT_HELLINGER] = (v, err + 4 * _U * v)
+    if F.FEAT_SQCHORD in need:
+        v = ((x + y) - 2 * torch.sqrt(x * y)).sum(1)
+        out[F.FEAT_SQCHORD] = (v, hs * v + e16 * (mA + mB))
+    plain = {F.FEAT_CHI_SQUARED: lambda: (x - y) * (x - y) / (x + y),
+             F.FEAT_CANBERRA: lambda: (x - y).abs() / (x + y),
+             F.FEAT_KULCZYNSKI1: lambda: (x - y).abs() / torch.minimum(x, y),
+             F.FEAT_HARMONIC_MEAN: lambda: (x * y) / (x + y)}
+    for flag, terms in plain.items():
+        if flag in need:
+            # terms >= 0, so their sum bounds their absolute values' sum
+            v = terms().sum(1)
+            if flag == F.FEAT_HARMONIC_MEAN:
+                v = 2 * v
+            out[flag] = (v, (hs + e16) * v)
+    if F.FEAT_MISMATCH in need:
+        out[F.FEAT_MISMATCH] = ((x != y).sum(1).to(torch.float64),
+                                torch.zeros_like(mA))
+    if F.FEAT_JACCARD in need:
+        # 1 / d is a power of two: exact
+        out[F.FEAT_JACCARD] = (((x == y) & (x > 1)).sum(1).to(torch.float64)
+                               * (1.0 / d), torch.zeros_like(mA))
+    return out
+
+
+def vector_singles_ref(counts: torch.Tensor, a_idx: torch.Tensor,
+                       b_idx: torch.Tensor, mags: torch.Tensor,
+                       flags_list: Sequence[int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full-vector singles of the pairs (counts[a_idx[p]],
+    counts[b_idx[p]]) in plain float64 PyTorch: (values, bounds), each
+    float64 [P, K] in `flags_list` order (VECTOR_SINGLES only).  `mags`,
+    float64 [N], must be the rows' count sums (kmer/counting.py; a store's
+    pseudo-magnitudes), and D a multiple of 4 (kl_cond's groups).
+
+    The port of meshclust2_tpu/cluster/device_loop.py:log_div_stats and
+    block_singles_stats with their exactness recipes in float64: a log's
+    argument is a ratio of exact integer products, e.g. (h_i mB) /
+    (c_i mA) for (h_i / mA) / (c_i / mB), so it rounds once.  Each bound
+    is absolute, on |value - the host oracle's| (the native scorer,
+    features/host.py): (D + 64) u times the sum of the terms' absolute
+    values covers either side's sum over D terms in any order, and 16 u
+    times a companion sum the roundings of each term on both sides
+    (u = 2^-53, as train/device_tables.py:singles_error).  mismatch and
+    jaccard are exact.  The kernel's FULL pass sums the same terms in
+    another order, so it agrees with this within the same bounds."""
+    b_idx = _pairs(a_idx, b_idx)
+    d = counts.shape[1]
+    if d % 4:
+        raise ValueError(f"D = {d} is no multiple of 4 (kl_cond's groups)")
+    bad = [f for f in flags_list if f not in VECTOR_SINGLES]
+    if bad:
+        raise ValueError(f"flags {bad} are not full-vector singles")
+    vals = torch.empty((len(a_idx), len(flags_list)), dtype=torch.float64,
+                       device=counts.device)
+    errs = torch.empty_like(vals)
+    # CUDA has no uint16 gather: gather the same bits as int16 and mask
+    src, mask = ((counts.view(torch.int16), 0xFFFF)
+                 if counts.dtype == torch.uint16 else (counts, 0xFF))
+    for s in range(0, len(a_idx), _VEC_CHUNK):
+        ai, bi = a_idx[s:s + _VEC_CHUNK], b_idx[s:s + _VEC_CHUNK]
+        x = (src[ai].to(torch.int64) & mask).to(torch.float64)
+        y = (src[bi].to(torch.int64) & mask).to(torch.float64)
+        got = _vector_terms(x, y, mags[ai], mags[bi], d, set(flags_list))
+        for j, flag in enumerate(flags_list):
+            vals[s:s + len(ai), j], errs[s:s + len(ai), j] = got[flag]
+    return vals, errs
+
+
 def derive_singles(stats: torch.Tensor, mags_a, mags_b, self_a, self_b,
                    std_a, std_b, len_a, len_b, d: int,
-                   flags_list: Sequence[int]) -> torch.Tensor:
+                   flags_list: Sequence[int],
+                   vector: Optional[Dict[int, torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """Raw singles [P, S] float64 from the statistics plus per-row float64
     moments: meshclust2_tpu/ops/pallas_stats.py:derive_singles formula for
-    formula, in the same operation order."""
+    formula, in the same operation order.  A full-vector single takes its
+    value from `vector` ({flag: float64 [P]}, `vector_singles_ref`)."""
+    vector = vector or {}
     summin = stats[:, 0].to(torch.float64)
     dot = stats[:, 1].to(torch.float64)
     emd = stats[:, 2].to(torch.float64)
@@ -201,6 +334,8 @@ def derive_singles(stats: torch.Tensor, mags_a, mags_b, self_a, self_b,
             out.append(emd)
         elif flag == F.FEAT_LENGTHD:
             out.append(torch.abs(len_a - len_b))
+        elif flag in vector:
+            out.append(vector[flag])
         else:
             raise ValueError(f"flag {flag} not derivable from fused stats")
     return torch.stack(out, dim=1)
@@ -226,34 +361,59 @@ def _check_decision(store, params: TorchModel, a_idx, b_idx):
     if len(set(params.singles)) != len(params.singles):
         raise ValueError(f"singles {list(params.singles)} repeat")
     if bad:
-        raise ValueError(f"singles {bad} are not derivable from the pair "
-                         f"statistics")
+        raise ValueError(f"singles {bad} have no device implementation")
+    if has_vector(params) and store.counts.shape[1] % 4:
+        raise ValueError(f"D = {store.counts.shape[1]} is no multiple of 4 "
+                         f"(kl_cond's groups)")
+
+
+def has_vector(params: TorchModel) -> bool:
+    """Whether the model has a full-vector single (the FULL kernel)."""
+    return any(s in VECTOR_SINGLES for s in params.singles)
 
 
 def _decision_out(n_pairs: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One buffer: int64 stats [P, 3], then float64 (s, prob, dist) [3, P]."""
-    buf = torch.empty(6 * n_pairs, dtype=torch.int64, device=device)
+    """One buffer: int64 stats [P, 3], then float64 (s, prob, dist, s_err,
+    dist_err) [5, P]."""
+    buf = torch.empty(8 * n_pairs, dtype=torch.int64, device=device)
     return (buf[:3 * n_pairs].view(n_pairs, N_STATS),
-            buf[3 * n_pairs:].view(torch.float64).view(3, n_pairs))
+            buf[3 * n_pairs:].view(torch.float64).view(5, n_pairs))
 
 
 def pair_stats_decision_ref(store, params: TorchModel, a_idx: torch.Tensor,
                             b_idx: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain sequence: `pair_stats_ref`, the moments gathered,
-    `derive_singles`, `decision_from_raw`."""
+    `vector_singles_ref` for a model that has full-vector singles,
+    `derive_singles`, `decision_from_raw` and `decision_errors` (0 without
+    full-vector singles)."""
     stats, dec = _decision_out(len(a_idx), store.counts.device)
     if not len(a_idx):
         return stats, dec
     b_idx = _pairs(a_idx, b_idx)
     stats.copy_(pair_stats_ref(store.counts, a_idx, b_idx))
+    vflags = [s for s in params.singles if s in VECTOR_SINGLES]
+    vector = {}
+    if vflags:
+        vals, errs = vector_singles_ref(store.counts, a_idx, b_idx, store.mags,
+                                        vflags)
+        vector = dict(zip(vflags, vals.T))
     raw = derive_singles(
         stats, store.mags[a_idx], store.mags[b_idx], store.selfdot[a_idx],
         store.selfdot[b_idx], store.stddevs[a_idx], store.stddevs[b_idx],
         store.lens[a_idx], store.lens[b_idx], store.counts.shape[1],
-        params.singles)
+        params.singles, vector)
     for row, v in zip(dec, decision_from_raw(params, raw)):
         row.copy_(v)
+    if vflags:
+        err = torch.zeros_like(raw)
+        for j, flag in enumerate(params.singles):
+            if flag in vector:
+                err[:, j] = errs[:, vflags.index(flag)]
+        for row, v in zip(dec[3:], decision_errors(params, raw, err)):
+            row.copy_(v)
+    else:
+        dec[3:].zero_()
     return stats, dec
 
 
@@ -264,8 +424,10 @@ def pair_stats_decision(store, params: TorchModel, a_idx: torch.Tensor,
     (store.counts[a_idx[p]], store.counts[b_idx[p]]) (b_idx [1]: the center
     form), over a DeviceStore-like `store` (counts, float64 mags, selfdot,
     stddevs, lens, maxc) and `params` from model_to_torch: (int64 stats
-    [P, 3], float64 dec [3, P] = (GLM sum, prob, dist)), views of one
-    buffer.
+    [P, 3], float64 dec [5, P] = (GLM sum, prob, dist, s_err, dist_err)),
+    views of one buffer.  s_err and dist_err bound |s - the host's| and
+    |dist - the host's| for a model with full-vector singles; 0 for any
+    other.
 
     On CUDA one launch on the current stream, without syncing; an index
     outside [0, N) gives -1 statistics and NaN decisions."""
@@ -279,11 +441,13 @@ def pair_stats_decision(store, params: TorchModel, a_idx: torch.Tensor,
     pk = params.packed
     extra = (store.mags.data_ptr(), store.selfdot.data_ptr(),
              store.stddevs.data_ptr(), store.lens.data_ptr(), pk.data_ptr(),
-             pk.numel(), 1.0 / counts.shape[1])
+             pk.numel(), 1.0 / counts.shape[1], int(has_vector(params)))
     _launch("pair_decision", counts, a_idx, b_idx, store.maxc, extra,
             (stats, dec))
     pair_stats_decision.launches += 1
+    pair_stats_decision.full_launches += extra[-1]
     return stats, dec
 
 
 pair_stats_decision.launches = 0  # kernel launches since the last reset
+pair_stats_decision.full_launches = 0  # of them, of the FULL instantiation

@@ -14,10 +14,13 @@ For the W >= 1 candidates of one window (cand[p], flat positions in flat
 order; rows[p] = order[cand[p]]), with their float64 GLM sums s, dists and
 pair statistics against the center:
     pos[p]  = s[p] >= pos_edge;
-    bits    = 1 when some s[p] lies within margin * max(|s|, |pos_edge|, 1)
-              of the edge, | 2 when some candidate lies within
-              tie_margin * max(|dist[best]|, 1) of the best dist while its
-              (stats, mags, selfdot, lens, stddev) differ from the best's;
+    bits    = 1 when some s[p] lies within max(8 s_err[p], margin *
+              max(|s|, |pos_edge|, 1)) of the edge, | 2 when some candidate
+              lies within max(8 (dist_err[p] + dist_err[best]), tie_margin *
+              max(|dist[best]|, 1)) of the best dist while its (stats, mags,
+              selfdot, lens, stddev) differ from the best's, or, with
+              `full` (a model with full-vector singles), its row does;
+              s_err and dist_err (the fused kernel's bounds) default to 0;
     best    = the first position of the largest dist;
     npos    = the number of positives.
 Then, with bits 0, the min case (npos 0: cand[best] opens cluster cid + 1
@@ -60,9 +63,9 @@ def _lib():
         p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, p, p, p,
-                           f64, f64, f64, i64, p, p, p, p, p, p, i64, i64, i64,
-                           p, i64, i64, p]
+            fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, p, p, p, p,
+                           ctypes.c_int, p, f64, f64, f64, i64, p, p, p, p, p, p,
+                           i64, i64, i64, p, i64, i64, p]
             fn.restype = ctypes.c_int
         lib.mc2_window_step_scratch_len.argtypes = [i64]
         lib.mc2_window_step_scratch_len.restype = i64
@@ -89,7 +92,7 @@ def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx].to(torch.int64) & mask
 
 
-def _check(counts, rows, s, dist, stats, moments):
+def _check(counts, rows, s, dist, stats, moments, s_err=None, dist_err=None):
     if counts.dtype not in _ENTRY:
         raise TypeError(f"counts must be uint8 or uint16, got {counts.dtype}")
     if counts.dim() != 2:
@@ -99,6 +102,11 @@ def _check(counts, rows, s, dist, stats, moments):
             ("s", s, torch.float64, (n_cand,)),
             ("dist", dist, torch.float64, (n_cand,)),
             ("stats", stats, torch.int64, (n_cand, 3)))
+    if (s_err is None) != (dist_err is None):
+        raise ValueError("give both s_err and dist_err, or neither")
+    if s_err is not None:
+        want += (("s_err", s_err, torch.float64, (n_cand,)),
+                 ("dist_err", dist_err, torch.float64, (n_cand,)))
     want += tuple((name, t, torch.float64, counts.shape[:1])
                   for name, t in zip(("mags", "selfdot", "lens", "stddevs"), moments))
     for name, t, dtype, shape in want:
@@ -117,28 +125,42 @@ def _check(counts, rows, s, dist, stats, moments):
 
 
 def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs,
-                      *, pos_edge: float, margin: float, tie_margin: float
+                      *, pos_edge: float, margin: float, tie_margin: float,
+                      s_err=None, dist_err=None, full: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decisions of one window in plain PyTorch, the same float64
     operations as the step kernel's: (pos bool [W], the positives' int64
     [D] column sum, info int64 [3] = (bits, npos, best)); best is W when W
     is 0."""
-    _check(counts, rows, s, dist, stats, (mags, selfdot, lens, stddevs))
+    _check(counts, rows, s, dist, stats, (mags, selfdot, lens, stddevs),
+           s_err, dist_err)
     n_cand, d = len(rows), counts.shape[1]
     dev = counts.device
     pos = s >= pos_edge
     scale = s.abs().clamp(min=max(abs(pos_edge), 1.0))
-    unc = ((s - pos_edge).abs() <= margin * scale).any()
+    thr = margin * scale
+    if s_err is not None:
+        thr = torch.fmax(8 * s_err, thr)
+    unc = ((s - pos_edge).abs() <= thr).any()
     tie = torch.zeros((), dtype=torch.bool, device=dev)
     best = torch.full((), n_cand, dtype=torch.int64, device=dev)
     if n_cand:
         # torch.argmax returns the first maximal position
         best = torch.argmax(dist)
         bv = dist[best]
-        near = (dist - bv).abs() <= tie_margin * bv.abs().clamp(min=1.0)
+        tie_thr = tie_margin * bv.abs().clamp(min=1.0)
+        if dist_err is not None:
+            tie_thr = torch.fmax(8 * (dist_err + dist_err[best]), tie_thr)
+        near = (dist - bv).abs() <= tie_thr
         same = (dist == bv) & (stats == stats[best]).all(dim=1)
         for m in (mags, selfdot, lens, stddevs):
             same &= m[rows] == m[rows[best]]
+        if full:
+            # the statistics and moments do not determine a full-vector
+            # single: the near candidates' rows must equal the best's
+            idx = torch.nonzero(near & same).view(-1)
+            same[idx] = (_rows_i64(counts, rows[idx])
+                         == _rows_i64(counts, rows[best].view(1))).all(dim=1)
         tie = (near & ~same).any()
     # CUDA has no uint16 gather: gather the same bits as int16 and mask
     src, mask = ((counts.view(torch.int16), 0xFFFF)
@@ -153,10 +175,10 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
 
 
 def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
-                mcnt: int):
+                mcnt: int, s_err=None, dist_err=None):
     counts = store.counts
     _check(counts, cand, s, dist, stats,
-           (store.mags, store.selfdot, store.lens, store.stddevs))
+           (store.mags, store.selfdot, store.lens, store.stddevs), s_err, dist_err)
     n = len(order)
     want = (("order", order, torch.int64, (n,)),
             ("cand", cand, torch.int64, (len(cand),)),
@@ -182,13 +204,15 @@ def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
 
 def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
                     cur_d, *, cid: int, stepc: int, mcnt: int, pos_edge: float,
-                    margin: float, tie_margin: float) -> torch.Tensor:
+                    margin: float, tie_margin: float, s_err=None, dist_err=None,
+                    full: bool = False) -> torch.Tensor:
     """The step in plain PyTorch: `window_absorb_ref`, both cases under
     the decision flags, and `closest_mean_ref`'s one-segment mode over the
     first mcnt + W member slots with the first mcnt + npos kept.
     Candidates are alive, and alive rows are unassigned with stamp 0, so
     the else-values need no gather."""
-    _check_step(store, order, cand, s, dist, stats, state, cur_d, mcnt)
+    _check_step(store, order, cand, s, dist, stats, state, cur_d, mcnt, s_err,
+                dist_err)
     counts = store.counts
     n, n_cand = len(order), len(cand)
     i64 = dict(dtype=torch.int64, device=counts.device)
@@ -196,7 +220,7 @@ def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
     pos, colsum, info = window_absorb_ref(
         counts, order[cand], s, dist, stats, store.mags, store.selfdot,
         store.lens, store.stddevs, pos_edge=pos_edge, margin=margin,
-        tie_margin=tie_margin)
+        tie_margin=tie_margin, s_err=s_err, dist_err=dist_err, full=full)
     bits, npos, best = info[0:1], info[1:2], info[2:3]
     ok = bits == 0
     absorb = ok & (npos > 0)
@@ -237,25 +261,30 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
                 dist: torch.Tensor, stats: torch.Tensor, state: StepState,
                 cur_d: torch.Tensor, *, cid: int, stepc: int, mcnt: int,
                 pos_edge: float, margin: float, tie_margin: float,
+                s_err: Optional[torch.Tensor] = None,
+                dist_err: Optional[torch.Tensor] = None, full: bool = False,
                 scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One accumulate step's tail (module docstring) over a DeviceStore
     `store`, the pool's flat-order `order` (int64 [n], flat position ->
     store row), the W >= 1 candidates `cand` with their float64 [W] s and
     dist and int64 [W, 3] statistics, `state` (updated in place) and the
-    center's flat position `cur_d` (int64 [1]) -> trip int64 [4].
+    center's flat position `cur_d` (int64 [1]) -> trip int64 [4].  s_err
+    and dist_err (float64 [W], both or neither) are the fused kernel's
+    bounds; `full` asks for row identity in an exact tie.
 
     On CUDA one cooperative launch on the current stream, without syncing;
     `scratch` comes from `step_scratch(n)` (allocated here when None), and
     the trip returned is a view of it, overwritten by the next launch with
     the same scratch.  cur_d may be the previous trip's last entry."""
-    _check_step(store, order, cand, s, dist, stats, state, cur_d, mcnt)
+    _check_step(store, order, cand, s, dist, stats, state, cur_d, mcnt, s_err,
+                dist_err)
     kw = dict(cid=int(cid), stepc=int(stepc), mcnt=int(mcnt),
               pos_edge=float(pos_edge), margin=float(margin),
               tie_margin=float(tie_margin))
     counts = store.counts
     if counts.device.type == "cpu":
         return window_step_ref(store, order, cand, s, dist, stats, state, cur_d,
-                               **kw)
+                               s_err=s_err, dist_err=dist_err, full=full, **kw)
     n = len(order)
     lib = _lib()
     need = lib.mc2_window_step_scratch_len(n)
@@ -270,7 +299,10 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
             counts.data_ptr(), counts.shape[1], store.mags.data_ptr(),
             store.selfdot.data_ptr(), store.lens.data_ptr(),
             store.stddevs.data_ptr(), order.data_ptr(), cand.data_ptr(),
-            len(cand), s.data_ptr(), dist.data_ptr(), stats.data_ptr(),
+            len(cand), s.data_ptr(), dist.data_ptr(),
+            None if s_err is None else s_err.data_ptr(),
+            None if dist_err is None else dist_err.data_ptr(), int(full),
+            stats.data_ptr(),
             kw["pos_edge"], kw["margin"], kw["tie_margin"], int(store.maxc),
             *(t.data_ptr() for t in state), cur_d.data_ptr(), kw["cid"],
             kw["stepc"], kw["mcnt"], scratch.data_ptr(), scratch.numel(), n,

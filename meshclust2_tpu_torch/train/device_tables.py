@@ -30,7 +30,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +38,7 @@ import torch
 from ..cluster.device_store import DeviceStore
 from ..features import flags as F
 from ..kmer.counting import PointSet
-from ..ops.device_features import check_fused
+from ..model.classifier import STATS_SINGLES
 from ..ops.pair_stats import derive_singles, pair_stats
 
 _U = 2.0 ** -53   # unit roundoff of float64
@@ -114,10 +114,21 @@ def singles_error(stats: torch.Tensor, raw: torch.Tensor, mags_a, mags_b,
             # |t1 - t2| <= dt: sound down to identical rows, where the host
             # sums exact zeros
             err = dt / torch.maximum(v.abs(), torch.sqrt(dt))
-        else:  # pragma: no cover - guarded by check_fused
+        else:  # pragma: no cover - guarded by stats_refusal
             raise ValueError(f"flag {flag} not derivable from fused stats")
         out.append(err)
     return torch.stack(out, dim=1)
+
+
+def stats_refusal(singles) -> Optional[str]:
+    """Why the builder does not take these singles (some are not derivable
+    from the pair statistics: the `slow` and `extraslow` feature sets,
+    whose tables the JAX package builds on the host too), or None."""
+    bad = set(singles) - set(STATS_SINGLES)
+    if not bad:
+        return None
+    names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
+    return f"features {names} are not derivable from the pair statistics"
 
 
 class TorchDeviceTableBuilder:
@@ -125,14 +136,19 @@ class TorchDeviceTableBuilder:
     lists of one point set, on its own DeviceStore.
 
     Raises DeviceLoopUnsupported when a single is not derivable from the
-    pair statistics (the `slow` and `extraslow` feature sets) or the point
-    set lies outside the exact-integer envelope."""
+    pair statistics (`stats_refusal`) or the point set lies outside the
+    exact-integer envelope."""
 
     MAX_CHUNK = 1 << 17
 
     def __init__(self, ps: PointSet, singles: List[int], device,
                  stats: TableStats = None):
-        check_fused(singles)
+        why = stats_refusal(singles)
+        if why is not None:
+            # imported here: device_loop imports the ops layer
+            from ..cluster.device_loop import DeviceLoopUnsupported
+
+            raise DeviceLoopUnsupported(why)
         self.singles = list(singles)
         self.device = torch.device(device)
         self.stats = TableStats() if stats is None else stats

@@ -19,9 +19,11 @@ reference's per-pair memo cache.
 The port's copy of meshclust2_tpu/train/predictor.py.  The pair tables
 come from the card (train/device_tables.py), as in the JAX package under
 --device tpu; the selection runs on them, and the shipped weights are
-re-solved on the host's exact float64 columns.  A population that the
-kernels do not take (device_store.store_refusal) gets the host oracle's
-table instead, as under the JAX package's --device host.
+re-solved on the host's exact float64 columns.  A feature set with singles
+the pair statistics do not derive (`--feat slow` and `extraslow`:
+device_tables.stats_refusal), and a population that the kernels do not
+take (device_store.store_refusal), get the host oracle's table instead,
+with one stderr line, as under the JAX package's --device host.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from ..mutate.engine import HandleSeq
 from ..utils.rng import LCG, MTRandom
 from ..cluster.device_store import store_refusal
 from . import selectors as S
-from .device_tables import TableStats, device_raw_singles
+from .device_tables import TableStats, device_raw_singles, stats_refusal
 
 
 def c_round(x: float) -> int:
@@ -144,7 +146,7 @@ def _build_pair_tables(
             sub = H.compute_singles(singles, A, B)
         return sub
 
-    why = store_refusal(combined)
+    why = stats_refusal(singles) or store_refusal(combined)
     if why is not None:
         # a population the kernels do not take: the host oracle's table,
         # which is already exact (the JAX CLI's --device host build)

@@ -255,20 +255,6 @@ def test_device_cuda_raises_without_gpu(fixtures_dir, tmp_path, monkeypatch):
                  "small_ref_weights.txt", device="cuda")
 
 
-@pytest.mark.parametrize("feat", ["slow", "extraslow"])
-def test_without_recover_exits_nonzero(fixtures_dir, tmp_path, monkeypatch,
-                                       capsys, feat):
-    """Without --recover the port trains; for the feature sets whose singles
-    the pair statistics cannot derive it exits non-zero with a message
-    before it writes anything, and falls back to no host path."""
-    monkeypatch.chdir(tmp_path)
-    rc = torch_cli.main(["--device", "cpu", "--feat", feat,
-                         os.path.join(fixtures_dir, "small.fasta")])
-    assert rc != 0
-    assert "--feat fast" in capsys.readouterr().err
-    assert not os.listdir(tmp_path)
-
-
 def _host_reference(tmp_path, monkeypatch, argv):
     """The JAX CLI's --device host run of argv (its native host scorer)."""
     from meshclust2_tpu.cli import main as jax_main

@@ -198,16 +198,6 @@ def test_datatype(small, tmp_path, monkeypatch, capsys, datatype, reason):
         assert f"fastcar-torch: {reason}" in err and "host scorer" in err
 
 
-def test_feat_slow_exits_nonzero(small, tmp_path, monkeypatch, capsys):
-    db, q = small
-    monkeypatch.chdir(tmp_path)
-    rc = port_fastcar.main(["--device", "cpu", db, "-q", q, "--id", "0.9",
-                            "--feat", "slow"])
-    assert rc != 0
-    assert "--feat fast" in capsys.readouterr().err
-    assert not os.listdir(tmp_path)
-
-
 def test_device_cuda_raises_without_gpu(small, monkeypatch):
     db, q = small
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

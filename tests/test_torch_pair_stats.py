@@ -22,7 +22,8 @@ from meshclust2_tpu.ops.pallas_stats import center_block_stats as jax_center_blo
 from meshclust2_tpu_torch.cluster.device_store import DeviceStore
 from meshclust2_tpu_torch.features import flags as F
 from meshclust2_tpu_torch.model.classifier import (
-    PARAM_HEAD, PARAM_STRIDE, SINGLE_CODES, CompiledModel, model_to_torch)
+    PARAM_HEAD, PARAM_STRIDE, SINGLE_CODES, STATS_SINGLES, CompiledModel,
+    model_to_torch)
 from meshclust2_tpu_torch.model.weights import ModelBlock, load_weights
 from meshclust2_tpu_torch.ops.pair_stats import (
     center_block_stats,
@@ -160,7 +161,7 @@ def test_cuda_kernel_equals_plain(d, dtype):
 # -- the fused decision ------------------------------------------------------
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-ALL_SINGLES = sorted(SINGLE_CODES, key=SINGLE_CODES.get)
+ALL_SINGLES = list(STATS_SINGLES)
 # every combo kind over every derivable single, one-single combos among them
 SYNTH_COMBOS = [
     (F.COMBO_XY, F.FEAT_MANHATTAN | F.FEAT_EMD),
@@ -291,8 +292,10 @@ def test_packed_params_in_kernel_order_equal_plain(name, form):
     params = model_to_torch(model, "cpu")
     stats, dec = pair_stats_decision(store, params, torch.from_numpy(a),
                                      torch.from_numpy(b))
-    assert stats.shape == (200, 3) and dec.shape == (3, 200)
+    assert stats.shape == (200, 3) and dec.shape == (5, 200)
     assert dec.dtype == torch.float64
+    # no full-vector single: the bounds are 0
+    assert not dec[3:].any()
     bb = np.broadcast_to(b, a.shape)
     np.testing.assert_array_equal(stats.numpy(), oracle(counts, a, bb))
     s, prob, dist = packed_decision(params.packed.numpy(), stats.numpy(), store,
@@ -351,7 +354,7 @@ def test_decision_wrapper_rejects(case):
         params = type(params)(**{**params.__dict__, "packed": params.packed.float()})
     elif case == "single":
         params = type(params)(**{**params.__dict__,
-                                 "singles": params.singles + (F.FEAT_JACCARD,)})
+                                 "singles": params.singles + (F.FEAT_SPEARMAN,)})
     else:
         b = torch.arange(3)
     with pytest.raises((TypeError, ValueError)):

@@ -194,9 +194,9 @@ def test_merge_segment_near_tie_resolves_as_host(fixtures_dir, med_ps):
 
     class Perturbed(TorchDeviceScorer):
         def _device_decision(self, a, b):
-            prob, dist = super()._device_decision(a, b)
+            prob, dist, s_err, dist_err = super()._device_decision(a, b)
             dist[1] += 1e-12 * max(abs(dist[1]), 1.0)
-            return prob, dist
+            return prob, dist, s_err, dist_err
 
     scorer = Perturbed(ps, model, "cpu")
     prob, dist = scorer.score(rows, np.array([center]))

@@ -30,7 +30,7 @@ from meshclust2_tpu_torch.features import flags as F
 from meshclust2_tpu_torch.io.fasta import read_fasta
 from meshclust2_tpu_torch.kmer.counting import build_point_set
 from meshclust2_tpu_torch.model.weights import load_weights
-from meshclust2_tpu_torch.ops.device_features import _FUSED_DERIVABLE
+from meshclust2_tpu_torch.model.classifier import STATS_SINGLES
 from meshclust2_tpu_torch.ops.pair_stats import pair_stats
 from meshclust2_tpu_torch.train.device_tables import (
     TableStats, TorchDeviceTableBuilder, device_raw_singles)
@@ -39,7 +39,7 @@ torch.set_num_threads(2)
 
 FAST = F.split_flags(F.PRED_FEAT_FAST)
 # every single the pair statistics derive, d2z and euclidean_z among them
-DERIVABLE = sorted(_FUSED_DERIVABLE)
+DERIVABLE = sorted(STATS_SINGLES)
 TRAIN_ARGS = ["--id", "0.9", "--kmer", "5", "--mut-type", "single"]
 
 
