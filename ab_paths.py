@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""The port's clustering window in two checkouts of the repository, on one
+card, in turns.
+
+    python3 ab_paths.py BEFORE_ROOT AFTER_ROOT [--out DIR]
+
+Makes the 10,000-sequence bench set (bench.py:ensure_dataset), then, for
+each of the port's three paths (the default, MC2_NO_DEVICE_LOOP=1, and with
+MC2_NO_DEVICE_UPDATE_BATCH=1 as well), runs
+`python -m meshclust2_tpu_torch.cli --device cuda --recover
+tests/fixtures/bench10k_weights.txt` from each checkout's root in the order
+before, after, after, before.  Each run is a process of its own; its kernels
+build in its checkout's build/ during set-up, before the window.  Prints one
+line a run with the window (the `done` stamp less `read_in_points`) and its
+accumulate and update parts, then per path and checkout the median window,
+and checks that every run of a path wrote the same CLSTR byte for byte.
+Exits non-zero on a failed run or a differing CLSTR.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+import bench
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PATHS = {
+    "default": {},
+    "no_device_loop": {"MC2_NO_DEVICE_LOOP": "1"},
+    "no_device_loop_no_update_batch": {"MC2_NO_DEVICE_LOOP": "1",
+                                       "MC2_NO_DEVICE_UPDATE_BATCH": "1"},
+}
+ORDER = ("before", "after", "after", "before")
+
+
+def stamps(text: str) -> dict:
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^timestamp (\S+) (\S+)$", text, re.M)}
+
+
+def one_run(root: str, path: str, fasta: str, out: str) -> dict:
+    """One CLI run of checkout `root` on `path` -> its window parts (s)."""
+    env = {k: v for k, v in os.environ.items() if k not in
+           ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH")}
+    env.update(PATHS[path])
+    proc = subprocess.run(
+        [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--device", "cuda",
+         "--recover", os.path.join(root, "tests", "fixtures", "bench10k_weights.txt"),
+         "--output", out, fasta],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root} ({path}) exited {proc.returncode}:\n"
+                           f"{proc.stderr[-2000:]}")
+    st = stamps(proc.stdout)
+    return dict(window=st["done"] - st["read_in_points"],
+                accumulate=st["accumulate"] - st["read_in_points"],
+                update=st["update"] - st["accumulate"])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("before")
+    ap.add_argument("after")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
+    args = ap.parse_args(argv)
+    roots = {"before": os.path.abspath(args.before),
+             "after": os.path.abspath(args.after)}
+    os.makedirs(args.out, exist_ok=True)
+    fasta = os.path.join(args.out, "bench_10000.fasta")
+    bench.ensure_dataset(fasta)
+    ok = True
+    for path in PATHS:
+        windows = {"before": [], "after": []}
+        outputs = []
+        for i, which in enumerate(ORDER):
+            out = os.path.join(args.out, f"{path}_{i}_{which}.clstr")
+            r = one_run(roots[which], path, fasta, out)
+            windows[which].append(r["window"])
+            with open(out, "rb") as f:
+                outputs.append(f.read())
+            print(f"{path} {which}: window {r['window']:.3f} s (accumulate "
+                  f"{r['accumulate']:.3f} s, update {r['update']:.3f} s)",
+                  flush=True)
+        same = all(o == outputs[0] for o in outputs)
+        ok &= same
+        print(f"{path}: median window before "
+              f"{statistics.median(windows['before']):.3f} s, after "
+              f"{statistics.median(windows['after']):.3f} s; CLSTR "
+              f"{'identical' if same else 'DIFFERS'} across the four runs",
+              flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

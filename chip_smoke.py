@@ -203,9 +203,12 @@ CLOSEST_OPS = 4
 EPI_OPS_PAIR = 12
 EPI_OPS_SINGLE = 11
 EPI_OPS_COMBO = 5
-# the float64 rate outside the tensor cores (the same data sheet), for the
-# FULL pass's per-element float64 work
-F64_OPS_PER_S = 34e12
+# float64 instructions a second outside the tensor cores, for the FULL
+# pass's per-element float64 work: the same data sheet's 34 TFLOP/s counts
+# an FMA as two operations, so the card issues 17 T float64 instructions a
+# second (the quarter-rate MUFU instructions are charged the same, which
+# keeps the bound a lower bound)
+F64_INSTR_PER_S = 34e12 / 2
 # probe kernels whose float64 instructions give what one log, one division
 # and one square root compile to (sass_counts)
 PROBE_SRC = r"""
@@ -336,13 +339,13 @@ def same_f64(got, want) -> bool:
 
 def step_bound(w: int, npos: int, count: int, d: int, elem: int):
     """The step at W candidates, npos positives, count members after the
-    absorb: per candidate its index, store row, s, dist, statistics read
-    and its alive, assign and astep written; the positives' member slots
+    absorb: per candidate its index, store row, s, dist, their bounds and
+    the statistics read and its alive, assign and astep written; the positives' member slots
     written; per member its index, store row, histogram and mags read;
     msum read and written, the trip written.  Operations: ~20 a candidate
     (gates, maximum, tie guard, state), one add per positive element, the
     mean per element, CLOSEST_OPS per member element."""
-    nbytes = (w * (8 + 8 + 8 + 8 + 24 + 1 + 8 + 8) + npos * 8
+    nbytes = (w * (8 + 8 + 8 + 8 + 16 + 24 + 1 + 8 + 8) + npos * 8
               + count * (8 + 8 + d * elem + 8) + 2 * 8 * d + 32)
     ops = 20 * w + npos * d + 10 * d + CLOSEST_OPS * count * d
     return bound_ms(nbytes, ops)
@@ -608,12 +611,14 @@ def smoke_model(ps, name: str, sim: float = 0.9):
                                                 maxs=maxs))
 
 
-def sass_counts(tmp: str, nvcc: str) -> dict:
-    """{"log", "div", "sqrt"}: the float64-pipe instructions (D* and MUFU
-    opcodes) that one double log, one __ddiv_rn and one __dsqrt_rn compile
-    to for sm_90a, from cuobjdump -sass of PROBE_SRC against its copy
-    kernel.  Static counts: a slow path for special operands is counted
-    too."""
+def sass_counts(tmp: str, nvcc: str):
+    """({"log", "div", "sqrt"} of the main body, the same of the whole
+    function): the float64-pipe instructions (D* and MUFU opcodes) that one
+    double log, one __ddiv_rn and one __dsqrt_rn compile to for sm_90a, from
+    cuobjdump -sass of PROBE_SRC against its copy kernel.  Static counts;
+    the main body ends at the function's first unpredicated EXIT, so the
+    slow-path subroutines placed after it (special operands) are left out,
+    while inline branches for them are still counted."""
     src = os.path.join(tmp, "probe.cu")
     cubin = os.path.join(tmp, "probe.cubin")
     with open(src, "w") as f:
@@ -623,20 +628,29 @@ def sass_counts(tmp: str, nvcc: str) -> dict:
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
                            "-sass", cubin], check=True, capture_output=True,
                           text=True).stdout
-    per, cur = Counter(), None
+    main, whole, cur, ended = Counter(), Counter(), None, False
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
-            cur = m.group(1)
+            cur, ended = m.group(1), False
             continue
-        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if cur and m and (m.group(1).startswith("D") or m.group(1).startswith("MUFU")):
-            per[cur] += 1
-    return {k: per[f"f_{k}"] - per["base"] for k in ("log", "div", "sqrt")}
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if not (cur and m):
+            continue
+        op = m.group(2)
+        if op.startswith("D") or op.startswith("MUFU"):
+            whole[cur] += 1
+            main[cur] += not ended
+        ended |= op == "EXIT" and not m.group(1)
+    out = tuple({k: per[f"f_{k}"] - per["base"] for k in ("log", "div", "sqrt")}
+                for per in (main, whole))
+    if min(out[0].values()) <= 0:
+        raise AssertionError(f"no float64 instructions found in the probes: {out}")
+    return out
 
 
 def full_element_ops(singles, c: dict) -> float:
-    """float64 operations per element of the FULL pass for a model's
+    """float64 instructions per element of the FULL pass for a model's
     singles, counted from csrc/pair_stats.cu:full_group (the shared
     products once; each log, division and square root as `c` gives it)."""
     from meshclust2_tpu_torch.features import flags as F
@@ -668,8 +682,8 @@ def full_element_ops(singles, c: dict) -> float:
 def full_bound(store, a, b, singles, n_combos: int, c: dict):
     """The FULL kernel's least time: decision_bound's bytes with the two
     bounds also written (40 bytes a pair out), and its operations: the
-    statistics' at OPS_PER_S plus the FULL pass's float64 operations at
-    F64_OPS_PER_S, each element once."""
+    statistics' at OPS_PER_S plus the FULL pass's float64 instructions at
+    F64_INSTR_PER_S, each element once."""
     rows = int(torch_unique(a, b))
     d = store.shape[1]
     p = len(a)
@@ -677,7 +691,7 @@ def full_bound(store, a, b, singles, n_combos: int, c: dict):
               + 8 * (4 + 4 * (len(singles) + n_combos)))
     t_ops = ((PAIR_OPS * p * d + p * (EPI_OPS_PAIR + EPI_OPS_SINGLE * len(singles)
                                       + EPI_OPS_COMBO * n_combos)) / OPS_PER_S
-             + full_element_ops(singles, c) * p * d / F64_OPS_PER_S) * 1e3
+             + full_element_ops(singles, c) * p * d / F64_INSTR_PER_S) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -797,7 +811,9 @@ def full_model_phase(tag: str, torch_cli, fasta: str, n_seqs: int, tmp: str,
     port's three paths on the card, each held against the JAX package's
     --device host run of the same weights on the same machine: the whole
     CLSTR byte for byte, the clusters before update and update
-    iterations, and the windows but those the host redid after an abort;
+    iterations, and the windows but the one the host scans again after
+    each abort at a window's decisions (pairs scored differ by path: the
+    accumulator scores whole windows, the scorer path reuses its cache);
     each run's launches counted from zero into
     `launches`, its host re-checks and accumulator aborts printed."""
     from meshclust2_tpu_torch.model.weights import save_weights
@@ -838,16 +854,17 @@ def full_model_phase(tag: str, torch_cli, fasta: str, n_seqs: int, tmp: str,
                                          f"JAX --device host run ({path})")
             c = counters(res)
             acc = res.accumulator
-            # a window the accumulator aborted is counted again when the
-            # host redoes it (the JAX DeviceAccumulator counts it too): at
-            # most one window an abort
+            # a window the accumulator aborted at its decisions is counted
+            # again when the host scans it (the JAX DeviceAccumulator counts
+            # it too): exactly one window each
             redone = c[0] - host_c[0]
-            if ((c[2], c[3]) != (host_c[2], host_c[3]) or redone < 0
-                    or redone > (acc.aborts if acc is not None else 0)):
+            if ((c[2], c[3]) != (host_c[2], host_c[3])
+                    or redone != (acc.window_aborts if acc is not None else 0)):
                 raise AssertionError(f"{tag} {name} counters {c} vs the JAX "
                                      f"host run's {host_c} ({path})")
             acc_line = ("no accumulator" if acc is None else
-                        f"accumulator steps {acc.total_steps}, aborts {acc.aborts}")
+                        f"accumulator steps {acc.total_steps}, aborts {acc.aborts} "
+                        f"({acc.window_aborts} at a window's decisions)")
             if acc is not None and acc.error is not None:
                 raise AssertionError(f"accumulator failed: {acc.error!r}")
             upd = ("no updater" if res.updater is None else
@@ -1309,9 +1326,11 @@ def main() -> int:
                           up(c64[case["order"][case["mem"]]].sum(axis=0)))
         args = (store, order, cand, up(case["s"]), up(case["dist"]), stats, state,
                 cur_d)
+        # the fused kernel's bounds of a model without full-vector singles
+        zero = torch.zeros(len(cand), dtype=torch.float64, device=dev)
         kw = dict(cid=case["cid"], stepc=case["stepc"], mcnt=case["mcnt"],
                   pos_edge=case["edge"], margin=MARGIN,
-                  tie_margin=case["tie_margin"])
+                  tie_margin=case["tie_margin"], s_err=zero, dist_err=zero.clone())
         return args, kw
 
     def fresh(args):
@@ -1537,10 +1556,12 @@ def main() -> int:
     from meshclust2_tpu_torch.ops.pair_stats import vector_singles_ref
 
     with tempfile.TemporaryDirectory(prefix="mc2_probe_") as ptmp:
-        sass = sass_counts(ptmp, _build.nvcc_path())
+        sass, sass_all = sass_counts(ptmp, _build.nvcc_path())
     phase("d4", f"float64 instructions a call compiles to for sm_90a (cuobjdump "
-                f"-sass of probe kernels, static): log {sass['log']}, division "
-                f"{sass['div']}, square root {sass['sqrt']}")
+                f"-sass of probe kernels, static, the main body before the first "
+                f"EXIT): log {sass['log']}, division {sass['div']}, square root "
+                f"{sass['sqrt']} (with the slow-path subroutines: "
+                f"{sass_all['log']}, {sass_all['div']}, {sass_all['sqrt']})")
     full_timing = {}
     for name, (singles, combos) in full_specs().items():
         a_s, b_s = dshapes["pair P=98304"]
@@ -1580,8 +1601,8 @@ def main() -> int:
                         f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median, CUDA "
                         f"events); device {dev_us:.2f} us (CUDA events behind a busy "
                         f"wait); bound {b_ms:.6f} ms ({b_by}, "
-                        f"{full_element_ops(singles, sass):.0f} float64 operations "
-                        f"an element); the fast 10k model here: device "
+                        f"{full_element_ops(singles, sass):.0f} float64 instructions "
+                        f"an element at 17 T/s); the fast 10k model here: device "
                         f"{dec_timing[form]['device_us']:.2f} us; {card}")
 
     def check_accumulator(res, path, want_acc):

@@ -145,7 +145,9 @@ class TorchDeviceAccumulator:
     `make_carry`, `last_steps` / `last_windows` / `last_pairs` and `_ready`,
     as MeanShiftEngine reads them.  `error` holds the exception a `run`
     raised (the engine falls back to the host on any), `total_steps` and
-    `aborts` count the steps and guarded aborts since `ensure_ready`."""
+    `aborts` count the steps and guarded aborts since `ensure_ready`, and
+    `window_aborts` those at a window's decisions (stage 1), whose window
+    the host scans again (stage 2 redoes only the closest-to-mean)."""
 
     def __init__(self, ps: PointSet, model: CompiledModel, sim: float,
                  store: "DeviceStore"):
@@ -163,12 +165,11 @@ class TorchDeviceAccumulator:
         self.store = store
         self.device = store.counts.device
         self.params = model_to_torch(model, self.device)
-        # a model with full-vector singles: the step's gates take the fused
-        # kernel's error bounds, and an exact tie needs equal rows
+        # a model with full-vector singles: an exact tie needs equal rows
         self.full = has_vector(self.params)
         self._ready = None
         self.error: Optional[BaseException] = None
-        self.total_steps = self.aborts = 0
+        self.total_steps = self.aborts = self.window_aborts = 0
         self.last_steps = self.last_windows = self.last_pairs = 0
         self.last_abort_cause = 0
 
@@ -389,7 +390,7 @@ class TorchDeviceAccumulator:
         self._scratch = step_scratch(n, d)   # the step kernel's, once
         self._ready = (host, dev)
         self._warm()
-        self.total_steps = self.aborts = 0
+        self.total_steps = self.aborts = self.window_aborts = 0
         self.error = None
 
     def _warm(self) -> None:
@@ -413,14 +414,14 @@ class TorchDeviceAccumulator:
     def _step(self, order, cand, dec, stats, state, cur_d, cid, stepc,
               mcnt) -> torch.Tensor:
         """window_step over the fused kernel's decisions `dec` [5, W]: its
-        bounds go to the gates of a model with full-vector singles (they
-        are 0 for any other)."""
-        errs = dict(s_err=dec[3], dist_err=dec[4], full=True) if self.full else {}
+        bounds go to the gates (they are 0 for a model without full-vector
+        singles), and `full` asks for row identity in exact ties."""
         return window_step(self.store, order, cand, dec[0], dec[2], stats, state,
                            cur_d, cid=cid, stepc=stepc, mcnt=mcnt,
                            pos_edge=self.pos_edge, margin=self.margin,
-                           tie_margin=self.tie_margin, scratch=self._scratch,
-                           **errs)
+                           tie_margin=self.tie_margin, s_err=dec[3],
+                           dist_err=dec[4], full=self.full,
+                           scratch=self._scratch)
 
     # -- the loop ----------------------------------------------------------------
 
@@ -514,6 +515,7 @@ class TorchDeviceAccumulator:
             row_pack.cpu().numpy(), center_arr])
         self.total_steps += iters
         self.aborts += abort != 0
+        self.window_aborts += abort == 1
         return self.consume(packed, host)
 
     def _window(self, cur_d: torch.Tensor, trip: Optional[torch.Tensor]

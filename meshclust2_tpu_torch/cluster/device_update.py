@@ -19,10 +19,11 @@ The margins are the JAX package's (`resolve_margins`: 1e-8, ties 1e-12,
 `MC2_DD_MARGIN` / `MC2_DD_TIE_MARGIN`).  For the statistics-derived singles
 the card's float64 differs from the host oracle only by operation order,
 so the TPU version's double-float error terms have no counterpart here;
-a model with full-vector singles takes the fused kernel's bounds s_err and
-dist_err into the bands as 8 s_err and 8 dist_err, as the JAX version
-takes its own (`_band_device`, the merge pass's near-tie guard), and an
-exact merge tie then needs equal candidate rows.
+the fused kernel's bounds s_err and dist_err (0 for a model without
+full-vector singles) widen the bands to at least 8 s_err and 8 dist_err,
+as the JAX version takes its own (`_band_device`, the merge pass's
+near-tie guard); with full-vector singles an exact merge tie needs equal
+candidate rows.
 
 Dropped as TPU artefacts: the pair and segment buckets, the `valid`
 padding, the MAX_ITER_PAIRS / MAX_PAIR_CHUNK splits and the jit cache.
@@ -62,7 +63,7 @@ class TorchDeviceUpdater:
         self.store = store
         self.device = store.counts.device
         self.params = model_to_torch(model, self.device)
-        # a model with full-vector singles: its bounds widen the bands
+        # a model with full-vector singles: an exact tie needs equal rows
         self.full = has_vector(self.params)
         self.margin, self.tie_margin = resolve_margins(margin, tie_margin)
         self.band0 = TH.nonzero_bands(model.bias)   # c_round(prob) != 0
@@ -118,9 +119,7 @@ class TorchDeviceUpdater:
         for edge, ge in ((lo, True), (hi, False)):
             if np.isfinite(edge):
                 inb &= (s >= edge) if ge else (s < edge)
-                thr = self.margin * max(abs(edge), 1.0)
-                if self.full:
-                    thr = torch.clamp(8 * dec[3], min=thr)
+                thr = torch.clamp(8 * dec[3], min=self.margin * max(abs(edge), 1.0))
                 unc |= (s - edge).abs() <= thr
             elif (edge == -np.inf) != ge:
                 # hi == -inf or lo == +inf: the band is empty
@@ -227,14 +226,12 @@ class TorchDeviceUpdater:
         same = (stats == stats[bp]).all(dim=1)
         for m in (st.mags, st.selfdot, st.stddevs, st.lens):
             same &= m[a_idx] == m[a_best]
-        thr = self.tie_margin * dmax.abs().clamp(min=1.0)
-        if self.full:
-            # the bounds of the candidate and of the segment's largest
-            # (meshclust2_tpu/cluster/device_update.py:422-430)
-            derr = dec[4]
-            emax = torch.zeros(C, **f64).scatter_reduce(
-                0, sg, torch.where(res1, derr, 0.0), "amax")[sg]
-            thr = torch.fmax(8 * (derr + emax), thr)
+        # the bounds of the candidate and of the segment's largest
+        # (meshclust2_tpu/cluster/device_update.py:422-430)
+        derr = dec[4]
+        emax = torch.zeros(C, **f64).scatter_reduce(
+            0, sg, torch.where(res1, derr, 0.0), "amax")[sg]
+        thr = torch.fmax(8 * (derr + emax), self.tie_margin * dmax.abs().clamp(min=1.0))
         near = res1 & ((d - dmax).abs() <= thr)
         if self.full:
             # the statistics and moments do not determine a full-vector

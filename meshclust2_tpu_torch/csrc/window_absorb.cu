@@ -16,7 +16,8 @@
 //                 differs in a count: the host's float64 could rank them
 //                 apart (meshclust2_tpu/cluster/device_loop.py l. 1118,
 //                 1140-1147).  s_err and dist_err are the fused kernel's
-//                 bounds (0, or absent, for other models).
+//                 bounds (0 for other models, where the gates reduce to
+//                 the relative margins).
 //      The gates are formed with explicitly rounded float64 operations
 //      (__dsub_rn, __dmul_rn), so nvcc's -fmad=true changes nothing.
 //   2-3. the case, under the flags (bits, npos = the number of positives):
@@ -108,8 +109,8 @@ struct StepArgs {
   long long n_cand;
   const double* s;
   const double* dist;
-  const double* s_err;     // [W] or nullptr: 0
-  const double* dist_err;  // [W] or nullptr: 0
+  const double* s_err;     // [W]
+  const double* dist_err;  // [W]
   int full;                // 1: an exact tie needs equal rows
   const long long* stats;  // [W, 3]
   double pos_edge;
@@ -199,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       pre += pos && p < lo;
       const double scale = fmax(fmax(fabs(sp), edge_abs), 1.0);
       const double mthr = __dmul_rn(a.margin, scale);
-      const double thr = a.s_err ? fmax(__dmul_rn(8.0, a.s_err[p]), mthr) : mthr;
+      const double thr = fmax(__dmul_rn(8.0, a.s_err[p]), mthr);
       unc |= fabs(__dsub_rn(sp, a.pos_edge)) <= thr;
       const double v = a.dist[p];
       if (bp < 0 || v > bv) {  // positions rise within a thread: first maximum
@@ -221,12 +222,11 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     const long long b0 = bs[0], b1 = bs[1], b2 = bs[2];
     const double bm = a.mags[br], bsd = a.selfdot[br], bl = a.lens[br], bd = a.stddevs[br];
     const double base = __dmul_rn(a.tie_margin, fmax(fabs(bv), 1.0));
-    const double bde = a.dist_err ? a.dist_err[bp] : 0.0;
+    const double bde = a.dist_err[bp];
 #pragma unroll 4
     for (long long p = threadIdx.x; p < W; p += kThreads) {
       const double v = a.dist[p];
-      const double thr =
-          a.dist_err ? fmax(__dmul_rn(8.0, __dadd_rn(a.dist_err[p], bde)), base) : base;
+      const double thr = fmax(__dmul_rn(8.0, __dadd_rn(a.dist_err[p], bde)), base);
       if (!(fabs(__dsub_rn(v, bv)) <= thr)) continue;
       const long long r = a.order[a.cand[p]];
       const long long* st = a.stats + 3 * p;
@@ -413,7 +413,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
 template <typename T>
 int launch(StepArgs a, long long scratch_len, void* stream) {
   if (a.d <= 0 || a.n_cand <= 0 || a.n < a.n_cand || a.mcnt < 0 ||
-      a.mcnt + a.n_cand > a.n ||
+      a.mcnt + a.n_cand > a.n || !a.s_err || !a.dist_err ||
       scratch_len < 4 + kSlots * kMaxGrid + 3 * (a.n + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

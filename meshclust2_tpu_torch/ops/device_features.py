@@ -31,7 +31,7 @@ from ..cluster.engine import HostScorer
 from ..features import flags as F
 from ..kmer.counting import PointSet
 from ..model.classifier import SINGLE_CODES, CompiledModel, model_to_torch
-from .pair_stats import has_vector, pair_stats_decision
+from .pair_stats import pair_stats_decision
 
 # the singles the device paths compute: those the kernel derives from its
 # (sum-min, dot, EMD) plus per-row moments, and the full-vector ones it sums
@@ -52,8 +52,9 @@ DIST_REL_BAND = 1e-4
 # singles differ from the host oracle's only by rounding in another
 # operation order (~1e-15 relative), so two dists further apart than
 # 1e-9 * max(|max|, 1) rank alike on both, and exact ties (equal inputs)
-# always fall inside the band.  A model with full-vector singles carries
-# the bounds s_err and dist_err: each rule's band widens to 8 times them.
+# always fall inside the band.  The fused kernel's bounds s_err and
+# dist_err (0 without full-vector singles) widen each rule's band to at
+# least 8 times them.
 DIST_TIE_BAND = 1e-9
 
 
@@ -78,26 +79,23 @@ def check_fused(singles) -> None:
         raise DeviceLoopUnsupported(why)
 
 
-def recheck_mask(prob: np.ndarray, dist: np.ndarray, s_err=None,
-                 dist_err=None) -> np.ndarray:
+def recheck_mask(prob: np.ndarray, dist: np.ndarray, s_err: np.ndarray,
+                 dist_err: np.ndarray) -> np.ndarray:
     """Pairs of one scoring call whose decision or rank needs the exact
-    float64 oracle: rules (i), (ii) and (iii) above; with the bounds
-    s_err and dist_err, rule (i)'s band is at least 8 s_err (prob moves by
-    at most a quarter of s's error), rule (ii)'s at least 8 (dist_err +
-    the maximum's dist_err) and rule (iii)'s at least 8 times the two
+    float64 oracle: rules (i), (ii) and (iii) above, with the bounds s_err
+    and dist_err: rule (i)'s band is at least 8 s_err (prob moves by at
+    most a quarter of s's error), rule (ii)'s at least 8 (dist_err + the
+    maximum's dist_err) and rule (iii)'s at least 8 times the two
     neighbours' dist_err."""
-    band = PROB_MARGIN if s_err is None else np.maximum(PROB_MARGIN, 8 * s_err)
-    mask = np.abs(prob - np.floor(prob) - 0.5) < band
+    mask = np.abs(prob - np.floor(prob) - 0.5) < np.maximum(PROB_MARGIN, 8 * s_err)
     if len(dist):
         m = dist.max()
         scale = max(abs(m), 1.0)
-        rel = DIST_REL_BAND * scale
-        tie_band = DIST_TIE_BAND * scale
+        rel = np.maximum(DIST_REL_BAND * scale,
+                         8 * (dist_err + dist_err[np.argmax(dist)]))
         order = np.argsort(dist, kind="stable")
-        if dist_err is not None:
-            rel = np.maximum(rel, 8 * (dist_err + dist_err[np.argmax(dist)]))
-            tie_band = np.maximum(tie_band, 8 * (dist_err[order[1:]]
-                                                 + dist_err[order[:-1]]))
+        tie_band = np.maximum(DIST_TIE_BAND * scale,
+                              8 * (dist_err[order[1:]] + dist_err[order[:-1]]))
         mask |= dist >= m - rel
         tie = np.diff(dist[order]) <= tie_band
         mask[order[1:][tie]] = True
@@ -118,8 +116,6 @@ class TorchDeviceScorer:
         self.store = (DeviceStore.from_pointset(ps, self.device)
                       if store is None else store)
         self.params = model_to_torch(model, self.device)
-        # a model with full-vector singles: its bounds widen the rules
-        self.full = has_vector(self.params)
         self._host = HostScorer(ps, model)
         self.scored_pairs = 0
         self.rechecked_pairs = 0
@@ -134,13 +130,10 @@ class TorchDeviceScorer:
     def _device_decision(self, a: np.ndarray, b: np.ndarray):
         """(prob, dist, s_err, dist_err) of the pairs (a[p], b[p]), b of
         length 1 for one center, in one upload and one read-back; the
-        bounds are None for a model without full-vector singles."""
+        bounds are 0 for a model without full-vector singles."""
         idx = torch.from_numpy(np.concatenate([a, b])).to(self.device)
         _, dec = pair_stats_decision(self.store, self.params, idx[:len(a)],
                                      idx[len(a):])
-        if not self.full:
-            both = dec[1:3].cpu().numpy()
-            return both[0], both[1], None, None
         got = dec[1:].cpu().numpy()
         return got[0], got[1], got[2], got[3]
 

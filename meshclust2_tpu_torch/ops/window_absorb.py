@@ -20,7 +20,8 @@ pair statistics against the center:
               max(|dist[best]|, 1)) of the best dist while its (stats, mags,
               selfdot, lens, stddev) differ from the best's, or, with
               `full` (a model with full-vector singles), its row does;
-              s_err and dist_err (the fused kernel's bounds) default to 0;
+              s_err and dist_err are the fused kernel's bounds (0 for
+              other models, where the gates reduce to the margins);
     best    = the first position of the largest dist;
     npos    = the number of positives.
 Then, with bits 0, the min case (npos 0: cand[best] opens cluster cid + 1
@@ -92,7 +93,7 @@ def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx].to(torch.int64) & mask
 
 
-def _check(counts, rows, s, dist, stats, moments, s_err=None, dist_err=None):
+def _check(counts, rows, s, dist, stats, s_err, dist_err, moments):
     if counts.dtype not in _ENTRY:
         raise TypeError(f"counts must be uint8 or uint16, got {counts.dtype}")
     if counts.dim() != 2:
@@ -101,12 +102,9 @@ def _check(counts, rows, s, dist, stats, moments, s_err=None, dist_err=None):
     want = (("rows", rows, torch.int64, (n_cand,)),
             ("s", s, torch.float64, (n_cand,)),
             ("dist", dist, torch.float64, (n_cand,)),
-            ("stats", stats, torch.int64, (n_cand, 3)))
-    if (s_err is None) != (dist_err is None):
-        raise ValueError("give both s_err and dist_err, or neither")
-    if s_err is not None:
-        want += (("s_err", s_err, torch.float64, (n_cand,)),
-                 ("dist_err", dist_err, torch.float64, (n_cand,)))
+            ("stats", stats, torch.int64, (n_cand, 3)),
+            ("s_err", s_err, torch.float64, (n_cand,)),
+            ("dist_err", dist_err, torch.float64, (n_cand,)))
     want += tuple((name, t, torch.float64, counts.shape[:1])
                   for name, t in zip(("mags", "selfdot", "lens", "stddevs"), moments))
     for name, t, dtype, shape in want:
@@ -126,21 +124,20 @@ def _check(counts, rows, s, dist, stats, moments, s_err=None, dist_err=None):
 
 def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs,
                       *, pos_edge: float, margin: float, tie_margin: float,
-                      s_err=None, dist_err=None, full: bool = False
+                      s_err: torch.Tensor, dist_err: torch.Tensor,
+                      full: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decisions of one window in plain PyTorch, the same float64
     operations as the step kernel's: (pos bool [W], the positives' int64
     [D] column sum, info int64 [3] = (bits, npos, best)); best is W when W
     is 0."""
-    _check(counts, rows, s, dist, stats, (mags, selfdot, lens, stddevs),
-           s_err, dist_err)
+    _check(counts, rows, s, dist, stats, s_err, dist_err,
+           (mags, selfdot, lens, stddevs))
     n_cand, d = len(rows), counts.shape[1]
     dev = counts.device
     pos = s >= pos_edge
     scale = s.abs().clamp(min=max(abs(pos_edge), 1.0))
-    thr = margin * scale
-    if s_err is not None:
-        thr = torch.fmax(8 * s_err, thr)
+    thr = torch.fmax(8 * s_err, margin * scale)
     unc = ((s - pos_edge).abs() <= thr).any()
     tie = torch.zeros((), dtype=torch.bool, device=dev)
     best = torch.full((), n_cand, dtype=torch.int64, device=dev)
@@ -148,9 +145,8 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
         # torch.argmax returns the first maximal position
         best = torch.argmax(dist)
         bv = dist[best]
-        tie_thr = tie_margin * bv.abs().clamp(min=1.0)
-        if dist_err is not None:
-            tie_thr = torch.fmax(8 * (dist_err + dist_err[best]), tie_thr)
+        tie_thr = torch.fmax(8 * (dist_err + dist_err[best]),
+                             tie_margin * bv.abs().clamp(min=1.0))
         near = (dist - bv).abs() <= tie_thr
         same = (dist == bv) & (stats == stats[best]).all(dim=1)
         for m in (mags, selfdot, lens, stddevs):
@@ -175,10 +171,10 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
 
 
 def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
-                mcnt: int, s_err=None, dist_err=None):
+                mcnt: int, s_err, dist_err):
     counts = store.counts
-    _check(counts, cand, s, dist, stats,
-           (store.mags, store.selfdot, store.lens, store.stddevs), s_err, dist_err)
+    _check(counts, cand, s, dist, stats, s_err, dist_err,
+           (store.mags, store.selfdot, store.lens, store.stddevs))
     n = len(order)
     want = (("order", order, torch.int64, (n,)),
             ("cand", cand, torch.int64, (len(cand),)),
@@ -204,8 +200,8 @@ def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
 
 def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
                     cur_d, *, cid: int, stepc: int, mcnt: int, pos_edge: float,
-                    margin: float, tie_margin: float, s_err=None, dist_err=None,
-                    full: bool = False) -> torch.Tensor:
+                    margin: float, tie_margin: float, s_err: torch.Tensor,
+                    dist_err: torch.Tensor, full: bool = False) -> torch.Tensor:
     """The step in plain PyTorch: `window_absorb_ref`, both cases under
     the decision flags, and `closest_mean_ref`'s one-segment mode over the
     first mcnt + W member slots with the first mcnt + npos kept.
@@ -261,16 +257,15 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
                 dist: torch.Tensor, stats: torch.Tensor, state: StepState,
                 cur_d: torch.Tensor, *, cid: int, stepc: int, mcnt: int,
                 pos_edge: float, margin: float, tie_margin: float,
-                s_err: Optional[torch.Tensor] = None,
-                dist_err: Optional[torch.Tensor] = None, full: bool = False,
+                s_err: torch.Tensor, dist_err: torch.Tensor, full: bool = False,
                 scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One accumulate step's tail (module docstring) over a DeviceStore
     `store`, the pool's flat-order `order` (int64 [n], flat position ->
     store row), the W >= 1 candidates `cand` with their float64 [W] s and
     dist and int64 [W, 3] statistics, `state` (updated in place) and the
     center's flat position `cur_d` (int64 [1]) -> trip int64 [4].  s_err
-    and dist_err (float64 [W], both or neither) are the fused kernel's
-    bounds; `full` asks for row identity in an exact tie.
+    and dist_err (float64 [W]) are the fused kernel's bounds; `full` asks
+    for row identity in an exact tie.
 
     On CUDA one cooperative launch on the current stream, without syncing;
     `scratch` comes from `step_scratch(n)` (allocated here when None), and
@@ -299,10 +294,8 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
             counts.data_ptr(), counts.shape[1], store.mags.data_ptr(),
             store.selfdot.data_ptr(), store.lens.data_ptr(),
             store.stddevs.data_ptr(), order.data_ptr(), cand.data_ptr(),
-            len(cand), s.data_ptr(), dist.data_ptr(),
-            None if s_err is None else s_err.data_ptr(),
-            None if dist_err is None else dist_err.data_ptr(), int(full),
-            stats.data_ptr(),
+            len(cand), s.data_ptr(), dist.data_ptr(), s_err.data_ptr(),
+            dist_err.data_ptr(), int(full), stats.data_ptr(),
             kw["pos_edge"], kw["margin"], kw["tie_margin"], int(store.maxc),
             *(t.data_ptr() for t in state), cur_d.data_ptr(), kw["cid"],
             kw["stepc"], kw["mcnt"], scratch.data_ptr(), scratch.numel(), n,

@@ -166,8 +166,9 @@ def test_recheck_rules():
     prob = np.array([0.1, 0.49995, 0.9, 0.2, 0.3, 1.2])
     dist = np.array([0.5, 0.1, 0.9, 0.3, 0.3 + 1e-12, 0.6])
     #             none  (i)  (ii)  (iii) (iii)  none
+    zero = np.zeros(len(prob))
     np.testing.assert_array_equal(
-        recheck_mask(prob, dist), [False, True, True, True, True, False])
+        recheck_mask(prob, dist, zero, zero), [False, True, True, True, True, False])
 
 
 def test_merge_segment_near_tie_resolves_as_host(fixtures_dir, med_ps):

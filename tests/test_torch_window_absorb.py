@@ -74,9 +74,11 @@ def window_case(seed, n_rows, d, dtype, n_cand):
 def port_absorb(counts, rows, s, dist, stats, moments, edge, margin=MARGIN,
                 tie_margin=TIE_MARGIN):
     t = torch.from_numpy
+    zero = torch.zeros(len(rows), dtype=torch.float64)
     pos, colsum, info = window_absorb_ref(
         t(counts), t(rows), t(s), t(dist), t(stats), *(t(m) for m in moments),
-        pos_edge=edge, margin=margin, tie_margin=tie_margin)
+        pos_edge=edge, margin=margin, tie_margin=tie_margin, s_err=zero,
+        dist_err=zero)
     assert pos.dtype == torch.bool and colsum.dtype == info.dtype == torch.int64
     return pos.numpy(), colsum.numpy(), info.numpy()
 
@@ -168,7 +170,7 @@ def test_med2000_windows_agree_with_host_scorer(fixtures_dir):
         pos, colsum, info = window_absorb_ref(
             store.counts, a, s, dist, stats, store.mags, store.selfdot,
             store.lens, store.stddevs, pos_edge=edge, margin=margin,
-            tie_margin=tie_margin)
+            tie_margin=tie_margin, s_err=dec[3], dist_err=dec[4])
         prob, hdist = host.score(rows, np.array([center]))
         if info[0] & 1 == 0:
             np.testing.assert_array_equal(pos.numpy(), c_round(prob) > 0)
@@ -181,7 +183,8 @@ def test_med2000_windows_agree_with_host_scorer(fixtures_dir):
 
 
 @pytest.mark.parametrize("case", ["dtype", "rows_dtype", "s_dtype", "stats_shape",
-                                  "moments_shape", "lengths", "contiguity"])
+                                  "moments_shape", "lengths", "contiguity",
+                                  "err_shape", "err_dtype"])
 def test_wrapper_rejects(case):
     counts = torch.zeros((4, 16), dtype=torch.uint8)
     rows = torch.zeros(3, dtype=torch.int64)
@@ -189,6 +192,8 @@ def test_wrapper_rejects(case):
     dist = torch.zeros(3, dtype=torch.float64)
     stats = torch.zeros((3, 3), dtype=torch.int64)
     moments = [torch.zeros(4, dtype=torch.float64) for _ in range(4)]
+    s_err = torch.zeros(3, dtype=torch.float64)
+    dist_err = torch.zeros(3, dtype=torch.float64)
     if case == "dtype":
         counts = counts.to(torch.int32)
     elif case == "rows_dtype":
@@ -203,9 +208,14 @@ def test_wrapper_rejects(case):
         dist = dist[:2]
     elif case == "contiguity":
         rows = torch.zeros(6, dtype=torch.int64)[::2]
+    elif case == "err_shape":
+        dist_err = dist_err[:2]
+    elif case == "err_dtype":
+        s_err = s_err.to(torch.float32)
     with pytest.raises((TypeError, ValueError)):
         window_absorb_ref(counts, rows, s, dist, stats, *moments, pos_edge=0.0,
-                          margin=MARGIN, tie_margin=TIE_MARGIN)
+                          margin=MARGIN, tie_margin=TIE_MARGIN, s_err=s_err,
+                          dist_err=dist_err)
 
 
 # -- the whole step ------------------------------------------------------------
@@ -279,8 +289,10 @@ def step_case(seed, dtype, d, kind, n=120, device="cpu"):
     stats = pair_stats_ref(store.counts, order_t[cand_t], center)
     state = StepState(t(alive), t(assign), t(astep), t(members), t(msum))
     args = (store, order_t, cand_t, t(s), t(dist), stats, state, t(cur_d))
+    # the fused kernel's bounds of a model without full-vector singles
+    zero = torch.zeros(w, dtype=torch.float64, device=device)
     kw = dict(cid=cid, stepc=stepc, mcnt=mcnt, pos_edge=EDGE, margin=MARGIN,
-              tie_margin=tie_margin)
+              tie_margin=tie_margin, s_err=zero, dist_err=zero.clone())
     return args, kw
 
 
@@ -290,7 +302,7 @@ def clone_state(args):
 
 
 def earlier_step(store, order, cand, s, dist, stats, state, cur_d, *, cid, stepc,
-                 mcnt, pos_edge, margin, tie_margin):
+                 mcnt, pos_edge, margin, tie_margin, s_err, dist_err):
     """The accumulator's scan tail before the step kernel, transcribed: the
     decisions, the gated torch updates, the one-segment closest-to-mean,
     and the min case's gated seed.  Returns ((bits, npos, unc), next
@@ -301,7 +313,7 @@ def earlier_step(store, order, cand, s, dist, stats, state, cur_d, *, cid, stepc
     pos, colsum, info = window_absorb_ref(
         counts, order[cand], s, dist, stats, store.mags, store.selfdot,
         store.lens, store.stddevs, pos_edge=pos_edge, margin=margin,
-        tie_margin=tie_margin)
+        tie_margin=tie_margin, s_err=s_err, dist_err=dist_err)
     bits, npos, best = info[0:1], info[1:2], info[2:3]
     ok = bits == 0
     absorb = ok & (npos > 0)
