@@ -22,7 +22,14 @@ oracle within its error bounds (c5) and timed beside its bound (d4); two
 such models, built over each set with the port's host formulas, cluster
 med2000 and the 10k set on the three paths byte for byte as the JAX
 package's --device host run (e2, f4), and a --feat slow training on the
-10k set gives its weights (t2).  Then it trains on the 10k set at the default flags
+10k set gives its weights (t2).  The plane-singles kernel and the fused
+kernel's PLANE instantiation (models with plane singles) are held against
+their plain versions and the numpy host oracle within their bounds (c6) and
+timed beside their bounds (d5); three plane models, built over med2000 with
+the port's host formulas, cluster it through the device scorer alone byte
+for byte as the JAX package's --device host run (e3), and two committed
+plane models cluster the 10k set to the signatures of their committed JAX
+--device host references (f5), with their host re-checks counted by rule.  Then it trains on the 10k set at the default flags
 (the pair tables through the pair-statistics kernel) and clusters it with
 the trained model, and holds the weights and the CLSTR against the JAX
 package's `--device host` training and host engine.  Then fastcar
@@ -89,9 +96,13 @@ BENCH10K_CLUSTERS = 788
 # BENCH_r05.json tail)
 MED2000_ACC = (393, 146, 48_737)
 BENCH10K_ACC = (1_503, 590, 927_148)
+# the engine counters of the JAX package's --device host run of the 10k set
+# with the committed plane models (tests/fixtures/bench10k_{markov,plane}_*)
+PLANE10K_COUNTERS = {"markov": (561, 747_763, 1_119, 8),
+                     "plane": (489, 699_028, 1_098, 7)}
 MARGIN, TIE_MARGIN = 1e-8, 1e-12
 # the kernel sources, one nvcc each
-SOURCES = ("pair_stats", "closest_mean", "window_absorb")
+SOURCES = ("pair_stats", "closest_mean", "window_absorb", "plane_singles")
 # the kernels each path must launch (their wrappers' counts), and those it
 # must not: the clustering paths take their statistics from the fused
 # kernel, training's tables from the statistics alone
@@ -110,7 +121,11 @@ NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb"),
                                  "pair_stats_decision_full", "closest_mean"),
          "full_no_device_loop_no_update_batch": ("pair_stats_decision",
                                                  "pair_stats_decision_full"),
-         "train_slow": ()}
+         "train_slow": (),
+         # a plane model: the scorer alone, the plane kernel before the
+         # fused kernel's PLANE instantiation
+         "plane": ("plane_singles", "pair_stats_decision",
+                   "pair_stats_decision_plane")}
 FORBIDS = {"default": ("pair_stats", "pair_stats_decision_full"),
            "no_device_loop": ("pair_stats", "window_absorb",
                               "pair_stats_decision_full"),
@@ -126,7 +141,13 @@ FORBIDS = {"default": ("pair_stats", "pair_stats_decision_full"),
            "full_no_device_loop_no_update_batch": ("pair_stats", "window_absorb"),
            # its tables come from the host oracle
            "train_slow": ("pair_stats", "pair_stats_decision", "closest_mean",
-                          "window_absorb", "pair_stats_decision_full")}
+                          "window_absorb", "pair_stats_decision_full"),
+           "plane": ("pair_stats", "closest_mean", "window_absorb",
+                     "pair_stats_decision_full")}
+# no path but a plane model's launches the plane kernels
+for _path in FORBIDS:
+    if _path != "plane":
+        FORBIDS[_path] += ("plane_singles", "pair_stats_decision_plane")
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -135,6 +156,9 @@ TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
 TRAIN_SLOW_FLAGS = [("slow" if f == "fast" else f) for f in TRAIN_FLAGS]
 # the slice's models with full-vector singles (smoke_model)
 FULL_MODELS = ("slow", "blockwise")
+# the slice's models with plane singles (smoke_model): markov and plane at
+# k = 5, k2 at k = 2 (afd needs k = 2)
+PLANE_MODELS = ("markov", "plane", "k2")
 # fastcar's default training (its -m rc and --mut-type single defaults,
 # spelled out)
 FASTCAR_TRAIN_FLAGS = ["--id", "0.9", "-m", "rc", "--mut-type", "single",
@@ -314,15 +338,18 @@ def pair_stats_bound(store, a, b):
                     + 24 * len(a), PAIR_OPS * len(a) * d)
 
 
-def decision_bound(store, a, b, n_singles: int, n_combos: int):
+def decision_bound(store, a, b, n_singles: int, n_combos: int,
+                   extra_bytes: int = 0):
     """pair_stats_bound's bytes and operations, plus each referenced row's
     four float64 moments read, the parameters read, the float64 (s, prob,
-    dist) written, and the epilogue's operations per pair."""
+    dist) written, and the epilogue's operations per pair; `extra_bytes`
+    (the PLANE instantiation's plane buffer read and its bounds written)
+    added to the bytes."""
     rows = int(torch_unique(a, b))
     d = store.shape[1]
     p = len(a)
     nbytes = (rows * (d * store.element_size() + 32) + tbytes(a, b) + 48 * p
-              + 8 * (4 + 4 * (n_singles + n_combos)))
+              + 8 * (4 + 4 * (n_singles + n_combos)) + extra_bytes)
     ops = (PAIR_OPS * p * d + p * (EPI_OPS_PAIR + EPI_OPS_SINGLE * n_singles
                                   + EPI_OPS_COMBO * n_combos))
     return bound_ms(nbytes, ops)
@@ -536,21 +563,25 @@ def check_launches(path: str, counted: dict) -> None:
                                  f"{counted[name]} times")
 
 
-class FullCount:
-    """The fused kernel's FULL launches, read and reset like a wrapper's
-    count (pair_stats_decision.full_launches)."""
+class DecisionCount:
+    """One instantiation's launches of the fused kernel
+    (pair_stats_decision.full_launches or .plane_launches), read and reset
+    like a wrapper's count."""
+
+    def __init__(self, attr: str):
+        self.attr = attr
 
     @property
     def launches(self) -> int:
         from meshclust2_tpu_torch.ops.pair_stats import pair_stats_decision
 
-        return pair_stats_decision.full_launches
+        return getattr(pair_stats_decision, self.attr)
 
     @launches.setter
     def launches(self, value: int) -> None:
         from meshclust2_tpu_torch.ops.pair_stats import pair_stats_decision
 
-        pair_stats_decision.full_launches = value
+        setattr(pair_stats_decision, self.attr, value)
 
 
 def full_specs() -> dict:
@@ -571,23 +602,55 @@ def full_specs() -> dict:
     }
 
 
+def plane_specs() -> dict:
+    """PLANE_MODELS' (singles, combos): every plane single once, each model
+    with one single the statistics give (combo 0, the dist), as the JAX
+    tests' models put intersection first."""
+    from meshclust2_tpu_torch.features import flags as F
+
+    return {
+        "markov": ([F.FEAT_MARKOV, F.FEAT_INTERSECTION, F.FEAT_RRE_K_R,
+                    F.FEAT_SIM_MM],
+                   [("xy", F.FEAT_INTERSECTION),
+                    ("xy", F.FEAT_MARKOV | F.FEAT_SIM_MM),
+                    ("xy", F.FEAT_RRE_K_R)]),
+        "plane": ([F.FEAT_SPEARMAN, F.FEAT_D2s, F.FEAT_D2_star, F.FEAT_N2RC],
+                  [("xy", F.FEAT_SPEARMAN),
+                   ("xy", F.FEAT_D2s | F.FEAT_D2_star),
+                   ("xy", F.FEAT_N2RC)]),
+        "k2": ([F.FEAT_MANHATTAN, F.FEAT_AFD, F.FEAT_N2R, F.FEAT_N2RRC],
+               [("xy", F.FEAT_MANHATTAN),
+                ("xy", F.FEAT_AFD | F.FEAT_N2R),
+                ("xy", F.FEAT_N2RRC)]),
+    }
+
+
 def smoke_model(ps, name: str, sim: float = 0.9):
-    """One of FULL_MODELS over the port's PointSet `ps`, built with the
-    port's host formulas the way tests/test_device_slow_feats.py:_slow_model
-    ("slow": manhattan, intersection, jefferey, jensen-shannon) and
+    """One of FULL_MODELS or PLANE_MODELS over the port's PointSet `ps`,
+    built with the port's host formulas the way
+    tests/test_device_slow_feats.py:_slow_model ("slow": manhattan,
+    intersection, jefferey, jensen-shannon) and
     tests/test_device_extraslow.py:_extraslow_model ("blockwise":
     intersection, hellinger, chi^2, kl_cond, mismatch) build theirs: seed 0,
     600 random pairs, labels from the template_T headers, a least-squares
-    fit of +-4 on the combos."""
+    fit of +-4 on the combos.  The plane models' combos are products of
+    their singles (plane_specs)."""
     from meshclust2_tpu_torch.features import flags as F
     from meshclust2_tpu_torch.features import host as H
     from meshclust2_tpu_torch.model.weights import ModelBlock, PredictorModel
 
-    singles, combos = full_specs()[name]
+    if name in FULL_MODELS:
+        singles, combos = full_specs()[name]
+    else:
+        singles, combos = plane_specs()[name]
     if name == "slow":
         cols = lambda z: [z[:, 1], z[:, 2] * z[:, 0], z[:, 3] ** 2]
-    else:
+    elif name == "blockwise":
         cols = lambda z: [z[:, 0], z[:, 1] * z[:, 2], z[:, 3] * z[:, 4]]
+    else:
+        cols = lambda z: [np.prod([z[:, singles.index(f)]
+                                   for f in F.split_flags(fl)], axis=0)
+                          for _, fl in combos]
     rng = np.random.default_rng(0)
     a_rows = rng.integers(0, ps.n, 600)
     b_rows = rng.integers(0, ps.n, 600)
@@ -604,7 +667,7 @@ def smoke_model(ps, name: str, sim: float = 0.9):
     w, *_ = np.linalg.lstsq(np.column_stack([np.ones(len(y))] + cols(z)),
                             y * 4.0, rcond=None)
     return PredictorModel(k=ps.k, mode=1, max_features=4, id_cutoff=sim,
-                          datatype="uint8_t",
+                          datatype=f"{ps.counts.dtype}_t",
                           feature_set=int(np.bitwise_or.reduce(singles)),
                           classifier=ModelBlock(combos=combos, weights=w,
                                                 singles=singles, mins=mins,
@@ -881,6 +944,271 @@ def full_model_phase(tag: str, torch_cli, fasta: str, n_seqs: int, tmp: str,
                    f"{window_parts(host_st, n_seqs)}")
 
 
+def plane_flags(k: int):
+    """Every plane single a pool of k takes (afd needs k = 2)."""
+    from meshclust2_tpu_torch.features import flags as F
+    from meshclust2_tpu_torch.model.classifier import PLANE_SINGLES
+
+    return [f for f in PLANE_SINGLES if k == 2 or f != F.FEAT_AFD]
+
+
+def synthetic_pool(counts, rng, k: int):
+    """A port PointSet over the count rows `counts` (pseudocounted, >= 1)
+    with random one-mers, lengths and stddevs."""
+    from meshclust2_tpu_torch.kmer.counting import PointSet
+
+    n = len(counts)
+    return PointSet(k=k, headers=[f"s{i}" for i in range(n)], counts=counts,
+                    one_mers=rng.integers(1, 400, (n, 4)).astype(np.uint64),
+                    lengths=rng.integers(700, 1500, n).astype(np.int64),
+                    mags=counts.astype(np.int64).sum(axis=1),
+                    stddevs=rng.random(n) * 3 + 0.5, ids=np.arange(n))
+
+
+# float64 instructions per element of each plane single in
+# csrc/plane_singles.cu:lane_sums, beside its logs, divisions and square
+# roots (pow counted as two logs, hypot as a square root and a division);
+# the two counts' conversions are shared
+PLANE_OPS = {"markov": (14, 0, 0, 0), "rre_k_r": (21, 2, 4, 0),
+             "spearman": (2, 0, 0, 0), "d2s": (9, 0, 2, 1),
+             "afd": (8, 2, 2, 0), "n2": (4, 0, 0, 0)}
+
+
+def plane_element_ops(flags, c: dict, k: int) -> float:
+    """float64 instructions per element of the plane kernel for the plane
+    singles `flags`, each log, division and square root as `c` gives them
+    (sass_counts)."""
+    from meshclust2_tpu_torch.features import flags as F
+
+    s = set(flags)
+    parts = []
+    if s & {F.FEAT_MARKOV, F.FEAT_SIM_MM}:
+        parts.append(PLANE_OPS["markov"])
+    if F.FEAT_RRE_K_R in s:
+        parts.append(PLANE_OPS["rre_k_r"])
+    if F.FEAT_SPEARMAN in s:
+        parts.append(PLANE_OPS["spearman"])
+    if F.FEAT_D2s in s:
+        parts.append(PLANE_OPS["d2s"])
+    if F.FEAT_D2_star in s:
+        parts.append((k + 6 + (F.FEAT_D2s not in s), 0, 1, 0))
+    if F.FEAT_AFD in s:
+        parts.append(PLANE_OPS["afd"])
+    parts += [PLANE_OPS["n2"]] * len(s & {F.FEAT_N2R, F.FEAT_N2RC, F.FEAT_N2RRC})
+    return 2.0 + sum(o + lg * c["log"] + dv * c["div"] + sq * c["sqrt"]
+                     for o, lg, dv, sq in parts)
+
+
+def plane_bound(planes, a, b, flags, c: dict):
+    """The plane kernel's least time: each referenced row's plane rows that
+    `flags` read, its counts and scalars read once, the indices read and
+    [2, S, P] float64 written, at HBM_BYTES_PER_S; or its float64
+    instructions (plane_element_ops) at F64_INSTR_PER_S, each element of
+    each pair once; the larger."""
+    from meshclust2_tpu_torch.ops.plane_singles import NEEDS
+
+    rows = int(torch_unique(a, b))
+    names = set().union(*(NEEDS[f] for f in flags))
+    per_row = (planes.counts.shape[1] * planes.counts.element_size() + 7 * 8
+               + sum(getattr(planes, n)[0].numel() * 8 for n in names))
+    nbytes = rows * per_row + tbytes(a, b) + 16 * len(flags) * len(a)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (plane_element_ops(flags, c, planes.k) * len(a)
+             * planes.counts.shape[1] / F64_INSTR_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plane_decision_specs():
+    """The plane models' (singles, combos) and one with a full-vector single
+    beside plane singles (the FULL and PLANE epilogue), each with its k."""
+    from meshclust2_tpu_torch.features import flags as F
+
+    out = {name: (2 if name == "k2" else 5,) + spec
+           for name, spec in plane_specs().items()}
+    out["full_plane"] = (5, [F.FEAT_HELLINGER, F.FEAT_MARKOV, F.FEAT_INTERSECTION,
+                             F.FEAT_SPEARMAN],
+                         [("xy", F.FEAT_INTERSECTION),
+                          ("xy2", F.FEAT_HELLINGER | F.FEAT_MARKOV),
+                          ("x2y2", F.FEAT_SPEARMAN)])
+    return out
+
+
+def plane_kernel_checks(dev, rng) -> float:
+    """(c6) The plane-singles kernel on random pools with eight
+    near-identical pairs, k = 5 (uint8, uint16) and k = 2 (D = 16, uint8,
+    uint16), both forms: every plane single the k takes within the sum of
+    both bounds of its plain version and within the kernel's bound of the
+    port's numpy host oracle (features/host.py); then the fused kernel's
+    PLANE instantiation on the same pairs, for the three plane models and
+    one with full-vector and plane singles: statistics bit for bit the
+    plain version's, s and dist within both bounds of it and within the
+    kernel's bounds of the host CompiledModel; an index outside the pool
+    gives NaN.  Returns the largest |kernel - plain| over the singles and
+    over s and dist."""
+    import torch
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.features import flags as F
+    from meshclust2_tpu_torch.features import host as H
+    from meshclust2_tpu_torch.model.classifier import (
+        PLANE_SINGLES, CompiledModel, model_to_torch)
+    from meshclust2_tpu_torch.model.weights import ModelBlock
+    from meshclust2_tpu_torch.ops.device_features import TorchDeviceFeatureEngine
+    from meshclust2_tpu_torch.ops.pair_stats import (
+        pair_stats_decision, pair_stats_decision_ref)
+    from meshclust2_tpu_torch.ops.plane_singles import (
+        plane_singles, plane_singles_ref)
+
+    worst, dworst, n_cases = 0.0, 0.0, 0
+    for k, dtype, high in ((5, np.uint8, 60), (5, np.uint16, 1000),
+                           (2, np.uint8, 60), (2, np.uint16, 1000)):
+        n, d = 300, 4 ** k
+        counts = rng.integers(1, high, (n, d))
+        counts[8:16] = counts[:8]
+        counts[8:16, : max(2, d // 100)] += 1
+        ps = synthetic_pool(counts.astype(dtype), rng, k)
+        store = DeviceStore.from_pointset(ps, dev)
+        flags = plane_flags(k)
+        eng = TorchDeviceFeatureEngine(ps, flags, store)
+        a = np.concatenate([np.arange(8), rng.integers(0, n, 400)])
+        forms = {"pair": np.concatenate([np.arange(8, 16), rng.integers(0, n, 400)]),
+                 "center": np.full(len(a), 8)}
+        for form, b in forms.items():
+            what = f"k={k} {np.dtype(dtype).name} {form} form"
+            a_d = torch.from_numpy(a).to(dev)
+            b_d = torch.from_numpy(b[:1] if form == "center" else b).to(dev)
+            got = plane_singles(eng.planes, a_d, b_d, flags)
+            torch.cuda.synchronize()
+            plain = plane_singles_ref(eng.planes, a_d, b_d, flags)
+            if not (torch.isfinite(got).all() and bool(
+                    ((got[0] - plain[0]).abs() <= got[1] + plain[1]).all())):
+                raise AssertionError(f"plane_singles kernel and plain differ "
+                                     f"beyond their bounds: {what}")
+            worst = max(worst, float((got[0] - plain[0]).abs().max()))
+            A, B = H.side_from_pointset(ps, a), H.side_from_pointset(ps, b)
+            host = H.compute_singles(flags, A, B)
+            k_np = got.cpu().numpy()
+            for j, flag in enumerate(flags):
+                if not (np.abs(k_np[0, j] - host[:, j]) <= k_np[1, j]).all():
+                    raise AssertionError(f"plane_singles beyond its bound of the "
+                                         f"host oracle ({F.FEAT_NAMES[flag]}): {what}")
+            n_cases += 1
+            for name, (mk, singles, combos) in plane_decision_specs().items():
+                if mk != k:
+                    continue
+                raw = H.compute_singles(singles, A, B)
+                lo, hi = raw.min(axis=0), raw.max(axis=0)
+                cm = CompiledModel(ModelBlock(
+                    combos=combos, weights=rng.normal(0.0, 2.0, len(combos) + 1),
+                    singles=singles, mins=lo, maxs=np.where(hi > lo, hi, lo + 1.0)))
+                params = model_to_torch(cm, dev)
+                pl = plane_singles(eng.planes, a_d, b_d,
+                                   [f for f in singles if f in PLANE_SINGLES])
+                stats, dec = pair_stats_decision(store, params, a_d, b_d, pl)
+                torch.cuda.synchronize()
+                p_stats, p_dec = pair_stats_decision_ref(store, params, a_d, b_d, pl)
+                if not torch.equal(stats, p_stats):
+                    raise AssertionError(f"PLANE statistics differ: {what}, {name}")
+                kd, pd = dec.cpu().numpy(), p_dec.cpu().numpy()
+                want = cm.decision_from_raw(raw)
+                for r, e in ((0, 3), (2, 4)):
+                    if not ((np.abs(kd[r] - pd[r]) <= kd[e] + pd[e]).all()
+                            and (np.abs(kd[r] - want[r]) <= kd[e]).all()):
+                        raise AssertionError(f"PLANE kernel beyond its bounds "
+                                             f"(row {r}): {what}, {name}")
+                    dworst = max(dworst, float(np.abs(kd[r] - pd[r]).max()))
+                n_cases += 1
+        bad = torch.tensor([3, n], device=dev)
+        got = plane_singles(eng.planes, bad, torch.tensor([5, 6], device=dev), flags)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got[:, :, 0]).all() and torch.isnan(got[:, :, 1]).all()):
+            raise AssertionError(f"plane_singles at an invalid index: {got}")
+    phase("c6", f"plane_singles kernel: each plane single within both bounds of "
+                f"the plain version and within its bound of the numpy host "
+                f"oracle, and the PLANE instantiation's statistics bit for bit, "
+                f"s and dist within bounds of the plain version and the host "
+                f"model (markov, plane, k2 and a FULL and PLANE model), in "
+                f"{n_cases} cases (k = 5 uint8/uint16 D = 1024, k = 2 uint8/uint16 "
+                f"D = 16, eight near-identical pairs among 408, center and pair "
+                f"forms); an invalid index gives NaN; largest |kernel - plain| "
+                f"{worst:.3g} (singles), {dworst:.3g} (s, dist)")
+    return worst, dworst
+
+
+def plane_model_run(torch_cli, tag: str, name: str, fasta: str, weights: str,
+                    tmp: str, wrappers: dict, launches: dict):
+    """One run of the port's CLI on the card with a plane model: its
+    launches counted from zero into `launches`, checked against
+    NEEDS["plane"] and FORBIDS["plane"], and the scorer alone (no
+    accumulator or updater).  Returns (ClusterRun, CLSTR path)."""
+    out = os.path.join(tmp, f"{tag}_{name}.clstr")
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = torch_cli.run(["--device", "cuda", "--recover", weights, "--output",
+                         out, fasta])
+    counted = {k: fn.launches for k, fn in wrappers.items()}
+    launches[f"{tag}_{name}"] = counted
+    if res.rc != 0:
+        raise AssertionError(f"port CLI exited {res.rc} ({tag} {name})")
+    check_launches("plane", counted)
+    if (res.accumulator is not None or res.updater is not None
+            or res.scorer.engine is None):
+        raise AssertionError(f"{tag} {name}: not the device scorer alone")
+    return res, out
+
+
+def plane_line(res, n_seqs: int, counted: dict) -> str:
+    """A plane-model run's window, re-checks by rule and launches."""
+    sc = res.scorer
+    i, ii, iii = (int(x) for x in sc.rechecked_by_rule)
+    return (f"{window_parts(res.clock.stamps, n_seqs)}; plane store built in "
+            f"{sc.engine.seconds:.3f} s (set-up); scorer pairs {sc.scored_pairs}, "
+            f"re-checked {sc.rechecked_pairs} (rule (i) {i}, (ii) {ii}, (iii) "
+            f"{iii}) in {sc.recheck_seconds:.3f} s on the host; launches {counted}")
+
+
+def plane_model_phase(torch_cli, fasta: str, tmp: str, card: str,
+                      wrappers: dict, launches: dict) -> None:
+    """(e3): the three PLANE_MODELS, each built over `fasta`'s pool at its k
+    (smoke_model), through the port's CLI on the card (the scorer alone),
+    each held against the JAX package's --device host run of the same
+    weights on the same machine, a separate program: the CLSTR byte for
+    byte and the engine counters (both drive the engine's host loops)."""
+    from meshclust2_tpu_torch.model.weights import save_weights
+
+    for name in PLANE_MODELS:
+        k, datatype = (2, "uint16_t") if name == "k2" else (5, "uint8_t")
+        _, ps = torch_cli.load_sorted_points([fasta], [], k, datatype, False,
+                                             keep_seqs_train=False)
+        w = os.path.join(tmp, f"e3_{name}_weights.txt")
+        save_weights(w, smoke_model(ps, name))
+        host_out = os.path.join(tmp, f"e3_{name}_host.clstr")
+        proc = subprocess.run(
+            [sys.executable, "-c", JAX_CLI_COUNTED, "--device", "host",
+             "--recover", w, "--output", host_out, fasta],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"JAX host run (e3 {name}) exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-2000:]}")
+        host_c = tuple(int(x) for x in re.search(
+            r"^counters (\d+) (\d+) (\d+) (\d+)$", proc.stdout, re.M).groups())
+        host_st = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^timestamp (\S+) (\S+)$", proc.stdout, re.M)}
+        res, out = plane_model_run(torch_cli, "e3", name, fasta, w, tmp, wrappers,
+                                   launches)
+        with open(out, "rb") as f, open(host_out, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"e3 {name} CLSTR differs from the JAX "
+                                     f"--device host run")
+        if counters(res) != host_c:
+            raise AssertionError(f"e3 {name} counters {counters(res)} vs the JAX "
+                                 f"host run's {host_c}")
+        phase("e3", f"med2000, {name} model (k = {k}): CLSTR == JAX --device host "
+                    f"byte for byte, counters {host_c}; "
+                    f"{plane_line(res, 2000, launches[f'e3_{name}'])}; JAX --device "
+                    f"host, same file and machine: {window_parts(host_st, 2000)}; "
+                    f"{card}")
+
+
 def fastcar_phase(fasta: str, tmp: str, card: str, wrappers: dict,
                   launches: dict) -> dict:
     """(fc) fastcar on the 10k set `fasta`.  Its default training with
@@ -1072,12 +1400,15 @@ def main() -> int:
         pair_stats_decision, pair_stats_decision_ref, pair_stats_ref)
     from meshclust2_tpu_torch.ops.window_absorb import (
         StepState, step_scratch, window_step, window_step_ref)
+    from meshclust2_tpu_torch.ops.plane_singles import plane_singles, plane_singles_ref
     from meshclust2_tpu_torch.cluster.device_store import DeviceStore
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
 
     wrappers = {"pair_stats": pair_stats, "pair_stats_decision": pair_stats_decision,
                 "closest_mean": closest_mean, "window_absorb": window_step,
-                "pair_stats_decision_full": FullCount()}
+                "pair_stats_decision_full": DecisionCount("full_launches"),
+                "plane_singles": plane_singles,
+                "pair_stats_decision_plane": DecisionCount("plane_launches")}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -1379,6 +1710,10 @@ def main() -> int:
     # numpy host oracle
     full_err = full_kernel_checks(dev, rng)
 
+    # (c6) the plane-singles kernel against its plain version and the port's
+    # numpy host oracle, and the PLANE instantiation of the fused kernel
+    plane_err, plane_dec_err = plane_kernel_checks(dev, rng)
+
     # (d) kernel vs plain version at the main path's shapes: a 10,000-row
     # uint8 store at D = 1,024 (k = 5), center form P = 2,048, pair form
     # P = 98,304 (the largest update batch)
@@ -1605,6 +1940,83 @@ def main() -> int:
                         f"an element at 17 T/s); the fast 10k model here: device "
                         f"{dec_timing[form]['device_us']:.2f} us; {card}")
 
+    # (d5) the plane-singles kernel at the 10k shapes: a pool over the same
+    # random store (one-mers, lengths at random) and its plane store of every
+    # plane single at k = 5; the center form at W = 1,571 (the 10k mean
+    # window) and the pair form at P = 98,304, with the plane singles of the
+    # markov and the plane model, against its plain version and its bound;
+    # then the fused kernel's PLANE instantiation on the same pairs, with a
+    # model over the store's own singles
+    from meshclust2_tpu_torch.model.classifier import PLANE_SINGLES
+    from meshclust2_tpu_torch.ops.device_features import TorchDeviceFeatureEngine
+
+    ps10k = synthetic_pool(store.cpu().numpy(), rng, 5)
+    eng10k = TorchDeviceFeatureEngine(ps10k, plane_flags(5), st10k)
+    phase("d5", f"plane store of the 10k-row pool, 9 plane singles (10 planes of "
+                f"up to 80 MB): built and uploaded in {eng10k.seconds:.3f} s")
+    plane_timing = {}
+    for name in ("markov", "plane"):
+        singles, combos = plane_specs()[name]
+        pflags = [f for f in singles if f in PLANE_SINGLES]
+        a_s, b_s = (t[:2_000] for t in dshapes["pair P=98304"])
+        pv = plane_singles_ref(eng10k.planes, a_s, b_s, pflags)
+        raw = derive_singles(
+            pair_stats_ref(store, a_s, b_s),
+            *(getattr(st10k, m)[i] for m in ("mags", "selfdot", "stddevs")
+              for i in (a_s, b_s)), st10k.lens[a_s], st10k.lens[b_s], 1024,
+            singles, dict(zip(pflags, pv[0]))).cpu().numpy()
+        lo, hi = raw.min(axis=0), raw.max(axis=0)
+        pparams = model_to_torch(CompiledModel(ModelBlock(
+            combos=combos, weights=rng.normal(0.0, 2.0, len(combos) + 1),
+            singles=singles, mins=lo, maxs=np.where(hi > lo, hi, lo + 1.0))), dev)
+        for form in ("center W=1571", "pair P=98304"):
+            a_d, b_d = dshapes[form]
+            got = plane_singles(eng10k.planes, a_d, b_d, pflags)
+            torch.cuda.synchronize()
+            plain = plane_singles_ref(eng10k.planes, a_d, b_d, pflags)
+            if not (torch.isfinite(got).all() and bool(
+                    ((got[0] - plain[0]).abs() <= got[1] + plain[1]).all())):
+                raise AssertionError(f"plane_singles beyond its bounds at the 10k "
+                                     f"shape {form} ({name})")
+            err = float((got[0] - plain[0]).abs().max())
+            k_ms = cuda_ms(lambda: plane_singles(eng10k.planes, a_d, b_d, pflags),
+                           reps=20)
+            p_ms = cuda_ms(lambda: plane_singles_ref(eng10k.planes, a_d, b_d, pflags),
+                           reps=3, warm=1)
+            dev_us = device_us(lambda: plane_singles(eng10k.planes, a_d, b_d, pflags))
+            b_ms, b_by = plane_bound(eng10k.planes, a_d, b_d, pflags, sass)
+            stats, dec = pair_stats_decision(st10k, pparams, a_d, b_d, got)
+            torch.cuda.synchronize()
+            p_stats, p_dec = pair_stats_decision_ref(st10k, pparams, a_d, b_d, got)
+            if not (torch.equal(stats, p_stats)
+                    and bool(((dec[0] - p_dec[0]).abs() <= dec[3] + p_dec[3]).all())
+                    and bool(((dec[2] - p_dec[2]).abs() <= dec[4] + p_dec[4]).all())):
+                raise AssertionError(f"PLANE kernel beyond its bounds at the 10k "
+                                     f"shape {form} ({name})")
+            d_ms = cuda_ms(lambda: pair_stats_decision(st10k, pparams, a_d, b_d, got),
+                           reps=20)
+            dp_ms = cuda_ms(lambda: pair_stats_decision_ref(st10k, pparams, a_d, b_d,
+                                                            got), reps=3, warm=1)
+            d_us = device_us(lambda: pair_stats_decision(st10k, pparams, a_d, b_d, got))
+            db_ms, db_by = decision_bound(store, a_d, b_d, len(singles), len(combos),
+                                          extra_bytes=16 * (len(pflags) + 1) * len(a_d))
+            plane_timing[name, form] = dict(
+                ms=k_ms, plain_ms=p_ms, device_us=dev_us, bound_ms=b_ms, bound_by=b_by,
+                err=err, dec_ms=d_ms, dec_plain_ms=dp_ms, dec_device_us=d_us,
+                dec_bound_ms=db_ms, dec_bound_by=db_by)
+            phase("d5", f"plane_singles {form}, N=10,000 D=1024 uint8, the {name} "
+                        f"model's {len(pflags)} plane singles: kernel {k_ms:.4f} ms, "
+                        f"plain {p_ms:.4f} ms (median, CUDA events); device "
+                        f"{dev_us:.2f} us (CUDA events behind a busy wait); bound "
+                        f"{b_ms:.6f} ms ({b_by}, "
+                        f"{plane_element_ops(pflags, sass, 5):.0f} float64 "
+                        f"instructions an element at 17 T/s); |kernel - plain| "
+                        f"{err:.3g}; then the PLANE decision ({len(singles)} singles, "
+                        f"{len(combos)} combos): kernel {d_ms:.4f} ms, plain "
+                        f"{dp_ms:.4f} ms, device {d_us:.2f} us, bound {db_ms:.6f} ms "
+                        f"({db_by}); {card}")
+    del eng10k, ps10k
+
     def check_accumulator(res, path, want_acc):
         """The default path ran the accumulator: steps, no scorer pairs;
         without aborts, the JAX DeviceAccumulator's counts."""
@@ -1658,6 +2070,11 @@ def main() -> int:
         # (e2) med2000 with the two full-vector models on the three paths
         full_model_phase("e2", torch_cli, os.path.join(FIX, "med2000.fasta"), 2000,
                          tmp, card, wrappers, launches)
+
+        # (e3) med2000 with the three plane models: the scorer alone on the
+        # card, each held byte for byte against the JAX --device host run
+        plane_model_phase(torch_cli, os.path.join(FIX, "med2000.fasta"), tmp, card,
+                          wrappers, launches)
 
         # (f) the 10k bench dataset on each path, each one's launches counted
         # from zero; the default path is the slice's main path
@@ -1759,6 +2176,31 @@ def main() -> int:
         # one run a path
         full_model_phase("f4", torch_cli, fasta, 10_000, tmp, card, wrappers,
                          launches)
+
+        # (f5) the 10k set with the markov and the plane model (their
+        # committed weights): the scorer alone on the card, the signature
+        # against the committed JAX --device host reference (too slow to run
+        # here: its numpy oracle scores every pair)
+        for name in ("markov", "plane"):
+            with gzip.open(os.path.join(FIX, f"bench10k_{name}_ref.clstr.gz"),
+                           "rb") as f, open(ref_path, "wb") as g:
+                g.write(f.read())
+            want_sig = signature(read_clstr(ref_path))
+            res, out = plane_model_run(
+                torch_cli, "f5", name, fasta,
+                os.path.join(FIX, f"bench10k_{name}_weights.txt"), tmp, wrappers,
+                launches)
+            got = read_clstr(out)
+            if signature(got) != want_sig:
+                raise AssertionError(f"10k {name} model signature differs from "
+                                     f"bench10k_{name}_ref ({len(got)} clusters)")
+            if counters(res) != PLANE10K_COUNTERS[name]:
+                raise AssertionError(f"10k {name} model counters {counters(res)} "
+                                     f"!= {PLANE10K_COUNTERS[name]}")
+            phase("f5", f"bench 10k, {name} model: signature == bench10k_{name}_ref "
+                        f"({len(got)} clusters), counters {counters(res)} (the JAX "
+                        f"--device host run's); "
+                        f"{plane_line(res, 10_000, launches[f'f5_{name}'])}; {card}")
 
         # (t) training on the 10k set at the default flags on the card, then
         # clustering it with the trained model: this slice's main path, its
@@ -1942,6 +2384,10 @@ def main() -> int:
     fc_slow, fp_slow = (full_timing["slow", f] for f in ("center W=1571", "pair P=98304"))
     fc_block, fp_block = (full_timing["blockwise", f]
                           for f in ("center W=1571", "pair P=98304"))
+    # the plane kernel and the PLANE instantiation at the same shapes, the
+    # markov and the plane model
+    pc_mk, pp_mk = (plane_timing["markov", f] for f in ("center W=1571", "pair P=98304"))
+    pc_pl, pp_pl = (plane_timing["plane", f] for f in ("center W=1571", "pair P=98304"))
     # launches: each record's path (training, then clustering with the
     # trained model; the last record: fastcar's search, at its largest
     # slice); library_ms: no PyTorch call computes any of these functions
@@ -2036,6 +2482,51 @@ def main() -> int:
         "bound_by": ws_by,
         "library_ms": None,
         "device_us": ws_dev,
+    }, {
+        "name": "plane_singles",
+        "path": "the markov model on the 10k set (f5)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/plane_singles.cu",
+        "replaces": "meshclust2_tpu/ops/device_features.py:278, "
+                    "meshclust2_tpu/ops/device_features.py:306, "
+                    "meshclust2_tpu/ops/device_features.py:332, "
+                    "meshclust2_tpu/ops/device_features.py:344, "
+                    "meshclust2_tpu/ops/device_features.py:395",
+        "launches": launches["f5_markov"]["plane_singles"],
+        "max_abs_err": max([plane_err] + [t["err"] for t in plane_timing.values()]),
+        "ms": pc_mk["ms"],
+        "plain_ms": pc_mk["plain_ms"],
+        "bound_ms": pc_mk["bound_ms"],
+        "bound_by": pc_mk["bound_by"],
+        "library_ms": None,
+        "device_us": pc_mk["device_us"],
+        "pair_ms": pp_mk["ms"],
+        "pair_plain_ms": pp_mk["plain_ms"],
+        "pair_bound_ms": pp_mk["bound_ms"],
+        "pair_device_us": pp_mk["device_us"],
+        "plane_launches": launches["f5_plane"]["plane_singles"],
+        "plane_device_us": pc_pl["device_us"],
+        "plane_bound_ms": pc_pl["bound_ms"],
+        "plane_pair_device_us": pp_pl["device_us"],
+        "plane_pair_bound_ms": pp_pl["bound_ms"],
+    }, {
+        "name": "pair_stats_decision (PLANE)",
+        "path": "the markov model on the 10k set (f5)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
+        "replaces": "meshclust2_tpu/ops/pallas_stats.py:39, "
+                    "meshclust2_tpu/ops/device_features.py:483",
+        "launches": launches["f5_markov"]["pair_stats_decision_plane"],
+        "max_abs_err": plane_dec_err,
+        "ms": pc_mk["dec_ms"],
+        "plain_ms": pc_mk["dec_plain_ms"],
+        "bound_ms": pc_mk["dec_bound_ms"],
+        "bound_by": pc_mk["dec_bound_by"],
+        "library_ms": None,
+        "device_us": pc_mk["dec_device_us"],
+        "pair_ms": pp_mk["dec_ms"],
+        "pair_device_us": pp_mk["dec_device_us"],
+        "pair_bound_ms": pp_mk["dec_bound_ms"],
     }, fc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

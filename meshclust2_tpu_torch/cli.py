@@ -23,13 +23,19 @@ the scorer and the engine's native host argmin.
 The device paths take the singles the pair statistics derive and the
 full-vector ones (the log divergences and the blockwise singles of `--feat
 slow` and `extraslow`: the fused kernel's FULL instantiation).  A model
-with a single that has none (markov, sim_mm, rre_k_r, spearman, d2s, d2*,
-afd, n2r*: `device_features.model_refusal`), and a pool that the kernels
-do not take (uint32/uint64 histograms, or counts outside the exact-integer
-envelope, `device_store.store_refusal`), get no session: they are
-clustered by the engine copy on the port's native host scorer, as the JAX
-CLI's `--device host` clusters them, with one stderr line naming the
-reason.  Training tables come from the host oracle for such a pool, and
+with plane singles (markov, sim_mm, rre_k_r, spearman, d2s, d2*, afd,
+n2r*), which the device loops do not take (`device_features.loop_refusal`,
+as the JAX package's device session refuses them), gets a session with the
+scorer alone: every batch of the engine's host-driven accumulate windows,
+update filter and merge goes through TorchDeviceScorer (the plane-singles
+kernel, then the fused kernel's PLANE instantiation), as the JAX CLI's
+`--device tpu` sends them to its DeviceScorer, with one stderr line.  A
+model with a single that has no device formula at all
+(`device_features.scorer_refusal`) and a pool that the kernels do not take
+(uint32/uint64 histograms, or counts outside the exact-integer envelope,
+`device_store.store_refusal`) get no session: they are clustered by the
+engine copy on the port's native host scorer, as the JAX CLI's `--device
+host` clusters them, with one stderr line naming the reason.  Training tables come from the host oracle for such a pool, and
 for a feature set with singles the statistics do not derive
 (train/device_tables.py:stats_refusal), as in the JAX package.  This is
 routing by input, decided before any device work; a kernel that fails on
@@ -72,7 +78,7 @@ from .kmer.counting import (PointSet, build_point_set, concat_point_sets,
                             find_k, largest_pseudocount, select_datatype)
 from .model.classifier import CompiledModel
 from .model.weights import PredictorModel, load_weights, save_weights
-from .ops.device_features import model_refusal
+from .ops.device_features import loop_refusal, scorer_refusal
 from .runtime import resolve_device
 from .train.device_tables import TableStats
 from .utils.clock import Clock
@@ -234,12 +240,18 @@ def _session(ps: PointSet, model: CompiledModel, device, sim: float
     """The run's device session, or None for a model with singles that have
     no device implementation or a pool that the kernels do not take: that
     one is clustered on the host scorer, and stderr says why, before any
-    device work."""
-    why = model_refusal(model.singles) or store_refusal(ps)
+    device work.  A model that the device loops do not take (plane
+    singles) gets the scorer alone, with one stderr line."""
+    why = scorer_refusal(model.singles) or store_refusal(ps)
     if why is not None:
         print(f"meshclust2-torch: {why}: clustering on the host scorer",
               file=sys.stderr)
         return None
+    why = loop_refusal(model.singles)
+    if why is not None:
+        print(f"meshclust2-torch: {why} in the accumulate loop and update "
+              f"batches: every batch goes through the device scorer",
+              file=sys.stderr)
     session = TorchDeviceSession(
         ps, model, device, sim,
         update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"),

@@ -137,10 +137,10 @@ def _sums(upd: TorchDeviceUpdater, a: np.ndarray, b: np.ndarray):
 class TorchDeviceSearch:
     """The window pairs of one block on the card, over one DeviceStore of
     the block's combined point set.  Raises DeviceLoopUnsupported for a
-    model with a single that has no device implementation, or a pool the
-    store does not take (callers route those by
-    ops/device_features.py:model_refusal and device_store.store_refusal
-    first)."""
+    model that the device loops do not take (plane singles, or a single
+    with no device implementation), or a pool the store does not take
+    (callers route those by ops/device_features.py:loop_refusal and
+    device_store.store_refusal first)."""
 
     def __init__(self, combined: PointSet, model_c: Optional[CompiledModel],
                  model_r: Optional[CompiledModel], device):

@@ -8,7 +8,10 @@ batches (`updater`).  The engine (cluster/engine.py) runs its device
 accumulate loop exactly when `accumulator` is set and its update batches
 when `updater` is.  Without the device loop (the JAX package's
 MC2_NO_DEVICE_LOOP configuration) the accumulate windows go through the
-scorer.
+scorer.  A model with plane singles, which the device loops do not take
+(ops/device_features.py:loop_refusal; the JAX session and DeviceUpdater
+refuse it too), gets the store, the scorer's plane store and the scorer
+only: the engine runs both phases through the scorer.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 
 from ..kmer.counting import PointSet
 from ..model.classifier import CompiledModel
-from ..ops.device_features import TorchDeviceScorer
+from ..ops.device_features import TorchDeviceScorer, loop_refusal
 from .bvec import BVec
 from .device_loop import TorchDeviceAccumulator
 from .device_store import DeviceStore
@@ -38,15 +41,17 @@ class TorchDeviceSession:
         """update_batch=False leaves `updater` None: the engine then runs
         the update phase through the scorer (the JAX package's
         MC2_NO_DEVICE_UPDATE_BATCH configuration).  device_loop=False
-        leaves `accumulator` None (MC2_NO_DEVICE_LOOP)."""
+        leaves `accumulator` None (MC2_NO_DEVICE_LOOP).  Both are None for
+        a model that the device loops do not take."""
         self.store = DeviceStore.from_pointset(ps, torch.device(device))
         self.scorer = TorchDeviceScorer(ps, model, device, store=self.store)
+        loops = loop_refusal(model.singles) is None
         self.updater: Optional[TorchDeviceUpdater] = (
             TorchDeviceUpdater(model, self.store)
-            if update_batch else None)
+            if update_batch and loops else None)
         self.bv: Optional[BVec] = None
         self.accumulator: Optional[TorchDeviceAccumulator] = None
-        if device_loop:
+        if device_loop and loops:
             # the pristine pool, as the engine builds it (engine.py:1148)
             self.bv = BVec(ps.lengths, BIN_SIZE)
             self.bv.insert_all(ps.lengths)

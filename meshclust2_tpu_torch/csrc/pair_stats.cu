@@ -32,6 +32,16 @@
 // order than the plain version's, so its values agree with it within the
 // bounds, not bit for bit; its statistics are the same integers.
 //
+// The PLANE instantiation serves a model with plane singles (markov, sim_mm,
+// rre_k_r, spearman, d2s, d2_star, afd, n2r, n2rc, n2rrc: csrc/
+// plane_singles.cu, launched just before on the same stream): its epilogue
+// reads each such single's value and absolute bound from that kernel's
+// [2, S_p, P] buffer, by the single's rank among the model's plane singles,
+// and propagates the bounds into s_err and dist_err as FULL does.  It takes
+// its pairs one at a time, as FULL, whose full-vector pass it runs too for a
+// model with both (FULL and PLANE), each pair's statistics by the two-pass
+// loop with 64-bit sums.
+//
 // Replaces meshclust2_tpu/ops/pallas_stats.py:_build.kernel, the TPU kernel
 // that streams a [tile_b, D] block of candidate rows against ONE center row
 // and forms the EMD prefix with 128x128 triangular MXU matmuls and a carry,
@@ -112,9 +122,12 @@ constexpr int kWarpSize = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpSize * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
-// the singles the kernel computes (model/classifier.py:SINGLE_CODES): the
-// statistics-derived ones, then the full-vector ones from kJefferey on.  A
-// model's singles are distinct, so it has at most kMaxSingles
+// the singles the kernels compute (model/classifier.py:SINGLE_CODES): the
+// statistics-derived ones, then the full-vector ones from kJefferey on, then
+// the plane singles from kMarkov on (computed by csrc/plane_singles.cu).  A
+// model's singles are distinct, so one without plane singles has at most
+// kMaxSingles, which the one-lane epilogue holds; the PLANE epilogue takes
+// at most a warp's lanes (the wrapper checks)
 constexpr int kMaxSingles = 23;
 static_assert(kMaxSingles <= kWarpSize, "the warp epilogue gives a single a lane");
 enum Single {
@@ -122,6 +135,7 @@ enum Single {
   kNormalizedVectors, kPearson, kD2z, kEuclideanZ, kEmd, kLengthd,
   kJefferey, kJensenShannon, kKDiv, kKlCond, kHellinger, kSqchord, kChi2,
   kCanberra, kKulczynski1, kHarmonic, kMismatch, kJaccard,
+  kMarkov, kSimMm, kRreKR, kSpearman, kD2s, kD2Star, kAfd, kN2r, kN2rc, kN2rrc,
 };
 // a full-vector single's bit in the FULL pass's mask
 __host__ __device__ constexpr unsigned bit(int code) {
@@ -152,6 +166,8 @@ struct Args {
   int n_prm;
   int prm_shared;      // 1: copy prm into shared memory
   double inv_d;        // 1 / d, as PyTorch divides by a host scalar
+  const double* plane; // PLANE: [2, n_plane, P], plane singles' values, bounds
+  int n_plane;
   long long* stats;    // [P, 3]
   double* dec;         // [5, P]: s, prob, dist, s_err, dist_err
 };
@@ -688,9 +704,44 @@ __device__ __forceinline__ void epilogue(const double* __restrict__ prm,
   write_decision(prm, n_c, glm, dist, 0.0, 0.0, out);
 }
 
+// One pair's plane singles from csrc/plane_singles.cu: value j at p[j n],
+// its bound at p[(s + j) n].
+struct PlaneIn {
+  const double* p;
+  long long n;
+  int s;
+  __device__ __forceinline__ double value(int j) const { return p[j * n]; }
+  __device__ __forceinline__ double bound(int j) const { return p[(s + j) * n]; }
+};
+
+// Single k's raw value and absolute bound in the FULL and PLANE epilogues:
+// a plane single from `pl`, by its rank among the model's plane singles; a
+// full-vector single from the warp's sums; any other from the statistics
+// (bound 0).
+template <bool FULL, bool PLANE>
+__device__ __forceinline__ double raw_with_err(const double* prm, int k, const Derived& v,
+                                               const Moments& m, const FullSums& fs,
+                                               const PlaneIn& pl, double d, double inv_d,
+                                               double* err) {
+  const int code = static_cast<int>(prm[kHead + kStride * k]);
+  *err = 0.0;
+  if constexpr (PLANE) {
+    if (code >= kMarkov) {
+      int j = 0;
+      for (int t = 0; t < k; ++t) j += static_cast<int>(prm[kHead + kStride * t]) >= kMarkov;
+      *err = pl.bound(j);
+      return pl.value(j);
+    }
+  }
+  if constexpr (FULL) {
+    if (code >= kJefferey) return full_single(code, fs, m.ma, m.mb, d, inv_d, err);
+  }
+  return single_raw(code, v, m, d);
+}
+
 // The same epilogue of one pair spread over the warp, for a round of one
-// pair (the center form's one pair a warp, and every pair of the FULL
-// pass): lane k normalizes single k, lane j forms combo j and its product
+// pair (the center form's one pair a warp, and every pair of the FULL and
+// PLANE passes): lane k normalizes single k, lane j forms combo j and its product
 // with its weight, and every lane adds the products in combo order from
 // shuffles; lane 0 writes.  Every lane holds the pair's statistics,
 // moments and, with FULL, the full-vector sums.  Without FULL the values
@@ -698,23 +749,23 @@ __device__ __forceinline__ void epilogue(const double* __restrict__ prm,
 // are too, and the bounds are 0.  With FULL, lane k also carries single
 // k's bound over |max - min|, lane j combo j's bound (combo_err) and its
 // product with |w_j|, added in combo order into s_err; dist_err is combo
-// 0's bound (model/classifier.py:decision_errors).
-template <bool FULL>
+// 0's bound (model/classifier.py:decision_errors).  PLANE does the same
+// with the plane singles' bounds.
+template <bool FULL, bool PLANE>
 __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
                                               const long long* st, const Moments& m,
-                                              const FullSums& fs, double d, double inv_d,
-                                              int lane, const Out& out) {
+                                              const FullSums& fs, const PlaneIn& pl, double d,
+                                              double inv_d, int lane, const Out& out) {
+  constexpr bool ERR = FULL || PLANE;
   const int n_s = static_cast<int>(prm[0]);
   const int n_c = static_cast<int>(prm[1]);
   const Derived v = derive(st, m, inv_d);
   double nv = 0.0, ne = 0.0;
   if (lane < n_s) {
-    if constexpr (FULL) {
+    if constexpr (ERR) {
       const double* q = prm + kHead + kStride * lane;
-      const int code = static_cast<int>(q[0]);
       double err = 0.0;
-      const double raw = code >= kJefferey ? full_single(code, fs, m.ma, m.mb, d, inv_d, &err)
-                                           : single_raw(code, v, m, d);
+      const double raw = raw_with_err<FULL, PLANE>(prm, lane, v, m, fs, pl, d, inv_d, &err);
       const double x = __ddiv_rn(__dsub_rn(raw, q[1]), q[2]);
       nv = q[3] != 0.0 ? x : __dsub_rn(1.0, x);
       ne = __ddiv_rn(err, fabs(q[2]));
@@ -740,7 +791,7 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
     const double c = combo_value(kind, x, i1 >= 0 ? y : 1.0, i1 >= 0);
     const double prod = __dmul_rn(c, w);
     double ce = 0.0, pe = 0.0;
-    if constexpr (FULL) {
+    if constexpr (ERR) {
       const double xe = __shfl_sync(kFullMask, ne, i0);
       const double ye = __shfl_sync(kFullMask, ne, i1 >= 0 ? i1 : 0);
       ce = combo_err(kind, x, xe, i1 >= 0 ? y : 1.0, ye, i1 >= 0);
@@ -756,7 +807,7 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
       } else {
         glm = __dadd_rn(glm, pt);
       }
-      if constexpr (FULL) {
+      if constexpr (ERR) {
         const double et = __shfl_sync(kFullMask, pe, t);
         if (cb + t == 0) {
           s_err = et;
@@ -785,10 +836,10 @@ __device__ __forceinline__ Pair pair_at(const Args& args, long long p, bool c_ok
   return q;
 }
 
-// FULL: the pairs one at a time, each pair's statistics (from registers or
-// the loop, as below), its full-vector sums (full_loop) and its epilogue
-// over the warp.
-template <typename T, int NV, bool NARROW>
+// FULL and PLANE: the pairs one at a time, each pair's statistics (from
+// registers or the loop, as below), with FULL its full-vector sums
+// (full_loop), and its epilogue over the warp.
+template <typename T, int NV, bool NARROW, bool FULL, bool PLANE>
 __device__ __forceinline__ void full_pairs(const Args& args, const T* counts, const T* crow,
                                            const Vec16<T>* cn, const double* prm,
                                            long long first, long long last, bool c_ok,
@@ -797,9 +848,11 @@ __device__ __forceinline__ void full_pairs(const Args& args, const T* counts, co
   // the model's full-vector singles, by their bits
   unsigned mask = 0;
   const int n_s = static_cast<int>(prm[0]);
-  for (int k = 0; k < n_s; ++k) {
-    const int code = static_cast<int>(prm[kHead + kStride * k]);
-    if (code >= kJefferey) mask |= bit(code);
+  if constexpr (FULL) {
+    for (int k = 0; k < n_s; ++k) {
+      const int code = static_cast<int>(prm[kHead + kStride * k]);
+      if (code >= kJefferey) mask |= bit(code);   // plane bits match no test
+    }
   }
   for (long long p = first; p < last; ++p) {
     const Pair cur = pair_at(args, p, c_ok);
@@ -833,14 +886,18 @@ __device__ __forceinline__ void full_pairs(const Args& args, const T* counts, co
                       args.stddevs[cur.a], args.stddevs[cur.b],
                       args.lens[cur.a],    args.lens[cur.b]};
     FullSums fs{};
-    full_loop<T>(mask, h, c, d, lane, mom.ma, mom.mb, fs);
-    full_reduce(mask, fs);
+    if constexpr (FULL) {
+      full_loop<T>(mask, h, c, d, lane, mom.ma, mom.mb, fs);
+      full_reduce(mask, fs);
+    }
     if (lane == 0) {
       so[0] = st[0];
       so[1] = st[1];
       so[2] = st[2];
     }
-    epilogue_warp<true>(prm, st, mom, fs, static_cast<double>(d), args.inv_d, lane, out);
+    const PlaneIn pl{args.plane + p, args.n_pairs, args.n_plane};
+    epilogue_warp<FULL, PLANE>(prm, st, mom, fs, pl, static_cast<double>(d), args.inv_d,
+                               lane, out);
   }
 }
 
@@ -851,9 +908,10 @@ __device__ __forceinline__ void full_pairs(const Args& args, const T* counts, co
 // statistics of the round's pair j, then lanes 0..31 run the round's
 // epilogues, their moments loaded before the round's statistics; a round
 // of one pair runs its epilogue over the whole warp (epilogue_warp).  The
-// FULL instantiation takes its pairs through full_pairs instead.
-template <typename T, int NV, bool NARROW, bool FULL>
+// FULL and PLANE instantiations take their pairs through full_pairs instead.
+template <typename T, int NV, bool NARROW, bool FULL, bool PLANE>
 __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args) {
+  constexpr bool ONE_BY_ONE = FULL || PLANE;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % kWarpSize;
   const int warp = threadIdx.x / kWarpSize;
@@ -874,7 +932,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
   constexpr int kNV = NV > 0 ? NV : 1;
   Vec16<T> hn[kNV], cn[kNV];
   Pair next{-1, -1, false};
-  if constexpr (NV > 0 && !FULL) {
+  if constexpr (NV > 0 && !ONE_BY_ONE) {
     if (first < last) {
       next = pair_at(args, first, c_ok);
       if (next.ok) {
@@ -902,7 +960,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
       }
     }
   };
-  if (!FULL && first < last) load_mine(first, last - first == 1);
+  if (!ONE_BY_ONE && first < last) load_mine(first, last - first == 1);
 
   const double* prm = args.prm;
   int used = 0;
@@ -933,8 +991,9 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
   if constexpr (NV > 0) {
     if (args.center && c_ok) load_slice<T, NV>(cn, crow, lane);
   }
-  if constexpr (FULL) {
-    full_pairs<T, NV, NARROW>(args, counts, crow, cn, prm, first, last, c_ok, lane);
+  if constexpr (ONE_BY_ONE) {
+    full_pairs<T, NV, NARROW, FULL, PLANE>(args, counts, crow, cn, prm, first, last, c_ok,
+                                           lane);
     return;
   }
 
@@ -991,8 +1050,8 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
         for (int r = 0; r < 5; ++r) out.write(r, __longlong_as_double(0x7ff8000000000000LL));
       }
     } else if (solo) {   // uniform: every lane holds the one pair
-      epilogue_warp<false>(prm, kept, mom, FullSums{}, static_cast<double>(d), args.inv_d,
-                           lane, out);
+      epilogue_warp<false, false>(prm, kept, mom, FullSums{}, PlaneIn{}, static_cast<double>(d),
+                                  args.inv_d, lane, out);
     } else if (lane < count) {
       epilogue(prm, kept, mom, static_cast<double>(d), args.inv_d, out);
     }
@@ -1027,9 +1086,9 @@ int smem_optin() {
 // Launches one instantiation: G (pairs a warp) so that the grid is at
 // most one wave of the warps the card holds at once, one pair a warp while
 // they suffice.
-template <typename T, int NV, bool NARROW, bool FULL>
+template <typename T, int NV, bool NARROW, bool FULL, bool PLANE>
 int launch_with(Args args, int smem, cudaStream_t st) {
-  auto kern = pair_stats_kernel<T, NV, NARROW, FULL>;
+  auto kern = pair_stats_kernel<T, NV, NARROW, FULL, PLANE>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1053,34 +1112,52 @@ int launch_with(Args args, int smem, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool NARROW, bool FULL>
+template <typename T, bool NARROW, bool FULL, bool PLANE>
 int dispatch(const Args& args, int smem, cudaStream_t st) {
   const int row_bytes = args.d * static_cast<int>(sizeof(T));
   const bool aligned = reinterpret_cast<uintptr_t>(args.counts) % 16 == 0;
   // the register path: at most 32 counts a lane
   if (aligned && row_bytes % (kWarpSize * 16) == 0) {
     const int nv = row_bytes / (kWarpSize * 16);
-    if (nv == 1) return launch_with<T, 1, NARROW, FULL>(args, smem, st);
-    if (nv == 2) return launch_with<T, 2, NARROW, FULL>(args, smem, st);
+    if (nv == 1) return launch_with<T, 1, NARROW, FULL, PLANE>(args, smem, st);
+    if (nv == 2) return launch_with<T, 2, NARROW, FULL, PLANE>(args, smem, st);
     if constexpr (sizeof(T) == 2) {
-      if (nv == 4) return launch_with<T, 4, NARROW, FULL>(args, smem, st);
+      if (nv == 4) return launch_with<T, 4, NARROW, FULL, PLANE>(args, smem, st);
     }
   }
   // 16-byte loads need every lane slice to be whole, aligned vectors
   if (aligned && args.d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0)
-    return launch_with<T, 0, NARROW, FULL>(args, smem, st);
-  return launch_with<T, -1, NARROW, FULL>(args, smem, st);
+    return launch_with<T, 0, NARROW, FULL, PLANE>(args, smem, st);
+  return launch_with<T, -1, NARROW, FULL, PLANE>(args, smem, st);
+}
+
+// The PLANE instantiations take the two-pass loop with 64-bit sums only
+// (exact for any store): their pairs go one at a time anyway, and fewer
+// instantiations keep the build short.
+template <typename T, bool FULL, bool PLANE>
+int dispatch_sums(const Args& args, int narrow, int smem, cudaStream_t st) {
+  if constexpr (PLANE) {
+    const bool aligned = reinterpret_cast<uintptr_t>(args.counts) % 16 == 0;
+    if (aligned && args.d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0)
+      return launch_with<T, 0, false, FULL, true>(args, smem, st);
+    return launch_with<T, -1, false, FULL, true>(args, smem, st);
+  } else {
+    return narrow ? dispatch<T, true, FULL, false>(args, smem, st)
+                  : dispatch<T, false, FULL, false>(args, smem, st);
+  }
 }
 
 template <typename T>
 int launch(const void* counts, long long n_rows, int d, const void* a_idx,
            const void* b_idx, int center, long long n_pairs, const void* mags,
            const void* selfdot, const void* stddevs, const void* lens,
-           const void* prm, int n_prm, double inv_d, int full, int narrow, void* stats,
-           void* dec, void* stream) {
+           const void* prm, int n_prm, double inv_d, int full, int plane,
+           const void* plane_vals, int n_plane, int narrow, void* stats, void* dec,
+           void* stream) {
   if (n_pairs <= 0) return static_cast<int>(cudaSuccess);
   if (d <= 0 || (dec != nullptr && n_prm < kHead) ||
-      (full && (dec == nullptr || d % 4 != 0)))
+      (full && (dec == nullptr || d % 4 != 0)) ||
+      (plane && (dec == nullptr || plane_vals == nullptr || n_plane <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args args{};
   args.counts = counts;
@@ -1097,6 +1174,8 @@ int launch(const void* counts, long long n_rows, int d, const void* a_idx,
   args.prm = static_cast<const double*>(prm);
   args.n_prm = n_prm;
   args.inv_d = inv_d;
+  args.plane = static_cast<const double*>(plane_vals);
+  args.n_plane = n_plane;
   args.stats = static_cast<long long*>(stats);
   args.dec = static_cast<double*>(dec);
   // shared memory: the parameters, then the center row, each where it fits
@@ -1109,11 +1188,11 @@ int launch(const void* counts, long long n_rows, int d, const void* a_idx,
   args.center_shared = center && smem + row_bytes <= limit;
   if (args.center_shared) smem += static_cast<int>(row_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (full)
-    return narrow ? dispatch<T, true, true>(args, smem, st)
-                  : dispatch<T, false, true>(args, smem, st);
-  return narrow ? dispatch<T, true, false>(args, smem, st)
-                : dispatch<T, false, false>(args, smem, st);
+  if (plane)
+    return full ? dispatch_sums<T, true, true>(args, narrow, smem, st)
+                : dispatch_sums<T, false, true>(args, narrow, smem, st);
+  return full ? dispatch_sums<T, true, false>(args, narrow, smem, st)
+              : dispatch_sums<T, false, false>(args, narrow, smem, st);
 }
 
 }  // namespace
@@ -1126,7 +1205,7 @@ int mc2_pair_stats_u8(const void* counts, long long n_rows, int d,
                       long long n_pairs, int narrow, void* stats, void* stream) {
   return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs,
                          nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0, 0,
-                         narrow, stats, nullptr, stream);
+                         0, nullptr, 0, narrow, stats, nullptr, stream);
 }
 
 int mc2_pair_stats_u16(const void* counts, long long n_rows, int d,
@@ -1134,32 +1213,36 @@ int mc2_pair_stats_u16(const void* counts, long long n_rows, int d,
                        long long n_pairs, int narrow, void* stats, void* stream) {
   return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs,
                           nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0.0, 0,
-                          narrow, stats, nullptr, stream);
+                          0, nullptr, 0, narrow, stats, nullptr, stream);
 }
 
 // The statistics and the classifier epilogue: stats [P, 3] int64 and dec
 // [5, P] float64 (s, prob, dist, s_err, dist_err); full = 1 (the model has
-// full-vector singles) launches the FULL instantiation.
+// full-vector singles) launches the FULL instantiation, plane = 1 (it has
+// plane singles, their values and bounds [2, n_plane, P] in plane_vals) the
+// PLANE one.
 int mc2_pair_decision_u8(const void* counts, long long n_rows, int d,
                          const void* a_idx, const void* b_idx, int center,
                          long long n_pairs, const void* mags, const void* selfdot,
                          const void* stddevs, const void* lens, const void* prm,
-                         int n_prm, double inv_d, int full, int narrow, void* stats,
+                         int n_prm, double inv_d, int full, int plane,
+                         const void* plane_vals, int n_plane, int narrow, void* stats,
                          void* dec, void* stream) {
   return launch<uint8_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs, mags,
-                         selfdot, stddevs, lens, prm, n_prm, inv_d, full, narrow,
-                         stats, dec, stream);
+                         selfdot, stddevs, lens, prm, n_prm, inv_d, full, plane,
+                         plane_vals, n_plane, narrow, stats, dec, stream);
 }
 
 int mc2_pair_decision_u16(const void* counts, long long n_rows, int d,
                           const void* a_idx, const void* b_idx, int center,
                           long long n_pairs, const void* mags, const void* selfdot,
                           const void* stddevs, const void* lens, const void* prm,
-                          int n_prm, double inv_d, int full, int narrow, void* stats,
+                          int n_prm, double inv_d, int full, int plane,
+                          const void* plane_vals, int n_plane, int narrow, void* stats,
                           void* dec, void* stream) {
   return launch<uint16_t>(counts, n_rows, d, a_idx, b_idx, center, n_pairs, mags,
-                          selfdot, stddevs, lens, prm, n_prm, inv_d, full, narrow,
-                          stats, dec, stream);
+                          selfdot, stddevs, lens, prm, n_prm, inv_d, full, plane,
+                          plane_vals, n_plane, narrow, stats, dec, stream);
 }
 
 }  // extern "C"

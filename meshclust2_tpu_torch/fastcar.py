@@ -26,9 +26,10 @@ same device (train/device_tables.py), on the host for such a pool and
 for `--feat slow`, whose log divergences the pair statistics do not derive
 (as the JAX package builds them).  The search takes those singles on the
 card (the fused kernel's FULL instantiation, with error bounds on the
-sums); a recovered model with a single that has no device implementation
-(`device_features.model_refusal`) is searched by the host route, with one
-stderr line naming the features.
+sums); a recovered model that the device loops do not take (plane
+singles, as the JAX fastcar's DeviceUpdater refuses them, or a single with
+no device implementation: `device_features.loop_refusal`) is searched by
+the host route, with one stderr line naming the features.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ from .kmer.counting import (PointSet, build_point_set, concat_point_sets,
 from .model.classifier import CompiledModel
 from .model.weights import (PRED_MODE_CLASS, PRED_MODE_REGR, PredictorModel,
                             load_weights, save_weights)
-from .ops.device_features import model_refusal
+from .ops.device_features import loop_refusal
 from .runtime import resolve_device
 
 FEAT_SETS = {"fast": F.PRED_FEAT_FAST, "slow": F.PRED_FEAT_FAST | F.PRED_FEAT_DIV}
@@ -167,7 +168,7 @@ def search(
 ) -> int:
     """One db-chunk x query-chunk block (FC_Runner.cpp:426-471), batched:
     on `device` when the kernels take the block and the models (host_why,
-    the models' `model_refusal`, is None), else by the host route."""
+    the models' `loop_refusal`, is None), else by the host route."""
     from .native import sort_perm
 
     t0 = time.perf_counter()
@@ -367,7 +368,7 @@ def _run(args, device) -> FastcarRun:
 
     model_c = CompiledModel(model.classifier) if model.classifier else None
     model_r = CompiledModel(model.regressor) if model.regressor else None
-    host_why = model_refusal([s for m in (model_c, model_r) if m is not None
+    host_why = loop_refusal([s for m in (model_c, model_r) if m is not None
                               for s in m.singles])
     if host_why is not None:
         print(f"fastcar-torch: {host_why}: searching on the host scorer",

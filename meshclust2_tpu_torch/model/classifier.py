@@ -18,8 +18,9 @@ operation order, with the GLM dot written out in index order.  It is the
 plain version of the epilogue that csrc/pair_stats.cu fuses behind the
 pair statistics; `packed_params` lays the same parameters out for that
 kernel, and `model_to_torch` uploads them once per model.
-`decision_errors`, its error-propagating twin, turns the full-vector
-singles' absolute error bounds into bounds on the GLM sum and on dist.
+`decision_errors`, its error-propagating twin, turns the full-vector and
+plane singles' absolute error bounds into bounds on the GLM sum and on
+dist.
 """
 from __future__ import annotations
 
@@ -135,10 +136,18 @@ VECTOR_SINGLES = (
     F.FEAT_JEFFEREY_DIV, F.FEAT_JENSEN_SHANNON, F.FEAT_K_DIV, F.FEAT_KL_COND,
     F.FEAT_HELLINGER, F.FEAT_SQCHORD, F.FEAT_CHI_SQUARED, F.FEAT_CANBERRA,
     F.FEAT_KULCZYNSKI1, F.FEAT_HARMONIC_MEAN, F.FEAT_MISMATCH, F.FEAT_JACCARD)
-# every single the kernel computes, by its code in the parameter buffer
-# (csrc/pair_stats.cu enum Single)
+# the plane singles: the JAX package's DeviceFeatureEngine planes
+# (meshclust2_tpu/ops/device_features.py:86-132), which neither the
+# statistics nor the full-vector pass give; ops/plane_singles.py computes
+# them with absolute error bounds, and the fused kernel's PLANE epilogue
+# reads them by code
+PLANE_SINGLES = (
+    F.FEAT_MARKOV, F.FEAT_SIM_MM, F.FEAT_RRE_K_R, F.FEAT_SPEARMAN, F.FEAT_D2s,
+    F.FEAT_D2_star, F.FEAT_AFD, F.FEAT_N2R, F.FEAT_N2RC, F.FEAT_N2RRC)
+# every single the kernels compute, by its code in the parameter buffer
+# (csrc/pair_stats.cu and csrc/plane_singles.cu enum Single)
 SINGLE_CODES = {flag: code for code, flag in
-                enumerate(STATS_SINGLES + VECTOR_SINGLES)}
+                enumerate(STATS_SINGLES + VECTOR_SINGLES + PLANE_SINGLES)}
 # the parameter buffer: a head, then 4 float64 a single, then 4 a combo
 PARAM_HEAD = 4
 PARAM_STRIDE = 4
@@ -259,13 +268,14 @@ def _combo_err(z, ze, kind: str, idxs) -> torch.Tensor:
 
 def decision_errors(m: TorchModel, raw: torch.Tensor, err: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[P, S] float64 raw singles and their absolute error bounds -> the
-    first-order bounds (s_err, dist_err) of the GLM sum and of dist, in
-    the order of meshclust2_tpu/cluster/device_loop.py:epilogue_dd: each
-    bound over |max - min| (the flip keeps it), each combo's products,
-    then the GLM sum, |w_j| times combo j's bound in combo order.  The
-    roundings of the epilogue itself are left to the relative margins,
-    as for the statistics-derived singles, whose bounds are 0."""
+    """[P, S] float64 raw singles and their absolute error bounds (those
+    of the full-vector and the plane singles; 0 for the statistics-derived
+    ones) -> the first-order bounds (s_err, dist_err) of the GLM sum and of
+    dist, in the order of meshclust2_tpu/cluster/device_loop.py:
+    epilogue_dd: each bound over |max - min| (the flip keeps it), each
+    combo's products, then the GLM sum, |w_j| times combo j's bound in
+    combo order.  The roundings of the epilogue itself are left to the
+    relative margins, as for the statistics-derived singles."""
     v = (raw - m.mins[None, :]) / (m.maxs - m.mins)[None, :]
     z = torch.where(m.is_sim[None, :], v, 1.0 - v)
     ze = err / (m.maxs - m.mins).abs()[None, :]

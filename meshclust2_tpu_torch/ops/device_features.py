@@ -5,15 +5,22 @@ The counterpart of meshclust2_tpu/ops/device_features.py:DeviceScorer (lines
 row-vs-row, goes through one launch of the fused pair-statistics kernel
 (ops/pair_stats.py:pair_stats_decision: the statistics, the full-vector
 singles where the model has them, `derive_singles` and the classifier
-epilogue in float64 on the device).  Pairs whose decision or ranking the
-device's rounding could change are re-scored by the float64 host oracle
-(`HostScorer`), so clustering decisions equal the host's.
+epilogue in float64 on the device).  A model with plane singles (markov,
+sim_mm, rre_k_r, spearman, d2s, d2*, afd, n2r/n2rc/n2rrc) takes two
+launches a call: `plane_singles` over the per-pool planes of
+`TorchDeviceFeatureEngine` (the counterpart of the JAX
+DeviceFeatureEngine, lines 62-189), then the fused kernel's PLANE
+instantiation.  Pairs whose decision or ranking the device's rounding could
+change are re-scored by the float64 host oracle (`HostScorer`), so
+clustering decisions equal the host's.
 
-The device paths take every single of model/classifier.py:SINGLE_CODES.
-A model with any other (markov, sim_mm, rre_k_r, spearman, d2s, d2*, afd,
-n2r/n2rc/n2rrc: the JAX package's plane singles) is refused by
-`check_fused`; the CLI and fastcar send it to the host scorer first
-(`model_refusal`).
+The scorer takes every single of model/classifier.py:SINGLE_CODES
+(`scorer_refusal`); afd needs k = 2 and raises otherwise, as on the host.
+The device loops (the accumulator, the updater and fastcar's search) take
+the statistics-derived and full-vector singles only (`loop_refusal`), as
+the JAX package's device loops and DeviceUpdater refuse the plane singles:
+the CLI runs a plane model through this scorer alone, and fastcar sends it
+to its host route.
 
 MeanShiftEngine (cluster/engine.py) runs its device accumulate loop and
 updater exactly when its session holds them; the scorer serves the
@@ -21,6 +28,7 @@ engine's host-driven loops.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,14 +37,20 @@ import torch
 from ..cluster.device_store import DeviceStore
 from ..cluster.engine import HostScorer
 from ..features import flags as F
+from ..features import host as H
 from ..kmer.counting import PointSet
-from ..model.classifier import SINGLE_CODES, CompiledModel, model_to_torch
+from ..model.classifier import (PLANE_SINGLES, SINGLE_CODES, STATS_SINGLES,
+                                VECTOR_SINGLES, CompiledModel, model_to_torch)
 from .pair_stats import pair_stats_decision
+from .plane_singles import NEEDS, Planes, plane_singles
 
-# the singles the device paths compute: those the kernel derives from its
-# (sum-min, dot, EMD) plus per-row moments, and the full-vector ones it sums
-# over the two rows (meshclust2_tpu/cluster/device_loop.py:57-82)
-DEVICE_SINGLES = frozenset(SINGLE_CODES)
+# the singles the scorer computes: those the fused kernel derives from its
+# (sum-min, dot, EMD) plus per-row moments, the full-vector ones it sums
+# over the two rows, and the plane singles
+SCORER_SINGLES = frozenset(SINGLE_CODES)
+# the singles the device loops compute: the plane singles left out
+# (meshclust2_tpu/cluster/device_loop.py:57-82)
+LOOP_SINGLES = frozenset(STATS_SINGLES + VECTOR_SINGLES)
 
 # (i) decisions closer than this to a rounding threshold (round(prob) at
 # 0.5 / 1.5) are re-checked, as in the JAX DeviceScorer
@@ -58,70 +72,180 @@ DIST_REL_BAND = 1e-4
 DIST_TIE_BAND = 1e-9
 
 
-def model_refusal(singles) -> Optional[str]:
-    """Why the device paths do not take a model with these singles (it has
-    singles without a device implementation), or None when they do."""
-    bad = set(singles) - DEVICE_SINGLES
+def _refusal(singles, taken) -> Optional[str]:
+    bad = set(singles) - taken
     if not bad:
         return None
     names = sorted(F.FEAT_NAMES.get(s, hex(s)) for s in bad)
     return f"features {names} have no device implementation"
 
 
+def scorer_refusal(singles) -> Optional[str]:
+    """Why the device scorer does not take a model with these singles
+    (singles it has no formula for, such as align), or None when it does."""
+    return _refusal(singles, SCORER_SINGLES)
+
+
+def loop_refusal(singles) -> Optional[str]:
+    """Why the device loops (the accumulator, the updater, fastcar's search)
+    do not take a model with these singles (plane singles or singles
+    without any device implementation), or None when they do."""
+    return _refusal(singles, LOOP_SINGLES)
+
+
 def check_fused(singles) -> None:
-    """Raise DeviceLoopUnsupported for a model with a single that has no
-    device implementation (`model_refusal`)."""
+    """Raise DeviceLoopUnsupported for a model that the device loops do not
+    take (`loop_refusal`)."""
     # imported here: device_loop imports this module
     from ..cluster.device_loop import DeviceLoopUnsupported
 
-    why = model_refusal(singles)
+    why = loop_refusal(singles)
     if why is not None:
         raise DeviceLoopUnsupported(why)
 
 
-def recheck_mask(prob: np.ndarray, dist: np.ndarray, s_err: np.ndarray,
-                 dist_err: np.ndarray) -> np.ndarray:
-    """Pairs of one scoring call whose decision or rank needs the exact
-    float64 oracle: rules (i), (ii) and (iii) above, with the bounds s_err
-    and dist_err: rule (i)'s band is at least 8 s_err (prob moves by at
-    most a quarter of s's error), rule (ii)'s at least 8 (dist_err + the
-    maximum's dist_err) and rule (iii)'s at least 8 times the two
-    neighbours' dist_err."""
-    mask = np.abs(prob - np.floor(prob) - 0.5) < np.maximum(PROB_MARGIN, 8 * s_err)
+def check_scorer(singles, k: int) -> None:
+    """Raise DeviceLoopUnsupported for a model that the scorer does not take
+    (`scorer_refusal`), and ValueError for afd at k != 2, as the host oracle
+    raises (features/host.py:afd)."""
+    from ..cluster.device_loop import DeviceLoopUnsupported
+
+    why = scorer_refusal(singles)
+    if why is not None:
+        raise DeviceLoopUnsupported(why)
+    if F.FEAT_AFD in singles and k != 2:
+        raise ValueError("AFD requires k == 2")
+
+
+class TorchDeviceFeatureEngine:
+    """The plane store of one pool: the per-row planes that the model's
+    plane singles read (ops/plane_singles.py:NEEDS), built on the host in
+    float64 with the port's own host formulas (features/host.py: tiedrank,
+    _expected_counts, markov, n2_z), in row chunks, and uploaded once.
+    Each entry is, bit for bit, the intermediate the host oracle forms for
+    that row in a pair batch.  The counterpart of
+    meshclust2_tpu/ops/device_features.py:DeviceFeatureEngine.__init__
+    (lines 86-132) and _n2_plane (lines 174-189), which keep float32 copies.
+    `seconds` is the build's host time, upload included."""
+
+    # rows per host step: _expected_counts makes a [rows, D, k] float64
+    # temporary
+    ROW_CHUNK = 1024
+
+    def __init__(self, ps: PointSet, singles, store: DeviceStore):
+        t0 = time.perf_counter()
+        self.flags = tuple(s for s in singles if s in PLANE_SINGLES)
+        device = store.counts.device
+        d = ps.dim
+        names = set().union(*(NEEDS[f] for f in self.flags))
+        shapes = {"log_counts": (d,), "log_groups": (d // 4,), "markov_self": (),
+                  "rank_dev": (d,), "rank_ss": (), "h": (d,), "n2r": (d,),
+                  "n2rc": (d,), "n2rrc": (d,)}
+        host = {name: np.empty((ps.n,) + shapes[name]) for name in names}
+        n2_flags = {"n2r": F.FEAT_N2R, "n2rc": F.FEAT_N2RC, "n2rrc": F.FEAT_N2RRC}
+        for s in range(0, ps.n, self.ROW_CHUNK):
+            rows = np.arange(s, min(ps.n, s + self.ROW_CHUNK))
+            side = H.side_from_pointset(ps, rows)
+            c = side.counts
+            if "log_counts" in names:
+                host["log_counts"][rows] = np.log(c)
+                host["log_groups"][rows] = np.log(
+                    c.reshape(len(rows), d // 4, 4).sum(axis=2))
+            if "markov_self" in names:
+                host["markov_self"][rows] = H.markov(side, side)
+            if "rank_dev" in names:
+                dev = H.tiedrank(c) - (d + 1) / 2.0
+                host["rank_dev"][rows] = dev
+                host["rank_ss"][rows] = (dev * dev).sum(axis=1)
+            if "h" in names:
+                host["h"][rows] = c - H._expected_counts(side)[0]
+            for name, flag in n2_flags.items():
+                if name in names:
+                    host[name][rows] = H.n2_z(H.n2_vector(flag, c, ps.k))
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(device)
+
+        self.planes = Planes(
+            counts=store.counts, mags=store.mags, real_mags=up(ps.mags - d),
+            one_mers=up(ps.one_mers), k=ps.k,
+            **{name: up(a) for name, a in host.items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.seconds = time.perf_counter() - t0
+
+
+def recheck_rules(prob: np.ndarray, dist: np.ndarray, s_err: np.ndarray,
+                  dist_err: np.ndarray, margin: float = 0.0):
+    """The pairs of one scoring call that each of rules (i), (ii) and (iii)
+    above sends to the exact float64 oracle, as three masks, with the
+    bounds s_err and dist_err: rule (i)'s band is at least 8 s_err (prob
+    moves by at most a quarter of s's error), rule (ii)'s at least 8
+    (dist_err + the maximum's dist_err) and rule (iii)'s at least 8 times
+    the two neighbours' dist_err.  `margin` (the scorer's MC2_DD_MARGIN,
+    cluster/device_loop.py:resolve_margins) widens rule (i)'s band to at
+    least itself and rule (ii)'s to at least itself times the scale: a
+    forced wide margin sends more pairs to the oracle, and the default
+    1e-8 lies below both constants."""
+    near_edge = np.abs(prob - np.floor(prob) - 0.5) < np.maximum(
+        max(PROB_MARGIN, margin), 8 * s_err)
+    near_max = np.zeros(len(dist), dtype=bool)
+    tied = np.zeros(len(dist), dtype=bool)
     if len(dist):
         m = dist.max()
         scale = max(abs(m), 1.0)
-        rel = np.maximum(DIST_REL_BAND * scale,
+        rel = np.maximum(max(DIST_REL_BAND, margin) * scale,
                          8 * (dist_err + dist_err[np.argmax(dist)]))
         order = np.argsort(dist, kind="stable")
         tie_band = np.maximum(DIST_TIE_BAND * scale,
                               8 * (dist_err[order[1:]] + dist_err[order[:-1]]))
-        mask |= dist >= m - rel
+        near_max = dist >= m - rel
         tie = np.diff(dist[order]) <= tie_band
-        mask[order[1:][tie]] = True
-        mask[order[:-1][tie]] = True
-    return mask
+        tied[order[1:][tie]] = True
+        tied[order[:-1][tie]] = True
+    return near_edge, near_max, tied
+
+
+def recheck_mask(prob: np.ndarray, dist: np.ndarray, s_err: np.ndarray,
+                 dist_err: np.ndarray, margin: float = 0.0) -> np.ndarray:
+    """The pairs of one scoring call that any rule sends to the oracle
+    (`recheck_rules`)."""
+    near_edge, near_max, tied = recheck_rules(prob, dist, s_err, dist_err, margin)
+    return near_edge | near_max | tied
 
 
 class TorchDeviceScorer:
     """Scorer protocol (cluster/engine.py:Scorer) over the pair-statistics
-    kernel, with float64 host re-checks of borderline pairs."""
+    kernel (and, for a model with plane singles, the plane-singles kernel
+    over the pool's planes, `engine`), with float64 host re-checks of
+    borderline pairs."""
 
     def __init__(self, ps: PointSet, model: CompiledModel, device,
                  store: Optional[DeviceStore] = None):
-        check_fused(model.singles)
+        check_scorer(model.singles, ps.k)
         self.ps = ps
         self.model = model
         self.device = torch.device(device)
         self.store = (DeviceStore.from_pointset(ps, self.device)
                       if store is None else store)
         self.params = model_to_torch(model, self.device)
+        self.engine: Optional[TorchDeviceFeatureEngine] = None
+        if any(s in PLANE_SINGLES for s in model.singles):
+            self.engine = TorchDeviceFeatureEngine(ps, model.singles, self.store)
+        # imported here: device_loop imports this module
+        from ..cluster.device_loop import resolve_margins
+
+        self.margin = resolve_margins(None, None)[0]
         self._host = HostScorer(ps, model)
         self.scored_pairs = 0
         self.rechecked_pairs = 0
+        # pairs each of rules (i), (ii), (iii) sent to the oracle (a pair
+        # may count under several), and the host seconds of the re-checks
+        self.rechecked_by_rule = np.zeros(3, dtype=np.int64)
+        self.recheck_seconds = 0.0
 
     def warm_up(self) -> None:
-        """Build the kernel and run it once, so that a timed window that
+        """Build the kernels and run them once, so that a timed window that
         follows holds scoring only."""
         self._device_decision(np.zeros(1, np.int64), np.zeros(1, np.int64))
         if self.device.type == "cuda":
@@ -130,10 +254,13 @@ class TorchDeviceScorer:
     def _device_decision(self, a: np.ndarray, b: np.ndarray):
         """(prob, dist, s_err, dist_err) of the pairs (a[p], b[p]), b of
         length 1 for one center, in one upload and one read-back; the
-        bounds are 0 for a model without full-vector singles."""
+        bounds are 0 for a model without full-vector or plane singles."""
         idx = torch.from_numpy(np.concatenate([a, b])).to(self.device)
-        _, dec = pair_stats_decision(self.store, self.params, idx[:len(a)],
-                                     idx[len(a):])
+        a_t, b_t = idx[:len(a)], idx[len(a):]
+        plane = None
+        if self.engine is not None:
+            plane = plane_singles(self.engine.planes, a_t, b_t, self.engine.flags)
+        _, dec = pair_stats_decision(self.store, self.params, a_t, b_t, plane)
         got = dec[1:].cpu().numpy()
         return got[0], got[1], got[2], got[3]
 
@@ -159,10 +286,14 @@ class TorchDeviceScorer:
         prob, dist, s_err, dist_err = self._device_decision(
             a, b if b_dev is None else b_dev)
         self.scored_pairs += len(a)
-        idx = np.nonzero(recheck_mask(prob, dist, s_err, dist_err))[0]
+        rules = recheck_rules(prob, dist, s_err, dist_err, self.margin)
+        self.rechecked_by_rule += [int(r.sum()) for r in rules]
+        idx = np.nonzero(rules[0] | rules[1] | rules[2])[0]
         if len(idx):
             self.rechecked_pairs += len(idx)
+            t0 = time.perf_counter()
             p2, d2 = self._host.score(a[idx], b[idx])
+            self.recheck_seconds += time.perf_counter() - t0
             prob[idx] = p2
             dist[idx] = d2
         return prob, dist

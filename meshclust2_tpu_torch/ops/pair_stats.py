@@ -22,7 +22,12 @@ tests hold against the JAX package:
   block_singles_stats) launches the kernel's FULL instantiation, which
   sums their terms over the two rows in the same pass and also returns
   absolute error bounds on s and dist (model/classifier.py:
-  decision_errors); every other model's bounds are 0.
+  decision_errors); a model with plane singles (markov, sim_mm, rre_k_r,
+  spearman, d2s, d2_star, afd, n2r/n2rc/n2rrc: ops/plane_singles.py) takes
+  their values and bounds from `plane_singles` (`plane=`) and launches the
+  PLANE instantiation, which reads them by code in the same epilogue and
+  propagates their bounds as FULL does (FULL and PLANE together for a
+  model with both); every other model's bounds are 0.
 
 A `b_idx` of length 1 is the center form: every pair's second row is
 b_idx[0].
@@ -35,8 +40,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..features import flags as F
-from ..model.classifier import (SINGLE_CODES, VECTOR_SINGLES, TorchModel,
-                                decision_errors, decision_from_raw)
+from ..model.classifier import (PLANE_SINGLES, SINGLE_CODES, VECTOR_SINGLES,
+                                TorchModel, decision_errors, decision_from_raw)
 
 N_STATS = 3
 # rows of the plain version's int64 temporaries per step (bounds its memory
@@ -57,7 +62,7 @@ def _kernel(name: str, dtype: torch.dtype):
             fn.argtypes = head + [i32, p, p]
         else:
             fn.argtypes = head + [p, p, p, p, p, i32, ctypes.c_double, i32,
-                                  i32, p, p, p]
+                                  i32, p, i32, i32, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -341,7 +346,7 @@ def derive_singles(stats: torch.Tensor, mags_a, mags_b, self_a, self_b,
     return torch.stack(out, dim=1)
 
 
-def _check_decision(store, params: TorchModel, a_idx, b_idx):
+def _check_decision(store, params: TorchModel, a_idx, b_idx, plane):
     _check(store.counts, a_idx, b_idx)
     n = store.counts.shape[0]
     for name in ("mags", "selfdot", "stddevs", "lens"):
@@ -365,11 +370,29 @@ def _check_decision(store, params: TorchModel, a_idx, b_idx):
     if has_vector(params) and store.counts.shape[1] % 4:
         raise ValueError(f"D = {store.counts.shape[1]} is no multiple of 4 "
                          f"(kl_cond's groups)")
+    n_plane = sum(s in PLANE_SINGLES for s in params.singles)
+    if n_plane and len(params.singles) > MAX_PLANE_MODEL_SINGLES:
+        raise ValueError(f"{len(params.singles)} singles: the PLANE epilogue "
+                         f"takes at most {MAX_PLANE_MODEL_SINGLES}")
+    want = (2, n_plane, len(a_idx))
+    if plane is None and n_plane:
+        raise ValueError("a model with plane singles needs their values "
+                         "(plane=, ops/plane_singles.py)")
+    if plane is not None and (
+            plane.dtype != torch.float64 or tuple(plane.shape) != want
+            or plane.device != store.counts.device or not plane.is_contiguous()):
+        raise ValueError(f"plane must be contiguous float64 {want} on "
+                         f"{store.counts.device}, got {plane.dtype} "
+                         f"{tuple(plane.shape)}")
 
 
 def has_vector(params: TorchModel) -> bool:
     """Whether the model has a full-vector single (the FULL kernel)."""
     return any(s in VECTOR_SINGLES for s in params.singles)
+
+
+# the PLANE epilogue gives each single of the model a lane of a warp
+MAX_PLANE_MODEL_SINGLES = 32
 
 
 def _decision_out(n_pairs: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -381,23 +404,30 @@ def _decision_out(n_pairs: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def pair_stats_decision_ref(store, params: TorchModel, a_idx: torch.Tensor,
-                            b_idx: torch.Tensor
+                            b_idx: torch.Tensor,
+                            plane: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain sequence: `pair_stats_ref`, the moments gathered,
-    `vector_singles_ref` for a model that has full-vector singles,
-    `derive_singles`, `decision_from_raw` and `decision_errors` (0 without
-    full-vector singles)."""
+    `vector_singles_ref` for a model that has full-vector singles, the
+    plane singles' values from `plane`, `derive_singles`,
+    `decision_from_raw` and `decision_errors` (0 without full-vector or
+    plane singles)."""
     stats, dec = _decision_out(len(a_idx), store.counts.device)
     if not len(a_idx):
         return stats, dec
     b_idx = _pairs(a_idx, b_idx)
     stats.copy_(pair_stats_ref(store.counts, a_idx, b_idx))
     vflags = [s for s in params.singles if s in VECTOR_SINGLES]
-    vector = {}
+    pflags = [s for s in params.singles if s in PLANE_SINGLES]
+    vector, bounds = {}, {}
     if vflags:
         vals, errs = vector_singles_ref(store.counts, a_idx, b_idx, store.mags,
                                         vflags)
         vector = dict(zip(vflags, vals.T))
+        bounds = dict(zip(vflags, errs.T))
+    if pflags:
+        vector.update(zip(pflags, plane[0]))
+        bounds.update(zip(pflags, plane[1]))
     raw = derive_singles(
         stats, store.mags[a_idx], store.mags[b_idx], store.selfdot[a_idx],
         store.selfdot[b_idx], store.stddevs[a_idx], store.stddevs[b_idx],
@@ -405,11 +435,11 @@ def pair_stats_decision_ref(store, params: TorchModel, a_idx: torch.Tensor,
         params.singles, vector)
     for row, v in zip(dec, decision_from_raw(params, raw)):
         row.copy_(v)
-    if vflags:
+    if bounds:
         err = torch.zeros_like(raw)
         for j, flag in enumerate(params.singles):
-            if flag in vector:
-                err[:, j] = errs[:, vflags.index(flag)]
+            if flag in bounds:
+                err[:, j] = bounds[flag]
         for row, v in zip(dec[3:], decision_errors(params, raw, err)):
             row.copy_(v)
     else:
@@ -418,7 +448,8 @@ def pair_stats_decision_ref(store, params: TorchModel, a_idx: torch.Tensor,
 
 
 def pair_stats_decision(store, params: TorchModel, a_idx: torch.Tensor,
-                        b_idx: torch.Tensor
+                        b_idx: torch.Tensor,
+                        plane: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pair statistics and the classifier's decision values of the pairs
     (store.counts[a_idx[p]], store.counts[b_idx[p]]) (b_idx [1]: the center
@@ -426,28 +457,35 @@ def pair_stats_decision(store, params: TorchModel, a_idx: torch.Tensor,
     stddevs, lens, maxc) and `params` from model_to_torch: (int64 stats
     [P, 3], float64 dec [5, P] = (GLM sum, prob, dist, s_err, dist_err)),
     views of one buffer.  s_err and dist_err bound |s - the host's| and
-    |dist - the host's| for a model with full-vector singles; 0 for any
-    other.
+    |dist - the host's| for a model with full-vector or plane singles; 0
+    for any other.  A model with plane singles needs `plane`, float64
+    [2, S_p, P] from ops/plane_singles.py:plane_singles for its S_p plane
+    singles in model order.
 
     On CUDA one launch on the current stream, without syncing; an index
     outside [0, N) gives -1 statistics and NaN decisions."""
-    _check_decision(store, params, a_idx, b_idx)
+    _check_decision(store, params, a_idx, b_idx, plane)
     counts = store.counts
     if counts.device.type == "cpu":
-        return pair_stats_decision_ref(store, params, a_idx, b_idx)
+        return pair_stats_decision_ref(store, params, a_idx, b_idx, plane)
     stats, dec = _decision_out(len(a_idx), counts.device)
     if len(a_idx) == 0:
         return stats, dec
     pk = params.packed
+    full, with_plane = int(has_vector(params)), int(plane is not None)
     extra = (store.mags.data_ptr(), store.selfdot.data_ptr(),
              store.stddevs.data_ptr(), store.lens.data_ptr(), pk.data_ptr(),
-             pk.numel(), 1.0 / counts.shape[1], int(has_vector(params)))
+             pk.numel(), 1.0 / counts.shape[1], full, with_plane,
+             plane.data_ptr() if with_plane else None,
+             plane.shape[1] if with_plane else 0)
     _launch("pair_decision", counts, a_idx, b_idx, store.maxc, extra,
             (stats, dec))
     pair_stats_decision.launches += 1
-    pair_stats_decision.full_launches += extra[-1]
+    pair_stats_decision.full_launches += full
+    pair_stats_decision.plane_launches += with_plane
     return stats, dec
 
 
 pair_stats_decision.launches = 0  # kernel launches since the last reset
 pair_stats_decision.full_launches = 0  # of them, of the FULL instantiation
+pair_stats_decision.plane_launches = 0  # of them, of the PLANE instantiation

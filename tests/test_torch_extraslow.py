@@ -13,8 +13,9 @@ device implementation is clustered on the host scorer with one stderr line;
   MC2_DD_MARGIN=3e-3; the default path's counters equal the JAX forced
   device session's on small.fasta.
 - The blockwise model with spearman in place of mismatch (the JAX test's
-  host-bound case): rc 0, stderr names spearman and "no device
-  implementation", the CLSTR the JAX host run's.
+  host-bound case; full-vector and plane singles together): rc 0, a
+  session with the device scorer alone, stderr names spearman and the
+  device scorer, the CLSTR the JAX host run's.
 - --feat extraslow training at k = 2 (AFD, in the set, needs k = 2 in the
   JAX package too): weights byte for byte the JAX --device host training's.
 """
@@ -77,7 +78,7 @@ def third_model(ps, sim=0.9):
 
 def spearman_model(ps):
     """The JAX test's host-bound case: the blockwise model with spearman
-    in place of mismatch."""
+    in place of mismatch (the fused kernel's FULL and PLANE epilogue)."""
     from meshclust2_tpu.features import flags as F
 
     model = jax_tests_module("test_device_extraslow")._extraslow_model(ps)
@@ -141,9 +142,12 @@ def test_spearman_model_clusters_on_the_host_scorer(tmp_path, monkeypatch,
     err = capsys.readouterr().err
     lines = [ln for ln in err.splitlines() if "no device implementation" in ln]
     assert len(lines) == 1 and "spearman" in lines[0], err
+    assert "device scorer" in lines[0] and "host scorer" not in err
     assert res.accumulator is None and res.updater is None
-    # the native scorer has no spearman: the engine's float64 host scorer
-    assert type(res.scorer).__name__ == "HostScorer"
+    # the device scorer, its plane store holding spearman's planes
+    assert type(res.scorer).__name__ == "TorchDeviceScorer"
+    assert res.scorer.engine.planes.rank_dev is not None
+    assert res.scorer.scored_pairs > 0
     assert got == want
 
 
