@@ -818,9 +818,12 @@ def full_kernel_checks(dev, rng) -> float:
         forms = {"pair": (a, np.concatenate([np.arange(8, 16),
                                               rng.integers(0, n, 400)])),
                  "center": (a, np.full(len(a), 8))}
+        if d == 1024:   # one pair, and a window no multiple of the split
+            forms.update({"center W=1": (a[:1], np.full(1, 8)),
+                          "center W=37": (a[:37], np.full(37, 8))})
         for form, (a_np, b_np) in forms.items():
             a_d = up(a_np)
-            b_d = up(b_np[:1] if form == "center" else b_np)
+            b_d = up(b_np[:1] if form.startswith("center") else b_np)
             A, B = side(counts, mags, a_np), side(counts, mags, b_np)
             models = {H_name: probe(f) for f, H_name in
                       ((f, F.FEAT_NAMES[f]) for f in VECTOR_SINGLES)}
@@ -858,13 +861,23 @@ def full_kernel_checks(dev, rng) -> float:
                     raise AssertionError(f"FULL kernel beyond its bound of the "
                                          f"host oracle: {what}")
                 n_cases += 1
+        # an index outside the store: -1 statistics and NaN decisions
+        stats, dec = pair_stats_decision(st, models["slow"], up(np.array([3, n, 4])),
+                                         up(np.array([9, 10, -1])))
+        _, bad = pair_stats_decision(st, models["slow"], up(np.array([3])),
+                                     up(np.array([n])))
+        torch.cuda.synchronize()
+        if not (bool((stats[1:] == -1).all()) and bool(torch.isnan(dec[:, 1:]).all())
+                and bool(torch.isfinite(dec[:, 0]).all()) and bool(torch.isnan(bad).all())):
+            raise AssertionError(f"FULL kernel at an invalid index: {stats}, {dec}")
     phase("c5", f"pair_stats_decision FULL kernel: statistics == plain bit for bit, "
                 f"each of the 12 full-vector singles (probe models) and s, dist of "
                 f"the slow and blockwise models within their bounds of the plain "
                 f"version and of the numpy host oracle, in {n_cases} cases "
                 f"(uint8 D 16/512/1024/4096, uint16 D 16/256/1024, eight "
-                f"near-identical pairs among 408, center and pair forms); "
-                f"largest |kernel - plain| {worst:.3g}")
+                f"near-identical pairs among 408, center and pair forms, at D = "
+                f"1024 also a center window of 1 and of 37 pairs); an invalid "
+                f"index gives -1 and NaN; largest |kernel - plain| {worst:.3g}")
     return worst
 
 
@@ -1001,17 +1014,21 @@ def plane_element_ops(flags, c: dict, k: int) -> float:
 
 def plane_bound(planes, a, b, flags, c: dict):
     """The plane kernel's least time: each referenced row's plane rows that
-    `flags` read, its counts and scalars read once, the indices read and
-    [2, S, P] float64 written, at HBM_BYTES_PER_S; or its float64
-    instructions (plane_element_ops) at F64_INSTR_PER_S, each element of
-    each pair once; the larger."""
+    `flags` read, its counts and scalars read once, the log tables read
+    once, the indices read and [2, S, P] float64 written, at
+    HBM_BYTES_PER_S; or its float64 instructions (plane_element_ops) at
+    F64_INSTR_PER_S, each element of each pair once; the larger."""
     from meshclust2_tpu_torch.ops.plane_singles import NEEDS
 
     rows = int(torch_unique(a, b))
+    n = planes.counts.shape[0]
     names = set().union(*(NEEDS[f] for f in flags))
     per_row = (planes.counts.shape[1] * planes.counts.element_size() + 7 * 8
-               + sum(getattr(planes, n)[0].numel() * 8 for n in names))
-    nbytes = rows * per_row + tbytes(a, b) + 16 * len(flags) * len(a)
+               + sum(getattr(planes, m)[0].numel() * getattr(planes, m).element_size()
+                     for m in names if getattr(planes, m).shape[0] == n))
+    tables = sum(tbytes(getattr(planes, m)) for m in names
+                 if getattr(planes, m).shape[0] != n)
+    nbytes = rows * per_row + tables + tbytes(a, b) + 16 * len(flags) * len(a)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (plane_element_ops(flags, c, planes.k) * len(a)
              * planes.counts.shape[1] / F64_INSTR_PER_S * 1e3)
@@ -1060,7 +1077,7 @@ def plane_kernel_checks(dev, rng) -> float:
 
     worst, dworst, n_cases = 0.0, 0.0, 0
     for k, dtype, high in ((5, np.uint8, 60), (5, np.uint16, 1000),
-                           (2, np.uint8, 60), (2, np.uint16, 1000)):
+                           (2, np.uint8, 60), (2, np.uint16, 1000), (6, np.uint8, 60)):
         n, d = 300, 4 ** k
         counts = rng.integers(1, high, (n, d))
         counts[8:16] = counts[:8]
@@ -1069,13 +1086,16 @@ def plane_kernel_checks(dev, rng) -> float:
         store = DeviceStore.from_pointset(ps, dev)
         flags = plane_flags(k)
         eng = TorchDeviceFeatureEngine(ps, flags, store)
-        a = np.concatenate([np.arange(8), rng.integers(0, n, 400)])
+        a_all = np.concatenate([np.arange(8), rng.integers(0, n, 400)])
         forms = {"pair": np.concatenate([np.arange(8, 16), rng.integers(0, n, 400)]),
-                 "center": np.full(len(a), 8)}
+                 "center": np.full(len(a_all), 8)}
+        if k == 5:   # one pair, and a window no multiple of the split
+            forms.update({"center W=1": np.full(1, 8), "center W=37": np.full(37, 8)})
         for form, b in forms.items():
             what = f"k={k} {np.dtype(dtype).name} {form} form"
+            a = a_all[:len(b)]
             a_d = torch.from_numpy(a).to(dev)
-            b_d = torch.from_numpy(b[:1] if form == "center" else b).to(dev)
+            b_d = torch.from_numpy(b[:1] if form.startswith("center") else b).to(dev)
             got = plane_singles(eng.planes, a_d, b_d, flags)
             torch.cuda.synchronize()
             plain = plane_singles_ref(eng.planes, a_d, b_d, flags)
@@ -1113,8 +1133,12 @@ def plane_kernel_checks(dev, rng) -> float:
                 for r, e in ((0, 3), (2, 4)):
                     if not ((np.abs(kd[r] - pd[r]) <= kd[e] + pd[e]).all()
                             and (np.abs(kd[r] - want[r]) <= kd[e]).all()):
-                        raise AssertionError(f"PLANE kernel beyond its bounds "
-                                             f"(row {r}): {what}, {name}")
+                        i = int(np.argmax(np.abs(kd[r] - want[r]) - kd[e]))
+                        raise AssertionError(
+                            f"PLANE kernel beyond its bounds (row {r}): {what}, "
+                            f"{name}: pair {i} ({a[i]}, {b[i if len(b) > 1 else 0]}): "
+                            f"kernel {kd[r][i]!r} +- {kd[e][i]!r}, plain {pd[r][i]!r} "
+                            f"+- {pd[e][i]!r}, host {want[r][i]!r}")
                     dworst = max(dworst, float(np.abs(kd[r] - pd[r]).max()))
                 n_cases += 1
         bad = torch.tensor([3, n], device=dev)
@@ -1128,8 +1152,10 @@ def plane_kernel_checks(dev, rng) -> float:
                 f"s and dist within bounds of the plain version and the host "
                 f"model (markov, plane, k2 and a FULL and PLANE model), in "
                 f"{n_cases} cases (k = 5 uint8/uint16 D = 1024, k = 2 uint8/uint16 "
-                f"D = 16, eight near-identical pairs among 408, center and pair "
-                f"forms); an invalid index gives NaN; largest |kernel - plain| "
+                f"D = 16, k = 6 uint8 D = 4096, eight near-identical pairs among "
+                f"408, center and pair forms, at k = 5 also a center window of 1 "
+                f"and of 37 pairs); an invalid index gives NaN; largest "
+                f"|kernel - plain| "
                 f"{worst:.3g} (singles), {dworst:.3g} (s, dist)")
     return worst, dworst
 
@@ -1431,6 +1457,12 @@ def main() -> int:
         phase("b", f"built {os.path.relpath(built.path, ROOT)} (nvcc "
                    f"{built.seconds:.3f} s); ptxas: {ptxas}")
     phase("b", f"{len(builds)} builds in {time.perf_counter() - t0:.3f} s")
+    from kernel_ab import fast_kernels
+
+    fast = fast_kernels(builds["pair_stats"])
+    phase("b", f"pair_stats_kernel's fast instantiations (neither FULL nor PLANE; "
+               f"count type, NV, NARROW), ptxas: " + "; ".join(
+                   f"{k}: {v[0]}" for k, v in sorted(fast.items())))
 
     # (c) kernel = plain version = int64 oracle, bit for bit
     def oracle(counts, a, b):
@@ -1952,8 +1984,12 @@ def main() -> int:
 
     ps10k = synthetic_pool(store.cpu().numpy(), rng, 5)
     eng10k = TorchDeviceFeatureEngine(ps10k, plane_flags(5), st10k)
-    phase("d5", f"plane store of the 10k-row pool, 9 plane singles (10 planes of "
-                f"up to 80 MB): built and uploaded in {eng10k.seconds:.3f} s")
+    phase("d5", f"plane store of the 10k-row pool, 9 plane singles: built and "
+                f"uploaded in {eng10k.seconds:.3f} s, {eng10k.planes.nbytes():,} "
+                f"bytes on the card (the markov model's store alone: "
+                f"{TorchDeviceFeatureEngine(ps10k, plane_specs()['markov'][0], st10k).planes.nbytes():,}; "
+                f"the plane model's: "
+                f"{TorchDeviceFeatureEngine(ps10k, plane_specs()['plane'][0], st10k).planes.nbytes():,})")
     plane_timing = {}
     for name in ("markov", "plane"):
         singles, combos = plane_specs()[name]

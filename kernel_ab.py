@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""The redesigned kernels' device times in several checkouts of the
+repository, on one card, in turns.
+
+    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE]
+
+Each run is a process of its own that imports the port of one checkout
+(`meshclust2_tpu_torch` from that root), builds its kernels into the
+checkout's build/, and times, at the main path's shapes of chip_smoke.py
+(d4) and (d5) on the same seeded inputs in every checkout (a 10,000 x 1,024
+uint8 store of counts 1..39, the center form at W = 1,571 against row 4,000
+and the pair form at P = 98,304):
+
+- `plane_singles` with the plane singles of the markov and the plane model
+  (markov, rre_k_r, sim_mm; spearman, d2s, d2_star, n2rc);
+- `pair_stats_decision` with the slow and the blockwise model (the FULL
+  kernel), with the markov and the plane model (the PLANE epilogue), and
+  with a fast model (intersection, manhattan; the fast instantiation);
+
+each by CUDA events behind a busy wait (median of 20 launches), each
+result held against its plain version within the sum of both bounds (the
+statistics bit for bit).  It also prints the plane store's device bytes
+(every tensor the store adds to the DeviceStore), the ptxas lines of the
+pair-statistics library and a SHA-256 of each fast instantiation's SASS
+(cuobjdump), keyed by (count type, NV, NARROW), so that two checkouts'
+fast kernels can be compared.  The runs go in the order `--order` gives
+(indices into the roots; default: the roots, then again reversed); the end
+prints the median device time of each kernel and checkout, and the line
+before the last is one JSON object of all runs.  Exits non-zero if a
+kernel differs from its plain version beyond the bounds, or if two
+checkouts' fast kernels differ in SASS or ptxas resources.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+W, P, N, D = 1_571, 98_304, 10_000, 1_024
+
+
+def specs(F):
+    """(singles, combos) of the models timed, as chip_smoke.py gives them."""
+    return {
+        "markov": ([F.FEAT_MARKOV, F.FEAT_INTERSECTION, F.FEAT_RRE_K_R, F.FEAT_SIM_MM],
+                   [("xy", F.FEAT_INTERSECTION), ("xy", F.FEAT_MARKOV | F.FEAT_SIM_MM),
+                    ("xy", F.FEAT_RRE_K_R)]),
+        "plane": ([F.FEAT_SPEARMAN, F.FEAT_D2s, F.FEAT_D2_star, F.FEAT_N2RC],
+                  [("xy", F.FEAT_SPEARMAN), ("xy", F.FEAT_D2s | F.FEAT_D2_star),
+                   ("xy", F.FEAT_N2RC)]),
+        "slow": ([F.FEAT_MANHATTAN, F.FEAT_INTERSECTION, F.FEAT_JEFFEREY_DIV,
+                  F.FEAT_JENSEN_SHANNON],
+                 [("xy", F.FEAT_INTERSECTION), ("xy", F.FEAT_JEFFEREY_DIV | F.FEAT_MANHATTAN),
+                  ("x2y2", F.FEAT_JENSEN_SHANNON)]),
+        "blockwise": ([F.FEAT_INTERSECTION, F.FEAT_HELLINGER, F.FEAT_CHI_SQUARED,
+                       F.FEAT_KL_COND, F.FEAT_MISMATCH],
+                      [("xy", F.FEAT_INTERSECTION), ("xy", F.FEAT_HELLINGER | F.FEAT_CHI_SQUARED),
+                       ("xy", F.FEAT_KL_COND | F.FEAT_MISMATCH)]),
+        "fast": ([F.FEAT_INTERSECTION, F.FEAT_MANHATTAN],
+                 [("xy", F.FEAT_INTERSECTION), ("xy", F.FEAT_MANHATTAN)]),
+    }
+
+
+def device_us(fn, reps: int = 20) -> float:
+    """Median device time in us of fn()'s launches, each queued behind a
+    busy wait on the card (chip_smoke.py:device_us)."""
+    import torch
+
+    times = []
+    for i in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+def fast_kernels(built) -> dict:
+    """{"T NV NARROW": (ptxas resources, SASS SHA-256)} of the fused
+    kernel's fast instantiations (neither FULL nor PLANE) in one build."""
+    res, name = {}, None
+    for line in built.log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in line or "stack frame" in line):
+            res.setdefault(name, []).append(line.split(" : ", 1)[-1].strip())
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(built.path)], capture_output=True,
+                          text=True, check=True).stdout
+    bodies, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = m.group(1)
+            bodies[cur] = []
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            bodies[cur].append(re.sub(r"^\s+/\*[0-9a-f]{4}\*/\s+", "", line).split(";")[0])
+    out = {}
+    for mangled in list(bodies) + [n for n in res if n not in bodies]:
+        # pair_stats_kernel<T, NV, NARROW, [FULL,] PLANE>, from the mangled
+        # name: T h (uint8) or t (uint16), NV Li<n>E (n1: -1), flags Lb<0|1>E
+        m = re.search(r"pair_stats_kernelI([ht])Li(n?\d+)E((?:Lb[01]E)+)E", mangled)
+        if not m:
+            continue
+        flags = re.findall(r"Lb([01])E", m.group(3))
+        if "1" in flags[1:]:
+            continue   # a FULL or PLANE instantiation
+        key = (f"{'uint8' if m.group(1) == 'h' else 'uint16'} "
+               f"{m.group(2).replace('n', '-')} {'narrow' if flags[0] == '1' else 'wide'}")
+        out[key] = ("; ".join(res.get(mangled, [])),
+                    hashlib.sha256("\n".join(bodies.get(mangled, [])).encode()).hexdigest())
+    return out
+
+
+def _nvcc() -> str:
+    from meshclust2_tpu_torch.ops import _build
+
+    return _build.nvcc_path()
+
+
+def one(root: str) -> dict:
+    """The timings of checkout `root` (this process imports its port)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.features import flags as F
+    from meshclust2_tpu_torch.kmer.counting import PointSet
+    from meshclust2_tpu_torch.model.classifier import (PLANE_SINGLES, CompiledModel,
+                                                       model_to_torch)
+    from meshclust2_tpu_torch.model.weights import ModelBlock
+    from meshclust2_tpu_torch.ops import _build
+    from meshclust2_tpu_torch.ops.device_features import TorchDeviceFeatureEngine
+    from meshclust2_tpu_torch.ops.pair_stats import (pair_stats_decision,
+                                                     pair_stats_decision_ref)
+    from meshclust2_tpu_torch.ops.plane_singles import plane_singles, plane_singles_ref
+
+    import meshclust2_tpu_torch
+    assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261017)
+    counts = rng.integers(1, 40, (N, D)).astype(np.uint8)
+    n = len(counts)
+    ps = PointSet(k=5, headers=[f"s{i}" for i in range(n)], counts=counts,
+                  one_mers=rng.integers(1, 400, (n, 4)).astype(np.uint64),
+                  lengths=rng.integers(700, 1500, n).astype(np.int64),
+                  mags=counts.astype(np.int64).sum(axis=1),
+                  stddevs=rng.random(n) * 3 + 0.5, ids=np.arange(n))
+    store = DeviceStore.from_pointset(ps, dev)
+    sp = specs(F)
+    pflags = sorted({f for name in ("markov", "plane") for f in sp[name][0]
+                     if f in PLANE_SINGLES})
+    eng = TorchDeviceFeatureEngine(ps, pflags, store)
+    planes = eng.planes
+    forms = {"center": (torch.arange(3_000, 3_000 + W, device=dev),
+                        torch.tensor([4_000], device=dev)),
+             "pair": (torch.from_numpy(rng.integers(0, N, P)).to(dev),
+                      torch.from_numpy(rng.integers(0, N, P)).to(dev))}
+    builds = {name: _build.load(name) for name in ("pair_stats", "plane_singles")}
+    out = {"root": root, "card": torch.cuda.get_device_name(0),
+           "plane_store_bytes": sum(t.numel() * t.element_size()
+                                    for k, t in vars(planes).items()
+                                    if isinstance(t, torch.Tensor)
+                                    and k not in ("counts", "mags")),
+           "fast_kernels": fast_kernels(builds["pair_stats"]),
+           "ptxas": [ln.strip() for ln in builds["pair_stats"].log.splitlines()
+                     + builds["plane_singles"].log.splitlines()
+                     if "registers" in ln or "spill" in ln or "entry function" in ln],
+           "us": {}}
+
+    def check(got, want, what, bounds=True):
+        if bounds and not bool(((got[0] - want[0]).abs() <= got[1] + want[1]).all()):
+            raise AssertionError(f"{root}: {what} differs from its plain version "
+                                 f"beyond the bounds")
+
+    for name, (singles, combos) in sp.items():
+        mflags = [f for f in singles if f in PLANE_SINGLES]
+        # a wide normalization: the times do not depend on it
+        params = model_to_torch(CompiledModel(ModelBlock(
+            combos=combos, weights=rng.normal(0.0, 2.0, len(combos) + 1),
+            singles=singles, mins=np.full(len(singles), -1.0),
+            maxs=np.full(len(singles), 1e4))), dev)
+        for form, (a, b) in forms.items():
+            key = f"{name} {form}"
+            pl = None
+            if mflags:
+                pl = plane_singles(planes, a, b, mflags)
+                torch.cuda.synchronize()
+                check(pl, plane_singles_ref(planes, a, b, mflags), f"plane_singles {key}")
+                out["us"][f"plane_singles {key}"] = device_us(
+                    lambda: plane_singles(planes, a, b, mflags))
+            stats, dec = pair_stats_decision(store, params, a, b, pl)
+            torch.cuda.synchronize()
+            p_stats, p_dec = pair_stats_decision_ref(store, params, a, b, pl)
+            if not torch.equal(stats, p_stats):
+                raise AssertionError(f"{root}: statistics differ ({key})")
+            for r, e in ((0, 3), (2, 4)):
+                if not bool(((dec[r] - p_dec[r]).abs() <= dec[e] + p_dec[e]).all()):
+                    raise AssertionError(f"{root}: decision row {r} beyond bounds ({key})")
+            out["us"][f"decision {key}"] = device_us(
+                lambda: pair_stats_decision(store, params, a, b, pl))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--order", default=None)
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(one(os.path.abspath(args.roots[0]))), flush=True)
+        return 0
+    roots = [os.path.abspath(r) for r in args.roots]
+    order = ([int(i) for i in args.order.split(",")] if args.order
+             else list(range(len(roots))) + list(range(len(roots)))[::-1])
+    runs = []
+    for i in order:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[i]],
+                              cwd=roots[i], capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-6000:], sep="\n", file=sys.stderr)
+            raise SystemExit(f"kernel_ab: the run of {roots[i]} exited {proc.returncode}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(got)
+        print(f"run {len(runs)}: {roots[i]}: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in got["us"].items()) +
+            f"; plane store {got['plane_store_bytes']:,} bytes; {got['card']}", flush=True)
+    # a cached build has no ptxas log: its resources are compared where
+    # both runs compiled
+    ok = True
+    first = runs[0]["fast_kernels"]
+    for r in runs[1:]:
+        mine = r["fast_kernels"]
+        diff = sorted(k for k in set(first) | set(mine)
+                      if k not in first or k not in mine or first[k][1] != mine[k][1]
+                      or (first[k][0] and mine[k][0] and first[k][0] != mine[k][0]))
+        if diff:
+            print(f"fast instantiations differ ({r['root']} vs {runs[0]['root']}): {diff}")
+            ok = False
+    print(f"fast instantiations (count type, NV, NARROW): {len(first)}, same SASS and "
+          f"ptxas resources in every run: {ok}; " + "; ".join(
+              f"{k}: {v[0]}" for k, v in sorted(first.items())), flush=True)
+    for root in roots:
+        mine = [r for r in runs if r["root"] == root]
+        print(f"median device us, {root}: " + ", ".join(
+            f"{k} {statistics.median(r['us'][k] for r in mine):.2f}" for k in mine[0]["us"]))
+    print(json.dumps(runs))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(runs, f)
+    print(json.dumps({"ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

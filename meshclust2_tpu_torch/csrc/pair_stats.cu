@@ -15,32 +15,32 @@
 //   dec[1][p] = prob, dec[2][p] = dist, dec[3][p] = s_err and dec[4][p] =
 //   dist_err (0 in this instantiation).
 //
-// The FULL instantiation serves a model with full-vector singles (the log
-// divergences jefferey, jensen-shannon, k_div, kl_cond and the blockwise
-// hellinger, squared chord, chi^2, canberra, kulczynski1, harmonic mean,
-// mismatch, jaccard: ops/pair_stats.py:vector_singles_ref).  After a
-// pair's statistics, each lane sums in float64 the per-element terms of
-// the model's full-vector singles over groups of 4 consecutive counts
-// (kl_cond's groups; D = 4^k) of the two rows, with their companion |term|
-// sums, selected by a mask the block reads from the packed parameters; the
-// warp reduces them and runs the pair's epilogue over its lanes, which
-// derives each such single with an absolute error bound and propagates the
-// bounds through the normalization, the combos and the GLM sum into s_err
-// and dist_err (model/classifier.py:decision_errors).  A log's argument is
-// a ratio of exact integer products, (h_i mB) / (c_i mA) in place of
-// (h_i / mA) / (c_i / mB), so it rounds once.  Its sums run in another
-// order than the plain version's, so its values agree with it within the
-// bounds, not bit for bit; its statistics are the same integers.
+// The FULL kernel (full_kernel) serves a model with full-vector singles
+// (the log divergences jefferey, jensen-shannon, k_div, kl_cond and the
+// blockwise hellinger, squared chord, chi^2, canberra, kulczynski1,
+// harmonic mean, mismatch, jaccard: ops/pair_stats.py:vector_singles_ref).
+// A team of warps takes a pair; each thread sums, from the groups of 4
+// consecutive counts (kl_cond's groups; D = 4^k) it loads for the
+// statistics, the float64 terms of the model's full-vector singles with
+// their companion |term| sums, selected by a mask the block reads from the
+// packed parameters; the team's first warp runs the pair's epilogue over
+// its lanes, which derives each such single with an absolute error bound
+// and propagates the bounds through the normalization, the combos and the
+// GLM sum into s_err and dist_err (model/classifier.py:decision_errors).  A
+// log's argument is a ratio of exact integer products, (h_i mB) / (c_i mA)
+// in place of (h_i / mA) / (c_i / mB), so it rounds once.  Its sums run in
+// another order than the plain version's, so its values agree with it
+// within the bounds, not bit for bit; its statistics are the same integers.
 //
 // The PLANE instantiation serves a model with plane singles (markov, sim_mm,
 // rre_k_r, spearman, d2s, d2_star, afd, n2r, n2rc, n2rrc: csrc/
 // plane_singles.cu, launched just before on the same stream): its epilogue
 // reads each such single's value and absolute bound from that kernel's
 // [2, S_p, P] buffer, by the single's rank among the model's plane singles,
-// and propagates the bounds into s_err and dist_err as FULL does.  It takes
-// its pairs one at a time, as FULL, whose full-vector pass it runs too for a
-// model with both (FULL and PLANE), each pair's statistics by the two-pass
-// loop with 64-bit sums.
+// and propagates the bounds into s_err and dist_err as FULL does.  Its
+// statistics and rounds are the fast instantiation's, each lane's epilogue
+// with the bounds; a model with full-vector singles too takes the FULL
+// kernel with the plane singles read in its epilogue.
 //
 // Replaces meshclust2_tpu/ops/pallas_stats.py:_build.kernel, the TPU kernel
 // that streams a [tile_b, D] block of candidate rows against ONE center row
@@ -94,14 +94,18 @@
 // division by a host scalar), x**2 is x * x, 1 / x is a correctly rounded
 // division, and exp is the CUDA math library's, which PyTorch calls too.
 //
-// The FULL pass replaces the XLA programs meshclust2_tpu/cluster/
+// The FULL kernel replaces the XLA programs meshclust2_tpu/cluster/
 // device_loop.py:log_div_stats (l. 167) and block_singles_stats (l. 217),
 // which the JAX package runs in float32 with error bounds behind the Pallas
 // kernel.  What bounds it: operations.  Per pair and element up to four
 // float64 logs, three square roots and ten divisions, a few hundred
-// float64 instructions, at the card's float64 rate; the rows come from L1
-// after the statistics pass.  A simple design: one warp a pair, as the
-// statistics; a lane's groups strided over the row.
+// float64 instructions, at the card's float64 rate.  So the design keeps
+// the float64 pipe fed: S warps a pair where the pairs are few (the center
+// form's ~1,600), so that their warps fill the card; each group's counts
+// loaded once for the statistics and the log divergences, the blockwise
+// terms and the EMD in a second pass over the same slice from L1; the two
+// families' sums live one after the other, an element at a time; launch
+// bounds of its own (three blocks an SM, 80 registers).
 //
 // An index outside [0, n_rows) writes -1 into the three statistics of its
 // pair and NaN into its s, prob, dist and bounds; callers validate indices
@@ -142,6 +146,7 @@ __host__ __device__ constexpr unsigned bit(int code) {
   return 1u << (code - kJefferey);
 }
 enum Combo { kXY = 0, kXY2 = 1, kX2Y = 2, kX2Y2 = 3 };
+constexpr double kU = 1.0 / 9007199254740992.0;   // 2^-53
 // packed parameters: [S, C, bias, w0], then 4 a single (code, min,
 // max - min, is_sim), then 4 a combo (kind, i0, i1 or -1, weight)
 constexpr int kHead = 4;
@@ -415,14 +420,24 @@ struct FullSums {
   double mis, jac;                // counts
 };
 
-// The terms of one group of 4 consecutive counts x (row a) and y (row b),
-// ma and mb the rows' count sums: ops/pair_stats.py:_vector_terms, term
-// for term in the same operations.  The companion sums feed only the
-// bounds and may round freely.
-__device__ __forceinline__ void full_group(unsigned mask, const unsigned* x,
-                                           const unsigned* y, double ma, double mb,
-                                           double d, FullSums& f) {
-#pragma unroll
+// The full-vector singles in two families, each summed in a pass of its
+// own so that only its sums are live: the log divergences (jefferey,
+// jensen-shannon, k_div, kl_cond) and the blockwise singles.
+constexpr unsigned kLogBits = bit(kJefferey) | bit(kJensenShannon) | bit(kKDiv) | bit(kKlCond);
+constexpr unsigned kBlockBits = bit(kHellinger) | bit(kSqchord) | bit(kChi2) | bit(kCanberra) |
+                                bit(kKulczynski1) | bit(kHarmonic) | bit(kMismatch) |
+                                bit(kJaccard);
+
+// The log divergences' terms of one group of 4 consecutive counts x (row
+// a) and y (row b), ma and mb the rows' count sums: ops/pair_stats.py:
+// _vector_terms, term for term in the same operations.  The companion
+// sums feed only the bounds and may round freely.  An element at a time
+// (unroll 1): the logs' temporaries of four elements at once would cost
+// the registers that let three blocks share an SM (kFullMinBlocks).
+__device__ __forceinline__ void full_group_log(unsigned mask, const unsigned* x,
+                                               const unsigned* y, double ma, double mb,
+                                               FullSums& f) {
+#pragma unroll 1
   for (int j = 0; j < 4; ++j) {
     const double a = x[j], b = y[j];
     if (mask & (bit(kJefferey) | bit(kJensenShannon) | bit(kKDiv))) {
@@ -448,6 +463,31 @@ __device__ __forceinline__ void full_group(unsigned mask, const unsigned* x,
         }
       }
     }
+  }
+  if (mask & bit(kKlCond)) {
+    // log(cp_j / cq_j) = log((x_j sq) / (y_j sp)): exact integer products
+    const double sp = static_cast<double>(x[0] + x[1] + x[2] + x[3]);
+    const double sq = static_cast<double>(y[0] + y[1] + y[2] + y[3]);
+#pragma unroll 1
+    for (int j = 0; j < 4; ++j) {
+      const double a = x[j], b = y[j];
+      const double lg = log(__ddiv_rn(__dmul_rn(a, sq), __dmul_rn(b, sp)));
+      const double tp = __dmul_rn(a, lg), tq = __dmul_rn(b, lg);
+      f.kp = __dadd_rn(f.kp, tp);
+      f.kp_abs += fabs(tp);
+      f.kq = __dadd_rn(f.kq, tq);
+      f.kq_abs += fabs(tq);
+    }
+  }
+}
+
+// The blockwise singles' terms of one group, as full_group_log.
+__device__ __forceinline__ void full_group_block(unsigned mask, const unsigned* x,
+                                                 const unsigned* y, double ma, double mb,
+                                                 double d, FullSums& f) {
+#pragma unroll 1
+  for (int j = 0; j < 4; ++j) {
+    const double a = x[j], b = y[j];
     if (mask & bit(kHellinger)) {
       const double xa = __dsqrt_rn(__ddiv_rn(__dmul_rn(a, d), ma));
       const double xb = __dsqrt_rn(__ddiv_rn(__dmul_rn(b, d), mb));
@@ -469,75 +509,8 @@ __device__ __forceinline__ void full_group(unsigned mask, const unsigned* x,
     if (mask & bit(kMismatch)) f.mis += x[j] != y[j] ? 1.0 : 0.0;
     if (mask & bit(kJaccard)) f.jac += x[j] == y[j] && x[j] > 1 ? 1.0 : 0.0;
   }
-  if (mask & bit(kKlCond)) {
-    // log(cp_j / cq_j) = log((x_j sq) / (y_j sp)): exact integer products
-    const double sp = static_cast<double>(x[0] + x[1] + x[2] + x[3]);
-    const double sq = static_cast<double>(y[0] + y[1] + y[2] + y[3]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const double a = x[j], b = y[j];
-      const double lg = log(__ddiv_rn(__dmul_rn(a, sq), __dmul_rn(b, sp)));
-      const double tp = __dmul_rn(a, lg), tq = __dmul_rn(b, lg);
-      f.kp = __dadd_rn(f.kp, tp);
-      f.kp_abs += fabs(tp);
-      f.kq = __dadd_rn(f.kq, tq);
-      f.kq_abs += fabs(tq);
-    }
-  }
 }
 
-// Lane l's groups g = l, l + 32, ... of rows h and c (D a multiple of 4),
-// read as elements: the rows were just read by the statistics pass.
-template <typename T>
-__device__ __forceinline__ void full_loop(unsigned mask, const T* __restrict__ h,
-                                          const T* c, int d, int lane, double ma,
-                                          double mb, FullSums& f) {
-  const double dd = static_cast<double>(d);
-  for (int g = lane; g < d / 4; g += kWarpSize) {
-    unsigned x[4], y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[j] = h[4 * g + j];
-      y[j] = c[4 * g + j];
-    }
-    full_group(mask, x, y, ma, mb, dd, f);
-  }
-}
-
-// The warp's sums of the masked singles, on every lane (the xor butterfly
-// leaves the same bits on every lane).
-__device__ __forceinline__ void full_reduce(unsigned mask, FullSums& f) {
-  if (mask & bit(kJefferey)) {
-    f.jd = warp_sum(f.jd);
-    f.jd_abs = warp_sum(f.jd_abs);
-    f.jd_comp = warp_sum(f.jd_comp);
-  }
-  if (mask & (bit(kJensenShannon) | bit(kKDiv))) {
-    f.ta = warp_sum(f.ta);
-    f.ta_abs = warp_sum(f.ta_abs);
-  }
-  if (mask & bit(kJensenShannon)) {
-    f.tb = warp_sum(f.tb);
-    f.tb_abs = warp_sum(f.tb_abs);
-  }
-  if (mask & bit(kKlCond)) {
-    f.kp = warp_sum(f.kp);
-    f.kp_abs = warp_sum(f.kp_abs);
-    f.kq = warp_sum(f.kq);
-    f.kq_abs = warp_sum(f.kq_abs);
-  }
-  if (mask & bit(kHellinger)) {
-    f.hs = warp_sum(f.hs);
-    f.hc = warp_sum(f.hc);
-  }
-  if (mask & bit(kSqchord)) f.sq = warp_sum(f.sq);
-  if (mask & bit(kChi2)) f.chi = warp_sum(f.chi);
-  if (mask & bit(kCanberra)) f.can = warp_sum(f.can);
-  if (mask & bit(kKulczynski1)) f.kul = warp_sum(f.kul);
-  if (mask & bit(kHarmonic)) f.har = warp_sum(f.har);
-  if (mask & bit(kMismatch)) f.mis = warp_sum(f.mis);
-  if (mask & bit(kJaccard)) f.jac = warp_sum(f.jac);
-}
 
 // A full-vector single from the warp's sums, and into *err its absolute
 // bound on |value - the host's|: ops/pair_stats.py:_vector_terms.  hs =
@@ -677,33 +650,6 @@ __device__ __forceinline__ void write_decision(const double* prm, int n_c, doubl
   out.write(4, n_c ? dist_err : 0.0);
 }
 
-// The epilogue of one pair on one lane: (s, prob, dist) in
-// model/classifier.py:decision_from_raw's operation order, the GLM dot in
-// combo order; a model without full-vector singles, whose bounds are 0.
-__device__ __forceinline__ void epilogue(const double* __restrict__ prm,
-                                         const long long* st, const Moments& m,
-                                         double d, double inv_d, const Out& out) {
-  const int n_s = static_cast<int>(prm[0]);
-  const int n_c = static_cast<int>(prm[1]);
-  const Derived v = derive(st, m, inv_d);
-  double nv[kMaxSingles];
-  for (int k = 0; k < n_s; ++k) nv[k] = single_normalized(prm, k, v, m, d);
-  const double* cq = prm + kHead + kStride * n_s;
-  double glm = 0.0, dist = 0.0;
-  for (int j = 0; j < n_c; ++j, cq += kStride) {
-    const int i1 = static_cast<int>(cq[2]);
-    const double c = combo_value(static_cast<int>(cq[0]), nv[static_cast<int>(cq[1])],
-                                 i1 >= 0 ? nv[i1] : 1.0, i1 >= 0);
-    if (j == 0) {
-      glm = __dmul_rn(c, cq[3]);
-      dist = c;
-    } else {
-      glm = __dadd_rn(glm, __dmul_rn(c, cq[3]));
-    }
-  }
-  write_decision(prm, n_c, glm, dist, 0.0, 0.0, out);
-}
-
 // One pair's plane singles from csrc/plane_singles.cu: value j at p[j n],
 // its bound at p[(s + j) n].
 struct PlaneIn {
@@ -713,6 +659,83 @@ struct PlaneIn {
   __device__ __forceinline__ double value(int j) const { return p[j * n]; }
   __device__ __forceinline__ double bound(int j) const { return p[(s + j) * n]; }
 };
+
+// The epilogue of one pair on one lane: (s, prob, dist) in
+// model/classifier.py:decision_from_raw's operation order, the GLM dot in
+// combo order; a model without full-vector singles, whose bounds are 0.
+// PLANE (a model with plane singles): each plane single's value and bound
+// from `pl`, by its rank among the model's plane singles, and the bounds
+// propagated as epilogue_warp does (model/classifier.py:decision_errors),
+// operation for operation, so both give the same bits.
+template <bool PLANE>
+__device__ __forceinline__ void epilogue(const double* __restrict__ prm,
+                                         const long long* st, const Moments& m,
+                                         double d, double inv_d, const PlaneIn& pl,
+                                         const Out& out) {
+  const int n_s = static_cast<int>(prm[0]);
+  const int n_c = static_cast<int>(prm[1]);
+  const Derived v = derive(st, m, inv_d);
+  double nv[kMaxSingles];
+  if constexpr (PLANE) {
+    double ne[kMaxSingles];
+    int jp = 0;
+    for (int k = 0; k < n_s; ++k) {
+      const double* q = prm + kHead + kStride * k;
+      const int code = static_cast<int>(q[0]);
+      double raw, err = 0.0;
+      if (code >= kMarkov) {
+        raw = pl.value(jp);
+        err = pl.bound(jp);
+        ++jp;
+      } else {
+        raw = single_raw(code, v, m, d);
+      }
+      const double x = __ddiv_rn(__dsub_rn(raw, q[1]), q[2]);
+      nv[k] = q[3] != 0.0 ? x : __dsub_rn(1.0, x);
+      ne[k] = __ddiv_rn(err, fabs(q[2])) + 6.0 * kU * (fabs(nv[k]) + 1.0);
+    }
+    const double* cq = prm + kHead + kStride * n_s;
+    double glm = 0.0, dist = 0.0, s_err = 0.0, dist_err = 0.0, mag = fabs(prm[3]);
+    for (int j = 0; j < n_c; ++j, cq += kStride) {
+      const int kind = static_cast<int>(cq[0]), i0 = static_cast<int>(cq[1]);
+      const int i1 = static_cast<int>(cq[2]);
+      const double x = nv[i0], y = i1 >= 0 ? nv[i1] : 1.0;
+      const double c = combo_value(kind, x, y, i1 >= 0);
+      const double ce =
+          combo_err(kind, x, ne[i0], y, i1 >= 0 ? ne[i1] : 0.0, i1 >= 0) + 8.0 * kU * fabs(c);
+      const double pe = __dmul_rn(ce, fabs(cq[3]));
+      const double prod = __dmul_rn(c, cq[3]);
+      mag += fabs(prod);
+      if (j == 0) {
+        glm = prod;
+        dist = c;
+        s_err = pe;
+        dist_err = ce;
+      } else {
+        glm = __dadd_rn(glm, prod);
+        s_err = __dadd_rn(s_err, pe);
+      }
+    }
+    write_decision(prm, n_c, glm, dist, s_err + 2.0 * (n_c + 2) * kU * mag, dist_err, out);
+  } else {
+    for (int k = 0; k < n_s; ++k) nv[k] = single_normalized(prm, k, v, m, d);
+    const double* cq = prm + kHead + kStride * n_s;
+    double glm = 0.0, dist = 0.0;
+    for (int j = 0; j < n_c; ++j, cq += kStride) {
+      const int i1 = static_cast<int>(cq[2]);
+      const double c = combo_value(static_cast<int>(cq[0]), nv[static_cast<int>(cq[1])],
+                                   i1 >= 0 ? nv[i1] : 1.0, i1 >= 0);
+      if (j == 0) {
+        glm = __dmul_rn(c, cq[3]);
+        dist = c;
+      } else {
+        glm = __dadd_rn(glm, __dmul_rn(c, cq[3]));
+      }
+    }
+    write_decision(prm, n_c, glm, dist, 0.0, 0.0, out);
+  }
+}
+
 
 // Single k's raw value and absolute bound in the FULL and PLANE epilogues:
 // a plane single from `pl`, by its rank among the model's plane singles; a
@@ -740,13 +763,13 @@ __device__ __forceinline__ double raw_with_err(const double* prm, int k, const D
 }
 
 // The same epilogue of one pair spread over the warp, for a round of one
-// pair (the center form's one pair a warp, and every pair of the FULL and
-// PLANE passes): lane k normalizes single k, lane j forms combo j and its product
+// pair (the center form's one pair a warp) and every pair of the FULL
+// kernel: lane k normalizes single k, lane j forms combo j and its product
 // with its weight, and every lane adds the products in combo order from
 // shuffles; lane 0 writes.  Every lane holds the pair's statistics,
-// moments and, with FULL, the full-vector sums.  Without FULL the values
-// and their order of operations are the one-lane epilogue's, so the bits
-// are too, and the bounds are 0.  With FULL, lane k also carries single
+// moments and, with FULL, the full-vector sums.  The values and their
+// order of operations are the one-lane epilogue's, so the bits are too;
+// without FULL or PLANE the bounds are 0.  With FULL, lane k also carries single
 // k's bound over |max - min|, lane j combo j's bound (combo_err) and its
 // product with |w_j|, added in combo order into s_err; dist_err is combo
 // 0's bound (model/classifier.py:decision_errors).  PLANE does the same
@@ -768,13 +791,13 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
       const double raw = raw_with_err<FULL, PLANE>(prm, lane, v, m, fs, pl, d, inv_d, &err);
       const double x = __ddiv_rn(__dsub_rn(raw, q[1]), q[2]);
       nv = q[3] != 0.0 ? x : __dsub_rn(1.0, x);
-      ne = __ddiv_rn(err, fabs(q[2]));
+      ne = __ddiv_rn(err, fabs(q[2])) + 6.0 * kU * (fabs(nv) + 1.0);
     } else {
       nv = single_normalized(prm, lane, v, m, d);
     }
   }
   const double* cq0 = prm + kHead + kStride * n_s;
-  double glm = 0.0, dist = 0.0, s_err = 0.0, dist_err = 0.0;
+  double glm = 0.0, dist = 0.0, s_err = 0.0, dist_err = 0.0, mag = fabs(prm[3]);
   for (int cb = 0; cb < n_c; cb += kWarpSize) {   // uniform
     const int j = cb + lane;
     int kind = kXY, i0 = 0, i1 = -1;
@@ -794,7 +817,7 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
     if constexpr (ERR) {
       const double xe = __shfl_sync(kFullMask, ne, i0);
       const double ye = __shfl_sync(kFullMask, ne, i1 >= 0 ? i1 : 0);
-      ce = combo_err(kind, x, xe, i1 >= 0 ? y : 1.0, ye, i1 >= 0);
+      ce = combo_err(kind, x, xe, i1 >= 0 ? y : 1.0, ye, i1 >= 0) + 8.0 * kU * fabs(c);
       pe = __dmul_rn(ce, fabs(w));
     }
     const int n = min(kWarpSize, n_c - cb);
@@ -809,6 +832,7 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
       }
       if constexpr (ERR) {
         const double et = __shfl_sync(kFullMask, pe, t);
+        mag += fabs(pt);
         if (cb + t == 0) {
           s_err = et;
           dist_err = __shfl_sync(kFullMask, ce, 0);
@@ -818,6 +842,8 @@ __device__ __forceinline__ void epilogue_warp(const double* __restrict__ prm,
       }
     }
   }
+  // the two sides' own roundings of the GLM sum (decision_errors)
+  if constexpr (ERR) s_err += 2.0 * (n_c + 2) * kU * mag;
   if (lane == 0) write_decision(prm, n_c, glm, dist, s_err, dist_err, out);
 }
 
@@ -836,71 +862,6 @@ __device__ __forceinline__ Pair pair_at(const Args& args, long long p, bool c_ok
   return q;
 }
 
-// FULL and PLANE: the pairs one at a time, each pair's statistics (from
-// registers or the loop, as below), with FULL its full-vector sums
-// (full_loop), and its epilogue over the warp.
-template <typename T, int NV, bool NARROW, bool FULL, bool PLANE>
-__device__ __forceinline__ void full_pairs(const Args& args, const T* counts, const T* crow,
-                                           const Vec16<T>* cn, const double* prm,
-                                           long long first, long long last, bool c_ok,
-                                           int lane) {
-  const int d = args.d;
-  // the model's full-vector singles, by their bits
-  unsigned mask = 0;
-  const int n_s = static_cast<int>(prm[0]);
-  if constexpr (FULL) {
-    for (int k = 0; k < n_s; ++k) {
-      const int code = static_cast<int>(prm[kHead + kStride * k]);
-      if (code >= kJefferey) mask |= bit(code);   // plane bits match no test
-    }
-  }
-  for (long long p = first; p < last; ++p) {
-    const Pair cur = pair_at(args, p, c_ok);
-    const Out out{args.dec + p, args.n_pairs};
-    long long* so = args.stats + 3 * p;
-    if (!cur.ok) {   // uniform
-      if (lane == 0) {
-        so[0] = so[1] = so[2] = -1;
-        for (int r = 0; r < 5; ++r) out.write(r, __longlong_as_double(0x7ff8000000000000LL));
-      }
-      continue;
-    }
-    const T* h = counts + cur.a * d;
-    const T* c = args.center ? crow : counts + cur.b * d;
-    long long st[3];
-    if constexpr (NV > 0) {
-      Vec16<T> hv[NV], cv[NV];
-      load_slice<T, NV>(hv, h, lane);
-      if (args.center) {
-#pragma unroll
-        for (int k = 0; k < NV; ++k) cv[k] = cn[k];
-      } else {
-        load_slice<T, NV>(cv, c, lane);
-      }
-      stats_reg<T, NV, NARROW>(hv, cv, lane, st);
-    } else {
-      stats_loop<T, NV == 0, NARROW>(h, c, d, lane, st);
-    }
-    const Moments mom{args.mags[cur.a],    args.mags[cur.b],
-                      args.selfdot[cur.a], args.selfdot[cur.b],
-                      args.stddevs[cur.a], args.stddevs[cur.b],
-                      args.lens[cur.a],    args.lens[cur.b]};
-    FullSums fs{};
-    if constexpr (FULL) {
-      full_loop<T>(mask, h, c, d, lane, mom.ma, mom.mb, fs);
-      full_reduce(mask, fs);
-    }
-    if (lane == 0) {
-      so[0] = st[0];
-      so[1] = st[1];
-      so[2] = st[2];
-    }
-    const PlaneIn pl{args.plane + p, args.n_pairs, args.n_plane};
-    epilogue_warp<FULL, PLANE>(prm, st, mom, fs, pl, static_cast<double>(d), args.inv_d,
-                               lane, out);
-  }
-}
-
 // NV > 0: the one-pass register path with NV vectors a lane, the next
 // pair's rows loaded while this one's are summed; NV == 0: the two-pass
 // loop over 16-byte vectors; NV == -1: the two-pass loop over elements.
@@ -908,10 +869,10 @@ __device__ __forceinline__ void full_pairs(const Args& args, const T* counts, co
 // statistics of the round's pair j, then lanes 0..31 run the round's
 // epilogues, their moments loaded before the round's statistics; a round
 // of one pair runs its epilogue over the whole warp (epilogue_warp).  The
-// FULL and PLANE instantiations take their pairs through full_pairs instead.
-template <typename T, int NV, bool NARROW, bool FULL, bool PLANE>
+// PLANE instantiation reads the plane singles' values and bounds in the
+// same epilogues; the FULL one is full_kernel below.
+template <typename T, int NV, bool NARROW, bool PLANE>
 __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args) {
-  constexpr bool ONE_BY_ONE = FULL || PLANE;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % kWarpSize;
   const int warp = threadIdx.x / kWarpSize;
@@ -932,7 +893,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
   constexpr int kNV = NV > 0 ? NV : 1;
   Vec16<T> hn[kNV], cn[kNV];
   Pair next{-1, -1, false};
-  if constexpr (NV > 0 && !ONE_BY_ONE) {
+  if constexpr (NV > 0) {
     if (first < last) {
       next = pair_at(args, first, c_ok);
       if (next.ok) {
@@ -960,7 +921,7 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
       }
     }
   };
-  if (!ONE_BY_ONE && first < last) load_mine(first, last - first == 1);
+  if (first < last) load_mine(first, last - first == 1);
 
   const double* prm = args.prm;
   int used = 0;
@@ -990,11 +951,6 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
   if (first >= last) return;   // uniform across the warp; no barrier follows
   if constexpr (NV > 0) {
     if (args.center && c_ok) load_slice<T, NV>(cn, crow, lane);
-  }
-  if constexpr (ONE_BY_ONE) {
-    full_pairs<T, NV, NARROW, FULL, PLANE>(args, counts, crow, cn, prm, first, last, c_ok,
-                                           lane);
-    return;
   }
 
   for (long long base = first; base < last; base += kWarpSize) {
@@ -1045,16 +1001,277 @@ __global__ void __launch_bounds__(kThreads, 2) pair_stats_kernel(const Args args
     }
     if (args.dec == nullptr) continue;   // uniform
     const Out out{args.dec + p, n_pairs};
+    const PlaneIn pl = PLANE ? PlaneIn{args.plane + p, n_pairs, args.n_plane} : PlaneIn{};
     if (!mine.ok) {
       if (lane < count) {
         for (int r = 0; r < 5; ++r) out.write(r, __longlong_as_double(0x7ff8000000000000LL));
       }
     } else if (solo) {   // uniform: every lane holds the one pair
-      epilogue_warp<false, false>(prm, kept, mom, FullSums{}, PlaneIn{}, static_cast<double>(d),
+      epilogue_warp<false, PLANE>(prm, kept, mom, FullSums{}, pl, static_cast<double>(d),
                                   args.inv_d, lane, out);
     } else if (lane < count) {
-      epilogue(prm, kept, mom, static_cast<double>(d), args.inv_d, out);
+      epilogue<PLANE>(prm, kept, mom, static_cast<double>(d), args.inv_d, pl, out);
     }
+  }
+}
+
+// FULL (a model with full-vector singles; with PLANE also plane singles):
+// a team of S warps takes a pair (S = 1 when there are pairs enough to fill
+// the card, up to 4 or 8 in the center form), thread t of the team a
+// contiguous slice of whole groups of 4 counts.  Pass 1 loads each group
+// once into registers and sums from them the statistics' parts (sum-min,
+// dot, the slice's diff) and the log divergences' terms; the team's
+// exclusive prefix of the diffs (a warp scan, then the earlier warps'
+// totals) starts pass 2, which reads the slice again from L1 or the staged
+// center row for the EMD and the blockwise terms.  Each warp's butterfly
+// totals go to its row of kSlots in shared memory, the team meets behind
+// a named barrier after each pass, and lane i of the team's first warp adds
+// slot i over the warps in warp order; that warp then runs the pair's
+// epilogue (epilogue_warp), the slots gathered by shuffles.  One family's
+// sums are live at a time.
+enum Slot {
+  kSlotDiff = 0, kSlotSmin, kSlotDot,   // int64
+  kSlotJd, kSlotJdAbs, kSlotJdComp, kSlotTa, kSlotTaAbs, kSlotTb, kSlotTbAbs,
+  kSlotKp, kSlotKpAbs, kSlotKq, kSlotKqAbs,   // the log divergences (pass 1)
+  kSlotEmd,                             // int64
+  kSlotHs, kSlotHc, kSlotSq, kSlotChi, kSlotCan, kSlotKul, kSlotHar, kSlotMis,
+  kSlotJac,                             // the blockwise singles (pass 2)
+  kSlots
+};
+static_assert(kSlots <= kWarpSize, "a lane a slot");
+constexpr int kFullMinBlocks = 3;
+
+// The 4 counts of group q; `vec`: one 4- or 8-byte load (rows aligned).
+template <typename T>
+__device__ __forceinline__ void load4(const T* row, int q, bool vec, unsigned (&x)[4]) {
+  if (vec) {
+    if constexpr (sizeof(T) == 1) {
+      const unsigned w = *reinterpret_cast<const unsigned*>(row + 4 * q);
+      x[0] = w & 0xffu;
+      x[1] = (w >> 8) & 0xffu;
+      x[2] = (w >> 16) & 0xffu;
+      x[3] = w >> 24;
+    } else {
+      const uint2 w = *reinterpret_cast<const uint2*>(row + 4 * q);
+      x[0] = w.x & 0xffffu;
+      x[1] = w.x >> 16;
+      x[2] = w.y & 0xffffu;
+      x[3] = w.y >> 16;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = row[4 * q + j];
+  }
+}
+
+__device__ __forceinline__ long long as_bits(double v) { return __double_as_longlong(v); }
+
+template <typename T, bool PLANE>
+__global__ void __launch_bounds__(kThreads, kFullMinBlocks) full_kernel(const Args args) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / kWarpSize;
+  const int lane = threadIdx.x % kWarpSize;
+  const int split = args.group;   // S, warps a pair
+  const int teams = kWarpsPerBlock / split;
+  const int team = warp / split;
+  const int tw = warp - team * split;   // the warp's rank in its team
+  const int nt = split * kWarpSize;
+  const int tt = threadIdx.x - team * nt;
+  const T* counts = static_cast<const T*>(args.counts);
+  const int d = args.d;
+  const long long n_pairs = args.n_pairs;
+  bool c_ok = true;
+  if (args.center) {
+    const long long b = args.b_idx[0];
+    c_ok = b >= 0 && b < args.n_rows;
+  }
+  // the parameters and the center row in shared memory, as
+  // pair_stats_kernel stages them, then the warps' slots
+  const double* prm = args.prm;
+  int used = 0;
+  if (args.prm_shared) {
+    double* s_prm = reinterpret_cast<double*>(smem);
+    for (int i = threadIdx.x; i < args.n_prm; i += kThreads) s_prm[i] = args.prm[i];
+    prm = s_prm;
+    used = (args.n_prm * 8 + 15) / 16 * 16;
+  }
+  const T* crow = nullptr;
+  if (args.center && c_ok) {
+    crow = counts + args.b_idx[0] * d;
+    if (args.center_shared) {
+      T* s_row = reinterpret_cast<T*>(smem + used);
+      const int bytes = d * static_cast<int>(sizeof(T));
+      if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(crow) % 16 == 0) {
+        const uint4* src = reinterpret_cast<const uint4*>(crow);
+        uint4* dst = reinterpret_cast<uint4*>(s_row);
+        for (int i = threadIdx.x; i < bytes / 16; i += kThreads) dst[i] = __ldg(src + i);
+      } else {
+        for (int i = threadIdx.x; i < d; i += kThreads) s_row[i] = crow[i];
+      }
+      crow = s_row;
+    }
+  }
+  if (args.center && args.center_shared) used += (d * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+  long long* slots = reinterpret_cast<long long*>(smem + used);
+  long long* mine = slots + warp * kSlots;              // this warp's row
+  const long long* team_rows = slots + team * split * kSlots;
+  __syncthreads();
+
+  // the model's full-vector singles, by their bits
+  unsigned mask = 0;
+  const int n_s = static_cast<int>(prm[0]);
+  for (int k = 0; k < n_s; ++k) {
+    const int code = static_cast<int>(prm[kHead + kStride * k]);
+    if (code >= kJefferey && code < kMarkov) mask |= bit(code);
+  }
+  const bool vec = reinterpret_cast<uintptr_t>(counts) % 16 == 0;
+  const double dd = static_cast<double>(d);
+  const int n_groups = d / 4;
+  const int per = (n_groups + nt - 1) / nt;
+  const int g0 = min(n_groups, tt * per), g1 = min(n_groups, g0 + per);
+  auto sync = [&]() {
+    if (split == 1) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + team), "r"(nt) : "memory");
+    }
+  };
+  // lane i of the team's first warp: slot i's total over the warps
+  auto total = [&](int i) -> long long {
+    if (i == kSlotSmin || i == kSlotDot || i == kSlotEmd) {
+      long long v = team_rows[i];
+      for (int w = 1; w < split; ++w) v += team_rows[w * kSlots + i];
+      return v;
+    }
+    double v = __longlong_as_double(team_rows[i]);
+    for (int w = 1; w < split; ++w) v += __longlong_as_double(team_rows[w * kSlots + i]);
+    return as_bits(v);
+  };
+
+  for (long long p = static_cast<long long>(blockIdx.x) * teams + team; p < n_pairs;
+       p += static_cast<long long>(gridDim.x) * teams) {
+    const Pair cur = pair_at(args, p, c_ok);
+    const Out out{args.dec + p, n_pairs};
+    if (!cur.ok) {   // uniform across the team
+      if (tt == 0) {
+        long long* so = args.stats + 3 * p;
+        so[0] = so[1] = so[2] = -1;
+        for (int r = 0; r < 5; ++r) out.write(r, __longlong_as_double(0x7ff8000000000000LL));
+      }
+      continue;
+    }
+    const T* h = counts + cur.a * d;
+    const T* c = args.center ? crow : counts + cur.b * d;
+    const double ma = args.mags[cur.a], mb = args.mags[cur.b];
+
+    // pass 1: the statistics' parts and the log divergences
+    long long smin = 0, dot = 0, diff = 0;
+    {
+      FullSums f{};
+      for (int q = g0; q < g1; ++q) {
+        unsigned x[4], y[4];
+        load4(h, q, vec, x);
+        load4(c, q, vec, y);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          smin += min(x[j], y[j]);
+          dot += static_cast<long long>(x[j]) * y[j];
+          diff += static_cast<long long>(x[j]) - static_cast<long long>(y[j]);
+        }
+        if (mask & kLogBits) full_group_log(mask, x, y, ma, mb, f);
+      }
+      const long long wd = warp_sum(diff), ws = warp_sum(smin), wo = warp_sum(dot);
+      if (lane == 0) {
+        mine[kSlotDiff] = wd;
+        mine[kSlotSmin] = ws;
+        mine[kSlotDot] = wo;
+      }
+      if (mask & kLogBits) {
+        const double v[11] = {f.jd, f.jd_abs, f.jd_comp, f.ta, f.ta_abs, f.tb,
+                              f.tb_abs, f.kp, f.kp_abs, f.kq, f.kq_abs};
+#pragma unroll
+        for (int i = 0; i < 11; ++i) {
+          const double w = warp_sum(v[i]);
+          if (lane == 0) mine[kSlotJd + i] = as_bits(w);
+        }
+      }
+    }
+    sync();
+    long long run = warp_exclusive(diff, lane);
+    for (int w = 0; w < tw; ++w) run += team_rows[w * kSlots + kSlotDiff];
+    long long held = 0;   // the first warp: lane i's slot total
+    if (tw == 0 && lane >= kSlotSmin && lane < kSlotEmd &&
+        (lane <= kSlotDot || (mask & kLogBits)))
+      held = total(lane);
+
+    // pass 2: the EMD and the blockwise singles
+    {
+      unsigned long long emd = 0;
+      FullSums f{};
+      for (int q = g0; q < g1; ++q) {
+        unsigned x[4], y[4];
+        load4(h, q, vec, x);
+        load4(c, q, vec, y);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          run += static_cast<long long>(x[j]) - static_cast<long long>(y[j]);
+          emd += static_cast<unsigned long long>(run < 0 ? -run : run);
+        }
+        if (mask & kBlockBits) full_group_block(mask, x, y, ma, mb, dd, f);
+      }
+      const unsigned long long we = warp_sum(emd);
+      if (lane == 0) mine[kSlotEmd] = static_cast<long long>(we);
+      if (mask & kBlockBits) {
+        const double v[9] = {f.hs, f.hc, f.sq, f.chi, f.can, f.kul, f.har, f.mis, f.jac};
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          const double w = warp_sum(v[i]);
+          if (lane == 0) mine[kSlotHs + i] = as_bits(w);
+        }
+      }
+    }
+    sync();
+    if (tw != 0) continue;   // the team's first warp finishes the pair
+    if (lane >= kSlotEmd && lane < kSlots && (lane == kSlotEmd || (mask & kBlockBits)))
+      held = total(lane);
+    long long st[3];
+    st[0] = __shfl_sync(kFullMask, held, kSlotSmin);
+    st[1] = __shfl_sync(kFullMask, held, kSlotDot);
+    st[2] = __shfl_sync(kFullMask, held, kSlotEmd);
+    auto slot = [&](int i) { return __longlong_as_double(__shfl_sync(kFullMask, held, i)); };
+    FullSums fs;
+    fs.jd = slot(kSlotJd);
+    fs.jd_abs = slot(kSlotJdAbs);
+    fs.jd_comp = slot(kSlotJdComp);
+    fs.ta = slot(kSlotTa);
+    fs.ta_abs = slot(kSlotTaAbs);
+    fs.tb = slot(kSlotTb);
+    fs.tb_abs = slot(kSlotTbAbs);
+    fs.kp = slot(kSlotKp);
+    fs.kp_abs = slot(kSlotKpAbs);
+    fs.kq = slot(kSlotKq);
+    fs.kq_abs = slot(kSlotKqAbs);
+    fs.hs = slot(kSlotHs);
+    fs.hc = slot(kSlotHc);
+    fs.sq = slot(kSlotSq);
+    fs.chi = slot(kSlotChi);
+    fs.can = slot(kSlotCan);
+    fs.kul = slot(kSlotKul);
+    fs.har = slot(kSlotHar);
+    fs.mis = slot(kSlotMis);
+    fs.jac = slot(kSlotJac);
+    if (lane == 0) {
+      long long* so = args.stats + 3 * p;
+      so[0] = st[0];
+      so[1] = st[1];
+      so[2] = st[2];
+    }
+    const Moments mom{args.mags[cur.a],    args.mags[cur.b],
+                      args.selfdot[cur.a], args.selfdot[cur.b],
+                      args.stddevs[cur.a], args.stddevs[cur.b],
+                      args.lens[cur.a],    args.lens[cur.b]};
+    const PlaneIn pl = PLANE ? PlaneIn{args.plane + p, n_pairs, args.n_plane} : PlaneIn{};
+    epilogue_warp<true, PLANE>(prm, st, mom, fs, pl, dd, args.inv_d, lane, out);
   }
 }
 
@@ -1086,9 +1303,9 @@ int smem_optin() {
 // Launches one instantiation: G (pairs a warp) so that the grid is at
 // most one wave of the warps the card holds at once, one pair a warp while
 // they suffice.
-template <typename T, int NV, bool NARROW, bool FULL, bool PLANE>
+template <typename T, int NV, bool NARROW, bool PLANE>
 int launch_with(Args args, int smem, cudaStream_t st) {
-  auto kern = pair_stats_kernel<T, NV, NARROW, FULL, PLANE>;
+  auto kern = pair_stats_kernel<T, NV, NARROW, PLANE>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1112,39 +1329,55 @@ int launch_with(Args args, int smem, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool NARROW, bool FULL, bool PLANE>
+template <typename T, bool NARROW, bool PLANE>
 int dispatch(const Args& args, int smem, cudaStream_t st) {
   const int row_bytes = args.d * static_cast<int>(sizeof(T));
   const bool aligned = reinterpret_cast<uintptr_t>(args.counts) % 16 == 0;
   // the register path: at most 32 counts a lane
   if (aligned && row_bytes % (kWarpSize * 16) == 0) {
     const int nv = row_bytes / (kWarpSize * 16);
-    if (nv == 1) return launch_with<T, 1, NARROW, FULL, PLANE>(args, smem, st);
-    if (nv == 2) return launch_with<T, 2, NARROW, FULL, PLANE>(args, smem, st);
+    if (nv == 1) return launch_with<T, 1, NARROW, PLANE>(args, smem, st);
+    if (nv == 2) return launch_with<T, 2, NARROW, PLANE>(args, smem, st);
     if constexpr (sizeof(T) == 2) {
-      if (nv == 4) return launch_with<T, 4, NARROW, FULL, PLANE>(args, smem, st);
+      if (nv == 4) return launch_with<T, 4, NARROW, PLANE>(args, smem, st);
     }
   }
   // 16-byte loads need every lane slice to be whole, aligned vectors
   if (aligned && args.d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0)
-    return launch_with<T, 0, NARROW, FULL, PLANE>(args, smem, st);
-  return launch_with<T, -1, NARROW, FULL, PLANE>(args, smem, st);
+    return launch_with<T, 0, NARROW, PLANE>(args, smem, st);
+  return launch_with<T, -1, NARROW, PLANE>(args, smem, st);
 }
 
-// The PLANE instantiations take the two-pass loop with 64-bit sums only
-// (exact for any store): their pairs go one at a time anyway, and fewer
-// instantiations keep the build short.
-template <typename T, bool FULL, bool PLANE>
-int dispatch_sums(const Args& args, int narrow, int smem, cudaStream_t st) {
-  if constexpr (PLANE) {
-    const bool aligned = reinterpret_cast<uintptr_t>(args.counts) % 16 == 0;
-    if (aligned && args.d % (kWarpSize * (16 / static_cast<int>(sizeof(T)))) == 0)
-      return launch_with<T, 0, false, FULL, true>(args, smem, st);
-    return launch_with<T, -1, false, FULL, true>(args, smem, st);
-  } else {
-    return narrow ? dispatch<T, true, FULL, false>(args, smem, st)
-                  : dispatch<T, false, FULL, false>(args, smem, st);
+// The FULL kernel (full_kernel): S warps a pair, doubled while the pairs'
+// warps still fit one wave of the resident warps and each thread keeps two
+// groups of 4; a grid of at most the resident blocks, each block
+// walking its pairs (so it stages the center row once).
+template <typename T, bool PLANE>
+int launch_full(Args args, int smem, cudaStream_t st) {
+  auto kern = full_kernel<T, PLANE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  static int cached_smem = -1, per_sm = 0;
+  if (smem != cached_smem) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cached_smem = smem;
+  }
+  const long long resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sm_count();
+  int split = 1;
+  while (2 * split <= kWarpsPerBlock && 2 * split * kWarpSize * 8 <= args.d &&
+         2 * args.n_pairs * split <= resident * kWarpsPerBlock)
+    split *= 2;
+  args.group = split;
+  const int teams = kWarpsPerBlock / split;
+  const long long want = (args.n_pairs + teams - 1) / teams;
+  const long long blocks = want < resident ? want : resident;
+  kern<<<dim3(static_cast<unsigned>(blocks)), kThreads, smem, st>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -1178,8 +1411,10 @@ int launch(const void* counts, long long n_rows, int d, const void* a_idx,
   args.n_plane = n_plane;
   args.stats = static_cast<long long*>(stats);
   args.dec = static_cast<double*>(dec);
-  // shared memory: the parameters, then the center row, each where it fits
-  const int limit = smem_optin();
+  // shared memory: the parameters, then the center row, each where it
+  // fits, then (FULL) the warps' slots
+  const int slots = full ? kWarpsPerBlock * kSlots * 8 : 0;
+  const int limit = smem_optin() - slots;
   const int prm_bytes = dec != nullptr ? (n_prm * 8 + 15) / 16 * 16 : 0;
   const long long row_bytes =
       center ? (static_cast<long long>(d) * sizeof(T) + 15) / 16 * 16 : 0;
@@ -1188,11 +1423,14 @@ int launch(const void* counts, long long n_rows, int d, const void* a_idx,
   args.center_shared = center && smem + row_bytes <= limit;
   if (args.center_shared) smem += static_cast<int>(row_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (full)
+    return plane ? launch_full<T, true>(args, smem + slots, st)
+                 : launch_full<T, false>(args, smem + slots, st);
   if (plane)
-    return full ? dispatch_sums<T, true, true>(args, narrow, smem, st)
-                : dispatch_sums<T, false, true>(args, narrow, smem, st);
-  return full ? dispatch_sums<T, true, false>(args, narrow, smem, st)
-              : dispatch_sums<T, false, false>(args, narrow, smem, st);
+    return narrow ? dispatch<T, true, true>(args, smem, st)
+                  : dispatch<T, false, true>(args, smem, st);
+  return narrow ? dispatch<T, true, false>(args, smem, st)
+                : dispatch<T, false, false>(args, smem, st);
 }
 
 }  // namespace

@@ -241,9 +241,9 @@ def _mul_err(c, ce, z, ze):
     return c * z, ce * z.abs() + ze * c.abs()
 
 
-def _combo_err(z, ze, kind: str, idxs) -> torch.Tensor:
-    """A combo's error bound from its singles' normalized values and
-    bounds, product by product (meshclust2_tpu/cluster/device_loop.py:
+def _combo_err(z, ze, kind: str, idxs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A combo's value and error bound from its singles' normalized values
+    and bounds, product by product (meshclust2_tpu/cluster/device_loop.py:
     epilogue_dd)."""
     i0, i1 = idxs[0], (idxs[1] if len(idxs) == 2 else None)
     if kind == F.COMBO_XY:
@@ -263,7 +263,10 @@ def _combo_err(z, ze, kind: str, idxs) -> torch.Tensor:
         c, ce = _mul_err(c, ce, z[:, i1], ze[:, i1])
     else:
         raise ValueError(kind)
-    return ce
+    return c, ce
+
+
+_U = 2.0 ** -53   # unit roundoff of float64
 
 
 def decision_errors(m: TorchModel, raw: torch.Tensor, err: torch.Tensor
@@ -274,16 +277,23 @@ def decision_errors(m: TorchModel, raw: torch.Tensor, err: torch.Tensor
     dist, in the order of meshclust2_tpu/cluster/device_loop.py:
     epilogue_dd: each bound over |max - min| (the flip keeps it), each
     combo's products, then the GLM sum, |w_j| times combo j's bound in
-    combo order.  The roundings of the epilogue itself are left to the
-    relative margins, as for the statistics-derived singles."""
+    combo order.  Where the singles differ, so may the two sides' own
+    roundings of the epilogue, and the bounds cover them too: 6 u (|z| + 1)
+    a normalized single (three roundings a side), 8 u |c_j| a combo (up to
+    three products a side), and 2 (C + 2) u (|w_0| + sum_j |w_j c_j|) the
+    GLM sum (C products and w_0 summed on each side in its own order)."""
     v = (raw - m.mins[None, :]) / (m.maxs - m.mins)[None, :]
     z = torch.where(m.is_sim[None, :], v, 1.0 - v)
-    ze = err / (m.maxs - m.mins).abs()[None, :]
-    cerr = [_combo_err(z, ze, kind, idxs) for kind, idxs in m.combos]
-    if not cerr:
+    ze = err / (m.maxs - m.mins).abs()[None, :] + 6 * _U * (z.abs() + 1)
+    if not m.combos:
         zero = torch.zeros(raw.shape[0], dtype=torch.float64, device=raw.device)
         return zero, zero.clone()
+    cerr, mag = [], m.weights[0].abs().expand(raw.shape[0])
+    for j, (kind, idxs) in enumerate(m.combos):
+        c, ce = _combo_err(z, ze, kind, idxs)
+        cerr.append(ce + 8 * _U * c.abs())
+        mag = mag + (c * m.weights[j + 1]).abs()
     s_err = cerr[0] * m.weights[1].abs()
     for j in range(1, len(cerr)):
         s_err = s_err + cerr[j] * m.weights[j + 1].abs()
-    return s_err, cerr[0]
+    return s_err + 2 * (len(cerr) + 2) * _U * mag, cerr[0]

@@ -42,7 +42,7 @@ from ..kmer.counting import PointSet
 from ..model.classifier import (PLANE_SINGLES, SINGLE_CODES, STATS_SINGLES,
                                 VECTOR_SINGLES, CompiledModel, model_to_torch)
 from .pair_stats import pair_stats_decision
-from .plane_singles import NEEDS, Planes, plane_singles
+from .plane_singles import NEEDS, Planes, plane_singles, rank_dtype, table_len
 
 # the singles the scorer computes: those the fused kernel derives from its
 # (sum-min, dot, EMD) plus per-row moments, the full-vector ones it sums
@@ -117,13 +117,34 @@ def check_scorer(singles, k: int) -> None:
         raise ValueError("AFD requires k == 2")
 
 
+class LogTableMismatch(RuntimeError):
+    """numpy's log of a table entry differs from its log of the same value
+    inside a row: the plane store's tables would not be the host's bits."""
+
+
+RANK_DTYPES = {torch.int16: np.int16, torch.int32: np.int32}
+
+
+def check_logs(host_logs: np.ndarray, from_table: np.ndarray, what: str) -> None:
+    """Raise LogTableMismatch unless the table's entries equal, bit for bit,
+    the logs numpy forms over the rows."""
+    if not np.array_equal(host_logs.view(np.int64), from_table.view(np.int64)):
+        raise LogTableMismatch(f"the table's {what} differs from numpy's log "
+                               f"over the rows: the plane store cannot "
+                               f"promise the host's bits")
+
+
 class TorchDeviceFeatureEngine:
-    """The plane store of one pool: the per-row planes that the model's
-    plane singles read (ops/plane_singles.py:NEEDS), built on the host in
-    float64 with the port's own host formulas (features/host.py: tiedrank,
-    _expected_counts, markov, n2_z), in row chunks, and uploaded once.
-    Each entry is, bit for bit, the intermediate the host oracle forms for
-    that row in a pair batch.  The counterpart of
+    """The plane store of one pool: the per-row planes and tables that the
+    model's plane singles read (ops/plane_singles.py:NEEDS), built on the
+    host in float64 with the port's own host formulas (features/host.py:
+    tiedrank, _expected_counts, markov, n2_z), in row chunks, and uploaded
+    once.  Each entry is, bit for bit, the intermediate the host oracle
+    forms for that row in a pair batch: markov's logs are two tables over
+    every count and group sum the store's type holds, taken with numpy's
+    log and checked over every row against the logs the host forms
+    (`LogTableMismatch` if one differs), and spearman's rank deviations
+    are stored as the integers 2 dev.  The counterpart of
     meshclust2_tpu/ops/device_features.py:DeviceFeatureEngine.__init__
     (lines 86-132) and _n2_plane (lines 174-189), which keep float32 copies.
     `seconds` is the build's host time, upload included."""
@@ -138,24 +159,34 @@ class TorchDeviceFeatureEngine:
         device = store.counts.device
         d = ps.dim
         names = set().union(*(NEEDS[f] for f in self.flags))
-        shapes = {"log_counts": (d,), "log_groups": (d // 4,), "markov_self": (),
-                  "rank_dev": (d,), "rank_ss": (), "h": (d,), "n2r": (d,),
-                  "n2rc": (d,), "n2rrc": (d,)}
-        host = {name: np.empty((ps.n,) + shapes[name]) for name in names}
+        shapes = {"markov_self": (), "rank2": (d,), "rank_ss": (), "h": (d,),
+                  "n2r": (d,), "n2rc": (d,), "n2rrc": (d,)}
+        host = {name: np.empty((ps.n,) + shapes[name],
+                               dtype=RANK_DTYPES[rank_dtype(d)] if name == "rank2"
+                               else np.float64)
+                for name in names if name in shapes}
+        if "log_count" in names:
+            n_log = table_len(store.counts.dtype)
+            with np.errstate(divide="ignore"):
+                host["log_count"] = log_count = np.log(np.arange(n_log, dtype=np.float64))
+                host["log_group"] = log_group = np.log(
+                    np.arange(4 * (n_log - 1) + 1, dtype=np.float64))
         n2_flags = {"n2r": F.FEAT_N2R, "n2rc": F.FEAT_N2RC, "n2rrc": F.FEAT_N2RRC}
         for s in range(0, ps.n, self.ROW_CHUNK):
             rows = np.arange(s, min(ps.n, s + self.ROW_CHUNK))
             side = H.side_from_pointset(ps, rows)
             c = side.counts
-            if "log_counts" in names:
-                host["log_counts"][rows] = np.log(c)
-                host["log_groups"][rows] = np.log(
-                    c.reshape(len(rows), d // 4, 4).sum(axis=2))
+            if "log_count" in names:
+                ci = ps.counts[rows].astype(np.int64)
+                gi = ci.reshape(len(rows), d // 4, 4).sum(axis=2)
+                check_logs(np.log(c), log_count[ci], "log c")
+                check_logs(np.log(c.reshape(len(rows), d // 4, 4).sum(axis=2)),
+                           log_group[gi], "log of a group sum")
             if "markov_self" in names:
                 host["markov_self"][rows] = H.markov(side, side)
-            if "rank_dev" in names:
+            if "rank2" in names:
                 dev = H.tiedrank(c) - (d + 1) / 2.0
-                host["rank_dev"][rows] = dev
+                host["rank2"][rows] = 2 * dev       # exact integers
                 host["rank_ss"][rows] = (dev * dev).sum(axis=1)
             if "h" in names:
                 host["h"][rows] = c - H._expected_counts(side)[0]
@@ -164,11 +195,12 @@ class TorchDeviceFeatureEngine:
                     host[name][rows] = H.n2_z(H.n2_vector(flag, c, ps.k))
 
         def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).to(device)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         self.planes = Planes(
-            counts=store.counts, mags=store.mags, real_mags=up(ps.mags - d),
-            one_mers=up(ps.one_mers), k=ps.k,
+            counts=store.counts, mags=store.mags,
+            real_mags=up((ps.mags - d).astype(np.float64)),
+            one_mers=up(ps.one_mers.astype(np.float64)), k=ps.k,
             **{name: up(a) for name, a in host.items()})
         if device.type == "cuda":
             torch.cuda.synchronize(device)

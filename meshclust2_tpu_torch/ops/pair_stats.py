@@ -19,15 +19,17 @@ tests hold against the JAX package:
   updater use it.  A model with full-vector singles (the log divergences
   and the blockwise singles, `vector_singles_ref`, the port of
   meshclust2_tpu/cluster/device_loop.py:log_div_stats and
-  block_singles_stats) launches the kernel's FULL instantiation, which
-  sums their terms over the two rows in the same pass and also returns
+  block_singles_stats) launches the FULL kernel (csrc/pair_stats.cu:
+  full_kernel, a team of warps a pair), which sums their terms over the
+  two rows from the counts its statistics pass loads and also returns
   absolute error bounds on s and dist (model/classifier.py:
   decision_errors); a model with plane singles (markov, sim_mm, rre_k_r,
   spearman, d2s, d2_star, afd, n2r/n2rc/n2rrc: ops/plane_singles.py) takes
   their values and bounds from `plane_singles` (`plane=`) and launches the
-  PLANE instantiation, which reads them by code in the same epilogue and
-  propagates their bounds as FULL does (FULL and PLANE together for a
-  model with both); every other model's bounds are 0.
+  PLANE instantiation, the fast kernel's rounds with each lane's epilogue
+  reading them by code and propagating their bounds as FULL does (the
+  FULL kernel reads them for a model with both); every other model's
+  bounds are 0.
 
 A `b_idx` of length 1 is the center form: every pair's second row is
 b_idx[0].

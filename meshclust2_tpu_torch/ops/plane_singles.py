@@ -23,6 +23,13 @@ exp, pow or hypot stands in for numpy's, a companion sum covers it
 (ops/pair_stats.py:vector_singles_ref's recipe).  The kernel sums in another
 order than this plain version, so the two agree within the sum of their
 bounds, not bit for bit.
+
+The store keeps what a pair reads small: markov's logs of counts and of
+group sums are two tables indexed by the integer (`log_count`,
+`log_group`: numpy's own logs, which the build holds equal bit for bit to
+the host's over every row), and spearman's rank deviations are integers
+2 dev, int16 up to D = 16,384 (`rank2`), so its cov is an exact integer
+sum.
 """
 from __future__ import annotations
 
@@ -53,11 +60,11 @@ class Planes:
     real_mags: torch.Tensor     # float64 [N] mags - D
     one_mers: torch.Tensor      # float64 [N, 4] pseudocounted one-mer counts
     k: int
-    log_counts: Optional[torch.Tensor] = None    # float64 [N, D] (markov, sim_mm)
-    log_groups: Optional[torch.Tensor] = None    # float64 [N, D / 4] log group sums
+    log_count: Optional[torch.Tensor] = None     # float64 [L] log c (markov, sim_mm)
+    log_group: Optional[torch.Tensor] = None     # float64 [4 (L - 1) + 1] log of a group sum
     markov_self: Optional[torch.Tensor] = None   # float64 [N] markov(x, x) (sim_mm)
-    rank_dev: Optional[torch.Tensor] = None      # float64 [N, D] tied rank - (D + 1) / 2
-    rank_ss: Optional[torch.Tensor] = None       # float64 [N] its sum of squares
+    rank2: Optional[torch.Tensor] = None         # int16/int32 [N, D] 2 (tied rank - (D + 1) / 2)
+    rank_ss: Optional[torch.Tensor] = None       # float64 [N] the deviations' sum of squares
     h: Optional[torch.Tensor] = None             # float64 [N, D] counts - expectation
     n2r: Optional[torch.Tensor] = None           # float64 [N, D] n2 z-planes
     n2rc: Optional[torch.Tensor] = None
@@ -67,13 +74,30 @@ class Planes:
         return {F.FEAT_N2R: self.n2r, F.FEAT_N2RC: self.n2rc,
                 F.FEAT_N2RRC: self.n2rrc}[flag]
 
+    def nbytes(self) -> int:
+        """Device bytes of what the store adds to the DeviceStore's counts
+        and mags: the tables, planes and per-row scalars."""
+        return sum(t.numel() * t.element_size() for name, t in vars(self).items()
+                   if isinstance(t, torch.Tensor) and name not in ("counts", "mags"))
+
+
+def table_len(dtype: torch.dtype) -> int:
+    """Entries of the log-count table of a store of `dtype` (every count
+    the type holds); the group table has 4 (L - 1) + 1."""
+    return 256 if dtype == torch.uint8 else 65536
+
+
+def rank_dtype(d: int) -> torch.dtype:
+    """2 dev of a tied rank fits int16 while |2 dev| <= D - 1 < 2^14."""
+    return torch.int16 if d <= 16384 else torch.int32
+
 
 # the planes each single reads
 NEEDS = {
-    F.FEAT_MARKOV: ("log_counts", "log_groups"),
-    F.FEAT_SIM_MM: ("log_counts", "log_groups", "markov_self"),
+    F.FEAT_MARKOV: ("log_count", "log_group"),
+    F.FEAT_SIM_MM: ("log_count", "log_group", "markov_self"),
     F.FEAT_RRE_K_R: (),
-    F.FEAT_SPEARMAN: ("rank_dev", "rank_ss"),
+    F.FEAT_SPEARMAN: ("rank2", "rank_ss"),
     F.FEAT_D2s: ("h",),
     F.FEAT_D2_star: ("h",),
     F.FEAT_AFD: (),
@@ -84,11 +108,11 @@ NEEDS = {
 
 
 def _rows(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """counts[idx] as float64 (CUDA has no uint16 gather: the same bits as
+    """counts[idx] as int64 (CUDA has no uint16 gather: the same bits as
     int16, masked)."""
     if counts.dtype == torch.uint16:
-        return (counts.view(torch.int16)[idx].to(torch.int64) & 0xFFFF).to(torch.float64)
-    return counts[idx].to(torch.float64)
+        return counts.view(torch.int16)[idx].to(torch.int64) & 0xFFFF
+    return counts[idx].to(torch.int64)
 
 
 def _plane_terms(pl: Planes, a: torch.Tensor, b: torch.Tensor, need
@@ -100,11 +124,12 @@ def _plane_terms(pl: Planes, a: torch.Tensor, b: torch.Tensor, need
     out = {}
     d = pl.counts.shape[1]
     hs, e16 = (d + 64) * _U, 16 * _U
-    x, y = _rows(pl.counts, a), _rows(pl.counts, b)
+    xi, yi = _rows(pl.counts, a), _rows(pl.counts, b)
+    x, y = xi.to(torch.float64), yi.to(torch.float64)
     if need & {F.FEAT_MARKOV, F.FEAT_SIM_MM}:
-        la, lb = pl.log_counts[a], pl.log_counts[b]
-        ga = pl.log_groups[a].repeat_interleave(4, dim=1)
-        gb = pl.log_groups[b].repeat_interleave(4, dim=1)
+        la, lb = pl.log_count[xi], pl.log_count[yi]
+        ga = pl.log_group[xi.view(len(a), d // 4, 4).sum(2)].repeat_interleave(4, dim=1)
+        gb = pl.log_group[yi.view(len(b), d // 4, 4).sum(2)].repeat_interleave(4, dim=1)
         t1, t2 = (x - 1) * (lb - gb), (y - 1) * (la - ga)
         mk = 0.5 * (t1.sum(1) + t2.sum(1))
         comp = ((x - 1) * (lb.abs() + gb.abs())).sum(1) + \
@@ -140,10 +165,11 @@ def _plane_terms(pl: Planes, a: torch.Tensor, b: torch.Tensor, need
             0.5 * (tp.sum((1, 2)) + tq.sum((1, 2))),
             0.5 * (hs * (tp.abs().sum((1, 2)) + tq.abs().sum((1, 2))) + e16 * comp))
     if F.FEAT_SPEARMAN in need:
-        # half-integer ranks: cov is exact in any order; the bound covers
-        # square roots that a library does not round correctly (PyTorch's
-        # on the CPU)
-        cov = (pl.rank_dev[a] * pl.rank_dev[b]).sum(1)
+        # integer 2 dev: cov, an exact integer sum over 4, is the host's
+        # exact half-integer sum; the bound covers square roots that a
+        # library does not round correctly (PyTorch's on the CPU)
+        cov = (pl.rank2[a].to(torch.int64) * pl.rank2[b].to(torch.int64)
+               ).sum(1).to(torch.float64) * 0.25
         r = cov / (torch.sqrt(pl.rank_ss[a]) * torch.sqrt(pl.rank_ss[b]))
         out[F.FEAT_SPEARMAN] = (1 - r, 8 * _U * (r.abs() + 1))
     if need & {F.FEAT_D2s, F.FEAT_D2_star}:
@@ -200,20 +226,27 @@ def _check(pl: Planes, a_idx: torch.Tensor, b_idx: torch.Tensor,
         raise ValueError(f"flags {bad} are not plane singles")
     if F.FEAT_AFD in flags_list and pl.k != 2:
         raise ValueError("AFD requires k == 2")
+    L = table_len(counts.dtype)
     shapes = {"mags": (n,), "real_mags": (n,), "one_mers": (n, 4),
-              "log_counts": (n, d), "log_groups": (n, d // 4), "markov_self": (n,),
-              "rank_dev": (n, d), "rank_ss": (n,), "h": (n, d), "n2r": (n, d),
+              "log_count": (L,), "log_group": (4 * (L - 1) + 1,), "markov_self": (n,),
+              "rank2": (n, d), "rank_ss": (n,), "h": (n, d), "n2r": (n, d),
               "n2rc": (n, d), "n2rrc": (n, d)}
     names = {"mags", "real_mags", "one_mers"}.union(
         *(NEEDS[f] for f in flags_list))
-    for name in names:
+    for name in ["counts"] + sorted(names):
         t = getattr(pl, name)
         if t is None:
             raise ValueError(f"plane {name} was not built")
-        if (t.dtype != torch.float64 or tuple(t.shape) != shapes[name]
+        dtype = (counts.dtype if name == "counts" else rank_dtype(d) if name == "rank2"
+                 else torch.float64)
+        shape = tuple(counts.shape) if name == "counts" else shapes[name]
+        if (t.dtype != dtype or tuple(t.shape) != shape
                 or t.device != counts.device or not t.is_contiguous()):
-            raise ValueError(f"plane {name} must be contiguous float64 "
-                             f"{shapes[name]} on {counts.device}")
+            raise ValueError(f"plane {name} must be contiguous {dtype} {shape} "
+                             f"on {counts.device}")
+        # the kernel reads rows in 16-byte vectors
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"plane {name} is not 16-byte aligned")
 
 
 def plane_singles_ref(pl: Planes, a_idx: torch.Tensor, b_idx: torch.Tensor,
@@ -237,8 +270,8 @@ def _kernel(dtype: torch.dtype):
     fn = getattr(load("plane_singles").lib, f"mc2_plane_singles_{_DTYPES[dtype]}")
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn.argtypes = ([p, i64, i32, i32, p, p, i32, i64] + [p] * 12
-                       + [ctypes.POINTER(ctypes.c_int), i32, p, p])
+        fn.argtypes = ([p, i64, i32, i32, p, p, i32, i64] + [p] * 7 + [i32]
+                       + [p] * 5 + [ctypes.POINTER(ctypes.c_int), i32, p, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -264,15 +297,16 @@ def plane_singles(pl: Planes, a_idx: torch.Tensor, b_idx: torch.Tensor,
     n, d = counts.shape
     codes = (ctypes.c_int * len(flags_list))(*(SINGLE_CODES[f] for f in flags_list))
     ptr = lambda t: None if t is None else t.data_ptr()
-    planes = (pl.mags, pl.real_mags, pl.one_mers, pl.log_counts, pl.log_groups,
-              pl.markov_self, pl.rank_dev, pl.rank_ss, pl.h, pl.n2r, pl.n2rc,
-              pl.n2rrc)
+    planes = [ptr(t) for t in (pl.mags, pl.real_mags, pl.one_mers, pl.log_count,
+                               pl.log_group, pl.markov_self, pl.rank2, pl.rank_ss,
+                               pl.h, pl.n2r, pl.n2rc, pl.n2rrc)]
+    rank_wide = int(rank_dtype(d) == torch.int32)
     stream = torch.cuda.current_stream(counts.device).cuda_stream
     with torch.cuda.device(counts.device):
         rc = _kernel(counts.dtype)(
             counts.data_ptr(), n, d, pl.k, a_idx.data_ptr(), b_idx.data_ptr(),
-            int(len(b_idx) != len(a_idx)), len(a_idx), *(ptr(t) for t in planes),
-            codes, len(flags_list), out.data_ptr(), stream)
+            int(len(b_idx) != len(a_idx)), len(a_idx), *planes[:7], rank_wide,
+            *planes[7:], codes, len(flags_list), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"plane_singles kernel launch failed: cudaError {rc}")
     plane_singles.launches += 1

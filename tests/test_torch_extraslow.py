@@ -146,7 +146,7 @@ def test_spearman_model_clusters_on_the_host_scorer(tmp_path, monkeypatch,
     assert res.accumulator is None and res.updater is None
     # the device scorer, its plane store holding spearman's planes
     assert type(res.scorer).__name__ == "TorchDeviceScorer"
-    assert res.scorer.engine.planes.rank_dev is not None
+    assert res.scorer.engine.planes.rank2 is not None
     assert res.scorer.scored_pairs > 0
     assert got == want
 

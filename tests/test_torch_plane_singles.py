@@ -4,11 +4,14 @@ plane-singles kernel's plain version and the fused kernel's PLANE epilogue,
 against the JAX package, on small.fasta at k = 5 (and k = 2 for afd), with
 --device cpu (the kernels' plain versions).
 
-- The planes: each port plane cast to float32 equals the JAX
-  DeviceFeatureEngine's (the two log planes, which the JAX package takes
-  with float32 logs, within one float32 ulp), and each plane row equals,
-  bit for bit, the intermediate the JAX host oracle forms for that row in a
-  pair batch, whatever the row chunks of the build.
+- The planes: each port plane (markov's log tables gathered by each row's
+  counts and group sums, the int16 2 dev halved) cast to float32 equals the
+  JAX DeviceFeatureEngine's (the two log planes, which the JAX package
+  takes with float32 logs, within one float32 ulp), and each plane row
+  equals, bit for bit, the intermediate the JAX host oracle forms for that
+  row in a pair batch, whatever the row chunks of the build; the log
+  tables equal numpy's logs over every row, and a table that does not
+  stops the build; the store holds only what a model reads.
 - The raw singles, both forms: within their bounds of the JAX float64 host
   oracle (`compute_singles`), the bounds at most 1e-9 (|v| + 1); within the
   JAX tests' float32 tolerances of the JAX device engine's `singles_batch`.
@@ -24,7 +27,10 @@ against the JAX package, on small.fasta at k = 5 (and k = 2 for afd), with
 - fastcar with a plane model keeps the host route, byte for byte.
 - afd at k != 2 raises on the scorer, as on the host.
 - On the card (`cuda`): the kernel within bounds of its plain version in
-  both forms, and the fused kernel's PLANE instantiation.
+  both forms and of the host oracle at every team mapping (one pair, a
+  window no multiple of the split, 20,000 pairs, D = 16 and 4,096,
+  uint16), NaN at a bad index, and the fused kernel's PLANE epilogue in
+  its rounds and in the FULL kernel's teams.
 """
 import os
 
@@ -150,6 +156,20 @@ CAST_PLANES = {"markov_self": "markov_self", "rank_dev": "rank_dev",
 LOG_PLANES = {"log_counts": "log_counts", "log_groups": "log_group_sums"}
 
 
+def dense_planes(pl):
+    """The port's plane store as the JAX engine's per-row planes, float64
+    numpy: the log tables gathered by each row's counts and group sums,
+    the integer 2 dev halved; the other planes as they are."""
+    counts = pl.counts.numpy().astype(np.int64)
+    n, d = counts.shape
+    out = {name: getattr(pl, name).numpy() for name in
+           ("markov_self", "rank_ss", "h", "n2r", "n2rc", "n2rrc")}
+    out["log_counts"] = pl.log_count.numpy()[counts]
+    out["log_groups"] = pl.log_group.numpy()[counts.reshape(n, d // 4, 4).sum(axis=2)]
+    out["rank_dev"] = pl.rank2.numpy() / 2.0
+    return out
+
+
 @pytest.mark.parametrize("k", [5, 2])
 def test_planes_equal_jax_engine_planes(pools, k):
     from meshclust2_tpu.ops.device_features import DeviceFeatureEngine
@@ -157,11 +177,12 @@ def test_planes_equal_jax_engine_planes(pools, k):
     jps, _, eng = pools[k]
     je = DeviceFeatureEngine(jps, all_flags(k))
     pl = eng.planes
+    dense = dense_planes(pl)
     for port, name in CAST_PLANES.items():
-        got = getattr(pl, port).numpy().astype(np.float32)
+        got = dense[port].astype(np.float32)
         assert np.array_equal(got, np.asarray(je.planes[name])), name
     for port, name in LOG_PLANES.items():
-        got = getattr(pl, port).numpy().astype(np.float32).view(np.int32)
+        got = dense[port].astype(np.float32).view(np.int32)
         want = np.asarray(je.planes[name]).view(np.int32)
         assert np.abs(got.astype(np.int64) - want).max() <= 1, name
     for name in ("mags", "one_mers", "real_mags"):
@@ -182,19 +203,26 @@ def test_plane_rows_equal_host_intermediates(pools, k, monkeypatch):
 
     jps, pps, eng = pools[k]
     pl = eng.planes
+    dense = dense_planes(pl)
     a, b = pairs(jps.n, seed=2)
     A, B = H.side_from_pointset(jps, a), H.side_from_pointset(jps, b)
     d = jps.dim
-    # markov: log(gp) and log(psum) as H.markov forms them
+    # markov: log(gp) and log(psum) as H.markov forms them, from the tables
     gq = A.counts.reshape(len(a), d // 4, 4)
-    assert np.array_equal(pl.log_counts.numpy()[a], np.log(gq).reshape(len(a), d))
-    assert np.array_equal(pl.log_groups.numpy()[a],
-                          np.log(gq.sum(axis=2, keepdims=True))[:, :, 0])
+    assert np.array_equal(dense["log_counts"][a].view(np.int64),
+                          np.log(gq).reshape(len(a), d).view(np.int64))
+    assert np.array_equal(dense["log_groups"][a].view(np.int64),
+                          np.log(gq.sum(axis=2, keepdims=True))[:, :, 0].view(np.int64))
     assert np.array_equal(pl.markov_self.numpy()[a], H.markov(A, A))
-    # spearman: the rank deviations and their sums of squares
+    # spearman: the rank deviations (stored doubled, exact integers) and
+    # their sums of squares; cov from the integers is the host's bit for bit
     dp = H.tiedrank(A.counts) - (d + 1) / 2.0
-    assert np.array_equal(pl.rank_dev.numpy()[a], dp)
+    dq = H.tiedrank(B.counts) - (d + 1) / 2.0
+    assert pl.rank2.dtype == torch.int16
+    assert np.array_equal(dense["rank_dev"][a], dp)
     assert np.array_equal(pl.rank_ss.numpy()[a], (dp * dp).sum(axis=1))
+    r2 = pl.rank2.numpy().astype(np.int64)
+    assert np.array_equal((r2[a] * r2[b]).sum(axis=1) * 0.25, (dp * dq).sum(axis=1))
     # d2s, d2_star: counts - the expectation
     assert np.array_equal(pl.h.numpy()[a], A.counts - H._expected_counts(A)[0])
     # n2*: the dot of the z-planes is the host's value bit for bit
@@ -206,7 +234,7 @@ def test_plane_rows_equal_host_intermediates(pools, k, monkeypatch):
     monkeypatch.setattr(TorchDeviceFeatureEngine, "ROW_CHUNK", 7)
     other = TorchDeviceFeatureEngine(pps, all_flags(k),
                                      DeviceStore.from_pointset(pps, "cpu")).planes
-    for name in ("log_counts", "log_groups", "markov_self", "rank_dev",
+    for name in ("log_count", "log_group", "markov_self", "rank2",
                  "rank_ss", "h", "n2r", "n2rc", "n2rrc"):
         assert torch.equal(getattr(other, name), getattr(pl, name)), name
 
@@ -233,6 +261,103 @@ def test_plane_singles_within_bounds_of_host_oracle(pools, k, form):
         assert np.isfinite(v).all() and np.isfinite(e).all(), name
         assert (np.abs(v - w) <= e).all(), name
         assert (e <= 1e-9 * (np.abs(w) + 1)).all(), name
+
+
+@pytest.mark.parametrize("k", [5, 2])
+def test_log_tables_equal_host_logs_bit_for_bit(pools, k):
+    """markov's tables (log c and the log of a group sum over every value
+    the store's type holds) give, at every count of every row, the very
+    logs the host oracle takes of the row (H.markov: np.log of the grouped
+    counts and of their sums)."""
+    _, pps, eng = pools[k]
+    pl = eng.planes
+    d = pps.dim
+    c = pps.counts.astype(np.float64)
+    ci = pps.counts.astype(np.int64)
+    n_log = 256 if pps.counts.dtype == np.uint8 else 65536
+    assert pl.log_count.shape == (n_log,) and pl.log_group.shape == (4 * (n_log - 1) + 1,)
+    got = pl.log_count.numpy()[ci]
+    assert np.array_equal(got.view(np.int64), np.log(c).view(np.int64))
+    gq = c.reshape(len(c), d // 4, 4)
+    got = pl.log_group.numpy()[ci.reshape(len(c), d // 4, 4).sum(axis=2)]
+    want = np.log(gq.sum(axis=2, keepdims=True))[:, :, 0]
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+def test_plane_store_refuses_a_table_that_is_not_the_hosts():
+    """The build's check: a table entry one ulp off the host's log raises."""
+    from meshclust2_tpu_torch.ops.device_features import LogTableMismatch, check_logs
+
+    rows = np.log(np.arange(1.0, 65.0)).reshape(4, 16)
+    with np.errstate(divide="ignore"):
+        table = np.log(np.arange(65.0))
+    check_logs(rows, table[np.arange(1, 65).reshape(4, 16)], "log c")
+    table[17] = np.nextafter(table[17], 0.0)
+    with pytest.raises(LogTableMismatch, match="log c"):
+        check_logs(rows, table[np.arange(1, 65).reshape(4, 16)], "log c")
+
+
+@pytest.mark.parametrize("name", list(MODEL_K))
+def test_plane_store_holds_only_what_the_model_reads(name):
+    """The plane store of a model: no per-row log planes (markov reads two
+    tables), spearman's deviations as int16, only the planes its singles
+    read; its bytes are those tensors' and nothing else."""
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.model.classifier import PLANE_SINGLES
+    from meshclust2_tpu_torch.ops.device_features import TorchDeviceFeatureEngine
+    from meshclust2_tpu_torch.ops.plane_singles import NEEDS
+
+    k, datatype = MODEL_K[name]
+    singles = specs()[name][0]
+    pps = port_pool(k, datatype)
+    pl = TorchDeviceFeatureEngine(pps, singles,
+                                  DeviceStore.from_pointset(pps, "cpu")).planes
+    names = set().union(*(NEEDS[f] for f in singles if f in PLANE_SINGLES))
+    tensors = {n: t for n, t in vars(pl).items() if isinstance(t, torch.Tensor)}
+    assert set(tensors) == names | {"counts", "mags", "real_mags", "one_mers"}
+    n, d = pps.n, pps.dim
+    per_row = {"log_count": 0, "log_group": 0, "markov_self": 8, "rank2": 2 * d,
+               "rank_ss": 8, "h": 8 * d, "n2r": 8 * d, "n2rc": 8 * d, "n2rrc": 8 * d}
+    n_log = 256 if datatype == "uint8_t" else 65536
+    want = n * (8 + 32) + sum(n * per_row[m] for m in names)
+    if "log_count" in names:
+        want += 8 * (n_log + 4 * (n_log - 1) + 1)
+    assert pl.nbytes() == want
+    if "rank2" in names:
+        assert pl.rank2.dtype == torch.int16
+
+
+def test_rank_deviations_widen_to_int32_past_16384():
+    from meshclust2_tpu_torch.ops.plane_singles import rank_dtype
+
+    assert rank_dtype(4 ** 7) == torch.int16     # |2 dev| <= 16,383
+    assert rank_dtype(4 ** 8) == torch.int32
+
+
+def test_plane_singles_on_med2000_within_bounds_of_host_oracle():
+    """The plain version over the tables and int16 ranks on med2000 (k = 5,
+    uint8), both forms: every plane single within its bound of the JAX
+    package's float64 host oracle."""
+    from meshclust2_tpu.cli import load_sorted_points
+    from meshclust2_tpu.features import host as H
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.ops.device_features import TorchDeviceFeatureEngine
+    from meshclust2_tpu_torch.ops.plane_singles import plane_singles
+
+    med = os.path.join(FIXTURES, "med2000.fasta")
+    jps = load_sorted_points([med], [], 5, "uint8_t", False, keep_seqs_train=False)[1]
+    pps = torch_cli.load_sorted_points([med], [], 5, "uint8_t", False,
+                                       keep_seqs_train=False)[1]
+    flags = all_flags(5)
+    eng = TorchDeviceFeatureEngine(pps, flags, DeviceStore.from_pointset(pps, "cpu"))
+    a, b = pairs(jps.n, seed=7, size=200)
+    for bb in (b, np.full(len(a), 13)):
+        b_t = torch.from_numpy(bb if bb is b else bb[:1])
+        got = plane_singles(eng.planes, torch.from_numpy(a), b_t, flags).numpy()
+        want = H.compute_singles(flags, H.side_from_pointset(jps, a),
+                                 H.side_from_pointset(jps, bb))
+        assert (np.abs(got[0] - want.T) <= got[1]).all()
+        assert (got[1] <= 1e-9 * (np.abs(want.T) + 1)).all()
 
 
 @pytest.mark.parametrize("k", [5, 2])
@@ -521,3 +646,112 @@ def test_cuda_plane_decision_within_bounds_of_plain(name):
         assert torch.equal(stats, p_stats)
         for r, e in ((0, 3), (2, 4)):
             assert ((dec[r] - p_dec[r]).abs() <= dec[e] + p_dec[e]).all()
+
+
+# the kernels' mappings (a team of S warps a pair, chosen by the pair count
+# and D): one pair, a window not a multiple of the split, enough pairs for
+# one warp a pair, D = 16 and D = 4,096, uint16 counts, an index outside
+# the store
+MAPPING_CASES = {
+    "center W=1": (5, np.uint8, "center", 1),
+    "center W=37": (5, np.uint8, "center", 37),
+    "pair P=20000": (5, np.uint8, "pair", 20_000),
+    "k=2 uint16 pair": (2, np.uint16, "pair", 500),
+    "k=2 uint16 center": (2, np.uint16, "center", 300),
+    "k=6 D=4096 center": (6, np.uint8, "center", 300),
+    "k=5 uint16 center": (5, np.uint16, "center", 77),
+}
+
+
+def mapping_pairs(case, n):
+    k, dtype, form, size = MAPPING_CASES[case]
+    rng = np.random.default_rng(len(case))
+    a = rng.integers(0, n, size)
+    a[:min(8, size)] = np.arange(min(8, size))
+    if form == "center":
+        return torch.from_numpy(a).cuda(), torch.tensor([8], device="cuda")
+    b = rng.integers(0, n, size)
+    b[:8] = np.arange(8, 16)
+    return torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MAPPING_CASES))
+def test_cuda_plane_singles_mappings_within_bounds(case):
+    """Each mapping: every plane single within the sum of both bounds of
+    the plain version and within the kernel's bound of the port's numpy
+    host oracle."""
+    from meshclust2_tpu_torch.features import host as H
+    from meshclust2_tpu_torch.ops.plane_singles import (plane_singles,
+                                                        plane_singles_ref)
+
+    _cuda_or_skip()
+    k, dtype, _, _ = MAPPING_CASES[case]
+    ps, _, eng = cuda_engine(k, dtype)
+    a, b = mapping_pairs(case, ps.n)
+    flags = all_flags(k)
+    got = plane_singles(eng.planes, a, b, flags)
+    torch.cuda.synchronize()
+    want = plane_singles_ref(eng.planes, a, b, flags)
+    assert torch.isfinite(got).all()
+    assert ((got[0] - want[0]).abs() <= got[1] + want[1]).all()
+    a_np, b_np = a.cpu().numpy(), b.expand(len(a)).cpu().numpy()
+    host = H.compute_singles(flags, H.side_from_pointset(ps, a_np),
+                             H.side_from_pointset(ps, b_np))
+    k_np = got.cpu().numpy()
+    assert (np.abs(k_np[0] - host.T) <= k_np[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["pair", "center"])
+def test_cuda_plane_singles_bad_index_gives_nan(form):
+    from meshclust2_tpu_torch.ops.plane_singles import plane_singles
+
+    _cuda_or_skip()
+    ps, _, eng = cuda_engine(5, np.uint8)
+    flags = all_flags(5)
+    a = torch.tensor([3, ps.n, 4, -1], device="cuda")
+    b = (torch.tensor([5, 6, 7, 8], device="cuda") if form == "pair"
+         else torch.tensor([9], device="cuda"))
+    got = plane_singles(eng.planes, a, b, flags)
+    bad_center = plane_singles(eng.planes, a[:1], torch.tensor([ps.n], device="cuda"),
+                               flags)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:, :, [0, 2]]).all()
+    assert torch.isnan(got[:, :, [1, 3]]).all()
+    assert torch.isnan(bad_center).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["markov", "plane", "full_plane"])
+@pytest.mark.parametrize("case", ["center W=1", "center W=37", "pair P=20000"])
+def test_cuda_plane_decision_mappings_within_bounds(case, name):
+    """The PLANE epilogue in the fused kernel's rounds (one pair a lane;
+    a round of one pair over the warp) and, with full-vector singles, in
+    the FULL kernel's teams: statistics bit for bit the plain version's, s
+    and dist within both bounds of it."""
+    from meshclust2_tpu_torch.model.classifier import (PLANE_SINGLES,
+                                                       CompiledModel,
+                                                       model_to_torch)
+    from meshclust2_tpu_torch.model.weights import ModelBlock
+    from meshclust2_tpu_torch.ops.pair_stats import (pair_stats_decision,
+                                                     pair_stats_decision_ref)
+    from meshclust2_tpu_torch.ops.plane_singles import plane_singles
+
+    _cuda_or_skip()
+    _, singles, combos = decision_models()[name]
+    ps, store, eng = cuda_engine(5, np.uint8)
+    rng = np.random.default_rng(6)
+    params = model_to_torch(CompiledModel(ModelBlock(
+        combos=combos, weights=rng.normal(0.0, 2.0, len(combos) + 1),
+        singles=singles, mins=[-1e4, -1.0, 0.0, -1.0], maxs=[1e4, 1.0, 2.0, 1e3])),
+        "cuda")
+    a, b = mapping_pairs(case, ps.n)
+    plane = plane_singles(eng.planes, a, b, [s for s in singles if s in PLANE_SINGLES])
+    stats, dec = pair_stats_decision(store, params, a, b, plane)
+    torch.cuda.synchronize()
+    p_stats, p_dec = pair_stats_decision_ref(store, params, a, b, plane)
+    assert torch.equal(stats, p_stats)
+    for r, e in ((0, 3), (2, 4)):
+        assert ((dec[r] - p_dec[r]).abs() <= dec[e] + p_dec[e]).all()
+    assert (dec[3] > 0).all()

@@ -16,7 +16,9 @@ port's singles and bounds, |s - s_host| <= s_err and |dist - dist_host| <=
 dist_err for the JAX package's CompiledModel on the host singles.  The
 window step's gates take the bounds, and a full-vector model's exact tie
 needs equal rows.  The CUDA FULL kernel is held against the plain version
-and the host oracle only on a card.
+and the host oracle only on a card, at every team mapping (one pair, a
+window no multiple of the split, 20,000 pairs, D = 16 and 4,096, uint16)
+and with bad indices (-1 and NaN).
 """
 import functools
 import os
@@ -339,3 +341,78 @@ def test_cuda_step_kernel_with_bounds_equals_plain(kind, full):
         if name == "members":   # slot n is the plain version's scatter sink
             g, h = g[:-1], h[:-1]
         assert torch.equal(g, h), name
+
+
+# the FULL kernel's mappings (a team of S warps a pair, chosen by the pair
+# count and D): (count type, D, form, pairs)
+FULL_CASES = {
+    "center W=1": (np.uint8, 1024, "center", 1),
+    "center W=37": (np.uint8, 1024, "center", 37),
+    "pair P=20000": (np.uint8, 1024, "pair", 20_000),
+    "uint8 D=16 pair": (np.uint8, 16, "pair", 300),
+    "uint8 D=4096 center": (np.uint8, 4096, "center", 300),
+    "uint16 D=1024 center": (np.uint16, 1024, "center", 77),
+    "uint16 D=256 pair": (np.uint16, 256, "pair", 400),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MODELS))
+@pytest.mark.parametrize("case", list(FULL_CASES))
+def test_cuda_full_kernel_mappings_within_bounds(case, name):
+    """Each mapping: statistics bit for bit the plain version's, s and dist
+    within both bounds of it and within the kernel's bounds of the host
+    decision."""
+    from meshclust2_tpu.model.classifier import CompiledModel as JaxModel
+
+    dev = _cuda_or_skip()
+    dtype, d, form, size = FULL_CASES[case]
+    rng = np.random.default_rng(len(case))
+    counts = rng.integers(1, 60 if dtype == np.uint8 else 3000, (300, d))
+    counts[8:16] = counts[:8]
+    counts[8:16, :max(2, d // 100)] += 1
+    counts = counts.astype(dtype)
+    mags = counts.astype(np.int64).sum(axis=1).astype(np.float64)
+    a = rng.integers(0, 300, size)
+    a[:min(8, size)] = np.arange(min(8, size))
+    b = np.full(size, 8) if form == "center" else rng.integers(0, 300, size)
+    if form == "pair":
+        b[:8] = np.arange(8, 16)
+    store = store_of(counts, device=dev)
+    model = fitted_model(name, counts, mags, a, b)
+    params = model_to_torch(model, dev)
+    a_d = torch.from_numpy(a).to(dev)
+    b_d = torch.from_numpy(b[:1] if form == "center" else b).to(dev)
+    stats, dec = pair_stats_decision(store, params, a_d, b_d)
+    torch.cuda.synchronize()
+    p_stats, p_dec = pair_stats_decision_ref(store, params, a_d, b_d)
+    assert torch.equal(stats, p_stats)
+    got, want = dec.cpu().numpy(), p_dec.cpu().numpy()
+    for r, e in ((0, 3), (2, 4)):
+        assert (np.abs(got[r] - want[r]) <= got[e] + want[e]).all()
+    raw = jax_host.compute_singles(model.singles, host_side(counts[a], mags[a]),
+                                   host_side(counts[b], mags[b]))
+    s_h, _, dist_h = JaxModel(model.block).decision_from_raw(raw)
+    assert (np.abs(got[0] - s_h) <= got[3]).all()
+    assert (np.abs(got[2] - dist_h) <= got[4]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["pair", "center"])
+def test_cuda_full_kernel_bad_index_gives_nan(form):
+    """An index outside the store: -1 statistics and NaN decisions for its
+    pair (every pair for a bad center), the others as the plain version."""
+    dev = _cuda_or_skip()
+    counts, mags, a, b = blocks("uint8")
+    store = store_of(counts, device=dev)
+    params = model_to_torch(fitted_model("slow", counts, mags, a, b), dev)
+    n = len(counts)
+    a_d = torch.tensor([3, n, 4, -1], device=dev)
+    b_d = (torch.tensor([70, 71, 72, 73], device=dev) if form == "pair"
+           else torch.tensor([70], device=dev))
+    stats, dec = pair_stats_decision(store, params, a_d, b_d)
+    _, bad = pair_stats_decision(store, params, a_d[:1], torch.tensor([n], device=dev))
+    torch.cuda.synchronize()
+    assert (stats[[1, 3]] == -1).all() and torch.isnan(dec[:, [1, 3]]).all()
+    assert (stats[[0, 2]] >= 0).all() and torch.isfinite(dec[:, [0, 2]]).all()
+    assert torch.isnan(bad).all()
