@@ -2,19 +2,21 @@
 """The port's clustering window in two checkouts of the repository, on one
 card, in turns.
 
-    python3 ab_paths.py BEFORE_ROOT AFTER_ROOT [--out DIR]
+    python3 ab_paths.py BEFORE_ROOT AFTER_ROOT [--out DIR] [--paths P,..]
+                        [--order before,after,...]
 
-Makes the 10,000-sequence bench set (bench.py:ensure_dataset), then, for
-each of the port's three paths (the default, MC2_NO_DEVICE_LOOP=1, and with
-MC2_NO_DEVICE_UPDATE_BATCH=1 as well), runs
-`python -m meshclust2_tpu_torch.cli --device cuda --recover
-tests/fixtures/bench10k_weights.txt` from each checkout's root in the order
-before, after, after, before.  Each run is a process of its own; its kernels
-build in its checkout's build/ during set-up, before the window.  Prints one
-line a run with the window (the `done` stamp less `read_in_points`) and its
-accumulate and update parts, then per path and checkout the median window,
-and checks that every run of a path wrote the same CLSTR byte for byte.
-Exits non-zero on a failed run or a differing CLSTR.
+Makes the bench set (bench.py:ensure_dataset: 10,000 sequences, or
+BENCH_N_SEQS), then, for each of the port's three paths (the default,
+MC2_NO_DEVICE_LOOP=1, and with MC2_NO_DEVICE_UPDATE_BATCH=1 as well; or
+those named by --paths), runs `python -m meshclust2_tpu_torch.cli --device
+cuda --recover tests/fixtures/bench10k_weights.txt` from each checkout's
+root in the order before, after, after, before (or --order).  Each run is a
+process of its own; its kernels build in its checkout's build/ during
+set-up, before the window.  Prints one line a run with the window (the
+`done` stamp less `read_in_points`) and its accumulate and update parts,
+then per path and checkout the median window and update part, and checks
+that every run of a path wrote the same CLSTR byte for byte.  Exits
+non-zero on a failed run or a differing CLSTR.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ PATHS = {
     "no_device_loop_no_update_batch": {"MC2_NO_DEVICE_LOOP": "1",
                                        "MC2_NO_DEVICE_UPDATE_BATCH": "1"},
 }
-ORDER = ("before", "after", "after", "before")
+ORDER = "before,after,after,before"
 
 
 def stamps(text: str) -> dict:
@@ -51,7 +53,7 @@ def one_run(root: str, path: str, fasta: str, out: str) -> dict:
         [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--device", "cuda",
          "--recover", os.path.join(root, "tests", "fixtures", "bench10k_weights.txt"),
          "--output", out, fasta],
-        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+        cwd=root, env=env, capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
         raise RuntimeError(f"{root} ({path}) exited {proc.returncode}:\n"
                            f"{proc.stderr[-2000:]}")
@@ -66,20 +68,28 @@ def main(argv=None) -> int:
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
+    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--order", default=ORDER)
     args = ap.parse_args(argv)
+    order = args.order.split(",")
+    if not set(order) <= {"before", "after"}:
+        raise SystemExit(f"--order takes before and after, got {args.order}")
     roots = {"before": os.path.abspath(args.before),
              "after": os.path.abspath(args.after)}
+    args.out = os.path.abspath(args.out)   # each run's cwd is its checkout
     os.makedirs(args.out, exist_ok=True)
-    fasta = os.path.join(args.out, "bench_10000.fasta")
+    fasta = os.path.join(args.out, f"bench_{bench.N_SEQS}.fasta")
     bench.ensure_dataset(fasta)
     ok = True
-    for path in PATHS:
+    for path in args.paths.split(","):
         windows = {"before": [], "after": []}
+        updates = {"before": [], "after": []}
         outputs = []
-        for i, which in enumerate(ORDER):
+        for i, which in enumerate(order):
             out = os.path.join(args.out, f"{path}_{i}_{which}.clstr")
             r = one_run(roots[which], path, fasta, out)
             windows[which].append(r["window"])
+            updates[which].append(r["update"])
             with open(out, "rb") as f:
                 outputs.append(f.read())
             print(f"{path} {which}: window {r['window']:.3f} s (accumulate "
@@ -87,11 +97,12 @@ def main(argv=None) -> int:
                   flush=True)
         same = all(o == outputs[0] for o in outputs)
         ok &= same
-        print(f"{path}: median window before "
-              f"{statistics.median(windows['before']):.3f} s, after "
-              f"{statistics.median(windows['after']):.3f} s; CLSTR "
-              f"{'identical' if same else 'DIFFERS'} across the four runs",
-              flush=True)
+        med = {k: (statistics.median(windows[k]), statistics.median(updates[k]))
+               for k in windows if windows[k]}
+        print(f"{path}, {bench.N_SEQS} sequences: median window (update part) "
+              + ", ".join(f"{k} {w:.3f} s ({u:.3f} s)" for k, (w, u) in med.items())
+              + f"; CLSTR {'identical' if same else 'DIFFERS'} across the "
+              f"{len(order)} runs", flush=True)
     return 0 if ok else 1
 
 

@@ -11,13 +11,19 @@ sweep of step cases, on every state tensor and its trip), times both at the main
 beside the least time the card could take (its bound) and the profiler's
 device time per launch, then clusters med2000 and the
 10,000-sequence bench dataset through `meshclust2_tpu_torch.cli` on the
-card, on its three paths: the default (TorchDeviceAccumulator and
-TorchDeviceUpdater), MC2_NO_DEVICE_LOOP=1 (the accumulate windows through
-TorchDeviceScorer) and MC2_NO_DEVICE_LOOP=1 MC2_NO_DEVICE_UPDATE_BATCH=1
+card, on its three paths: the default (TorchDeviceAccumulator, then the
+update phase as device-resident iterations, TorchDevicePhaseUpdater, with
+TorchDeviceUpdater after a guarded abort), MC2_NO_DEVICE_LOOP=1 (the
+accumulate windows through TorchDeviceScorer, the update batches through
+TorchDeviceUpdater) and MC2_NO_DEVICE_LOOP=1 MC2_NO_DEVICE_UPDATE_BATCH=1
 (both phases through the scorer).  Each run is checked against its
 reference CLSTR and engine counters, and each path's kernel launches are
-counted from zero.  The fused kernel's FULL instantiation (models with
-full-vector singles) is held against its plain version and a numpy host
+counted from zero; med2000 under MC2_DD_MARGIN=3e-3 aborts the phase and
+still gives its reference.  The phase's three kernels (phase_layout,
+phase_candidates and merge_replay) are held against their plain versions on the 10k default
+path's own state after accumulate and timed beside their bounds (d6), and
+torch.profiler times the phase alone on that state (h2).  The fused
+kernel's FULL instantiation (models with full-vector singles) is held against its plain version and a numpy host
 oracle within its error bounds (c5) and timed beside its bound (d4); two
 such models, built over each set with the port's host formulas, cluster
 med2000 and the 10k set on the three paths byte for byte as the JAX
@@ -50,7 +56,9 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gzip
+import io
 import json
 import os
 import re
@@ -61,6 +69,7 @@ import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -102,21 +111,24 @@ PLANE10K_COUNTERS = {"markov": (561, 747_763, 1_119, 8),
                      "plane": (489, 699_028, 1_098, 7)}
 MARGIN, TIE_MARGIN = 1e-8, 1e-12
 # the kernel sources, one nvcc each
-SOURCES = ("pair_stats", "closest_mean", "window_absorb", "plane_singles")
+SOURCES = ("pair_stats", "closest_mean", "window_absorb", "plane_singles", "phase")
 # the kernels each path must launch (their wrappers' counts), and those it
 # must not: the clustering paths take their statistics from the fused
 # kernel, training's tables from the statistics alone
 # (pair_stats_decision_full counts the fused kernel's FULL launches, those
 # of a model with full-vector singles; the fast paths launch none)
-NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb"),
+NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb",
+                     "phase_layout", "phase_candidates", "merge_replay"),
          "no_device_loop": ("pair_stats_decision", "closest_mean"),
          "no_device_loop_no_update_batch": ("pair_stats_decision",),
          "train": ("pair_stats", "pair_stats_decision", "closest_mean",
-                   "window_absorb"),
+                   "window_absorb", "phase_layout", "phase_candidates",
+                   "merge_replay"),
          "fastcar_train": ("pair_stats",),
          "fastcar": ("pair_stats_decision",),
          "full_default": ("pair_stats_decision", "pair_stats_decision_full",
-                          "closest_mean", "window_absorb"),
+                          "closest_mean", "window_absorb", "phase_layout",
+                          "phase_candidates", "merge_replay"),
          "full_no_device_loop": ("pair_stats_decision",
                                  "pair_stats_decision_full", "closest_mean"),
          "full_no_device_loop_no_update_batch": ("pair_stats_decision",
@@ -144,10 +156,13 @@ FORBIDS = {"default": ("pair_stats", "pair_stats_decision_full"),
                           "window_absorb", "pair_stats_decision_full"),
            "plane": ("pair_stats", "closest_mean", "window_absorb",
                      "pair_stats_decision_full")}
-# no path but a plane model's launches the plane kernels
+# no path but a plane model's launches the plane kernels, and none but the
+# default path's clustering (training's included) the phase's
 for _path in FORBIDS:
     if _path != "plane":
         FORBIDS[_path] += ("plane_singles", "pair_stats_decision_plane")
+    if _path not in ("default", "train", "full_default"):
+        FORBIDS[_path] += ("phase_layout", "phase_candidates", "merge_replay")
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -563,6 +578,147 @@ def check_launches(path: str, counted: dict) -> None:
                                  f"{counted[name]} times")
 
 
+def update_line(res, want_pairs: int) -> str:
+    """The update phase's part of a run: on the default path the phase
+    (iterations, counts, abort, its seconds within the update part), whose
+    length-passed pairs equal `want_pairs` (the host-driven update's)
+    unless it aborted, and the per-iteration updater's; elsewhere the
+    updater's pairs, `want_pairs` too."""
+    upd, ph = res.updater, res.phase
+    if upd is None:
+        return "no updater"
+    line = (f"updater pairs {upd.scored_pairs}, re-checked "
+            f"{upd.rechecked_pairs}")
+    if ph is None:
+        if upd.scored_pairs != want_pairs:
+            raise AssertionError(f"updater pairs {upd.scored_pairs} != {want_pairs}")
+        return line
+    if ph.last_abort == 0 and (ph.scored_pairs, upd.scored_pairs) != (want_pairs, 0):
+        raise AssertionError(f"phase pairs {ph.scored_pairs}, updater pairs "
+                             f"{upd.scored_pairs}: not ({want_pairs}, 0)")
+    st = res.clock.stamps
+    return (f"phase: it {ph.last_iterations}, hist {ph.last_hist}, abort "
+            f"{ph.last_abort}, pairs {ph.scored_pairs}, {ph.last_seconds:.4f} s "
+            f"of the update part's {st['update'] - st['accumulate']:.4f} s; {line}")
+
+
+def phase_kernel_checks(ph, clusters, card: str) -> dict:
+    """(d6) phase_layout, phase_candidates and merge_replay at the 10k default
+    path's shapes: the state `clusters` after accumulate, the first
+    iteration's layout, the candidates after its real filter and
+    closest-to-mean, the replay of its real merge decisions; each against
+    its plain version on the card (exact), with its time, device time and
+    bound (the bytes each input is read and each output written once)."""
+    import torch
+    from meshclust2_tpu_torch.ops import phase as P
+
+    dev, delta = ph.device, ph.delta
+    n, S = ph.ps.n, len(clusters)
+    rows = ph._phase_rows()
+    st = ph.init_arrays([SimpleNamespace(center_row=c, members=m)
+                         for c, m in clusters])
+    lay, lay_p = (P.new_layout(n, S, delta, dev) for _ in range(2))
+    P.phase_layout(st, rows, delta, lay)
+    P.phase_layout_ref(st, rows, delta, lay_p)
+    torch.cuda.synchronize()
+    C, n_pairs = lay_p.hdr.tolist()
+    if lay.hdr.tolist() != [C, n_pairs]:
+        raise AssertionError(f"phase_layout hdr {lay.hdr.tolist()} != {[C, n_pairs]}")
+    for f, k in (("rank", S), ("inv", C), ("moff", C + 1), ("flat", n),
+                 ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs)):
+        if not torch.equal(getattr(lay, f)[:k], getattr(lay_p, f)[:k]):
+            raise AssertionError(f"phase_layout's {f} differs from its plain version")
+    first, _, _ = ph._filter(lay, C, n_pairs)
+    cand, cand_p = (P.new_candidates(S, delta, dev) for _ in range(2))
+    cargs = (st, rows, delta, lay, first, C, n_pairs)
+    P.phase_candidates(*cargs, cand)
+    P.phase_candidates_ref(*cargs, cand_p)
+    m = delta * C
+    for f in ("a", "b", "seg", "ok"):
+        if not torch.equal(getattr(cand, f)[:m], getattr(cand_p, f)[:m]):
+            raise AssertionError(f"phase_candidates' {f} differs from its plain version")
+    if not torch.equal(cand.cen, cand_p.cen):
+        raise AssertionError("phase_candidates' centers differ from its plain version")
+    _, any_m, best, _ = ph.updater.merge_device(cand.a[:m], cand.b[:m], cand.seg[:m],
+                                             C, valid=cand.ok[:m])
+    t_dst = ph._targets(any_m, best, lay.inv, C, S)
+    out, out_p = (P.new_state(n, S, dev) for _ in range(2))
+    P.merge_replay(st, t_dst, out)
+    P.merge_replay_ref(st, t_dst, out_p)
+    for f in ("assign", "seq", "alive", "clen"):
+        if not torch.equal(getattr(out, f), getattr(out_p, f)):
+            raise AssertionError(f"merge_replay's {f} differs from its plain version")
+    events = int((t_dst >= 0).sum())
+    i8 = 8
+    # assign, seq, alive and every row's length read; the center row, the
+    # member count and the center's length window (blen, elen) of each of
+    # the C alive slots; rank [S], inv [C], moff [C + 1], flat [n], the P
+    # pairs' three arrays and hdr written
+    nb_layout = (tbytes(st.assign, st.seq, st.alive, rows.lens) + i8 * 4 * C
+                 + i8 * (S + 2 * C + 1 + n + 3 * n_pairs + 2))
+    # alive, cen, rank read; per rank inv, first, its member row and the
+    # center's length window; the new centers and 4 candidate arrays written
+    nb_cand = S * (1 + 8 + 8) + C * i8 * 6 + S * i8 + m * (3 * i8 + 1)
+    nb_replay = 2 * tbytes(st.assign, st.seq, st.alive, st.clen) + tbytes(t_dst)
+    runs = {
+        "phase_layout": (lambda: P.phase_layout(st, rows, delta, lay),
+                         lambda: P.phase_layout_ref(st, rows, delta, lay_p), nb_layout),
+        "phase_candidates": (lambda: P.phase_candidates(*cargs, cand),
+                             lambda: P.phase_candidates_ref(*cargs, cand_p), nb_cand),
+        "merge_replay": (lambda: P.merge_replay(st, t_dst, out),
+                         lambda: P.merge_replay_ref(st, t_dst, out_p), nb_replay),
+    }
+    rec = {}
+    for name, (kernel, plain, nbytes) in runs.items():
+        b_ms, b_by = bound_ms(nbytes, 0)
+        rec[name] = dict(ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=10),
+                         device_us=device_us(kernel), bound_ms=b_ms, bound_by=b_by)
+        r = rec[name]
+        phase("d6", f"{name} at the 10k default path's state after accumulate "
+                    f"(n = {n}, C = {C}, P = {n_pairs}, {m} candidates, {events} "
+                    f"merges): == plain version; kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms (median, CUDA events), device "
+                    f"{r['device_us']:.2f} us (CUDA events behind a busy wait), "
+                    f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes); {card}")
+    return rec
+
+
+def profile_phase(ph, clusters, card: str) -> None:
+    """(h2) torch.profiler over the phase alone from the 10k state after
+    accumulate: its device events, busy share and kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cl = [SimpleNamespace(center_row=c, members=list(m)) for c, m in clusters]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = ph.run(cl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, n_by_name = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            n_by_name[e.name] += 1
+    busy = sum(by_name.values()) / 1e6
+    events = sum(n_by_name.values())
+    ours = "; ".join(
+        f"{m.group(0)} {by_name[name] / n_by_name[name]:.1f} us x {n_by_name[name]}"
+        for name in sorted(by_name) for m in [re.search(
+            r"(layout|candidates|replay|pair_stats|closest_mean)_kernel(<[^>]*>)?",
+            name)] if m)
+    top = "; ".join(f"{name[:48]} {us / 1e3:.2f} ms/{n_by_name[name]}"
+                    for name, us in by_name.most_common(5))
+    phase("h2", f"torch.profiler, the phase alone on the 10k state after accumulate: "
+                f"it {res.it}, abort {res.abort}; {events} device events "
+                f"({events / (res.it + 1):.1f} a pass, the final pass counted), device "
+                f"busy {busy * 1e3:.3f} ms of a {wall * 1e3:.3f} ms run "
+                f"({100 * busy / wall:.1f} % busy); the kernels (device time per "
+                f"launch): {ours}; top: {top}; {card}")
+
+
 class DecisionCount:
     """One instantiation's launches of the fused kernel
     (pair_stats_decision.full_launches or .plane_launches), read and reset
@@ -946,6 +1102,11 @@ def full_model_phase(tag: str, torch_cli, fasta: str, n_seqs: int, tmp: str,
             upd = ("no updater" if res.updater is None else
                    f"updater pairs {res.updater.scored_pairs}, re-checked "
                    f"{res.updater.rechecked_pairs}")
+            if res.phase is not None:
+                ph = res.phase
+                upd = (f"phase it {ph.last_iterations}, hist {ph.last_hist}, abort "
+                       f"{ph.last_abort}, pairs {ph.scored_pairs}, "
+                       f"{ph.last_seconds:.4f} s; {upd}")
             phase(tag, f"{os.path.basename(fasta)}, {name} model ({path}): CLSTR "
                        f"== JAX --device host byte for byte, counters {c} (JAX "
                        f"host {host_c}); scorer pairs {res.scorer.scored_pairs}, "
@@ -1427,6 +1588,9 @@ def main() -> int:
     from meshclust2_tpu_torch.ops.window_absorb import (
         StepState, step_scratch, window_step, window_step_ref)
     from meshclust2_tpu_torch.ops.plane_singles import plane_singles, plane_singles_ref
+    from meshclust2_tpu_torch.ops.phase import (merge_replay, phase_candidates,
+                                                phase_layout)
+    from meshclust2_tpu_torch.cluster.device_phase import TorchDevicePhaseUpdater
     from meshclust2_tpu_torch.cluster.device_store import DeviceStore
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
 
@@ -1434,7 +1598,9 @@ def main() -> int:
                 "closest_mean": closest_mean, "window_absorb": window_step,
                 "pair_stats_decision_full": DecisionCount("full_launches"),
                 "plane_singles": plane_singles,
-                "pair_stats_decision_plane": DecisionCount("plane_launches")}
+                "pair_stats_decision_plane": DecisionCount("plane_launches"),
+                "phase_layout": phase_layout, "phase_candidates": phase_candidates,
+                "merge_replay": merge_replay}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -2094,14 +2260,35 @@ def main() -> int:
             if not aborted and counters(res) != MED2000_COUNTERS[path]:
                 raise AssertionError(f"med2000 counters {counters(res)} != "
                                      f"{MED2000_COUNTERS[path]} ({path})")
-            upd = "no updater" if res.updater is None else \
-                f"updater pairs {res.updater.scored_pairs}"
-            if res.updater is not None and \
-                    res.updater.scored_pairs != MED2000_UPDATER_PAIRS:
-                raise AssertionError(f"med2000 {upd} != {MED2000_UPDATER_PAIRS}")
+            upd = update_line(res, MED2000_UPDATER_PAIRS)
             phase("e", f"med2000 ({path}): sorted CLSTR == med2000_ref.clstr, "
                        f"counters {counters(res)}, {acc_line}, {upd}, "
                        f"{window_parts(res.clock.stamps, 2000)}")
+        # a forced decision margin aborts the phase; the engine resumes on
+        # the per-iteration updater and still gives the reference
+        out = os.path.join(tmp, "med2000_margin.clstr")
+        printed = io.StringIO()
+        os.environ["MC2_DD_MARGIN"] = "3e-3"
+        try:
+            with contextlib.redirect_stdout(printed):
+                res = run_path(torch_cli, "default", [
+                    "--device", "cuda", "--recover",
+                    os.path.join(FIX, "med2000_weights.txt"), "--output", out,
+                    os.path.join(FIX, "med2000.fasta")])
+        finally:
+            os.environ.pop("MC2_DD_MARGIN")
+        abort_lines = [ln for ln in printed.getvalue().splitlines()
+                       if ln.startswith("device update phase: guarded abort")]
+        with open(out) as f, open(os.path.join(FIX, "med2000_ref.clstr")) as g:
+            same = sorted(f.readlines()) == sorted(g.readlines())
+        if res.rc != 0 or not same or not abort_lines or res.phase.last_abort == 0:
+            raise AssertionError(f"med2000 under MC2_DD_MARGIN=3e-3: rc {res.rc}, "
+                                 f"CLSTR == reference {same}, abort lines "
+                                 f"{abort_lines}")
+        phase("e", f"med2000 (default, MC2_DD_MARGIN=3e-3): sorted CLSTR == "
+                   f"med2000_ref.clstr; printed \"{abort_lines[0]}\"; "
+                   f"{update_line(res, MED2000_UPDATER_PAIRS)}; accumulator aborts "
+                   f"{res.accumulator.aborts}")
 
         # (e2) med2000 with the two full-vector models on the three paths
         full_model_phase("e2", torch_cli, os.path.join(FIX, "med2000.fasta"), 2000,
@@ -2127,22 +2314,37 @@ def main() -> int:
             g.write(f.read())
         ref_sig = signature(read_clstr(ref_path))
         argv = ["--device", "cuda", "--recover", weights, "--output", None, fasta]
-        # the default path's update batches, kept for (f3)
+        # the default path's update batches, those of its phase's run (not
+        # of the warm-ups), kept for (f3) (copies: the phase's batches are
+        # views of buffers that the next iteration overwrites), and the
+        # state its phase starts from, for (d6), (h2)
         batches = []
+        phase_runs = []
+        real_run = TorchDevicePhaseUpdater.run
 
         def recording(*args, **kwargs):
-            batches.append((args, kwargs))
+            if phase_runs:
+                batches.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args), kwargs))
             return closest_mean(*args, **kwargs)
+
+        def recording_run(self, clusters, *args, **kwargs):
+            phase_runs.append((self, [(c.center_row, list(c.members))
+                                      for c in clusters]))
+            return real_run(self, clusters, *args, **kwargs)
 
         for path in PATHS:
             argv[5] = os.path.join(tmp, f"bench10k_{path}.clstr")
             for fn in wrappers.values():
                 fn.launches = 0
-            device_update.closest_mean = recording if path == "default" else closest_mean
+            default = path == "default"
+            device_update.closest_mean = recording if default else closest_mean
+            TorchDevicePhaseUpdater.run = recording_run if default else real_run
             try:
                 res = run_path(torch_cli, path, argv)
             finally:
                 device_update.closest_mean = closest_mean
+                TorchDevicePhaseUpdater.run = real_run
             launches[path] = {name: fn.launches for name, fn in wrappers.items()}
             if res.rc != 0:
                 raise AssertionError(f"port CLI exited {res.rc} on the 10k "
@@ -2157,15 +2359,7 @@ def main() -> int:
             if not aborted and counters(res) != BENCH10K_COUNTERS[path]:
                 raise AssertionError(f"10k counters {counters(res)} != "
                                      f"{BENCH10K_COUNTERS[path]} ({path})")
-            if res.updater is not None:
-                if res.updater.scored_pairs != BENCH10K_UPDATER_PAIRS:
-                    raise AssertionError(f"10k updater pairs "
-                                         f"{res.updater.scored_pairs} != "
-                                         f"{BENCH10K_UPDATER_PAIRS}")
-                upd = (f"updater pairs {res.updater.scored_pairs}, re-checked "
-                       f"{res.updater.rechecked_pairs}")
-            else:
-                upd = "no updater"
+            upd = update_line(res, BENCH10K_UPDATER_PAIRS)
             phase("f", f"bench 10k ({path}): signature == bench10k_ref_t1 "
                        f"({len(got)} clusters), counters {counters(res)}; "
                        f"{window_parts(res.clock.stamps, 10_000)} on {card}; "
@@ -2173,9 +2367,8 @@ def main() -> int:
                        f"{res.scorer.scored_pairs}, re-checked "
                        f"{res.scorer.rechecked_pairs}; {upd}")
 
-        # (f3) closest_mean on the default path's own update batches (the
-        # warm-up's one pair left out): equal to the plain version, its
-        # device time per batch
+        # (f3) closest_mean on the default path's own update batches: equal
+        # to the plain version, its device time per batch
         real = []
         for args, kwargs in batches:
             if len(args[2]) > 1:
@@ -2186,10 +2379,26 @@ def main() -> int:
                 real.append(r)
                 phase("f3", f"10k update batch {len(real)}: P={r['P']} C={r['C']} "
                             f"kept {r['kept']}, {closest_line(r)}")
-        if len(real) != 8:
+        # 7 iterations and the final pass; an aborted pass is redone on the
+        # host
+        want_batches = 8 + bool(phase_runs and phase_runs[0][0].last_abort)
+        if len(real) != want_batches:
             raise AssertionError(f"the 10k update phase ran {len(real)} batches")
         phase("f3", f"10k update batches, sum of device time "
                     f"{sum(r['device_us'] for r in real):.2f} us; {card}")
+
+        # (d6) the phase's kernels on the 10k default path's own state after
+        # accumulate (C = 1,147)
+        if (len(phase_runs) != 1
+                or len(phase_runs[0][1]) != BENCH10K_COUNTERS["default"][2]):
+            raise AssertionError(f"the 10k default path ran the phase "
+                                 f"{len(phase_runs)} times")
+        ph10k, state10k = phase_runs[0]
+        phase_timing = phase_kernel_checks(ph10k, state10k, card)
+        phase("d6", f"launches of the 10k default path (f), its warm-up "
+                    f"included: " + ", ".join(
+                        f"{k} {launches['default'][k]}" for k in (
+                            "phase_layout", "phase_candidates", "merge_replay")))
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -2390,7 +2599,8 @@ def main() -> int:
                 f"{m.group(0)} {by_name[name] / n_by_name[name]:.1f} us x "
                 f"{n_by_name[name]}"
                 for name in sorted(by_name) for m in [re.search(
-                    r"(pair_stats|closest_mean|window_step)_kernel(<[^>]*>)?",
+                    r"(pair_stats|closest_mean|window_step|layout|candidates|replay)"
+                    r"_kernel(<[^>]*>)?",
                     name)] if m)
             top = "; ".join(f"{name[:48]} {us / 1e3:.1f} ms/{n_by_name[name]}"
                             for name, us in by_name.most_common(6))
@@ -2404,6 +2614,8 @@ def main() -> int:
                        f"% busy), {events} device events ({steps} accumulator "
                        f"steps{per_step}); the port's kernels (device time per "
                        f"launch): {ours}; top: {top}; {card}")
+        # (h2) the phase alone, from the same state as (d6)
+        profile_phase(ph10k, state10k, card)
 
     if any(m == "jax" or m.startswith(("jax.", "meshclust2_tpu."))
            or m == "meshclust2_tpu" for m in sys.modules):
@@ -2424,6 +2636,10 @@ def main() -> int:
     # markov and the plane model
     pc_mk, pp_mk = (plane_timing["markov", f] for f in ("center W=1571", "pair P=98304"))
     pc_pl, pp_pl = (plane_timing["plane", f] for f in ("center W=1571", "pair P=98304"))
+    # the phase's kernels at the 10k default path's state (d6): the layout,
+    # the candidates, the replay
+    pl, pc, pr = (phase_timing[k] for k in ("phase_layout", "phase_candidates",
+                                            "merge_replay"))
     # launches: each record's path (training, then clustering with the
     # trained model; the last record: fastcar's search, at its largest
     # slice); library_ms: no PyTorch call computes any of these functions
@@ -2563,6 +2779,54 @@ def main() -> int:
         "pair_ms": pp_mk["dec_ms"],
         "pair_device_us": pp_mk["dec_device_us"],
         "pair_bound_ms": pp_mk["dec_bound_ms"],
+    }, {
+        "name": "phase_layout",
+        "path": "clustering, 10k default path (f); timed at its state after "
+                "accumulate (d6)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/phase.cu",
+        "replaces": "meshclust2_tpu/cluster/device_phase.py:218, "
+                    "meshclust2_tpu/cluster/device_phase.py:261, "
+                    "meshclust2_tpu/cluster/device_phase.py:326",
+        "launches": launches["default"]["phase_layout"],
+        "max_abs_err": 0,
+        "ms": pl["ms"],
+        "plain_ms": pl["plain_ms"],
+        "bound_ms": pl["bound_ms"],
+        "bound_by": pl["bound_by"],
+        "library_ms": None,
+        "device_us": pl["device_us"],
+    }, {
+        "name": "phase_candidates",
+        "path": "clustering, 10k default path (f); timed at its state after "
+                "accumulate (d6)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/phase.cu",
+        "replaces": "meshclust2_tpu/cluster/device_phase.py:462, "
+                    "meshclust2_tpu/cluster/device_phase.py:551",
+        "launches": launches["default"]["phase_candidates"],
+        "max_abs_err": 0,
+        "ms": pc["ms"],
+        "plain_ms": pc["plain_ms"],
+        "bound_ms": pc["bound_ms"],
+        "bound_by": pc["bound_by"],
+        "library_ms": None,
+        "device_us": pc["device_us"],
+    }, {
+        "name": "merge_replay",
+        "path": "clustering, 10k default path (f); timed at its state after "
+                "accumulate (d6)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/phase.cu",
+        "replaces": "meshclust2_tpu/cluster/device_phase.py:528",
+        "launches": launches["default"]["merge_replay"],
+        "max_abs_err": 0,
+        "ms": pr["ms"],
+        "plain_ms": pr["plain_ms"],
+        "bound_ms": pr["bound_ms"],
+        "bound_by": pr["bound_by"],
+        "library_ms": None,
+        "device_us": pr["device_us"],
     }, fc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

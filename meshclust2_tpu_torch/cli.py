@@ -67,6 +67,7 @@ from typing import List, Optional
 import numpy as np
 
 from .cluster.device_loop import TorchDeviceAccumulator
+from .cluster.device_phase import TorchDevicePhaseUpdater
 from .cluster.device_session import TorchDeviceSession
 from .cluster.device_store import store_refusal
 from .cluster.device_update import TorchDeviceUpdater
@@ -230,13 +231,14 @@ class ClusterRun:
     scorer: Optional[Scorer] = None    # TorchDeviceScorer, or a host scorer
     updater: Optional[TorchDeviceUpdater] = None
     accumulator: Optional[TorchDeviceAccumulator] = None
+    phase: Optional[TorchDevicePhaseUpdater] = None
     clock: Optional[Clock] = None
     trained: Optional[PredictorModel] = None   # the model a training run made
     tables: Optional[TableStats] = None        # its pair tables' builder
 
 
-def _session(ps: PointSet, model: CompiledModel, device, sim: float
-             ) -> Optional[TorchDeviceSession]:
+def _session(ps: PointSet, model: CompiledModel, device, sim: float,
+             delta: int, iterations: int) -> Optional[TorchDeviceSession]:
     """The run's device session, or None for a model with singles that have
     no device implementation or a pool that the kernels do not take: that
     one is clustered on the host scorer, and stderr says why, before any
@@ -255,16 +257,17 @@ def _session(ps: PointSet, model: CompiledModel, device, sim: float
     session = TorchDeviceSession(
         ps, model, device, sim,
         update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"),
-        device_loop=not os.environ.get("MC2_NO_DEVICE_LOOP"))
+        device_loop=not os.environ.get("MC2_NO_DEVICE_LOOP"),
+        delta=delta, iterations=iterations)
     session.warm_up()
     return session
 
 
 def run(argv: Optional[List[str]] = None) -> ClusterRun:
     """Everything `main` does, returning the engine (its counters), the
-    scorer, the accumulator, the updater, the clock stamps and, for a
-    training run, the trained model and its table counters beside the exit
-    code."""
+    scorer, the accumulator, the phase, the updater, the clock stamps and,
+    for a training run, the trained model and its table counters beside
+    the exit code."""
     args = build_parser().parse_args(argv)
     train_files = list(args.files)
     if args.list_file:
@@ -341,7 +344,8 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
     if recovered is not None and all_ps is not None and all_ps.n:
         # the device bring-up before the read_in_points stamp (recover path)
         model = CompiledModel(recovered.classifier, bias=args.bias)
-        session = _session(all_ps, model, device, similarity)
+        session = _session(all_ps, model, device, similarity,
+                           args.delta, args.iterations)
     clock.stamp("read_in_points")
 
     if all_ps is None or all_ps.n == 0:
@@ -384,7 +388,8 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
             return ClusterRun(rc=0, clock=clock, trained=trained,
                               tables=tables)
         model = CompiledModel(trained.classifier, bias=args.bias)
-        session = _session(all_ps, model, device, similarity)
+        session = _session(all_ps, model, device, similarity,
+                           args.delta, args.iterations)
 
     # clustering runs on all points, sequences dropped
     all_ps.seqs = None
@@ -393,9 +398,10 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
         from .native import NativeScorer
 
         scorer = NativeScorer.create(all_ps, model) or HostScorer(all_ps, model)
-        updater = acc = None
+        updater = acc = phase = None
     else:
-        scorer, updater, acc = session.scorer, session.updater, session.accumulator
+        scorer, updater, acc, phase = (session.scorer, session.updater,
+                                       session.accumulator, session.phase)
     engine = MeanShiftEngine(all_ps, model, similarity,
                              scorer=scorer, delta=args.delta,
                              iterations=args.iterations,
@@ -408,8 +414,8 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
     write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
-    return ClusterRun(rc=0, engine=engine, scorer=scorer,
-                      updater=updater, accumulator=acc, clock=clock,
+    return ClusterRun(rc=0, engine=engine, scorer=scorer, updater=updater,
+                      accumulator=acc, phase=phase, clock=clock,
                       trained=trained, tables=tables)
 
 

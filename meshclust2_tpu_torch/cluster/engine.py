@@ -18,11 +18,13 @@ either the float64 host oracle (exact) or the batched device path
 The port's copy of meshclust2_tpu/cluster/engine.py.  The device phases
 come from a session (cluster/device_session.py:TorchDeviceSession): the
 accumulate loop runs on the card exactly when the session holds an
-accumulator, and the update phase's batches when it holds an updater.
-Left out are the JAX package's device programs that the engine would build
-itself (the sessionless accumulator and updater) and its whole-run
-programs (the combined accumulate+update dispatch, its segment relaunches,
-the whole-phase update program).  Every host path (host accumulate, native
+accumulator, the whole update phase when it holds a phase (the JAX
+engine's hook, l. 945-1015), and the update phase's per-iteration batches
+when it holds an updater (also after a guarded abort of the phase).  Left
+out are the JAX package's device programs that the engine would build
+itself (the sessionless accumulator and updater) and its one-dispatch
+programs (the combined accumulate+update dispatch, its pending phase
+result and segment relaunches).  Every host path (host accumulate, native
 resolve, abort resume, native update) is the JAX package's.
 """
 from __future__ import annotations
@@ -868,6 +870,32 @@ class MeanShiftEngine:
         num_clusters = list(num_clusters) if num_clusters else []
         prog = Progress(self.iterations, "Update")  # ClusterFactory.cpp:634
         prog.set(start_it)
+        phase = getattr(self.device_session, "phase", None)
+        if phase is not None and checkpoint is None and start_it == 0:
+            # the whole phase on the card (cluster/device_phase.py); after a
+            # guarded abort the per-iteration path below resumes from the
+            # abort iteration (after abort 2 the early-stop test that ended
+            # the phase's loop breaks at once, and only the delta = 0 pass
+            # is redone).  A phase that raises fails the run.
+            res = phase.run(clusters)
+            clusters[:] = [Cluster(center_row=c, members=m)
+                           for c, m in res.clusters]
+            self.stats.pairs_scored += res.pairs
+            self.stats.update_iterations += res.it
+            num_clusters.extend(res.hist)
+            start_it = res.it
+            prog.set(res.it)
+            import os as _os
+
+            if _os.environ.get("MC2_DEVICE_PROF"):
+                print(f"device update phase: {phase.last_seconds:.3f}s, "
+                      f"{res.it} iterations, {res.pairs} pairs, abort "
+                      f"{res.abort}")
+            if res.abort == 0:
+                prog.end()
+                return
+            print(f"device update phase: guarded abort (stage {res.abort}) "
+                  f"at iteration {res.it}; host continues")
         if self._native_update(clusters, prog, checkpoint, start_it,
                                num_clusters):
             prog.end()

@@ -1,0 +1,361 @@
+"""The update phase's per-iteration layout and merge replay on the card.
+
+The port of meshclust2_tpu/cluster/device_phase.py:DevicePhaseUpdater's
+row targeting (`ranks`, the per-offset targets of `filter_mean`, `closest`
+and `merge_pass.q_body`, l. 218-226, 261-282, 326-352, 462-470) and its
+absorb replay (`rp_body`, l. 519-547), XLA programs on the TPU.  On CUDA
+tensors the wrappers launch the hand-written kernels of csrc/phase.cu; on
+CPU tensors they run the plain PyTorch versions beside them
+(`phase_layout_ref`, `phase_candidates_ref`, `merge_replay_ref`), which
+the CPU tests hold against the JAX program and the host engine.
+
+The phase's state (`PhaseState`): per row its cluster slot and its position
+in that cluster's member list, per slot its center row, alive flag and
+member count.  Per iteration:
+  - `phase_layout`: the alive ranks, the flat member table and every
+    (center, member) pair of each center's +/-delta neighbourhood, cut by
+    the length window, in the host engine's gather order (`Layout`;
+    hdr = (C, P) on the card);
+  - after the filter and closest-to-mean, `phase_candidates` (a kernel of
+    the same source): the new centers and the merge pass's candidate
+    pairs at their bound delta C, `ok` their length cut;
+  - after the merge decisions, `merge_replay`: the absorb events applied
+    in ascending slot order (cluster/engine.py `_merge_pass`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+
+class PhaseState(NamedTuple):
+    assign: torch.Tensor   # int64 [n]: each row's cluster slot
+    seq: torch.Tensor      # int64 [n]: its position in the member list
+    cen: torch.Tensor      # int64 [S]: each slot's center row
+    alive: torch.Tensor    # bool [S]
+    clen: torch.Tensor     # int64 [S]: each slot's member count
+
+
+class PhaseRows(NamedTuple):
+    """Per row of the pool: its length and the truncated bounds
+    trunc(L sim) and trunc(L / sim) of the length window it opens as a
+    center (cluster/engine.py's uint64 truncations of float64)."""
+    lens: torch.Tensor     # int64 [n]
+    blen: torch.Tensor     # int64 [n]
+    elen: torch.Tensor     # int64 [n]
+
+
+class Layout(NamedTuple):
+    rank: torch.Tensor     # int64 [S]: alive slots below each slot
+    inv: torch.Tensor      # int64 [S]: the slot of each rank < C
+    moff: torch.Tensor     # int64 [S + 1]: member offsets by rank, moff[C] = n
+    flat: torch.Tensor     # int64 [n]: the members, by rank then position
+    a_rows: torch.Tensor   # int64 [(2 delta + 1) n]: each pair's center row
+    b_rows: torch.Tensor   # its member row
+    seg: torch.Tensor      # its center's rank, nondecreasing
+    hdr: torch.Tensor      # int64 [2]: C, P (pairs in [0, P))
+    scratch: torch.Tensor  # int64 [S + 1]
+
+
+class Candidates(NamedTuple):
+    cen: torch.Tensor      # int64 [S]: the new centers
+    a: torch.Tensor        # int64 [delta S]: candidate (rank i + q)'s center
+    b: torch.Tensor        # rank i's center
+    seg: torch.Tensor      # i
+    ok: torch.Tensor       # bool: i + q < C and inside i's length window
+
+
+def new_state(n: int, n_slots: int, device) -> PhaseState:
+    i64 = dict(dtype=torch.int64, device=device)
+    return PhaseState(torch.empty(n, **i64), torch.empty(n, **i64),
+                      torch.empty(n_slots, **i64),
+                      torch.empty(n_slots, dtype=torch.bool, device=device),
+                      torch.empty(n_slots, **i64))
+
+
+def new_layout(n: int, n_slots: int, delta: int, device) -> Layout:
+    i64 = dict(dtype=torch.int64, device=device)
+    bound = (2 * delta + 1) * n
+    pairs = torch.empty(3 * bound, **i64)
+    return Layout(torch.empty(n_slots, **i64), torch.empty(n_slots, **i64),
+                  torch.empty(n_slots + 1, **i64), torch.empty(n, **i64),
+                  *torch.split(pairs, bound), torch.zeros(2, **i64),
+                  torch.empty(n_slots + 1, **i64))
+
+
+def new_candidates(n_slots: int, delta: int, device) -> Candidates:
+    i64 = dict(dtype=torch.int64, device=device)
+    m = delta * n_slots
+    return Candidates(torch.empty(n_slots, **i64), *torch.split(
+        torch.empty(3 * m, **i64), m), torch.empty(m, dtype=torch.bool, device=device))
+
+
+def _lib():
+    from ._build import load
+
+    lib = load("phase").lib
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sigs = {"mc2_phase_layout": [i64, i64, i32] + [p] * 18,
+            "mc2_phase_candidates": [i64, i64, i64, i32, i32] + [p] * 17,
+            "mc2_merge_replay": [i64, i64] + [p] * 11}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(what: str, tensors, device) -> None:
+    for name, t, dtype, numel in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+        if t.numel() < numel or t.dim() != 1:
+            raise ValueError(f"{what}: {name} must be 1-D with >= {numel} "
+                             f"elements, got {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {device}")
+
+
+def _check_state(what: str, st: PhaseState, rows: PhaseRows):
+    n, n_slots = len(st.assign), len(st.cen)
+    i64, dev = torch.int64, st.assign.device
+    _check(what, [("assign", st.assign, i64, n), ("seq", st.seq, i64, n),
+                  ("cen", st.cen, i64, n_slots),
+                  ("alive", st.alive, torch.bool, n_slots),
+                  ("clen", st.clen, i64, n_slots),
+                  ("lens", rows.lens, i64, n), ("blen", rows.blen, i64, n),
+                  ("elen", rows.elen, i64, n)], dev)
+    return n, n_slots, dev
+
+
+def _ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# -- the layout ---------------------------------------------------------------
+
+
+def phase_layout_ref(st: PhaseState, rows: PhaseRows, delta: int,
+                     lay: Layout) -> None:
+    """Plain PyTorch `phase_layout`: ranks by cumsum, the member table by a
+    scatter, the neighbourhood pairs by repeat_interleave, the length cut
+    by a mask."""
+    n, n_slots, dev = _check_state("phase_layout_ref", st, rows)
+    i64 = dict(dtype=torch.int64, device=dev)
+    if n == 0 or n_slots == 0:
+        lay.hdr.zero_()
+        return
+    alive = st.alive.to(torch.int64)
+    crank = torch.cumsum(alive, 0)
+    lay.rank.copy_(crank - alive)
+    n_alive = int(crank[-1])
+    slots = torch.nonzero(st.alive).view(-1)
+    lay.inv[:n_alive] = slots
+    lay.moff[0] = 0
+    torch.cumsum(st.clen[slots], 0, out=lay.moff[1:n_alive + 1])
+    lay.flat[lay.moff[lay.rank[st.assign]] + st.seq] = torch.arange(n, **i64)
+    js = torch.arange(n_alive, **i64)
+    starts = lay.moff[(js - delta).clamp(min=0)]
+    ends = lay.moff[(js + delta).clamp(max=n_alive - 1) + 1]
+    per = ends - starts
+    seg = torch.repeat_interleave(js, per)
+    pos = torch.arange(len(seg), **i64) + torch.repeat_interleave(
+        starts - (torch.cumsum(per, 0) - per), per)
+    b = lay.flat[pos]
+    c = st.cen[lay.inv[seg]]
+    ok = (rows.lens[b] >= rows.blen[c]) & (rows.lens[b] <= rows.elen[c])
+    n_pairs = int(ok.sum())
+    lay.a_rows[:n_pairs] = c[ok]
+    lay.b_rows[:n_pairs] = b[ok]
+    lay.seg[:n_pairs] = seg[ok]
+    lay.hdr.copy_(torch.tensor([n_alive, n_pairs], **i64))
+
+
+def _check_layout(what, lay: Layout, n: int, n_slots: int, delta: int, dev):
+    bound = (2 * delta + 1) * n
+    i64 = torch.int64
+    _check(what, [("rank", lay.rank, i64, n_slots), ("inv", lay.inv, i64, n_slots),
+                  ("moff", lay.moff, i64, n_slots + 1), ("flat", lay.flat, i64, n),
+                  ("a_rows", lay.a_rows, i64, bound),
+                  ("b_rows", lay.b_rows, i64, bound), ("seg", lay.seg, i64, bound),
+                  ("hdr", lay.hdr, i64, 2),
+                  ("scratch", lay.scratch, i64, n_slots + 1)], dev)
+
+
+def phase_layout(st: PhaseState, rows: PhaseRows, delta: int, lay: Layout) -> None:
+    """The iteration's layout of state `st` into `lay` (its arrays sized by
+    new_layout for at least n rows, S slots and this delta): ranks, the slot
+    of each rank, member offsets, the flat member table and the P
+    neighbourhood pairs, hdr = (C, P).  Every row must belong to an alive
+    slot at its position (0 <= seq < clen).
+
+    On CUDA one cooperative launch on the current stream, without syncing;
+    the host learns (C, P) by reading hdr."""
+    n, n_slots, dev = _check_state("phase_layout", st, rows)
+    if delta < 0:
+        raise ValueError(f"phase_layout: delta must be >= 0, got {delta}")
+    _check_layout("phase_layout", lay, n, n_slots, delta, dev)
+    if dev.type == "cpu":
+        return phase_layout_ref(st, rows, delta, lay)
+    if n == 0 or n_slots == 0:
+        lay.hdr.zero_()
+        return None
+    with torch.cuda.device(dev):
+        rc = _lib().mc2_phase_layout(
+            n, n_slots, int(delta),
+            *_ptrs(st.assign, st.seq, st.alive, st.cen, st.clen, rows.lens,
+                   rows.blen, rows.elen, lay.rank, lay.inv, lay.moff, lay.flat,
+                   lay.a_rows, lay.b_rows, lay.seg, lay.scratch, lay.hdr),
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"phase_layout kernel launch failed: cudaError {rc}")
+    phase_layout.launches += 1
+    return None
+
+
+phase_layout.launches = 0  # kernel launches since the last reset
+
+
+# -- the candidates -----------------------------------------------------------
+
+
+def phase_candidates_ref(st: PhaseState, rows: PhaseRows, delta: int,
+                         lay: Layout, first: torch.Tensor, n_alive: int,
+                         n_pairs: int, out: Candidates,
+                         final: bool = False) -> None:
+    """Plain PyTorch `phase_candidates`."""
+    dev = st.cen.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    ks = torch.arange(n_alive, **i64)
+    f = first[:n_alive]
+    kept = f < n_pairs
+    fallback = lay.flat[lay.moff[ks]] if final else st.cen[lay.inv[ks]]
+    cen_k = torch.where(kept, lay.b_rows[f.clamp(max=max(n_pairs - 1, 0))], fallback)
+    out.cen.copy_(st.cen)
+    out.cen[lay.inv[:n_alive]] = cen_k
+    m = delta * n_alive
+    x = torch.arange(m, **i64)
+    i = torch.div(x, max(delta, 1), rounding_mode="floor")
+    j = i + x % max(delta, 1) + 1
+    ok = j < n_alive
+    ci = cen_k[i]
+    cj = torch.where(ok, cen_k[j.clamp(max=max(n_alive - 1, 0))], ci)
+    ok &= (rows.lens[cj] >= rows.blen[ci]) & (rows.lens[cj] <= rows.elen[ci])
+    out.a[:m] = cj
+    out.b[:m] = ci
+    out.seg[:m] = i
+    out.ok[:m] = ok
+
+
+def phase_candidates(st: PhaseState, rows: PhaseRows, delta: int, lay: Layout,
+                     first: torch.Tensor, n_alive: int, n_pairs: int,
+                     out: Candidates, final: bool = False) -> None:
+    """After the filter and closest-to-mean over `lay`'s P = n_pairs pairs
+    (first int64 [C], C = n_alive: a pair position, P for none): the new
+    center of every alive slot into out.cen (others copied), and the merge
+    candidates (a, b, seg, ok) at positions [0, delta C): a = the new center
+    of rank i + q, b = rank i's, seg = i, for q = 1..delta.  `final`: the
+    delta = 0 pass's kept-empty rule (the cluster's first member).
+
+    On CUDA one launch of csrc/phase.cu's candidates kernel on the current
+    stream, without syncing."""
+    n, n_slots, dev = _check_state("phase_candidates", st, rows)
+    m = delta * n_slots
+    _check("phase_candidates", [
+        ("first", first, torch.int64, n_alive), ("out.cen", out.cen, torch.int64, n_slots),
+        ("out.a", out.a, torch.int64, m), ("out.b", out.b, torch.int64, m),
+        ("out.seg", out.seg, torch.int64, m), ("out.ok", out.ok, torch.bool, m)], dev)
+    _check_layout("phase_candidates", lay, n, n_slots, 0, dev)
+    if not 0 <= n_alive <= n_slots or n_pairs < 0 or delta < 0:
+        raise ValueError(f"phase_candidates: bad C = {n_alive}, P = {n_pairs} "
+                         f"or delta = {delta} for {n_slots} slots")
+    if dev.type == "cpu":
+        return phase_candidates_ref(st, rows, delta, lay, first, n_alive, n_pairs,
+                                    out, final)
+    if n_slots == 0:
+        return None
+    with torch.cuda.device(dev):
+        rc = _lib().mc2_phase_candidates(
+            n_slots, n_alive, n_pairs, int(delta), int(final),
+            *_ptrs(st.alive, st.cen, lay.rank, lay.inv, lay.moff, lay.flat,
+                   lay.b_rows, first, rows.lens, rows.blen, rows.elen, out.cen,
+                   out.a, out.b, out.seg, out.ok),
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"phase_candidates kernel launch failed: cudaError {rc}")
+    phase_candidates.launches += 1
+    return None
+
+
+phase_candidates.launches = 0  # kernel launches since the last reset
+
+
+# -- the merge replay ---------------------------------------------------------
+
+
+def merge_replay_ref(st: PhaseState, t_dst: torch.Tensor, out: PhaseState) -> None:
+    """Plain PyTorch `merge_replay`: the JAX program's event loop
+    (device_phase.py:rp_body), one masked update of every row an event."""
+    assign, seq = st.assign.clone(), st.seq.clone()
+    clen, alive = st.clen.clone(), st.alive.clone()
+    events = torch.nonzero(st.alive & (t_dst >= 0)).view(-1).tolist()
+    for src in events:
+        dst = int(t_dst[src])
+        m = assign == src
+        seq[m] += clen[dst]
+        assign[m] = dst
+        clen[dst] += clen[src]
+        clen[src] = 0
+        alive[src] = False
+    out.assign.copy_(assign)
+    out.seq.copy_(seq)
+    out.clen.copy_(clen)
+    out.alive.copy_(alive)
+
+
+def merge_replay(st: PhaseState, t_dst: torch.Tensor, out: PhaseState) -> None:
+    """The merge pass's absorb events t_dst (int64 [S]: the slot each alive
+    slot merges into, above it, or -1) applied to `st` in ascending slot
+    order into out.assign, out.seq, out.clen and out.alive (out.cen is not
+    touched): the members of a source get seq += clen[dst] and assign =
+    dst, clen[dst] grows by the source's, the source dies.
+
+    On CUDA one cooperative launch on the current stream, without
+    syncing, with an int64 [3 S] scratch from the caching allocator."""
+    n, n_slots = len(st.assign), len(st.cen)
+    dev = st.assign.device
+    i64 = torch.int64
+    _check("merge_replay", [
+        ("assign", st.assign, i64, n), ("seq", st.seq, i64, n),
+        ("alive", st.alive, torch.bool, n_slots), ("clen", st.clen, i64, n_slots),
+        ("t_dst", t_dst, i64, n_slots), ("out.assign", out.assign, i64, n),
+        ("out.seq", out.seq, i64, n), ("out.alive", out.alive, torch.bool, n_slots),
+        ("out.clen", out.clen, i64, n_slots)], dev)
+    if dev.type == "cpu":
+        return merge_replay_ref(st, t_dst, out)
+    if n == 0 or n_slots == 0:
+        return None
+    scratch = torch.empty(3 * n_slots, dtype=i64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().mc2_merge_replay(
+            n, n_slots, *_ptrs(st.assign, st.seq, st.alive, st.clen, t_dst,
+                               out.assign, out.seq, out.alive, out.clen, scratch),
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"merge_replay kernel launch failed: cudaError {rc}")
+    merge_replay.launches += 1
+    return None
+
+
+merge_replay.launches = 0  # kernel launches since the last reset

@@ -1,6 +1,6 @@
 """The port's recover-path CLI with --device cpu (the kernels' plain
 versions) against the JAX package and the reference goldens, on its three
-paths: the default (TorchDeviceAccumulator and TorchDeviceUpdater);
+paths: the default (TorchDeviceAccumulator, then TorchDevicePhaseUpdater);
 MC2_NO_DEVICE_LOOP=1 (the accumulate windows through TorchDeviceScorer, the
 update phase through the updater); and MC2_NO_DEVICE_LOOP=1
 MC2_NO_DEVICE_UPDATE_BATCH=1 (both phases through the scorer).  The tests
@@ -186,7 +186,7 @@ def test_bench10k_default_path_equals_reference(fixtures_dir, tmp_path,
 def test_small_device_loop_path_equals_jax_device_loop_configuration(
         fixtures_dir, tmp_path, monkeypatch):
     """The default path: the accumulate phase through TorchDeviceAccumulator
-    and the update phase through TorchDeviceUpdater, against the JAX
+    and the update phase through TorchDevicePhaseUpdater, against the JAX
     package's DeviceAccumulator and DeviceUpdater in its sessionless device
     configuration: the same bytes and the same engine counters."""
     for k in ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH"):
@@ -198,8 +198,8 @@ def test_small_device_loop_path_equals_jax_device_loop_configuration(
                       device_loop=True)
     assert out.read_bytes() == jax_out.read_bytes()
     assert counters(res) == (38, 6_977, 21, 3)
-    assert res.accumulator.last_pairs + res.updater.scored_pairs == 6_977
-    assert res.scorer.scored_pairs == 0
+    assert res.accumulator.last_pairs + res.phase.scored_pairs == 6_977
+    assert res.updater.scored_pairs == 0 and res.scorer.scored_pairs == 0
 
 
 def test_med2000_without_update_batch_on_the_device_loop(fixtures_dir,

@@ -173,9 +173,10 @@ def test_small_equals_jax_device_loop(fixtures_dir, tmp_path, clean_env):
     assert res.accumulator.aborts == 0 and res.accumulator.error is None
     s = res.engine.stats
     assert (s.windows_scored, s.clusters_before_update) == (38, 21)
-    # accumulate pairs from the accumulator, update pairs from the updater;
-    # none through the scorer
-    assert s.pairs_scored == 1_892 + res.updater.scored_pairs
+    # accumulate pairs from the accumulator, update pairs from the phase
+    # (the updater's after a guarded abort); none through the scorer
+    assert res.phase.last_iterations == 3
+    assert s.pairs_scored == 1_892 + res.phase.scored_pairs + res.updater.scored_pairs
     assert res.scorer.scored_pairs == 0
 
 
@@ -249,7 +250,8 @@ def test_med2000_equals_reference(fixtures_dir, tmp_path, clean_env):
     assert acc_counts(res) == (393, 146, 48_737)
     assert (s.windows_scored, s.pairs_scored, s.clusters_before_update,
             s.update_iterations) == (146, 48_737 + 116_481, 305, 6)
-    assert res.updater.scored_pairs == 116_481 and res.accumulator.aborts == 0
+    assert res.phase.scored_pairs == 116_481 and res.accumulator.aborts == 0
+    assert res.updater.scored_pairs == 0
 
 
 @pytest.mark.slow
