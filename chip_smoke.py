@@ -608,8 +608,9 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
     iteration's layout, the candidates after its real filter and
     closest-to-mean, the replay of its real merge decisions; each against
     its plain version on the card (exact), with its time, device time and
-    bound (the bytes each input is read and each output written once)."""
+    bound (kernel_ab.py:phase_bytes)."""
     import torch
+    from kernel_ab import phase_bytes
     from meshclust2_tpu_torch.ops import phase as P
 
     dev, delta = ph.device, ph.delta
@@ -649,38 +650,76 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
         if not torch.equal(getattr(out, f), getattr(out_p, f)):
             raise AssertionError(f"merge_replay's {f} differs from its plain version")
     events = int((t_dst >= 0).sum())
-    i8 = 8
-    # assign, seq, alive and every row's length read; the center row, the
-    # member count and the center's length window (blen, elen) of each of
-    # the C alive slots; rank [S], inv [C], moff [C + 1], flat [n], the P
-    # pairs' three arrays and hdr written
-    nb_layout = (tbytes(st.assign, st.seq, st.alive, rows.lens) + i8 * 4 * C
-                 + i8 * (S + 2 * C + 1 + n + 3 * n_pairs + 2))
-    # alive, cen, rank read; per rank inv, first, its member row and the
-    # center's length window; the new centers and 4 candidate arrays written
-    nb_cand = S * (1 + 8 + 8) + C * i8 * 6 + S * i8 + m * (3 * i8 + 1)
-    nb_replay = 2 * tbytes(st.assign, st.seq, st.alive, st.clen) + tbytes(t_dst)
+    nb = phase_bytes(n, S, C, n_pairs, delta)
     runs = {
         "phase_layout": (lambda: P.phase_layout(st, rows, delta, lay),
-                         lambda: P.phase_layout_ref(st, rows, delta, lay_p), nb_layout),
+                         lambda: P.phase_layout_ref(st, rows, delta, lay_p)),
         "phase_candidates": (lambda: P.phase_candidates(*cargs, cand),
-                             lambda: P.phase_candidates_ref(*cargs, cand_p), nb_cand),
+                             lambda: P.phase_candidates_ref(*cargs, cand_p)),
         "merge_replay": (lambda: P.merge_replay(st, t_dst, out),
-                         lambda: P.merge_replay_ref(st, t_dst, out_p), nb_replay),
+                         lambda: P.merge_replay_ref(st, t_dst, out_p)),
     }
     rec = {}
-    for name, (kernel, plain, nbytes) in runs.items():
+    for name, (kernel, plain) in runs.items():
+        nbytes = nb[name]
         b_ms, b_by = bound_ms(nbytes, 0)
         rec[name] = dict(ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=10),
                          device_us=device_us(kernel), bound_ms=b_ms, bound_by=b_by)
         r = rec[name]
         phase("d6", f"{name} at the 10k default path's state after accumulate "
-                    f"(n = {n}, C = {C}, P = {n_pairs}, {m} candidates, {events} "
-                    f"merges): == plain version; kernel {r['ms']:.4f} ms, plain "
+                    f"(n = {n}, S = {S}, C = {C}, P = {n_pairs}, {m} candidates, "
+                    f"{events} events): == plain version; kernel {r['ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.4f} ms (median, CUDA events), device "
                     f"{r['device_us']:.2f} us (CUDA events behind a busy wait), "
                     f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes); {card}")
+    wide_phase_checks(dev, rec, card)
     return rec
+
+
+def wide_phase_checks(dev, rec: dict, card: str) -> None:
+    """(d6) the wide instantiations of phase_layout and merge_replay, on
+    seeded synthetic states (kernel_ab.py:phase_state) of 1,000 slots more
+    than each keeps in shared memory: == plain version, device time."""
+    import torch
+    from kernel_ab import phase_state
+    from meshclust2_tpu_torch.ops import phase as P
+
+    delta = 5
+    for name in ("phase_layout", "merge_replay"):
+        S = P.smem_slots(name, dev) + 1_000
+        arr = {k: torch.from_numpy(v).to(dev) for k, v in phase_state(
+            4 * S, S, S // 4, seed=20261017).items()}
+        st = P.PhaseState(arr["assign"], arr["seq"], arr["cen"], arr["alive"], arr["clen"])
+        n = len(st.assign)
+        fn = getattr(P, name)
+        fn.wide_launches = 0
+        if name == "phase_layout":
+            rows = P.PhaseRows(arr["lens"], arr["blen"], arr["elen"])
+            got, want = (P.new_layout(n, S, delta, dev) for _ in range(2))
+            P.phase_layout(st, rows, delta, got)
+            P.phase_layout_ref(st, rows, delta, want)
+            C, n_pairs = want.hdr.tolist()
+            sizes = (("hdr", 2), ("rank", S), ("inv", C), ("moff", C + 1), ("flat", n),
+                     ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs))
+            kernel = lambda: P.phase_layout(st, rows, delta, got)   # noqa: E731
+        else:
+            got, want = (P.new_state(n, S, dev) for _ in range(2))
+            P.merge_replay(st, arr["t_dst"], got)
+            P.merge_replay_ref(st, arr["t_dst"], want)
+            sizes = tuple((f, None) for f in ("assign", "seq", "alive", "clen"))
+            kernel = lambda: P.merge_replay(st, arr["t_dst"], got)   # noqa: E731
+        torch.cuda.synchronize()
+        for f, k in sizes:
+            if not torch.equal(getattr(got, f)[:k], getattr(want, f)[:k]):
+                raise AssertionError(f"{name}'s wide instantiation: {f} differs from "
+                                     f"its plain version")
+        if fn.wide_launches != 1:
+            raise AssertionError(f"{name} at S = {S} launched {fn.wide_launches} wide")
+        us = device_us(kernel)
+        rec[name].update(wide_slots=S, wide_device_us=us)
+        phase("d6", f"{name}, wide instantiation (S = {S}, n = {n}, above the "
+                    f"{S - 1_000} slots a block keeps in shared memory): == plain "
+                    f"version; device {us:.2f} us; {card}")
 
 
 def profile_phase(ph, clusters, card: str) -> None:
@@ -2796,6 +2835,8 @@ def main() -> int:
         "bound_by": pl["bound_by"],
         "library_ms": None,
         "device_us": pl["device_us"],
+        "wide_slots": pl["wide_slots"],
+        "wide_device_us": pl["wide_device_us"],
     }, {
         "name": "phase_candidates",
         "path": "clustering, 10k default path (f); timed at its state after "
@@ -2827,6 +2868,8 @@ def main() -> int:
         "bound_by": pr["bound_by"],
         "library_ms": None,
         "device_us": pr["device_us"],
+        "wide_slots": pr["wide_slots"],
+        "wide_device_us": pr["wide_device_us"],
     }, fc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -2,7 +2,7 @@
 """The redesigned kernels' device times in several checkouts of the
 repository, on one card, in turns.
 
-    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE]
+    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE] [--phase]
 
 Each run is a process of its own that imports the port of one checkout
 (`meshclust2_tpu_torch` from that root), builds its kernels into the
@@ -19,7 +19,16 @@ and the pair form at P = 98,304):
 
 each by CUDA events behind a busy wait (median of 20 launches), each
 result held against its plain version within the sum of both bounds (the
-statistics bit for bit).  It also prints the plane store's device bytes
+statistics bit for bit).
+
+With --phase it times instead the update phase's kernels (ops/phase.py:
+`phase_layout`, `phase_candidates`, `merge_replay`) on seeded synthetic
+states after accumulate (`phase_state`) at two shapes, each held against
+its plain version bit for bit: "d6", chip_smoke.py (d6)'s (n = 10,000,
+S = 1,147, delta = 5, 288 merges), and "100k", the 100k bench set's
+(n = 100,000, S and merges as its run prints them, PHASE_SHAPES); the
+ptxas lines of the phase library, and each shape's C, P, events and each
+kernel's bytes and bound (phase_bytes, chip_smoke.py:bound_ms).  It also prints the plane store's device bytes
 (every tensor the store adds to the DeviceStore), the ptxas lines of the
 pair-statistics library and a SHA-256 of each fast instantiation's SASS
 (cuobjdump), keyed by (count type, NV, NARROW), so that two checkouts'
@@ -42,6 +51,66 @@ import subprocess
 import sys
 
 W, P, N, D = 1_571, 98_304, 10_000, 1_024
+# (n, S, merges) of the phase's shapes, delta = 5
+PHASE_SHAPES = {"d6": (10_000, 1_147, 288), "100k": (100_000, 5_803, 1_996)}
+PHASE_DELTA = 5
+
+
+def phase_bytes(n: int, n_slots: int, n_alive: int, n_pairs: int, delta: int) -> dict:
+    """The bytes each phase kernel must move, each input read and each
+    output written once, for the bounds of chip_smoke.py (d6) and --phase:
+    the layout reads assign, seq, alive and every row's length, the center
+    row, member count and length window (blen, elen) of the C alive slots,
+    and writes rank [S], inv [C], moff [C + 1], flat [n], the P pairs'
+    three arrays and hdr; the candidates read alive, cen and rank, per rank
+    inv, first, its member row and the center's window, and write the new
+    centers and the delta C candidates' four arrays; the replay reads and
+    writes assign, seq, alive and clen and reads t_dst."""
+    S, C, m = n_slots, n_alive, delta * n_alive
+    return {"phase_layout": 24 * n + S + 32 * C + 8 * (S + 2 * C + 1 + n + 3 * n_pairs + 2),
+            "phase_candidates": 17 * S + 48 * C + 8 * S + 25 * m,
+            "merge_replay": 2 * (16 * n + 9 * S) + 8 * S}
+
+
+def phase_state(n: int, n_slots: int, merges: int, seed: int, big: float = 0.0,
+                delta: int = PHASE_DELTA, sim: float = 0.9) -> dict:
+    """A seeded synthetic update-phase state after accumulate, as numpy
+    int64 arrays (bool `alive`): n rows of lengths 800-1,499 in length
+    order, in n_slots clusters of consecutive rows (each at least one; with
+    `big`, one cluster holds that share of the rows) in slot order, so that
+    neighbouring slots hold similar lengths as the engine's cluster list
+    does; members in a random order, a random member each cluster's center;
+    the rows' length windows trunc(L sim), trunc(L / sim)
+    (TorchDevicePhaseUpdater._phase_rows); and `merges` absorb events
+    t_dst, each slot into one of the delta slots above it, as the merge
+    pass makes them (chains included)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = np.sort(rng.integers(800, 1_500, n)).astype(np.int64)
+    sizes = np.ones(n_slots, np.int64)
+    rest = n - n_slots
+    if big:
+        k = int(rng.integers(0, n_slots))
+        sizes[k] += int(big * n) - 1
+        rest -= int(big * n) - 1
+    if rest < 0:
+        raise ValueError(f"{n} rows cannot fill {n_slots} slots (big {big})")
+    sizes += rng.multinomial(rest, np.full(n_slots, 1.0 / n_slots))
+    starts = np.cumsum(sizes) - sizes
+    assign = np.repeat(np.arange(n_slots, dtype=np.int64), sizes)
+    seq = np.empty(n, np.int64)
+    for s in range(n_slots):
+        seq[starts[s]:starts[s] + sizes[s]] = rng.permutation(sizes[s])
+    cen = starts + (rng.random(n_slots) * sizes).astype(np.int64)
+    t_dst = np.full(n_slots, -1, np.int64)
+    if n_slots > 1 and merges:
+        src = rng.choice(n_slots - 1, min(merges, n_slots - 1), replace=False)
+        t_dst[src] = np.minimum(n_slots - 1, src + rng.integers(1, delta + 1, len(src)))
+    L = lens.astype(np.float64)
+    return dict(assign=assign, seq=seq, cen=cen, alive=np.ones(n_slots, bool),
+                clen=sizes, lens=lens, blen=(sim * L).astype(np.int64),
+                elen=(L / sim).astype(np.int64), t_dst=t_dst)
 
 
 def specs(F):
@@ -213,34 +282,108 @@ def one(root: str) -> dict:
     return out
 
 
+def one_phase(root: str) -> dict:
+    """The phase kernels' timings of checkout `root` at PHASE_SHAPES."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from meshclust2_tpu_torch.ops import _build
+    from meshclust2_tpu_torch.ops import phase as P
+
+    import meshclust2_tpu_torch
+    assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
+    dev = torch.device("cuda")
+    built = _build.load("phase")
+    out = {"root": root, "card": torch.cuda.get_device_name(0), "fast_kernels": {},
+           "ptxas": [ln.strip() for ln in built.log.splitlines()
+                     if "registers" in ln or "spill" in ln or "entry function" in ln],
+           "us": {}, "shapes": {}}
+    delta = PHASE_DELTA
+    for shape, (n, n_slots, merges) in PHASE_SHAPES.items():
+        arr = {k: torch.from_numpy(v).to(dev)
+               for k, v in phase_state(n, n_slots, merges, seed=20261017).items()}
+        st = P.PhaseState(arr["assign"], arr["seq"], arr["cen"], arr["alive"], arr["clen"])
+        rows = P.PhaseRows(arr["lens"], arr["blen"], arr["elen"])
+        lay, lay_p = (P.new_layout(n, n_slots, delta, dev) for _ in range(2))
+        P.phase_layout(st, rows, delta, lay)
+        P.phase_layout_ref(st, rows, delta, lay_p)
+        C, n_pairs = lay_p.hdr.tolist()
+        if lay.hdr.tolist() != [C, n_pairs] or not all(
+                torch.equal(getattr(lay, f)[:k], getattr(lay_p, f)[:k])
+                for f, k in (("rank", n_slots), ("inv", C), ("moff", C + 1), ("flat", n),
+                             ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs))):
+            raise AssertionError(f"{root}: phase_layout differs from its plain version "
+                                 f"({shape})")
+        first = torch.from_numpy(np.random.default_rng(3).integers(0, n_pairs + 1, C)).to(dev)
+        cand, cand_p = (P.new_candidates(n_slots, delta, dev) for _ in range(2))
+        cargs = (st, rows, delta, lay, first, C, n_pairs)
+        P.phase_candidates(*cargs, cand)
+        P.phase_candidates_ref(*cargs, cand_p)
+        m = delta * C
+        if not torch.equal(cand.cen, cand_p.cen) or not all(
+                torch.equal(getattr(cand, f)[:m], getattr(cand_p, f)[:m])
+                for f in ("a", "b", "seg", "ok")):
+            raise AssertionError(f"{root}: phase_candidates differs ({shape})")
+        rep, rep_p = (P.new_state(n, n_slots, dev) for _ in range(2))
+        P.merge_replay(st, arr["t_dst"], rep)
+        P.merge_replay_ref(st, arr["t_dst"], rep_p)
+        if not all(torch.equal(getattr(rep, f), getattr(rep_p, f))
+                   for f in ("assign", "seq", "alive", "clen")):
+            raise AssertionError(f"{root}: merge_replay differs ({shape})")
+        from chip_smoke import bound_ms
+
+        nbytes = phase_bytes(n, n_slots, C, n_pairs, delta)
+        out["shapes"][shape] = dict(n=n, S=n_slots, C=C, P=n_pairs,
+                                    events=int((arr["t_dst"] >= 0).sum()),
+                                    bytes=nbytes, bound_us={
+                                        k: bound_ms(v, 0)[0] * 1e3 for k, v in nbytes.items()})
+        out["us"][f"phase_layout {shape}"] = device_us(
+            lambda: P.phase_layout(st, rows, delta, lay))
+        out["us"][f"phase_candidates {shape}"] = device_us(
+            lambda: P.phase_candidates(*cargs, cand))
+        out["us"][f"merge_replay {shape}"] = device_us(
+            lambda: P.merge_replay(st, arr["t_dst"], rep))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--order", default=None)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--phase", action="store_true",
+                    help="time the update phase's kernels at PHASE_SHAPES")
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(one(os.path.abspath(args.roots[0]))), flush=True)
+        run = one_phase if args.phase else one
+        print(json.dumps(run(os.path.abspath(args.roots[0]))), flush=True)
         return 0
     roots = [os.path.abspath(r) for r in args.roots]
     order = ([int(i) for i in args.order.split(",")] if args.order
              else list(range(len(roots))) + list(range(len(roots)))[::-1])
     runs = []
     for i in order:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[i]],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[i]]
+                              + (["--phase"] if args.phase else []),
                               cwd=roots[i], capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-6000:], sep="\n", file=sys.stderr)
             raise SystemExit(f"kernel_ab: the run of {roots[i]} exited {proc.returncode}")
         got = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(got)
+        extra = (f"shapes {got['shapes']}" if args.phase
+                 else f"plane store {got['plane_store_bytes']:,} bytes")
         print(f"run {len(runs)}: {roots[i]}: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in got["us"].items()) +
-            f"; plane store {got['plane_store_bytes']:,} bytes; {got['card']}", flush=True)
+            f"{k} {v:.2f}" for k, v in got["us"].items()) + f"; {extra}; {got['card']}",
+            flush=True)
     # a cached build has no ptxas log: its resources are compared where
     # both runs compiled
     ok = True
+    if args.phase:
+        for root in roots:
+            print(f"ptxas, {root}: " + "; ".join(next(
+                (r["ptxas"] for r in runs if r["root"] == root and r["ptxas"]), [])))
     first = runs[0]["fast_kernels"]
     for r in runs[1:]:
         mine = r["fast_kernels"]
@@ -250,9 +393,10 @@ def main(argv=None) -> int:
         if diff:
             print(f"fast instantiations differ ({r['root']} vs {runs[0]['root']}): {diff}")
             ok = False
-    print(f"fast instantiations (count type, NV, NARROW): {len(first)}, same SASS and "
-          f"ptxas resources in every run: {ok}; " + "; ".join(
-              f"{k}: {v[0]}" for k, v in sorted(first.items())), flush=True)
+    if not args.phase:
+        print(f"fast instantiations (count type, NV, NARROW): {len(first)}, same SASS and "
+              f"ptxas resources in every run: {ok}; " + "; ".join(
+                  f"{k}: {v[0]}" for k, v in sorted(first.items())), flush=True)
     for root in roots:
         mine = [r for r in runs if r["root"] == root]
         print(f"median device us, {root}: " + ", ".join(

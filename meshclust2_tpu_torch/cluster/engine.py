@@ -877,6 +877,7 @@ class MeanShiftEngine:
             # abort iteration (after abort 2 the early-stop test that ended
             # the phase's loop breaks at once, and only the delta = 0 pass
             # is redone).  A phase that raises fails the run.
+            n_before = len(clusters)
             res = phase.run(clusters)
             clusters[:] = [Cluster(center_row=c, members=m)
                            for c, m in res.clusters]
@@ -890,7 +891,8 @@ class MeanShiftEngine:
             if _os.environ.get("MC2_DEVICE_PROF"):
                 print(f"device update phase: {phase.last_seconds:.3f}s, "
                       f"{res.it} iterations, {res.pairs} pairs, abort "
-                      f"{res.abort}")
+                      f"{res.abort}, {n_before} clusters before, hist "
+                      f"{res.hist}")
             if res.abort == 0:
                 prog.end()
                 return

@@ -1,5 +1,6 @@
 // Device and launch helpers shared by closest_mean.cu (the segmented
-// closest-to-mean) and window_absorb.cu (the accumulate step's tail).
+// closest-to-mean), window_absorb.cu (the accumulate step's tail) and
+// phase.cu (the update phase's layout and replay).
 //
 // The step kernel runs as one cooperative launch (cudaLaunchCooperativeKernel)
 // whose phases are separated by grid-wide barriers (cooperative_groups::
@@ -227,13 +228,15 @@ __device__ __forceinline__ BinMean bin_mean(long long num, long long den, double
   return {q, q + (2 * rem >= den ? 1 : 0), g1 || g2 || g3};
 }
 
-// The most blocks of `kernel` (kThreads threads, shm dynamic bytes) that
+// The most blocks of `kernel` (`threads` threads, shm dynamic bytes) that
 // are co-resident on the current card, capped at kMaxGrid; cached per
-// (kernel, shm, device).
-inline cudaError_t coop_capacity(const void* kernel, size_t shm, int* cap) {
+// (kernel, shm, threads, device).
+inline cudaError_t coop_capacity(const void* kernel, size_t shm, int* cap,
+                                 int threads = kThreads) {
   struct Entry {
     const void* kernel;
     size_t shm;
+    int threads;
     int dev;
     int cap;
   };
@@ -245,7 +248,8 @@ inline cudaError_t coop_capacity(const void* kernel, size_t shm, int* cap) {
   if (e != cudaSuccess) return e;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < n_cached; ++i) {
-    if (cache[i].kernel == kernel && cache[i].shm == shm && cache[i].dev == dev) {
+    if (cache[i].kernel == kernel && cache[i].shm == shm && cache[i].threads == threads &&
+        cache[i].dev == dev) {
       *cap = cache[i].cap;
       return cudaSuccess;
     }
@@ -256,30 +260,35 @@ inline cudaError_t coop_capacity(const void* kernel, size_t shm, int* cap) {
   if (!coop) return cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  if (shm > 48 * 1024) {
+  // the kernel's dynamic shared memory may start below 48 KB less its
+  // static shared memory; raised only, so a size cached earlier stays allowed
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  if (static_cast<size_t>(fa.maxDynamicSharedSizeBytes) < shm) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(shm));
     if (e != cudaSuccess) return e;
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, shm);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shm);
   if (e != cudaSuccess) return e;
   const long long c = static_cast<long long>(sms) * per_sm;
   if (c < 1) return cudaErrorCooperativeLaunchTooLarge;
   *cap = static_cast<int>(c < kMaxGrid ? c : kMaxGrid);
-  if (n_cached < 64) cache[n_cached++] = {kernel, shm, dev, *cap};
+  if (n_cached < 64) cache[n_cached++] = {kernel, shm, threads, dev, *cap};
   return cudaSuccess;
 }
 
 // Launch `kernel` cooperatively on `stream`: min(want, capacity) blocks of
-// kThreads threads, shm bytes of dynamic shared memory.
+// `threads` threads, shm bytes of dynamic shared memory.
 inline cudaError_t coop_launch(const void* kernel, long long want, size_t shm,
-                               void** args, cudaStream_t stream) {
+                               void** args, cudaStream_t stream, int threads = kThreads) {
   int cap = 0;
-  const cudaError_t e = coop_capacity(kernel, shm, &cap);
+  const cudaError_t e = coop_capacity(kernel, shm, &cap, threads);
   if (e != cudaSuccess) return e;
   const long long g = want < 1 ? 1 : (want < cap ? want : cap);
   return cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(g)),
-                                     dim3(kThreads), args, shm, stream);
+                                     dim3(threads), args, shm, stream);
 }
 
 }  // namespace mc2

@@ -7,7 +7,10 @@ absorb replay (`rp_body`, l. 519-547), XLA programs on the TPU.  On CUDA
 tensors the wrappers launch the hand-written kernels of csrc/phase.cu; on
 CPU tensors they run the plain PyTorch versions beside them
 (`phase_layout_ref`, `phase_candidates_ref`, `merge_replay_ref`), which
-the CPU tests hold against the JAX program and the host engine.
+the CPU tests hold against the JAX program and the host engine.  The
+layout and the replay keep a state's slots in each block's shared memory
+up to `smem_slots` of them; a larger state launches their wide
+instantiations, counted also in `.wide_launches`.
 
 The phase's state (`PhaseState`): per row its cluster slot and its position
 in that cluster's member list, per slot its center row, alive flag and
@@ -25,6 +28,7 @@ member count.  Per iteration:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -56,7 +60,7 @@ class Layout(NamedTuple):
     b_rows: torch.Tensor   # its member row
     seg: torch.Tensor      # its center's rank, nondecreasing
     hdr: torch.Tensor      # int64 [2]: C, P (pairs in [0, P))
-    scratch: torch.Tensor  # int64 [S + 1]
+    scratch: torch.Tensor  # int64 [S + 1 + layout_tiles(n, delta)]
 
 
 class Candidates(NamedTuple):
@@ -65,6 +69,17 @@ class Candidates(NamedTuple):
     b: torch.Tensor        # rank i's center
     seg: torch.Tensor      # i
     ok: torch.Tensor       # bool: i + q < C and inside i's length window
+
+
+# pair positions in the smallest tile of the layout's sweep (csrc/phase.cu
+# kTile; 4 TILE where those tiles outnumber the blocks that fit)
+TILE = 1024
+
+
+def layout_tiles(n: int, delta: int) -> int:
+    """The most tiles of the layout's sweep: its (2 delta + 1) n positions
+    at most, TILE a tile (a look-back descriptor each in the scratch)."""
+    return -(-(2 * delta + 1) * n // TILE)
 
 
 def new_state(n: int, n_slots: int, device) -> PhaseState:
@@ -82,7 +97,7 @@ def new_layout(n: int, n_slots: int, delta: int, device) -> Layout:
     return Layout(torch.empty(n_slots, **i64), torch.empty(n_slots, **i64),
                   torch.empty(n_slots + 1, **i64), torch.empty(n, **i64),
                   *torch.split(pairs, bound), torch.zeros(2, **i64),
-                  torch.empty(n_slots + 1, **i64))
+                  torch.empty(n_slots + 1 + layout_tiles(n, delta), **i64))
 
 
 def new_candidates(n_slots: int, delta: int, device) -> Candidates:
@@ -97,15 +112,34 @@ def _lib():
 
     lib = load("phase").lib
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    sigs = {"mc2_phase_layout": [i64, i64, i32] + [p] * 18,
-            "mc2_phase_candidates": [i64, i64, i64, i32, i32] + [p] * 17,
-            "mc2_merge_replay": [i64, i64] + [p] * 11}
-    for name, argtypes in sigs.items():
+    sigs = {"mc2_phase_layout": ([i64, i64, i32] + [p] * 16 + [i64, p, p], ctypes.c_int),
+            "mc2_phase_candidates": ([i64, i64, i64, i32, i32] + [p] * 17, ctypes.c_int),
+            "mc2_merge_replay": ([i64, i64] + [p] * 10 + [i64, p], ctypes.c_int),
+            "mc2_phase_smem_slots": ([i32], i64)}
+    for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
     return lib
+
+
+@functools.cache
+def _smem_slots(kernel: int, index: int) -> int:
+    with torch.cuda.device(index):
+        got = _lib().mc2_phase_smem_slots(kernel)
+    if got < 0:
+        raise RuntimeError("phase kernels: the card's shared-memory limit is unreadable")
+    return got
+
+
+def smem_slots(kernel: str, device) -> int:
+    """The most slots that `kernel` ("phase_layout" or "merge_replay") keeps
+    in a block's shared memory on the CUDA `device`; a state with more
+    launches its wide instantiation."""
+    dev = torch.device(device)
+    return _smem_slots(("phase_layout", "merge_replay").index(kernel),
+                       dev.index if dev.index is not None else torch.cuda.current_device())
 
 
 def _check(what: str, tensors, device) -> None:
@@ -190,7 +224,8 @@ def _check_layout(what, lay: Layout, n: int, n_slots: int, delta: int, dev):
                   ("a_rows", lay.a_rows, i64, bound),
                   ("b_rows", lay.b_rows, i64, bound), ("seg", lay.seg, i64, bound),
                   ("hdr", lay.hdr, i64, 2),
-                  ("scratch", lay.scratch, i64, n_slots + 1)], dev)
+                  ("scratch", lay.scratch, i64, n_slots + 1 + layout_tiles(n, delta))],
+           dev)
 
 
 def phase_layout(st: PhaseState, rows: PhaseRows, delta: int, lay: Layout) -> None:
@@ -200,8 +235,10 @@ def phase_layout(st: PhaseState, rows: PhaseRows, delta: int, lay: Layout) -> No
     neighbourhood pairs, hdr = (C, P).  Every row must belong to an alive
     slot at its position (0 <= seq < clen).
 
-    On CUDA one cooperative launch on the current stream, without syncing;
-    the host learns (C, P) by reading hdr."""
+    On CUDA one cooperative launch on the current stream, without syncing
+    (the wide instantiation above smem_slots("phase_layout") slots); the
+    host learns (C, P) by reading hdr.  The kernel takes (2 delta + 1) n <
+    2^31."""
     n, n_slots, dev = _check_state("phase_layout", st, rows)
     if delta < 0:
         raise ValueError(f"phase_layout: delta must be >= 0, got {delta}")
@@ -211,20 +248,26 @@ def phase_layout(st: PhaseState, rows: PhaseRows, delta: int, lay: Layout) -> No
     if n == 0 or n_slots == 0:
         lay.hdr.zero_()
         return None
+    if (2 * delta + 1) * n >= 2 ** 31:
+        raise ValueError(f"phase_layout: (2 delta + 1) n = {(2 * delta + 1) * n} "
+                         f"is past the kernel's int32 positions")
     with torch.cuda.device(dev):
         rc = _lib().mc2_phase_layout(
             n, n_slots, int(delta),
             *_ptrs(st.assign, st.seq, st.alive, st.cen, st.clen, rows.lens,
                    rows.blen, rows.elen, lay.rank, lay.inv, lay.moff, lay.flat,
-                   lay.a_rows, lay.b_rows, lay.seg, lay.scratch, lay.hdr),
-            _stream(dev))
+                   lay.a_rows, lay.b_rows, lay.seg, lay.scratch),
+            lay.scratch.numel(), lay.hdr.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"phase_layout kernel launch failed: cudaError {rc}")
     phase_layout.launches += 1
+    if n_slots > smem_slots("phase_layout", dev):
+        phase_layout.wide_launches += 1
     return None
 
 
 phase_layout.launches = 0  # kernel launches since the last reset
+phase_layout.wide_launches = 0  # of them, the wide instantiation's
 
 
 # -- the candidates -----------------------------------------------------------
@@ -331,8 +374,11 @@ def merge_replay(st: PhaseState, t_dst: torch.Tensor, out: PhaseState) -> None:
     touched): the members of a source get seq += clen[dst] and assign =
     dst, clen[dst] grows by the source's, the source dies.
 
-    On CUDA one cooperative launch on the current stream, without
-    syncing, with an int64 [3 S] scratch from the caching allocator."""
+    On CUDA one launch on the current stream, without syncing; above
+    smem_slots("merge_replay") slots the wide instantiation, a cooperative
+    launch with an int32 [5 S] scratch from the caching
+    allocator.  out.clen and out.alive must not be st's: every block reads
+    st's slots."""
     n, n_slots = len(st.assign), len(st.cen)
     dev = st.assign.device
     i64 = torch.int64
@@ -346,16 +392,26 @@ def merge_replay(st: PhaseState, t_dst: torch.Tensor, out: PhaseState) -> None:
         return merge_replay_ref(st, t_dst, out)
     if n == 0 or n_slots == 0:
         return None
-    scratch = torch.empty(3 * n_slots, dtype=i64, device=dev)
+    if n >= 2 ** 31:
+        raise ValueError(f"merge_replay: {n} rows is past the kernel's int32 rows")
+    if (out.clen.data_ptr() == st.clen.data_ptr()
+            or out.alive.data_ptr() == st.alive.data_ptr()):
+        raise ValueError("merge_replay: out.clen and out.alive must not be st's")
+    wide = n_slots > smem_slots("merge_replay", dev)
+    scratch = torch.empty(5 * n_slots, dtype=torch.int32, device=dev) if wide else None
     with torch.cuda.device(dev):
         rc = _lib().mc2_merge_replay(
             n, n_slots, *_ptrs(st.assign, st.seq, st.alive, st.clen, t_dst,
-                               out.assign, out.seq, out.alive, out.clen, scratch),
+                               out.assign, out.seq, out.alive, out.clen),
+            scratch.data_ptr() if wide else None, scratch.numel() if wide else 0,
             _stream(dev))
     if rc != 0:
         raise RuntimeError(f"merge_replay kernel launch failed: cudaError {rc}")
     merge_replay.launches += 1
+    if wide:
+        merge_replay.wide_launches += 1
     return None
 
 
 merge_replay.launches = 0  # kernel launches since the last reset
+merge_replay.wide_launches = 0  # of them, the wide instantiation's

@@ -15,6 +15,14 @@ the host engine (--device cpu: the plain versions).
 - merge_replay_ref: a pure-Python replay of the engine's
   `clusters[ret].members.extend(clusters[i].members)` on seeded random
   chains of merges (i -> j -> k included).
+- csrc/phase.cu's decompositions, as numpy models (`replay_model`,
+  `layout_model`) against the plain versions: the replay's size rounds,
+  the warp's sibling offsets and the pointer-jumping path sums on seeded
+  random forests, a chain of depth S - 1, a star, no events and every
+  alive slot but one merging; the layout's packed rank scan, the flat
+  positions' prefix ipre, the tiles' staged windows and center search on
+  seeded synthetic states (kernel_ab.py:phase_state) at delta 5 and 0,
+  C = 1, singletons, one cluster of 90 % of the rows and dead slots.
 - TorchDevicePhaseUpdater.run: clusters, hist, it and pairs equal the JAX
   engine's per-iteration device path (its DeviceUpdater) on small and
   med2000, and the JAX DevicePhaseUpdater.run wherever that one does not
@@ -26,7 +34,9 @@ the host engine (--device cpu: the plain versions).
   byte; under a forced MC2_DD_MARGIN the phase aborts, the engine resumes
   on the per-iteration path, and the CLSTR equals the host engine's.
 - On a card (marked cuda): each kernel against its plain version, and the
-  whole phase against the CPU run.
+  whole phase against the CPU run; the redesigned layout and replay on the
+  cases of their models, a 100k-shaped state and a state above each one's
+  shared-memory limit (the wide instantiations, counted apart).
 Tolerance: exact throughout (the state is integers, the outputs rows).
 """
 import copy
@@ -42,6 +52,7 @@ from meshclust2_tpu_torch.cluster.device_phase import TorchDevicePhaseUpdater
 from meshclust2_tpu_torch.cluster.device_store import DeviceStore
 from meshclust2_tpu_torch.cluster.device_update import TorchDeviceUpdater
 from meshclust2_tpu_torch.ops import phase as P
+from kernel_ab import PHASE_SHAPES, phase_state
 
 torch.set_num_threads(2)
 
@@ -354,6 +365,224 @@ def test_merge_replay_ref_equals_the_engine_replay(seed):
             assert sorted(seq[rows].tolist()) == list(range(len(rows)))
 
 
+# -- csrc/phase.cu's decompositions, as numpy models ---------------------------
+
+WARP = 32   # the replay's offsets walk: events a step
+STAGE_ROWS, STAGE_CENTERS = 2048, 1024   # what a layout tile stages at most
+
+
+def replay_model(alive, clen, t_dst):
+    """merge_replay as the kernel decomposes it: each event's size in
+    rounds of the events whose sources are all applied, the offsets by a
+    warp's walk (32 events a step, siblings summed in lane order), the
+    final slots and offsets by pointer jumping.  Returns (fin, tot,
+    clen_out, alive_out, size rounds, walk steps, jump rounds)."""
+    S = len(alive)
+    ids = np.arange(S)
+    event = alive & (t_dst > ids) & (t_dst < S)
+    size = clen.astype(np.int64).copy()
+    fin = np.where(event, t_dst, ids)
+    ev = np.nonzero(event)[0]
+    pend = np.bincount(fin[ev], minlength=S)
+    done = np.zeros(S, bool)
+    rounds = 0
+    while True:
+        ready = ev[(pend[ev] == 0) & ~done[ev]]
+        np.add.at(size, fin[ready], size[ready])
+        np.subtract.at(pend, fin[ready], 1)
+        done[ready] = True
+        rounds += 1
+        if done[ev].all():
+            break
+    acc = clen.astype(np.int64).copy()
+    off = np.zeros(S, np.int64)
+    steps = 0
+    for e0 in range(0, len(ev), WARP):
+        lanes = ev[e0:e0 + WARP]
+        d, f = fin[lanes], size[lanes]
+        base = acc[d]
+        for k in range(len(lanes)):
+            off[lanes[k]] = base[k] + f[:k][d[:k] == d[k]].sum()
+        for g in np.unique(d):
+            acc[g] = base[d == g][0] + f[d == g].sum()
+        steps += 1
+    moved = fin != ids
+    clen_out, alive_out = np.where(moved, 0, size), alive & ~moved
+    f0, t0, jumps = fin, off, 0
+    while True:
+        f1, t1 = f0[f0], t0 + t0[f0]
+        jumps += 1
+        still = not np.array_equal(f1, f0)
+        f0, t0 = f1, t1
+        if not still:
+            break
+    return f0, t0, clen_out, alive_out, rounds, steps, jumps
+
+
+def layout_model(st, rows, delta, tile):
+    """phase_layout as the kernel decomposes it: the scan of (alive, clen)
+    packed as alive << 32 | clen, the positions' prefix ipre by center
+    rank, the scatter, then tile by tile (`tile` positions) the window of
+    member positions (staged when it holds at most STAGE_ROWS rows), each
+    position's center by binary search, the kept pairs at the tiles'
+    running count.  Returns (rank, inv, moff, flat, a_rows, b_rows, seg, C,
+    P, tiles, tiles staged)."""
+    assign, seq, cen, alive, clen = (t.numpy() for t in st)
+    lens, blen, elen = (t.numpy() for t in rows)
+    n = len(assign)
+    packed = np.where(alive, (1 << 32) | clen, 0)
+    ex = np.cumsum(packed) - packed
+    rank, soff = ex >> 32, ex & 0xffffffff
+    tot = int(packed.sum())
+    C = tot >> 32
+    inv = np.nonzero(alive)[0]
+    moff = np.append(soff[inv], tot & 0xffffffff)
+    js = np.arange(C)
+    start = moff[np.maximum(0, js - delta)]
+    end = moff[np.minimum(C - 1, js + delta) + 1]
+    ipre = np.append(0, np.cumsum(end - start))
+    W = int(ipre[-1])
+    flat = np.full(n, -1, np.int64)
+    flat[soff[assign] + seq] = np.arange(n)
+    out, count, staged = [], 0, 0
+    tiles = -(-W // tile)
+    for t in range(tiles):
+        i0, i1 = t * tile, min(W, t * tile + tile)
+        jlo = int(np.searchsorted(ipre[:C], i0, side="right")) - 1
+        jhi = int(np.searchsorted(ipre[jlo:C], i1 - 1, side="right")) - 1 + jlo
+        wlo = start[jlo] + i0 - ipre[jlo]
+        whi = start[jhi] + i1 - ipre[jhi]
+        if jhi > jlo:
+            wlo, whi = min(wlo, start[jlo + 1]), max(whi, end[jhi - 1])
+        staged += whi - wlo <= STAGE_ROWS
+        assert jhi - jlo < STAGE_CENTERS or delta == 0
+        i = np.arange(i0, i1)
+        j = np.searchsorted(ipre[jlo:jhi + 1], i, side="right") - 1 + jlo
+        x = start[j] + i - ipre[j]
+        assert (x >= wlo).all() and (x < whi).all()
+        r, c = flat[x], cen[inv[j]]
+        keep = (lens[r] >= blen[c]) & (lens[r] <= elen[c])
+        out.append(np.stack([c[keep], r[keep], j[keep]]))
+        count += int(keep.sum())
+    pairs = np.concatenate(out, axis=1) if out else np.zeros((3, 0), np.int64)
+    return rank, inv, moff, flat, *pairs, C, count, tiles, staged
+
+
+def torch_state(arr, device="cpu"):
+    t = {k: torch.from_numpy(v).to(device) for k, v in arr.items()}
+    return (P.PhaseState(t["assign"], t["seq"], t["cen"], t["alive"], t["clen"]),
+            P.PhaseRows(t["lens"], t["blen"], t["elen"]), t["t_dst"])
+
+
+def replay_forest(kind: str, seed: int = 0):
+    """A state of 600 slots over 2,000 rows and its events t_dst: "chain"
+    (s -> s + 1 for every slot, depth S - 1), "star" (every slot into the
+    top one), "none", "all_but_one" (every alive slot but the top into a
+    random slot above), or "random" (about a quarter into one of the 5
+    above, as the merge pass makes them)."""
+    S = 600
+    arr = phase_state(2_000, S, 150 if kind == "random" else 0, seed=seed)
+    rng = np.random.default_rng(seed)
+    ids = np.arange(S)
+    t = {"chain": ids + 1, "star": np.full(S, S - 1), "none": np.full(S, -1),
+         "all_but_one": ids + 1 + (rng.random(S) * (S - 1 - ids)).astype(np.int64),
+         "random": arr["t_dst"]}[kind].astype(np.int64)
+    t[-1] = -1
+    arr["t_dst"] = t
+    return arr
+
+
+@pytest.mark.parametrize("kind", ["chain", "star", "none", "all_but_one", "random"])
+def test_replay_decomposition_equals_merge_replay_ref(kind):
+    arr = replay_forest(kind, seed=11)
+    st, _, t_dst = torch_state(arr)
+    out = P.new_state(len(st.assign), len(st.cen), "cpu")
+    P.merge_replay_ref(st, t_dst, out)
+    fin, tot, clen_out, alive_out, rounds, steps, jumps = replay_model(
+        arr["alive"], arr["clen"], arr["t_dst"])
+    np.testing.assert_array_equal(fin[arr["assign"]], out.assign.numpy())
+    np.testing.assert_array_equal(arr["seq"] + tot[arr["assign"]], out.seq.numpy())
+    np.testing.assert_array_equal(clen_out, out.clen.numpy())
+    np.testing.assert_array_equal(alive_out, out.alive.numpy())
+    E = int((arr["t_dst"] >= 0).sum())
+    S = len(arr["alive"])
+    # the rounds the kernel takes: the longest chain's, E / 32 walk steps,
+    # ceil(log2 depth) + 1 jumps
+    want = {"chain": (S - 1, 11), "star": (1, 1), "none": (1, 1)}
+    if kind in want:
+        assert (rounds, jumps) == want[kind]
+    assert steps == -(-E // WARP)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_replay_decomposition_on_dead_slots(seed):
+    """The replay model on the seeded chains of dead and alive slots of
+    test_merge_replay_ref_equals_the_engine_replay."""
+    st, t_dst, _, _ = random_replay_case(seed)
+    out = P.new_state(len(st.assign), len(st.cen), "cpu")
+    P.merge_replay_ref(st, torch.from_numpy(t_dst), out)
+    fin, tot, clen_out, alive_out, *_ = replay_model(st.alive.numpy(), st.clen.numpy(),
+                                                     t_dst)
+    assign = st.assign.numpy()
+    np.testing.assert_array_equal(fin[assign], out.assign.numpy())
+    np.testing.assert_array_equal(st.seq.numpy() + tot[assign], out.seq.numpy())
+    np.testing.assert_array_equal(clen_out, out.clen.numpy())
+    np.testing.assert_array_equal(alive_out, out.alive.numpy())
+
+
+LAYOUT_CASES = {   # (n, S, merges, big, delta)
+    "delta5": (3_000, 350, 80, 0.0, 5),
+    "delta0": (3_000, 350, 80, 0.0, 0),
+    "one_cluster": (800, 1, 0, 0.0, 5),
+    "singletons": (1_200, 1_200, 0, 0.0, 5),
+    "big90": (6_000, 120, 0, 0.9, 5),
+}
+
+
+def layout_case(name: str, seed: int = 5):
+    n, S, merges, big, delta = LAYOUT_CASES[name]
+    return phase_state(n, S, merges, seed=seed, big=big), delta
+
+
+def check_layout(lay, model, n, S):
+    rank, inv, moff, flat, a_rows, b_rows, seg, C, n_pairs = model[:9]
+    assert lay.hdr.tolist() == [C, n_pairs]
+    alive_rank = lay.rank.cpu().numpy()
+    np.testing.assert_array_equal(alive_rank[:S], rank)
+    for got, want in ((lay.inv[:C], inv), (lay.moff[:C + 1], moff), (lay.flat[:n], flat),
+                      (lay.a_rows[:n_pairs], a_rows), (lay.b_rows[:n_pairs], b_rows),
+                      (lay.seg[:n_pairs], seg)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("per", [1, 4])
+@pytest.mark.parametrize("name", list(LAYOUT_CASES) + ["dead"])
+def test_layout_decomposition_equals_phase_layout_ref(name, per):
+    """At `per` positions a thread: tiles of per TILE positions."""
+    if name == "dead":   # the replayed state: dead slots among the alive
+        arr, delta = layout_case("delta5")
+        st, rows, t_dst = torch_state(arr)
+        out = P.new_state(len(st.assign), len(st.cen), "cpu")
+        P.merge_replay_ref(st, t_dst, out)
+        st = out._replace(cen=st.cen)
+        assert not st.alive.all()
+    else:
+        arr, delta = layout_case(name)
+        st, rows, _ = torch_state(arr)
+    n, S = len(st.assign), len(st.cen)
+    lay = P.new_layout(n, S, delta, "cpu")
+    assert lay.scratch.numel() == S + 1 + P.layout_tiles(n, delta)
+    P.phase_layout_ref(st, rows, delta, lay)
+    model = layout_model(st, rows, delta, per * P.TILE)
+    check_layout(lay, model, n, S)
+    tiles, staged = model[9:]
+    assert tiles <= P.layout_tiles(n, delta)
+    # tiles next to one cluster of 90 % of the rows, and the 4,096-position
+    # tiles at delta = 0 (a row a position), read their rows from global
+    # memory
+    assert (staged < tiles) == (name == "big90" or (name, per) == ("delta0", 4))
+
+
 def jax_per_iteration(pool):
     """The JAX engine's per-iteration device path (its DeviceUpdater) from
     the pool's clusters: (clusters, hist, iterations, pairs)."""
@@ -537,3 +766,70 @@ def test_cuda_kernels_equal_plain_versions():
     torch.cuda.synchronize()
     assert res_g == cpu.run(copy.deepcopy(clusters))
     assert res_g.abort == 0 and res_g.pairs == 116_481
+
+
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["chain", "star", "none", "all_but_one", "random", "wide"])
+def test_cuda_merge_replay_cases_equal_plain(kind):
+    """The redesigned replay against its plain version, bit for bit, on the
+    model's forests and on a state above its shared-memory limit (the wide
+    instantiation)."""
+    dev = cuda_device()
+    if kind == "wide":
+        S = P.smem_slots("merge_replay", dev) + 1_000
+        arr = phase_state(2 * S, S, S // 4, seed=13)
+    else:
+        arr = replay_forest(kind, seed=11)
+    st, _, t_dst = torch_state(arr, dev)
+    n, S = len(st.assign), len(st.cen)
+    out, out_p = P.new_state(n, S, dev), P.new_state(n, S, dev)
+    P.merge_replay.launches = P.merge_replay.wide_launches = 0
+    P.merge_replay(st, t_dst, out)
+    P.merge_replay_ref(st, t_dst, out_p)
+    torch.cuda.synchronize()
+    for f in ("assign", "seq", "alive", "clen"):
+        assert torch.equal(getattr(out, f), getattr(out_p, f)), f
+    assert (P.merge_replay.launches, P.merge_replay.wide_launches) == (1, int(kind == "wide"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LAYOUT_CASES) + ["dead", "100k", "wide"])
+def test_cuda_phase_layout_cases_equal_plain(name):
+    """The redesigned layout against its plain version, bit for bit, at
+    delta 5 and 0, C = 1, singletons, one cluster of 90 % of the rows, dead
+    slots, the 100k shape of kernel_ab.py and a state above its
+    shared-memory limit (the wide instantiation)."""
+    dev = cuda_device()
+    delta = 5
+    if name == "100k":
+        arr = phase_state(*PHASE_SHAPES["100k"], seed=17)
+    elif name == "wide":
+        S = P.smem_slots("phase_layout", dev) + 1_000
+        arr = phase_state(4 * S, S, 0, seed=19)
+    elif name == "dead":
+        arr, delta = layout_case("delta5")
+    else:
+        arr, delta = layout_case(name)
+    st, rows, t_dst = torch_state(arr, dev)
+    n, S = len(st.assign), len(st.cen)
+    if name == "dead":
+        out = P.new_state(n, S, dev)
+        P.merge_replay_ref(st, t_dst, out)
+        st = out._replace(cen=st.cen)
+    lay, lay_p = P.new_layout(n, S, delta, dev), P.new_layout(n, S, delta, dev)
+    P.phase_layout.launches = P.phase_layout.wide_launches = 0
+    P.phase_layout(st, rows, delta, lay)
+    P.phase_layout_ref(st, rows, delta, lay_p)
+    torch.cuda.synchronize()
+    C, n_pairs = lay_p.hdr.tolist()
+    assert lay.hdr.tolist() == [C, n_pairs] and n_pairs > 0
+    for f, k in (("rank", S), ("inv", C), ("moff", C + 1), ("flat", n),
+                 ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs)):
+        assert torch.equal(getattr(lay, f)[:k], getattr(lay_p, f)[:k]), f
+    assert (P.phase_layout.launches, P.phase_layout.wide_launches) == (1, int(name == "wide"))
