@@ -8,12 +8,14 @@ card, in turns.
 Makes the bench set (bench.py:ensure_dataset: 10,000 sequences, or
 BENCH_N_SEQS), then, for each of the port's three paths (the default,
 MC2_NO_DEVICE_LOOP=1, and with MC2_NO_DEVICE_UPDATE_BATCH=1 as well; or
-those named by --paths), runs `python -m meshclust2_tpu_torch.cli --device
+those named by --paths, among them device_count: the default path with its
+counts built on the card, MC2_DEVICE_COUNT=1), runs `python -m meshclust2_tpu_torch.cli --device
 cuda --recover tests/fixtures/bench10k_weights.txt` from each checkout's
 root in the order before, after, after, before (or --order).  Each run is a
 process of its own; its kernels build in its checkout's build/ during
-set-up, before the window.  Prints one line a run with the window (the
-`done` stamp less `read_in_points`) and its accumulate and update parts,
+set-up, before the window.  Prints one line a run with its set-up (the
+`read_in_points` stamp), the window (the `done` stamp less
+`read_in_points`) and its accumulate and update parts,
 then per path and checkout the median window and update part, and checks
 that every run of a path wrote the same CLSTR byte for byte.  Exits
 non-zero on a failed run or a differing CLSTR.
@@ -35,7 +37,9 @@ PATHS = {
     "no_device_loop": {"MC2_NO_DEVICE_LOOP": "1"},
     "no_device_loop_no_update_batch": {"MC2_NO_DEVICE_LOOP": "1",
                                        "MC2_NO_DEVICE_UPDATE_BATCH": "1"},
+    "device_count": {"MC2_DEVICE_COUNT": "1"},
 }
+DEFAULT_PATHS = "default,no_device_loop,no_device_loop_no_update_batch"
 ORDER = "before,after,after,before"
 
 
@@ -47,7 +51,7 @@ def stamps(text: str) -> dict:
 def one_run(root: str, path: str, fasta: str, out: str) -> dict:
     """One CLI run of checkout `root` on `path` -> its window parts (s)."""
     env = {k: v for k, v in os.environ.items() if k not in
-           ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH")}
+           ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH", "MC2_DEVICE_COUNT")}
     env.update(PATHS[path])
     proc = subprocess.run(
         [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--device", "cuda",
@@ -58,7 +62,7 @@ def one_run(root: str, path: str, fasta: str, out: str) -> dict:
         raise RuntimeError(f"{root} ({path}) exited {proc.returncode}:\n"
                            f"{proc.stderr[-2000:]}")
     st = stamps(proc.stdout)
-    return dict(window=st["done"] - st["read_in_points"],
+    return dict(setup=st["read_in_points"], window=st["done"] - st["read_in_points"],
                 accumulate=st["accumulate"] - st["read_in_points"],
                 update=st["update"] - st["accumulate"])
 
@@ -68,7 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("before")
     ap.add_argument("after")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "ab"))
-    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--paths", default=DEFAULT_PATHS)
     ap.add_argument("--order", default=ORDER)
     args = ap.parse_args(argv)
     order = args.order.split(",")
@@ -92,7 +96,8 @@ def main(argv=None) -> int:
             updates[which].append(r["update"])
             with open(out, "rb") as f:
                 outputs.append(f.read())
-            print(f"{path} {which}: window {r['window']:.3f} s (accumulate "
+            print(f"{path} {which}: set-up {r['setup']:.3f} s, window "
+                  f"{r['window']:.3f} s (accumulate "
                   f"{r['accumulate']:.3f} s, update {r['update']:.3f} s)",
                   flush=True)
         same = all(o == outputs[0] for o in outputs)

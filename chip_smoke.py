@@ -20,9 +20,17 @@ TorchDeviceUpdater) and MC2_NO_DEVICE_LOOP=1 MC2_NO_DEVICE_UPDATE_BATCH=1
 reference CLSTR and engine counters, and each path's kernel launches are
 counted from zero; med2000 under MC2_DD_MARGIN=3e-3 aborts the phase and
 still gives its reference.  The phase's three kernels (phase_layout,
-phase_candidates and merge_replay) are held against their plain versions on the 10k default
+closest_candidates: its closest-to-mean with the candidates step folded in,
+and merge_replay) are held against their plain versions on the 10k default
 path's own state after accumulate and timed beside their bounds (d6), and
-torch.profiler times the phase alone on that state (h2).  The fused
+torch.profiler times the phase alone on that state (h2).  The k-mer
+histogram kernel (MC2_DEVICE_COUNT's build) is held byte for byte against
+its plain version and the native counter on the 10k set, a saturating
+record, records with N runs, a record over 1 Mbp and k = 8, and timed
+beside its bound and torch.bincount (k); the 10k default path with
+MC2_DEVICE_COUNT=1 gives the default run's CLSTR byte for byte, and the
+set-up times of native and device counting in the order native, device,
+device, native (k2).  The fused
 kernel's FULL instantiation (models with full-vector singles) is held against its plain version and a numpy host
 oracle within its error bounds (c5) and timed beside its bound (d4); two
 such models, built over each set with the port's host formulas, cluster
@@ -111,24 +119,24 @@ PLANE10K_COUNTERS = {"markov": (561, 747_763, 1_119, 8),
                      "plane": (489, 699_028, 1_098, 7)}
 MARGIN, TIE_MARGIN = 1e-8, 1e-12
 # the kernel sources, one nvcc each
-SOURCES = ("pair_stats", "closest_mean", "window_absorb", "plane_singles", "phase")
+SOURCES = ("pair_stats", "closest_mean", "window_absorb", "plane_singles", "phase",
+           "kmer_count")
 # the kernels each path must launch (their wrappers' counts), and those it
 # must not: the clustering paths take their statistics from the fused
 # kernel, training's tables from the statistics alone
 # (pair_stats_decision_full counts the fused kernel's FULL launches, those
 # of a model with full-vector singles; the fast paths launch none)
-NEEDS = {"default": ("pair_stats_decision", "closest_mean", "window_absorb",
-                     "phase_layout", "phase_candidates", "merge_replay"),
+NEEDS = {"default": ("pair_stats_decision", "window_absorb", "phase_layout",
+                     "closest_candidates", "merge_replay"),
          "no_device_loop": ("pair_stats_decision", "closest_mean"),
          "no_device_loop_no_update_batch": ("pair_stats_decision",),
-         "train": ("pair_stats", "pair_stats_decision", "closest_mean",
-                   "window_absorb", "phase_layout", "phase_candidates",
-                   "merge_replay"),
+         "train": ("pair_stats", "pair_stats_decision", "window_absorb",
+                   "phase_layout", "closest_candidates", "merge_replay"),
          "fastcar_train": ("pair_stats",),
          "fastcar": ("pair_stats_decision",),
          "full_default": ("pair_stats_decision", "pair_stats_decision_full",
-                          "closest_mean", "window_absorb", "phase_layout",
-                          "phase_candidates", "merge_replay"),
+                          "window_absorb", "phase_layout", "closest_candidates",
+                          "merge_replay"),
          "full_no_device_loop": ("pair_stats_decision",
                                  "pair_stats_decision_full", "closest_mean"),
          "full_no_device_loop_no_update_batch": ("pair_stats_decision",
@@ -156,13 +164,19 @@ FORBIDS = {"default": ("pair_stats", "pair_stats_decision_full"),
                           "window_absorb", "pair_stats_decision_full"),
            "plane": ("pair_stats", "closest_mean", "window_absorb",
                      "pair_stats_decision_full")}
-# no path but a plane model's launches the plane kernels, and none but the
-# default path's clustering (training's included) the phase's
+# the default path with its counts built on the card (MC2_DEVICE_COUNT=1)
+NEEDS["device_count"] = NEEDS["default"] + ("kmer_count",)
+FORBIDS["device_count"] = FORBIDS["default"]
+# no path but a plane model's launches the plane kernels, none but the
+# default path's clustering (training's included) the phase's, and none but
+# MC2_DEVICE_COUNT's the k-mer kernel
 for _path in FORBIDS:
     if _path != "plane":
         FORBIDS[_path] += ("plane_singles", "pair_stats_decision_plane")
-    if _path not in ("default", "train", "full_default"):
-        FORBIDS[_path] += ("phase_layout", "phase_candidates", "merge_replay")
+    if _path not in ("default", "train", "full_default", "device_count"):
+        FORBIDS[_path] += ("phase_layout", "closest_candidates", "merge_replay")
+    if _path != "device_count":
+        FORBIDS[_path] += ("kmer_count",)
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -603,15 +617,18 @@ def update_line(res, want_pairs: int) -> str:
 
 
 def phase_kernel_checks(ph, clusters, card: str) -> dict:
-    """(d6) phase_layout, phase_candidates and merge_replay at the 10k default
-    path's shapes: the state `clusters` after accumulate, the first
-    iteration's layout, the candidates after its real filter and
-    closest-to-mean, the replay of its real merge decisions; each against
-    its plain version on the card (exact), with its time, device time and
-    bound (kernel_ab.py:phase_bytes)."""
+    """(d6) phase_layout, closest_candidates and merge_replay at the 10k
+    default path's shapes: the state `clusters` after accumulate, the first
+    iteration's layout, closest-to-mean and the candidates after its real
+    filter, the replay of its real merge decisions; each against its plain
+    version on the card (exact), with its time, device time and bound
+    (kernel_ab.py:phase_bytes; closest_candidates adds its closest-to-mean
+    part, which depends on the kept rows), and closest_mean's device time
+    on the same filter (the launch the fold extends)."""
     import torch
     from kernel_ab import phase_bytes
     from meshclust2_tpu_torch.ops import phase as P
+    from meshclust2_tpu_torch.ops.closest_mean import closest_mean
 
     dev, delta = ph.device, ph.delta
     n, S = ph.ps.n, len(clusters)
@@ -629,17 +646,24 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
                  ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs)):
         if not torch.equal(getattr(lay, f)[:k], getattr(lay_p, f)[:k]):
             raise AssertionError(f"phase_layout's {f} differs from its plain version")
-    first, _, _ = ph._filter(lay, C, n_pairs)
+    keep, _ = ph.updater.filter_keep(lay.a_rows[:n_pairs], lay.b_rows[:n_pairs])
+    store = ph.store
+    ckw = dict(maxc=store.maxc, tie_margin=ph.tie_margin)
+    cargs = (store.counts, store.mags, keep, st, rows, delta, lay, C, n_pairs)
     cand, cand_p = (P.new_candidates(S, delta, dev) for _ in range(2))
-    cargs = (st, rows, delta, lay, first, C, n_pairs)
-    P.phase_candidates(*cargs, cand)
-    P.phase_candidates_ref(*cargs, cand_p)
+    first, unc = P.closest_candidates(*cargs, cand, **ckw)
+    p_first, p_unc = P.closest_candidates_ref(*cargs, cand_p, **ckw)
+    torch.cuda.synchronize()
     m = delta * C
+    if not (torch.equal(first, p_first) and torch.equal(unc, p_unc)):
+        raise AssertionError("closest_candidates' first or unc differs from its plain "
+                             "version")
     for f in ("a", "b", "seg", "ok"):
         if not torch.equal(getattr(cand, f)[:m], getattr(cand_p, f)[:m]):
-            raise AssertionError(f"phase_candidates' {f} differs from its plain version")
-    if not torch.equal(cand.cen, cand_p.cen):
-        raise AssertionError("phase_candidates' centers differ from its plain version")
+            raise AssertionError(f"closest_candidates' {f} differs from its plain version")
+    if not torch.equal(cand.cen, cand_p.cen) or cand.arrive.any():
+        raise AssertionError("closest_candidates' centers differ from its plain version, "
+                             "or its arrival counters are not back at 0")
     _, any_m, best, _ = ph.updater.merge_device(cand.a[:m], cand.b[:m], cand.seg[:m],
                                              C, valid=cand.ok[:m])
     t_dst = ph._targets(any_m, best, lay.inv, C, S)
@@ -651,27 +675,40 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
             raise AssertionError(f"merge_replay's {f} differs from its plain version")
     events = int((t_dst >= 0).sum())
     nb = phase_bytes(n, S, C, n_pairs, delta)
+    # the closest-to-mean part: the kept rows read once with their mags, the
+    # pairs' rows, segments and keep flags, first and unc written
+    b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
+    kept = b[keep]
+    d = store.counts.shape[1]
+    nb["closest_candidates"] += (torch_unique(kept) * (d * store.counts.element_size() + 8)
+                                 + tbytes(b, sg, keep) + 9 * C)
+    ops = {"closest_candidates": CLOSEST_OPS * len(kept) * d + 2 * d}
     runs = {
         "phase_layout": (lambda: P.phase_layout(st, rows, delta, lay),
                          lambda: P.phase_layout_ref(st, rows, delta, lay_p)),
-        "phase_candidates": (lambda: P.phase_candidates(*cargs, cand),
-                             lambda: P.phase_candidates_ref(*cargs, cand_p)),
+        "closest_candidates": (lambda: P.closest_candidates(*cargs, cand, **ckw),
+                               lambda: P.closest_candidates_ref(*cargs, cand_p, **ckw)),
         "merge_replay": (lambda: P.merge_replay(st, t_dst, out),
                          lambda: P.merge_replay_ref(st, t_dst, out_p)),
     }
     rec = {}
     for name, (kernel, plain) in runs.items():
         nbytes = nb[name]
-        b_ms, b_by = bound_ms(nbytes, 0)
+        b_ms, b_by = bound_ms(nbytes, ops.get(name, 0))
         rec[name] = dict(ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=10),
                          device_us=device_us(kernel), bound_ms=b_ms, bound_by=b_by)
         r = rec[name]
         phase("d6", f"{name} at the 10k default path's state after accumulate "
-                    f"(n = {n}, S = {S}, C = {C}, P = {n_pairs}, {m} candidates, "
-                    f"{events} events): == plain version; kernel {r['ms']:.4f} ms, plain "
-                    f"{r['plain_ms']:.4f} ms (median, CUDA events), device "
-                    f"{r['device_us']:.2f} us (CUDA events behind a busy wait), "
-                    f"bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes); {card}")
+                    f"(n = {n}, S = {S}, C = {C}, P = {n_pairs}, {int(keep.sum())} kept, "
+                    f"{m} candidates, {events} events): == plain version; kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median, CUDA "
+                    f"events), device {r['device_us']:.2f} us (CUDA events behind a busy "
+                    f"wait), bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes); {card}")
+    cm = rec["closest_candidates"]["closest_mean_device_us"] = device_us(
+        lambda: closest_mean(store.counts, store.mags, b, sg, keep, C, **ckw))
+    phase("d6", f"closest_mean alone on the same filter (the per-iteration updater's "
+                f"instantiation): device {cm:.2f} us; the folded launch "
+                f"{rec['closest_candidates']['device_us']:.2f} us; {card}")
     wide_phase_checks(dev, rec, card)
     return rec
 
@@ -756,6 +793,101 @@ def profile_phase(ph, clusters, card: str) -> None:
                 f"busy {busy * 1e3:.3f} ms of a {wall * 1e3:.3f} ms run "
                 f"({100 * busy / wall:.1f} % busy); the kernels (device time per "
                 f"launch): {ours}; top: {top}; {card}")
+
+
+def kmer_kernel_checks(fasta: str, card: str, dev) -> dict:
+    """(k) the k-mer histogram kernel (ops/kmer_count.py, MC2_DEVICE_COUNT's
+    build) against its plain version on the card and the native counter,
+    byte for byte: the 10k set at k = 5 (uint8), a uint8 saturation record
+    (2,000 x A), 37 random records with N runs at k = 4 (uint16), a record
+    over 1 Mbp (its 1 Mbp split: a window across it does not count) at k = 3
+    (uint32), and 2,000 of the 10k records at k = 8 (the global-histogram
+    instantiation); then, on the 10k set, its time, the plain version's, the
+    bound (the codes, offsets and segments read once, the counts and 1-mers
+    written once; k operations a window) and torch.bincount over the
+    windows' flat indices (the nearest one-call PyTorch counterpart: it
+    leaves out the index sweep and the saturation), and the device times of
+    a homopolymer record of 999,999 bases (every window in one bin), of the
+    long record and of the k = 8 set."""
+    import torch
+    from meshclust2_tpu_torch import native
+    from meshclust2_tpu_torch.io.fasta import encode_sequence, read_fasta
+    from meshclust2_tpu_torch.kmer.counting import DTYPE_MAX
+    from meshclust2_tpu_torch.ops.kmer_count import (kmer_count, kmer_count_ref,
+                                                     kmer_windows, packed_on)
+
+    rng = np.random.default_rng(20261018)
+    bench_recs = read_fasta(fasta)
+    n_runs = []
+    for i in range(37):
+        s = rng.choice(list("ACGT"), int(rng.integers(40, 900)))
+        for _ in range(int(rng.integers(0, 4))):
+            at = int(rng.integers(0, len(s) - 1))
+            s[at:at + int(rng.integers(1, 40))] = "N"
+        n_runs.append(encode_sequence(f"r{i}", "".join(s)))
+    long_rec = encode_sequence("long", "".join(rng.choice(list("ACGT"), 2_000_050)))
+    if long_rec.segments.tolist() != [[0, 999_999], [1_000_000, 2_000_049]]:
+        raise AssertionError(f"the long record's segments {long_rec.segments.tolist()}")
+    cases = {"10k set, k = 5, uint8": (bench_recs, 5, "uint8_t"),
+             "saturation (2,000 x A), k = 5, uint8": (
+                 [encode_sequence("sat", "A" * 2000 + "CGTACGT" * 30)], 5, "uint8_t"),
+             "37 records with N runs, k = 4, uint16": (n_runs, 4, "uint16_t"),
+             "2,000,050 bases, split at 1 Mbp, k = 3, uint32": ([long_rec], 3, "uint32_t"),
+             "2,000 records of the 10k set, k = 8, uint16": (bench_recs[:2000], 8,
+                                                               "uint16_t")}
+    for name, (recs, k, datatype) in cases.items():
+        dtype_max = DTYPE_MAX[datatype]
+        packed = packed_on(native._pack_records(recs), dev)
+        wide = kmer_count.global_launches
+        counts, ones = kmer_count(*packed, k, dtype_max)
+        torch.cuda.synchronize()
+        p_counts, p_ones = kmer_count_ref(*packed, k, dtype_max)
+        want_c, want_o = native.count_kmers_batch(recs, k, dtype_max)
+        got_c = counts.cpu().numpy()
+        if not (np.array_equal(got_c, p_counts.cpu().numpy()) and torch.equal(ones, p_ones)
+                and got_c.dtype == want_c.dtype and np.array_equal(got_c, want_c)
+                and np.array_equal(ones.cpu().numpy().astype(np.uint64), want_o)):
+            raise AssertionError(f"kmer_count differs from its plain version or the "
+                                 f"native counter ({name})")
+        if (kmer_count.global_launches - wide) != int(k >= 8):
+            raise AssertionError(f"kmer_count's global instantiation ran "
+                                 f"{kmer_count.global_launches - wide} times ({name})")
+        if "saturation" in name and got_c.max() != 255:
+            raise AssertionError("the saturation record did not saturate")
+        phase("k", f"kmer_count {name}: {len(recs)} records, {int(packed[1][-1])} codes: "
+                   f"== plain version == native counter byte for byte; {card}")
+    dtype_max = DTYPE_MAX["uint8_t"]
+    k = 5
+    packed = packed_on(native._pack_records(bench_recs), dev)
+    counts, ones = kmer_count(*packed, k, dtype_max)
+    flat, _ = kmer_windows(*packed, k)
+    n = len(bench_recs)
+    nbytes = tbytes(*packed, counts, ones)
+    b_ms, b_by = bound_ms(nbytes, k * len(flat))
+    run = lambda: kmer_count(*packed, k, dtype_max)   # noqa: E731
+    rec = dict(ms=cuda_ms(run, reps=50),
+               plain_ms=cuda_ms(lambda: kmer_count_ref(*packed, k, dtype_max), reps=5),
+               library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=n * 4 ** k),
+                                  reps=20),
+               device_us=device_us(run), bound_ms=b_ms, bound_by=b_by, max_abs_err=0)
+    homo = packed_on(native._pack_records([encode_sequence("homo", "A" * 999_999)]), dev)
+    rec["homopolymer_device_us"] = device_us(lambda: kmer_count(*homo, k, dtype_max))
+    wide = cases["2,000 records of the 10k set, k = 8, uint16"][0]
+    wide_p = packed_on(native._pack_records(wide), dev)
+    rec["k8_device_us"] = device_us(lambda: kmer_count(*wide_p, 8, 65535))
+    # one record is one block: a long one runs on one SM
+    long_p = packed_on(native._pack_records([long_rec]), dev)
+    rec["long_device_us"] = device_us(lambda: kmer_count(*long_p, 5, dtype_max))
+    phase("k", f"kmer_count, the 10k set ({n} records, {len(flat)} windows, k = 5, "
+               f"uint8): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+               f"torch.bincount over the flat indices {rec['library_ms']:.4f} ms (median, "
+               f"CUDA events); device {rec['device_us']:.2f} us (CUDA events behind a "
+               f"busy wait), bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes); a homopolymer "
+               f"of 999,999 bases: device {rec['homopolymer_device_us']:.2f} us; the "
+               f"random record of 2,000,050 bases at k = 5: device "
+               f"{rec['long_device_us']:.2f} us; 2,000 records at k = 8 (global "
+               f"histograms): device {rec['k8_device_us']:.2f} us; {card}")
+    return rec
 
 
 class DecisionCount:
@@ -1611,7 +1743,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from meshclust2_tpu_torch import cli as torch_cli
-    from meshclust2_tpu_torch.cluster import device_update
     from meshclust2_tpu_torch.cluster.engine import distance_d
     from meshclust2_tpu_torch.model.weights import load_weights
     from meshclust2_tpu_torch.ops import _build
@@ -1627,8 +1758,10 @@ def main() -> int:
     from meshclust2_tpu_torch.ops.window_absorb import (
         StepState, step_scratch, window_step, window_step_ref)
     from meshclust2_tpu_torch.ops.plane_singles import plane_singles, plane_singles_ref
-    from meshclust2_tpu_torch.ops.phase import (merge_replay, phase_candidates,
+    from meshclust2_tpu_torch.ops.phase import (closest_candidates, merge_replay,
                                                 phase_layout)
+    from meshclust2_tpu_torch.ops.kmer_count import kmer_count
+    from meshclust2_tpu_torch.cluster import device_phase
     from meshclust2_tpu_torch.cluster.device_phase import TorchDevicePhaseUpdater
     from meshclust2_tpu_torch.cluster.device_store import DeviceStore
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
@@ -1638,8 +1771,8 @@ def main() -> int:
                 "pair_stats_decision_full": DecisionCount("full_launches"),
                 "plane_singles": plane_singles,
                 "pair_stats_decision_plane": DecisionCount("plane_launches"),
-                "phase_layout": phase_layout, "phase_candidates": phase_candidates,
-                "merge_replay": merge_replay}
+                "phase_layout": phase_layout, "closest_candidates": closest_candidates,
+                "merge_replay": merge_replay, "kmer_count": kmer_count}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -2354,35 +2487,51 @@ def main() -> int:
         ref_sig = signature(read_clstr(ref_path))
         argv = ["--device", "cuda", "--recover", weights, "--output", None, fasta]
         # the default path's update batches, those of its phase's run (not
-        # of the warm-ups), kept for (f3) (copies: the phase's batches are
-        # views of buffers that the next iteration overwrites), and the
-        # state its phase starts from, for (d6), (h2)
+        # of the warm-ups), kept for (f3) as closest_mean's arguments (copies:
+        # the phase's batches are views of buffers that the next iteration
+        # overwrites), and the state its phase starts from, for (d6), (h2)
         batches = []
         phase_runs = []
         real_run = TorchDevicePhaseUpdater.run
 
-        def recording(*args, **kwargs):
+        def recording(counts, mags, keep, st, rows, delta, lay, n_alive, n_pairs,
+                      out, **kwargs):
             if phase_runs:
-                batches.append((tuple(a.clone() if torch.is_tensor(a) else a
-                                      for a in args), kwargs))
-            return closest_mean(*args, **kwargs)
+                batches.append(((counts, mags, lay.b_rows[:n_pairs].clone(),
+                                 lay.seg[:n_pairs].clone(), keep.clone(), n_alive),
+                                kwargs))
+            return closest_candidates(counts, mags, keep, st, rows, delta, lay, n_alive,
+                                      n_pairs, out, **kwargs)
 
         def recording_run(self, clusters, *args, **kwargs):
             phase_runs.append((self, [(c.center_row, list(c.members))
                                       for c in clusters]))
             return real_run(self, clusters, *args, **kwargs)
 
+        # the counting part of set-up (the CLI's build_point_set calls)
+        count_s = []
+        real_bps = torch_cli.build_point_set
+
+        def timed_bps(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real_bps(*args, **kwargs)
+            finally:
+                count_s.append(time.perf_counter() - t0)
+
+        torch_cli.build_point_set = timed_bps
         for path in PATHS:
             argv[5] = os.path.join(tmp, f"bench10k_{path}.clstr")
             for fn in wrappers.values():
                 fn.launches = 0
+            count_s.clear()
             default = path == "default"
-            device_update.closest_mean = recording if default else closest_mean
+            device_phase.closest_candidates = recording if default else closest_candidates
             TorchDevicePhaseUpdater.run = recording_run if default else real_run
             try:
                 res = run_path(torch_cli, path, argv)
             finally:
-                device_update.closest_mean = closest_mean
+                device_phase.closest_candidates = closest_candidates
                 TorchDevicePhaseUpdater.run = real_run
             launches[path] = {name: fn.launches for name, fn in wrappers.items()}
             if res.rc != 0:
@@ -2398,6 +2547,9 @@ def main() -> int:
             if not aborted and counters(res) != BENCH10K_COUNTERS[path]:
                 raise AssertionError(f"10k counters {counters(res)} != "
                                      f"{BENCH10K_COUNTERS[path]} ({path})")
+            if default:
+                default_setup = res.clock.stamps["read_in_points"]
+                default_count_s = sum(count_s)
             upd = update_line(res, BENCH10K_UPDATER_PAIRS)
             phase("f", f"bench 10k ({path}): signature == bench10k_ref_t1 "
                        f"({len(got)} clusters), counters {counters(res)}; "
@@ -2406,8 +2558,9 @@ def main() -> int:
                        f"{res.scorer.scored_pairs}, re-checked "
                        f"{res.scorer.rechecked_pairs}; {upd}")
 
-        # (f3) closest_mean on the default path's own update batches: equal
-        # to the plain version, its device time per batch
+        # (f3) closest_mean on the default path's own update batches (the
+        # closest-to-mean of its phase's folded launches): equal to the plain
+        # version, its device time per batch
         real = []
         for args, kwargs in batches:
             if len(args[2]) > 1:
@@ -2437,7 +2590,69 @@ def main() -> int:
         phase("d6", f"launches of the 10k default path (f), its warm-up "
                     f"included: " + ", ".join(
                         f"{k} {launches['default'][k]}" for k in (
-                            "phase_layout", "phase_candidates", "merge_replay")))
+                            "phase_layout", "closest_candidates", "merge_replay",
+                            "closest_mean")))
+
+        # (k) the k-mer histogram kernel against its plain version and the
+        # native counter, and its time on the 10k set's records
+        kmer_timing = kmer_kernel_checks(fasta, card, dev)
+
+        # (k2) the 10k default path with its counts built on the card
+        # (MC2_DEVICE_COUNT=1), its launches counted from zero: the CLSTR
+        # byte for byte that of (f)'s default run, the same counters.  Then
+        # one more run of each in the reverse order, so the set-up stamps and
+        # the counting times read native, device, device, native: (f)'s run
+        # came first, before (k) warmed the allocator and the caches, so the
+        # first pair alone is confounded by its order
+        def count_run(device_count: bool, name: str):
+            argv[5] = os.path.join(tmp, f"bench10k_{name}.clstr")
+            count_s.clear()
+            if device_count:
+                os.environ["MC2_DEVICE_COUNT"] = "1"
+            try:
+                res = run_path(torch_cli, "default", argv)
+            finally:
+                os.environ.pop("MC2_DEVICE_COUNT", None)
+            tag = "MC2_DEVICE_COUNT=1" if device_count else "native counter"
+            if res.rc != 0:
+                raise AssertionError(f"{tag}: the port CLI exited {res.rc}")
+            with open(argv[5], "rb") as f, \
+                    open(os.path.join(tmp, "bench10k_default.clstr"), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"{tag}: the 10k CLSTR differs from the "
+                                         f"default run's")
+            if counters(res) != BENCH10K_COUNTERS["default"]:
+                raise AssertionError(f"{tag}: counters {counters(res)}")
+            return res, (res.clock.stamps["read_in_points"], sum(count_s))
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        res, device_first = count_run(True, "device_count")
+        launches["device_count"] = {name: fn.launches for name, fn in wrappers.items()}
+        check_launches("device_count", launches["device_count"])
+        device_second = count_run(True, "device_count2")[1]
+        native_second = count_run(False, "native2")[1]
+        order = [("native counter", (default_setup, default_count_s)),
+                 ("MC2_DEVICE_COUNT=1", device_first),
+                 ("MC2_DEVICE_COUNT=1", device_second),
+                 ("native counter", native_second)]
+        means = {k: tuple(statistics.mean([v[i] for kk, v in order if kk == k])
+                          for i in (0, 1))
+                 for k in ("native counter", "MC2_DEVICE_COUNT=1")}
+        phase("k2", f"bench 10k (default, MC2_DEVICE_COUNT=1): CLSTR == the default "
+                    f"run's byte for byte, counters {counters(res)}, "
+                    f"{update_line(res, BENCH10K_UPDATER_PAIRS)}; kmer_count launches "
+                    f"{launches['device_count']['kmer_count']}; "
+                    f"{window_parts(res.clock.stamps, 10_000)}; {card}")
+        phase("k2", "set-up stamp (read_in_points) and its counting "
+                    "(build_point_set), in run order: " + "; ".join(
+                        f"{k} {a:.3f} s, counting {b:.3f} s" for k, (a, b) in order)
+                    + "; mean of each (order balanced): " + "; ".join(
+                        f"{k} {a:.3f} s, counting {b:.3f} s" for k, (a, b) in means.items())
+                    + "; one process, so set-up against set-up across processes is "
+                      "ab_paths.py --paths default,device_count")
+        kmer_timing["setup"] = {"order": order, "mean": means}
+        torch_cli.build_point_set = real_bps
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -2677,12 +2892,12 @@ def main() -> int:
     pc_pl, pp_pl = (plane_timing["plane", f] for f in ("center W=1571", "pair P=98304"))
     # the phase's kernels at the 10k default path's state (d6): the layout,
     # the candidates, the replay
-    pl, pc, pr = (phase_timing[k] for k in ("phase_layout", "phase_candidates",
+    pl, pc, pr = (phase_timing[k] for k in ("phase_layout", "closest_candidates",
                                             "merge_replay"))
     # launches: each record's path (training, then clustering with the
     # trained model; the last record: fastcar's search, at its largest
     # slice); library_ms: no PyTorch call computes any of these functions
-    # (PERF.md)
+    # (PERF.md) but the k-mer build's, bincount without the index sweep
     print(json.dumps({"kernels": [{
         "name": "pair_stats",
         "path": "training, then clustering, 10k",
@@ -2743,11 +2958,12 @@ def main() -> int:
         "blockwise_pair_bound_ms": fp_block["bound_ms"],
     }, {
         "name": "closest_mean",
-        "path": "training, then clustering, 10k",
+        "path": "clustering, 10k, MC2_NO_DEVICE_LOOP=1 (f); timed on the default "
+                "path's update batches (f3)",
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
         "replaces": "meshclust2_tpu/cluster/device_update.py:290",
-        "launches": launches["train"]["closest_mean"],
+        "launches": launches["no_device_loop"]["closest_mean"],
         "max_abs_err": cm_err,
         "ms": cm_real["ms"],
         "plain_ms": cm_real["plain_ms"],
@@ -2838,14 +3054,15 @@ def main() -> int:
         "wide_slots": pl["wide_slots"],
         "wide_device_us": pl["wide_device_us"],
     }, {
-        "name": "phase_candidates",
+        "name": "closest_candidates",
         "path": "clustering, 10k default path (f); timed at its state after "
                 "accumulate (d6)",
         "route": "cuda",
-        "source": "meshclust2_tpu_torch/csrc/phase.cu",
-        "replaces": "meshclust2_tpu/cluster/device_phase.py:462, "
+        "source": "meshclust2_tpu_torch/csrc/closest_mean.cu",
+        "replaces": "meshclust2_tpu/cluster/device_update.py:290, "
+                    "meshclust2_tpu/cluster/device_phase.py:462, "
                     "meshclust2_tpu/cluster/device_phase.py:551",
-        "launches": launches["default"]["phase_candidates"],
+        "launches": launches["default"]["closest_candidates"],
         "max_abs_err": 0,
         "ms": pc["ms"],
         "plain_ms": pc["plain_ms"],
@@ -2853,6 +3070,7 @@ def main() -> int:
         "bound_by": pc["bound_by"],
         "library_ms": None,
         "device_us": pc["device_us"],
+        "closest_mean_device_us": pc["closest_mean_device_us"],
     }, {
         "name": "merge_replay",
         "path": "clustering, 10k default path (f); timed at its state after "
@@ -2870,6 +3088,27 @@ def main() -> int:
         "device_us": pr["device_us"],
         "wide_slots": pr["wide_slots"],
         "wide_device_us": pr["wide_device_us"],
+    }, {
+        "name": "kmer_count",
+        "path": "clustering, 10k default path with MC2_DEVICE_COUNT=1 (k2); timed "
+                "on the 10k set's records (k)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/kmer_count.cu",
+        "replaces": "meshclust2_tpu/parallel/mesh.py:200",
+        "launches": launches["device_count"]["kmer_count"],
+        "max_abs_err": kmer_timing["max_abs_err"],
+        "ms": kmer_timing["ms"],
+        "plain_ms": kmer_timing["plain_ms"],
+        "bound_ms": kmer_timing["bound_ms"],
+        "bound_by": kmer_timing["bound_by"],
+        "library_ms": kmer_timing["library_ms"],
+        "library": "torch.bincount over the windows' flat indices (no index sweep, "
+                   "no saturation)",
+        "device_us": kmer_timing["device_us"],
+        "homopolymer_device_us": kmer_timing["homopolymer_device_us"],
+        "k8_device_us": kmer_timing["k8_device_us"],
+        "long_record_device_us": kmer_timing["long_device_us"],
+        "setup_s": kmer_timing["setup"],
     }, fc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -2,7 +2,7 @@
 """The redesigned kernels' device times in several checkouts of the
 repository, on one card, in turns.
 
-    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE] [--phase]
+    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE] [--phase | --kmer]
 
 Each run is a process of its own that imports the port of one checkout
 (`meshclust2_tpu_torch` from that root), builds its kernels into the
@@ -22,13 +22,27 @@ result held against its plain version within the sum of both bounds (the
 statistics bit for bit).
 
 With --phase it times instead the update phase's kernels (ops/phase.py:
-`phase_layout`, `phase_candidates`, `merge_replay`) on seeded synthetic
-states after accumulate (`phase_state`) at two shapes, each held against
-its plain version bit for bit: "d6", chip_smoke.py (d6)'s (n = 10,000,
-S = 1,147, delta = 5, 288 merges), and "100k", the 100k bench set's
-(n = 100,000, S and merges as its run prints them, PHASE_SHAPES); the
-ptxas lines of the phase library, and each shape's C, P, events and each
-kernel's bytes and bound (phase_bytes, chip_smoke.py:bound_ms).  It also prints the plane store's device bytes
+`phase_layout`, `merge_replay`, and the iteration's closest-to-mean with
+its candidates step: `closest_candidates`, one launch, or in a checkout
+that predates it `closest_mean` then `phase_candidates`, two launches
+timed together) on seeded synthetic states after accumulate
+(`phase_state`, a seeded 1,024-bin uint8 store, 10 % of the pairs kept)
+at two shapes, each held against its plain version bit for bit: "d6",
+chip_smoke.py (d6)'s (n = 10,000, S = 1,147, delta = 5, 288 merges), and
+"100k", the 100k bench set's (n = 100,000, S and merges as its run prints
+them, PHASE_SHAPES); `closest_mean` alone on the same filter too; the
+ptxas lines of the phase and closest-to-mean libraries, and each shape's
+C, P, events and each kernel's bytes and bound (phase_bytes,
+chip_smoke.py:bound_ms).
+
+With --kmer it times the k-mer histogram kernel (ops/kmer_count.py:
+`kmer_count`, a checkout that has it) on the bench set's records
+(bench.py:ensure_dataset at 10,000 and 100,000 sequences, k = 5, uint8),
+against its plain version and torch.bincount over the windows' flat
+indices (the nearest one-call PyTorch counterpart: it leaves out the index
+sweep and the saturation), with its bound (the codes read and the counts
+written once), and the counting part of set-up: device_build_counts
+against the native counter on the same records.  It also prints the plane store's device bytes
 (every tensor the store adds to the DeviceStore), the ptxas lines of the
 pair-statistics library and a SHA-256 of each fast instantiation's SASS
 (cuobjdump), keyed by (count type, NV, NARROW), so that two checkouts'
@@ -54,6 +68,8 @@ W, P, N, D = 1_571, 98_304, 10_000, 1_024
 # (n, S, merges) of the phase's shapes, delta = 5
 PHASE_SHAPES = {"d6": (10_000, 1_147, 288), "100k": (100_000, 5_803, 1_996)}
 PHASE_DELTA = 5
+# the bench set's sizes of --kmer (bench.py:ensure_dataset)
+KMER_SHAPES = {"10k": 10_000, "100k": 100_000}
 
 
 def phase_bytes(n: int, n_slots: int, n_alive: int, n_pairs: int, delta: int) -> dict:
@@ -62,13 +78,15 @@ def phase_bytes(n: int, n_slots: int, n_alive: int, n_pairs: int, delta: int) ->
     the layout reads assign, seq, alive and every row's length, the center
     row, member count and length window (blen, elen) of the C alive slots,
     and writes rank [S], inv [C], moff [C + 1], flat [n], the P pairs'
-    three arrays and hdr; the candidates read alive, cen and rank, per rank
-    inv, first, its member row and the center's window, and write the new
-    centers and the delta C candidates' four arrays; the replay reads and
-    writes assign, seq, alive and clen and reads t_dst."""
+    three arrays and hdr; closest_candidates' candidates step reads alive,
+    the dead slots' centers, per rank inv, its new center's member row and
+    length window, and writes the new centers [S] and the delta C
+    candidates' four arrays (its closest-to-mean part depends on the kept
+    rows: the callers add it); the replay reads and writes assign, seq,
+    alive and clen and reads t_dst."""
     S, C, m = n_slots, n_alive, delta * n_alive
     return {"phase_layout": 24 * n + S + 32 * C + 8 * (S + 2 * C + 1 + n + 3 * n_pairs + 2),
-            "phase_candidates": 17 * S + 48 * C + 8 * S + 25 * m,
+            "closest_candidates": S + 8 * (S - C) + 40 * C + 8 * S + 25 * m,
             "merge_replay": 2 * (16 * n + 9 * S) + 8 * S}
 
 
@@ -292,10 +310,13 @@ def one_phase(root: str) -> dict:
 
     import meshclust2_tpu_torch
     assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
+    from meshclust2_tpu_torch.ops.closest_mean import closest_mean, closest_mean_ref
+    from chip_smoke import CLOSEST_OPS, bound_ms
+
     dev = torch.device("cuda")
-    built = _build.load("phase")
+    logs = [_build.load(name).log for name in ("phase", "closest_mean")]
     out = {"root": root, "card": torch.cuda.get_device_name(0), "fast_kernels": {},
-           "ptxas": [ln.strip() for ln in built.log.splitlines()
+           "ptxas": [ln.strip() for log in logs for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln or "entry function" in ln],
            "us": {}, "shapes": {}}
     delta = PHASE_DELTA
@@ -314,35 +335,129 @@ def one_phase(root: str) -> dict:
                              ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs))):
             raise AssertionError(f"{root}: phase_layout differs from its plain version "
                                  f"({shape})")
-        first = torch.from_numpy(np.random.default_rng(3).integers(0, n_pairs + 1, C)).to(dev)
+        # the filter: a seeded store, 10 % of the pairs kept
+        rng = np.random.default_rng(3)
+        counts = torch.from_numpy(rng.integers(1, 40, (n, D)).astype(np.uint8)).to(dev)
+        mags = counts.sum(dim=1, dtype=torch.int64).to(torch.float64)
+        keep = torch.from_numpy(rng.random(n_pairs) < 0.1).to(dev)
+        ckw = dict(maxc=39, tie_margin=1e-12)
+        b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
         cand, cand_p = (P.new_candidates(n_slots, delta, dev) for _ in range(2))
-        cargs = (st, rows, delta, lay, first, C, n_pairs)
-        P.phase_candidates(*cargs, cand)
-        P.phase_candidates_ref(*cargs, cand_p)
+        if hasattr(P, "closest_candidates"):
+            cargs = (counts, mags, keep, st, rows, delta, lay, C, n_pairs)
+
+            def fold():
+                return P.closest_candidates(*cargs, cand, **ckw)
+
+            want = P.closest_candidates_ref(*cargs, cand_p, **ckw)
+        else:
+            def fold():
+                first, unc = closest_mean(counts, mags, b, sg, keep, C, **ckw)
+                P.phase_candidates(st, rows, delta, lay, first, C, n_pairs, cand)
+                return first, unc
+
+            want = closest_mean_ref(counts, mags, b, sg, keep, C, **ckw)
+            P.phase_candidates_ref(st, rows, delta, lay, want[0], C, n_pairs, cand_p)
+        got = fold()
         m = delta * C
-        if not torch.equal(cand.cen, cand_p.cen) or not all(
-                torch.equal(getattr(cand, f)[:m], getattr(cand_p, f)[:m])
-                for f in ("a", "b", "seg", "ok")):
-            raise AssertionError(f"{root}: phase_candidates differs ({shape})")
+        if not (all(torch.equal(x, y) for x, y in zip(got, want))
+                and torch.equal(cand.cen, cand_p.cen) and all(
+                    torch.equal(getattr(cand, f)[:m], getattr(cand_p, f)[:m])
+                    for f in ("a", "b", "seg", "ok"))):
+            raise AssertionError(f"{root}: closest-to-mean and candidates differ ({shape})")
         rep, rep_p = (P.new_state(n, n_slots, dev) for _ in range(2))
         P.merge_replay(st, arr["t_dst"], rep)
         P.merge_replay_ref(st, arr["t_dst"], rep_p)
         if not all(torch.equal(getattr(rep, f), getattr(rep_p, f))
                    for f in ("assign", "seq", "alive", "clen")):
             raise AssertionError(f"{root}: merge_replay differs ({shape})")
-        from chip_smoke import bound_ms
-
         nbytes = phase_bytes(n, n_slots, C, n_pairs, delta)
-        out["shapes"][shape] = dict(n=n, S=n_slots, C=C, P=n_pairs,
+        kept = b[keep]
+        nbytes["closest_candidates"] += (torch.unique(kept).numel() * (D + 8)
+                                         + 17 * n_pairs + 9 * C)
+        ops = {"closest_candidates": CLOSEST_OPS * len(kept) * D + 2 * D}
+        out["shapes"][shape] = dict(n=n, S=n_slots, C=C, P=n_pairs, kept=len(kept),
                                     events=int((arr["t_dst"] >= 0).sum()),
                                     bytes=nbytes, bound_us={
-                                        k: bound_ms(v, 0)[0] * 1e3 for k, v in nbytes.items()})
+                                        k: bound_ms(v, ops.get(k, 0))[0] * 1e3
+                                        for k, v in nbytes.items()})
         out["us"][f"phase_layout {shape}"] = device_us(
             lambda: P.phase_layout(st, rows, delta, lay))
-        out["us"][f"phase_candidates {shape}"] = device_us(
-            lambda: P.phase_candidates(*cargs, cand))
+        out["us"][f"closest_candidates {shape}"] = device_us(fold)
+        out["us"][f"closest_mean {shape}"] = device_us(
+            lambda: closest_mean(counts, mags, b, sg, keep, C, **ckw))
         out["us"][f"merge_replay {shape}"] = device_us(
             lambda: P.merge_replay(st, arr["t_dst"], rep))
+    return out
+
+
+def one_kmer(root: str) -> dict:
+    """The k-mer kernel's timings of checkout `root` at KMER_SHAPES."""
+    sys.path.insert(0, root)
+    import time
+
+    import numpy as np
+    import torch
+
+    import bench
+    import meshclust2_tpu_torch
+    assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
+    from chip_smoke import bound_ms, cuda_ms
+    from meshclust2_tpu_torch import native
+    from meshclust2_tpu_torch.io.fasta import read_fasta
+    from meshclust2_tpu_torch.ops import _build
+    from meshclust2_tpu_torch.ops.kmer_count import (kmer_count, kmer_count_ref,
+                                                     kmer_windows, packed_on)
+    from meshclust2_tpu_torch.parallel.mesh import device_build_counts
+
+    dev = torch.device("cuda")
+    built = _build.load("kmer_count")
+    out = {"root": root, "card": torch.cuda.get_device_name(0), "fast_kernels": {},
+           "ptxas": [ln.strip() for ln in built.log.splitlines()
+                     if "registers" in ln or "spill" in ln or "entry function" in ln],
+           "us": {}, "shapes": {}}
+    k, dtype_max = 5, 255
+    for shape, n_seqs in KMER_SHAPES.items():
+        bench.N_SEQS = n_seqs
+        fasta = os.path.join(root, "build", "ab", f"bench_{n_seqs}.fasta")
+        os.makedirs(os.path.dirname(fasta), exist_ok=True)
+        bench.ensure_dataset(fasta)
+        recs = read_fasta(fasta)
+        packing = native._pack_records(recs)
+        packed = packed_on(packing, dev)
+        got = kmer_count(*packed, k, dtype_max)
+        want = kmer_count_ref(*packed, k, dtype_max)
+        native_c, native_o = native.count_kmers_batch(recs, k, dtype_max)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and np.array_equal(got[0].cpu().numpy(), native_c)
+                and np.array_equal(got[1].cpu().numpy().astype(np.uint64), native_o)):
+            raise AssertionError(f"{root}: kmer_count differs ({shape})")
+        flat, _ = kmer_windows(*packed, k)
+        d = 4 ** k
+        nbytes = (sum(t.numel() * t.element_size() for t in packed)
+                  + got[0].numel() * got[0].element_size() + got[1].numel() * 8)
+        b_ms, b_by = bound_ms(nbytes, k * len(flat))
+        out["us"][f"kmer_count {shape}"] = device_us(lambda: kmer_count(*packed, k, dtype_max))
+        out["us"][f"plain {shape}"] = cuda_ms(lambda: kmer_count_ref(*packed, k, dtype_max),
+                                              reps=3) * 1e3
+        out["us"][f"bincount {shape}"] = device_us(
+            lambda: torch.bincount(flat, minlength=len(recs) * d))
+        # the counting part of set-up, host wall: the device build (packing,
+        # copies, kernel, read-back) and the native counter, medians of 3
+        walls = {}
+        for name, fn in (("device_build_counts", lambda: device_build_counts(
+                recs, k, dtype_max)), ("native", lambda: native.count_kmers_batch(
+                    recs, k, dtype_max))):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            walls[name] = statistics.median(times)
+        out["shapes"][shape] = dict(n=len(recs), codes=int(packing[1][-1]),
+                                    windows=len(flat), bytes=nbytes, bound_us=b_ms * 1e3,
+                                    bound_by=b_by, counting_s=walls)
     return out
 
 
@@ -352,11 +467,15 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default=None)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--phase", action="store_true",
-                    help="time the update phase's kernels at PHASE_SHAPES")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--phase", action="store_true",
+                      help="time the update phase's kernels at PHASE_SHAPES")
+    mode.add_argument("--kmer", action="store_true",
+                      help="time the k-mer histogram kernel at KMER_SHAPES")
     args = ap.parse_args(argv)
+    flag = ["--phase"] if args.phase else ["--kmer"] if args.kmer else []
     if args.one:
-        run = one_phase if args.phase else one
+        run = one_phase if args.phase else one_kmer if args.kmer else one
         print(json.dumps(run(os.path.abspath(args.roots[0]))), flush=True)
         return 0
     roots = [os.path.abspath(r) for r in args.roots]
@@ -365,14 +484,14 @@ def main(argv=None) -> int:
     runs = []
     for i in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", roots[i]]
-                              + (["--phase"] if args.phase else []),
+                              + flag,
                               cwd=roots[i], capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-6000:], sep="\n", file=sys.stderr)
             raise SystemExit(f"kernel_ab: the run of {roots[i]} exited {proc.returncode}")
         got = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(got)
-        extra = (f"shapes {got['shapes']}" if args.phase
+        extra = (f"shapes {got['shapes']}" if args.phase or args.kmer
                  else f"plane store {got['plane_store_bytes']:,} bytes")
         print(f"run {len(runs)}: {roots[i]}: " + ", ".join(
             f"{k} {v:.2f}" for k, v in got["us"].items()) + f"; {extra}; {got['card']}",
@@ -380,7 +499,7 @@ def main(argv=None) -> int:
     # a cached build has no ptxas log: its resources are compared where
     # both runs compiled
     ok = True
-    if args.phase:
+    if args.phase or args.kmer:
         for root in roots:
             print(f"ptxas, {root}: " + "; ".join(next(
                 (r["ptxas"] for r in runs if r["root"] == root and r["ptxas"]), [])))
@@ -393,7 +512,7 @@ def main(argv=None) -> int:
         if diff:
             print(f"fast instantiations differ ({r['root']} vs {runs[0]['root']}): {diff}")
             ok = False
-    if not args.phase:
+    if not (args.phase or args.kmer):
         print(f"fast instantiations (count type, NV, NARROW): {len(first)}, same SASS and "
               f"ptxas resources in every run: {ok}; " + "; ".join(
                   f"{k}: {v[0]}" for k, v in sorted(first.items())), flush=True)

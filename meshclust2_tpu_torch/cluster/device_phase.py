@@ -14,10 +14,10 @@ accumulate loop (cluster/device_loop.py), a host loop drives the
 iterations over state that stays on the card from its one upload
 (`init_arrays`) to the end, with one small read-back an iteration.  An
 iteration launches:
-  - the fused kernel and closest_mean over the layout's neighbourhood pairs
-    (`TorchDeviceUpdater.filter_device`: the band test, the closest-to-mean
-    guards);
-  - phase_candidates: the new centers and the merge candidates;
+  - the fused kernel over the layout's neighbourhood pairs
+    (`TorchDeviceUpdater.filter_keep`: the band test);
+  - closest_candidates, one launch: each center's closest-to-mean (its
+    guards), then the new centers and the merge candidates;
   - the fused kernel over the candidates and the merge selection
     (`TorchDeviceUpdater.merge_device`: the band test, the near-tie
     guard, row identity for full-vector singles);
@@ -49,8 +49,8 @@ import torch
 from ..kmer.counting import PointSet
 from ..model.classifier import CompiledModel
 from ..ops.device_features import loop_refusal
-from ..ops.phase import (PhaseRows, PhaseState, merge_replay, new_candidates,
-                         new_layout, new_state, phase_candidates, phase_layout)
+from ..ops.phase import (PhaseRows, PhaseState, closest_candidates, merge_replay,
+                         new_candidates, new_layout, new_state, phase_layout)
 from .device_loop import DeviceLoopUnsupported
 from .device_store import DeviceStore
 from .device_update import TorchDeviceUpdater
@@ -159,16 +159,23 @@ class TorchDevicePhaseUpdater:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _filter(self, lay, n_alive: int, n_pairs: int):
-        """(closest's first [C], the filter's and closest's uncertainty as
-        one-element bools) over the layout's pairs."""
-        if n_pairs == 0:
-            dev = self.device
-            no = torch.zeros(1, dtype=torch.bool, device=dev)
-            return torch.zeros(n_alive, dtype=torch.int64, device=dev), no, no
-        _, unc, first, cunc = self.updater.filter_device(
-            lay.a_rows[:n_pairs], lay.b_rows[:n_pairs], lay.seg[:n_pairs], n_alive)
-        return first, unc.any().view(1), cunc.any().view(1)
+    def _filter(self, cur: PhaseState, rows: PhaseRows, delta: int, lay,
+                n_alive: int, n_pairs: int, cand, final: bool = False):
+        """The filter over the layout's pairs, then closest_candidates: the
+        new centers and merge candidates into `cand`; returns (the filter's
+        and closest's uncertainty as one-element bools)."""
+        if n_pairs:
+            keep, unc = self.updater.filter_keep(lay.a_rows[:n_pairs],
+                                                 lay.b_rows[:n_pairs])
+            unc = unc.any().view(1)
+        else:
+            keep = torch.zeros(0, dtype=torch.bool, device=self.device)
+            unc = torch.zeros(1, dtype=torch.bool, device=self.device)
+        st = self.store
+        _, cunc = closest_candidates(st.counts, st.mags, keep, cur, rows, delta, lay,
+                                     n_alive, n_pairs, cand, maxc=st.maxc,
+                                     tie_margin=self.tie_margin, final=final)
+        return unc, cunc.any().view(1)
 
     def _targets(self, any_m, best, inv, n_alive: int, n_slots: int):
         """t_dst [S] for merge_replay: the slot of each rank's best
@@ -196,8 +203,7 @@ class TorchDevicePhaseUpdater:
         n_alive, n_pairs = lay.hdr.tolist()
         abort, it, pairs, sent = 0, it0, 0, 0
         while not (it >= iterations or (it >= 3 and n_alive == hist[it - 3])):
-            first, unc, cunc = self._filter(lay, n_alive, n_pairs)
-            phase_candidates(cur, rows, delta, lay, first, n_alive, n_pairs, cand)
+            unc, cunc = self._filter(cur, rows, delta, lay, n_alive, n_pairs, cand)
             m = delta * n_alive
             flags = [unc, cunc]
             if m:
@@ -231,9 +237,8 @@ class TorchDevicePhaseUpdater:
             # the delta = 0 pass: each cluster's own members
             phase_layout(cur, rows, 0, lay)
             n_alive, n_pairs = lay.hdr.tolist()
-            first, unc, cunc = self._filter(lay, n_alive, n_pairs)
-            phase_candidates(cur, rows, 0, lay, first, n_alive, n_pairs, cand,
-                             final=True)
+            unc, cunc = self._filter(cur, rows, 0, lay, n_alive, n_pairs, cand,
+                                     final=True)
             sent += n_pairs
             bad = torch.cat([unc, cunc]).any().view(1).to(torch.int64)
             # the center of each slot: the final pass's unless it was uncertain

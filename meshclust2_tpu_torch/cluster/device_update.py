@@ -152,19 +152,24 @@ class TorchDeviceUpdater:
         self.t_score += time.perf_counter() - t0
         return (out[0], out[1]) if with_err else out[0]
 
+    def filter_keep(self, a_idx: torch.Tensor, b: torch.Tensor):
+        """The filter's decisions on the card, no read-back: the fused
+        kernel on the pairs (a_idx[p] = the center, b[p] = the member) and
+        the band test.  Returns (keep [P], keep uncertain [P]).  The phase
+        updater (cluster/device_phase.py) calls it, then its own
+        closest-to-mean and candidates launch."""
+        _, dec = pair_stats_decision(self.store, self.params, a_idx, b)
+        inb, unc = self._band(dec, self.band0)
+        return ~inb, unc
+
     def filter_device(self, a_idx: torch.Tensor, b: torch.Tensor,
                       sg: torch.Tensor, C: int):
         """The device half of `filter_closest`, tensors in and out, no
-        read-back: the fused kernel on the pairs (a_idx[p] = the center,
-        b[p] = the member), the band test and closest_mean over the C
-        segments sg (nondecreasing).  Returns (keep [P], keep uncertain
-        [P], first [C] with P = no kept member, closest uncertain [C]) on
-        the card.  The phase updater (cluster/device_phase.py) calls it
-        too."""
+        read-back: `filter_keep`, then closest_mean over the C segments sg
+        (nondecreasing).  Returns (keep [P], keep uncertain [P], first [C]
+        with P = no kept member, closest uncertain [C]) on the card."""
         st = self.store
-        _, dec = pair_stats_decision(st, self.params, a_idx, b)
-        inb, unc = self._band(dec, self.band0)
-        keep = ~inb
+        keep, unc = self.filter_keep(a_idx, b)
         first, cunc = closest_mean(st.counts, st.mags, b, sg, keep, C,
                                    maxc=st.maxc, tie_margin=self.tie_margin)
         return keep, unc, first, cunc

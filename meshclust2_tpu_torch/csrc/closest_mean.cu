@@ -45,6 +45,28 @@
 //     segment for the tie guard.
 // The largest segment sets the tail: ~0.2 us a kept row on one block.
 //
+// The phase instantiation (mc2_closest_candidates_u8/u16, CAND) also does
+// the update phase's candidates step in the same launch, so the phase
+// launches one kernel fewer a pass (csrc/phase.cu's state and layout):
+// block k, the segment of center rank k, knows first[k] at its end and
+//   - writes rank k's new center into cen_out[inv[k]]: the member
+//     rows[first[k]], or with no kept member the old center cen[inv[k]], or
+//     in the final delta = 0 pass the cluster's first member flat[moff[k]]
+//     (the kept-empty rules of meshclust2_tpu/cluster/device_phase.py
+//     l. 551-555, 611-622);
+//   - takes part in the 2 delta merge candidates that read that center:
+//     position i delta + q - 1 pairs rank i with rank i + q (q = 1..delta)
+//     as (a = rank i + q's new center, b = rank i's, seg = i, ok = i + q <
+//     C and a's length inside b's window; merge_pass.q_body, l. 462-517).
+//     Each position has an arrival counter in `arrive` (int32, 0 between
+//     launches): both of its blocks publish their centers, fence and add
+//     one; the second to arrive writes the candidate and resets the
+//     counter.  A position whose rank i + q is past C is written by block
+//     i alone.  No block waits for another and none walks a serial tail.
+// The slots that are not alive keep their centers (cen_out[s] = cen[s]),
+// copied by all blocks by stride.  The per-iteration updater's
+// instantiation (mc2_closest_mean_u8/u16) keeps its code.
+//
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: the
 // entry points launch on the given stream, allocate nothing, do not
 // synchronise and return the launch's error.
@@ -72,6 +94,29 @@ struct SegArgs {
   long long* scratch;
   long long* first;
   unsigned char* unc;
+};
+
+// The phase instantiation's inputs and outputs (csrc/phase.cu's Layout and
+// PhaseState); rows above are the layout's member rows, the segments its
+// center ranks, so C = n_segs and P = n_pairs.
+struct CandArgs {
+  long long S;
+  int delta;
+  int final_pass;
+  const unsigned char* alive;  // [S]
+  const long long* cen;        // [S]
+  const long long* inv;        // [C]
+  const long long* moff;       // [C + 1]
+  const long long* flat;       // [n]
+  const long long* lens;       // [n]
+  const long long* blen;
+  const long long* elen;
+  int* arrive;         // [delta C], 0 between launches
+  long long* cen_out;  // [S]
+  long long* ca;       // [delta C]
+  long long* cb;
+  long long* cs;
+  unsigned char* ok;
 };
 
 __device__ __forceinline__ long long lower_bound(const long long* __restrict__ seg,
@@ -115,8 +160,52 @@ __device__ __forceinline__ int list_kept(const SegArgs& a, long long base, long 
   return nk;
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads) closest_mean_kernel(const SegArgs a) {
+// The candidates step of rank k (the phase instantiation), at the end of
+// its block: f = first[k], P for no kept member.  Every thread calls it.
+__device__ __forceinline__ void candidates(const CandArgs& x, const long long* rows,
+                                           long long P, long long C, long long k,
+                                           long long f) {
+  __shared__ long long ck[2];  // rank k's new center and its slot
+  if (threadIdx.x == 0) {
+    const long long s = x.inv[k];
+    ck[0] = f < P ? rows[f] : (x.final_pass ? x.flat[x.moff[k]] : x.cen[s]);
+    ck[1] = s;
+    x.cen_out[s] = ck[0];
+  }
+  __syncthreads();
+  const long long me = ck[0];
+  const int d = x.delta;
+  // t < d: k is rank i, its partner j = k + q; else k is rank j, i = k - q
+  for (int t = threadIdx.x; t < 2 * d; t += blockDim.x) {
+    const bool low = t < d;
+    const int q = (low ? t : t - d) + 1;
+    const long long i = low ? k : k - q;
+    const long long j = i + q;
+    if (i < 0) continue;
+    const long long pos = i * d + q - 1;
+    long long ci = me, cj = me;
+    if (j < C) {
+      // publish this block's center (the same value thread 0 wrote) before
+      // arriving; the second to arrive reads the partner's through L2
+      x.cen_out[ck[1]] = me;
+      __threadfence();
+      if (atomicAdd(&x.arrive[pos], 1) == 0) continue;
+      __threadfence();
+      x.arrive[pos] = 0;
+      const long long other = __ldcg(&x.cen_out[x.inv[low ? j : i]]);
+      ci = low ? me : other;
+      cj = low ? other : me;
+    }
+    x.ca[pos] = cj;
+    x.cb[pos] = ci;
+    x.cs[pos] = i;
+    x.ok[pos] = j < C && x.lens[cj] >= x.blen[ci] && x.lens[cj] <= x.elen[ci];
+  }
+}
+
+template <typename T, bool VEC, bool CAND>
+__global__ void __launch_bounds__(kThreads)
+    closest_mean_kernel(const SegArgs a, const CandArgs x) {
   extern __shared__ __align__(16) unsigned char smem[];
   long long* num_s = reinterpret_cast<long long*>(smem);        // [d] column sums
   T* r_s = reinterpret_cast<T*>(smem + sizeof(long long) * a.d);  // [d] the mean
@@ -137,6 +226,15 @@ __global__ void __launch_bounds__(kThreads) closest_mean_kernel(const SegArgs a)
   double* v_out = reinterpret_cast<double*>(a.scratch);
   long long* d2_out = a.scratch + P;
   long long* mag_out = a.scratch + 2 * P;
+  if (CAND) {
+    // the slots that are not alive keep their centers; a grid of one block
+    // at C = 0 does only this
+    for (long long s = c * kThreads + threadIdx.x; s < x.S;
+         s += static_cast<long long>(gridDim.x) * kThreads) {
+      if (!x.alive[s]) x.cen_out[s] = x.cen[s];
+    }
+    if (c >= a.n_segs) return;
+  }
   if (threadIdx.x == 0) bounds[0] = lower_bound(a.seg, P, c);
   if (threadIdx.x == 1) bounds[1] = lower_bound(a.seg, P, c + 1);
   for (int e = threadIdx.x; e < d; e += kThreads) num_s[e] = 0;
@@ -239,26 +337,34 @@ __global__ void __launch_bounds__(kThreads) closest_mean_kernel(const SegArgs a)
     a.first[c] = best_p;
     a.unc[c] = (guard || tie) ? 1 : 0;
   }
+  if (CAND) candidates(x, a.rows, P, a.n_segs, c, best_p);
 }
 
-template <typename T>
-int launch(SegArgs a, long long scratch_len, void* stream) {
-  if (a.n_segs <= 0) return static_cast<int>(cudaSuccess);
-  if (a.d <= 0 || a.n_pairs < 0 || a.n_segs > 0x7fffffffLL ||
+// CAND: the phase instantiation, a block also at C = 0 (the dead slots'
+// copy)
+template <typename T, bool CAND>
+int launch(SegArgs a, const CandArgs& x, long long scratch_len, void* stream) {
+  if (a.n_segs <= 0 && !CAND) return static_cast<int>(cudaSuccess);
+  if (a.d <= 0 || a.n_pairs < 0 || a.n_segs < 0 || a.n_segs > 0x7fffffffLL ||
       scratch_len < 3 * a.n_pairs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (CAND && (x.S < a.n_segs || x.delta < 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
-  auto kernel = vec ? &closest_mean_kernel<T, true> : &closest_mean_kernel<T, false>;
+  auto kernel = vec ? &closest_mean_kernel<T, true, CAND>
+                    : &closest_mean_kernel<T, false, CAND>;
   const size_t shm = static_cast<size_t>(a.d) * (sizeof(long long) + sizeof(T));
   if (shm > 32 * 1024) {  // beside ~4.3 KB of static shared memory
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<dim3(static_cast<unsigned>(a.n_segs)), dim3(kThreads), shm,
-           static_cast<cudaStream_t>(stream)>>>(a);
+  const long long grid = a.n_segs > 0 ? a.n_segs : 1;
+  kernel<<<dim3(static_cast<unsigned>(grid)), dim3(kThreads), shm,
+           static_cast<cudaStream_t>(stream)>>>(a, x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,12 +391,64 @@ extern "C" {
               static_cast<long long*>(scratch),                                      \
               static_cast<long long*>(first_out),                                    \
               static_cast<unsigned char*>(unc_out)};                                 \
-    return launch<T>(a, scratch_len, stream);                                        \
+    return launch<T, false>(a, CandArgs{}, scratch_len, stream);                     \
   }
 
 MC2_CLOSEST_ENTRY(mc2_closest_mean_u8, uint8_t)
 MC2_CLOSEST_ENTRY(mc2_closest_mean_u16, uint16_t)
 
 #undef MC2_CLOSEST_ENTRY
+
+// The phase instantiation: the same arguments (rows and seg: the layout's
+// first n_pairs b_rows and seg; n_segs = C), then the candidates' (S slots;
+// alive, cen [S]; inv, moff, flat; lens, blen, elen [n]; arrive int32
+// [delta C], zero; outputs cen_out [S], ca, cb, cs int64 and ok uint8
+// [delta C]).  C = 0 launches one block, which copies the dead slots.
+#define MC2_CANDIDATES_ENTRY(NAME, T)                                                \
+  int NAME(const void* counts, int d, const void* mags, const void* rows,            \
+           const void* seg, const void* keep, long long n_pairs, long long n_segs,   \
+           long long maxc, double tie_margin, void* scratch, long long scratch_len,  \
+           void* first_out, void* unc_out, long long S, int delta, int final_pass,   \
+           const void* alive, const void* cen, const void* inv, const void* moff,    \
+           const void* flat, const void* lens, const void* blen, const void* elen,   \
+           void* arrive, void* cen_out, void* ca, void* cb, void* cs, void* ok,      \
+           void* stream) {                                                           \
+    SegArgs a{counts,                                                                \
+              d,                                                                     \
+              static_cast<const double*>(mags),                                      \
+              static_cast<const long long*>(rows),                                   \
+              static_cast<const long long*>(seg),                                    \
+              static_cast<const unsigned char*>(keep),                               \
+              n_pairs,                                                               \
+              n_segs,                                                                \
+              maxc,                                                                  \
+              tie_margin,                                                            \
+              static_cast<long long*>(scratch),                                      \
+              static_cast<long long*>(first_out),                                    \
+              static_cast<unsigned char*>(unc_out)};                                 \
+    const CandArgs x{S,                                                              \
+                     delta,                                                          \
+                     final_pass,                                                     \
+                     static_cast<const unsigned char*>(alive),                       \
+                     static_cast<const long long*>(cen),                             \
+                     static_cast<const long long*>(inv),                             \
+                     static_cast<const long long*>(moff),                            \
+                     static_cast<const long long*>(flat),                            \
+                     static_cast<const long long*>(lens),                            \
+                     static_cast<const long long*>(blen),                            \
+                     static_cast<const long long*>(elen),                            \
+                     static_cast<int*>(arrive),                                      \
+                     static_cast<long long*>(cen_out),                               \
+                     static_cast<long long*>(ca),                                    \
+                     static_cast<long long*>(cb),                                    \
+                     static_cast<long long*>(cs),                                    \
+                     static_cast<unsigned char*>(ok)};                               \
+    return launch<T, true>(a, x, scratch_len, stream);                               \
+  }
+
+MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u8, uint8_t)
+MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u16, uint16_t)
+
+#undef MC2_CANDIDATES_ENTRY
 
 }  // extern "C"

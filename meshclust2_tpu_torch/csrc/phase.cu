@@ -48,17 +48,9 @@
 // device_phase.py l. 374-375), so closest_mean's first minimum by position
 // is the reference's tie rule.
 //
-// phase_candidates (mc2_phase_candidates, its own kernel), after the
-// iteration's filter and closest-to-mean: each alive slot's new center
-// (first[k] < P: the member b_rows[first[k]]; no kept member: the old
-// center, or, in the final delta = 0 pass, the cluster's first member
-// flat[moff[k]]) into cen_out, and the merge pass's candidate pairs (rank
-// i, rank i + q) for q = 1..delta at position i delta + q - 1 as (a = the
-// candidate's new center, b = rank i's, seg = i, ok = i + q < C and the
-// candidate's length inside rank i's window).  The candidates stay at this
-// fixed bound delta C with `ok` as their cut: their window reads the new
-// centers, so a count of them could reach the host only by a second read
-// in the iteration.
+// The new centers and the merge candidates of an iteration are computed
+// after its filter, inside the launch of csrc/closest_mean.cu's phase
+// instantiation (mc2_closest_candidates), from these kernels' Layout.
 //
 // merge_replay (mc2_merge_replay): the merge pass's absorb events t_dst[s]
 // (the slot s merges into, or -1), applied in ascending slot order as the
@@ -537,55 +529,6 @@ __global__ void __launch_bounds__(kBig) layout_kernel(LayoutArgs a) {
   if (W == 0 && blockIdx.x == 0 && threadIdx.x == 0) a.hdr[1] = 0;
 }
 
-// -- the candidates ------------------------------------------------------------
-
-struct CandArgs {
-  long long S, C, P;
-  int delta;
-  int final_pass;
-  const unsigned char* alive;
-  const long long* cen;
-  const long long* rank;
-  const long long* inv;
-  const long long* moff;
-  const long long* flat;
-  const long long* b_rows;
-  const long long* first;
-  const long long* lens;
-  const long long* blen;
-  const long long* elen;
-  long long* cen_out;  // [S]
-  long long* ca;       // [delta C]
-  long long* cb;
-  long long* cs;
-  unsigned char* ok;
-};
-
-// The new center of rank k (the kept-empty rules of device_phase.py
-// l. 551-555 and 611-622).
-__device__ __forceinline__ long long new_center(const CandArgs& a, long long k) {
-  const long long f = a.first[k];
-  if (f < a.P) return a.b_rows[f];
-  return a.final_pass ? a.flat[a.moff[k]] : a.cen[a.inv[k]];
-}
-
-__global__ void __launch_bounds__(kThreads) candidates_kernel(CandArgs a) {
-  const long long x = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (x < a.S) a.cen_out[x] = a.alive[x] ? new_center(a, a.rank[x]) : a.cen[x];
-  if (x < a.delta * a.C) {
-    const long long i = x / a.delta;
-    const long long j = i + x % a.delta + 1;
-    const long long ci = new_center(a, i);
-    bool ok = j < a.C;
-    const long long cj = ok ? new_center(a, j) : ci;
-    ok = ok && a.lens[cj] >= a.blen[ci] && a.lens[cj] <= a.elen[ci];
-    a.ca[x] = cj;
-    a.cb[x] = ci;
-    a.cs[x] = i;
-    a.ok[x] = ok ? 1 : 0;
-  }
-}
-
 // -- the merge replay ----------------------------------------------------------
 
 struct ReplayArgs {
@@ -801,8 +744,6 @@ __global__ void __launch_bounds__(kBig) replay_kernel(ReplayArgs a) {
   }
 }
 
-long long blocks_for(long long items) { return (items + kThreads - 1) / kThreads; }
-
 // Dynamic shared memory rounded up to 8 KB, so a run sees few sizes
 long long round_shm(long long bytes) { return (bytes + 8191) / 8192 * 8192; }
 
@@ -932,44 +873,6 @@ int mc2_phase_layout(long long n, long long S, int delta, const void* assign,
       !k4 ? k1
           : (small ? layout_small() : reinterpret_cast<const void*>(&layout_kernel<true, 4>));
   return static_cast<int>(coop_launch(kernel, want, shm, args, st, kBig));
-}
-
-// outputs: cen_out int64 [S]; ca, cb, cs int64 and ok uint8 [delta C]
-int mc2_phase_candidates(long long S, long long C, long long P, int delta,
-                         int final_pass, const void* alive, const void* cen,
-                         const void* rank, const void* inv, const void* moff,
-                         const void* flat, const void* b_rows, const void* first,
-                         const void* lens, const void* blen, const void* elen,
-                         void* cen_out, void* ca, void* cb, void* cs, void* ok,
-                         void* stream) {
-  if (S <= 0 || C < 0 || C > S || P < 0 || delta < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CandArgs a{S,
-             C,
-             P,
-             delta,
-             final_pass,
-             static_cast<const unsigned char*>(alive),
-             static_cast<const long long*>(cen),
-             static_cast<const long long*>(rank),
-             static_cast<const long long*>(inv),
-             static_cast<const long long*>(moff),
-             static_cast<const long long*>(flat),
-             static_cast<const long long*>(b_rows),
-             static_cast<const long long*>(first),
-             static_cast<const long long*>(lens),
-             static_cast<const long long*>(blen),
-             static_cast<const long long*>(elen),
-             static_cast<long long*>(cen_out),
-             static_cast<long long*>(ca),
-             static_cast<long long*>(cb),
-             static_cast<long long*>(cs),
-             static_cast<unsigned char*>(ok)};
-  const long long items = std::max(S, static_cast<long long>(delta) * C);
-  candidates_kernel<<<dim3(static_cast<unsigned>(blocks_for(items))), dim3(kThreads), 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // scratch: int32 [5 S] (scratch_len elements) when S is

@@ -122,17 +122,19 @@ def bin_search(lengths: np.ndarray, length: int) -> int:
     return rec(0, n - 1) if n else 0
 
 
-def load_chunks(files: List[str], k: int, datatype: str, chunk: int):
-    """Stream records into PointSet chunks of ~chunk sequences."""
+def load_chunks(files: List[str], k: int, datatype: str, chunk: int,
+                count_device=None):
+    """Stream records into PointSet chunks of ~chunk sequences (under
+    MC2_DEVICE_COUNT counted on `count_device`, None: the card)."""
     buf = []
     for fpath in files:
         for header, seq in iter_fasta(fpath):
             buf.append(encode_sequence(header, seq))
             if len(buf) >= chunk:
-                yield build_point_set(buf, k, datatype)
+                yield build_point_set(buf, k, datatype, count_device=count_device)
                 buf = []
     if buf:
-        yield build_point_set(buf, k, datatype)
+        yield build_point_set(buf, k, datatype, count_device=count_device)
 
 
 @dataclass
@@ -341,7 +343,8 @@ def _run(args, device) -> FastcarRun:
         while math.floor(i + 0.5) < len(recs):  # C round(), positive domain
             idxs.append(int(math.floor(i + 0.5)))
             i += increment
-        tmpl_ps = build_point_set([recs[j] for j in idxs], k, datatype, keep_seqs=True)
+        tmpl_ps = build_point_set([recs[j] for j in idxs], k, datatype, keep_seqs=True,
+                                  count_device=device)
         mem_used("after selection")  # FC_Runner.cpp:510
         print(f"TRpoints.size(): {tmpl_ps.n}")  # FC_Runner.cpp:512
         from .train.predictor import train_predictor
@@ -387,8 +390,8 @@ def _run(args, device) -> FastcarRun:
     mem_used("before loop")  # FC_Runner.cpp:571
     t0 = time.perf_counter()
     with open(f"{args.output}0", "w") as out:
-        for q_ps in load_chunks(args.query, k, datatype, args.chunk):
-            for db_ps in load_chunks(args.files, k, datatype, args.chunk):
+        for q_ps in load_chunks(args.query, k, datatype, args.chunk, device):
+            for db_ps in load_chunks(args.files, k, datatype, args.chunk, device):
                 n_pos += search(
                     db_ps, q_ps, model_c, model_r,
                     similarity if similarity > 0 else model.id_cutoff,

@@ -10,7 +10,12 @@ CPU tensors they run the plain PyTorch versions beside them
 the CPU tests hold against the JAX program and the host engine.  The
 layout and the replay keep a state's slots in each block's shared memory
 up to `smem_slots` of them; a larger state launches their wide
-instantiations, counted also in `.wide_launches`.
+instantiations, counted also in `.wide_launches`.  The iteration's
+closest-to-mean and its candidates step (the kept-empty rule, l. 551-555
+and 611-622, and `merge_pass.q_body`, l. 462-517) are one launch,
+`closest_candidates`, of csrc/closest_mean.cu's phase instantiation
+(plain version `closest_candidates_ref`: closest_mean_ref, then
+`phase_candidates_ref`).
 
 The phase's state (`PhaseState`): per row its cluster slot and its position
 in that cluster's member list, per slot its center row, alive flag and
@@ -19,8 +24,8 @@ member count.  Per iteration:
     (center, member) pair of each center's +/-delta neighbourhood, cut by
     the length window, in the host engine's gather order (`Layout`;
     hdr = (C, P) on the card);
-  - after the filter and closest-to-mean, `phase_candidates` (a kernel of
-    the same source): the new centers and the merge pass's candidate
+  - after the filter's decisions, `closest_candidates`: each center's
+    closest-to-mean, then the new centers and the merge pass's candidate
     pairs at their bound delta C, `ok` their length cut;
   - after the merge decisions, `merge_replay`: the absorb events applied
     in ascending slot order (cluster/engine.py `_merge_pass`).
@@ -32,6 +37,9 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from .closest_mean import _check as _check_closest
+from .closest_mean import closest_mean_ref
 
 
 class PhaseState(NamedTuple):
@@ -69,6 +77,7 @@ class Candidates(NamedTuple):
     b: torch.Tensor        # rank i's center
     seg: torch.Tensor      # i
     ok: torch.Tensor       # bool: i + q < C and inside i's length window
+    arrive: torch.Tensor   # int32 [delta S]: the kernel's arrival counters, 0
 
 
 # pair positions in the smallest tile of the layout's sweep (csrc/phase.cu
@@ -103,8 +112,9 @@ def new_layout(n: int, n_slots: int, delta: int, device) -> Layout:
 def new_candidates(n_slots: int, delta: int, device) -> Candidates:
     i64 = dict(dtype=torch.int64, device=device)
     m = delta * n_slots
-    return Candidates(torch.empty(n_slots, **i64), *torch.split(
-        torch.empty(3 * m, **i64), m), torch.empty(m, dtype=torch.bool, device=device))
+    return Candidates(torch.empty(n_slots, **i64), *torch.empty((3, m), **i64).unbind(0),
+                      torch.empty(m, dtype=torch.bool, device=device),
+                      torch.zeros(m, dtype=torch.int32, device=device))
 
 
 def _lib():
@@ -113,7 +123,6 @@ def _lib():
     lib = load("phase").lib
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sigs = {"mc2_phase_layout": ([i64, i64, i32] + [p] * 16 + [i64, p, p], ctypes.c_int),
-            "mc2_phase_candidates": ([i64, i64, i64, i32, i32] + [p] * 17, ctypes.c_int),
             "mc2_merge_replay": ([i64, i64] + [p] * 10 + [i64, p], ctypes.c_int),
             "mc2_phase_smem_slots": ([i32], i64)}
     for name, (argtypes, restype) in sigs.items():
@@ -277,7 +286,13 @@ def phase_candidates_ref(st: PhaseState, rows: PhaseRows, delta: int,
                          lay: Layout, first: torch.Tensor, n_alive: int,
                          n_pairs: int, out: Candidates,
                          final: bool = False) -> None:
-    """Plain PyTorch `phase_candidates`."""
+    """The candidates step after closest-to-mean over `lay`'s P = n_pairs
+    pairs (first int64 [C], C = n_alive: a pair position, P for none): the
+    new center of every alive slot into out.cen (others copied), and the
+    merge candidates (a, b, seg, ok) at positions [0, delta C): a = the new
+    center of rank i + q, b = rank i's, seg = i, for q = 1..delta.
+    `final`: the delta = 0 pass's kept-empty rule (the cluster's first
+    member).  Plain PyTorch, the second half of closest_candidates_ref."""
     dev = st.cen.device
     i64 = dict(dtype=torch.int64, device=dev)
     ks = torch.arange(n_alive, **i64)
@@ -301,47 +316,96 @@ def phase_candidates_ref(st: PhaseState, rows: PhaseRows, delta: int,
     out.ok[:m] = ok
 
 
-def phase_candidates(st: PhaseState, rows: PhaseRows, delta: int, lay: Layout,
-                     first: torch.Tensor, n_alive: int, n_pairs: int,
-                     out: Candidates, final: bool = False) -> None:
-    """After the filter and closest-to-mean over `lay`'s P = n_pairs pairs
-    (first int64 [C], C = n_alive: a pair position, P for none): the new
-    center of every alive slot into out.cen (others copied), and the merge
-    candidates (a, b, seg, ok) at positions [0, delta C): a = the new center
-    of rank i + q, b = rank i's, seg = i, for q = 1..delta.  `final`: the
-    delta = 0 pass's kept-empty rule (the cluster's first member).
+def _closest_lib():
+    from ._build import load
 
-    On CUDA one launch of csrc/phase.cu's candidates kernel on the current
-    stream, without syncing."""
-    n, n_slots, dev = _check_state("phase_candidates", st, rows)
-    m = delta * n_slots
-    _check("phase_candidates", [
-        ("first", first, torch.int64, n_alive), ("out.cen", out.cen, torch.int64, n_slots),
-        ("out.a", out.a, torch.int64, m), ("out.b", out.b, torch.int64, m),
-        ("out.seg", out.seg, torch.int64, m), ("out.ok", out.ok, torch.bool, m)], dev)
-    _check_layout("phase_candidates", lay, n, n_slots, 0, dev)
-    if not 0 <= n_alive <= n_slots or n_pairs < 0 or delta < 0:
-        raise ValueError(f"phase_candidates: bad C = {n_alive}, P = {n_pairs} "
-                         f"or delta = {delta} for {n_slots} slots")
+    lib = load("closest_mean").lib
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for name in _CAND_ENTRY.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = ([p, i32, p, p, p, p, i64, i64, i64, ctypes.c_double, p, i64,
+                            p, p, i64, i32, i32] + [p] * 15)
+            fn.restype = ctypes.c_int
+    return lib
+
+
+_CAND_ENTRY = {torch.uint8: "mc2_closest_candidates_u8",
+               torch.uint16: "mc2_closest_candidates_u16"}
+
+
+def closest_candidates_ref(counts: torch.Tensor, mags: torch.Tensor,
+                           keep: torch.Tensor, st: PhaseState, rows: PhaseRows,
+                           delta: int, lay: Layout, n_alive: int, n_pairs: int,
+                           out: Candidates, *, maxc: int, tie_margin: float,
+                           final: bool = False):
+    """Plain PyTorch `closest_candidates`: closest_mean_ref over the
+    layout's pairs, then phase_candidates_ref."""
+    first, unc = closest_mean_ref(counts, mags, lay.b_rows[:n_pairs],
+                                  lay.seg[:n_pairs], keep, n_alive, maxc=maxc,
+                                  tie_margin=tie_margin)
+    phase_candidates_ref(st, rows, delta, lay, first, n_alive, n_pairs, out, final)
+    return first, unc
+
+
+def closest_candidates(counts: torch.Tensor, mags: torch.Tensor,
+                       keep: torch.Tensor, st: PhaseState, rows: PhaseRows,
+                       delta: int, lay: Layout, n_alive: int, n_pairs: int,
+                       out: Candidates, *, maxc: int, tie_margin: float,
+                       final: bool = False):
+    """An iteration's closest-to-mean and candidates step over `lay`'s
+    P = n_pairs pairs (C = n_alive centers) with the filter's `keep` [P]:
+    (first int64 [C], unc bool [C]) as closest_mean gives them over the
+    store (counts, mags, maxc) with rows = lay.b_rows[:P] and seg =
+    lay.seg[:P], and into `out` what phase_candidates_ref writes: the new
+    center of every slot (the others copied) and the candidates at [0,
+    delta C).  `final`: the delta = 0 pass's kept-empty rule.
+
+    On CUDA one launch of csrc/closest_mean.cu's phase instantiation on the
+    current stream, without syncing (P = 0 too: every segment is empty, and
+    at C = 0, which has no rows, one block copies the centers); scratch from
+    PyTorch's caching allocator; out.arrive must be zero, as new_candidates
+    makes it and the kernel leaves it."""
+    n, n_slots, dev = _check_state("closest_candidates", st, rows)
+    m = delta * n_alive
+    if not 0 <= n_alive <= n_slots or not 0 <= n_pairs <= len(lay.b_rows) or delta < 0:
+        raise ValueError(f"closest_candidates: bad C = {n_alive}, P = {n_pairs} or "
+                         f"delta = {delta} for {n_slots} slots")
+    _check("closest_candidates", [
+        ("out.cen", out.cen, torch.int64, n_slots), ("out.a", out.a, torch.int64, m),
+        ("out.b", out.b, torch.int64, m), ("out.seg", out.seg, torch.int64, m),
+        ("out.ok", out.ok, torch.bool, m), ("out.arrive", out.arrive, torch.int32, m)],
+        dev)
+    _check_layout("closest_candidates", lay, n, n_slots, 0, dev)
+    b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
+    _check_closest(counts, mags, b, sg, keep, n_alive, None, None)
+    if counts.device != dev:
+        raise ValueError(f"closest_candidates: the store is on {counts.device}, "
+                         f"the state on {dev}")
+    kw = dict(maxc=maxc, tie_margin=tie_margin, final=final)
     if dev.type == "cpu":
-        return phase_candidates_ref(st, rows, delta, lay, first, n_alive, n_pairs,
-                                    out, final)
-    if n_slots == 0:
-        return None
+        return closest_candidates_ref(counts, mags, keep, st, rows, delta, lay,
+                                      n_alive, n_pairs, out, **kw)
+    first = torch.empty(n_alive, dtype=torch.int64, device=dev)
+    unc = torch.empty(n_alive, dtype=torch.bool, device=dev)
+    # v, dist2 and mag per position
+    scratch = torch.empty(3 * n_pairs, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().mc2_phase_candidates(
-            n_slots, n_alive, n_pairs, int(delta), int(final),
-            *_ptrs(st.alive, st.cen, lay.rank, lay.inv, lay.moff, lay.flat,
-                   lay.b_rows, first, rows.lens, rows.blen, rows.elen, out.cen,
-                   out.a, out.b, out.seg, out.ok),
-            _stream(dev))
+        rc = getattr(_closest_lib(), _CAND_ENTRY[counts.dtype])(
+            counts.data_ptr(), counts.shape[1], mags.data_ptr(), b.data_ptr(),
+            sg.data_ptr(), keep.data_ptr(), n_pairs, n_alive, int(maxc),
+            float(tie_margin), scratch.data_ptr(), scratch.numel(), first.data_ptr(),
+            unc.data_ptr(), n_slots, int(delta), int(final),
+            *_ptrs(st.alive, st.cen, lay.inv, lay.moff, lay.flat, rows.lens,
+                   rows.blen, rows.elen, out.arrive, out.cen, out.a, out.b, out.seg,
+                   out.ok), _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"phase_candidates kernel launch failed: cudaError {rc}")
-    phase_candidates.launches += 1
-    return None
+        raise RuntimeError(f"closest_candidates kernel launch failed: cudaError {rc}")
+    closest_candidates.launches += 1
+    return first, unc
 
 
-phase_candidates.launches = 0  # kernel launches since the last reset
+closest_candidates.launches = 0  # kernel launches since the last reset
 
 
 # -- the merge replay ---------------------------------------------------------

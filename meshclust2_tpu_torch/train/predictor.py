@@ -250,7 +250,8 @@ def _effective_len(seq: str) -> int:
     return n if n > 1 else 0
 
 
-def _mutant_point_set(pairs: List[Tuple[int, str, float]], k: int, datatype: str) -> PointSet:
+def _mutant_point_set(pairs: List[Tuple[int, str, float]], k: int, datatype: str,
+                      count_device=None) -> PointSet:
     recs = []
     for _, seq, _ in pairs:
         arr = np.frombuffer(seq.encode(), dtype=np.uint8)
@@ -259,7 +260,7 @@ def _mutant_point_set(pairs: List[Tuple[int, str, float]], k: int, datatype: str
             lut[ch] = code
         codes = lut[arr]
         recs.append(_record_from_codes(">mut", codes))
-    return build_point_set(recs, k, datatype)
+    return build_point_set(recs, k, datatype, count_device=count_device)
 
 
 def train_predictor(
@@ -357,8 +358,8 @@ def train_predictor(
         clock.stamp("data_generation")
 
     singles = F.split_flags(feat_flags)
-    train_mut_ps = _mutant_point_set(training, k, datatype)
-    test_mut_ps = _mutant_point_set(testing, k, datatype)
+    train_mut_ps = _mutant_point_set(training, k, datatype, device)
+    test_mut_ps = _mutant_point_set(testing, k, datatype, device)
     # device tables serve every mode: the regression chain's RNG-consuming
     # row rebalance depends only on pair identity values (host-exact), so
     # its selection replays verbatim onto the float64 re-solve tables

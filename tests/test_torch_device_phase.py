@@ -9,9 +9,11 @@ the host engine (--device cpu: the plain versions).
   per-offset targets in its tie order (2 delta - o, seq); on the
   post-accumulate state of small and med2000, and on a med2000 state with
   dead slots.
-- phase_candidates_ref: the new centers equal the engine's (delta = 5 and
+- closest_candidates on CPU tensors (closest_mean_ref, then
+  phase_candidates_ref): the new centers equal the engine's (delta = 5 and
   the final delta = 0 pass), the candidates with `ok` equal the engine's
-  merge pairs (jj, seg; _merge_pass).
+  merge pairs (jj, seg; _merge_pass); the phase's own pass equals the two
+  steps apart, and launches no separate candidates kernel.
 - merge_replay_ref: a pure-Python replay of the engine's
   `clusters[ret].members.extend(clusters[i].members)` on seeded random
   chains of merges (i -> j -> k included).
@@ -52,6 +54,7 @@ from meshclust2_tpu_torch.cluster.device_phase import TorchDevicePhaseUpdater
 from meshclust2_tpu_torch.cluster.device_store import DeviceStore
 from meshclust2_tpu_torch.cluster.device_update import TorchDeviceUpdater
 from meshclust2_tpu_torch.ops import phase as P
+from meshclust2_tpu_torch.ops.closest_mean import closest_mean
 from kernel_ab import PHASE_SHAPES, phase_state
 
 torch.set_num_threads(2)
@@ -279,10 +282,28 @@ def test_phase_candidates_ref_equals_the_engine(pools, name, kind):
         lay = P.new_layout(pool.ps.n, S, delta, "cpu")
         P.phase_layout(st, rows, delta, lay)
         C, n_pairs = lay.hdr.tolist()
-        first, _, cunc = phase._filter(lay, C, n_pairs)
-        assert not cunc.item()
+        keep, _ = phase.updater.filter_keep(lay.a_rows[:n_pairs], lay.b_rows[:n_pairs])
         cand = P.new_candidates(S, DELTA, "cpu")
-        P.phase_candidates(st, rows, delta, lay, first, C, n_pairs, cand, final=final)
+        store = phase.store
+        first, cunc = P.closest_candidates(
+            store.counts, store.mags, keep, st, rows, delta, lay, C, n_pairs, cand,
+            maxc=store.maxc, tie_margin=phase.tie_margin, final=final)
+        assert not cunc.any()
+        # the same as the two plain steps apart, and as the phase's own pass
+        want_first, _ = P.closest_mean_ref(store.counts, store.mags,
+                                           lay.b_rows[:n_pairs], lay.seg[:n_pairs],
+                                           keep, C, maxc=store.maxc,
+                                           tie_margin=phase.tie_margin)
+        assert torch.equal(first, want_first)
+        apart = P.new_candidates(S, DELTA, "cpu")
+        P.phase_candidates_ref(st, rows, delta, lay, first, C, n_pairs, apart, final)
+        own = P.new_candidates(S, DELTA, "cpu")
+        phase._filter(st, rows, delta, lay, C, n_pairs, own, final)
+        m = delta * C
+        for got in (apart, own):
+            assert torch.equal(got.cen, cand.cen)
+            for f in ("a", "b", "seg", "ok"):
+                assert torch.equal(getattr(got, f)[:m], getattr(cand, f)[:m]), f
         # the engine's new centers over the same clusters
         rec = Recorder(phase.updater)
         engine = jax_engine(pool, rec)
@@ -710,10 +731,11 @@ def test_no_phase_without_the_device_loop_or_the_update_batch(fixtures_dir,
 
 @pytest.mark.cuda
 def test_cuda_kernels_equal_plain_versions():
-    """phase_layout, phase_candidates and merge_replay on the card against
+    """phase_layout, closest_candidates and merge_replay on the card against
     their plain versions on the post-accumulate med2000 state and random
     chains, each wrapper counting its own launches, and the whole phase on
-    the card against the CPU run."""
+    the card against the CPU run, with one closest_candidates launch a pass
+    and no closest_mean launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
@@ -725,7 +747,7 @@ def test_cuda_kernels_equal_plain_versions():
     rows_c, rows_g = cpu._phase_rows(), gpu._phase_rows()
     S, n = len(clusters), ps.n
     rng = np.random.default_rng(3)
-    wrappers = (P.phase_layout, P.phase_candidates, P.merge_replay)
+    wrappers = (P.phase_layout, P.closest_candidates, P.merge_replay)
     for fn in wrappers:
         fn.launches = 0
     for delta in (DELTA, 0):
@@ -740,18 +762,24 @@ def test_cuda_kernels_equal_plain_versions():
                                getattr(lay_c, f)[:n_pairs]), f
         for f, k in (("rank", S), ("inv", C), ("moff", C + 1), ("flat", n)):
             assert torch.equal(getattr(lay_g, f)[:k].cpu(), getattr(lay_c, f)[:k]), f
-        first = torch.from_numpy(rng.integers(0, n_pairs + 1, C))
+        keep = torch.from_numpy(rng.random(n_pairs) < 0.3)
         for final in (False, True):
-            cand_c = P.new_candidates(S, DELTA, "cpu")
-            cand_g = P.new_candidates(S, DELTA, dev)
-            P.phase_candidates(st_c, rows_c, delta, lay_c, first, C, n_pairs, cand_c,
-                               final=final)
-            P.phase_candidates(st_g, rows_g, delta, lay_g, first.to(dev), C, n_pairs,
-                               cand_g, final=final)
+            got = []
+            for ph, st, rows, lay, k in ((cpu, st_c, rows_c, lay_c, keep),
+                                         (gpu, st_g, rows_g, lay_g, keep.to(dev))):
+                cand = P.new_candidates(S, DELTA, ph.device)
+                first, unc = P.closest_candidates(
+                    ph.store.counts, ph.store.mags, k, st, rows, delta, lay, C,
+                    n_pairs, cand, maxc=ph.store.maxc, tie_margin=ph.tie_margin,
+                    final=final)
+                got.append((first.cpu(), unc.cpu(), cand))
+            (first_c, unc_c, cand_c), (first_g, unc_g, cand_g) = got
+            assert torch.equal(first_g, first_c) and torch.equal(unc_g, unc_c)
             m = delta * C
             assert torch.equal(cand_g.cen.cpu(), cand_c.cen)
             for f in ("a", "b", "seg", "ok"):
                 assert torch.equal(getattr(cand_g, f)[:m].cpu(), getattr(cand_c, f)[:m])
+            assert not cand_g.arrive.any()
     for seed in range(4):
         st, t_dst, _, _ = random_replay_case(seed)
         out_c = P.new_state(len(st.assign), len(st.cen), "cpu")
@@ -762,10 +790,14 @@ def test_cuda_kernels_equal_plain_versions():
         for f in ("assign", "seq", "alive", "clen"):
             assert torch.equal(getattr(out_g, f).cpu(), getattr(out_c, f)), f
     assert [fn.launches for fn in wrappers] == [2, 4, 4]
+    for fn in wrappers + (closest_mean,):
+        fn.launches = 0
     res_g = gpu.run(copy.deepcopy(clusters))
     torch.cuda.synchronize()
     assert res_g == cpu.run(copy.deepcopy(clusters))
     assert res_g.abort == 0 and res_g.pairs == 116_481
+    # the phase's closest-to-mean and candidates: one launch a pass
+    assert P.closest_candidates.launches == res_g.it + 1 and closest_mean.launches == 0
 
 
 def cuda_device():
@@ -833,3 +865,121 @@ def test_cuda_phase_layout_cases_equal_plain(name):
                  ("a_rows", n_pairs), ("b_rows", n_pairs), ("seg", n_pairs)):
         assert torch.equal(getattr(lay, f)[:k], getattr(lay_p, f)[:k]), f
     assert (P.phase_layout.launches, P.phase_layout.wide_launches) == (1, int(name == "wide"))
+
+
+def test_phase_launches_no_candidates_kernel_of_its_own(pools, monkeypatch):
+    """The phase's candidates run inside closest_candidates (csrc/
+    closest_mean.cu's phase instantiation): one call a pass, delta for the
+    iterations and 0 for the final pass; csrc/phase.cu has no candidates
+    kernel left and ops/phase.py no wrapper for one."""
+    from meshclust2_tpu_torch.cluster import device_phase
+
+    calls = []
+    real = device_phase.closest_candidates
+
+    def counted(*args, **kwargs):
+        calls.append((args[5], kwargs["final"]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(device_phase, "closest_candidates", counted)
+    res = port_phase(pools["small"]).run(copy.deepcopy(pools["small"].clusters))
+    assert res.abort == 0
+    assert calls == [(DELTA, False)] * res.it + [(0, True)]
+    assert not hasattr(P, "phase_candidates")
+    src = os.path.join(os.path.dirname(P.__file__), "..", "csrc", "phase.cu")
+    with open(src) as f:
+        assert "mc2_phase_candidates" not in f.read()
+
+
+FOLD_CASES = ["chain", "star", "one_cluster", "few", "final", "no_pairs", "big90",
+              "100k", "wide"]
+
+
+def fold_case(name: str, dev):
+    """(state, rows, delta, final) of a closest_candidates case: "chain" and
+    "star" the states left by those replays (dead slots), "one_cluster" C
+    = 1, "few" C = 3 <= delta, "final" the delta = 0 pass, "no_pairs" P =
+    0, "big90" one cluster of 90 % of the rows, "100k" the 100k shape of
+    kernel_ab.py, "wide" 12,000 slots (past the phase kernels' shared
+    memory)."""
+    delta, final = 5, False
+    if name in ("chain", "star"):
+        st, rows, t_dst = torch_state(replay_forest(name, seed=23), dev)
+        out = P.new_state(len(st.assign), len(st.cen), dev)
+        P.merge_replay_ref(st, t_dst, out)
+        return out._replace(cen=st.cen), rows, delta, final
+    if name == "few":
+        arr = phase_state(60, 3, 0, seed=29)
+    elif name == "100k":
+        arr = phase_state(*PHASE_SHAPES["100k"], seed=31)
+    elif name == "wide":
+        arr = phase_state(36_000, 12_000, 3_000, seed=37)
+    else:
+        arr, delta = layout_case({"final": "delta0", "no_pairs": "delta5"}.get(name, name))
+        final = name == "final"
+    st, rows, _ = torch_state(arr, dev)
+    return st, rows, delta, final
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FOLD_CASES)
+def test_cuda_closest_candidates_cases_equal_plain(name):
+    """The folded launch (closest-to-mean and the candidates step) against
+    its plain version, bit for bit on first, unc, the new centers of all S
+    slots and the delta C candidates, twice (the arrival counters come back
+    to 0), one launch a call."""
+    dev = cuda_device()
+    st, rows, delta, final = fold_case(name, dev)
+    n, S = len(st.assign), len(st.cen)
+    lay = P.new_layout(n, S, delta, dev)
+    P.phase_layout_ref(st, rows, delta, lay)
+    C, n_pairs = lay.hdr.tolist()
+    if name == "no_pairs":
+        n_pairs = 0
+    rng = np.random.default_rng(41)
+    counts = torch.from_numpy(rng.integers(0, 40, (n, 64)).astype(np.uint8)).to(dev)
+    mags = counts.sum(dim=1, dtype=torch.int64).to(torch.float64)
+    keep = torch.from_numpy(rng.random(n_pairs) < 0.3).to(dev)
+    kw = dict(maxc=int(counts.max()), tie_margin=1e-12, final=final)
+    want = P.new_candidates(S, delta, dev)
+    w_first, w_unc = P.closest_candidates_ref(counts, mags, keep, st, rows, delta, lay,
+                                              C, n_pairs, want, **kw)
+    P.closest_candidates.launches = 0
+    m = delta * C
+    got = P.new_candidates(S, delta, dev)
+    for _ in range(2):
+        got.cen.fill_(-7)
+        for f in ("a", "b", "seg"):
+            getattr(got, f).fill_(-7)
+        first, unc = P.closest_candidates(counts, mags, keep, st, rows, delta, lay, C,
+                                          n_pairs, got, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, w_first) and torch.equal(unc, w_unc)
+        assert torch.equal(got.cen, want.cen)
+        for f in ("a", "b", "seg", "ok"):
+            assert torch.equal(getattr(got, f)[:m], getattr(want, f)[:m]), f
+        assert not got.arrive.any()
+    assert P.closest_candidates.launches == 2
+
+
+def test_default_path_with_delta_0_equals_the_host_engine(fixtures_dir, tmp_path,
+                                                          clean_env):
+    """-d 0: each cluster is its own neighbourhood and the merge pass has no
+    candidates (empty candidate buffers); the phase runs and the CLSTR
+    equals the JAX host engine's."""
+    fasta, weights = SETS["small"]
+    args = ["-d", "0", "--recover", os.path.join(fixtures_dir, weights)]
+    out = tmp_path / "port.clstr"
+    res = torch_cli.run(["--device", "cpu", *args, "--output", str(out),
+                         os.path.join(fixtures_dir, fasta)])
+    assert res.rc == 0 and res.phase is not None and res.phase.delta == 0
+    assert res.phase.last_iterations > 0 and res.updater.scored_pairs == 0
+    from meshclust2_tpu.cli import main as jax_main
+
+    want = tmp_path / "jax.clstr"
+    with clean_env.context() as m:
+        m.setenv("MC2_NO_DEVICE_LOOP", "1")
+        m.setenv("MC2_NO_DEVICE_SESSION", "1")
+        assert jax_main(["--device", "host", *args, "--output", str(want),
+                         os.path.join(fixtures_dir, fasta)]) == 0
+    assert out.read_bytes() == want.read_bytes()
