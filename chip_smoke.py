@@ -26,11 +26,17 @@ path's own state after accumulate and timed beside their bounds (d6), and
 torch.profiler times the phase alone on that state (h2).  The k-mer
 histogram kernel (MC2_DEVICE_COUNT's build) is held byte for byte against
 its plain version and the native counter on the 10k set, a saturating
-record, records with N runs, a record over 1 Mbp and k = 8, and timed
-beside its bound and torch.bincount (k); the 10k default path with
-MC2_DEVICE_COUNT=1 gives the default run's CLSTR byte for byte, and the
-set-up times of native and device counting in the order native, device,
-device, native (k2).  The fused
+record, records with N runs, a 2 Mbp record split at 1 Mbp, a homopolymer
+and k = 8, and timed by events beside its bound and torch.bincount (k);
+the 10k default path with MC2_DEVICE_COUNT=1 gives the default run's CLSTR
+byte for byte, and the set-up of native and device counting is timed
+stage by stage, with the garbage collector's pauses, in this process
+(device, native, native, device, native, device, device, native) and in
+fresh ones (native, device, device, native) (k2).  --multihost clusters
+the 10k set as a one-rank NCCL group, plain and under MC2_DEVICE_COUNT=1,
+to the reference signature with the scorer-alone path's counters, every
+pair scored by the kernel, and parallel/mesh.py's
+SPMD functions on the card equal them on the CPU (m).  The fused
 kernel's FULL instantiation (models with full-vector singles) is held against its plain version and a numpy host
 oracle within its error bounds (c5) and timed beside its bound (d4); two
 such models, built over each set with the port's host formulas, cluster
@@ -177,6 +183,14 @@ for _path in FORBIDS:
         FORBIDS[_path] += ("phase_layout", "closest_candidates", "merge_replay")
     if _path != "device_count":
         FORBIDS[_path] += ("kmer_count",)
+# --multihost on the card, a one-rank NCCL group: MultihostScorer's center
+# and pair forms of the fused kernel, the k-mer kernel under
+# MC2_DEVICE_COUNT=1, nothing of the device loops
+NEEDS["multihost"] = ("pair_stats_decision",)
+NEEDS["multihost_device_count"] = ("pair_stats_decision", "kmer_count")
+FORBIDS["multihost"] = FORBIDS["no_device_loop_no_update_batch"] + ("closest_mean",)
+FORBIDS["multihost_device_count"] = tuple(
+    k for k in FORBIDS["multihost"] if k != "kmer_count")
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -801,14 +815,16 @@ def kmer_kernel_checks(fasta: str, card: str, dev) -> dict:
     byte for byte: the 10k set at k = 5 (uint8), a uint8 saturation record
     (2,000 x A), 37 random records with N runs at k = 4 (uint16), a record
     over 1 Mbp (its 1 Mbp split: a window across it does not count) at k = 3
-    (uint32), and 2,000 of the 10k records at k = 8 (the global-histogram
-    instantiation); then, on the 10k set, its time, the plain version's, the
-    bound (the codes, offsets and segments read once, the counts and 1-mers
-    written once; k operations a window) and torch.bincount over the
-    windows' flat indices (the nearest one-call PyTorch counterpart: it
-    leaves out the index sweep and the saturation), and the device times of
-    a homopolymer record of 999,999 bases (every window in one bin), of the
-    long record and of the k = 8 set."""
+    (uint32) and at k = 5 (uint8: the 2 Mbp record), a homopolymer of
+    999,999 bases at k = 5 (every window in one bin) and 2,000 of the 10k
+    records at k = 8 (the global instantiation); then, for the 10k set, the
+    homopolymer, the 2 Mbp record and the k = 8 set, the kernel's device
+    time (CUDA events behind a busy wait), its bound (the codes, offsets and
+    segments read once, the counts and 1-mers written once; k operations a
+    window) and torch.bincount over the windows' flat indices (the nearest
+    one-call PyTorch counterpart: it leaves out the index sweep and the
+    saturation); for the 10k set also the wrapper's time and the plain
+    version's."""
     import torch
     from meshclust2_tpu_torch import native
     from meshclust2_tpu_torch.io.fasta import encode_sequence, read_fasta
@@ -828,13 +844,21 @@ def kmer_kernel_checks(fasta: str, card: str, dev) -> dict:
     long_rec = encode_sequence("long", "".join(rng.choice(list("ACGT"), 2_000_050)))
     if long_rec.segments.tolist() != [[0, 999_999], [1_000_000, 2_000_049]]:
         raise AssertionError(f"the long record's segments {long_rec.segments.tolist()}")
+    homo = encode_sequence("homo", "A" * 999_999)
     cases = {"10k set, k = 5, uint8": (bench_recs, 5, "uint8_t"),
              "saturation (2,000 x A), k = 5, uint8": (
                  [encode_sequence("sat", "A" * 2000 + "CGTACGT" * 30)], 5, "uint8_t"),
              "37 records with N runs, k = 4, uint16": (n_runs, 4, "uint16_t"),
              "2,000,050 bases, split at 1 Mbp, k = 3, uint32": ([long_rec], 3, "uint32_t"),
+             "2,000,050 bases, split at 1 Mbp, k = 5, uint8": ([long_rec], 5, "uint8_t"),
+             "a homopolymer of 999,999 bases, k = 5, uint8": ([homo], 5, "uint8_t"),
              "2,000 records of the 10k set, k = 8, uint16": (bench_recs[:2000], 8,
                                                                "uint16_t")}
+    timed = {"10k set, k = 5, uint8": "tenk",
+             "a homopolymer of 999,999 bases, k = 5, uint8": "homopolymer",
+             "2,000,050 bases, split at 1 Mbp, k = 5, uint8": "long",
+             "2,000 records of the 10k set, k = 8, uint16": "k8"}
+    rec = {"max_abs_err": 0, "shapes": {}}
     for name, (recs, k, datatype) in cases.items():
         dtype_max = DTYPE_MAX[datatype]
         packed = packed_on(native._pack_records(recs), dev)
@@ -856,38 +880,214 @@ def kmer_kernel_checks(fasta: str, card: str, dev) -> dict:
             raise AssertionError("the saturation record did not saturate")
         phase("k", f"kmer_count {name}: {len(recs)} records, {int(packed[1][-1])} codes: "
                    f"== plain version == native counter byte for byte; {card}")
-    dtype_max = DTYPE_MAX["uint8_t"]
-    k = 5
-    packed = packed_on(native._pack_records(bench_recs), dev)
-    counts, ones = kmer_count(*packed, k, dtype_max)
-    flat, _ = kmer_windows(*packed, k)
-    n = len(bench_recs)
-    nbytes = tbytes(*packed, counts, ones)
-    b_ms, b_by = bound_ms(nbytes, k * len(flat))
-    run = lambda: kmer_count(*packed, k, dtype_max)   # noqa: E731
-    rec = dict(ms=cuda_ms(run, reps=50),
-               plain_ms=cuda_ms(lambda: kmer_count_ref(*packed, k, dtype_max), reps=5),
-               library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=n * 4 ** k),
-                                  reps=20),
-               device_us=device_us(run), bound_ms=b_ms, bound_by=b_by, max_abs_err=0)
-    homo = packed_on(native._pack_records([encode_sequence("homo", "A" * 999_999)]), dev)
-    rec["homopolymer_device_us"] = device_us(lambda: kmer_count(*homo, k, dtype_max))
-    wide = cases["2,000 records of the 10k set, k = 8, uint16"][0]
-    wide_p = packed_on(native._pack_records(wide), dev)
-    rec["k8_device_us"] = device_us(lambda: kmer_count(*wide_p, 8, 65535))
-    # one record is one block: a long one runs on one SM
-    long_p = packed_on(native._pack_records([long_rec]), dev)
-    rec["long_device_us"] = device_us(lambda: kmer_count(*long_p, 5, dtype_max))
-    phase("k", f"kmer_count, the 10k set ({n} records, {len(flat)} windows, k = 5, "
-               f"uint8): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-               f"torch.bincount over the flat indices {rec['library_ms']:.4f} ms (median, "
-               f"CUDA events); device {rec['device_us']:.2f} us (CUDA events behind a "
-               f"busy wait), bound {b_ms:.6f} ms ({b_by}, {nbytes} bytes); a homopolymer "
-               f"of 999,999 bases: device {rec['homopolymer_device_us']:.2f} us; the "
-               f"random record of 2,000,050 bases at k = 5: device "
-               f"{rec['long_device_us']:.2f} us; 2,000 records at k = 8 (global "
-               f"histograms): device {rec['k8_device_us']:.2f} us; {card}")
+        if name not in timed:
+            continue
+        flat, _ = kmer_windows(*packed, k)
+        nbytes = tbytes(*packed, counts, ones)
+        b_ms, b_by = bound_ms(nbytes, k * len(flat))
+        run = lambda: kmer_count(*packed, k, dtype_max)   # noqa: E731
+        shape = dict(records=len(recs), k=k, windows=len(flat), bytes=nbytes, bound_ms=b_ms,
+                     bound_by=b_by, device_us=device_us(run),
+                     library_device_us=device_us(lambda: torch.bincount(
+                         flat, minlength=len(recs) * 4 ** k)))
+        if timed[name] == "tenk":
+            shape.update(ms=cuda_ms(run, reps=50),
+                         plain_ms=cuda_ms(lambda: kmer_count_ref(*packed, k, dtype_max),
+                                          reps=5),
+                         library_ms=cuda_ms(lambda: torch.bincount(
+                             flat, minlength=len(recs) * 4 ** k), reps=20))
+        rec["shapes"][timed[name]] = shape
+        del flat
+    t = rec["shapes"]["tenk"]
+    rec.update({key: t[key] for key in ("ms", "plain_ms", "library_ms", "device_us",
+                                        "bound_ms", "bound_by")})
+    phase("k", f"kmer_count, the 10k set ({t['records']} records, {t['windows']} windows, "
+               f"k = 5, uint8): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+               f"torch.bincount over the flat indices {t['library_ms']:.4f} ms (median, "
+               f"CUDA events); {card}")
+    for key, label in (("tenk", "the 10k set"), ("homopolymer", "a homopolymer of 999,999 "
+                                                 "bases"),
+                       ("long", "the random record of 2,000,050 bases at k = 5"),
+                       ("k8", "2,000 records at k = 8 (global instantiation)")):
+        sh = rec["shapes"][key]
+        phase("k", f"kmer_count, {label}: device {sh['device_us']:.2f} us (CUDA events "
+                   f"behind a busy wait), bound {sh['bound_ms'] * 1e3:.2f} us "
+                   f"({sh['bound_by']}, {sh['bytes']} bytes, {sh['windows']} windows), "
+                   f"{sh['bound_ms'] * 1e3 / sh['device_us']:.1%} of it; torch.bincount "
+                   f"over the flat indices {sh['library_device_us']:.2f} us; {card}")
     return rec
+
+
+# the stages of the CLI's set-up that (k2) times: reading the FASTA, the
+# counting (build_point_set: the native packing, then the native counter or
+# the device build's upload and its kernel with the read-back), sorting,
+# the device session (store upload, kernel builds, warm-ups) and the first
+# CUDA use of the process (torch's lazy initialisation; the CLI's
+# resolve_device pays it before the clock starts); "gc" is the time
+# Python's garbage collector held the process during the run and "gc_fasta"
+# its part inside the FASTA read (both inside the other stages)
+# (k2)'s runs in this process, True for MC2_DEVICE_COUNT=1: device, native,
+# native, device, native, device, device, native (each mode's mean position
+# the same; the first run after (k) a device one, the second a native one)
+SETUP_ORDER = (True, False, False, True, False, True, True, False)
+SETUP_STAGES = ("fasta", "build_point_set", "pack", "native", "device_build", "upload",
+                "sort", "session", "cuda_init", "gc", "gc_fasta")
+
+
+@contextlib.contextmanager
+def setup_stages(torch_cli):
+    """Time the stages of SETUP_STAGES in the CLI runs inside the block:
+    yields the seconds per stage (host clock; the upload synchronises)."""
+    import gc
+
+    import torch
+    from meshclust2_tpu_torch import native
+    from meshclust2_tpu_torch.ops import kmer_count as K
+    from meshclust2_tpu_torch.parallel import mesh as M
+
+    secs = Counter()
+    patches = []
+    open_stages = []
+    gc_start = [0.0]
+
+    def on_gc(phase_, info):
+        if phase_ == "start":
+            gc_start[0] = time.perf_counter()
+            return
+        dt = time.perf_counter() - gc_start[0]
+        secs["gc"] += dt
+        if "fasta" in open_stages:
+            secs["gc_fasta"] += dt
+
+    def wrap(obj, name, key, sync=False, first_only=False):
+        real = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            if first_only and torch.cuda.is_initialized():
+                return real(*args, **kwargs)
+            t0 = time.perf_counter()
+            open_stages.append(key)
+            try:
+                out = real(*args, **kwargs)
+                if sync and torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                open_stages.pop()
+                secs[key] += time.perf_counter() - t0
+
+        patches.append((obj, name, real))
+        setattr(obj, name, timed)
+
+    wrap(torch_cli, "read_fasta", "fasta")
+    wrap(torch_cli, "build_point_set", "build_point_set")
+    wrap(native, "_pack_records", "pack")
+    wrap(native, "count_kmers_batch", "native")
+    wrap(M, "device_build_counts", "device_build")
+    wrap(K, "packed_on", "upload", sync=True)
+    wrap(torch_cli, "sort_points", "sort")
+    wrap(torch_cli, "_session", "session")
+    wrap(torch.cuda, "_lazy_init", "cuda_init", first_only=True)
+    gc.callbacks.append(on_gc)
+    try:
+        yield secs
+    finally:
+        gc.callbacks.remove(on_gc)
+        for obj, name, real in reversed(patches):
+            setattr(obj, name, real)
+
+
+def stage_line(stamp: float, secs) -> str:
+    """A run's set-up stamp and its stages; "kernel and read-back" is the
+    device build less its packing and upload, "other" the stamp less the
+    stages."""
+    parts = {k: secs.get(k, 0.0) for k in SETUP_STAGES}
+    parts["kernel and read-back"] = (parts["device_build"] - parts["pack"] - parts["upload"]
+                                     if parts["device_build"] else 0.0)
+    parts["other"] = stamp - sum(parts[k] for k in ("fasta", "build_point_set", "sort",
+                                                    "session"))
+    return f"set-up {stamp:.4f} s: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in parts.items() if k != "device_build")
+
+
+def setup_stages_main(argv) -> int:
+    """`chip_smoke.py --setup-stages native|device FASTA WEIGHTS OUT`: one
+    10k default-path run of the CLI in this fresh process with its set-up
+    stages timed; prints {"stamp": s, "stages": {...}} as its last line."""
+    mode, fasta, weights, out = argv
+    sys.path.insert(0, ROOT)
+    from meshclust2_tpu_torch import cli as torch_cli
+
+    if mode == "device":
+        os.environ["MC2_DEVICE_COUNT"] = "1"
+    with setup_stages(torch_cli) as secs:
+        res = torch_cli.run(["--device", "cuda", "--recover", weights, "--output", out,
+                             fasta])
+    if res.rc != 0 or counters(res) != BENCH10K_COUNTERS["default"]:
+        raise AssertionError(f"--setup-stages {mode}: rc {res.rc}, counters "
+                             f"{counters(res)}")
+    print(json.dumps({"stamp": res.clock.stamps["read_in_points"], "stages": dict(secs)}))
+    return 0
+
+
+def mesh_functions_on_the_card(dev, weights: str, card: str) -> None:
+    """(m) parallel/mesh.py's SPMD functions on a one-rank NCCL mesh on the
+    card against the same functions on a one-rank gloo mesh on the CPU, on
+    the same seeded inputs: sharded_mean_update's rows exact and values
+    within rtol 1e-5, sharded_glm_solve within 1e-9, and
+    sharded_center_scores behind classify_kernel_factory (the 10k model's
+    epilogue) within rtol 1e-5 (float32 sums in another order)."""
+    import torch
+    import torch.distributed as dist
+    from meshclust2_tpu_torch.model.classifier import CompiledModel
+    from meshclust2_tpu_torch.model.weights import load_weights
+    from meshclust2_tpu_torch.parallel import mesh as M
+
+    rng = np.random.default_rng(2026)
+    n, d, C = 4_096, 1_024, 16
+    H = rng.integers(1, 40, size=(n, d)).astype(np.float32)
+    mask = (rng.random((C, n)) < 0.01).astype(np.float32)
+    X = np.concatenate([np.ones((4096, 1)), rng.standard_normal((4096, 7))], axis=1)
+    y = X @ rng.standard_normal(8) + 0.01 * rng.standard_normal(4096)
+    model = CompiledModel(load_weights(weights).classifier)
+    epi = M.classify_kernel_factory(model.weights, model.mins, model.maxs, model.is_sim,
+                                    model.combos)
+
+    def singles_fn(H_local, center):
+        # raw singles inside the model's bounds, from the rows' manhattan
+        # distance to the center
+        man = (H_local - center[None]).abs().sum(dim=1)
+        mn = torch.as_tensor(model.mins, dtype=torch.float32, device=H_local.device)
+        mx = torch.as_tensor(model.maxs, dtype=torch.float32, device=H_local.device)
+        return mn + (man / man.max())[:, None] * (mx - mn)
+
+    got = {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        # one process holds one default group: a one-rank NCCL group for
+        # the card, then a one-rank gloo group for the CPU
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh = M.make_mesh(device)
+        t = lambda a: torch.from_numpy(a).to(mesh.device)   # noqa: E731
+        gmin, garg = M.sharded_mean_update(mesh)(t(H), t(H.sum(axis=1)), t(mask),
+                                                 t(np.arange(n)))
+        w = M.sharded_glm_solve(mesh)(t(X), t(y))
+        p, dd = M.sharded_center_scores(mesh, singles_fn, epi)(t(H), t(H[17]))
+        got[name] = [x.cpu().numpy() for x in (gmin, garg, w, p, dd)]
+        if name == "cuda" and (mesh.world, dist.get_backend()) != (1, "nccl"):
+            raise AssertionError(f"the card's mesh: {mesh}, {dist.get_backend()}")
+    dist.destroy_process_group()
+    (gm, ga, w, p, dd), (gm0, ga0, w0, p0, dd0) = got["cuda"], got["cpu"]
+    if not (np.array_equal(ga, ga0) and np.allclose(gm, gm0, rtol=1e-5)
+            and np.allclose(w, w0, rtol=0, atol=1e-9) and np.allclose(p, p0, rtol=1e-5)
+            and np.allclose(dd, dd0, rtol=1e-5)):
+        raise AssertionError("parallel/mesh.py's functions on the card differ from the CPU")
+    phase("m", f"parallel/mesh.py on a one-rank NCCL mesh == a one-rank gloo mesh on the "
+               f"CPU: sharded_mean_update (n = {n}, D = {d}, C = {C}) rows exact, values "
+               f"max rel {np.nanmax(np.abs(gm - gm0) / np.abs(gm0)):.2e}; "
+               f"sharded_glm_solve max abs {np.abs(w - w0).max():.2e}; "
+               f"sharded_center_scores + classify_kernel_factory max rel "
+               f"{np.abs(p - p0).max() / np.abs(p0).max():.2e}; {card}")
 
 
 class DecisionCount:
@@ -1741,6 +1941,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--setup-stages"]:
+        return setup_stages_main(sys.argv[2:])
     sys.path.insert(0, ROOT)
     from meshclust2_tpu_torch import cli as torch_cli
     from meshclust2_tpu_torch.cluster.engine import distance_d
@@ -2520,6 +2722,7 @@ def main() -> int:
                 count_s.append(time.perf_counter() - t0)
 
         torch_cli.build_point_set = timed_bps
+        path_stamps = {}
         for path in PATHS:
             argv[5] = os.path.join(tmp, f"bench10k_{path}.clstr")
             for fn in wrappers.values():
@@ -2547,9 +2750,7 @@ def main() -> int:
             if not aborted and counters(res) != BENCH10K_COUNTERS[path]:
                 raise AssertionError(f"10k counters {counters(res)} != "
                                      f"{BENCH10K_COUNTERS[path]} ({path})")
-            if default:
-                default_setup = res.clock.stamps["read_in_points"]
-                default_count_s = sum(count_s)
+            path_stamps[path] = dict(res.clock.stamps)
             upd = update_line(res, BENCH10K_UPDATER_PAIRS)
             phase("f", f"bench 10k ({path}): signature == bench10k_ref_t1 "
                        f"({len(got)} clusters), counters {counters(res)}; "
@@ -2599,18 +2800,20 @@ def main() -> int:
 
         # (k2) the 10k default path with its counts built on the card
         # (MC2_DEVICE_COUNT=1), its launches counted from zero: the CLSTR
-        # byte for byte that of (f)'s default run, the same counters.  Then
-        # one more run of each in the reverse order, so the set-up stamps and
-        # the counting times read native, device, device, native: (f)'s run
-        # came first, before (k) warmed the allocator and the caches, so the
-        # first pair alone is confounded by its order
+        # byte for byte that of (f)'s default run, the same counters.  The
+        # set-up of both modes, stage by stage (setup_stages), with the
+        # garbage collector's pauses: in this process (CUDA long
+        # initialised) in SETUP_ORDER, then each run in a fresh process
+        # (the first CUDA use included)
+        torch_cli.build_point_set = real_bps
+
         def count_run(device_count: bool, name: str):
             argv[5] = os.path.join(tmp, f"bench10k_{name}.clstr")
-            count_s.clear()
             if device_count:
                 os.environ["MC2_DEVICE_COUNT"] = "1"
             try:
-                res = run_path(torch_cli, "default", argv)
+                with setup_stages(torch_cli) as secs:
+                    res = run_path(torch_cli, "default", argv)
             finally:
                 os.environ.pop("MC2_DEVICE_COUNT", None)
             tag = "MC2_DEVICE_COUNT=1" if device_count else "native counter"
@@ -2623,36 +2826,103 @@ def main() -> int:
                                          f"default run's")
             if counters(res) != BENCH10K_COUNTERS["default"]:
                 raise AssertionError(f"{tag}: counters {counters(res)}")
-            return res, (res.clock.stamps["read_in_points"], sum(count_s))
+            return res, (res.clock.stamps["read_in_points"], dict(secs))
 
-        for fn in wrappers.values():
-            fn.launches = 0
-        res, device_first = count_run(True, "device_count")
-        launches["device_count"] = {name: fn.launches for name, fn in wrappers.items()}
-        check_launches("device_count", launches["device_count"])
-        device_second = count_run(True, "device_count2")[1]
-        native_second = count_run(False, "native2")[1]
-        order = [("native counter", (default_setup, default_count_s)),
-                 ("MC2_DEVICE_COUNT=1", device_first),
-                 ("MC2_DEVICE_COUNT=1", device_second),
-                 ("native counter", native_second)]
-        means = {k: tuple(statistics.mean([v[i] for kk, v in order if kk == k])
-                          for i in (0, 1))
-                 for k in ("native counter", "MC2_DEVICE_COUNT=1")}
+        order = []
+        for i, device_count in enumerate(SETUP_ORDER):
+            if i == 0:
+                # the first run, a device one, has its launches counted
+                for fn in wrappers.values():
+                    fn.launches = 0
+            res_i, rec = count_run(device_count, f"setup{i}")
+            if i == 0:
+                res = res_i
+                launches["device_count"] = {name: fn.launches
+                                            for name, fn in wrappers.items()}
+                check_launches("device_count", launches["device_count"])
+            order.append(("MC2_DEVICE_COUNT=1" if device_count else "native counter", rec))
+        fresh = []
+        for mode in ("native", "device", "device", "native"):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--setup-stages", mode, fasta,
+                 weights, os.path.join(tmp, f"bench10k_fresh_{len(fresh)}.clstr")],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"--setup-stages {mode} exited {proc.returncode}:\n"
+                                     f"{proc.stderr[-3000:]}")
+            got_f = json.loads(proc.stdout.strip().splitlines()[-1])
+            fresh.append(("MC2_DEVICE_COUNT=1" if mode == "device" else "native counter",
+                          (got_f["stamp"], got_f["stages"])))
         phase("k2", f"bench 10k (default, MC2_DEVICE_COUNT=1): CLSTR == the default "
                     f"run's byte for byte, counters {counters(res)}, "
                     f"{update_line(res, BENCH10K_UPDATER_PAIRS)}; kmer_count launches "
                     f"{launches['device_count']['kmer_count']}; "
                     f"{window_parts(res.clock.stamps, 10_000)}; {card}")
-        phase("k2", "set-up stamp (read_in_points) and its counting "
-                    "(build_point_set), in run order: " + "; ".join(
-                        f"{k} {a:.3f} s, counting {b:.3f} s" for k, (a, b) in order)
-                    + "; mean of each (order balanced): " + "; ".join(
-                        f"{k} {a:.3f} s, counting {b:.3f} s" for k, (a, b) in means.items())
-                    + "; one process, so set-up against set-up across processes is "
-                      "ab_paths.py --paths default,device_count")
-        kmer_timing["setup"] = {"order": order, "mean": means}
-        torch_cli.build_point_set = real_bps
+        setup_means = {}
+        for where, runs_ in (("one process", order), ("fresh processes", fresh)):
+            for i, (k, (stamp, secs)) in enumerate(runs_):
+                phase("k2", f"set-up, {where}, run {i + 1} ({k}): "
+                            f"{stage_line(stamp, Counter(secs))}")
+            for k in ("native counter", "MC2_DEVICE_COUNT=1"):
+                mine = [(a, Counter(b)) for kk, (a, b) in runs_ if kk == k]
+                mean = Counter({st: statistics.mean(b.get(st, 0.0) for _, b in mine)
+                                for st in SETUP_STAGES})
+                stamp = statistics.mean(a for a, _ in mine)
+                setup_means[f"{where}, {k}"] = (stamp, dict(mean))
+                phase("k2", f"set-up, {where}, mean of {k} (order balanced): "
+                            f"{stage_line(stamp, mean)}")
+        kmer_timing["setup"] = {"one_process": order, "fresh_processes": fresh,
+                                "means": setup_means}
+
+        # (m) --multihost through the port's CLI on the card, a one-rank
+        # NCCL group: the 10k set on the recover path through
+        # MultihostScorer's per-window scoring (the engine flow of the
+        # scorer-alone path), then again under MC2_DEVICE_COUNT=1; its
+        # launches counted from zero; the signature of bench10k_ref_t1 and
+        # the scorer-alone path's counters
+        for name, env in (("multihost", {}),
+                          ("multihost_device_count", {"MC2_DEVICE_COUNT": "1"})):
+            out_m = os.path.join(tmp, f"bench10k_{name}.clstr")
+            for fn in wrappers.values():
+                fn.launches = 0
+            os.environ.update(env)
+            try:
+                res = torch_cli.run(["--multihost", "--device", "cuda", "--recover", weights,
+                                     "--output", out_m, fasta])
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            launches[name] = {k: fn.launches for k, fn in wrappers.items()}
+            if res.rc != 0:
+                raise AssertionError(f"--multihost exited {res.rc} ({name})")
+            check_launches(name, launches[name])
+            got = read_clstr(out_m)
+            if len(got) != BENCH10K_CLUSTERS or signature(got) != ref_sig:
+                raise AssertionError(f"--multihost: 10k signature differs ({len(got)} "
+                                     f"clusters, {name})")
+            want = BENCH10K_COUNTERS["no_device_loop_no_update_batch"]
+            if counters(res) != want:
+                raise AssertionError(f"--multihost counters {counters(res)} != {want}")
+            sc = res.scorer
+            if sc.scored_pairs != counters(res)[1]:
+                raise AssertionError(f"--multihost: the scorer's kernels scored "
+                                     f"{sc.scored_pairs} of {counters(res)[1]} pairs")
+            phase("m", f"bench 10k --multihost{' MC2_DEVICE_COUNT=1' if env else ''} "
+                       f"(one-rank NCCL group, world {sc.mesh.world}): signature == "
+                       f"bench10k_ref_t1 ({len(got)} clusters), {want[2]} clusters before "
+                       f"update, {want[3]} iterations; windows {counters(res)[0]}, pairs "
+                       f"{counters(res)[1]} (the scorer-alone path's "
+                       f"{want[0]} / {want[1]}); scorer pairs {sc.scored_pairs} (mixed "
+                       f"batches halved to fit the unique-row bound: "
+                       f"{sc.split_batches}), "
+                       f"re-checked {sc.rechecked_pairs} by rule "
+                       f"{sc.rechecked_by_rule.tolist()}; fetches {sc._fetch.calls} "
+                       f"({sc._fetch.rows} rows); launches pair_stats_decision "
+                       f"{launches[name]['pair_stats_decision']}, kmer_count "
+                       f"{launches[name]['kmer_count']}; "
+                       f"{window_parts(res.clock.stamps, 10_000)} (the scorer-alone "
+                       f"path's {window_parts(path_stamps['no_device_loop_no_update_batch'], 10_000)}); {card}")
+        mesh_functions_on_the_card(dev, weights, card)
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -2914,6 +3184,7 @@ def main() -> int:
     }, {
         "name": "pair_stats_decision",
         "path": "training, then clustering, 10k",
+        "multihost_launches": launches["multihost"]["pair_stats_decision"],
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
         "replaces": "meshclust2_tpu/ops/pallas_stats.py:39, "
@@ -3105,9 +3376,8 @@ def main() -> int:
         "library": "torch.bincount over the windows' flat indices (no index sweep, "
                    "no saturation)",
         "device_us": kmer_timing["device_us"],
-        "homopolymer_device_us": kmer_timing["homopolymer_device_us"],
-        "k8_device_us": kmer_timing["k8_device_us"],
-        "long_record_device_us": kmer_timing["long_device_us"],
+        "shapes": kmer_timing["shapes"],
+        "multihost_launches": launches["multihost_device_count"]["kmer_count"],
         "setup_s": kmer_timing["setup"],
     }, fc_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {

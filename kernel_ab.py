@@ -42,7 +42,10 @@ against its plain version and torch.bincount over the windows' flat
 indices (the nearest one-call PyTorch counterpart: it leaves out the index
 sweep and the saturation), with its bound (the codes read and the counts
 written once), and the counting part of set-up: device_build_counts
-against the native counter on the same records.  It also prints the plane store's device bytes
+against the native counter on the same records; then, beside their
+bounds and torch.bincount, a homopolymer of 999,999 bases, one random
+record of 2,000,050 bases (split at 1 Mbp) and 2,000 of the 10k records
+at k = 8.  It also prints the plane store's device bytes
 (every tensor the store adds to the DeviceStore), the ptxas lines of the
 pair-statistics library and a SHA-256 of each fast instantiation's SASS
 (cuobjdump), keyed by (count type, NV, NARROW), so that two checkouts'
@@ -70,6 +73,8 @@ PHASE_SHAPES = {"d6": (10_000, 1_147, 288), "100k": (100_000, 5_803, 1_996)}
 PHASE_DELTA = 5
 # the bench set's sizes of --kmer (bench.py:ensure_dataset)
 KMER_SHAPES = {"10k": 10_000, "100k": 100_000}
+# the seed of --kmer's 2 Mbp record
+KMER_SEED = 20261018
 
 
 def phase_bytes(n: int, n_slots: int, n_alive: int, n_pairs: int, delta: int) -> dict:
@@ -404,7 +409,7 @@ def one_kmer(root: str) -> dict:
     assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
     from chip_smoke import bound_ms, cuda_ms
     from meshclust2_tpu_torch import native
-    from meshclust2_tpu_torch.io.fasta import read_fasta
+    from meshclust2_tpu_torch.io.fasta import encode_sequence, read_fasta
     from meshclust2_tpu_torch.ops import _build
     from meshclust2_tpu_torch.ops.kmer_count import (kmer_count, kmer_count_ref,
                                                      kmer_windows, packed_on)
@@ -458,6 +463,35 @@ def one_kmer(root: str) -> dict:
         out["shapes"][shape] = dict(n=len(recs), codes=int(packing[1][-1]),
                                     windows=len(flat), bytes=nbytes, bound_us=b_ms * 1e3,
                                     bound_by=b_by, counting_s=walls)
+        if shape == "10k":
+            bench_recs = recs
+    # the shapes a record-per-block design serialises: a homopolymer (every
+    # window in one bin), one 2 Mbp record (split at 1 Mbp), and 2,000 of
+    # the 10k records at k = 8 (histograms past shared memory)
+    rng = np.random.default_rng(KMER_SEED)
+    for shape, recs, k_, dm in (
+            ("homopolymer", [encode_sequence("homo", "A" * 999_999)], 5, 255),
+            ("2mbp", [encode_sequence("long", "".join(rng.choice(list("ACGT"), 2_000_050)))],
+             5, 255),
+            ("k8", bench_recs[:2_000], 8, 65535)):
+        packed = packed_on(native._pack_records(recs), dev)
+        got = kmer_count(*packed, k_, dm)
+        want = kmer_count_ref(*packed, k_, dm)
+        native_c, native_o = native.count_kmers_batch(recs, k_, dm)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and np.array_equal(got[0].cpu().numpy(), native_c)
+                and np.array_equal(got[1].cpu().numpy().astype(np.uint64), native_o)):
+            raise AssertionError(f"{root}: kmer_count differs ({shape})")
+        flat, _ = kmer_windows(*packed, k_)
+        nbytes = (sum(t.numel() * t.element_size() for t in packed)
+                  + got[0].numel() * got[0].element_size() + got[1].numel() * 8)
+        b_ms, b_by = bound_ms(nbytes, k_ * len(flat))
+        out["us"][f"kmer_count {shape}"] = device_us(lambda: kmer_count(*packed, k_, dm))
+        out["us"][f"bincount {shape}"] = device_us(
+            lambda: torch.bincount(flat, minlength=len(recs) * 4 ** k_))
+        out["shapes"][shape] = dict(n=len(recs), k=k_, codes=int(packed[1][-1]),
+                                    windows=len(flat), bytes=nbytes, bound_us=b_ms * 1e3,
+                                    bound_by=b_by)
     return out
 
 

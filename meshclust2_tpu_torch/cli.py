@@ -161,6 +161,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume-cluster", default=None, metavar="FILE",
                    help="resume clustering from a --checkpoint file (skips "
                         "the accumulate phase; the same output)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process data-parallel run over torch.distributed "
+                        "(MC2_NPROCS/MC2_PROC_ID/MC2_COORD env; NCCL on "
+                        "cuda:<process id>, gloo with --device cpu); requires "
+                        "--recover")
     return p
 
 
@@ -272,6 +277,10 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
     for a training run, the trained model and its table counters beside
     the exit code."""
     args = build_parser().parse_args(argv)
+    if args.multihost:
+        from .parallel.multihost import run_multihost
+
+        return run_multihost(args)
     train_files = list(args.files)
     if args.list_file:
         with open(args.list_file) as f:

@@ -4,10 +4,13 @@ k-mer counts and its pseudocounted 1-mer counts.
 The port of meshclust2_tpu/parallel/mesh.py:sharded_histogram_build
 (one_seq, lines 200-218), an XLA program sharded over a TPU mesh.  On CUDA
 tensors `kmer_count` launches the hand-written kernel in
-csrc/kmer_count.cu (one block per record); on CPU tensors it runs
-`kmer_count_ref`, the plain PyTorch version (bincount over the windows'
-flat indices), which the CPU tests hold against the JAX program and the
-native counter.
+csrc/kmer_count.cu (a warp a piece of a record of `launch_plan`'s length:
+short records several to a block, long ones spread over the SMs and summed
+in a zeroed scratch); on CPU tensors it runs `kmer_count_ref`, the plain
+PyTorch version (bincount over the windows' flat indices), which the CPU
+tests hold against the JAX program and the native counter.  In a
+multi-process run each rank counts its own block of records with it
+(parallel/multihost.py:build_global_points).
 
 The input is the native counter's ragged packing (native/__init__.py:
 _pack_records): the records' codes concatenated as int8 with offsets [n + 1],
@@ -19,15 +22,19 @@ Codes inside the segments are 0..3.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
-# uint32 scratch bytes for the histograms past shared memory (k >= 8): the
-# grid is capped at this many bytes of rows
-SCRATCH_BYTES = 1 << 27
+# the positions of a work item (a warp) at the least, and at the most where
+# the warps' histograms hold 16-bit counters (k <= SHARED_K, the kernel's
+# kSharedK; above it the kernel's global instantiation)
+PIECE = 8192
+MAX_SHARED_PIECE = 65535
+SHARED_K = 7
+# the scratch bytes the split records' rows may take before pieces grow
+SCRATCH_BYTES = 1 << 26
 
 
 def natural_dtype(dtype_max: int) -> torch.dtype:
@@ -111,11 +118,39 @@ def kmer_count_ref(codes: torch.Tensor, offsets: torch.Tensor, segs: torch.Tenso
     return counts, ones
 
 
-@functools.cache
-def shared_k() -> int:
-    """The largest k whose histogram the kernel keeps in shared memory;
-    above it, its global instantiation (counted in .global_launches)."""
-    return int(_lib().mc2_kmer_shared_k())
+def launch_plan(n_codes: int, k: int) -> Tuple[int, int]:
+    """(piece, rows) of a launch over n_codes codes: the positions of one
+    work item (PIECE at least, larger where the split records' scratch
+    rows, n_codes // piece + 1 of 4 (4^k + 10) bytes, would pass
+    SCRATCH_BYTES; at most MAX_SHARED_PIECE for k <= SHARED_K, whose
+    counters are 16-bit) and the scratch rows (0 when no record can be
+    split: piece > n_codes)."""
+    row_bytes = 4 * (4 ** k + 10)
+    piece = max(PIECE, -(-n_codes * row_bytes // SCRATCH_BYTES))
+    if k <= SHARED_K:
+        piece = min(piece, MAX_SHARED_PIECE)
+    elif SCRATCH_BYTES < row_bytes:
+        piece = n_codes + 1
+    return piece, (0 if piece > n_codes else n_codes // piece + 1)
+
+
+# the split records' scratch of each device: uint64 1-mer sums, uint32
+# counts and int32 arrival counters, zero between launches (the kernel
+# zeroes what it used), grown as needed; one stream at a time
+_SCRATCH = {}
+
+
+def _scratch(device: torch.device, rows: int, d: int):
+    """(acc_ones [rows, 4] uint64 as int64, acc [rows, d] uint32 as int32,
+    arrive [rows] int32), views of the device's zeroed scratch."""
+    need = rows * (32 + 4 * d + 4)
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < need:
+        buf = _SCRATCH[device] = torch.zeros(need, dtype=torch.uint8, device=device)
+    acc_ones = buf[:32 * rows].view(torch.int64).view(rows, 4)
+    acc = buf[32 * rows:(32 + 4 * d) * rows].view(torch.int32).view(rows, d)
+    arrive = buf[(32 + 4 * d) * rows:need].view(torch.int32)
+    return acc_ones, acc, arrive
 
 
 def _lib():
@@ -124,11 +159,9 @@ def _lib():
     lib = load("kmer_count").lib
     if lib.mc2_kmer_count.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.mc2_kmer_count.argtypes = [p, p, p, p, i64, ctypes.c_int, ctypes.c_uint64,
-                                       ctypes.c_int, p, p, p, i64, p]
+        lib.mc2_kmer_count.argtypes = [p, i64, p, p, p, i64, i64, ctypes.c_int,
+                                       ctypes.c_uint64, ctypes.c_int, p, p, p, p, p, p]
         lib.mc2_kmer_count.restype = ctypes.c_int
-        lib.mc2_kmer_shared_k.argtypes = []
-        lib.mc2_kmer_shared_k.restype = ctypes.c_int
     return lib
 
 
@@ -139,9 +172,10 @@ def kmer_count(codes: torch.Tensor, offsets: torch.Tensor, segs: torch.Tensor,
     width (uint8/uint16/uint32): min(1 + the window count, saturation),
     ones int64 [n, 4]: 1 + the base counts).
 
-    On CUDA one launch on the current stream, without syncing; for k above
-    shared_k() a uint32 scratch of at most SCRATCH_BYTES from the caching
-    allocator.  The segments must lie inside their records."""
+    On CUDA one launch on the current stream, without syncing: a warp a
+    piece of `launch_plan`'s length, records longer than a piece through
+    the device's zeroed scratch (`_scratch`, one stream at a time).  The
+    segments must lie inside their records."""
     n = _check(codes, offsets, segs, seg_offsets, k, dtype_max)
     if codes.device.type == "cpu":
         return kmer_count_ref(codes, offsets, segs, seg_offsets, k, dtype_max)
@@ -151,25 +185,24 @@ def kmer_count(codes: torch.Tensor, offsets: torch.Tensor, segs: torch.Tensor,
     ones = torch.empty((n, 4), dtype=torch.int64, device=dev)
     if n == 0:
         return counts, ones
+    piece, rows = launch_plan(codes.numel(), k)
     with torch.cuda.device(dev):
-        wide = k > shared_k()
-        rows = min(n, max(1, SCRATCH_BYTES // (4 * d))) if wide else 0
-        scratch = torch.empty((rows, d), dtype=torch.int32, device=dev) if wide else None
+        scratch = [t.data_ptr() for t in _scratch(dev, rows, d)] if rows else [None] * 3
         rc = _lib().mc2_kmer_count(
-            codes.data_ptr(), offsets.data_ptr(), segs.data_ptr(), seg_offsets.data_ptr(),
-            n, int(k), saturation(dtype_max), counts.element_size(), counts.data_ptr(),
-            ones.data_ptr(), scratch.data_ptr() if wide else None, rows,
+            codes.data_ptr(), codes.numel(), offsets.data_ptr(), segs.data_ptr(),
+            seg_offsets.data_ptr(), n, piece, int(k), saturation(dtype_max),
+            counts.element_size(), counts.data_ptr(), ones.data_ptr(), *scratch,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kmer_count kernel launch failed: cudaError {rc}")
     kmer_count.launches += 1
-    if wide:
+    if k > SHARED_K:
         kmer_count.global_launches += 1
     return counts, ones
 
 
 kmer_count.launches = 0  # kernel launches since the last reset
-kmer_count.global_launches = 0  # of them, the global-histogram instantiation's
+kmer_count.global_launches = 0  # of them, the global instantiation's (k > SHARED_K)
 
 
 def packed_on(packing, device, lo: int = 0, hi: int = None):

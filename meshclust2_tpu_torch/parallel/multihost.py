@@ -1,0 +1,376 @@
+"""Multi-process data-parallel clustering over torch.distributed: the port
+of meshclust2_tpu/parallel/multihost.py (l. 1-472).
+
+One process a device (NCCL between cards, gloo on the CPU), formed from
+the JAX package's environment (`initialize_from_env`: MC2_NPROCS,
+MC2_PROC_ID, MC2_COORD) with a TCP rendezvous and a fixed timeout, so that
+a dead peer ends the run instead of hanging it:
+
+  - every process streams the FASTA (headers are cheap) but encodes and
+    counts only its own contiguous block of records (`build_point_set`,
+    through the k-mer kernel under MC2_DEVICE_COUNT=1);
+  - the per-row metadata, the self dot products and the largest count are
+    all-gathered; the global sort permutation (headers with std::sort
+    semantics, then lengths) is computed identically on every process;
+  - the count rows travel by one all-to-all into sorted row blocks, each
+    process's block on its device in the DeviceStore layout;
+  - every process runs the same engine; scoring goes through
+    MultihostScorer (mesh_scorer.py over the sorted blocks), whose
+    gathered decisions every process shares, so all take the same branches
+    and meet at the same collectives; the host-exact work (re-checks,
+    closest-to-mean) fetches the rows it needs from their owners (`fetch`:
+    a gather of the requested rows to every process);
+  - process 0 alone writes the CLSTR.
+
+The JAX package's device session over the global mesh
+(multihost_session.py) is not ported: `run_multihost` runs MultihostScorer
+per-window scoring, what the JAX package runs under MC2_NO_DEVICE_SESSION=1,
+and says so on stderr.
+"""
+from __future__ import annotations
+
+import os
+import sys
+from datetime import timedelta
+from typing import List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..features import host as H
+from ..kmer.counting import build_point_set
+from .mesh import Mesh, all_gather, backend_for, block_bounds, gather_rows, make_mesh
+from .mesh_scorer import MESH_SUPPORTED, MeshScorer, block_store, moments
+
+# seconds a collective waits for its peers before the run fails (a stuck
+# process; a dead one's closed connection fails it at once)
+DIST_TIMEOUT_S = 600.0
+
+
+def initialize_from_env(device) -> tuple:
+    """(process_id, num_processes) from MC2_NPROCS / MC2_PROC_ID /
+    MC2_COORD (host:port of process 0's rendezvous); forms the process
+    group when MC2_NPROCS > 1, over NCCL for a CUDA device and gloo on the
+    CPU.  A single process gets its one-rank group from make_mesh."""
+    nprocs = int(os.environ.get("MC2_NPROCS", "1"))
+    if nprocs <= 1:
+        return 0, 1
+    pid = int(os.environ["MC2_PROC_ID"])
+    dist.init_process_group(
+        backend_for(device),
+        init_method=f"tcp://{os.environ.get('MC2_COORD', 'localhost:9731')}",
+        rank=pid, world_size=nprocs, timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    return pid, nprocs
+
+
+def _stream_records(files: List[str]):
+    from ..io.fasta import iter_fasta
+
+    for f in files:
+        yield from iter_fasta(f)
+
+
+def load_points_multihost(files: List[str], k: int, datatype: str,
+                          process_id: int, num_processes: int):
+    """Block-parallel load: (every header, this process's block as a
+    PointSet, (lo, hi, n)), rows in file order."""
+    from ..io.fasta import encode_sequence
+
+    raw = list(_stream_records(files))
+    n = len(raw)
+    lo = process_id * n // num_processes
+    hi = (process_id + 1) * n // num_processes
+    local = build_point_set([encode_sequence(h, s) for h, s in raw[lo:hi]], k, datatype)
+    return [h for h, _ in raw], local, (lo, hi, n)
+
+
+class _MetaPS:
+    """PointSet-shaped metadata without the count matrix: the rows stay in
+    the processes' blocks, `fetch` serves the host's needs."""
+
+    def __init__(self, k, headers, lengths, mags, stddevs, one_mers, dim):
+        self.k = k
+        self.headers = headers
+        self.lengths = lengths
+        self.mags = mags
+        self.stddevs = stddevs
+        self.one_mers = one_mers
+        self.counts = None
+        self.seqs = None
+        self._dim = dim
+
+    @property
+    def n(self):
+        return len(self.headers)
+
+    @property
+    def dim(self):
+        return self._dim
+
+
+class RowFetch:
+    """fetch(rows) -> counts [len(rows), D] on the host, every process
+    passing the same rows: each owner sends the requested rows it holds, one
+    all-gather.  `calls`, `rows` and `remote_rows` (rows this process does
+    not hold) count the traffic."""
+
+    def __init__(self, mesh: Mesh, counts: torch.Tensor, n: int):
+        self.mesh = mesh
+        self.counts = counts     # this process's sorted block [rows (+ slot), D]
+        self.n = n
+        self.calls = self.rows = self.remote_rows = 0
+
+    def __call__(self, rows) -> np.ndarray:
+        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        mesh = self.mesh
+        lo, _, block = block_bounds(self.n, mesh.world, mesh.rank)
+        owner = rows // block
+        self.calls += 1
+        self.rows += len(rows)
+        self.remote_rows += int((owner != mesh.rank).sum())
+        if mesh.world == 1:
+            return self.counts[torch.from_numpy(rows).to(mesh.device)].cpu().numpy()
+        per = np.bincount(owner, minlength=mesh.world)
+        m = max(1, int(per.max()))
+        mine = np.nonzero(owner == mesh.rank)[0]
+        width = self.counts.shape[1] * self.counts.element_size()
+        send = torch.zeros((m, width), dtype=torch.uint8, device=mesh.device)
+        if len(mine):
+            got = self.counts[torch.from_numpy(rows[mine] - lo).to(mesh.device)]
+            send[:len(mine)] = got.view(torch.uint8).view(len(mine), width)
+        out = all_gather(mesh, send)
+        # each requested row's place in its owner's send buffer
+        order = np.argsort(owner, kind="stable")
+        starts = np.concatenate([[0], np.cumsum(per)[:-1]])
+        flat = np.empty(len(rows), dtype=np.int64)
+        flat[order] = owner[order] * m + np.arange(len(rows)) - starts[owner[order]]
+        return out.cpu().numpy()[flat].view(_NP_DTYPES[self.counts.dtype])
+
+
+_NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16}
+
+
+class FetchOracle:
+    """The float64 host oracle over fetched rows: the re-check seam when no
+    process holds the whole matrix."""
+
+    def __init__(self, meta: _MetaPS, model, fetch):
+        self.meta = meta
+        self.model = model
+        self.fetch = fetch
+
+    def _side(self, rows):
+        rows = np.asarray(rows)
+        return H.PairSide(
+            counts=self.fetch(rows).astype(np.float64),
+            mags=self.meta.mags[rows].astype(np.float64),
+            one_mers=self.meta.one_mers[rows].astype(np.float64),
+            stddevs=self.meta.stddevs[rows],
+            lengths=self.meta.lengths[rows].astype(np.float64),
+            k=self.meta.k,
+        )
+
+    def score(self, a_rows, b_rows):
+        a_rows = np.atleast_1d(np.asarray(a_rows))
+        b_rows = np.atleast_1d(np.asarray(b_rows))
+        if len(b_rows) == 1 and len(a_rows) > 1:
+            b_rows = np.broadcast_to(b_rows, a_rows.shape)
+        if len(a_rows) == 1 and len(b_rows) > 1:
+            a_rows = np.broadcast_to(a_rows, b_rows.shape)
+        return self.model.score(self._side(a_rows), self._side(b_rows))
+
+
+class MultihostScorer(MeshScorer):
+    """MeshScorer over the sorted row blocks of build_global_points: the
+    center's row comes from its owner's block, a mixed batch's unique rows
+    from `fetch`, re-checks from FetchOracle."""
+
+    def __init__(self, meta: _MetaPS, model, mesh: Mesh, store, moments_t, fetch: RowFetch):
+        self.mesh = mesh
+        self.ps = meta
+        self._mom = moments(meta.mags, meta.self_dots, meta.lengths, meta.stddevs)
+        self.store, self._m = store, moments_t
+        self._fetch = fetch
+        self._setup(model, FetchOracle(meta, model, fetch))
+
+    def _rows_of(self, rows: np.ndarray) -> np.ndarray:
+        return self._fetch(rows)
+
+    def warm_up(self) -> None:
+        """Build the kernel and run both forms once (a collective call on
+        every process), so that the clustering window holds scoring only;
+        the counters start at zero after it."""
+        one = np.zeros(1, dtype=np.int64)
+        self._center_decision(one, 0)
+        self._pair_decision(np.zeros(2, dtype=np.int64),
+                            np.array([0, min(1, self.ps.n - 1)], dtype=np.int64))
+        self.scored_pairs = self.rechecked_pairs = self.split_batches = 0
+        self.rechecked_by_rule[:] = 0
+
+
+def build_global_points(files: List[str], k: int, datatype: str, mesh: Mesh):
+    """(meta, store, its moments, fetch): every process's sorted row block
+    on its device and the replicated metadata.  Sort order matches
+    cli.load_sorted_points (headers with std::sort semantics, then
+    lengths); blocks are mesh.py:block_bounds over the n rows, in file
+    order for the counting and in sorted order after the all-to-all."""
+    from ..io.fasta import encode_sequence
+    from ..native import sort_perm, sort_perm_strings
+
+    headers: List[str] = []
+    raw: List[str] = []
+    for header, seq in _stream_records(files):
+        headers.append(header)
+        raw.append(seq)
+    n = len(headers)
+    d = 4 ** k
+    W, me, dev = mesh.world, mesh.rank, mesh.device
+    lo, hi, B = block_bounds(n, W, me)
+    local = build_point_set([encode_sequence(headers[i], raw[i]) for i in range(lo, hi)],
+                            k, datatype, count_device=dev)
+    counts = local.counts
+    sdots = np.einsum("ij,ij->i", counts.astype(np.int64), counts.astype(np.int64))
+
+    # the per-row metadata (the "length vector") and self dots, one gather
+    meta_cols = np.empty((hi - lo, 9), dtype=np.int64)
+    meta_cols[:, 0] = local.lengths
+    meta_cols[:, 1] = local.mags
+    meta_cols[:, 2] = local.stddevs.astype(np.float64).view(np.int64)
+    meta_cols[:, 3:7] = local.one_mers.astype(np.uint64).view(np.int64)
+    meta_cols[:, 7] = sdots
+    meta_cols[:, 8] = int(counts.max()) if len(counts) else 0
+    full = gather_rows(mesh, torch.from_numpy(meta_cols).to(dev), n).cpu().numpy()
+    lengths, mags = full[:, 0].copy(), full[:, 1].copy()
+    stds = full[:, 2].copy().view(np.float64)
+    ones = full[:, 3:7].copy().view(np.uint64)
+    maxc = int(full[:, 8].max()) if n else 0
+
+    # the global sort permutation, identical on every process
+    p1 = np.asarray(sort_perm_strings(headers))
+    perm = p1[np.asarray(sort_perm(lengths[p1]))]
+
+    # the all-to-all: sorted position q holds file row perm[q], counted by
+    # the process whose file block holds it; each process sends, in q
+    # order, its rows of every sorted block, and places what it receives
+    # source by source
+    src = perm // B
+    width = d * counts.itemsize
+    rows_t = torch.from_numpy(np.ascontiguousarray(counts)).to(dev)
+    mine = np.nonzero(src == me)[0]
+    send = rows_t[torch.from_numpy(perm[mine] - lo).to(dev)].view(torch.uint8)
+    send = send.reshape(len(mine), width)
+    in_split = np.bincount(mine // B, minlength=W).tolist()
+    out_split = np.bincount(src[lo:hi], minlength=W).tolist()
+    recv = torch.empty((hi - lo, width), dtype=torch.uint8, device=dev)
+    dist.all_to_all_single(recv, send, out_split, in_split)
+    place = torch.from_numpy(np.argsort(src[lo:hi], kind="stable")).to(dev)
+    block = torch.empty_like(recv)
+    block[place] = recv
+    block = block.view(rows_t.dtype).view(hi - lo, d)
+
+    meta = _MetaPS(k=k, headers=[headers[i] for i in perm], lengths=lengths[perm],
+                   mags=mags[perm], stddevs=stds[perm], one_mers=ones[perm], dim=d)
+    meta.self_dots = sdots_all = full[perm, 7].copy()
+    meta.maxc = maxc
+    meta.dtype = counts.dtype
+    mom = moments(meta.mags[lo:hi], sdots_all[lo:hi], meta.lengths[lo:hi],
+                  meta.stddevs[lo:hi])
+    store, m = block_store(block, torch.from_numpy(mom).to(dev), maxc)
+    return meta, store, m, RowFetch(mesh, store.counts, n)
+
+
+def refusal(meta: _MetaPS):
+    """Why the kernels do not take the gathered pool, or None
+    (device_store.store_refusal, from the metadata)."""
+    from ..cluster.device_loop import DeviceLoopUnsupported, envelope_check_vals
+
+    if meta.dtype not in (np.uint8, np.uint16):
+        return f"{np.dtype(meta.dtype)} histograms (the kernels read uint8/uint16)"
+    try:
+        envelope_check_vals(meta.maxc, int(meta.mags.max()) if meta.n else 0,
+                            int(meta.lengths.max()) if meta.n else 0, meta.self_dots)
+    except DeviceLoopUnsupported as e:
+        return f"{e} (outside the kernels' exact-integer envelope)"
+    return None
+
+
+def run_multihost(args):
+    """CLI entry (meshclust2-torch --multihost): recover-path clustering
+    with weights trained elsewhere (--recover); training stays
+    single-process.  Returns the CLI's ClusterRun; rc 2 without --recover,
+    for a model outside MESH_SUPPORTED or a pool the kernels do not take."""
+    from ..cli import ClusterRun
+    from ..cluster.engine import MeanShiftEngine
+    from ..io.clstr import write_clstr
+    from ..model.classifier import CompiledModel
+    from ..model.weights import load_weights
+    from ..runtime import resolve_device
+    from ..utils.clock import Clock
+
+    if not args.recover:
+        print("--multihost requires --recover (train single-process first)",
+              file=sys.stderr)
+        return ClusterRun(rc=2)
+    pred = load_weights(args.recover)
+    model = CompiledModel(pred.classifier, bias=args.bias)
+    bad = set(model.singles) - MESH_SUPPORTED
+    if bad:
+        print(f"meshclust2-torch: --multihost: features {sorted(bad)} are outside the "
+              f"mesh scorer's set", file=sys.stderr)
+        return ClusterRun(rc=2)
+    device = resolve_device(args.device)   # raises without a card
+    if device.type == "cuda":
+        local = int(os.environ.get("MC2_PROC_ID", "0")) % torch.cuda.device_count()
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    formed = not dist.is_initialized()
+    pid, _ = initialize_from_env(device)
+    mesh = make_mesh(device)
+    clock = Clock()
+    meta, store, m, fetch = build_global_points(args.files, pred.k, pred.datatype, mesh)
+    why = refusal(meta)
+    if why is not None:
+        print(f"meshclust2-torch: --multihost: {why}", file=sys.stderr)
+        if formed:
+            dist.destroy_process_group()
+        return ClusterRun(rc=2)
+    scorer = MultihostScorer(meta, model, mesh, store, m, fetch)
+    scorer.warm_up()
+    print("meshclust2-torch: --multihost runs MultihostScorer per-window scoring (the "
+          "device session over the global mesh, multihost_session.py, is not ported)",
+          file=sys.stderr)
+    clock.stamp("read_in_points")
+    engine = MeanShiftEngine(meta, model, pred.id_cutoff, scorer=scorer,
+                             delta=args.delta, iterations=args.iterations)
+    engine.row_fetcher = fetch
+    engine._host_oracle_cached = scorer._host
+    clusters = engine.run(clock=clock)
+    if pid == 0:
+        write_clstr(args.output, engine.to_output(clusters))
+    clock.stamp("update")
+    clock.stamp("done")
+    if os.environ.get("MC2_DEVICE_PROF"):
+        print(f"multihost rank {mesh.rank} of {mesh.world}: windows "
+              f"{engine.stats.windows_scored}, pairs {engine.stats.pairs_scored}, "
+              f"clusters {engine.stats.clusters_before_update} -> {len(clusters)}, "
+              f"iterations {engine.stats.update_iterations}, scored "
+              f"{scorer.scored_pairs}, re-checked {scorer.rechecked_pairs} "
+              f"{scorer.rechecked_by_rule.tolist()}, fetches {fetch.calls} ({fetch.rows} "
+              f"rows, {fetch.remote_rows} remote), output {_digest(engine, clusters)}")
+    if formed:
+        dist.barrier()
+        dist.destroy_process_group()
+    return ClusterRun(rc=0, engine=engine, scorer=scorer, clock=clock)
+
+
+def _digest(engine, clusters) -> str:
+    """A digest of the clustering every process computed (its CLSTR's
+    content), so that a run can show that all took the same branches."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for cl in clusters:
+        h.update(np.asarray(sorted(cl.members), dtype=np.int64).tobytes())
+        h.update(np.int64(cl.center_row).tobytes())
+    return h.hexdigest()[:16]

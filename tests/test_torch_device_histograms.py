@@ -9,11 +9,19 @@ small.fasta) and on more: a record shorter than k, an all-N record, a
 record over 1 Mbp (its segment split: a window across it must not count),
 k = 8 (the kernel's global-histogram instantiation) and uint32.  On the
 CPU `device_build_counts(..., device="cpu")` runs the kernel's plain
-version.  Marked cuda: the kernel against its plain version on the card,
-and device_build_counts with device=None.  Tolerance: exact (integer
-counts).
+version, and the kernel's own source (csrc/kmer_count.cu), compiled by
+g++ against a CPU emulation of warps (tests/kmer_emu), runs the cases its
+design splits or packs (records longer than a piece, many records shorter
+than a lane's 16 positions, homopolymers, k = 1 and k >= 8) with pieces
+small enough to split them.  Marked cuda: the kernel against its plain
+version on the card, and device_build_counts with device=None.
+Tolerance: exact (integer counts).
 """
+import ctypes
 import os
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -22,6 +30,7 @@ import torch
 from meshclust2_tpu_torch import native
 from meshclust2_tpu_torch.io.fasta import encode_sequence, read_fasta
 from meshclust2_tpu_torch.kmer.counting import DTYPE_MAX, build_point_set
+from meshclust2_tpu_torch.ops import kmer_count as K
 from meshclust2_tpu_torch.ops.kmer_count import (kmer_count, kmer_count_ref,
                                                  kmer_windows, packed_on)
 from meshclust2_tpu_torch.parallel.mesh import device_build_counts, pack_segment_codes
@@ -232,6 +241,129 @@ def test_cli_device_count_equals_the_native_run(tmp_path, monkeypatch):
     assert outs[0] == outs[1] and outs[0]
 
 
+def long_and_tiny_records():
+    """One record longer than a work item's piece (PIECE), between many
+    records shorter than a lane's 16 positions, and a homopolymer over two
+    pieces."""
+    rng = np.random.default_rng(13)
+    seq = lambda n: "".join(rng.choice(list("ACGT"), n))   # noqa: E731
+    named = [(f"t{i}", seq(int(rng.integers(1, 17)))) for i in range(300)]
+    named.insert(150, ("long", seq(3 * K.PIECE + 77)))
+    named.append(("homo", "A" * (2 * K.PIECE + 5)))
+    return named
+
+
+def test_long_and_tiny_records_equal_jax_and_native():
+    named = long_and_tiny_records()
+    counts, ones = check_port(port_records(named), 5, "uint8_t")
+    assert counts[-1, 0] == 255   # the homopolymer saturates its one bin
+    check_jax(named, counts, ones, 5, "uint8_t")
+
+
+def test_launch_plan():
+    """Pieces of PIECE positions at the least, grown so that the split
+    records' scratch stays near SCRATCH_BYTES; capped for the 16-bit shared
+    counters; no scratch where no record can be split."""
+    assert K.launch_plan(11_372_876, 5) == (K.PIECE, 11_372_876 // K.PIECE + 1)
+    piece, rows = K.launch_plan(1 << 28, 5)
+    assert piece > K.PIECE and rows * 4 * (4 ** 5 + 10) <= 2 * K.SCRATCH_BYTES
+    assert K.launch_plan(1 << 28, 7)[0] == K.MAX_SHARED_PIECE
+    assert K.launch_plan(1 << 20, 13) == ((1 << 20) + 1, 0)
+    assert K.launch_plan(100, 5) == (K.PIECE, 0)
+    assert K.SHARED_K == 7
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """csrc/kmer_count.cu built by g++ against tests/kmer_emu (its launches
+    rewritten to emu_launch), loaded with ctypes."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ for the CPU warp emulation")
+    root = os.path.dirname(FIXTURES)
+    src = open(os.path.join(os.path.dirname(root), "meshclust2_tpu_torch", "csrc",
+                            "kmer_count.cu")).read()
+    src = re.sub(r"(\w+(?:<[^<>]*>)?)\s*<<<(.*?)>>>\s*\(a\);",
+                 lambda m: "emu_launch(%s, %s, a);" % (
+                     m.group(1), ", ".join(x.strip() for x in m.group(2).split(",")[:3])),
+                 src, flags=re.S)
+    src = src.replace("extern __shared__ __align__(16) unsigned smem[];",
+                      "unsigned* smem = emu_smem();")
+    assert src.count("emu_launch(") == 2 and "emu_smem()" in src
+    tmp = tmp_path_factory.mktemp("kmer_emu")
+    (tmp / "kmer_count.cpp").write_text(src)
+    so = tmp / "libkmer_emu.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-w",
+                    "-I" + os.path.join(root, "kmer_emu"), "-o", str(so),
+                    str(tmp / "kmer_count.cpp"), "-lpthread"], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.mc2_kmer_count.argtypes = [p, i64, p, p, p, i64, i64, ctypes.c_int,
+                                   ctypes.c_uint64, ctypes.c_int, p, p, p, p, p, p]
+    lib.mc2_kmer_count.restype = ctypes.c_int
+    return lib
+
+
+def aligned(n: int, dtype) -> np.ndarray:
+    """An uninitialised-looking (0xAB) array of n items at a 16-byte
+    address, as the caching allocator gives."""
+    raw = np.full(n * np.dtype(dtype).itemsize + 16, 0xAB, np.uint8)
+    at = (-raw.ctypes.data) % 16
+    return raw[at:at + n * np.dtype(dtype).itemsize].view(dtype)
+
+
+EMU_CASES = {"n_runs, pieces of 100": (lambda: port_records(n_runs_records(n=12)), 4,
+                                       "uint16_t", 100),
+             "edges, k = 1": (lambda: port_records(edge_records()), 1, "uint8_t", 64),
+             "edges, k = 2, uint32": (lambda: port_records(edge_records()), 2, "uint32_t", 37),
+             "tiny and long, k = 5": (lambda: port_records(long_and_tiny_records()[140:160]),
+                                      5, "uint8_t", 4_000),
+             "homopolymer split, k = 5": (
+                 lambda: port_records([("h", "A" * 3000), ("t", "ACGT" * 5)]), 5, "uint8_t",
+                 256),
+             "saturation split, k = 5": (lambda: port_records(saturation_record()), 5,
+                                         "uint8_t", 333),
+             "k = 7 split": (lambda: port_records(n_runs_records(n=4)), 7, "uint16_t", 200),
+             "k = 8, one piece": (lambda: port_records(n_runs_records(n=3)), 8, "uint16_t",
+                                  8192),
+             "k = 8 split": (lambda: port_records(n_runs_records(n=3)), 8, "uint16_t", 150),
+             "k = 9 homopolymer, uint8": (lambda: port_records([("h", "A" * 700)]), 9,
+                                          "uint8_t", 100),
+             "k = 8 homopolymer, uint8, one piece (saturating CAS)": (
+                 lambda: port_records([("h", "A" * 700), ("t", "ACGT" * 9)]), 8, "uint8_t",
+                 8192)}
+
+
+@pytest.mark.parametrize("name", list(EMU_CASES))
+def test_kernel_source_on_emulated_warps_equals_plain(emulated, name):
+    """The CUDA source itself, its warps emulated on the CPU, with pieces
+    small enough to split records: counts and 1-mers equal the plain
+    version, and the split records' scratch is zero again afterwards."""
+    make, k, datatype, piece = EMU_CASES[name]
+    dtype_max = DTYPE_MAX[datatype]
+    codes, off, segs, soff = packed_on(native._pack_records(make()), "cpu")
+    buf = aligned(codes.numel(), np.int8)
+    buf[:] = codes.numpy()
+    n, d = len(off) - 1, 4 ** k
+    want_c, want_o = kmer_count_ref(codes, off, segs, soff, k, dtype_max)
+    counts = aligned(n * d, want_c.numpy().dtype).reshape(n, d)
+    ones = np.full((n, 4), -7, np.int64)
+    rows = codes.numel() // piece + 1 if piece <= codes.numel() else 0
+    scratch = [np.zeros((max(rows, 1), 4), np.uint64), np.zeros((max(rows, 1), d), np.uint32),
+               np.zeros(max(rows, 1), np.int32)]
+    idx = [t.numpy() for t in (off, segs, soff)]
+    rc = emulated.mc2_kmer_count(
+        buf.ctypes.data, codes.numel(), idx[0].ctypes.data, idx[1].ctypes.data,
+        idx[2].ctypes.data, n, piece, k, K.saturation(dtype_max), counts.itemsize,
+        counts.ctypes.data, ones.ctypes.data,
+        *[t.ctypes.data if rows else None for t in scratch], None)
+    assert rc == 0
+    assert rows == 0 or any(int(off[r + 1] - off[r]) > piece for r in range(n))
+    np.testing.assert_array_equal(counts, want_c.numpy())
+    np.testing.assert_array_equal(ones, want_o.numpy())
+    assert not any(t.any() for t in scratch)
+
+
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
@@ -244,7 +376,12 @@ CUDA_CASES = {"n_runs": (lambda: port_records(n_runs_records()), 4, "uint16_t"),
               "edges": (lambda: port_records(edge_records()), 4, "uint8_t"),
               "over_1mbp": (lambda: port_records(long_record()), 3, "uint32_t"),
               "k8": (lambda: med2000(200), 8, "uint16_t"),
-              "k9": (lambda: med2000(40), 9, "uint8_t")}
+              "k9": (lambda: med2000(40), 9, "uint8_t"),
+              "long_and_tiny": (lambda: port_records(long_and_tiny_records()), 5, "uint8_t"),
+              "long_and_tiny_k8": (lambda: port_records(long_and_tiny_records()), 8,
+                                   "uint16_t"),
+              "homopolymer_k1": (lambda: port_records([("h", "A" * 100_000)]), 1,
+                                 "uint32_t")}
 
 
 @pytest.mark.cuda
