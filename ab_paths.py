@@ -9,7 +9,10 @@ Makes the bench set (bench.py:ensure_dataset: 10,000 sequences, or
 BENCH_N_SEQS), then, for each of the port's three paths (the default,
 MC2_NO_DEVICE_LOOP=1, and with MC2_NO_DEVICE_UPDATE_BATCH=1 as well; or
 those named by --paths, among them device_count: the default path with its
-counts built on the card, MC2_DEVICE_COUNT=1), runs `python -m meshclust2_tpu_torch.cli --device
+counts built on the card, MC2_DEVICE_COUNT=1; multihost_session:
+--multihost as a one-rank NCCL group, the device session over the
+row-sharded store; multihost: the same per-window, MC2_NO_DEVICE_SESSION=1),
+runs `python -m meshclust2_tpu_torch.cli --device
 cuda --recover tests/fixtures/bench10k_weights.txt` from each checkout's
 root in the order before, after, after, before (or --order).  Each run is a
 process of its own; its kernels build in its checkout's build/ during
@@ -38,7 +41,11 @@ PATHS = {
     "no_device_loop_no_update_batch": {"MC2_NO_DEVICE_LOOP": "1",
                                        "MC2_NO_DEVICE_UPDATE_BATCH": "1"},
     "device_count": {"MC2_DEVICE_COUNT": "1"},
+    "multihost_session": {},
+    "multihost": {"MC2_NO_DEVICE_SESSION": "1"},
 }
+# the paths that run the CLI's --multihost
+MULTIHOST = ("multihost_session", "multihost")
 DEFAULT_PATHS = "default,no_device_loop,no_device_loop_no_update_batch"
 ORDER = "before,after,after,before"
 
@@ -51,10 +58,12 @@ def stamps(text: str) -> dict:
 def one_run(root: str, path: str, fasta: str, out: str) -> dict:
     """One CLI run of checkout `root` on `path` -> its window parts (s)."""
     env = {k: v for k, v in os.environ.items() if k not in
-           ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH", "MC2_DEVICE_COUNT")}
+           ("MC2_NO_DEVICE_LOOP", "MC2_NO_DEVICE_UPDATE_BATCH", "MC2_DEVICE_COUNT",
+            "MC2_NO_DEVICE_SESSION", "MC2_NPROCS")}
     env.update(PATHS[path])
     proc = subprocess.run(
-        [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--device", "cuda",
+        [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--device", "cuda"]
+        + (["--multihost"] if path in MULTIHOST else []) + [
          "--recover", os.path.join(root, "tests", "fixtures", "bench10k_weights.txt"),
          "--output", out, fasta],
         cwd=root, env=env, capture_output=True, text=True, timeout=1800)

@@ -36,7 +36,17 @@ fresh ones (native, device, device, native) (k2).  --multihost clusters
 the 10k set as a one-rank NCCL group, plain and under MC2_DEVICE_COUNT=1,
 to the reference signature with the scorer-alone path's counters, every
 pair scored by the kernel, and parallel/mesh.py's
-SPMD functions on the card equal them on the CPU (m).  The fused
+SPMD functions on the card equal them on the CPU (m); that is the
+per-window route (MC2_NO_DEVICE_SESSION=1).  --multihost's default route,
+the device session over the row-sharded store, clusters the 10k set as a
+one-rank NCCL group to the signature with the default path's counters,
+through the block modes of the step kernel and of closest_candidates (m3);
+those block modes, with G = 4 row blocks in this process, equal the
+one-block kernels and the plain versions bit for bit on a 10k step and on
+the 10k phase state, and are timed beside their bounds (m4); the port's
+graft_entry runs entry()'s forward on the card and dryrun_multichip(1) as
+a one-rank NCCL group (m5); two --multihost processes share the card as a
+gloo group and cluster med2000 through the session (m6).  The fused
 kernel's FULL instantiation (models with full-vector singles) is held against its plain version and a numpy host
 oracle within its error bounds (c5) and timed beside its bound (d4); two
 such models, built over each set with the port's host formulas, cluster
@@ -183,14 +193,24 @@ for _path in FORBIDS:
         FORBIDS[_path] += ("phase_layout", "closest_candidates", "merge_replay")
     if _path != "device_count":
         FORBIDS[_path] += ("kmer_count",)
-# --multihost on the card, a one-rank NCCL group: MultihostScorer's center
-# and pair forms of the fused kernel, the k-mer kernel under
-# MC2_DEVICE_COUNT=1, nothing of the device loops
+# --multihost on the card, a one-rank NCCL group, per-window
+# (MC2_NO_DEVICE_SESSION=1): MultihostScorer's center and pair forms of the
+# fused kernel, the k-mer kernel under MC2_DEVICE_COUNT=1, nothing of the
+# device loops
 NEEDS["multihost"] = ("pair_stats_decision",)
 NEEDS["multihost_device_count"] = ("pair_stats_decision", "kmer_count")
 FORBIDS["multihost"] = FORBIDS["no_device_loop_no_update_batch"] + ("closest_mean",)
 FORBIDS["multihost_device_count"] = tuple(
     k for k in FORBIDS["multihost"] if k != "kmer_count")
+# no path but the multihost session's launches the block modes, and that one
+# launches them in place of the one-block step kernel and closest_candidates
+for _path in FORBIDS:
+    FORBIDS[_path] += ("window_absorb_block", "closest_candidates_block")
+NEEDS["multihost_session"] = ("pair_stats_decision", "window_absorb_block",
+                              "closest_candidates_block", "phase_layout", "merge_replay")
+FORBIDS["multihost_session"] = ("pair_stats", "pair_stats_decision_full", "closest_mean",
+                                "window_absorb", "closest_candidates", "plane_singles",
+                                "pair_stats_decision_plane", "kmer_count")
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -407,18 +427,24 @@ def same_f64(got, want) -> bool:
             and torch.equal(got[~nan].view(torch.int64), want[~nan].view(torch.int64)))
 
 
-def step_bound(w: int, npos: int, count: int, d: int, elem: int):
-    """The step at W candidates, npos positives, count members after the
-    absorb: per candidate its index, store row, s, dist, their bounds and
-    the statistics read and its alive, assign and astep written; the positives' member slots
-    written; per member its index, store row, histogram and mags read;
-    msum read and written, the trip written.  Operations: ~20 a candidate
-    (gates, maximum, tie guard, state), one add per positive element, the
-    mean per element, CLOSEST_OPS per member element."""
+def step_bound_terms(w: int, npos: int, count: int, d: int, elem: int):
+    """(bytes, operations) of the step at W candidates, npos positives,
+    count members after the absorb: per candidate its index, store row, s,
+    dist, their bounds and the statistics read and its alive, assign and
+    astep written; the positives' member slots written; per member its
+    index, store row, histogram and mags read; msum read and written, the
+    trip written.  Operations: ~20 a candidate (gates, maximum, tie guard,
+    state), one add per positive element, the mean per element, CLOSEST_OPS
+    per member element."""
     nbytes = (w * (8 + 8 + 8 + 8 + 16 + 24 + 1 + 8 + 8) + npos * 8
               + count * (8 + 8 + d * elem + 8) + 2 * 8 * d + 32)
     ops = 20 * w + npos * d + 10 * d + CLOSEST_OPS * count * d
-    return bound_ms(nbytes, ops)
+    return nbytes, ops
+
+
+def step_bound(w: int, npos: int, count: int, d: int, elem: int):
+    """The step's bound (step_bound_terms)."""
+    return bound_ms(*step_bound_terms(w, npos, count, d, elem))
 
 
 def torch_unique(*ts) -> int:
@@ -678,6 +704,8 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
     if not torch.equal(cand.cen, cand_p.cen) or cand.arrive.any():
         raise AssertionError("closest_candidates' centers differ from its plain version, "
                              "or its arrival counters are not back at 0")
+    block_rec = candidates_block_checks(store, keep, st, rows, delta, lay, C, n_pairs,
+                                        cand, first, unc, ph.tie_margin, card)
     _, any_m, best, _ = ph.updater.merge_device(cand.a[:m], cand.b[:m], cand.seg[:m],
                                              C, valid=cand.ok[:m])
     t_dst = ph._targets(any_m, best, lay.inv, C, S)
@@ -724,6 +752,7 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
                 f"instantiation): device {cm:.2f} us; the folded launch "
                 f"{rec['closest_candidates']['device_us']:.2f} us; {card}")
     wide_phase_checks(dev, rec, card)
+    rec["closest_candidates_block"] = block_rec
     return rec
 
 
@@ -1934,6 +1963,300 @@ def fastcar_phase(fasta: str, tmp: str, card: str, wrappers: dict,
     }
 
 
+def row_blocks(store, G: int):
+    """G RowBlocks of a DeviceStore's rows (mesh.py:block_bounds), every
+    block with the whole store's moments, as the ranks of a row-sharded
+    store hold them."""
+    from meshclust2_tpu_torch.ops.closest_mean import RowBlock
+    from meshclust2_tpu_torch.parallel.mesh import block_bounds
+
+    n = store.counts.shape[0]
+    out = []
+    for g in range(G):
+        lo, hi, _ = block_bounds(n, G, g)
+        out.append(RowBlock(store.counts[lo:hi].contiguous(), store.mags, store.selfdot,
+                            store.lens, store.stddevs, store.maxc, lo, hi))
+    return out
+
+
+def step_block_checks(step_inputs, fresh, case, counts, moments, scratch, dev,
+                      card: str) -> dict:
+    """(m4) the step kernel's block mode at a 10k accumulate shape: G = 4
+    row blocks (each with its state copy, the partial sums added and the
+    partials stacked as the collectives would) and G = 1 against the
+    one-block kernel and the plain version, every output bit for bit; the
+    one-rank session's three launches timed against the block mode's plain
+    version and the step's bound (its partial column sums written, read and
+    zeroed on top)."""
+    import torch
+    from meshclust2_tpu_torch.ops.closest_mean import PART
+    from meshclust2_tpu_torch.ops.window_absorb import (
+        StepState, step_scratch, window_step, window_step_block, window_step_block_ref,
+        window_step_blocks, window_step_ref)
+
+    args, kw = step_inputs(case, counts, moments)
+    one, plain = fresh(args), fresh(args)
+    trip = window_step(*one, **kw, scratch=scratch).clone()
+    want = window_step_ref(*plain, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(trip, want) or trip.tolist()[:2] != [0, 15]:
+        raise AssertionError(f"the one-block step {trip} != plain {want}, or no absorb of 15")
+    n, d = len(args[1]), counts.shape[1]
+    i64 = dict(dtype=torch.int64, device=dev)
+    for G in (4, 1):
+        blocks = row_blocks(args[0], G)
+        states = [fresh(args)[6] for _ in blocks]
+        parts = [torch.zeros(d, **i64) for _ in blocks]
+        trips = window_step_blocks(blocks, states, [step_scratch(n, dev) for _ in blocks],
+                                   parts, *args[1:6], [args[7].clone() for _ in blocks],
+                                   **kw)
+        torch.cuda.synchronize()
+        for g, (t, st, part) in enumerate(zip(trips, states, parts)):
+            if not (torch.equal(t, trip) and torch.equal(t, want)) or part.any():
+                raise AssertionError(f"step block mode, G = {G}, block {g}: trip {t} != "
+                                     f"{trip}, or its partial sums are not back at 0")
+            for name, a, b, c in zip(StepState._fields, st, one[6], plain[6]):
+                k = slice(0, -1) if name == "members" else slice(None)
+                if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])):
+                    raise AssertionError(f"step block mode, G = {G}, block {g}: {name} "
+                                         f"differs from the one-block kernel's")
+    blk = row_blocks(args[0], 1)[0]
+    run = fresh(args)
+    saved = StepState(*(t.clone() for t in run[6]))
+    part, rank_part = torch.zeros(d, **i64), torch.zeros(PART, **i64)
+    scratch1 = step_scratch(n, dev)
+
+    def restore():
+        for t, t0 in zip(run[6], saved):
+            t.copy_(t0)
+        part.zero_()
+
+    def three(step):
+        for phase_ in (1, 2, 3):
+            step(phase_, blk, *run[1:7], args[7], part=part, rank_part=rank_part,
+                 parts=rank_part[None] if phase_ == 3 else None, **kw)
+
+    kernel = lambda: three(lambda *a, **k: window_step_block(*a, scratch=scratch1, **k))
+    trip_p = torch.zeros(4, **i64)
+    plain_fn = lambda: three(lambda *a, **k: window_step_block_ref(*a, trip=trip_p, **k))
+    rec = dict(ms=cuda_ms(kernel, reps=50, setup=restore),
+               plain_ms=cuda_ms(plain_fn, reps=10, setup=restore),
+               device_us=device_us(kernel, setup=restore))
+    w, mcnt = len(args[2]), kw["mcnt"]
+    nbytes, ops = step_bound_terms(w, 15, mcnt + 15, d, 1)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes + 3 * 8 * d + 8 * PART, ops)
+    rec["max_abs_err"] = 0
+    phase("m4", f"window_step block mode, W={w}, 15 positive, {mcnt} + 15 members, D={d} "
+                f"uint8, pool {n}: G = 4 row blocks (the partials combined as the "
+                f"collectives combine them) and G = 1 == the one-block kernel == plain, "
+                f"trip and state bit for bit; the one-rank session's 3 launches: "
+                f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (median, CUDA "
+                f"events), device {rec['device_us']:.2f} us (CUDA events behind a busy "
+                f"wait), bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); the one-launch "
+                f"kernel at this shape: (d3); {card}")
+    return rec
+
+
+def candidates_block_checks(store, keep, st, rows, delta, lay, C, n_pairs, cand, first,
+                            unc, tie_margin: float, card: str) -> dict:
+    """(m4) closest_candidates' block mode on the 10k phase state of (d6):
+    G = 4 row blocks and G = 1 against the one-block kernel (which (d6)
+    holds against the plain version): first, unc and the candidates bit for
+    bit; the one-rank session's three launches timed against the block
+    mode's plain version and a bound (the one-block kernel's bytes, the
+    segment sums written and read, the partials)."""
+    import torch
+    from kernel_ab import phase_bytes
+    from meshclust2_tpu_torch.ops import phase as P
+    from meshclust2_tpu_torch.ops.closest_mean import (PART, block_partials_ref,
+                                                       block_sums_ref, pick_ref)
+
+    dev = st.cen.device
+    S, d, m = len(st.cen), store.counts.shape[1], delta * C
+    for G in (4, 1):
+        blocks = row_blocks(store, G)
+        outs = [P.new_candidates(S, delta, dev) for _ in blocks]
+        got = P.closest_candidates_blocks(blocks, keep, st, rows, delta, lay, C, n_pairs,
+                                          outs, tie_margin=tie_margin)
+        torch.cuda.synchronize()
+        for g, ((f, u), out) in enumerate(zip(got, outs)):
+            same = (torch.equal(f, first) and torch.equal(u, unc)
+                    and torch.equal(out.cen, cand.cen) and not out.arrive.any())
+            for fld in ("a", "b", "seg", "ok"):
+                same &= torch.equal(getattr(out, fld)[:m], getattr(cand, fld)[:m])
+            if not same:
+                raise AssertionError(f"closest_candidates block mode, G = {G}, block {g}, "
+                                     f"differs from the one-block kernel")
+    blk = row_blocks(store, 1)[0]
+    num = torch.zeros((C, d), dtype=torch.int64, device=dev)
+    rank_part = torch.zeros((C, PART), dtype=torch.int64, device=dev)
+    out = P.new_candidates(S, delta, dev)
+    args = (blk, keep, st, rows, delta, lay, C, n_pairs, out)
+    kw = dict(tie_margin=tie_margin)
+
+    def kernel():
+        P.closest_candidates_block(1, *args, num=num, **kw)
+        P.closest_candidates_block(2, *args, num=num, rank_part=rank_part, **kw)
+        P.closest_candidates_block(3, *args, parts=rank_part[None], **kw)
+
+    b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
+
+    def plain():
+        sums = block_sums_ref(blk, b, sg, keep, C)
+        cnt = torch.zeros(C, dtype=torch.int64, device=dev).index_add_(
+            0, sg, keep.to(torch.int64))
+        parts = block_partials_ref(blk, b, sg, keep, C, sums, cnt)
+        f, _ = pick_ref(parts[None], n_pairs, tie_margin)
+        P.phase_candidates_ref(st, rows, delta, lay, f, C, n_pairs, out)
+
+    rec = dict(ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=5),
+               device_us=device_us(kernel))
+    kept = b[keep]
+    nbytes = (phase_bytes(len(st.assign), S, C, n_pairs, delta)["closest_candidates"]
+              + torch_unique(kept) * (d * store.counts.element_size() + 8)
+              + tbytes(b, sg, keep) + 9 * C + 2 * 8 * C * d + 2 * 8 * C * PART)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, CLOSEST_OPS * len(kept) * d + 2 * d)
+    rec["max_abs_err"] = 0
+    phase("m4", f"closest_candidates block mode at the 10k state after accumulate "
+                f"(S = {S}, C = {C}, P = {n_pairs}, {len(kept)} kept): G = 4 row blocks "
+                f"and G = 1 == the one-block kernel (first, unc, centers, candidates bit "
+                f"for bit); the one-rank session's 3 launches: kernel {rec['ms']:.4f} ms, "
+                f"plain {rec['plain_ms']:.4f} ms (median, CUDA events), device "
+                f"{rec['device_us']:.2f} us (CUDA events behind a busy wait), bound "
+                f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}, {nbytes} bytes); {card}")
+    return rec
+
+
+def multihost_session_phase(torch_cli, wrappers, launches, weights, fasta, tmp, ref_sig,
+                            path_stamps, per_window_stamps, card: str) -> dict:
+    """(m3) --multihost's default route on the 10k set, a one-rank NCCL
+    group: the device session over the row-sharded store gives the
+    reference signature with the default path's counters, accumulator and
+    phase counters, through the block modes (launches counted from zero);
+    its window beside the default path's (f) and the per-window route's
+    (m)."""
+    out_m = os.path.join(tmp, "bench10k_multihost_session.clstr")
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = torch_cli.run(["--multihost", "--device", "cuda", "--recover", weights,
+                         "--output", out_m, fasta])
+    launches["multihost_session"] = {k: fn.launches for k, fn in wrappers.items()}
+    if res.rc != 0:
+        raise AssertionError(f"--multihost (the session) exited {res.rc}")
+    check_launches("multihost_session", launches["multihost_session"])
+    got = read_clstr(out_m)
+    if len(got) != BENCH10K_CLUSTERS or signature(got) != ref_sig:
+        raise AssertionError(f"--multihost session: 10k signature differs ({len(got)} "
+                             f"clusters)")
+    if counters(res) != BENCH10K_COUNTERS["default"]:
+        raise AssertionError(f"--multihost session counters {counters(res)} != "
+                             f"{BENCH10K_COUNTERS['default']}")
+    acc, ph = res.accumulator, res.phase
+    got_acc = (acc.total_steps, acc.last_windows, acc.last_pairs, acc.aborts)
+    got_ph = (ph.last_iterations, ph.scored_pairs, ph.last_abort)
+    want_ph = (BENCH10K_COUNTERS["default"][3], BENCH10K_UPDATER_PAIRS, 0)
+    if got_acc != BENCH10K_ACC + (0,) or got_ph != want_ph:
+        raise AssertionError(f"--multihost session: accumulator {got_acc}, phase {got_ph}")
+    counted = launches["multihost_session"]
+    phase("m3", f"bench 10k --multihost, the device session over the row-sharded store "
+                f"(one-rank NCCL group, world {res.scorer.mesh.world}): signature == "
+                f"bench10k_ref_t1 ({len(got)} clusters), counters {counters(res)} (the "
+                f"default path's), accumulator {got_acc[0]} steps / {got_acc[1]} windows / "
+                f"{got_acc[2]} pairs / {got_acc[3]} aborts, phase {got_ph[0]} iterations / "
+                f"{got_ph[1]} pairs / abort {got_ph[2]}; launches window_absorb_block "
+                f"{counted['window_absorb_block']}, closest_candidates_block "
+                f"{counted['closest_candidates_block']}, pair_stats_decision "
+                f"{counted['pair_stats_decision']}, phase_layout {counted['phase_layout']}, "
+                f"merge_replay {counted['merge_replay']}; "
+                f"{window_parts(res.clock.stamps, 10_000)}; the default path (f): "
+                f"{window_parts(path_stamps['default'], 10_000)}; per-window (m): "
+                f"{window_parts(per_window_stamps, 10_000)}; {card}")
+    return dict(res.clock.stamps)
+
+
+def graft_entry_phase(dev, card: str) -> None:
+    """(m5) the port's graft_entry on the card: entry()'s forward (the
+    fused kernel's center form, the float32 epilogue beside it) against
+    its CPU run, and dryrun_multichip(1) as a one-rank NCCL group (its
+    seven sections, a process of its own)."""
+    import torch
+    from meshclust2_tpu_torch.graft_entry import dryrun_multichip, entry
+
+    forward, example = entry()
+    got = [t.cpu() for t in forward(*example)]
+    cpu_forward, cpu_example = entry("cpu")
+    want = cpu_forward(*cpu_example)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("entry()'s fused decisions on the card differ from the CPU's")
+    err32 = max(float((g - w).abs().max()) for g, w in zip(got[2:], want[2:]))
+    if not all(bool(torch.isfinite(t).all()) for t in got) or err32 > 1e-4:
+        raise AssertionError(f"entry()'s float32 epilogue: not finite or off by {err32}")
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    secs = time.perf_counter() - t0
+    phase("m5", f"graft_entry: entry()'s forward on {dev} ({len(got[0])} candidates "
+                f"against one center): the fused kernel's prob and dist == its CPU run bit "
+                f"for bit, the float32 epilogue within {err32:.3g} of the CPU's; "
+                f"dryrun_multichip(1), a one-rank NCCL group, its seven sections passed "
+                f"in {secs:.1f} s; {card}")
+
+
+def shared_card_phase(tmp: str, card: str) -> None:
+    """(m6) --multihost with two processes on the one card: NCCL refuses two
+    ranks on one device, so they form a gloo group over CUDA tensors
+    (parallel/mesh.py:backend_for); the device session on med2000 gives the
+    sorted reference CLSTR, and both ranks the default path's counters and
+    the same clustering digest."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(tmp, "med2000_shared_card.clstr")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--multihost", "--device", "cuda",
+         "--recover", os.path.join(FIX, "med2000_weights.txt"), "--output", out,
+         os.path.join(FIX, "med2000.fasta")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT, MC2_NPROCS="2", MC2_PROC_ID=str(i),
+                 MC2_COORD=f"localhost:{port}", MC2_DEVICE_PROF="1"))
+        for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    ranks = []
+    for p, log in zip(procs, logs):
+        m = re.search(r"multihost rank (\d) of 2: windows (\d+), pairs (\d+), clusters "
+                      r"(\d+) -> \d+, iterations (\d+), .*output (\w+), accumulator steps "
+                      r"(\d+), windows (\d+), pairs (\d+), aborts (\d+); phase iterations "
+                      r"(\d+), pairs (\d+), abort (\d+)", log)
+        if p.returncode != 0 or m is None:
+            raise AssertionError(f"--multihost on a shared card: rank exited "
+                                 f"{p.returncode}:\n{log[-3000:]}")
+        ranks.append(m.groups())
+    if sorted(open(out).read().splitlines()) != sorted(
+            open(os.path.join(FIX, "med2000_ref.clstr")).read().splitlines()):
+        raise AssertionError("--multihost on a shared card: med2000 CLSTR != med2000_ref")
+    want = tuple(str(v) for v in MED2000_COUNTERS["default"] + MED2000_ACC
+                 + (0, MED2000_COUNTERS["default"][3], MED2000_UPDATER_PAIRS, 0))
+    for r in ranks:
+        got = r[1:5] + r[6:]
+        if got != want or r[5] != ranks[0][5]:
+            raise AssertionError(f"--multihost on a shared card: rank {r[0]} counters "
+                                 f"{got} != {want}, or digests differ")
+    stamps = dict(re.findall(r"timestamp (\w+) ([\d.]+)", logs[0]))
+    win = float(stamps["done"]) - float(stamps["read_in_points"])
+    phase("m6", f"--multihost, 2 processes on the one card (a gloo group over CUDA "
+                f"tensors; NCCL refuses two ranks on one device): med2000 through the "
+                f"device session, sorted CLSTR == med2000_ref, both ranks' counters the "
+                f"default path's {MED2000_COUNTERS['default']}, accumulator "
+                f"{MED2000_ACC}, phase {MED2000_COUNTERS['default'][3]} iterations / "
+                f"{MED2000_UPDATER_PAIRS} pairs, the same digest; rank 0's window "
+                f"{win:.3f} s; {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1958,9 +2281,11 @@ def main() -> int:
         center_block_stats, derive_singles, narrow_sums, pair_stats,
         pair_stats_decision, pair_stats_decision_ref, pair_stats_ref)
     from meshclust2_tpu_torch.ops.window_absorb import (
-        StepState, step_scratch, window_step, window_step_ref)
+        StepState, step_scratch, window_step, window_step_block, window_step_blocks,
+        window_step_ref)
     from meshclust2_tpu_torch.ops.plane_singles import plane_singles, plane_singles_ref
-    from meshclust2_tpu_torch.ops.phase import (closest_candidates, merge_replay,
+    from meshclust2_tpu_torch.ops.phase import (closest_candidates,
+                                                closest_candidates_block, merge_replay,
                                                 phase_layout)
     from meshclust2_tpu_torch.ops.kmer_count import kmer_count
     from meshclust2_tpu_torch.cluster import device_phase
@@ -1974,7 +2299,9 @@ def main() -> int:
                 "plane_singles": plane_singles,
                 "pair_stats_decision_plane": DecisionCount("plane_launches"),
                 "phase_layout": phase_layout, "closest_candidates": closest_candidates,
-                "merge_replay": merge_replay, "kmer_count": kmer_count}
+                "merge_replay": merge_replay, "kmer_count": kmer_count,
+                "window_absorb_block": window_step_block,
+                "closest_candidates_block": closest_candidates_block}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -2455,6 +2782,13 @@ def main() -> int:
                     f"(CUDA events behind a busy wait), bound {b_ms:.6f} ms ({b_by}); "
                     f"{card}")
 
+    # (m4) the step kernel's block mode at the same 10k shape, G = 4 row
+    # blocks in this process and G = 1, against the one-block kernel and the
+    # plain version; the one-rank session's three launches timed
+    step_block = step_block_checks(step_inputs, fresh, step_case(
+        rng, 10_000, "absorb", w=1_571, mcnt=9, npos=15), store_np, st_moments, scratch,
+        dev, card)
+
     # (d4) the FULL kernel at the main path's shapes, on the same store: the
     # 10k mean window (center form, W = 1,571) and P = 98,304, for both
     # FULL_MODELS (bounds from the store's own singles), against its plain
@@ -2880,8 +3214,10 @@ def main() -> int:
         # scorer-alone path), then again under MC2_DEVICE_COUNT=1; its
         # launches counted from zero; the signature of bench10k_ref_t1 and
         # the scorer-alone path's counters
-        for name, env in (("multihost", {}),
-                          ("multihost_device_count", {"MC2_DEVICE_COUNT": "1"})):
+        mh_stamps = {}
+        for name, env in (("multihost", {"MC2_NO_DEVICE_SESSION": "1"}),
+                          ("multihost_device_count", {"MC2_NO_DEVICE_SESSION": "1",
+                                                      "MC2_DEVICE_COUNT": "1"})):
             out_m = os.path.join(tmp, f"bench10k_{name}.clstr")
             for fn in wrappers.values():
                 fn.launches = 0
@@ -2903,6 +3239,7 @@ def main() -> int:
             want = BENCH10K_COUNTERS["no_device_loop_no_update_batch"]
             if counters(res) != want:
                 raise AssertionError(f"--multihost counters {counters(res)} != {want}")
+            mh_stamps[name] = dict(res.clock.stamps)
             sc = res.scorer
             if sc.scored_pairs != counters(res)[1]:
                 raise AssertionError(f"--multihost: the scorer's kernels scored "
@@ -2923,6 +3260,10 @@ def main() -> int:
                        f"{window_parts(res.clock.stamps, 10_000)} (the scorer-alone "
                        f"path's {window_parts(path_stamps['no_device_loop_no_update_batch'], 10_000)}); {card}")
         mesh_functions_on_the_card(dev, weights, card)
+        multihost_session_phase(torch_cli, wrappers, launches, weights, fasta, tmp, ref_sig,
+                                path_stamps, mh_stamps["multihost"], card)
+        graft_entry_phase(dev, card)
+        shared_card_phase(tmp, card)
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -3162,8 +3503,8 @@ def main() -> int:
     pc_pl, pp_pl = (plane_timing["plane", f] for f in ("center W=1571", "pair P=98304"))
     # the phase's kernels at the 10k default path's state (d6): the layout,
     # the candidates, the replay
-    pl, pc, pr = (phase_timing[k] for k in ("phase_layout", "closest_candidates",
-                                            "merge_replay"))
+    pl, pc, pr, pcb = (phase_timing[k] for k in ("phase_layout", "closest_candidates",
+                                                 "merge_replay", "closest_candidates_block"))
     # launches: each record's path (training, then clustering with the
     # trained model; the last record: fastcar's search, at its largest
     # slice); library_ms: no PyTorch call computes any of these functions
@@ -3185,6 +3526,7 @@ def main() -> int:
         "name": "pair_stats_decision",
         "path": "training, then clustering, 10k",
         "multihost_launches": launches["multihost"]["pair_stats_decision"],
+        "multihost_session_launches": launches["multihost_session"]["pair_stats_decision"],
         "route": "cuda",
         "source": "meshclust2_tpu_torch/csrc/pair_stats.cu",
         "replaces": "meshclust2_tpu/ops/pallas_stats.py:39, "
@@ -3260,6 +3602,15 @@ def main() -> int:
         "bound_by": ws_by,
         "library_ms": None,
         "device_us": ws_dev,
+        # the block mode (--multihost's session, m3/m4): the one-rank
+        # session's three launches a step at W = 1,571
+        "block_launches": launches["multihost_session"]["window_absorb_block"],
+        "block_max_abs_err": step_block["max_abs_err"],
+        "block_ms": step_block["ms"],
+        "block_plain_ms": step_block["plain_ms"],
+        "block_device_us": step_block["device_us"],
+        "block_bound_ms": step_block["bound_ms"],
+        "block_bound_by": step_block["bound_by"],
     }, {
         "name": "plane_singles",
         "path": "the markov model on the 10k set (f5)",
@@ -3342,6 +3693,15 @@ def main() -> int:
         "library_ms": None,
         "device_us": pc["device_us"],
         "closest_mean_device_us": pc["closest_mean_device_us"],
+        # the block mode (--multihost's session, m3/m4): the one-rank
+        # session's three launches a pass at (d6)'s state
+        "block_launches": launches["multihost_session"]["closest_candidates_block"],
+        "block_max_abs_err": pcb["max_abs_err"],
+        "block_ms": pcb["ms"],
+        "block_plain_ms": pcb["plain_ms"],
+        "block_device_us": pcb["device_us"],
+        "block_bound_ms": pcb["bound_ms"],
+        "block_bound_by": pcb["bound_by"],
     }, {
         "name": "merge_replay",
         "path": "clustering, 10k default path (f); timed at its state after "

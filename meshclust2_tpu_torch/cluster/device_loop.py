@@ -224,13 +224,18 @@ class TorchDeviceAccumulator:
         if n:
             alive0[0] = False
             assign0[0] = 0
-            msum0[:] = self.ps.counts[order[0]].astype(np.int64)
+            msum0[:] = self._rows_host(order[:1])[0].astype(np.int64)
         return {
             "alive0": alive0, "assign0": assign0, "astep0": astep0,
             "centers0": np.zeros(n, np.int64),
             "cid0": 0, "stepc0": 1, "cur0": 0, "msum0": msum0,
             "done0": n == 0,
         }
+
+    def _rows_host(self, rows: np.ndarray) -> np.ndarray:
+        """The counts of these store rows on the host (the JAX
+        accumulator's _rows_host; a row-sharded store fetches them)."""
+        return self.ps.counts[rows]
 
     def _ready_matches(self, bv: BVec) -> bool:
         if self._ready is None:
@@ -276,7 +281,7 @@ class TorchDeviceAccumulator:
         cflat = pos[cur]
         assign0[cflat] = cid0
         astep0[cflat] = np.arange(len(cur), dtype=np.int64)
-        msum0 = self.ps.counts[cur].astype(np.int64).sum(axis=0)
+        msum0 = self._rows_host(cur).astype(np.int64).sum(axis=0)
         return {
             "alive0": alive0, "assign0": assign0, "astep0": astep0,
             "centers0": centers0,
@@ -487,7 +492,7 @@ class TorchDeviceAccumulator:
                 mcnt = 1
                 _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
                 continue
-            trip = self._scan(n_cand, cur_d, cid, stepc, mcnt)
+            trip = self._scan(n_cand, cur_d, cid, stepc, mcnt, cur)
             cur_next = trip[3:]
             bits, npos, unc, cur_n, n_cand, have, total = \
                 self._window(cur_next, trip)
@@ -563,18 +568,30 @@ class TorchDeviceAccumulator:
         have = (total > 0) & (gf[1:] > gf[:1])
         if trip is None:
             trip = torch.zeros(3, dtype=torch.int64, device=self.device)
-        return tuple(torch.cat([trip[:3], cur_d, csum[-1:], have.to(torch.int64),
-                                total]).tolist())
+        got = torch.cat([trip[:3], cur_d, csum[-1:], have.to(torch.int64), total]
+                        + self._window_extra(mask, csum)).tolist()
+        self._take_extra(got[7:])
+        return tuple(got[:7])
+
+    def _window_extra(self, mask: torch.Tensor, csum: torch.Tensor) -> list:
+        """Tensors the step's one read also carries, from the window's mask
+        and its cumsum over the flat positions (a row-sharded store's own
+        candidates); `_take_extra` receives their values."""
+        return []
+
+    def _take_extra(self, values: list) -> None:
+        pass
 
     def _scan(self, n_cand: int, cur_d: torch.Tensor, cid: int, stepc: int,
-              mcnt: int) -> torch.Tensor:
+              mcnt: int, cur: int) -> torch.Tensor:
         """One step over the n_cand candidates in `_cand`: the pair
         statistics and the epilogue in one fused launch (the center form),
         then the step kernel, which applies both cases under the decision
         flags (an abort changes nothing, a window without positives closes
         the cluster and seeds the next, one with positives absorbs them and
         moves to the member closest to the mean).  Returns the trip (bits, npos, closest uncertain, next
-        center), on the card.
+        center), on the card.  `cur` is cur_d's value, which the host has
+        read.
 
         device_loop.py:_build_program.body (l. 1407-1466) with
         scan_window (l. 1007-1221) and closest_to_mean (l. 1223-1355)."""

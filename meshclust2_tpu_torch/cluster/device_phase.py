@@ -177,6 +177,31 @@ class TorchDevicePhaseUpdater:
                                      tie_margin=self.tie_margin, final=final)
         return unc, cunc.any().view(1)
 
+    def _merge(self, cand, lay, m: int, n_alive: int):
+        """The merge decisions over the candidates' first m positions (the
+        updater's merge_device)."""
+        return self.updater.merge_device(cand.a[:m], cand.b[:m], cand.seg[:m], n_alive,
+                                         valid=cand.ok[:m])
+
+    def _begin(self, cur: PhaseState) -> None:
+        """Before a run's first layout (a row-sharded store gathers its
+        centers' rows here)."""
+
+    def _read_layout(self, lay) -> tuple:
+        """(C, P) of the layout, read back with `_layout_extra`'s values."""
+        got = torch.cat([lay.hdr] + self._layout_extra(lay)).tolist()
+        self._take_extra(got[2:])
+        return got[0], got[1]
+
+    def _layout_extra(self, lay) -> list:
+        """Tensors each read of the layout's (C, P) also carries (a
+        row-sharded store's count of its own pairs); `_take_extra`
+        receives their values."""
+        return []
+
+    def _take_extra(self, values: list) -> None:
+        pass
+
     def _targets(self, any_m, best, inv, n_alive: int, n_slots: int):
         """t_dst [S] for merge_replay: the slot of each rank's best
         candidate (position p = i delta + q - 1 is rank i + q), -1 for
@@ -196,11 +221,12 @@ class TorchDevicePhaseUpdater:
         assign, seq, cen, alive, clen)."""
         dev = self.device
         n, n_slots, delta = len(cur.assign), len(cur.cen), self.delta
+        self._begin(cur)
         nxt = new_state(n, n_slots, dev)
         lay = new_layout(n, n_slots, delta, dev)
         cand = new_candidates(n_slots, delta, dev)
         phase_layout(cur, rows, delta, lay)
-        n_alive, n_pairs = lay.hdr.tolist()
+        n_alive, n_pairs = self._read_layout(lay)
         abort, it, pairs, sent = 0, it0, 0, 0
         while not (it >= iterations or (it >= 3 and n_alive == hist[it - 3])):
             unc, cunc = self._filter(cur, rows, delta, lay, n_alive, n_pairs, cand)
@@ -208,8 +234,7 @@ class TorchDevicePhaseUpdater:
             flags = [unc, cunc]
             if m:
                 ok = cand.ok[:m]
-                munc, any_m, best, amb = self.updater.merge_device(
-                    cand.a[:m], cand.b[:m], cand.seg[:m], n_alive, valid=ok)
+                munc, any_m, best, amb = self._merge(cand, lay, m, n_alive)
                 flags += [munc.any().view(1), amb.any().view(1)]
                 t_dst = self._targets(any_m, best, lay.inv, n_alive, n_slots)
                 merged = ok.sum().view(1)
@@ -221,7 +246,8 @@ class TorchDevicePhaseUpdater:
             phase_layout(nxt, rows, delta, lay)
             # the iteration's one read
             got = torch.cat([torch.cat(flags).any().view(1).to(torch.int64),
-                             merged, lay.hdr]).tolist()
+                             merged, lay.hdr] + self._layout_extra(lay)).tolist()
+            self._take_extra(got[4:])
             sent += n_pairs + got[1]
             if got[0]:
                 abort = 1
@@ -236,7 +262,7 @@ class TorchDevicePhaseUpdater:
         if abort == 0:
             # the delta = 0 pass: each cluster's own members
             phase_layout(cur, rows, 0, lay)
-            n_alive, n_pairs = lay.hdr.tolist()
+            n_alive, n_pairs = self._read_layout(lay)
             unc, cunc = self._filter(cur, rows, 0, lay, n_alive, n_pairs, cand,
                                      final=True)
             sent += n_pairs

@@ -375,6 +375,10 @@ class MeanShiftEngine:
         if acc is None:
             return None
         strict = bool(os.environ.get("MC2_DEVICE_STRICT"))
+        # an accumulator over a row-sharded store has no fallback: a rank
+        # that went on alone on the host would leave its peers waiting at
+        # a collective
+        no_fallback = strict or getattr(acc, "no_fallback", False)
 
         def launch(bv_, carry=None):
             return acc.run(bv_, carry=carry) if carry is not None \
@@ -383,7 +387,7 @@ class MeanShiftEngine:
         try:
             raw, state = launch(bv)
         except Exception as e:  # noqa: BLE001 - any device failure
-            if strict:
+            if no_fallback:
                 raise
             print(f"device accumulate failed ({type(e).__name__}: {e}); "
                   "falling back to the host paths")
@@ -429,7 +433,7 @@ class MeanShiftEngine:
                 raw, state = launch(bv2, carry=carry)
             except Exception as e:  # noqa: BLE001 - any device failure
                 # the resolved host state is exact: finish on the host
-                if strict:
+                if no_fallback:
                     raise
                 print(f"device relaunch failed ({type(e).__name__}: {e}); "
                       "host completes")

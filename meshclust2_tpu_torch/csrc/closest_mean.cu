@@ -67,6 +67,28 @@
 // copied by all blocks by stride.  The per-iteration updater's
 // instantiation (mc2_closest_mean_u8/u16) keeps its code.
 //
+// The phase instantiation's block mode (mc2_closest_candidates_block_u8/u16)
+// runs it on a rank of a row-sharded store (parallel/multihost_session.py):
+// the counts hold only the store rows [row_lo, row_hi), at row - row_lo,
+// while mags, the layout, the keep flags and the state are every rank's
+// alike.  Three launches, the collectives between them on the host:
+//   phase 1  per segment, the column sums of the rank's own kept rows into
+//            num (int64 [C, d]); the host all-reduces num (SUM);
+//   phase 2  per segment, the mean from num and the count of all its kept
+//            rows, then over the rank's own kept rows: its first minimum
+//            (v, position), that row's (dist2, mag), the smallest v of its
+//            rows whose (dist2, mag) differ from the first's, and the
+//            guard, into rank_part (int64 [C, 6]); the host all-gathers the
+//            ranks' partials;
+//   phase 3  per segment, the first minimum over the ranks and the tie
+//            guard from the partials (csrc/window_absorb.cu's block mode
+//            derives the rule), first and unc, then the candidates step as
+//            above; the slots that are not alive keep their centers.
+// The arrival counters meet only blocks of one launch, so the candidates
+// step stays in phase 3, after the ranks have met.  With one block covering
+// every row, first, unc and the candidates are bit for bit the one-launch
+// kernel's.
+//
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: the
 // entry points launch on the given stream, allocate nothing, do not
 // synchronise and return the launch's error.
@@ -94,7 +116,21 @@ struct SegArgs {
   long long* scratch;
   long long* first;
   unsigned char* unc;
+  // the block mode
+  long long row_lo;        // the counts hold store rows [row_lo, row_hi)
+  long long row_hi;
+  int phase;               // 1, 2 or 3
+  long long* num;          // [C, d] the column sums (phases 1, 2)
+  long long* rank_part;    // [C, 6] the rank's partials (phase 2)
+  const long long* parts;  // [n_parts, C, 6] every rank's (phase 3)
+  int n_parts;
 };
+
+// A rank's partial of a segment (phase 2 of the block mode): its first
+// minimum's v (bits) and position (P for none), that row's dist2 and mag
+// (-1 for none), the smallest v (bits) of its kept rows whose (dist2, mag)
+// differ from the first's (+inf for none), the guard.
+constexpr int kPart = 6;
 
 // The phase instantiation's inputs and outputs (csrc/phase.cu's Layout and
 // PhaseState); rows above are the layout's member rows, the segments its
@@ -135,13 +171,16 @@ __device__ __forceinline__ long long lower_bound(const long long* __restrict__ s
 
 // List the kept positions among [base, base + kTile) of [lo, hi) in shared
 // memory, in order: their store rows in t_row and, when t_pos is given,
-// their positions.  Returns how many (the same in every thread).
+// their positions.  Returns how many (the same in every thread).  BLOCK:
+// the rank's own rows only, at row - row_lo.
+template <bool BLOCK = false>
 __device__ __forceinline__ int list_kept(const SegArgs& a, long long base, long long hi,
                                          long long* t_row, long long* t_pos, int* wk) {
   const int lane = threadIdx.x & (kWarpSize - 1);
   const int warp = threadIdx.x / kWarpSize;
   const long long p = base + threadIdx.x;
-  const bool kept = p < hi && a.keep[p];
+  bool kept = p < hi && a.keep[p];
+  if (BLOCK && kept) kept = a.rows[p] >= a.row_lo && a.rows[p] < a.row_hi;
   const unsigned bk = __ballot_sync(kFullMask, kept);
   __syncthreads();  // the previous chunk's lists are read no more
   if (lane == 0) wk[warp] = __popc(bk);
@@ -153,7 +192,7 @@ __device__ __forceinline__ int list_kept(const SegArgs& a, long long base, long 
     nk += wk[w];
   }
   if (kept) {
-    t_row[ki] = a.rows[p];
+    t_row[ki] = a.rows[p] - (BLOCK ? a.row_lo : 0);
     if (t_pos) t_pos[ki] = p;
   }
   __syncthreads();
@@ -203,7 +242,41 @@ __device__ __forceinline__ void candidates(const CandArgs& x, const long long* r
   }
 }
 
-template <typename T, bool VEC, bool CAND>
+// The pick of the block mode's phase 3 for segment c (thread 0): the first
+// minimum over the ranks' partials and the tie guard.
+__device__ void block_pick(const SegArgs& a, long long c, long long* f_out, int* unc_out) {
+  const long long P = a.n_pairs;
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  double mv = inf;
+  long long fp = P, fd2 = -1, fmg = -1;
+  int unc = 0;
+  for (int g = 0; g < a.n_parts; ++g) {
+    const long long* p = a.parts + (static_cast<long long>(g) * a.n_segs + c) * kPart;
+    const double v = __longlong_as_double(p[0]);
+    if (before<false>(v, p[1], mv, fp)) {
+      mv = v;
+      fp = p[1];
+      fd2 = p[2];
+      fmg = p[3];
+    }
+    unc |= p[5] != 0;
+  }
+  if (fp < P) {
+    double t = inf;  // the smallest v of a kept row whose integers differ
+    for (int g = 0; g < a.n_parts; ++g) {
+      const long long* p = a.parts + (static_cast<long long>(g) * a.n_segs + c) * kPart;
+      const bool differs = p[1] < P && (p[2] != fd2 || p[3] != fmg);
+      const double v = differs ? __longlong_as_double(p[0]) : __longlong_as_double(p[4]);
+      if (v < t) t = v;
+    }
+    const double thr = __dmul_rn(a.tie_margin, fmax(fabs(mv), 1.0));
+    unc |= fabs(__dsub_rn(t, mv)) <= thr;
+  }
+  *f_out = fp;
+  *unc_out = unc;
+}
+
+template <typename T, bool VEC, bool CAND, bool BLOCK = false>
 __global__ void __launch_bounds__(kThreads)
     closest_mean_kernel(const SegArgs a, const CandArgs x) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -226,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
   double* v_out = reinterpret_cast<double*>(a.scratch);
   long long* d2_out = a.scratch + P;
   long long* mag_out = a.scratch + 2 * P;
-  if (CAND) {
+  if (CAND && (!BLOCK || a.phase == 3)) {
     // the slots that are not alive keep their centers; a grid of one block
     // at C = 0 does only this
     for (long long s = c * kThreads + threadIdx.x; s < x.S;
@@ -234,6 +307,18 @@ __global__ void __launch_bounds__(kThreads)
       if (!x.alive[s]) x.cen_out[s] = x.cen[s];
     }
     if (c >= a.n_segs) return;
+  }
+  if (BLOCK && a.phase == 3) {
+    __shared__ long long f_s;
+    if (threadIdx.x == 0) {
+      int u = 0;
+      block_pick(a, c, &f_s, &u);
+      a.first[c] = f_s;
+      a.unc[c] = u ? 1 : 0;
+    }
+    __syncthreads();
+    candidates(x, a.rows, P, a.n_segs, c, f_s);
+    return;
   }
   if (threadIdx.x == 0) bounds[0] = lower_bound(a.seg, P, c);
   if (threadIdx.x == 1) bounds[1] = lower_bound(a.seg, P, c + 1);
@@ -243,10 +328,16 @@ __global__ void __launch_bounds__(kThreads)
   const long long hi = bounds[1];
 
   // 1. per chunk: the kept rows listed, each thread adds its words of them
-  // (a thread owns its words across chunks, so no atomics)
+  // (a thread owns its words across chunks, so no atomics); the block
+  // mode's phase 2 has the sums in num and counts every kept row
   long long cnt = 0;
-  for (long long base = lo; base < hi; base += kTile) {
-    const int nk = list_kept(a, base, hi, t_row, nullptr, wk);
+  if (BLOCK && a.phase == 2) {
+    for (long long p = lo + threadIdx.x; p < hi; p += kThreads) cnt += a.keep[p] != 0;
+    cnt = block_sum(cnt, red);
+    for (int e = threadIdx.x; e < d; e += kThreads) num_s[e] = a.num[c * d + e];
+  }
+  for (long long base = lo; base < hi && !(BLOCK && a.phase == 2); base += kTile) {
+    const int nk = list_kept<BLOCK>(a, base, hi, t_row, nullptr, wk);
     cnt += nk;
     if (VEC) {
       constexpr int kPer = 4 / sizeof(T);
@@ -278,6 +369,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   __syncthreads();  // every word's sums complete
+  if (BLOCK && a.phase == 1) {
+    for (int e = threadIdx.x; e < d; e += kThreads) a.num[c * d + e] = num_s[e];
+    return;
+  }
 
   // 2. the mean, sfloor and the guards
   const long long den = cnt > 0 ? cnt : 1;
@@ -299,12 +394,12 @@ __global__ void __launch_bounds__(kThreads)
   double best_v = inf;
   long long best_p = P;
   for (long long base = lo; base < hi; base += kTile) {
-    const int nk = list_kept(a, base, hi, t_row, t_pos, wk);
+    const int nk = list_kept<BLOCK>(a, base, hi, t_row, t_pos, wk);
     for (int k = warp; k < nk; k += kWarps) {
       const long long row = t_row[k];
       const long long dist2 =
           2 * warp_sum(row_min_sum<T, VEC>(counts + row * d, r_s, d, lane));
-      const long long mag = static_cast<long long>(a.mags[row]) + sfloor;
+      const long long mag = static_cast<long long>(a.mags[a.rows[t_pos[k]]]) + sfloor;
       const double v = distance_v(dist2, mag);
       if (lane == 0) {
         v_out[t_pos[k]] = v;
@@ -318,6 +413,30 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   block_first<false>(best_v, best_p, red_v, red_p);  // publishes the scratch too
+
+  if (BLOCK) {  // phase 2: the rank's partial
+    const long long fd2 = best_p < P ? d2_out[best_p] : -1;
+    const long long fmg = best_p < P ? mag_out[best_p] : -1;
+    double sv = inf;
+    for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
+      const long long r = a.rows[p];
+      if (!a.keep[p] || r < a.row_lo || r >= a.row_hi) continue;
+      if (d2_out[p] == fd2 && mag_out[p] == fmg) continue;
+      if (v_out[p] < sv) sv = v_out[p];
+    }
+    long long dummy = 0;
+    block_first<false>(sv, dummy, red_v, red_p);
+    if (threadIdx.x == 0) {
+      long long* r = a.rank_part + c * kPart;
+      r[0] = __double_as_longlong(best_v);
+      r[1] = best_p;
+      r[2] = fd2;
+      r[3] = fmg;
+      r[4] = __double_as_longlong(sv);
+      r[5] = guard;
+    }
+    return;
+  }
 
   // 4. tie guard: kept rows near the minimum whose integers differ from the
   // first's
@@ -341,21 +460,30 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // CAND: the phase instantiation, a block also at C = 0 (the dead slots'
-// copy)
-template <typename T, bool CAND>
+// copy); BLOCK: its block mode (phases 1 and 2 launch no block at C = 0)
+template <typename T, bool CAND, bool BLOCK = false>
 int launch(SegArgs a, const CandArgs& x, long long scratch_len, void* stream) {
-  if (a.n_segs <= 0 && !CAND) return static_cast<int>(cudaSuccess);
-  if (a.d <= 0 || a.n_pairs < 0 || a.n_segs < 0 || a.n_segs > 0x7fffffffLL ||
-      scratch_len < 3 * a.n_pairs) {
+  if (a.n_segs <= 0 && (!CAND || (BLOCK && a.phase != 3))) {
+    return static_cast<int>(cudaSuccess);
+  }
+  // the scratch: v, dist2 and mag per position, which the block mode's
+  // phases 1 and 3 do not write
+  const bool scratch_ok = scratch_len >= 3 * a.n_pairs || (BLOCK && a.phase != 2);
+  if (a.d <= 0 || a.n_pairs < 0 || a.n_segs < 0 || a.n_segs > 0x7fffffffLL || !scratch_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (CAND && (x.S < a.n_segs || x.delta < 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (BLOCK && (a.phase < 1 || a.phase > 3 || a.row_lo < 0 || a.row_hi < a.row_lo ||
+                (a.phase != 3 && !a.num) || (a.phase == 2 && !a.rank_part) ||
+                (a.phase == 3 && (!a.parts || a.n_parts < 1)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
-  auto kernel = vec ? &closest_mean_kernel<T, true, CAND>
-                    : &closest_mean_kernel<T, false, CAND>;
+  auto kernel = vec ? &closest_mean_kernel<T, true, CAND, BLOCK>
+                    : &closest_mean_kernel<T, false, CAND, BLOCK>;
   const size_t shm = static_cast<size_t>(a.d) * (sizeof(long long) + sizeof(T));
   if (shm > 32 * 1024) {  // beside ~4.3 KB of static shared memory
     const cudaError_t e = cudaFuncSetAttribute(
@@ -450,5 +578,66 @@ MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u8, uint8_t)
 MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u16, uint16_t)
 
 #undef MC2_CANDIDATES_ENTRY
+
+// The block mode: the phase instantiation's arguments (counts: the rank's
+// rows [row_lo, row_hi); mags: every store row's; rows: global), then
+// row_lo, row_hi, the phase (1, 2, 3), num int64 [C, d], rank_part int64
+// [C, 6], parts int64 [n_parts, C, 6].  Phase 1 writes num, phase 2 reads it
+// and writes rank_part (and the scratch), phase 3 reads parts and writes
+// first, unc and the candidates.
+#define MC2_CANDIDATES_BLOCK_ENTRY(NAME, T)                                          \
+  int NAME(const void* counts, int d, const void* mags, const void* rows,            \
+           const void* seg, const void* keep, long long n_pairs, long long n_segs,   \
+           long long maxc, double tie_margin, void* scratch, long long scratch_len,  \
+           void* first_out, void* unc_out, long long S, int delta, int final_pass,   \
+           const void* alive, const void* cen, const void* inv, const void* moff,    \
+           const void* flat, const void* lens, const void* blen, const void* elen,   \
+           void* arrive, void* cen_out, void* ca, void* cb, void* cs, void* ok,      \
+           long long row_lo, long long row_hi, int phase, void* num, void* rank_part, \
+           const void* parts, int n_parts, void* stream) {                           \
+    SegArgs a{counts,                                                                \
+              d,                                                                     \
+              static_cast<const double*>(mags),                                      \
+              static_cast<const long long*>(rows),                                   \
+              static_cast<const long long*>(seg),                                    \
+              static_cast<const unsigned char*>(keep),                               \
+              n_pairs,                                                               \
+              n_segs,                                                                \
+              maxc,                                                                  \
+              tie_margin,                                                            \
+              static_cast<long long*>(scratch),                                      \
+              static_cast<long long*>(first_out),                                    \
+              static_cast<unsigned char*>(unc_out),                                  \
+              row_lo,                                                                \
+              row_hi,                                                                \
+              phase,                                                                 \
+              static_cast<long long*>(num),                                          \
+              static_cast<long long*>(rank_part),                                    \
+              static_cast<const long long*>(parts),                                  \
+              n_parts};                                                              \
+    const CandArgs x{S,                                                              \
+                     delta,                                                          \
+                     final_pass,                                                     \
+                     static_cast<const unsigned char*>(alive),                       \
+                     static_cast<const long long*>(cen),                             \
+                     static_cast<const long long*>(inv),                             \
+                     static_cast<const long long*>(moff),                            \
+                     static_cast<const long long*>(flat),                            \
+                     static_cast<const long long*>(lens),                            \
+                     static_cast<const long long*>(blen),                            \
+                     static_cast<const long long*>(elen),                            \
+                     static_cast<int*>(arrive),                                      \
+                     static_cast<long long*>(cen_out),                               \
+                     static_cast<long long*>(ca),                                    \
+                     static_cast<long long*>(cb),                                    \
+                     static_cast<long long*>(cs),                                    \
+                     static_cast<unsigned char*>(ok)};                               \
+    return launch<T, true, true>(a, x, scratch_len, stream);                         \
+  }
+
+MC2_CANDIDATES_BLOCK_ENTRY(mc2_closest_candidates_block_u8, uint8_t)
+MC2_CANDIDATES_BLOCK_ENTRY(mc2_closest_candidates_block_u16, uint16_t)
+
+#undef MC2_CANDIDATES_BLOCK_ENTRY
 
 }  // extern "C"

@@ -80,6 +80,35 @@
 // A plain launch sequence with last-block-done combines would need a second
 // launch for the distances after msum is complete; one grid barrier is
 // cheaper than a launch.
+//
+// The block mode (BLOCK, mc2_window_step_block_u8/u16) runs the same step on
+// a rank of a row-sharded store (parallel/multihost_session.py): the counts
+// hold only the store rows [row_lo, row_hi), at row - row_lo, while the
+// moments, the window's decisions (gathered from every rank) and the loop
+// state are every rank's alike.  Three launches, the collectives between
+// them on the host:
+//   phase 1  sections 1-3 above, every rank alike, but only the rank's own
+//            positives' rows are summed, into `part` (int64 [d], zero
+//            between steps) in place of msum; the min case's seed row goes
+//            there too on its owner; the trip gets (bits, npos, 0, the min
+//            case's seed or cur_d).  Then the host all-reduces `part` (SUM);
+//   phase 2  msum += part (absorb) or msum = part (min case), part back to
+//            zero; when absorbing, closest-to-mean over the rank's own
+//            members: the rank's first minimum (v, position), its (dist2,
+//            mag), the smallest v of its members whose (dist2, mag) differ
+//            from that first's, and the mean's guard, into `rank_part`
+//            (int64 [6]).  Then the host all-gathers the ranks' partials;
+//   phase 3  one block: the first minimum over the ranks (the smallest v,
+//            then position), and the tie guard from the partials: a member
+//            within tie_margin of the minimum whose (dist2, mag) differ from
+//            the first's exists exactly when the smallest such v, taken per
+//            rank as its first's v where its first's integers differ from
+//            the global first's and as its own smallest differing v
+//            otherwise, lies within tie_margin; trip[2..3] as above.
+// With one block covering every row the trip and the state are bit for bit
+// the one-launch kernel's.  A model with full-vector singles (`full`) needs
+// rows for the tie guard of section 2 and is not taken in block mode.
+//
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: the
 // entry points launch on the given stream, allocate nothing, do not
 // synchronise and return the launch's error.
@@ -128,7 +157,22 @@ struct StepArgs {
   long long mcnt;
   long long* scratch;      // trip [4], partials [kSlots kMaxGrid], then [n + 1] x 3
   long long n;
+  // the block mode
+  long long row_lo;        // the counts hold store rows [row_lo, row_hi)
+  long long row_hi;
+  int phase;               // 1, 2 or 3
+  long long* part;         // [d] the rank's partial column sums, 0 between steps
+  long long* rank_part;    // [6] the rank's closest-to-mean partial (phase 2)
+  const long long* parts;  // [n_parts, 6] every rank's, gathered (phase 3)
+  int n_parts;
 };
+
+// The rank's partial of closest-to-mean (phase 2 of the block mode): its
+// first minimum's v (bits) and member position (count for none), that
+// member's dist2 and mag (-1 for none), the smallest v (bits) of its
+// members whose (dist2, mag) differ from the first's (+inf for none), and
+// whether the mean's guard fired.
+constexpr int kPart = 6;
 
 // Whether rows x and y hold the same d counts (VEC: 16-byte aligned rows
 // of whole 16-byte words).
@@ -149,7 +193,45 @@ __device__ bool rows_equal(const T* x, const T* y, int d) {
   return true;
 }
 
-template <typename T, bool VEC>
+// The pick of the block mode's phase 3 (one block): trip[2..3] from the
+// ranks' partials when the step absorbed.
+__device__ void block_pick(const StepArgs& a) {
+  long long* trip = a.scratch;
+  if (threadIdx.x != 0) return;
+  const long long npos = trip[1];
+  if (trip[0] != 0 || npos == 0) return;
+  const long long count = a.mcnt + npos;
+  const double inf = __longlong_as_double(0x7ff0000000000000LL);
+  double mv = inf;
+  long long fp = count, fd2 = -1, fmg = -1;
+  int unc = 0;
+  for (int g = 0; g < a.n_parts; ++g) {
+    const long long* p = a.parts + kPart * g;
+    const double v = __longlong_as_double(p[0]);
+    if (before<false>(v, p[1], mv, fp)) {
+      mv = v;
+      fp = p[1];
+      fd2 = p[2];
+      fmg = p[3];
+    }
+    unc |= p[5] != 0;
+  }
+  if (fp < count) {
+    double t = inf;  // the smallest v of a member whose integers differ
+    for (int g = 0; g < a.n_parts; ++g) {
+      const long long* p = a.parts + kPart * g;
+      const bool differs = p[1] < count && (p[2] != fd2 || p[3] != fmg);
+      const double v = differs ? __longlong_as_double(p[0]) : __longlong_as_double(p[4]);
+      if (v < t) t = v;
+    }
+    const double thr = __dmul_rn(a.tie_margin, fmax(fabs(mv), 1.0));
+    unc |= fabs(__dsub_rn(t, mv)) <= thr;
+  }
+  trip[2] = unc;
+  trip[3] = (unc || fp >= count) ? *a.cur_d : a.members[fp];
+}
+
+template <typename T, bool VEC, bool BLOCK>
 __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* r_s = reinterpret_cast<T*>(smem);  // [d] the mean (phase 4)
@@ -181,12 +263,18 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
   double* v_out = reinterpret_cast<double*>(part + kSlots * kMaxGrid);
   long long* d2_out = part + kSlots * kMaxGrid + (a.n + 1);
   long long* mag_out = part + kSlots * kMaxGrid + 2 * (a.n + 1);
+  if (BLOCK && a.phase == 3) {
+    if (b == 0) block_pick(a);
+    return;
+  }
+  long long npos = 0;
+  if (!BLOCK || a.phase == 1) {  // sections 1-3, the block mode's phase 1
 
   // 1. every block decides the whole window itself (W is a few thousand on
   // the main path, and the repeated reads hit L2), so that no grid barrier
   // comes before the case: the positives in all and before the block's
   // tiles, the margin gate, the first maximum
-  long long npos = 0, pre = 0;
+  long long pre = 0;
   int unc = 0;
   double bv = 0.0;
   long long bp = -1;
@@ -274,12 +362,15 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       }
       if (pa) {
         a.members[slot + in_tile] = c;
-        pos_rows[in_tile] = a.order[c];
+        const long long r = a.order[c];
+        // block mode: the rank sums only the rows it holds
+        pos_rows[in_tile] = !BLOCK ? r : (r >= a.row_lo && r < a.row_hi ? r - a.row_lo : -1);
       }
     }
     __syncthreads();  // pos_rows complete
     if (n_tile > 0) {
-      unsigned long long* msum = reinterpret_cast<unsigned long long*>(a.msum);
+      unsigned long long* msum =
+          reinterpret_cast<unsigned long long*>(BLOCK ? a.part : a.msum);
       if (VEC) {
         constexpr int kPer = 4 / sizeof(T);
         const int words = d / kPer;
@@ -289,9 +380,10 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
             unsigned x[kBatch];
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
-              x[u] = k + u < n_tile ? __ldg(reinterpret_cast<const unsigned*>(
-                                                counts + pos_rows[k + u] * d) + w)
-                                    : 0u;
+              x[u] = k + u < n_tile && (!BLOCK || pos_rows[k + u] >= 0)
+                         ? __ldg(reinterpret_cast<const unsigned*>(counts + pos_rows[k + u] * d) +
+                                 w)
+                         : 0u;
             }
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) add_word<T>(x[u], acc, acc16);
@@ -305,7 +397,9 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       } else {
         for (int e = threadIdx.x; e < d; e += kThreads) {
           unsigned acc = 0;
-          for (int k = 0; k < n_tile; ++k) acc += counts[pos_rows[k] * d + e];
+          for (int k = 0; k < n_tile; ++k) {
+            if (!BLOCK || pos_rows[k] >= 0) acc += counts[pos_rows[k] * d + e];
+          }
           if (acc) atomicAdd(msum + e, static_cast<unsigned long long>(acc));
         }
       }
@@ -313,10 +407,16 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     slot += n_tile;
     __syncthreads();  // before wcnt and pos_rows are reused
   }
-  if (!absorb) {
+  if (!absorb || BLOCK) {
     if (is_min && b == 0) {
-      const T* row = counts + a.order[a.cand[bp]] * d;
-      for (int e = threadIdx.x; e < d; e += kThreads) a.msum[e] = row[e];
+      const long long r = a.order[a.cand[bp]];
+      if (!BLOCK) {
+        const T* row = counts + r * d;
+        for (int e = threadIdx.x; e < d; e += kThreads) a.msum[e] = row[e];
+      } else if (r >= a.row_lo && r < a.row_hi) {  // the seed's owner
+        const T* row = counts + (r - a.row_lo) * d;
+        for (int e = threadIdx.x; e < d; e += kThreads) a.part[e] = row[e];
+      }
     }
     if (b == 0 && threadIdx.x == 0) {
       trip[0] = bits;
@@ -325,6 +425,24 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       trip[3] = is_min ? a.cand[bp] : *a.cur_d;
     }
     return;  // uniform over the grid: no block waits at a later barrier
+  }
+  }  // sections 1-3
+
+  // block mode, phase 2: msum from the all-reduced partial sums, which go
+  // back to zero
+  if (BLOCK) {
+    const long long bits_c = trip[0];
+    npos = trip[1];
+    const bool absorb_c = bits_c == 0 && npos > 0;
+    const bool min_c = bits_c == 0 && npos == 0;
+    for (long long e = static_cast<long long>(b) * kThreads + threadIdx.x; e < d;
+         e += static_cast<long long>(G) * kThreads) {
+      const long long x = a.part[e];
+      a.part[e] = 0;
+      if (absorb_c) a.msum[e] += x;
+      if (min_c) a.msum[e] = x;
+    }
+    if (!absorb_c) return;  // uniform over the grid
   }
   grid.sync();
 
@@ -346,10 +464,18 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     long long best_p = count;
     for (long long q = static_cast<long long>(b) * kWarps + warp; q < count;
          q += static_cast<long long>(G) * kWarps) {
-      const long long row = a.order[a.members[q]];
+      long long row = a.order[a.members[q]];
+      if (BLOCK) {
+        if (row < a.row_lo || row >= a.row_hi) {  // another rank's member
+          if (lane == 0) d2_out[q] = -1;
+          continue;
+        }
+        row -= a.row_lo;
+      }
       const long long dist2 =
           2 * warp_sum(row_min_sum<T, VEC>(counts + row * d, r_s, d, lane));
-      const long long mag = static_cast<long long>(a.mags[row]) + sfloor;
+      const long long mag =
+          static_cast<long long>(a.mags[a.order[a.members[q]]]) + sfloor;
       const double v = distance_v(dist2, mag);
       if (lane == 0) {
         v_out[q] = v;
@@ -391,6 +517,33 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     unc_m |= __ldcg(p_guard + i) != 0;
   }
   block_first<false>(mv, fp, red_v, red_p);
+  if (BLOCK) {
+    // the rank's partial: the smallest v of its members whose integers
+    // differ from its first's
+    const long long fd2 = fp < count ? __ldcg(d2_out + fp) : -1;
+    const long long fmg = fp < count ? __ldcg(mag_out + fp) : -1;
+    double sv = __longlong_as_double(0x7ff0000000000000LL);
+    for (long long q = threadIdx.x; q < count; q += kThreads) {
+      const long long d2 = __ldcg(d2_out + q);
+      if (d2 < 0 || (d2 == fd2 && __ldcg(mag_out + q) == fmg)) continue;
+      const double v = __ldcg(v_out + q);
+      if (v < sv) sv = v;
+    }
+    long long dummy = 0;
+    block_first<false>(sv, dummy, red_v, red_p);
+    unc_m = __syncthreads_or(unc_m);
+    if (threadIdx.x == 0) {
+      long long* r = a.rank_part;
+      r[0] = __double_as_longlong(mv);
+      r[1] = fp;
+      r[2] = fd2;
+      r[3] = fmg;
+      r[4] = __double_as_longlong(sv);
+      r[5] = unc_m;
+      *done = 0;
+    }
+    return;
+  }
   if (fp < count) {
     const long long fd2 = __ldcg(d2_out + fp);
     const long long fmg = __ldcg(mag_out + fp);
@@ -410,20 +563,27 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
   }
 }
 
-template <typename T>
+template <typename T, bool BLOCK>
 int launch(StepArgs a, long long scratch_len, void* stream) {
   if (a.d <= 0 || a.n_cand <= 0 || a.n < a.n_cand || a.mcnt < 0 ||
       a.mcnt + a.n_cand > a.n || !a.s_err || !a.dist_err ||
       scratch_len < 4 + kSlots * kMaxGrid + 3 * (a.n + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (BLOCK && (a.full || a.phase < 1 || a.phase > 3 || a.row_lo < 0 ||
+                a.row_hi < a.row_lo || !a.part || !a.rank_part ||
+                (a.phase == 3 && (!a.parts || a.n_parts < 1)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
-  const void* kernel = vec ? reinterpret_cast<const void*>(&window_step_kernel<T, true>)
-                           : reinterpret_cast<const void*>(&window_step_kernel<T, false>);
+  const void* kernel = vec ? reinterpret_cast<const void*>(&window_step_kernel<T, true, BLOCK>)
+                           : reinterpret_cast<const void*>(&window_step_kernel<T, false, BLOCK>);
   const long long tiles = (a.n_cand + kTile - 1) / kTile;
   const long long rows = (a.mcnt + a.n_cand + kMemberRowsPerBlock - 1) / kMemberRowsPerBlock;
-  const long long want = tiles > rows ? tiles : rows;
+  // the block mode's phases: the candidates' tiles, the members, one block
+  const long long want = !BLOCK ? (tiles > rows ? tiles : rows)
+                                : (a.phase == 1 ? tiles : (a.phase == 2 ? rows : 1));
   void* args[] = {&a};
   const cudaError_t e = coop_launch(kernel, want, static_cast<size_t>(a.d) * sizeof(T),
                                     args, static_cast<cudaStream_t>(stream));
@@ -478,12 +638,72 @@ long long mc2_window_step_scratch_len(long long n) {
                mcnt,                                                                    \
                static_cast<long long*>(scratch),                                        \
                n};                                                                      \
-    return launch<T>(a, scratch_len, stream);                                           \
+    return launch<T, false>(a, scratch_len, stream);                                    \
   }
 
 MC2_STEP_ENTRY(mc2_window_step_u8, uint8_t)
 MC2_STEP_ENTRY(mc2_window_step_u16, uint16_t)
 
 #undef MC2_STEP_ENTRY
+
+// The block mode: the same arguments (counts: the rank's rows [row_lo,
+// row_hi); the moments: every store row's), then the block's, and the
+// phase (1, 2, 3); part int64 [d], zero before phase 1; rank_part int64
+// [6]; parts int64 [n_parts, 6], read in phase 3.
+#define MC2_STEP_BLOCK_ENTRY(NAME, T)                                                   \
+  int NAME(const void* counts, int d, const void* mags, const void* selfdot,            \
+           const void* lens, const void* stddevs, const void* order, const void* cand,  \
+           long long n_cand, const void* s, const void* dist, const void* s_err,        \
+           const void* dist_err, int full, const void* stats,                           \
+           double pos_edge, double margin, double tie_margin, long long maxc,           \
+           void* alive, void* assign, void* astep, void* members, void* msum,           \
+           const void* cur_d, long long cid, long long stepc, long long mcnt,           \
+           void* scratch, long long scratch_len, long long n, long long row_lo,         \
+           long long row_hi, int phase, void* part, void* rank_part, const void* parts, \
+           int n_parts, void* stream) {                                                 \
+    StepArgs a{counts,                                                                  \
+               d,                                                                       \
+               static_cast<const double*>(mags),                                        \
+               static_cast<const double*>(selfdot),                                     \
+               static_cast<const double*>(lens),                                        \
+               static_cast<const double*>(stddevs),                                     \
+               static_cast<const long long*>(order),                                    \
+               static_cast<const long long*>(cand),                                     \
+               n_cand,                                                                  \
+               static_cast<const double*>(s),                                           \
+               static_cast<const double*>(dist),                                        \
+               static_cast<const double*>(s_err),                                       \
+               static_cast<const double*>(dist_err),                                    \
+               full,                                                                    \
+               static_cast<const long long*>(stats),                                    \
+               pos_edge,                                                                \
+               margin,                                                                  \
+               tie_margin,                                                              \
+               maxc,                                                                    \
+               static_cast<unsigned char*>(alive),                                      \
+               static_cast<long long*>(assign),                                         \
+               static_cast<long long*>(astep),                                          \
+               static_cast<long long*>(members),                                        \
+               static_cast<long long*>(msum),                                           \
+               static_cast<const long long*>(cur_d),                                    \
+               cid,                                                                     \
+               stepc,                                                                   \
+               mcnt,                                                                    \
+               static_cast<long long*>(scratch),                                        \
+               n,                                                                       \
+               row_lo,                                                                  \
+               row_hi,                                                                  \
+               phase,                                                                   \
+               static_cast<long long*>(part),                                           \
+               static_cast<long long*>(rank_part),                                      \
+               static_cast<const long long*>(parts),                                    \
+               n_parts};                                                                \
+    return launch<T, true>(a, scratch_len, stream);                                     \
+  }
+
+MC2_STEP_BLOCK_ENTRY(mc2_window_step_block_u8, uint8_t)
+MC2_STEP_BLOCK_ENTRY(mc2_window_step_block_u16, uint16_t)
+
+#undef MC2_STEP_BLOCK_ENTRY
 
 }  // extern "C"

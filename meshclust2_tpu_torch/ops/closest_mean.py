@@ -28,7 +28,7 @@ computes the same inside its one launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -199,3 +199,134 @@ def closest_mean(counts: torch.Tensor, mags: torch.Tensor, rows: torch.Tensor,
 
 
 closest_mean.launches = 0  # kernel launches since the last reset
+
+
+# -- the block modes' shared parts ---------------------------------------------
+#
+# The step kernel and closest_candidates each have a block mode for a rank of
+# a row-sharded store (csrc/window_absorb.cu, csrc/closest_mean.cu,
+# parallel/multihost_session.py): each rank sums its own kept rows, the sums
+# are all-reduced, each rank finds its first minimum over its own rows and
+# the facts the tie guard needs (a partial, PART int64 values a segment), the
+# partials are all-gathered, and every rank picks the same first minimum.
+
+
+class RowBlock(NamedTuple):
+    """A rank's rows of a row-sharded store: `counts` (uint8/uint16 [>= hi -
+    lo, D]) holds store rows [lo, hi) at row - lo; the moments (float64
+    [N]) are every store row's; maxc is the whole store's largest count."""
+    counts: torch.Tensor
+    mags: torch.Tensor
+    selfdot: torch.Tensor
+    lens: torch.Tensor
+    stddevs: torch.Tensor
+    maxc: int
+    lo: int
+    hi: int
+
+
+# int64 values of a partial: the rank's first minimum's v (bits) and
+# position (`none` for none), that row's dist2 and mag (-1 for none), the
+# smallest v (bits) of its kept rows whose (dist2, mag) differ from the
+# first's (+inf for none), and the mean's guard
+PART = 6
+
+
+def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """counts[idx] as int64 (CUDA has no uint16 gather: the same bits as
+    int16, masked)."""
+    src, mask = ((counts.view(torch.int16), 0xFFFF)
+                 if counts.dtype == torch.uint16 else (counts, 0xFF))
+    return src[idx].to(torch.int64) & mask
+
+
+def block_sums_ref(blk: RowBlock, rows: torch.Tensor, seg: torch.Tensor,
+                   keep: torch.Tensor, n_segs: int) -> torch.Tensor:
+    """int64 [C, D]: per segment the column sums of the kept rows that the
+    block holds (rows global, seg in [0, C))."""
+    own = keep & (rows >= blk.lo) & (rows < blk.hi)
+    idx = torch.nonzero(own).view(-1)
+    num = torch.zeros((n_segs, blk.counts.shape[1]), dtype=torch.int64,
+                      device=blk.counts.device)
+    for s in range(0, len(idx), _REF_CHUNK):
+        i = idx[s:s + _REF_CHUNK]
+        num.index_add_(0, seg[i], _rows_i64(blk.counts, rows[i] - blk.lo))
+    return num
+
+
+def block_partials_ref(blk: RowBlock, rows: torch.Tensor, seg: torch.Tensor,
+                       keep: torch.Tensor, n_segs: int, num: torch.Tensor,
+                       cnt: torch.Tensor) -> torch.Tensor:
+    """int64 [C, PART]: each segment's partial over the kept rows that the
+    block holds, with the mean from the segment's whole column sums `num`
+    ([C, D]) and kept count `cnt` ([C]); positions index rows (P for none)."""
+    dev = blk.counts.device
+    n_pairs = len(rows)
+    i64 = dict(dtype=torch.int64, device=dev)
+    den = cnt.clamp(min=1)[:, None]
+    q = torch.div(num, den, rounding_mode="floor")
+    rem = num - q * den
+    r = torch.div(2 * num + den, 2 * den, rounding_mode="floor")
+    s_floor = q.sum(dim=1)
+    half = (2 * rem - den).abs()
+    g1 = (half != 0) & (half <= ((q + 2) * den) >> 51)
+    g2 = (rem != 0) & (rem <= ((q + 2) * den) >> 52)
+    g3 = (rem != 0) & ((den - rem) <= ((q + blk.maxc + 2) * den) >> 52)
+    guard = (g1 | g2 | g3).any(dim=1)
+
+    own = keep & (rows >= blk.lo) & (rows < blk.hi)
+    idx = torch.nonzero(own).view(-1)
+    sg = seg[idx]
+    dist2 = torch.empty(len(idx), **i64)
+    for s in range(0, len(idx), _REF_CHUNK):
+        i = idx[s:s + _REF_CHUNK]
+        h = _rows_i64(blk.counts, rows[i] - blk.lo)
+        dist2[s:s + len(i)] = 2 * torch.minimum(h, r[seg[i]]).sum(dim=1)
+    mag = blk.mags[rows[idx]].to(torch.int64) + s_floor[sg]
+    frac = dist2.to(torch.float64) / mag.to(torch.float64)
+    v = 10000.0 * (1.0 - frac * frac)
+    inf = float("inf")
+    # the kernel's first strict minimum: NaN and +inf never become one
+    vv = torch.where(torch.isnan(v), inf, v)
+    vmin = torch.full((n_segs,), inf, dtype=torch.float64, device=dev)
+    vmin = vmin.scatter_reduce(0, sg, vv, "amin")
+    hit = (vv == vmin[sg]) & (vmin[sg] < inf)
+    first = torch.full((n_segs,), n_pairs, **i64).scatter_reduce(
+        0, sg, torch.where(hit, idx, n_pairs), "amin")
+    # the first's integers: scatter by position, read at the first
+    d2_at = torch.full((n_pairs + 1,), -1, **i64)
+    mag_at = torch.full((n_pairs + 1,), -1, **i64)
+    d2_at[idx] = dist2
+    mag_at[idx] = mag
+    fd2, fmg = d2_at[first], mag_at[first]
+    differ = (dist2 != fd2[sg]) | (mag != fmg[sg])
+    sv = torch.full((n_segs,), inf, dtype=torch.float64, device=dev)
+    sv = sv.scatter_reduce(0, sg, torch.where(differ, vv, inf), "amin")
+    vmin_bits = torch.where(first < n_pairs, vmin, inf).view(torch.int64)
+    return torch.stack([vmin_bits, first, fd2, fmg, sv.view(torch.int64),
+                        guard.to(torch.int64)], dim=1)
+
+
+def pick_ref(parts: torch.Tensor, none: int, tie_margin: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(first int64 [C], unc bool [C]) from every rank's partials (int64
+    [G, C, PART]): the first minimum over the ranks (the smallest v, then
+    position; `none` for none), and unc = some rank's guard, or a kept row
+    within tie_margin of the minimum whose (dist2, mag) differ from the
+    first's.  That row exists exactly when the smallest v of such rows lies
+    within tie_margin: per rank, its first's v where its first's integers
+    differ from the global first's, its own smallest differing v
+    otherwise."""
+    v = parts[..., 0].view(torch.float64)
+    pos, d2, mg = parts[..., 1], parts[..., 2], parts[..., 3]
+    mv = v.min(dim=0).values
+    first = torch.where(v == mv, pos, none).min(dim=0).values
+    sel = (pos == first) & (first < none)
+    fd2 = (d2 * sel).sum(dim=0)
+    fmg = (mg * sel).sum(dim=0)
+    differs = (pos < none) & ((d2 != fd2) | (mg != fmg))
+    t = torch.where(differs, v, parts[..., 4].view(torch.float64)).min(dim=0).values
+    thr = tie_margin * mv.abs().clamp(min=1.0)
+    tie = (first < none) & ((t - mv).abs() <= thr)
+    return first, (parts[..., 5] != 0).any(dim=0) | tie
+

@@ -29,17 +29,27 @@ member count.  Per iteration:
     pairs at their bound delta C, `ok` their length cut;
   - after the merge decisions, `merge_replay`: the absorb events applied
     in ascending slot order (cluster/engine.py `_merge_pass`).
+
+`closest_candidates_block` is closest_candidates on a rank of a row-sharded
+store (the kernel's block mode, parallel/multihost_session.py): three
+launches with the collectives between them (phase 1, the column sums of
+the rank's own kept rows; the host all-reduces them; phase 2, the rank's
+partial of each segment's closest-to-mean; the host all-gathers them;
+phase 3, the pick and the candidates step), the layout, the keep flags and
+the state every rank's alike.  `closest_candidates_blocks` runs G blocks in
+one process, the collectives' sums and gathers done in place.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .closest_mean import _check as _check_closest
-from .closest_mean import closest_mean_ref
+from .closest_mean import (PART, RowBlock, block_partials_ref, block_sums_ref,
+                           closest_mean_ref, pick_ref)
 
 
 class PhaseState(NamedTuple):
@@ -321,17 +331,22 @@ def _closest_lib():
 
     lib = load("closest_mean").lib
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in _CAND_ENTRY.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = ([p, i32, p, p, p, p, i64, i64, i64, ctypes.c_double, p, i64,
-                            p, p, i64, i32, i32] + [p] * 15)
-            fn.restype = ctypes.c_int
+    cand = [p, i32, p, p, p, p, i64, i64, i64, ctypes.c_double, p, i64, p, p, i64, i32,
+            i32] + [p] * 14
+    for names, extra in ((_CAND_ENTRY, []),
+                         (_CAND_BLOCK_ENTRY, [i64, i64, i32, p, p, p, i32])):
+        for name in names.values():
+            fn = getattr(lib, name)
+            if fn.argtypes is None:
+                fn.argtypes = cand + extra + [p]
+                fn.restype = ctypes.c_int
     return lib
 
 
 _CAND_ENTRY = {torch.uint8: "mc2_closest_candidates_u8",
                torch.uint16: "mc2_closest_candidates_u16"}
+_CAND_BLOCK_ENTRY = {torch.uint8: "mc2_closest_candidates_block_u8",
+                     torch.uint16: "mc2_closest_candidates_block_u16"}
 
 
 def closest_candidates_ref(counts: torch.Tensor, mags: torch.Tensor,
@@ -406,6 +421,130 @@ def closest_candidates(counts: torch.Tensor, mags: torch.Tensor,
 
 
 closest_candidates.launches = 0  # kernel launches since the last reset
+
+
+def closest_candidates_block(phase: int, blk: RowBlock, keep: torch.Tensor,
+                             st: PhaseState, rows: PhaseRows, delta: int, lay: Layout,
+                             n_alive: int, n_pairs: int, out: Candidates, *,
+                             tie_margin: float, final: bool = False,
+                             num: Optional[torch.Tensor] = None,
+                             rank_part: Optional[torch.Tensor] = None,
+                             parts: Optional[torch.Tensor] = None):
+    """One phase (1, 2 or 3) of closest_candidates on a rank of a row-sharded
+    store (module docstring): `blk` holds the rank's rows, the layout's
+    member rows lay.b_rows are global.  Phase 1 writes the column sums of
+    the rank's own kept rows into num[:C] (int64 [>= C, D]), which the
+    caller all-reduces (SUM); phase 2 reads them and writes the rank's
+    partials into rank_part[:C] (int64 [>= C, 6]), which the caller
+    all-gathers into `parts` (int64 [G, C, 6]); phase 3 returns (first,
+    unc) as closest_candidates and writes `out` as it does.  Phases 1 and 2
+    return None.
+
+    On CUDA one launch of csrc/closest_mean.cu's block mode a phase, on the
+    current stream, without syncing (phases 1 and 2 launch nothing at C =
+    0); on the CPU the plain versions (block_sums_ref, block_partials_ref,
+    pick_ref, then phase_candidates_ref)."""
+    n, n_slots, dev = _check_state("closest_candidates_block", st, rows)
+    m = delta * n_alive
+    if phase not in (1, 2, 3):
+        raise ValueError(f"closest_candidates_block: the phase is 1, 2 or 3, got {phase}")
+    if not 0 <= n_alive <= n_slots or not 0 <= n_pairs <= len(lay.b_rows) or delta < 0:
+        raise ValueError(f"closest_candidates_block: bad C = {n_alive}, P = {n_pairs} or "
+                         f"delta = {delta} for {n_slots} slots")
+    _check("closest_candidates_block", [
+        ("out.cen", out.cen, torch.int64, n_slots), ("out.a", out.a, torch.int64, m),
+        ("out.b", out.b, torch.int64, m), ("out.seg", out.seg, torch.int64, m),
+        ("out.ok", out.ok, torch.bool, m), ("out.arrive", out.arrive, torch.int32, m),
+        ("keep", keep, torch.bool, n_pairs)], dev)
+    _check_layout("closest_candidates_block", lay, n, n_slots, 0, dev)
+    counts, d = blk.counts, blk.counts.shape[1]
+    if counts.dtype not in _CAND_BLOCK_ENTRY or counts.dim() != 2 or counts.device != dev:
+        raise ValueError(f"closest_candidates_block: counts must be uint8/uint16 [rows, D] "
+                         f"on {dev}")
+    # the moments cover every store row, the state's n rows among them
+    n_rows = len(blk.mags)
+    if blk.mags.dtype != torch.float64 or n_rows < n or blk.mags.device != dev:
+        raise ValueError(f"closest_candidates_block: mags must be float64 [>= {n}] on {dev}")
+    if not 0 <= blk.lo <= blk.hi <= n_rows or counts.shape[0] < blk.hi - blk.lo:
+        raise ValueError(f"closest_candidates_block: rows [{blk.lo}, {blk.hi}) do not fit")
+    want = {1: ("num", num, (n_alive, d)), 2: ("rank_part", rank_part, (n_alive, PART)),
+            3: ("parts", parts, None)}[phase]
+    name, t, shape = want
+    if phase == 2 and (num is None or num.shape[0] < n_alive or num.shape[1:] != (d,)):
+        raise ValueError("closest_candidates_block: phase 2 reads num [>= C, D]")
+    if t is None or t.dtype != torch.int64 or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"closest_candidates_block: {name} must be contiguous int64 on {dev}")
+    if shape is not None and (t.shape[0] < shape[0] or t.shape[1:] != shape[1:]):
+        raise ValueError(f"closest_candidates_block: {name} must be [>= {shape[0]}, "
+                         f"{shape[1]}], got {tuple(t.shape)}")
+    if phase == 3 and (t.dim() != 3 or t.shape[1] != n_alive or t.shape[2] != PART):
+        raise ValueError(f"closest_candidates_block: parts must be [G, {n_alive}, {PART}], "
+                         f"got {tuple(t.shape)}")
+    b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
+    if dev.type == "cpu":
+        if phase == 1:
+            num[:n_alive] = block_sums_ref(blk, b, sg, keep, n_alive)
+        elif phase == 2:
+            cnt = torch.zeros(n_alive, dtype=torch.int64, device=dev).index_add_(
+                0, sg, keep.to(torch.int64))
+            rank_part[:n_alive] = block_partials_ref(blk, b, sg, keep, n_alive,
+                                                     num[:n_alive], cnt)
+        else:
+            first, unc = pick_ref(parts, n_pairs, tie_margin)
+            phase_candidates_ref(st, rows, delta, lay, first, n_alive, n_pairs, out, final)
+            return first, unc
+        return None
+    first = torch.empty(n_alive, dtype=torch.int64, device=dev)
+    unc = torch.empty(n_alive, dtype=torch.bool, device=dev)
+    scratch = torch.empty(3 * n_pairs if phase == 2 else 0, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(_closest_lib(), _CAND_BLOCK_ENTRY[counts.dtype])(
+            counts.data_ptr(), d, blk.mags.data_ptr(), b.data_ptr(), sg.data_ptr(),
+            keep.data_ptr(), n_pairs, n_alive, int(blk.maxc), float(tie_margin),
+            scratch.data_ptr(), scratch.numel(), first.data_ptr(), unc.data_ptr(),
+            n_slots, int(delta), int(final),
+            *_ptrs(st.alive, st.cen, lay.inv, lay.moff, lay.flat, rows.lens,
+                   rows.blen, rows.elen, out.arrive, out.cen, out.a, out.b, out.seg,
+                   out.ok), int(blk.lo), int(blk.hi), int(phase),
+            num.data_ptr() if num is not None else None,
+            rank_part.data_ptr() if rank_part is not None else None,
+            parts.data_ptr() if parts is not None else None,
+            parts.shape[0] if parts is not None else 0, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"closest_candidates block kernel launch failed (phase {phase}): "
+                           f"cudaError {rc}")
+    if phase == 3 or n_alive:
+        closest_candidates_block.launches += 1
+    return (first, unc) if phase == 3 else None
+
+
+closest_candidates_block.launches = 0  # kernel launches since the last reset
+
+
+def closest_candidates_blocks(blocks, keep, st, rows, delta, lay, n_alive, n_pairs,
+                              outs, *, tie_margin: float, final: bool = False):
+    """closest_candidates over G row blocks in one process, as G ranks run
+    it: each block's phase 1, the column sums added (the all-reduce), each
+    block's phase 2, the partials stacked (the all-gather), each block's
+    phase 3 into its own `outs[g]` (each with its own arrival counters).
+    Returns each block's (first, unc)."""
+    dev = st.cen.device
+    d = blocks[0].counts.shape[1]
+    C = n_alive
+    nums = [torch.zeros((C, d), dtype=torch.int64, device=dev) for _ in blocks]
+    rank_parts = [torch.zeros((C, PART), dtype=torch.int64, device=dev) for _ in blocks]
+    args = (keep, st, rows, delta, lay, n_alive, n_pairs)
+    for g, blk in enumerate(blocks):
+        closest_candidates_block(1, blk, *args, outs[g], tie_margin=tie_margin,
+                                 final=final, num=nums[g])
+    total = torch.stack(nums).sum(dim=0)
+    for g, blk in enumerate(blocks):
+        closest_candidates_block(2, blk, *args, outs[g], tie_margin=tie_margin,
+                                 final=final, num=total, rank_part=rank_parts[g])
+    gathered = torch.stack(rank_parts)
+    return [closest_candidates_block(3, blk, *args, outs[g], tie_margin=tie_margin,
+                                     final=final, parts=gathered)
+            for g, blk in enumerate(blocks)]
 
 
 # -- the merge replay ---------------------------------------------------------

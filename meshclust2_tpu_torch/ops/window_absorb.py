@@ -30,6 +30,16 @@ at stamp stepc, alone in the member list, msum its row) or the absorb case
 list after its first mcnt entries, msum += their column sums), and when
 absorbing the member closest to the new mean.  Returns trip = int64 [4]
 (bits, npos, closest-to-mean uncertain (0 unless absorbing), next center).
+
+`window_step_block` is the same step on a rank of a row-sharded store (the
+kernel's block mode, parallel/multihost_session.py): its counts hold only
+the rank's rows (a RowBlock), the window's decisions, the moments and the
+state are every rank's alike, and the step is three launches with the
+collectives between them (phase 1, the case and the rank's partial column
+sums; the host all-reduces them; phase 2, msum and the rank's
+closest-to-mean partial; the host all-gathers them; phase 3, the pick).
+`window_step_blocks` runs G blocks in one process, the collectives' sums
+and gathers done in place.  Plain version `window_step_block_ref`.
 """
 from __future__ import annotations
 
@@ -38,12 +48,15 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .closest_mean import closest_mean_ref
+from .closest_mean import (PART, RowBlock, _rows_i64, block_partials_ref, closest_mean_ref,
+                           pick_ref)
 
 # rows of the plain version's int64 temporaries per step
 _REF_CHUNK = 16384
 
 _ENTRY = {torch.uint8: "mc2_window_step_u8", torch.uint16: "mc2_window_step_u16"}
+_BLOCK_ENTRY = {torch.uint8: "mc2_window_step_block_u8",
+                torch.uint16: "mc2_window_step_block_u16"}
 
 
 class StepState(NamedTuple):
@@ -68,32 +81,33 @@ def _lib():
                            ctypes.c_int, p, f64, f64, f64, i64, p, p, p, p, p, p,
                            i64, i64, i64, p, i64, i64, p]
             fn.restype = ctypes.c_int
+        for name in _BLOCK_ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, p, p, p, p,
+                           ctypes.c_int, p, f64, f64, f64, i64, p, p, p, p, p, p,
+                           i64, i64, i64, p, i64, i64, i64, i64, ctypes.c_int, p, p, p,
+                           ctypes.c_int, p]
+            fn.restype = ctypes.c_int
         lib.mc2_window_step_scratch_len.argtypes = [i64]
         lib.mc2_window_step_scratch_len.restype = i64
     return lib
 
 
-def step_scratch(n: int, device) -> Optional[torch.Tensor]:
+def step_scratch(n: int, device) -> torch.Tensor:
     """The step kernel's scratch for a pool of n flat positions (the trip,
     per-block partials, per-member distances), allocated once by the
-    caller; None on the CPU, where the plain version needs none."""
+    caller; on the CPU the plain versions' trip alone (int64 [4])."""
     device = torch.device(device)
     if device.type != "cuda":
-        return None
+        return torch.zeros(4, dtype=torch.int64, device=device)
     # zeroed: it holds the kernel's count of finished blocks
     return torch.zeros(_lib().mc2_window_step_scratch_len(n),
                        dtype=torch.int64, device=device)
 
 
-def _rows_i64(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """counts[idx] as int64 (CUDA has no uint16 gather: the same bits as
-    int16, masked)."""
-    src, mask = ((counts.view(torch.int16), 0xFFFF)
-                 if counts.dtype == torch.uint16 else (counts, 0xFF))
-    return src[idx].to(torch.int64) & mask
-
-
-def _check(counts, rows, s, dist, stats, s_err, dist_err, moments):
+def _check(counts, rows, s, dist, stats, s_err, dist_err, moments, n_rows=None):
+    """n_rows: the moments' length where it is not the counts' (a row
+    block's moments cover every store row)."""
     if counts.dtype not in _ENTRY:
         raise TypeError(f"counts must be uint8 or uint16, got {counts.dtype}")
     if counts.dim() != 2:
@@ -105,7 +119,8 @@ def _check(counts, rows, s, dist, stats, s_err, dist_err, moments):
             ("stats", stats, torch.int64, (n_cand, 3)),
             ("s_err", s_err, torch.float64, (n_cand,)),
             ("dist_err", dist_err, torch.float64, (n_cand,)))
-    want += tuple((name, t, torch.float64, counts.shape[:1])
+    rows_shape = counts.shape[:1] if n_rows is None else (n_rows,)
+    want += tuple((name, t, torch.float64, rows_shape)
                   for name, t in zip(("mags", "selfdot", "lens", "stddevs"), moments))
     for name, t, dtype, shape in want:
         if t.dtype != dtype:
@@ -135,6 +150,28 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
            (mags, selfdot, lens, stddevs))
     n_cand, d = len(rows), counts.shape[1]
     dev = counts.device
+    pos, bits, best = _decide(counts, rows, s, dist, stats, (mags, selfdot, lens, stddevs),
+                              pos_edge=pos_edge, margin=margin, tie_margin=tie_margin,
+                              s_err=s_err, dist_err=dist_err, full=full)
+    # CUDA has no uint16 gather: gather the same bits as int16 and mask
+    src, mask = ((counts.view(torch.int16), 0xFFFF)
+                 if counts.dtype == torch.uint16 else (counts, 0xFF))
+    colsum = torch.zeros(d, dtype=torch.int64, device=dev)
+    for c in range(0, n_cand, _REF_CHUNK):
+        h = src[rows[c:c + _REF_CHUNK]].to(torch.int64) & mask
+        colsum += (h * pos[c:c + _REF_CHUNK, None]).sum(dim=0)
+    info = torch.stack([bits, pos.sum(dtype=torch.int64), best.to(torch.int64)])
+    return pos, colsum, info
+
+
+def _decide(counts, rows, s, dist, stats, moments, *, pos_edge: float, margin: float,
+            tie_margin: float, s_err: torch.Tensor, dist_err: torch.Tensor, full: bool):
+    """The window's decisions, the step kernel's float64 operations: (pos
+    bool [W], bits int64, best int64; best is W when W is 0).  The moments
+    are indexed by the global rows; `counts` is read only with `full`."""
+    n_cand = len(rows)
+    dev = s.device
+    mags, selfdot, lens, stddevs = moments
     pos = s >= pos_edge
     scale = s.abs().clamp(min=max(abs(pos_edge), 1.0))
     thr = torch.fmax(8 * s_err, margin * scale)
@@ -158,23 +195,14 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
             same[idx] = (_rows_i64(counts, rows[idx])
                          == _rows_i64(counts, rows[best].view(1))).all(dim=1)
         tie = (near & ~same).any()
-    # CUDA has no uint16 gather: gather the same bits as int16 and mask
-    src, mask = ((counts.view(torch.int16), 0xFFFF)
-                 if counts.dtype == torch.uint16 else (counts, 0xFF))
-    colsum = torch.zeros(d, dtype=torch.int64, device=dev)
-    for c in range(0, n_cand, _REF_CHUNK):
-        h = src[rows[c:c + _REF_CHUNK]].to(torch.int64) & mask
-        colsum += (h * pos[c:c + _REF_CHUNK, None]).sum(dim=0)
-    bits = unc.to(torch.int64) | 2 * tie.to(torch.int64)
-    info = torch.stack([bits, pos.sum(dtype=torch.int64), best.to(torch.int64)])
-    return pos, colsum, info
+    return pos, unc.to(torch.int64) | 2 * tie.to(torch.int64), best
 
 
 def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
-                mcnt: int, s_err, dist_err):
+                mcnt: int, s_err, dist_err, n_rows=None):
     counts = store.counts
     _check(counts, cand, s, dist, stats, s_err, dist_err,
-           (store.mags, store.selfdot, store.lens, store.stddevs))
+           (store.mags, store.selfdot, store.lens, store.stddevs), n_rows)
     n = len(order)
     want = (("order", order, torch.int64, (n,)),
             ("cand", cand, torch.int64, (len(cand),)),
@@ -222,14 +250,9 @@ def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
     absorb = ok & (npos > 0)
     is_min = ok & (npos == 0)
 
-    # absorb: the positives join cluster cid at stamp stepc, appended to
-    # the member list in flat order
     pa = pos & absorb
-    alive[cand] = ~pa
-    assign[cand] = torch.where(pa, cid, -1)
-    astep[cand] = torch.where(pa, stepc, 0)
-    slot = torch.cumsum(pa, 0, dtype=torch.int64) + (mcnt - 1)
-    members.scatter_(0, torch.where(pa, slot, n), cand)
+    seed = cand[best.clamp(max=n_cand - 1)]
+    _absorb_case(state, cand, pa, cid, stepc, mcnt)
     new_sum = msum + colsum
     size = mcnt + n_cand
     count = npos + mcnt
@@ -238,19 +261,37 @@ def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
         torch.arange(size, **i64) < count, 1, maxc=store.maxc,
         tie_margin=tie_margin, col_sum=new_sum, count=count)
     unc = unc & absorb   # the loop reads it only after an absorb
-    seed = cand[best.clamp(max=n_cand - 1)]
     cur_next = torch.where(absorb & ~unc, members[first.clamp(max=n)],
                            torch.where(is_min, seed, cur_d))
     msum.copy_(torch.where(absorb, new_sum, msum))
-
-    # the min case: the seed leaves the pool and opens cluster cid + 1
     row = _rows_i64(counts, order[seed])[0]
+    _min_case(state, seed, is_min, cid, stepc)
+    msum.copy_(torch.where(is_min, row, msum))
+    return torch.cat([bits, npos, unc.to(torch.int64), cur_next])
+
+
+def _absorb_case(state: StepState, cand, pa, cid: int, stepc: int, mcnt: int) -> None:
+    """The absorb case on the candidates: the positives `pa` join cluster
+    cid at stamp stepc, appended to the member list in flat order after
+    its first mcnt; the others stay in the pool (where pa is all False,
+    nothing changes: candidates are alive, unassigned, stamp 0)."""
+    alive, assign, astep, members, _ = state
+    n = len(alive)
+    alive[cand] = ~pa
+    assign[cand] = torch.where(pa, cid, -1)
+    astep[cand] = torch.where(pa, stepc, 0)
+    slot = torch.cumsum(pa, 0, dtype=torch.int64) + (mcnt - 1)
+    members.scatter_(0, torch.where(pa, slot, n), cand)
+
+
+def _min_case(state: StepState, seed, is_min, cid: int, stepc: int) -> None:
+    """The min case, under the flag is_min: the seed leaves the pool and
+    opens cluster cid + 1 at stamp stepc, alone in the member list."""
+    alive, assign, astep, members, _ = state
     alive[seed] = alive[seed] & ~is_min
     assign[seed] = torch.where(is_min, cid + 1, assign[seed])
     astep[seed] = torch.where(is_min, stepc, astep[seed])
     members[:1] = torch.where(is_min, seed, members[:1])
-    msum.copy_(torch.where(is_min, row, msum))
-    return torch.cat([bits, npos, unc.to(torch.int64), cur_next])
 
 
 def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
@@ -307,3 +348,178 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
 
 
 window_step.launches = 0  # kernel launches since the last reset
+
+
+# -- the block mode -------------------------------------------------------------
+
+
+def _check_block(phase: int, blk: RowBlock, order, cand, s, dist, stats, state: StepState,
+                 cur_d, mcnt: int, s_err, dist_err, part, rank_part, parts):
+    counts = blk.counts
+    if phase not in (1, 2, 3):
+        raise ValueError(f"the block mode's phase is 1, 2 or 3, got {phase}")
+    n_rows = len(blk.mags)
+    if not 0 <= blk.lo <= blk.hi <= n_rows or counts.shape[0] < blk.hi - blk.lo:
+        raise ValueError(f"block rows [{blk.lo}, {blk.hi}) do not fit {n_rows} store rows "
+                         f"and {counts.shape[0]} count rows")
+    _check_step(blk, order, cand, s, dist, stats, state, cur_d, mcnt, s_err, dist_err,
+                n_rows)
+    want = [("part", part, (counts.shape[1],)), ("rank_part", rank_part, (PART,))]
+    if phase == 3:
+        if parts is None or parts.dim() != 2:
+            raise ValueError("phase 3 needs every rank's partials, int64 [G, 6]")
+        want.append(("parts", parts, (parts.shape[0], PART)))
+    for name, t, shape in want:
+        if t.dtype != torch.int64 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int64 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != counts.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {counts.device}")
+
+
+def window_step_block_ref(phase: int, blk: RowBlock, order, cand, s, dist, stats,
+                          state: StepState, cur_d, *, cid: int, stepc: int, mcnt: int,
+                          pos_edge: float, margin: float, tie_margin: float,
+                          s_err: torch.Tensor, dist_err: torch.Tensor, trip: torch.Tensor,
+                          part: torch.Tensor, rank_part: torch.Tensor,
+                          parts: Optional[torch.Tensor] = None) -> None:
+    """One phase of the block mode in plain PyTorch, on the CPU: phase 1 the
+    decisions and the case (`_decide`, `_absorb_case`, `_min_case`), the
+    block's positives' column sums added to `part` (the min case's seed
+    row, on its owner); phase 2 msum from `part`, `part` zeroed, and
+    `block_partials_ref` over the block's members into `rank_part`; phase 3
+    `pick_ref` over `parts`.  `trip` (int64 [4]) as the kernel's.  Runs
+    on any device (the wrapper runs it on the CPU)."""
+    n_cand = len(cand)
+    lo, hi = blk.lo, blk.hi
+    i64 = dict(dtype=torch.int64, device=cand.device)
+    bits, npos = int(trip[0]), int(trip[1])
+    absorb, is_min = bits == 0 and npos > 0, bits == 0 and npos == 0
+    if phase == 1:
+        rows = order[cand]
+        pos, bits_t, best = _decide(blk.counts, rows, s, dist, stats, tuple(blk[1:5]),
+                                    pos_edge=pos_edge, margin=margin,
+                                    tie_margin=tie_margin, s_err=s_err,
+                                    dist_err=dist_err, full=False)
+        bits, npos = int(bits_t), int(pos.sum())
+        absorb, is_min = bits == 0 and npos > 0, bits == 0 and npos == 0
+        seed = cand[best.clamp(max=n_cand - 1)]
+        was = int(cur_d[0])
+        pa = pos & absorb
+        _absorb_case(state, cand, pa, cid, stepc, mcnt)
+        own = torch.nonzero(pa & (rows >= lo) & (rows < hi)).view(-1)
+        for c in range(0, len(own), _REF_CHUNK):
+            part += _rows_i64(blk.counts, rows[own[c:c + _REF_CHUNK]] - lo).sum(dim=0)
+        _min_case(state, seed, torch.tensor(is_min, device=cand.device), cid, stepc)
+        seed_row = int(order[seed])
+        if is_min and lo <= seed_row < hi:
+            part.copy_(_rows_i64(blk.counts, torch.tensor([seed_row - lo], **i64))[0])
+        trip.copy_(torch.tensor([bits, npos, 0, int(seed) if is_min else was], **i64))
+    elif phase == 2:
+        x = part.clone()
+        part.zero_()
+        if absorb:
+            state.msum.add_(x)
+        elif is_min:
+            state.msum.copy_(x)
+        if absorb:
+            count = mcnt + npos
+            rows = order[state.members[:count]]
+            rank_part.copy_(block_partials_ref(
+                blk, rows, torch.zeros(count, **i64),
+                torch.ones(count, dtype=torch.bool, device=cand.device), 1,
+                state.msum[None], torch.tensor([count], **i64))[0])
+    elif absorb:
+        count = mcnt + npos
+        first, unc = pick_ref(parts[:, None], count, tie_margin)
+        f, u = int(first[0]), bool(unc[0])
+        trip[2] = int(u)
+        trip[3] = int(cur_d[0]) if u or f >= count else int(state.members[f])
+
+
+def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torch.Tensor,
+                      s: torch.Tensor, dist: torch.Tensor, stats: torch.Tensor,
+                      state: StepState, cur_d: torch.Tensor, *, cid: int, stepc: int,
+                      mcnt: int, pos_edge: float, margin: float, tie_margin: float,
+                      s_err: torch.Tensor, dist_err: torch.Tensor, scratch: torch.Tensor,
+                      part: torch.Tensor, rank_part: torch.Tensor,
+                      parts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One phase (1, 2 or 3) of the step on a rank of a row-sharded store
+    (module docstring): `blk` holds the rank's rows, `order` maps flat
+    positions to store rows, the rest is window_step's, with no `full` (a
+    model with full-vector singles needs rows for its tie guard).  `part`
+    (int64 [D], zero before phase 1 and left zero by phase 2) takes the
+    block's partial column sums, which the caller all-reduces (SUM) before
+    phase 2; `rank_part` (int64 [6]) takes phase 2's partial, which the
+    caller all-gathers into `parts` (int64 [G, 6]) for phase 3.  Returns
+    the trip, a view of `scratch` (step_scratch(n)), complete after phase
+    3.
+
+    On CUDA one launch of csrc/window_absorb.cu's block mode a phase, on
+    the current stream, without syncing; on the CPU window_step_block_ref."""
+    _check_block(phase, blk, order, cand, s, dist, stats, state, cur_d, mcnt, s_err,
+                 dist_err, part, rank_part, parts)
+    kw = dict(cid=int(cid), stepc=int(stepc), mcnt=int(mcnt), pos_edge=float(pos_edge),
+              margin=float(margin), tie_margin=float(tie_margin))
+    counts = blk.counts
+    if counts.device.type == "cpu":
+        window_step_block_ref(phase, blk, order, cand, s, dist, stats, state, cur_d,
+                              s_err=s_err, dist_err=dist_err, trip=scratch[:4], part=part,
+                              rank_part=rank_part, parts=parts, **kw)
+        return scratch[:4]
+    n = len(order)
+    lib = _lib()
+    need = lib.mc2_window_step_scratch_len(n)
+    if (scratch.dtype != torch.int64 or scratch.device != counts.device
+            or scratch.numel() < need or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be int64 [>= {need}] on {counts.device}")
+    stream = torch.cuda.current_stream(counts.device).cuda_stream
+    with torch.cuda.device(counts.device):
+        rc = getattr(lib, _BLOCK_ENTRY[counts.dtype])(
+            counts.data_ptr(), counts.shape[1], blk.mags.data_ptr(),
+            blk.selfdot.data_ptr(), blk.lens.data_ptr(), blk.stddevs.data_ptr(),
+            order.data_ptr(), cand.data_ptr(), len(cand), s.data_ptr(), dist.data_ptr(),
+            s_err.data_ptr(), dist_err.data_ptr(), 0, stats.data_ptr(), kw["pos_edge"],
+            kw["margin"], kw["tie_margin"], int(blk.maxc),
+            *(t.data_ptr() for t in state), cur_d.data_ptr(), kw["cid"], kw["stepc"],
+            kw["mcnt"], scratch.data_ptr(), scratch.numel(), n, int(blk.lo), int(blk.hi),
+            int(phase), part.data_ptr(), rank_part.data_ptr(),
+            parts.data_ptr() if parts is not None else None,
+            parts.shape[0] if parts is not None else 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"window_step block kernel launch failed (phase {phase}): "
+                           f"cudaError {rc}")
+    window_step_block.launches += 1
+    return scratch[:4]
+
+
+window_step_block.launches = 0  # kernel launches since the last reset
+
+
+def window_step_blocks(blocks, states, scratches, parts, order, cand, s, dist, stats,
+                       cur_ds, **kw):
+    """The step over G row blocks in one process, as G ranks run it: each
+    block's phase 1 with its own state copy, scratch and partial sums
+    `parts[g]`; the partial sums added and given to every block, as the
+    all-reduce gives them; each block's phase 2; the partials stacked, as
+    the all-gather stacks them; each block's phase 3.  cur_ds[g] is block
+    g's center (its own trip's last entry or a tensor of its own).  Returns
+    each block's trip."""
+    G = len(blocks)
+    rank_parts = [torch.zeros(PART, dtype=torch.int64, device=blocks[0].counts.device)
+                  for _ in range(G)]
+    args = (order, cand, s, dist, stats)
+    for g in range(G):
+        window_step_block(1, blocks[g], *args, states[g], cur_ds[g], scratch=scratches[g],
+                          part=parts[g], rank_part=rank_parts[g], **kw)
+    total = torch.stack(parts).sum(dim=0)
+    for g in range(G):
+        parts[g].copy_(total)
+        window_step_block(2, blocks[g], *args, states[g], cur_ds[g], scratch=scratches[g],
+                          part=parts[g], rank_part=rank_parts[g], **kw)
+    gathered = torch.stack(rank_parts)
+    return [window_step_block(3, blocks[g], *args, states[g], cur_ds[g],
+                              scratch=scratches[g], part=parts[g],
+                              rank_part=rank_parts[g], parts=gathered, **kw)
+            for g in range(G)]
+

@@ -54,10 +54,14 @@ class Mesh:
     device: torch.device
 
 
-def backend_for(device: torch.device) -> str:
-    """The collective backend of a rank on `device`: NCCL for a card, gloo
-    on the CPU."""
-    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+def backend_for(device: torch.device, world: int = 1) -> str:
+    """The collective backend of a rank on `device` in a group of `world`
+    ranks: NCCL where every rank has a card of its own, gloo on the CPU and
+    where ranks share a card (NCCL refuses two ranks on one device; gloo
+    takes CUDA tensors)."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
 
 
 def make_mesh(device=None) -> Mesh:
@@ -65,9 +69,9 @@ def make_mesh(device=None) -> Mesh:
     l. 28): the default process group, which a multi-process run forms
     first (multihost.py:initialize_from_env); a process without one forms a
     one-rank group here.  `device` is the rank's device (None: the card
-    cuda:<rank % cards>, raising without one; "cpu" asks for the CPU).  A
-    CUDA device needs an NCCL group, the CPU a gloo one; a group of the
-    other backend raises."""
+    cuda:<rank % cards>, raising without one; "cpu" asks for the CPU).  The
+    group's backend must be backend_for's (NCCL for ranks with a card each,
+    gloo on the CPU or on a shared card); another raises."""
     from ..runtime import resolve_device
 
     if device is None:
@@ -75,7 +79,7 @@ def make_mesh(device=None) -> Mesh:
         rank = dist.get_rank() if dist.is_initialized() else 0
         device = torch.device("cuda", rank % torch.cuda.device_count())
     dev = torch.device(device)
-    backend = backend_for(dev)
+    backend = backend_for(dev, dist.get_world_size() if dist.is_initialized() else 1)
     if not dist.is_initialized():
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     elif dist.get_backend() != backend:
@@ -110,8 +114,9 @@ def gather_rows(mesh: Mesh, local: torch.Tensor, n: int) -> torch.Tensor:
     if local.shape[0] != hi - lo:
         raise ValueError(f"gather_rows: {local.shape[0]} local rows, the block holds "
                          f"{hi - lo}")
-    flat = local.contiguous().view(torch.uint8).view(local.shape[0], -1)
-    width = flat.shape[1]
+    # the width from the shape: a rank's block may be empty
+    width = int(np.prod(local.shape[1:], dtype=np.int64)) * local.element_size()
+    flat = local.contiguous().view(torch.uint8).view(local.shape[0], width)
     send = torch.zeros((rows, width), dtype=torch.uint8, device=local.device)
     send[:hi - lo] = flat
     out = all_gather(mesh, send)

@@ -14,18 +14,24 @@ a dead peer ends the run instead of hanging it:
     semantics, then lengths) is computed identically on every process;
   - the count rows travel by one all-to-all into sorted row blocks, each
     process's block on its device in the DeviceStore layout;
-  - every process runs the same engine; scoring goes through
-    MultihostScorer (mesh_scorer.py over the sorted blocks), whose
-    gathered decisions every process shares, so all take the same branches
-    and meet at the same collectives; the host-exact work (re-checks,
-    closest-to-mean) fetches the rows it needs from their owners (`fetch`:
-    a gather of the requested rows to every process);
+  - every process runs the same engine over the device session of
+    multihost_session.py (the accumulate loop and the update phase over the
+    row-sharded store, the step kernel's and closest_candidates' block
+    modes), whose collectives every process meets in step; its host steps
+    after a guarded abort score through MultihostScorer (mesh_scorer.py
+    over the sorted blocks), whose gathered decisions every process
+    shares; the host-exact work (re-checks, closest-to-mean) fetches the
+    rows it needs from their owners (`fetch`: a gather of the requested
+    rows to every process);
   - process 0 alone writes the CLSTR.
 
-The JAX package's device session over the global mesh
-(multihost_session.py) is not ported: `run_multihost` runs MultihostScorer
-per-window scoring, what the JAX package runs under MC2_NO_DEVICE_SESSION=1,
-and says so on stderr.
+Under MC2_NO_DEVICE_SESSION=1 (the JAX package's switch) every window goes
+through MultihostScorer (per-window scoring, the scorer-alone path's
+counters).  A pool the kernels do not take (uint32/uint64 histograms, or
+counts outside the exact-integer envelope: `refusal`) is clustered on the
+host: every window through FetchOracle, the native scorer's float64
+semantics on rows fetched from their owners.  Each route says so in one
+stderr line, decided before any device work.
 """
 from __future__ import annotations
 
@@ -51,14 +57,15 @@ DIST_TIMEOUT_S = 600.0
 def initialize_from_env(device) -> tuple:
     """(process_id, num_processes) from MC2_NPROCS / MC2_PROC_ID /
     MC2_COORD (host:port of process 0's rendezvous); forms the process
-    group when MC2_NPROCS > 1, over NCCL for a CUDA device and gloo on the
-    CPU.  A single process gets its one-rank group from make_mesh."""
+    group when MC2_NPROCS > 1, over NCCL where each process has a card of
+    its own and gloo on the CPU or on a shared card (mesh.backend_for).  A
+    single process gets its one-rank group from make_mesh."""
     nprocs = int(os.environ.get("MC2_NPROCS", "1"))
     if nprocs <= 1:
         return 0, 1
     pid = int(os.environ["MC2_PROC_ID"])
     dist.init_process_group(
-        backend_for(device),
+        backend_for(device, nprocs),
         init_method=f"tcp://{os.environ.get('MC2_COORD', 'localhost:9731')}",
         rank=pid, world_size=nprocs, timeout=timedelta(seconds=DIST_TIMEOUT_S))
     return pid, nprocs
@@ -112,43 +119,47 @@ class _MetaPS:
 class RowFetch:
     """fetch(rows) -> counts [len(rows), D] on the host, every process
     passing the same rows: each owner sends the requested rows it holds, one
-    all-gather.  `calls`, `rows` and `remote_rows` (rows this process does
-    not hold) count the traffic."""
+    all-gather.  Rows travel as bytes, so any count type goes.  `calls`,
+    `rows` and `remote_rows` (rows this process does not hold) count the
+    traffic."""
 
     def __init__(self, mesh: Mesh, counts: torch.Tensor, n: int):
         self.mesh = mesh
         self.counts = counts     # this process's sorted block [rows (+ slot), D]
         self.n = n
         self.calls = self.rows = self.remote_rows = 0
+        self._bytes = counts.view(torch.uint8).view(counts.shape[0], -1)
 
     def __call__(self, rows) -> np.ndarray:
-        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        rows = np.array(rows, dtype=np.int64, ndmin=1)
         mesh = self.mesh
         lo, _, block = block_bounds(self.n, mesh.world, mesh.rank)
         owner = rows // block
         self.calls += 1
         self.rows += len(rows)
         self.remote_rows += int((owner != mesh.rank).sum())
+        dtype = _NP_DTYPES[self.counts.dtype]
         if mesh.world == 1:
-            return self.counts[torch.from_numpy(rows).to(mesh.device)].cpu().numpy()
+            got = self._bytes[torch.from_numpy(rows).to(mesh.device)]
+            return got.cpu().numpy().view(dtype)
         per = np.bincount(owner, minlength=mesh.world)
         m = max(1, int(per.max()))
         mine = np.nonzero(owner == mesh.rank)[0]
-        width = self.counts.shape[1] * self.counts.element_size()
+        width = self._bytes.shape[1]
         send = torch.zeros((m, width), dtype=torch.uint8, device=mesh.device)
         if len(mine):
-            got = self.counts[torch.from_numpy(rows[mine] - lo).to(mesh.device)]
-            send[:len(mine)] = got.view(torch.uint8).view(len(mine), width)
+            send[:len(mine)] = self._bytes[torch.from_numpy(rows[mine] - lo).to(mesh.device)]
         out = all_gather(mesh, send)
         # each requested row's place in its owner's send buffer
         order = np.argsort(owner, kind="stable")
         starts = np.concatenate([[0], np.cumsum(per)[:-1]])
         flat = np.empty(len(rows), dtype=np.int64)
         flat[order] = owner[order] * m + np.arange(len(rows)) - starts[owner[order]]
-        return out.cpu().numpy()[flat].view(_NP_DTYPES[self.counts.dtype])
+        return out.cpu().numpy()[flat].view(dtype)
 
 
-_NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16}
+_NP_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.uint32: np.uint32,
+              torch.uint64: np.uint64}
 
 
 class FetchOracle:
@@ -210,11 +221,12 @@ class MultihostScorer(MeshScorer):
 
 
 def build_global_points(files: List[str], k: int, datatype: str, mesh: Mesh):
-    """(meta, store, its moments, fetch): every process's sorted row block
-    on its device and the replicated metadata.  Sort order matches
-    cli.load_sorted_points (headers with std::sort semantics, then
-    lengths); blocks are mesh.py:block_bounds over the n rows, in file
-    order for the counting and in sorted order after the all-to-all."""
+    """(meta, block): every process's sorted row block [rows, 4^k] on its
+    device, at the histograms' natural width, and the replicated metadata.
+    Sort order matches cli.load_sorted_points (headers with std::sort
+    semantics, then lengths); blocks are mesh.py:block_bounds over the n
+    rows, in file order for the counting and in sorted order after the
+    all-to-all, which moves the rows as bytes."""
     from ..io.fasta import encode_sequence
     from ..native import sort_perm, sort_perm_strings
 
@@ -256,10 +268,10 @@ def build_global_points(files: List[str], k: int, datatype: str, mesh: Mesh):
     # source by source
     src = perm // B
     width = d * counts.itemsize
-    rows_t = torch.from_numpy(np.ascontiguousarray(counts)).to(dev)
+    rows_t = torch.from_numpy(np.ascontiguousarray(counts).view(np.uint8)
+                              .reshape(hi - lo, width)).to(dev)
     mine = np.nonzero(src == me)[0]
-    send = rows_t[torch.from_numpy(perm[mine] - lo).to(dev)].view(torch.uint8)
-    send = send.reshape(len(mine), width)
+    send = rows_t[torch.from_numpy(perm[mine] - lo).to(dev)]
     in_split = np.bincount(mine // B, minlength=W).tolist()
     out_split = np.bincount(src[lo:hi], minlength=W).tolist()
     recv = torch.empty((hi - lo, width), dtype=torch.uint8, device=dev)
@@ -267,17 +279,26 @@ def build_global_points(files: List[str], k: int, datatype: str, mesh: Mesh):
     place = torch.from_numpy(np.argsort(src[lo:hi], kind="stable")).to(dev)
     block = torch.empty_like(recv)
     block[place] = recv
-    block = block.view(rows_t.dtype).view(hi - lo, d)
+    block = block.view(_TORCH_DTYPES[np.dtype(counts.dtype)]).view(hi - lo, d)
 
     meta = _MetaPS(k=k, headers=[headers[i] for i in perm], lengths=lengths[perm],
                    mags=mags[perm], stddevs=stds[perm], one_mers=ones[perm], dim=d)
-    meta.self_dots = sdots_all = full[perm, 7].copy()
+    meta.self_dots = full[perm, 7].copy()
     meta.maxc = maxc
     meta.dtype = counts.dtype
-    mom = moments(meta.mags[lo:hi], sdots_all[lo:hi], meta.lengths[lo:hi],
+    return meta, block
+
+
+_TORCH_DTYPES = {np.dtype(v): k for k, v in _NP_DTYPES.items()}
+
+
+def kernel_store(meta: _MetaPS, block: torch.Tensor, mesh: Mesh):
+    """(the DeviceStore of this process's block with its center slot, its
+    moments [4, rows + 1]) for the kernels (mesh_scorer.py:block_store)."""
+    lo, hi, _ = block_bounds(meta.n, mesh.world, mesh.rank)
+    mom = moments(meta.mags[lo:hi], meta.self_dots[lo:hi], meta.lengths[lo:hi],
                   meta.stddevs[lo:hi])
-    store, m = block_store(block, torch.from_numpy(mom).to(dev), maxc)
-    return meta, store, m, RowFetch(mesh, store.counts, n)
+    return block_store(block, torch.from_numpy(mom).to(block.device), meta.maxc)
 
 
 def refusal(meta: _MetaPS):
@@ -298,8 +319,13 @@ def refusal(meta: _MetaPS):
 def run_multihost(args):
     """CLI entry (meshclust2-torch --multihost): recover-path clustering
     with weights trained elsewhere (--recover); training stays
-    single-process.  Returns the CLI's ClusterRun; rc 2 without --recover,
-    for a model outside MESH_SUPPORTED or a pool the kernels do not take."""
+    single-process.  Routes by input before any device work, with one
+    stderr line: the device session over the row-sharded store by default
+    (multihost_session.py), MultihostScorer per-window scoring under
+    MC2_NO_DEVICE_SESSION=1, the host route over fetched rows for a pool the
+    kernels do not take.  Returns the CLI's ClusterRun; rc 2 without
+    --recover or for a model outside MESH_SUPPORTED (the JAX mesh scorer
+    raises on one)."""
     from ..cli import ClusterRun
     from ..cluster.engine import MeanShiftEngine
     from ..io.clstr import write_clstr
@@ -328,40 +354,68 @@ def run_multihost(args):
     pid, _ = initialize_from_env(device)
     mesh = make_mesh(device)
     clock = Clock()
-    meta, store, m, fetch = build_global_points(args.files, pred.k, pred.datatype, mesh)
+    meta, block = build_global_points(args.files, pred.k, pred.datatype, mesh)
+    sim = pred.id_cutoff
+    session = scorer = None
     why = refusal(meta)
     if why is not None:
-        print(f"meshclust2-torch: --multihost: {why}", file=sys.stderr)
-        if formed:
-            dist.destroy_process_group()
-        return ClusterRun(rc=2)
-    scorer = MultihostScorer(meta, model, mesh, store, m, fetch)
-    scorer.warm_up()
-    print("meshclust2-torch: --multihost runs MultihostScorer per-window scoring (the "
-          "device session over the global mesh, multihost_session.py, is not ported)",
-          file=sys.stderr)
+        fetch = RowFetch(mesh, block, meta.n)
+        scorer = FetchOracle(meta, model, fetch)
+        print(f"meshclust2-torch: --multihost: {why}: clustering on the host scorer "
+              f"over the row-sharded store (FetchOracle)", file=sys.stderr)
+    else:
+        store, m = kernel_store(meta, block, mesh)
+        del block
+        fetch = RowFetch(mesh, store.counts, meta.n)
+        scorer = MultihostScorer(meta, model, mesh, store, m, fetch)
+        scorer.warm_up()
+        if os.environ.get("MC2_NO_DEVICE_SESSION"):
+            print("meshclust2-torch: --multihost runs MultihostScorer per-window scoring "
+                  "(MC2_NO_DEVICE_SESSION=1)", file=sys.stderr)
+        else:
+            from .multihost_session import build_multihost_session
+
+            session = build_multihost_session(meta, model, sim, mesh, store, fetch, scorer,
+                                              delta=args.delta, iterations=args.iterations)
+            print("meshclust2-torch: --multihost runs the device session over the "
+                  "row-sharded store", file=sys.stderr)
     clock.stamp("read_in_points")
-    engine = MeanShiftEngine(meta, model, pred.id_cutoff, scorer=scorer,
-                             delta=args.delta, iterations=args.iterations)
+    engine = MeanShiftEngine(meta, model, sim, scorer=scorer, delta=args.delta,
+                             iterations=args.iterations, device_session=session)
     engine.row_fetcher = fetch
-    engine._host_oracle_cached = scorer._host
+    engine._host_oracle_cached = getattr(scorer, "_host", scorer)
     clusters = engine.run(clock=clock)
     if pid == 0:
         write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
+    acc = session.accumulator if session is not None else None
+    phase = session.phase if session is not None else None
     if os.environ.get("MC2_DEVICE_PROF"):
         print(f"multihost rank {mesh.rank} of {mesh.world}: windows "
               f"{engine.stats.windows_scored}, pairs {engine.stats.pairs_scored}, "
               f"clusters {engine.stats.clusters_before_update} -> {len(clusters)}, "
               f"iterations {engine.stats.update_iterations}, scored "
-              f"{scorer.scored_pairs}, re-checked {scorer.rechecked_pairs} "
-              f"{scorer.rechecked_by_rule.tolist()}, fetches {fetch.calls} ({fetch.rows} "
-              f"rows, {fetch.remote_rows} remote), output {_digest(engine, clusters)}")
+              f"{getattr(scorer, 'scored_pairs', 0)}, re-checked "
+              f"{getattr(scorer, 'rechecked_pairs', 0)} "
+              f"{getattr(scorer, 'rechecked_by_rule', np.zeros(3, np.int64)).tolist()}, "
+              f"fetches {fetch.calls} ({fetch.rows} rows, {fetch.remote_rows} remote), "
+              f"output {_digest(engine, clusters)}, {_session_line(acc, phase)}")
     if formed:
         dist.barrier()
         dist.destroy_process_group()
-    return ClusterRun(rc=0, engine=engine, scorer=scorer, clock=clock)
+    return ClusterRun(rc=0, engine=engine, scorer=scorer, accumulator=acc, phase=phase,
+                      clock=clock)
+
+
+def _session_line(acc, phase) -> str:
+    """The device session's counters: the accumulator's steps, windows,
+    pairs and guarded aborts, the phase's iterations, pairs and abort."""
+    if acc is None:
+        return "no session"
+    return (f"accumulator steps {acc.total_steps}, windows {acc.last_windows}, pairs "
+            f"{acc.last_pairs}, aborts {acc.aborts}; phase iterations "
+            f"{phase.last_iterations}, pairs {phase.scored_pairs}, abort {phase.last_abort}")
 
 
 def _digest(engine, clusters) -> str:

@@ -1,7 +1,10 @@
 """`python -m meshclust2_tpu_torch.cli --multihost --device cpu` as real gloo
 process groups (parallel/multihost.py; one OS process a rank, MC2_NPROCS /
 MC2_PROC_ID / MC2_COORD with a port from a free-port probe), all spawned
-once for this file, every join bounded:
+once for this file, every join bounded.  These runs take the per-window
+route (MC2_NO_DEVICE_SESSION=1: MultihostScorer scores every window; the
+device session's runs are tests/test_torch_multihost_session.py's), or
+the host route of a pool the kernels do not take:
 
 - 1 and 2 processes on small.fasta: the CLSTR byte for byte the JAX
   package's `--device host` run's and small_ref.clstr;
@@ -12,7 +15,10 @@ once for this file, every join bounded:
 - 2 processes on small.fasta with uint16 histograms: the CLSTR the JAX
   `--device host` run's with the same weights;
 - a dead peer: rank 1 is killed once its run is under way; rank 0 exits
-  non-zero in bounded time and writes no CLSTR.
+  non-zero in bounded time and writes no CLSTR;
+- a pool with uint32 histograms, which the kernels do not take, on 1 and 2
+  processes: clustered on the host over fetched rows (FetchOracle), rc 0
+  with its stderr line, the CLSTR the JAX `--device host` run's.
 """
 import os
 import re
@@ -31,6 +37,10 @@ SETS = {"small": ("small_ref_weights.txt", "small.fasta"),
         "med2000": ("med2000_weights.txt", "med2000.fasta")}
 # the line every rank prints on stderr once its set-up is done
 STARTED = "--multihost runs MultihostScorer per-window scoring"
+# the host route's line (a pool the kernels do not take)
+HOST_ROUTE = "clustering on the host scorer over the row-sharded store"
+# the per-window route (the device session is the default)
+PER_WINDOW = {"MC2_NO_DEVICE_SESSION": "1"}
 JOIN_S = 240
 DEAD_PEER_S = 90
 
@@ -41,20 +51,20 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(name: str, nprocs: int, out: str):
+def launch(name: str, nprocs: int, out: str, extra=PER_WINDOW):
     weights, fasta = SETS[name]
     weights = os.path.join(FIX, weights)
-    return launch_with(weights, fasta, nprocs, out)
+    return launch_with(weights, fasta, nprocs, out, extra)
 
 
-def launch_with(weights: str, fasta: str, nprocs: int, out: str):
+def launch_with(weights: str, fasta: str, nprocs: int, out: str, extra=PER_WINDOW):
     port = free_port()
     procs = []
     for pid in range(nprocs):
         env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
         env.update(MC2_NPROCS=str(nprocs), MC2_PROC_ID=str(pid),
                    MC2_COORD=f"localhost:{port}", MC2_DEVICE_PROF="1",
-                   OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+                   OMP_NUM_THREADS="1", PYTHONPATH=ROOT, **extra)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "meshclust2_tpu_torch.cli", "--multihost",
              "--device", "cpu", "--recover", weights,
@@ -93,6 +103,12 @@ def runs(tmp_path_factory):
     d.mkdir()
     jobs["small16"] = (str(d / "out.clstr"),
                        launch_with(uint16_weights(d), "small.fasta", 2, str(d / "out.clstr")))
+    # uint32 histograms: the host route, on the session's default
+    d = tmp / "small32"
+    d.mkdir()
+    jobs["small32"] = (str(d / "out.clstr"),
+                       launch_with(wide_weights(d), "small.fasta", 2, str(d / "out.clstr"),
+                                   {}))
     t0 = time.monotonic()
     kill_when_started(jobs["dead"][1][1], t0 + JOIN_S)
     res = {}
@@ -120,6 +136,16 @@ def uint16_weights(tmp) -> str:
     return str(path)
 
 
+def wide_weights(tmp) -> str:
+    """small_ref_weights.txt with uint32 histograms, written into tmp."""
+    with open(os.path.join(FIX, "small_ref_weights.txt")) as f:
+        text = f.read()
+    assert "Datatype: uint8_t" in text
+    path = tmp / "w32.txt"
+    path.write_text(text.replace("Datatype: uint8_t", "Datatype: uint32_t"))
+    return str(path)
+
+
 def jax_host(name: str, tmp, weights=None) -> bytes:
     from meshclust2_tpu.cli import main
 
@@ -144,11 +170,11 @@ def prof(stdout: str) -> dict:
     return out
 
 
-def ok_runs(runs, key):
+def ok_runs(runs, key, started=STARTED):
     out, got = runs[key]
     for rc, so, se, _ in got:
         assert rc == 0, se[-3000:]
-        assert STARTED in se
+        assert started in se
     with open(out, "rb") as f:
         return f.read(), [prof(so) for _, so, _, _ in got]
 
@@ -188,6 +214,20 @@ def test_uint16_pool_equals_jax_host(runs, tmp_path):
     assert ranks[0]["digest"] == ranks[1]["digest"]
     for r in ranks:
         assert r["world"] == 2 and r["rechecked"] > 0 and 0 < r["remote"] < r["rows"]
+
+
+def test_uint32_pool_takes_the_host_route(runs, tmp_path):
+    """uint32 histograms on 2 ranks: every window through FetchOracle over
+    rows fetched from both ranks, rc 0, the CLSTR the JAX --device host
+    run's with the same weights."""
+    clstr, ranks = ok_runs(runs, "small32", HOST_ROUTE)
+    _, got = runs["small32"]
+    for _, _, se, _ in got:
+        assert "uint32 histograms" in se and STARTED not in se
+    assert clstr == jax_host("small", tmp_path, wide_weights(tmp_path))
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    for r in ranks:
+        assert r["world"] == 2 and r["scored"] == 0 and 0 < r["remote"] < r["rows"]
 
 
 def test_dead_peer_fails_the_run(runs):
@@ -237,22 +277,41 @@ def test_load_points_multihost_equals_jax(pid):
 
 
 def test_multihost_refuses_a_pool_the_kernels_do_not_take(tmp_path, capsys):
-    """uint32 histograms: rc 2 with the reason, no CLSTR, and the one-rank
+    """uint32 histograms, which the kernels do not take, in one process: no
+    session and no kernel; the host route with its stderr line naming the
+    reason, rc 0, the JAX --device host run's CLSTR, and the one-rank
     group it formed released."""
     import torch.distributed as dist
 
     from meshclust2_tpu_torch import cli
 
-    with open(os.path.join(FIX, "small_ref_weights.txt")) as f:
-        text = f.read()
-    assert "Datatype: uint8_t" in text
-    weights = tmp_path / "w32.txt"
-    weights.write_text(text.replace("Datatype: uint8_t", "Datatype: uint32_t"))
+    weights = wide_weights(tmp_path)
     out = tmp_path / "out.clstr"
     initialized = dist.is_initialized()
-    res = cli.run(["--multihost", "--device", "cpu", "--recover", str(weights),
+    res = cli.run(["--multihost", "--device", "cpu", "--recover", weights,
                    "--output", str(out), os.path.join(FIX, "small.fasta")])
-    assert res.rc == 2
-    assert "uint32 histograms" in capsys.readouterr().err
-    assert not out.exists()
+    assert res.rc == 0
+    err = capsys.readouterr().err
+    assert "uint32 histograms" in err and HOST_ROUTE in err
+    assert res.accumulator is None and res.scorer.__class__.__name__ == "FetchOracle"
+    assert out.read_bytes() == jax_host("small", tmp_path, weights)
     assert dist.is_initialized() == initialized
+
+
+def test_refusal_names_the_envelope():
+    """A pool outside the kernels' exact-integer envelope takes the same
+    host route as a uint32 pool: `refusal` names it from the metadata."""
+    import numpy as np
+
+    from meshclust2_tpu_torch.parallel.multihost import _MetaPS, refusal
+
+    meta = _MetaPS(5, ["a", "b"], np.array([900, 1000]), np.array([800, 900]),
+                   np.ones(2), np.zeros((2, 4), np.uint64), 1024)
+    meta.dtype, meta.maxc = np.uint16, 200
+    meta.self_dots = np.array([5_000, 3_000_000_000])
+    assert "self dot >= 2^31" in refusal(meta)
+    assert "exact-integer envelope" in refusal(meta)
+    meta.self_dots = np.array([5_000, 6_000])
+    assert refusal(meta) is None
+    meta.dtype = np.uint64
+    assert "uint64 histograms" in refusal(meta)
