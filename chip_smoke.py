@@ -68,9 +68,15 @@ package's `--device host` training and host engine.  Then fastcar
 slices, each held byte for byte against the JAX package's fastcar (its
 host route), with both programs' search windows and the kernel at the
 search's largest slice.  A torch.profiler run of the default path gives
-the device's busy share.  The JAX package runs only as a separate program
-(the CLI's `--device host`, fastcar's default; its native host path), on
-the same file, as the reference on the same machine.
+the device's busy share, and the CLI's own `--profile DIR` on the default
+path writes a Chrome trace that holds the port's kernels, the run itself
+unchanged (r2).  Last, Red, the third program (host code in both
+packages): the port's Red on the fixture genome gives the reference
+binary's .scr/.rpt, and on a seeded yeast-sized genome (~12.1 Mbp) the JAX
+Red's files byte for byte, both timed on the card's machine (r).  The JAX
+package runs only as a separate program (the CLI's `--device host`,
+fastcar's default, Red; its native host path), on the same file, as the
+reference on the same machine.
 
 Each phase prints one line; any failure raises and exits non-zero.  The
 line before the last is the kernels' JSON record, and the last line is
@@ -2257,6 +2263,216 @@ def shared_card_phase(tmp: str, card: str) -> None:
                 f"{win:.3f} s; {card}")
 
 
+# Red as a program of its own: the package's red/cli.py main, its stage
+# lines stamped on the process clock, then whether the native library
+# loaded
+RED_TIMED = """
+import importlib, sys, time
+cli = importlib.import_module(sys.argv[1] + ".red.cli")
+native = importlib.import_module(sys.argv[1] + ".native")
+t0 = time.perf_counter()
+def stamped(*args, **kw):
+    print(*args, **kw)
+    if args and str(args[0]).startswith("Stage"):
+        print(f"stamp {str(args[0])[:7]} {time.perf_counter() - t0!r}", flush=True)
+cli.print = stamped
+rc = cli.main(sys.argv[2:])
+print(f"stamp done {time.perf_counter() - t0!r}", flush=True)
+print(f"native {native._get_lib() is not None}", flush=True)
+sys.exit(rc)
+"""
+# its launcher, a small process that runs RED_TIMED as its child and
+# prints the child's peak resident set (KiB): the maxrss of a process
+# started from this large one would carry over this one's at the exec, and
+# the card's machine has no VmHWM in /proc/self/status
+RED_LAUNCH = """
+import resource, subprocess, sys
+rc = subprocess.run([sys.executable, "-c", *sys.argv[1:]]).returncode
+print(f"peak_rss_kib {resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss}", flush=True)
+sys.exit(rc)
+"""
+# the yeast-sized synthetic genome of (r): S. cerevisiae's ~12.1 Mbp in 16
+# nuclear chromosomes at ~38 % GC, repeats (~6 %) planted as families
+RED_GENOME = dict(seed=2024, total_bp=12_100_000, n_records=16, n_files=2,
+                  gc=0.38, repeat_share=0.06, n_families=24, max_divergence=0.15,
+                  n_runs=3)
+
+
+def red_run(pkg: str, args, out: str) -> dict:
+    """One Red run as a program of its own into `out`: its stdout without
+    the stamp lines, its stage times, native, peak RSS and wall seconds."""
+    os.makedirs(out)
+    flags = [x for flag in ("-rpt", "-msk", "-sco") for x in (flag, out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RED_LAUNCH, RED_TIMED, pkg, *args,
+                           *flags], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{pkg} Red exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    info = dict(ln.split(" ", 1) for ln in lines
+                if ln.startswith(("native ", "peak_rss_kib ")))
+    stamps = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^stamp (.+) (\S+)$", proc.stdout, re.M)}
+    return {"stdout": [ln for ln in lines if not ln.startswith(
+                ("stamp ", "native ", "peak_rss_kib "))],
+            "stamps": stamps, "native": info["native"] == "True",
+            "rss_mib": int(info["peak_rss_kib"]) / 1024, "wall": wall, "out": out}
+
+
+def same_tree(a: str, b: str) -> list:
+    """The file names of two output folders, which must hold the same files
+    byte for byte."""
+    names = sorted(os.listdir(a))
+    if not names or names != sorted(os.listdir(b)):
+        raise AssertionError(f"Red outputs differ in their files: {names} vs "
+                             f"{sorted(os.listdir(b))}")
+    for name in names:
+        with open(os.path.join(a, name), "rb") as f, open(os.path.join(b, name), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"Red output {name} differs between the "
+                                     f"packages")
+    return names
+
+
+def red_phase(tmp: str, card: str) -> None:
+    """(r) Red, the third program, on the card's machine: host code in both
+    packages (numpy and the native library's Red helpers; no device path).
+    The port's Red on the fixture genome gives the reference binary's
+    .scr/.rpt; on a seeded yeast-sized genome at the default k it writes
+    the JAX Red's files byte for byte.  Both run through the native
+    library, each as a program of its own."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from red_genome import write_genome
+
+    runs = {}
+    for pkg in ("meshclust2_tpu", "meshclust2_tpu_torch"):
+        runs[pkg] = red_run(pkg, ["-gnm", os.path.join(FIX, "red_genome"), "-len", "8"],
+                            os.path.join(tmp, "red_fixture", pkg))
+    port = runs["meshclust2_tpu_torch"]
+    for ext in ("scr", "rpt"):
+        with open(os.path.join(FIX, f"red_ref_chr1.{ext}"), "rb") as f, \
+                open(os.path.join(port["out"], f"chr1.{ext}"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"the port's Red chr1.{ext} differs from "
+                                     f"red_ref_chr1.{ext}")
+    same_tree(runs["meshclust2_tpu"]["out"], port["out"])
+    phase("r", f"Red, tests/fixtures/red_genome -len 8: the port's chr1.scr and "
+               f"chr1.rpt == red_ref_chr1 byte for byte, .msk == the JAX Red's")
+
+    t0 = time.perf_counter()
+    gdir = os.path.join(tmp, "red_genome_12m")
+    files = write_genome(gdir, **RED_GENOME)
+    made = time.perf_counter() - t0
+    # in turns: JAX, port, port, JAX, every run's files those of the first
+    order = ("meshclust2_tpu", "meshclust2_tpu_torch", "meshclust2_tpu_torch",
+             "meshclust2_tpu")
+    turns = []
+    for i, pkg in enumerate(order):
+        run = red_run(pkg, ["-gnm", gdir], os.path.join(tmp, "red_12m", f"{i}_{pkg}"))
+        if not run["native"]:
+            raise AssertionError(f"{pkg}'s native library did not load: its Red "
+                                 f"ran the numpy fallbacks")
+        if turns and run["stdout"] != turns[0]["stdout"]:
+            raise AssertionError(f"Red's printed lines differ: {run['stdout']} vs "
+                                 f"{turns[0]['stdout']}")
+        names = same_tree(turns[0]["out"] if turns else run["out"], run["out"])
+        turns.append(run)
+    out = turns[1]["out"]
+    rpt = sum(1 for name in names if name.endswith(".rpt")
+              for _ in open(os.path.join(out, name)))
+    masked = bases = 0
+    for name in names:
+        if name.endswith(".msk"):
+            with open(os.path.join(out, name), "rb") as f:
+                seq = b"".join(ln.rstrip(b"\n") for ln in f if not ln.startswith(b">"))
+            codes = np.frombuffer(seq, dtype=np.uint8)
+            masked += int(((codes >= ord("a")) & (codes <= ord("z"))).sum())
+            bases += len(codes)
+
+    def line(run):
+        st = run["stamps"]
+        keys = ["Stage 1", "Stage 2", "Stage 3", "Stage 4", "done"]
+        parts = ", ".join(f"{i + 1}: {st[b] - st[a]:.3f}"
+                          for i, (a, b) in enumerate(zip(keys, keys[1:])))
+        return (f"{st['done']:.3f} s in main (stages {parts}), process wall "
+                f"{run['wall']:.3f} s, peak RSS {run['rss_mib']:.1f} MiB")
+
+    size = sum(os.path.getsize(f) for f in files)
+    phase("r", f"Red, a seeded yeast-sized genome ({RED_GENOME['total_bp']:,} bp, "
+               f"{RED_GENOME['n_records']} records in {len(files)} files, {size:,} "
+               f"bytes, made in {made:.3f} s), default k, -rpt -msk -sco: {names} "
+               f"byte for byte the JAX Red's in all four runs ({rpt} repeat regions, "
+               f"{100 * masked / bases:.2f} % of the bases masked); "
+               f"{turns[0]['stdout'][0]!r}")
+    mean = {pkg: statistics.mean(r["stamps"]["done"] for r, q in zip(turns, order)
+                                 if q == pkg) for pkg in order}
+    phase("r", f"Red times in turns (host time on the machine of the card, {card}; "
+               f"{os.cpu_count()} cores): "
+               + "; ".join(f"{'port' if q.endswith('torch') else 'JAX'} {line(r)}"
+                           for r, q in zip(turns, order))
+               + f"; mean in main: port {mean['meshclust2_tpu_torch']:.3f} s, JAX "
+                 f"{mean['meshclust2_tpu']:.3f} s, port / JAX "
+                 f"{mean['meshclust2_tpu_torch'] / mean['meshclust2_tpu']:.3f}")
+
+
+def profile_flag_phase(torch_cli, wrappers, launches, weights, fasta, tmp, ref_sig,
+                       plain_stamps, card: str) -> None:
+    """(r2) the CLI's --profile DIR on the 10k default path on the card:
+    CUDA kernel events under the port's kernel names in the Chrome trace,
+    the reference signature and the default path's counters and launches,
+    and the clustering window beside the unprofiled run's (f)."""
+    prof_dir = os.path.join(tmp, "profile")
+    out = os.path.join(tmp, "bench10k_profile.clstr")
+    for fn in wrappers.values():
+        fn.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        res = torch_cli.run(["--profile", prof_dir, "--device", "cuda", "--recover",
+                             weights, "--output", out, fasta])
+    wall = time.perf_counter() - t0
+    launches["profile"] = {k: fn.launches for k, fn in wrappers.items()}
+    if res.rc != 0:
+        raise AssertionError(f"--profile run exited {res.rc}")
+    check_launches("default", launches["profile"])
+    closing = printed.getvalue().splitlines()[-1]
+    if closing != f"profile trace written to {prof_dir}":
+        raise AssertionError(f"--profile's last line is {closing!r}")
+    got = read_clstr(out)
+    if signature(got) != ref_sig:
+        raise AssertionError("10k signature differs under --profile")
+    aborted = res.accumulator is not None and res.accumulator.aborts
+    if not aborted and counters(res) != BENCH10K_COUNTERS["default"]:
+        raise AssertionError(f"--profile counters {counters(res)} != "
+                             f"{BENCH10K_COUNTERS['default']}")
+    traces = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)
+              if n.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    by_kernel = {k: sum(n for name, n in kernels.items() if k in name)
+                 for k in ("pair_stats_kernel", "window_step_kernel", "layout_kernel",
+                           "replay_kernel")}
+    missing = [k for k, n in by_kernel.items() if n == 0]
+    if missing:
+        raise AssertionError(f"--profile's trace holds no CUDA events of {missing}; "
+                             f"its kernels: {kernels.most_common(8)}")
+    phase("r2", f"--profile on the 10k default path (--device cuda): signature == "
+                f"bench10k_ref_t1 ({len(got)} clusters), counters {counters(res)}, "
+                f"launches {launches['profile']}; the trace "
+                f"({os.path.getsize(traces[0]):,} bytes, {len(events)} events, "
+                f"{sum(kernels.values())} CUDA kernel events) holds {by_kernel}; "
+                f"{window_parts(res.clock.stamps, 10_000)} with the profiler, "
+                f"{window_parts(plain_stamps, 10_000)} without it (f); set-up "
+                f"{res.clock.stamps['read_in_points']:.3f} s against "
+                f"{plain_stamps['read_in_points']:.3f} s; the run with the trace's "
+                f"export {wall:.3f} s; {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3481,6 +3697,11 @@ def main() -> int:
                        f"launch): {ours}; top: {top}; {card}")
         # (h2) the phase alone, from the same state as (d6)
         profile_phase(ph10k, state10k, card)
+        # (r2) the CLI's --profile on the default path
+        profile_flag_phase(torch_cli, wrappers, launches, weights, fasta, tmp, ref_sig,
+                           path_stamps["default"], card)
+        # (r) Red, the JAX Red beside it as the reference
+        red_phase(tmp, card)
 
     if any(m == "jax" or m.startswith(("jax.", "meshclust2_tpu."))
            or m == "meshclust2_tpu" for m in sys.modules):

@@ -48,7 +48,9 @@ host by design.
 
 `-l/--list`, `--no-train-list`, `-t/--threads` (the native host
 library's threads), `--checkpoint` and `--resume-cluster` are the JAX
-CLI's (meshclust2_tpu/cli.py:340-373, 504-505).
+CLI's (meshclust2_tpu/cli.py:340-373, 504-505).  `--profile [DIR]` is its
+flag too (cli.py:119-126, 347-358), through torch.profiler: the context
+wraps the whole run and writes a Chrome trace into DIR when it closes.
 
 Clock stamps follow the JAX package: on the recover path the store upload,
 the kernel builds and one warm-up call of each batch happen before the
@@ -166,6 +168,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(MC2_NPROCS/MC2_PROC_ID/MC2_COORD env; NCCL on "
                         "cuda:<process id>, gloo with --device cpu); requires "
                         "--recover")
+    p.add_argument("--profile", nargs="?", const="/tmp/mc2_profile",
+                   default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the run into DIR "
+                        "(CPU activity, and CUDA activity with --device "
+                        "cuda; a Chrome trace, *.pt.trace.json, written "
+                        "after the run)")
     return p
 
 
@@ -277,6 +285,24 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
     for a training run, the trained model and its table counters beside
     the exit code."""
     args = build_parser().parse_args(argv)
+    if not args.profile:
+        return _dispatch(args)
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if args.device == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+    # the trace is written when the context closes, after the run; the
+    # closing line is printed as the JAX CLI prints it, in a finally
+    try:
+        with tp.profile(activities=activities,
+                        on_trace_ready=tp.tensorboard_trace_handler(args.profile)):
+            return _dispatch(args)
+    finally:
+        print(f"profile trace written to {args.profile}")
+
+
+def _dispatch(args) -> ClusterRun:
     if args.multihost:
         from .parallel.multihost import run_multihost
 
@@ -436,5 +462,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     return run(argv).rc
 
 
-if __name__ == "__main__":
+def _entry() -> None:  # console-script entry point
     sys.exit(main())
+
+
+if __name__ == "__main__":
+    _entry()

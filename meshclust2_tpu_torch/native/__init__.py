@@ -1,10 +1,11 @@
 """Native (C++) runtime helpers, bound via ctypes.
 
 The port's copy of meshclust2_tpu/native/__init__.py with the C++ sources
-beside it, without Red's HMM (viterbi.cpp) and the Red helpers.  Compiled
-on first use with g++ into `build/native/` at the repository root; falls
-back to numpy argsort (stable) when no compiler is available, which loses
-exact tie-order parity with the reference but keeps everything functional.
+beside it, Red's helpers and its two-track Viterbi (viterbi.cpp) included.
+Compiled on first use with g++ into `build/native/` at the repository
+root; falls back to numpy argsort (stable) when no compiler is available,
+which loses exact tie-order parity with the reference but keeps everything
+functional.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ _SRCS = [
     os.path.join(os.path.dirname(__file__), "encode.cpp"),
     os.path.join(os.path.dirname(__file__), "glm.cpp"),
     os.path.join(os.path.dirname(__file__), "fasta.cpp"),
+    os.path.join(os.path.dirname(__file__), "viterbi.cpp"),
 ]
 # score_impl.h is #included by score.cpp/accumulate.cpp; hash it too so the
 # cached .so rebuilds when the shared machinery changes
@@ -165,6 +167,24 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         _u8p, ctypes.c_int64, ctypes.c_int64, i64p, _u8p, i64p, i64p, i64p,
     ]
     lib.fasta_scan_fill.restype = ctypes.c_int
+    lib.red_chain_scores.argtypes = [
+        _i64p, _f64p, _i64p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_double, ctypes.c_int64, _i64p,
+    ]
+    _i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.count_words_raw.argtypes = [
+        _i8p, _i64p, ctypes.c_int64, ctypes.c_int32, _i64p,
+    ]
+    lib.red_score_bases.argtypes = [
+        _i8p, _i64p, ctypes.c_int64, ctypes.c_int32, _i64p, _i64p,
+    ]
+    lib.red_derivatives.argtypes = [
+        _f64p, ctypes.c_int64, ctypes.c_int64, _f64p, _f64p, _f64p,
+    ]
+    _i8p = ctypes.POINTER(ctypes.c_int8)
+    lib.viterbi_two_track.argtypes = [
+        _i64p, ctypes.c_int64, _f64p, _f64p, ctypes.c_int64, _i8p, _i8p,
+    ]
     return lib
 
 
@@ -176,6 +196,84 @@ def _get_lib() -> Optional[ctypes.CDLL]:
         _lib = _build_lib()
         _lib_tried = True
     return _lib
+
+
+def red_chain_scores(observed: np.ndarray, probs_list, k: int, order: int,
+                     l: float, min_obs: int):
+    """Fused Red expectation chain + adjusted scores (bitwise-identical to
+    red/table.py's numpy path).  Returns int64 [4^k] or None when the
+    native library is unavailable."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    obs = np.ascontiguousarray(observed, dtype=np.int64)
+    flat = np.ascontiguousarray(np.concatenate(probs_list), dtype=np.float64)
+    offsets = np.zeros(len(probs_list) + 1, dtype=np.int64)
+    np.cumsum([len(p) for p in probs_list], out=offsets[1:])
+    out = np.empty(4**k, dtype=np.int64)
+    lib.red_chain_scores(
+        obs.ctypes.data_as(_i64p), flat.ctypes.data_as(_f64p),
+        offsets.ctypes.data_as(_i64p), k, order,
+        ctypes.c_double(float(l)), int(min_obs),
+        out.ctypes.data_as(_i64p),
+    )
+    return out
+
+
+def count_words_raw(codes: np.ndarray, segments: np.ndarray, k: int,
+                    out: np.ndarray) -> bool:
+    """Accumulate raw k-mer counts of one record into `out` ([4^k] int64).
+    Returns False when the native library is unavailable."""
+    lib = _get_lib()
+    if lib is None:
+        return False
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    segs = np.ascontiguousarray(segments, dtype=np.int64)
+    lib.count_words_raw(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        segs.ctypes.data_as(_i64p), len(segments), int(k),
+        out.ctypes.data_as(_i64p),
+    )
+    return True
+
+
+def red_score_bases(codes: np.ndarray, segments: np.ndarray, k: int,
+                    table: np.ndarray):
+    """Per-base adjusted scores for one record (int64 [len(codes)]), or
+    None when the native library is unavailable."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    segs = np.ascontiguousarray(segments, dtype=np.int64)
+    table = np.ascontiguousarray(table, dtype=np.int64)
+    out = np.zeros(len(codes), dtype=np.int64)
+    lib.red_score_bases(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        segs.ctypes.data_as(_i64p), len(segments), int(k),
+        table.ctypes.data_as(_i64p), out.ctypes.data_as(_i64p),
+    )
+    return out
+
+
+def red_derivatives(scores: np.ndarray, w: int):
+    """(first, second) rounded boxcar differences, or None when the native
+    library is unavailable."""
+    lib = _get_lib()
+    n = len(scores)
+    if lib is None or n < 2 * w + 1:
+        return None
+    scores = np.ascontiguousarray(scores, dtype=np.float64)
+    buf = np.empty(n + 1, dtype=np.float64)
+    m = n - 2 * w
+    first = np.empty(m, dtype=np.float64)
+    second = np.empty(m, dtype=np.float64)
+    lib.red_derivatives(
+        scores.ctypes.data_as(_f64p), n, int(w),
+        buf.ctypes.data_as(_f64p), first.ctypes.data_as(_f64p),
+        second.ctypes.data_as(_f64p),
+    )
+    return first, second
 
 
 def set_num_threads(n: int) -> None:
@@ -514,6 +612,30 @@ def encode_batch_arrays(blob: np.ndarray, offsets: np.ndarray):
     if err[0] != 0:
         return None
     return codes, offsets, segs, seg_offsets, meta
+
+
+def viterbi_two_track(seg: np.ndarray, p_log: np.ndarray, t_log: np.ndarray,
+                      P: int):
+    """Native two-track Viterbi; returns int8 states [n] (0=positive track)
+    or None when the library is unavailable."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    seg = np.ascontiguousarray(seg, dtype=np.int64)
+    p_log = np.ascontiguousarray(p_log, dtype=np.float64)
+    t_log = np.ascontiguousarray(t_log, dtype=np.float64)
+    n = len(seg)
+    back = np.zeros((n, 2), dtype=np.int8)
+    states = np.zeros(n, dtype=np.int8)
+    lib.viterbi_two_track(
+        seg.ctypes.data_as(_i64p), n,
+        p_log.ctypes.data_as(_f64p),
+        t_log.ctypes.data_as(_f64p),
+        P,
+        back.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        states.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+    )
+    return states
 
 
 class NativeScorer:
