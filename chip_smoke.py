@@ -208,15 +208,22 @@ NEEDS["multihost_device_count"] = ("pair_stats_decision", "kmer_count")
 FORBIDS["multihost"] = FORBIDS["no_device_loop_no_update_batch"] + ("closest_mean",)
 FORBIDS["multihost_device_count"] = tuple(
     k for k in FORBIDS["multihost"] if k != "kmer_count")
-# no path but the multihost session's launches the block modes, and that one
-# launches them in place of the one-block step kernel and closest_candidates
+# no path in this process launches the block modes: the multihost session
+# launches them only on a mesh of two or more ranks (m6, processes of their
+# own); on one rank (m3) it launches the default path's step kernel and
+# closest_candidates
 for _path in FORBIDS:
     FORBIDS[_path] += ("window_absorb_block", "closest_candidates_block")
-NEEDS["multihost_session"] = ("pair_stats_decision", "window_absorb_block",
-                              "closest_candidates_block", "phase_layout", "merge_replay")
+NEEDS["multihost_session"] = ("pair_stats_decision", "window_absorb", "closest_candidates",
+                              "phase_layout", "merge_replay")
 FORBIDS["multihost_session"] = ("pair_stats", "pair_stats_decision_full", "closest_mean",
-                                "window_absorb", "closest_candidates", "plane_singles",
-                                "pair_stats_decision_plane", "kmer_count")
+                                "plane_singles", "pair_stats_decision_plane", "kmer_count",
+                                "window_absorb_block", "closest_candidates_block")
+# the kernels whose launches the one-rank session (m3) and the default path
+# (f) share to the launch; their pair_stats_decision launches differ by their
+# warm-ups alone (the default session's scorer and updater, MultihostScorer's)
+SAME_LAUNCHES = ("window_absorb", "closest_candidates", "phase_layout", "merge_replay")
+WARM_UP_DIFF = 4
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
                "--sample", "2000", "--num-templates", "300"]
@@ -363,11 +370,11 @@ def cuda_ms(fn, reps: int, warm: int = 3, setup=None) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, reps: int = 20, setup=None) -> float:
+def device_us(fn, reps: int = 20, setup=None, sleep: int = 2_000_000) -> float:
     """Median device time in us of fn()'s launches: each call is queued
-    behind a busy wait on the card (torch.cuda._sleep), so the events
-    around it time the card's work and not the wrapper's host work;
-    setup(), when given, runs before each call outside the events."""
+    behind a busy wait on the card (torch.cuda._sleep, `sleep` cycles), so
+    the events around it time the card's work and not the wrapper's host
+    work; setup(), when given, runs before each call outside the events."""
     import torch
 
     times = []
@@ -376,7 +383,7 @@ def device_us(fn, reps: int = 20, setup=None) -> float:
             setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)   # ~1 ms of cycles: the host queues meanwhile
+        torch.cuda._sleep(sleep)   # 2,000,000: ~1 ms of cycles, the host queues meanwhile
         start.record()
         fn()
         end.record()
@@ -1985,20 +1992,79 @@ def row_blocks(store, G: int):
     return out
 
 
+def step_block_run(blocks, args, kw, fresh, step) -> dict:
+    """The step's block mode over G = len(blocks) row blocks in this process,
+    phase by phase through `step` (window_step_block or a plain stand-in of
+    its signature): each block's exchange from its own candidates, the
+    exchanges summed (the all-reduce), each block's phase 2 on its own state
+    copy, the partials stacked (the all-gather), each block's phase 3.
+    Returns every intermediate: the blocks' exchanges, the sum, the states,
+    partials and trips after phase 2, the trips after phase 3."""
+    import torch
+    from meshclust2_tpu_torch.ops.closest_mean import PART
+    from meshclust2_tpu_torch.ops.window_absorb import (own_candidates, step_scratch,
+                                                        step_xbuf_len)
+
+    G = len(blocks)
+    store, order, cand, s, dist, stats, _, cur_d = args
+    kw = dict(kw)
+    dec = torch.stack([s, torch.zeros_like(s), dist, kw.pop("s_err"), kw.pop("dist_err")])
+    dev, n, d = s.device, len(order), store.counts.shape[1]
+    L = step_xbuf_len(len(cand), d, store.counts.element_size(), G)
+    states = [fresh(args)[6] for _ in blocks]
+    curs = [cur_d.clone() for _ in blocks]
+    scratches = [step_scratch(n, dev) for _ in blocks]
+    xbufs = [torch.zeros(L, dtype=torch.int64, device=dev) for _ in blocks]
+    rank_parts = [torch.zeros(PART, dtype=torch.int64, device=dev) for _ in blocks]
+    out = {"x": [], "state2": [], "part": [], "trip2": []}
+    for g, blk in enumerate(blocks):
+        pos, rows, st, dc = own_candidates(blk, order, cand, stats, dec)
+        step(1, blk, order, cand, states[g], curs[g], scratch=scratches[g], xbuf=xbufs[g],
+             rank=g, n_ranks=G, own_pos=pos, own_rows=rows, own_stats=st, own_dec=dc, **kw)
+        out["x"].append(xbufs[g].clone())
+    total = torch.stack(xbufs).sum(dim=0)
+    out["sum"] = total
+    for g, blk in enumerate(blocks):
+        trip = step(2, blk, order, cand, states[g], curs[g], scratch=scratches[g],
+                    xbuf=total, rank=g, n_ranks=G, rank_part=rank_parts[g], **kw)
+        out["state2"].append([t.clone() for t in states[g]])
+        out["part"].append(rank_parts[g].clone())
+        out["trip2"].append(trip.clone())
+    parts = torch.stack(rank_parts)
+    out["trip"] = [step(3, blk, order, cand, states[g], curs[g], scratch=scratches[g],
+                        rank=g, n_ranks=G, parts=parts, **kw).clone()
+                   for g, blk in enumerate(blocks)]
+    out["state"] = states
+    return out
+
+
+def plain_step_block(phase_, blk, order, cand, state, cur_d, *, scratch, own_pos=None,
+                     own_rows=None, own_stats=None, own_dec=None, **kw):
+    """window_step_block's signature over its plain version, on any device."""
+    from meshclust2_tpu_torch.ops.window_absorb import window_step_block_ref
+
+    window_step_block_ref(phase_, blk, order, cand, state, cur_d, trip=scratch[:4],
+                          own=(own_pos, own_rows, own_stats, own_dec), **kw)
+    return scratch[:4]
+
+
 def step_block_checks(step_inputs, fresh, case, counts, moments, scratch, dev,
                       card: str) -> dict:
-    """(m4) the step kernel's block mode at a 10k accumulate shape: G = 4
-    row blocks (each with its state copy, the partial sums added and the
-    partials stacked as the collectives would) and G = 1 against the
-    one-block kernel and the plain version, every output bit for bit; the
-    one-rank session's three launches timed against the block mode's plain
-    version and the step's bound (its partial column sums written, read and
-    zeroed on top)."""
+    """(m4) the step kernel's block mode at a 10k accumulate shape, G = 4 and
+    G = 1 row blocks in this process (step_block_run): every phase's kernel
+    against its plain version on the same inputs (each block's exchange,
+    the summed exchange, each block's state, trip and partial after phase 2,
+    each trip after phase 3), and the trips and states against the one-block
+    kernel and the plain one-launch step, bit for bit.  Timed: the fused
+    phase 2 alone (one rank of 4), and the sequence of 4 ranks in this
+    process beside its plain version and the bound of the work of the 4
+    ranks' phases (the step's bytes once, each rank's exchange written and
+    the sum read by each, the partials)."""
     import torch
     from meshclust2_tpu_torch.ops.closest_mean import PART
     from meshclust2_tpu_torch.ops.window_absorb import (
-        StepState, step_scratch, window_step, window_step_block, window_step_block_ref,
-        window_step_blocks, window_step_ref)
+        StepState, seed_slot, step_xbuf_len, window_step, window_step_block,
+        window_step_ref)
 
     args, kw = step_inputs(case, counts, moments)
     one, plain = fresh(args), fresh(args)
@@ -2007,127 +2073,244 @@ def step_block_checks(step_inputs, fresh, case, counts, moments, scratch, dev,
     torch.cuda.synchronize()
     if not torch.equal(trip, want) or trip.tolist()[:2] != [0, 15]:
         raise AssertionError(f"the one-block step {trip} != plain {want}, or no absorb of 15")
-    n, d = len(args[1]), counts.shape[1]
-    i64 = dict(dtype=torch.int64, device=dev)
+    runs = {}
     for G in (4, 1):
         blocks = row_blocks(args[0], G)
-        states = [fresh(args)[6] for _ in blocks]
-        parts = [torch.zeros(d, **i64) for _ in blocks]
-        trips = window_step_blocks(blocks, states, [step_scratch(n, dev) for _ in blocks],
-                                   parts, *args[1:6], [args[7].clone() for _ in blocks],
-                                   **kw)
+        got = step_block_run(blocks, args, kw, fresh, window_step_block)
+        ref = step_block_run(blocks, args, kw, fresh, plain_step_block)
         torch.cuda.synchronize()
-        for g, (t, st, part) in enumerate(zip(trips, states, parts)):
-            if not (torch.equal(t, trip) and torch.equal(t, want)) or part.any():
-                raise AssertionError(f"step block mode, G = {G}, block {g}: trip {t} != "
-                                     f"{trip}, or its partial sums are not back at 0")
-            for name, a, b, c in zip(StepState._fields, st, one[6], plain[6]):
+        for key in ("x", "part", "trip2", "trip"):
+            for g, (a, b) in enumerate(zip(got[key], ref[key])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"step block mode, G = {G}, block {g}: {key} of "
+                                         f"the kernel != its plain version")
+        if not torch.equal(got["sum"], ref["sum"]):
+            raise AssertionError(f"step block mode, G = {G}: the summed exchanges differ")
+        for g in range(G):
+            for name, a, b, c, e in zip(StepState._fields, got["state2"][g],
+                                        ref["state2"][g], one[6], plain[6]):
                 k = slice(0, -1) if name == "members" else slice(None)
-                if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])):
+                if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
+                        and torch.equal(a[k], e[k])):
                     raise AssertionError(f"step block mode, G = {G}, block {g}: {name} "
-                                         f"differs from the one-block kernel's")
-    blk = row_blocks(args[0], 1)[0]
-    run = fresh(args)
-    saved = StepState(*(t.clone() for t in run[6]))
-    part, rank_part = torch.zeros(d, **i64), torch.zeros(PART, **i64)
-    scratch1 = step_scratch(n, dev)
+                                         f"differs from the plain version's or the "
+                                         f"one-block kernel's")
+            if not (torch.equal(got["trip"][g], trip) and torch.equal(got["trip"][g], want)):
+                raise AssertionError(f"step block mode, G = {G}, block {g}: trip "
+                                     f"{got['trip'][g]} != {trip}")
+        runs[G] = got
+    # timing: the 4 ranks' sequence in this process, and phase 2 alone
+    G = 4
+    blocks = row_blocks(args[0], G)
+    store, order, cand, s, dist, stats, _, cur_d = args
+    from meshclust2_tpu_torch.ops.window_absorb import own_candidates, step_scratch
+    kw2 = dict(kw)
+    dec = torch.stack([s, torch.zeros_like(s), dist, kw2.pop("s_err"), kw2.pop("dist_err")])
+    n, d = len(order), store.counts.shape[1]
+    L = step_xbuf_len(len(cand), d, store.counts.element_size(), G)
+    runs_state = [fresh(args)[6] for _ in blocks]
+    saved = [StepState(*(t.clone() for t in st)) for st in runs_state]
+    owns = [own_candidates(blk, order, cand, stats, dec) for blk in blocks]
+    scr = [step_scratch(n, dev) for _ in blocks]
+    xs = [torch.zeros(L, dtype=torch.int64, device=dev) for _ in blocks]
+    rps = [torch.zeros(PART, dtype=torch.int64, device=dev) for _ in blocks]
+    curs = [cur_d.clone() for _ in blocks]
+    total = [None]
 
     def restore():
-        for t, t0 in zip(run[6], saved):
-            t.copy_(t0)
-        part.zero_()
+        for st, st0 in zip(runs_state, saved):
+            for t, t0 in zip(st, st0):
+                t.copy_(t0)
 
-    def three(step):
-        for phase_ in (1, 2, 3):
-            step(phase_, blk, *run[1:7], args[7], part=part, rank_part=rank_part,
-                 parts=rank_part[None] if phase_ == 3 else None, **kw)
+    def seq(step):
+        for g, blk in enumerate(blocks):
+            pos, rows, st, dc = owns[g]
+            step(1, blk, order, cand, runs_state[g], curs[g], scratch=scr[g], xbuf=xs[g],
+                 rank=g, n_ranks=G, own_pos=pos, own_rows=rows, own_stats=st, own_dec=dc,
+                 **kw2)
+        total[0] = torch.stack(xs).sum(dim=0)
+        for g, blk in enumerate(blocks):
+            step(2, blk, order, cand, runs_state[g], curs[g], scratch=scr[g],
+                 xbuf=total[0], rank=g, n_ranks=G, rank_part=rps[g], **kw2)
+        parts = torch.stack(rps)
+        for g, blk in enumerate(blocks):
+            step(3, blk, order, cand, runs_state[g], curs[g], scratch=scr[g], rank=g,
+                 n_ranks=G, parts=parts, **kw2)
 
-    kernel = lambda: three(lambda *a, **k: window_step_block(*a, scratch=scratch1, **k))
-    trip_p = torch.zeros(4, **i64)
-    plain_fn = lambda: three(lambda *a, **k: window_step_block_ref(*a, trip=trip_p, **k))
+    kernel = lambda: seq(window_step_block)
+    # the busy wait outlasts the ~30 launches the host queues (~10 ms)
     rec = dict(ms=cuda_ms(kernel, reps=50, setup=restore),
-               plain_ms=cuda_ms(plain_fn, reps=10, setup=restore),
-               device_us=device_us(kernel, setup=restore))
-    w, mcnt = len(args[2]), kw["mcnt"]
+               plain_ms=cuda_ms(lambda: seq(plain_step_block), reps=5, setup=restore),
+               device_us=device_us(kernel, setup=restore, sleep=20_000_000))
+    restore()
+    kernel()   # total[0]: the summed exchange of this step
+    fused = lambda: window_step_block(2, blocks[0], order, cand, runs_state[0], curs[0],
+                                      scratch=scr[0], xbuf=total[0], rank=0, n_ranks=G,
+                                      rank_part=rps[0], **kw2)
+    rec["phase2_device_us"] = device_us(fused, setup=restore)
+    rec["exchange_bytes"] = 8 * L
+    w, mcnt = len(cand), kw["mcnt"]
     nbytes, ops = step_bound_terms(w, 15, mcnt + 15, d, 1)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes + 3 * 8 * d + 8 * PART, ops)
+    # the 4 ranks' exchanges written and their sum read by each, the partials
+    nbytes += 2 * G * 8 * L + 2 * G * 8 * PART
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
     rec["max_abs_err"] = 0
     phase("m4", f"window_step block mode, W={w}, 15 positive, {mcnt} + 15 members, D={d} "
-                f"uint8, pool {n}: G = 4 row blocks (the partials combined as the "
-                f"collectives combine them) and G = 1 == the one-block kernel == plain, "
-                f"trip and state bit for bit; the one-rank session's 3 launches: "
+                f"uint8, pool {n}: G = 4 and G = 1 row blocks (the exchanges summed and "
+                f"the partials stacked as the collectives combine them): each phase == its "
+                f"plain version (exchanges, states, partials, trips), trip and state == "
+                f"the one-block kernel == plain, bit for bit; exchange {rec['exchange_bytes']}"
+                f" bytes a rank (int64: statistics, decisions, column sums, {G} seed slots "
+                f"of {seed_slot(d, 1)} words); the 4 ranks' sequence in this process: "
                 f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (median, CUDA "
                 f"events), device {rec['device_us']:.2f} us (CUDA events behind a busy "
-                f"wait), bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); the one-launch "
-                f"kernel at this shape: (d3); {card}")
+                f"wait), bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}); the fused "
+                f"phase 2, one rank: device {rec['phase2_device_us']:.2f} us; the "
+                f"one-launch kernel at this shape: (d3); {card}")
     return rec
+
+
+def candidates_block_run(blocks, keep, unc, st, rows, delta, lay, C, n_pairs, tie_margin,
+                         block_fn) -> dict:
+    """closest_candidates' block mode over G = len(blocks) row blocks in this
+    process through `block_fn` (closest_candidates_block or a plain
+    stand-in of its signature): each block's exchange from the filter's bits
+    of its own pairs, the sum (the all-reduce), each block's partials, the
+    stack (the all-gather), each block's phase 3.  Returns every
+    intermediate."""
+    import torch
+    from meshclust2_tpu_torch.ops import phase as P
+    from meshclust2_tpu_torch.ops.closest_mean import PART
+
+    G, dev = len(blocks), st.cen.device
+    d, S = blocks[0].counts.shape[1], len(st.cen)
+    dtype = P.exchange_dtype(n_pairs, blocks[0].maxc)
+    L = P.exchange_words(n_pairs, C, d)
+    outs = [P.new_candidates(S, delta, dev) for _ in blocks]
+    xs = [torch.zeros(L, dtype=dtype, device=dev) for _ in blocks]
+    rps = [torch.zeros((C, PART), dtype=torch.int64, device=dev) for _ in blocks]
+    args = (st, rows, delta, lay, C, n_pairs)
+    kw = dict(tie_margin=tie_margin)
+    b = lay.b_rows[:n_pairs]
+    for g, blk in enumerate(blocks):
+        cs, k, u = P.own_pairs(blk, b, keep, unc)
+        block_fn(1, blk, *args, outs[g], xbuf=xs[g], own_cs=cs, own_keep=k, own_unc=u, **kw)
+    total = torch.stack(xs).sum(dim=0, dtype=dtype)
+    for g, blk in enumerate(blocks):
+        block_fn(2, blk, *args, outs[g], xbuf=total, rank_part=rps[g], **kw)
+    parts = torch.stack(rps)
+    got = [block_fn(3, blk, *args, outs[g], parts=parts, **kw) for g, blk in enumerate(blocks)]
+    return dict(x=xs, sum=total, part=rps, first=[f for f, _ in got], unc=[u for _, u in got],
+                out=outs)
+
+
+def plain_candidates_block(phase_, blk, st, rows, delta, lay, C, n_pairs, out, *, tie_margin,
+                           final=False, xbuf=None, own_cs=None, own_keep=None, own_unc=None,
+                           rank_part=None, parts=None):
+    """closest_candidates_block's signature over its plain versions, on any
+    device."""
+    from meshclust2_tpu_torch.ops import phase as P
+
+    b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
+    if phase_ == 1:
+        P.candidates_exchange_ref(blk, b, sg, C, own_cs, own_keep, own_unc, xbuf)
+        return None
+    if phase_ == 2:
+        rank_part[:C] = P.candidates_partials_ref(blk, b, sg, C, xbuf)
+        return None
+    first, unc = P.pick_ref(parts, n_pairs, tie_margin)
+    P.phase_candidates_ref(st, rows, delta, lay, first, C, n_pairs, out, final)
+    return first, unc
 
 
 def candidates_block_checks(store, keep, st, rows, delta, lay, C, n_pairs, cand, first,
                             unc, tie_margin: float, card: str) -> dict:
-    """(m4) closest_candidates' block mode on the 10k phase state of (d6):
-    G = 4 row blocks and G = 1 against the one-block kernel (which (d6)
-    holds against the plain version): first, unc and the candidates bit for
-    bit; the one-rank session's three launches timed against the block
-    mode's plain version and a bound (the one-block kernel's bytes, the
-    segment sums written and read, the partials)."""
+    """(m4) closest_candidates' block mode on the 10k phase state of (d6),
+    G = 4 and G = 1 row blocks (candidates_block_run, the filter's
+    uncertainty bits on every seventh pair): every phase's kernel against
+    its plain version (each block's exchange, the sum, each block's
+    partials, first, unc and the candidates) and first, unc and the
+    candidates against the one-block kernel (which (d6) holds against the
+    plain version), bit for bit.  Timed: the 4 ranks' sequence in this
+    process beside its plain version and the bound of their work (the
+    one-block kernel's bytes, each rank's exchange written and the sum read
+    by each, in the exchange's word: int32 where the sums fit; the
+    partials)."""
     import torch
     from kernel_ab import phase_bytes
     from meshclust2_tpu_torch.ops import phase as P
-    from meshclust2_tpu_torch.ops.closest_mean import (PART, block_partials_ref,
-                                                       block_sums_ref, pick_ref)
+    from meshclust2_tpu_torch.ops.closest_mean import PART
 
     dev = st.cen.device
     S, d, m = len(st.cen), store.counts.shape[1], delta * C
+    func = torch.arange(n_pairs, device=dev) % 7 == 3
     for G in (4, 1):
         blocks = row_blocks(store, G)
-        outs = [P.new_candidates(S, delta, dev) for _ in blocks]
-        got = P.closest_candidates_blocks(blocks, keep, st, rows, delta, lay, C, n_pairs,
-                                          outs, tie_margin=tie_margin)
+        got = candidates_block_run(blocks, keep, func, st, rows, delta, lay, C, n_pairs,
+                                   tie_margin, P.closest_candidates_block)
+        ref = candidates_block_run(blocks, keep, func, st, rows, delta, lay, C, n_pairs,
+                                   tie_margin, plain_candidates_block)
         torch.cuda.synchronize()
-        for g, ((f, u), out) in enumerate(zip(got, outs)):
-            same = (torch.equal(f, first) and torch.equal(u, unc)
-                    and torch.equal(out.cen, cand.cen) and not out.arrive.any())
+        same = torch.equal(got["sum"], ref["sum"])
+        for key in ("x", "part", "first", "unc"):
+            same &= all(torch.equal(a, b) for a, b in zip(got[key], ref[key]))
+        for g, out in enumerate(got["out"]):
+            same &= (torch.equal(got["first"][g], first) and torch.equal(got["unc"][g], unc)
+                     and torch.equal(out.cen, cand.cen) and not out.arrive.any()
+                     and torch.equal(out.cen, ref["out"][g].cen))
             for fld in ("a", "b", "seg", "ok"):
                 same &= torch.equal(getattr(out, fld)[:m], getattr(cand, fld)[:m])
-            if not same:
-                raise AssertionError(f"closest_candidates block mode, G = {G}, block {g}, "
-                                     f"differs from the one-block kernel")
-    blk = row_blocks(store, 1)[0]
-    num = torch.zeros((C, d), dtype=torch.int64, device=dev)
-    rank_part = torch.zeros((C, PART), dtype=torch.int64, device=dev)
-    out = P.new_candidates(S, delta, dev)
-    args = (blk, keep, st, rows, delta, lay, C, n_pairs, out)
-    kw = dict(tie_margin=tie_margin)
+        if not same:
+            raise AssertionError(f"closest_candidates block mode, G = {G}: a phase differs "
+                                 f"from its plain version or the one-block kernel")
+    G = 4
+    blocks = row_blocks(store, G)
+    dtype = P.exchange_dtype(n_pairs, store.maxc)
+    L = P.exchange_words(n_pairs, C, d)
+    b = lay.b_rows[:n_pairs]
+    owns = [P.own_pairs(blk, b, keep, func) for blk in blocks]
+    xs = [torch.zeros(L, dtype=dtype, device=dev) for _ in blocks]
+    rps = [torch.zeros((C, PART), dtype=torch.int64, device=dev) for _ in blocks]
+    outs = [P.new_candidates(S, delta, dev) for _ in blocks]
+    args = (st, rows, delta, lay, C, n_pairs)
+    nw = -(-n_pairs // 32)
 
-    def kernel():
-        P.closest_candidates_block(1, *args, num=num, **kw)
-        P.closest_candidates_block(2, *args, num=num, rank_part=rank_part, **kw)
-        P.closest_candidates_block(3, *args, parts=rank_part[None], **kw)
+    def seq(fn):
+        for g, blk in enumerate(blocks):
+            cs, k, u = owns[g]
+            fn(1, blk, *args, outs[g], xbuf=xs[g], own_cs=cs, own_keep=k, own_unc=u,
+               tie_margin=tie_margin)
+        total = torch.stack(xs).sum(dim=0, dtype=dtype)
+        total[nw:2 * nw].any()   # the filter's uncertainty
+        for g, blk in enumerate(blocks):
+            fn(2, blk, *args, outs[g], xbuf=total, rank_part=rps[g], tie_margin=tie_margin)
+        parts = torch.stack(rps)
+        for g, blk in enumerate(blocks):
+            fn(3, blk, *args, outs[g], parts=parts, tie_margin=tie_margin)
 
-    b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
-
-    def plain():
-        sums = block_sums_ref(blk, b, sg, keep, C)
-        cnt = torch.zeros(C, dtype=torch.int64, device=dev).index_add_(
-            0, sg, keep.to(torch.int64))
-        parts = block_partials_ref(blk, b, sg, keep, C, sums, cnt)
-        f, _ = pick_ref(parts[None], n_pairs, tie_margin)
-        P.phase_candidates_ref(st, rows, delta, lay, f, C, n_pairs, out)
-
-    rec = dict(ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(plain, reps=5),
-               device_us=device_us(kernel))
+    kernel = lambda: seq(P.closest_candidates_block)
+    rec = dict(ms=cuda_ms(kernel, reps=50), plain_ms=cuda_ms(
+        lambda: seq(plain_candidates_block), reps=3),
+        device_us=device_us(kernel, sleep=20_000_000))
+    esize = torch.zeros(0, dtype=dtype).element_size()
+    rec["exchange_bytes"] = L * esize
+    rec["exchange_dtype"] = str(dtype).replace("torch.", "")
     kept = b[keep]
     nbytes = (phase_bytes(len(st.assign), S, C, n_pairs, delta)["closest_candidates"]
               + torch_unique(kept) * (d * store.counts.element_size() + 8)
-              + tbytes(b, sg, keep) + 9 * C + 2 * 8 * C * d + 2 * 8 * C * PART)
+              + tbytes(b, lay.seg[:n_pairs]) + 10 * n_pairs + 9 * C
+              + 2 * G * rec["exchange_bytes"] + 2 * G * 8 * C * PART)
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, CLOSEST_OPS * len(kept) * d + 2 * d)
     rec["max_abs_err"] = 0
     phase("m4", f"closest_candidates block mode at the 10k state after accumulate "
-                f"(S = {S}, C = {C}, P = {n_pairs}, {len(kept)} kept): G = 4 row blocks "
-                f"and G = 1 == the one-block kernel (first, unc, centers, candidates bit "
-                f"for bit); the one-rank session's 3 launches: kernel {rec['ms']:.4f} ms, "
-                f"plain {rec['plain_ms']:.4f} ms (median, CUDA events), device "
+                f"(S = {S}, C = {C}, P = {n_pairs}, {len(kept)} kept): G = 4 and G = 1 row "
+                f"blocks: each phase == its plain version (exchanges, partials, first, unc, "
+                f"candidates), first, unc and the candidates == the one-block kernel, bit "
+                f"for bit; exchange {rec['exchange_bytes']} bytes a rank "
+                f"({rec['exchange_dtype']}: keep and uncertainty bits, column sums; with int64 "
+                f"sums and uint8 bits it would be {8 * C * d + 2 * n_pairs}); the 4 ranks' "
+                f"sequence in this process: kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms (median, CUDA events), device "
                 f"{rec['device_us']:.2f} us (CUDA events behind a busy wait), bound "
                 f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}, {nbytes} bytes); {card}")
     return rec
@@ -2138,7 +2321,9 @@ def multihost_session_phase(torch_cli, wrappers, launches, weights, fasta, tmp, 
     """(m3) --multihost's default route on the 10k set, a one-rank NCCL
     group: the device session over the row-sharded store gives the
     reference signature with the default path's counters, accumulator and
-    phase counters, through the block modes (launches counted from zero);
+    phase counters, and launches what the default path launches (counted
+    from zero): its step kernel and closest_candidates as often, no
+    block-mode phase, pair_stats_decision as often but for the warm-ups;
     its window beside the default path's (f) and the per-window route's
     (m)."""
     out_m = os.path.join(tmp, "bench10k_multihost_session.clstr")
@@ -2164,16 +2349,29 @@ def multihost_session_phase(torch_cli, wrappers, launches, weights, fasta, tmp, 
     if got_acc != BENCH10K_ACC + (0,) or got_ph != want_ph:
         raise AssertionError(f"--multihost session: accumulator {got_acc}, phase {got_ph}")
     counted = launches["multihost_session"]
+    default = launches["default"]
+    diff = {k: counted[k] - default[k] for k in SAME_LAUNCHES if counted[k] != default[k]}
+    psd = counted["pair_stats_decision"] - default["pair_stats_decision"]
+    if diff or abs(psd) > WARM_UP_DIFF:
+        raise AssertionError(f"--multihost session: launches {counted} != the default "
+                             f"path's {default} (differences {diff}, pair_stats_decision "
+                             f"{psd})")
+    if hasattr(acc, "block_steps") or hasattr(ph, "block_passes"):
+        raise AssertionError(f"--multihost session on one rank: {type(acc).__name__} and "
+                             f"{type(ph).__name__}, not the single-device step and phase")
     phase("m3", f"bench 10k --multihost, the device session over the row-sharded store "
                 f"(one-rank NCCL group, world {res.scorer.mesh.world}): signature == "
                 f"bench10k_ref_t1 ({len(got)} clusters), counters {counters(res)} (the "
                 f"default path's), accumulator {got_acc[0]} steps / {got_acc[1]} windows / "
                 f"{got_acc[2]} pairs / {got_acc[3]} aborts, phase {got_ph[0]} iterations / "
-                f"{got_ph[1]} pairs / abort {got_ph[2]}; launches window_absorb_block "
-                f"{counted['window_absorb_block']}, closest_candidates_block "
-                f"{counted['closest_candidates_block']}, pair_stats_decision "
-                f"{counted['pair_stats_decision']}, phase_layout {counted['phase_layout']}, "
-                f"merge_replay {counted['merge_replay']}; "
+                f"{got_ph[1]} pairs / abort {got_ph[2]}; launches window_absorb "
+                f"{counted['window_absorb']}, closest_candidates "
+                f"{counted['closest_candidates']}, phase_layout {counted['phase_layout']}, "
+                f"merge_replay {counted['merge_replay']} (the default path's to the "
+                f"launch), window_absorb_block {counted['window_absorb_block']}, "
+                f"closest_candidates_block {counted['closest_candidates_block']}, "
+                f"pair_stats_decision {counted['pair_stats_decision']} (the default "
+                f"path's {default['pair_stats_decision']}: {psd:+d} in the warm-ups); "
                 f"{window_parts(res.clock.stamps, 10_000)}; the default path (f): "
                 f"{window_parts(path_stamps['default'], 10_000)}; per-window (m): "
                 f"{window_parts(per_window_stamps, 10_000)}; {card}")
@@ -2207,12 +2405,15 @@ def graft_entry_phase(dev, card: str) -> None:
                 f"in {secs:.1f} s; {card}")
 
 
-def shared_card_phase(tmp: str, card: str) -> None:
+def shared_card_phase(tmp: str, card: str) -> dict:
     """(m6) --multihost with two processes on the one card: NCCL refuses two
     ranks on one device, so they form a gloo group over CUDA tensors
     (parallel/mesh.py:backend_for); the device session on med2000 gives the
     sorted reference CLSTR, and both ranks the default path's counters and
-    the same clustering digest."""
+    the same clustering digest, through the block modes: every scan step
+    with candidates and every pass of the phase on each rank, 2 collectives
+    a step and 3 a pass, three launches each.  Returns rank 0's block-mode
+    launches."""
     import socket
 
     with socket.socket() as sock:
@@ -2241,14 +2442,25 @@ def shared_card_phase(tmp: str, card: str) -> None:
         if p.returncode != 0 or m is None:
             raise AssertionError(f"--multihost on a shared card: rank exited "
                                  f"{p.returncode}:\n{log[-3000:]}")
-        ranks.append(m.groups())
+        b = re.search(r"block mode: steps (\d+), collectives a step \{([^}]*)\}, passes "
+                      r"(\d+), collectives a pass \{([^}]*)\}, launches window_absorb_block "
+                      r"(\d+), closest_candidates_block (\d+)", log)
+        if b is None:
+            raise AssertionError(f"--multihost on a shared card: no block-mode line:\n"
+                                 f"{log[-3000:]}")
+        steps, passes, wl, cl = (int(b.group(i)) for i in (1, 3, 5, 6))
+        if (steps != int(m.group(8)) or passes == 0 or b.group(2) != f"2: {steps}"
+                or b.group(4) != f"3: {passes}" or wl < 3 * steps or cl < 3 * passes):
+            raise AssertionError(f"--multihost on a shared card: rank {m.group(1)} block "
+                                 f"mode {b.group(0)} (windows {m.group(8)})")
+        ranks.append(m.groups() + (steps, passes, wl, cl))
     if sorted(open(out).read().splitlines()) != sorted(
             open(os.path.join(FIX, "med2000_ref.clstr")).read().splitlines()):
         raise AssertionError("--multihost on a shared card: med2000 CLSTR != med2000_ref")
     want = tuple(str(v) for v in MED2000_COUNTERS["default"] + MED2000_ACC
                  + (0, MED2000_COUNTERS["default"][3], MED2000_UPDATER_PAIRS, 0))
     for r in ranks:
-        got = r[1:5] + r[6:]
+        got = r[1:5] + r[6:13]
         if got != want or r[5] != ranks[0][5]:
             raise AssertionError(f"--multihost on a shared card: rank {r[0]} counters "
                                  f"{got} != {want}, or digests differ")
@@ -2259,8 +2471,12 @@ def shared_card_phase(tmp: str, card: str) -> None:
                 f"device session, sorted CLSTR == med2000_ref, both ranks' counters the "
                 f"default path's {MED2000_COUNTERS['default']}, accumulator "
                 f"{MED2000_ACC}, phase {MED2000_COUNTERS['default'][3]} iterations / "
-                f"{MED2000_UPDATER_PAIRS} pairs, the same digest; rank 0's window "
-                f"{win:.3f} s; {card}")
+                f"{MED2000_UPDATER_PAIRS} pairs, the same digest; block modes on each "
+                f"rank: {ranks[0][13]} steps with 2 collectives each, {ranks[0][14]} passes "
+                f"with 3 each; launches window_absorb_block {ranks[0][15]}, "
+                f"closest_candidates_block {ranks[0][16]} (rank 0, the warm-ups "
+                f"included); rank 0's window {win:.3f} s; {card}")
+    return {"window_absorb_block": ranks[0][15], "closest_candidates_block": ranks[0][16]}
 
 
 # Red as a program of its own: the package's red/cli.py main, its stage
@@ -3479,7 +3695,7 @@ def main() -> int:
         multihost_session_phase(torch_cli, wrappers, launches, weights, fasta, tmp, ref_sig,
                                 path_stamps, mh_stamps["multihost"], card)
         graft_entry_phase(dev, card)
-        shared_card_phase(tmp, card)
+        shared = shared_card_phase(tmp, card)
 
         # (g) the JAX package's native host path on the same file, same machine
         host_out = os.path.join(tmp, "host.clstr")
@@ -3823,15 +4039,18 @@ def main() -> int:
         "bound_by": ws_by,
         "library_ms": None,
         "device_us": ws_dev,
-        # the block mode (--multihost's session, m3/m4): the one-rank
-        # session's three launches a step at W = 1,571
-        "block_launches": launches["multihost_session"]["window_absorb_block"],
+        # the block mode (--multihost's session at 2 ranks, m6; m4): its
+        # launches in m6's rank 0; timed at W = 1,571, 4 ranks' three
+        # launches a step in one process, and the fused phase 2 alone
+        "block_launches": shared["window_absorb_block"],
         "block_max_abs_err": step_block["max_abs_err"],
         "block_ms": step_block["ms"],
         "block_plain_ms": step_block["plain_ms"],
         "block_device_us": step_block["device_us"],
         "block_bound_ms": step_block["bound_ms"],
         "block_bound_by": step_block["bound_by"],
+        "block_phase2_device_us": step_block["phase2_device_us"],
+        "block_exchange_bytes": step_block["exchange_bytes"],
     }, {
         "name": "plane_singles",
         "path": "the markov model on the 10k set (f5)",
@@ -3914,15 +4133,18 @@ def main() -> int:
         "library_ms": None,
         "device_us": pc["device_us"],
         "closest_mean_device_us": pc["closest_mean_device_us"],
-        # the block mode (--multihost's session, m3/m4): the one-rank
-        # session's three launches a pass at (d6)'s state
-        "block_launches": launches["multihost_session"]["closest_candidates_block"],
+        # the block mode (--multihost's session at 2 ranks, m6; m4): its
+        # launches in m6's rank 0; timed at (d6)'s state, 4 ranks' three
+        # launches a pass in one process
+        "block_launches": shared["closest_candidates_block"],
         "block_max_abs_err": pcb["max_abs_err"],
         "block_ms": pcb["ms"],
         "block_plain_ms": pcb["plain_ms"],
         "block_device_us": pcb["device_us"],
         "block_bound_ms": pcb["bound_ms"],
         "block_bound_by": pcb["bound_by"],
+        "block_exchange_bytes": pcb["exchange_bytes"],
+        "block_exchange_dtype": pcb["exchange_dtype"],
     }, {
         "name": "merge_replay",
         "path": "clustering, 10k default path (f); timed at its state after "

@@ -2,7 +2,8 @@
 """The redesigned kernels' device times in several checkouts of the
 repository, on one card, in turns.
 
-    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE] [--phase | --kmer]
+    python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE]
+                         [--phase | --kmer | --block]
 
 Each run is a process of its own that imports the port of one checkout
 (`meshclust2_tpu_torch` from that root), builds its kernels into the
@@ -49,7 +50,26 @@ at k = 8.  It also prints the plane store's device bytes
 (every tensor the store adds to the DeviceStore), the ptxas lines of the
 pair-statistics library and a SHA-256 of each fast instantiation's SASS
 (cuobjdump), keyed by (count type, NV, NARROW), so that two checkouts'
-fast kernels can be compared.  The runs go in the order `--order` gives
+fast kernels can be compared.
+
+With --block it times the row-sharded session's step and pass
+(parallel/multihost_session.py) as the sequence a rank runs from its own
+candidates' statistics (the step) or its own pairs' filter bits (the pass)
+to the trip or the new centers and candidates, for G = 1 and G = 4 ranks in
+this process (the all-reduces and all-gathers stood in for by sums and
+stacks on the card), in the checkout's own design: before the redesign, the
+session's zeroed exchange buffers, scatters and three block-mode launches
+around the statistics', the partial sums' and the partials' collectives at
+any G; after it, at G = 1 the one-launch kernels (window_step,
+closest_candidates) and at G = 4 the block modes' exchange, fused phase and
+pick.  The step at chip_smoke.py (m4)'s shape (a seeded 10,000 x 1,024
+uint8 store, W = 1,571, 15 positives, 9 + 15 members), the pass on the
+seeded (d6) state of --phase (10 % of the pairs kept, 1 % uncertain); each
+result held against the plain one-launch version bit for bit; each
+sequence by CUDA events behind a busy wait, and rank 0's launches before
+its first collective and between it and the next (the fused phase 2 after
+the redesign, phases 1 and 2 before it), with the bytes a rank's exchange
+all-reduces.  The runs go in the order `--order` gives
 (indices into the roots; default: the roots, then again reversed); the end
 prints the median device time of each kernel and checkout, and the line
 before the last is one JSON object of all runs.  Exits non-zero if a
@@ -158,16 +178,47 @@ def specs(F):
     }
 
 
-def device_us(fn, reps: int = 20) -> float:
+def device_us(fn, reps: int = 20, setup=None, sleep: int = 2_000_000) -> float:
     """Median device time in us of fn()'s launches, each queued behind a
-    busy wait on the card (chip_smoke.py:device_us)."""
+    busy wait on the card (chip_smoke.py:device_us) of `sleep` cycles
+    (2,000,000: ~1 ms; longer where the host queues more than that);
+    setup(), when given, runs before each call outside the events."""
     import torch
 
     times = []
     for i in range(reps + 1):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+# the busy wait before --block's sequences (~10 ms: a sequence of four
+# ranks queues ~40 launches and torch operations from the host)
+SEQ_SLEEP = 20_000_000
+
+
+def wall_us(fn, reps: int = 20, setup=None) -> float:
+    """Median time in us from fn()'s call to its last launch's end, by
+    CUDA events without a busy wait: the host's queueing where it is the
+    slower side (as in the session's host-driven loop)."""
+    import torch
+
+    times = []
+    for i in range(reps + 1):
+        if setup:
+            setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
@@ -396,6 +447,330 @@ def one_phase(root: str) -> dict:
     return out
 
 
+BLOCK_SEED = 20261019
+
+
+def block_step_inputs(np, torch, dev, store_cls):
+    """The (m4) step: a seeded 10,000 x 1,024 uint8 store (counts 1..39),
+    a pool of its rows in a permuted flat order, an open cluster of 9
+    members, a window of W = 1,571 alive candidates with 15 positives, their
+    seeded dists."""
+    rng = np.random.default_rng(BLOCK_SEED)
+    n, w, mcnt, npos = N, W, 9, 15
+    counts = rng.integers(1, 40, (n, D)).astype(np.uint8)
+    c64 = counts.astype(np.int64)
+    order = rng.permutation(n).astype(np.int64)
+    flat = rng.permutation(n)
+    mem, free = flat[:mcnt], flat[mcnt:]
+    alive = np.zeros(n, bool)
+    alive[free] = True
+    assign = np.full(n, -1, np.int64)
+    assign[mem] = 3
+    astep = np.zeros(n, np.int64)
+    astep[mem] = np.arange(mcnt)
+    members = np.zeros(n + 1, np.int64)
+    members[:mcnt] = mem
+    cand = np.sort(rng.choice(free, w, replace=False)).astype(np.int64)
+    s = 0.25 - 0.5 - rng.random(w)
+    s[rng.choice(w, npos, replace=False)] = 0.25 + 0.5 + rng.random(npos)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    store = store_cls(counts=up(counts), mags=up(c64.sum(axis=1).astype(np.float64)),
+                      selfdot=up((c64 * c64).sum(axis=1).astype(np.float64)),
+                      lens=up(rng.integers(800, 1500, n).astype(np.float64)),
+                      stddevs=up(rng.random(n)), maxc=int(counts.max()))
+    state = (up(alive), up(assign), up(astep), up(members), up(c64[order[mem]].sum(axis=0)))
+    zero = torch.zeros(w, dtype=torch.float64, device=dev)
+    kw = dict(cid=3, stepc=n + 7, mcnt=mcnt, pos_edge=0.25, margin=1e-8, tie_margin=1e-12,
+              s_err=zero, dist_err=zero.clone())
+    return store, up(order), up(cand), up(s), up(rng.random(w)), state, up(mem[:1]), kw
+
+
+def _blocks_of(store, G: int):
+    """G RowBlocks of the store's rows (parallel/mesh.py:block_bounds)."""
+    from meshclust2_tpu_torch.ops.closest_mean import RowBlock
+    from meshclust2_tpu_torch.parallel.mesh import block_bounds
+
+    n = store.counts.shape[0]
+    got = []
+    for g in range(G):
+        lo, hi, _ = block_bounds(n, G, g)
+        got.append(RowBlock(store.counts[lo:hi].contiguous(), store.mags, store.selfdot,
+                            store.lens, store.stddevs, store.maxc, lo, hi))
+    return got
+
+
+def block_step(out: dict, redesigned: bool, np, torch, dev) -> None:
+    """--block's step: the sequences at G = 1 and 4 into out["us"]."""
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.ops import window_absorb as WA
+    from meshclust2_tpu_torch.ops.closest_mean import PART
+    from meshclust2_tpu_torch.ops.pair_stats import pair_stats
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    store, order, cand, s, dist, state0, cur_d, kw = block_step_inputs(
+        np, torch, dev, DeviceStore)
+    n, w, d = N, W, D
+    center = order[cur_d].expand(w).contiguous()
+    stats = pair_stats(store.counts, order[cand], center)
+    dec = torch.stack([s, torch.zeros_like(s), dist, kw["s_err"], kw["dist_err"]])
+    plain_state = WA.StepState(*(t.clone() for t in state0))
+    want = WA.window_step_ref(store, order, cand, s, dist, stats, plain_state, cur_d, **kw)
+    base = {k: kw[k] for k in ("cid", "stepc", "mcnt", "pos_edge", "margin", "tie_margin")}
+    rows = order[cand]
+    for G in (1, 4):
+        blocks = _blocks_of(store, G)
+        states = [WA.StepState(*(t.clone() for t in state0)) for _ in blocks]
+        scr = [WA.step_scratch(n, dev) for _ in blocks]
+        curs = [cur_d.clone() for _ in blocks]
+        rps = [torch.zeros(PART, **i64) for _ in blocks]
+        own = [torch.nonzero((rows >= b.lo) & (rows < b.hi)).view(-1) for b in blocks]
+        own_in = [(p, rows[p] - b.lo, stats[p].contiguous(), dec[:, p].contiguous())
+                  for p, b in zip(own, blocks)]
+        if redesigned:
+            L = WA.step_xbuf_len(w, d, 1, G)
+            xs = [torch.zeros(L, **i64) for _ in blocks]
+            xbytes = 8 * L
+        else:
+            parts_ = [torch.zeros(d, **i64) for _ in blocks]
+            xbytes = 8 * (8 * w + d)
+        old = {}   # before the redesign: the window's exchanged statistics
+
+        def exchange(g):
+            """Rank g's launches and torch operations before its first
+            collective."""
+            p, r, st, dc = own_in[g]
+            if redesigned:
+                WA.window_step_block(1, blocks[g], order, cand, states[g], curs[g],
+                                     scratch=scr[g], xbuf=xs[g], rank=g, n_ranks=G,
+                                     own_pos=p, own_rows=r, own_stats=st, own_dec=dc, **base)
+                return None
+            buf = torch.zeros((8, w), **i64)
+            buf[:3, p] = st.T
+            buf[3:, p] = dc.view(torch.int64)
+            return buf
+
+        def old_args(g):
+            st_all, dc_all = old["stats"], old["dec"]
+            return ((blocks[g], order, cand, dc_all[0], dc_all[2], st_all, states[g], curs[g]),
+                    dict(base, s_err=dc_all[3], dist_err=dc_all[4]))
+
+        def old_exchange():
+            bufs = [exchange(g) for g in range(G)]
+            tot = torch.stack(bufs).sum(dim=0) if G > 1 else bufs[0]
+            old["stats"] = tot[:3].T.contiguous()
+            old["dec"] = tot[3:].view(torch.float64)
+
+        def old_mid(g):
+            """Rank g's phases 1 and 2 (around the partial sums' all-reduce)."""
+            a, k = old_args(g)
+            WA.window_step_block(1, *a, scratch=scr[g], part=parts_[g], rank_part=rps[g], **k)
+            WA.window_step_block(2, *a, scratch=scr[g], part=parts_[g], rank_part=rps[g], **k)
+
+        def seq():
+            if redesigned and G == 1:   # the session's one-rank step: the one-launch kernel
+                return WA.window_step(store, order, cand, s, dist, stats, states[0], curs[0],
+                                      scratch=scr[0], **kw)
+            if redesigned:
+                for g in range(G):
+                    exchange(g)
+                total = torch.stack(xs).sum(dim=0) if G > 1 else xs[0]
+                for g in range(G):
+                    WA.window_step_block(2, blocks[g], order, cand, states[g], curs[g],
+                                         scratch=scr[g], xbuf=total, rank=g, n_ranks=G,
+                                         rank_part=rps[g], **base)
+            else:
+                old_exchange()
+                for g in range(G):
+                    a, k = old_args(g)
+                    WA.window_step_block(1, *a, scratch=scr[g], part=parts_[g],
+                                         rank_part=rps[g], **k)
+                if G > 1:
+                    total = torch.stack(parts_).sum(dim=0)
+                    for g in range(G):
+                        parts_[g].copy_(total)
+                for g in range(G):
+                    a, k = old_args(g)
+                    WA.window_step_block(2, *a, scratch=scr[g], part=parts_[g],
+                                         rank_part=rps[g], **k)
+            gathered = torch.stack(rps) if G > 1 else rps[0][None].contiguous()
+            trips = []
+            for g in range(G):
+                if redesigned:
+                    trips.append(WA.window_step_block(
+                        3, blocks[g], order, cand, states[g], curs[g], scratch=scr[g],
+                        rank=g, n_ranks=G, parts=gathered, **base))
+                else:
+                    a, k = old_args(g)
+                    trips.append(WA.window_step_block(
+                        3, *a, scratch=scr[g], part=parts_[g], rank_part=rps[g],
+                        parts=gathered, **k))
+            return trips[0]
+
+        def restore():
+            for st in states:
+                for t, t0 in zip(st, state0):
+                    t.copy_(t0)
+            if not redesigned:
+                for t in parts_:
+                    t.zero_()
+
+        restore()
+        trip = seq()
+        torch.cuda.synchronize()
+        if not torch.equal(trip, want) or not all(
+                torch.equal(a[:-1], b[:-1]) if k == "members" else torch.equal(a, b)
+                for k, a, b in zip(WA.StepState._fields, states[0], plain_state)):
+            raise AssertionError(f"the step's sequence at G = {G} differs from the plain "
+                                 f"step: {trip} != {want}")
+        out["us"][f"step sequence G={G}"] = device_us(seq, setup=restore, sleep=SEQ_SLEEP)
+        out["us"][f"step sequence G={G} wall"] = wall_us(seq, setup=restore)
+        if G == 4:
+            # rank 0's launches between its first two collectives
+            restore()
+            if redesigned:
+                for g in range(G):
+                    exchange(g)
+                total_x = torch.stack(xs).sum(dim=0)
+                mid = lambda: WA.window_step_block(
+                    2, blocks[0], order, cand, states[0], curs[0], scratch=scr[0],
+                    xbuf=total_x, rank=0, n_ranks=G, rank_part=rps[0], **base)
+            else:
+                old_exchange()
+                mid = lambda: old_mid(0)
+            out["us"]["step rank 0 between collectives G=4"] = device_us(mid, setup=restore)
+        out["shapes"][f"step G={G}"] = dict(
+            W=w, positives=15, members=kw["mcnt"] + 15, D=d,
+            exchange_bytes=0 if redesigned and G == 1 else xbytes)
+
+
+def block_pass(out: dict, redesigned: bool, np, torch, dev) -> None:
+    """--block's pass: the sequences at G = 1 and 4 into out["us"]."""
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.ops import phase as P
+    from meshclust2_tpu_torch.ops.closest_mean import PART
+
+    i64 = dict(dtype=torch.int64, device=dev)
+    nn, n_slots, merges = PHASE_SHAPES["d6"]
+    delta = PHASE_DELTA
+    arr = {k: torch.from_numpy(v).to(dev)
+           for k, v in phase_state(nn, n_slots, merges, seed=20261017).items()}
+    st = P.PhaseState(arr["assign"], arr["seq"], arr["cen"], arr["alive"], arr["clen"])
+    prow = P.PhaseRows(arr["lens"], arr["blen"], arr["elen"])
+    lay = P.new_layout(nn, n_slots, delta, dev)
+    P.phase_layout(st, prow, delta, lay)
+    C, n_pairs = lay.hdr.tolist()
+    rng = np.random.default_rng(3)
+    counts = torch.from_numpy(rng.integers(1, 40, (nn, D)).astype(np.uint8)).to(dev)
+    mags = counts.sum(dim=1, dtype=torch.int64).to(torch.float64)
+    zeros = torch.zeros(nn, dtype=torch.float64, device=dev)
+    pstore = DeviceStore(counts=counts, mags=mags, selfdot=zeros, lens=zeros,
+                         stddevs=zeros, maxc=39)
+    keep = torch.from_numpy(rng.random(n_pairs) < 0.1).to(dev)
+    func = torch.from_numpy(rng.random(n_pairs) < 0.01).to(dev)
+    ckw = dict(maxc=39, tie_margin=1e-12)
+    want_c = P.new_candidates(n_slots, delta, dev)
+    f0, u0 = P.closest_candidates_ref(counts, mags, keep, st, prow, delta, lay, C,
+                                      n_pairs, want_c, **ckw)
+    b = lay.b_rows[:n_pairs]
+    m = delta * C
+    nw = -(-n_pairs // 32)
+    for G in (1, 4):
+        blocks = _blocks_of(pstore, G)
+        outs = [P.new_candidates(n_slots, delta, dev) for _ in blocks]
+        rps = [torch.zeros((C, PART), **i64) for _ in blocks]
+        owns = [(b >= blk.lo) & (b < blk.hi) for blk in blocks]
+        pos = [torch.nonzero(o).view(-1) for o in owns]
+        args = (st, prow, delta, lay, C, n_pairs)
+        if redesigned:
+            dtype = P.exchange_dtype(n_pairs, 39)
+            L = P.exchange_words(n_pairs, C, D)
+            xs = [torch.zeros(L, dtype=dtype, device=dev) for _ in blocks]
+            cs = [torch.cumsum(o, 0, dtype=torch.int64) for o in owns]
+            own_k = [keep[p].contiguous() for p in pos]
+            own_u = [func[p].contiguous() for p in pos]
+            xbytes = L * torch.zeros(0, dtype=dtype).element_size()
+        else:
+            nums = [torch.zeros((C, D), **i64) for _ in blocks]
+            xbytes = 2 * n_pairs + 8 * C * D
+
+        def pass_seq():
+            if redesigned and G == 1:   # the session's one-rank pass
+                func.any().view(1)
+                return P.closest_candidates(counts, mags, keep, *args, outs[0], **ckw)
+            if redesigned:
+                for g in range(G):
+                    P.closest_candidates_block(1, blocks[g], *args, outs[g], xbuf=xs[g],
+                                               own_cs=cs[g], own_keep=own_k[g],
+                                               own_unc=own_u[g], tie_margin=1e-12)
+                total = torch.stack(xs).sum(dim=0, dtype=dtype) if G > 1 else xs[0]
+                total[nw:2 * nw].any().view(1)
+                for g in range(G):
+                    P.closest_candidates_block(2, blocks[g], *args, outs[g], xbuf=total,
+                                               rank_part=rps[g], tie_margin=1e-12)
+            else:
+                bits = []
+                for g in range(G):
+                    bt = torch.zeros((2, n_pairs), dtype=torch.uint8, device=dev)
+                    bt[0, pos[g]] = keep[pos[g]].to(torch.uint8)
+                    bt[1, pos[g]] = func[pos[g]].to(torch.uint8)
+                    bits.append(bt)
+                tot = torch.stack(bits).sum(dim=0, dtype=torch.uint8) if G > 1 else bits[0]
+                kp = tot[0].bool()
+                tot[1].bool().any().view(1)
+                for g in range(G):
+                    P.closest_candidates_block(1, blocks[g], kp, *args, outs[g], num=nums[g],
+                                               tie_margin=1e-12)
+                total = torch.stack(nums).sum(dim=0) if G > 1 else nums[0]
+                for g in range(G):
+                    P.closest_candidates_block(2, blocks[g], kp, *args, outs[g], num=total,
+                                               rank_part=rps[g], tie_margin=1e-12)
+            gathered = (torch.stack([r[:C] for r in rps]) if G > 1
+                        else rps[0][:C][None].contiguous())
+            got = []
+            for g in range(G):
+                pre = () if redesigned else (keep,)
+                got.append(P.closest_candidates_block(3, blocks[g], *pre, *args, outs[g],
+                                                      parts=gathered, tie_margin=1e-12))
+            return got[0]
+
+        f, u = pass_seq()
+        torch.cuda.synchronize()
+        if not (torch.equal(f, f0) and torch.equal(u, u0)
+                and torch.equal(outs[0].cen, want_c.cen) and all(
+                    torch.equal(getattr(outs[0], k)[:m], getattr(want_c, k)[:m])
+                    for k in ("a", "b", "seg", "ok"))):
+            raise AssertionError(f"the pass's sequence at G = {G} differs from the plain "
+                                 f"closest_candidates")
+        out["us"][f"pass sequence G={G}"] = device_us(pass_seq, sleep=SEQ_SLEEP)
+        out["us"][f"pass sequence G={G} wall"] = wall_us(pass_seq)
+        out["shapes"][f"pass G={G}"] = dict(
+            C=C, P=n_pairs, kept=int(keep.sum()),
+            exchange_bytes=0 if redesigned and G == 1 else xbytes)
+
+
+def one_block(root: str) -> dict:
+    """The session's step and pass sequences of checkout `root` (--block)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    import meshclust2_tpu_torch
+    assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
+    from meshclust2_tpu_torch.ops import window_absorb as WA
+
+    from meshclust2_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    redesigned = hasattr(WA, "step_xbuf_len")
+    logs = [_build.load(name).log for name in ("window_absorb", "closest_mean")]
+    out = {"root": root, "card": torch.cuda.get_device_name(0), "fast_kernels": {},
+           "ptxas": [ln.strip() for log in logs for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln or "entry function" in ln],
+           "us": {}, "shapes": {}, "redesigned": redesigned}
+    block_step(out, redesigned, np, torch, dev)
+    block_pass(out, redesigned, np, torch, dev)
+    return out
+
+
 def one_kmer(root: str) -> dict:
     """The k-mer kernel's timings of checkout `root` at KMER_SHAPES."""
     sys.path.insert(0, root)
@@ -506,10 +881,14 @@ def main(argv=None) -> int:
                       help="time the update phase's kernels at PHASE_SHAPES")
     mode.add_argument("--kmer", action="store_true",
                       help="time the k-mer histogram kernel at KMER_SHAPES")
+    mode.add_argument("--block", action="store_true",
+                      help="time the row-sharded session's step and pass sequences")
     args = ap.parse_args(argv)
-    flag = ["--phase"] if args.phase else ["--kmer"] if args.kmer else []
+    flag = (["--phase"] if args.phase else ["--kmer"] if args.kmer
+            else ["--block"] if args.block else [])
     if args.one:
-        run = one_phase if args.phase else one_kmer if args.kmer else one
+        run = (one_phase if args.phase else one_kmer if args.kmer
+               else one_block if args.block else one)
         print(json.dumps(run(os.path.abspath(args.roots[0]))), flush=True)
         return 0
     roots = [os.path.abspath(r) for r in args.roots]
@@ -525,7 +904,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"kernel_ab: the run of {roots[i]} exited {proc.returncode}")
         got = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(got)
-        extra = (f"shapes {got['shapes']}" if args.phase or args.kmer
+        extra = (f"shapes {got['shapes']}" if args.phase or args.kmer or args.block
                  else f"plane store {got['plane_store_bytes']:,} bytes")
         print(f"run {len(runs)}: {roots[i]}: " + ", ".join(
             f"{k} {v:.2f}" for k, v in got["us"].items()) + f"; {extra}; {got['card']}",
@@ -533,7 +912,7 @@ def main(argv=None) -> int:
     # a cached build has no ptxas log: its resources are compared where
     # both runs compiled
     ok = True
-    if args.phase or args.kmer:
+    if args.phase or args.kmer or args.block:
         for root in roots:
             print(f"ptxas, {root}: " + "; ".join(next(
                 (r["ptxas"] for r in runs if r["root"] == root and r["ptxas"]), [])))
@@ -546,7 +925,7 @@ def main(argv=None) -> int:
         if diff:
             print(f"fast instantiations differ ({r['root']} vs {runs[0]['root']}): {diff}")
             ok = False
-    if not (args.phase or args.kmer):
+    if not (args.phase or args.kmer or args.block):
         print(f"fast instantiations (count type, NV, NARROW): {len(first)}, same SASS and "
               f"ptxas resources in every run: {ok}; " + "; ".join(
                   f"{k}: {v[0]}" for k, v in sorted(first.items())), flush=True)

@@ -70,14 +70,22 @@
 // The phase instantiation's block mode (mc2_closest_candidates_block_u8/u16)
 // runs it on a rank of a row-sharded store (parallel/multihost_session.py):
 // the counts hold only the store rows [row_lo, row_hi), at row - row_lo,
-// while mags, the layout, the keep flags and the state are every rank's
-// alike.  Three launches, the collectives between them on the host:
-//   phase 1  per segment, the column sums of the rank's own kept rows into
-//            num (int64 [C, d]); the host all-reduces num (SUM);
-//   phase 2  per segment, the mean from num and the count of all its kept
-//            rows, then over the rank's own kept rows: its first minimum
-//            (v, position), that row's (dist2, mag), the smallest v of its
-//            rows whose (dist2, mag) differ from the first's, and the
+// while mags, the layout and the state are every rank's alike.  A rank knows
+// the filter's keep and uncertainty bits of its own pairs (those whose
+// member row it holds) before any collective, and so its own kept rows.
+// Three launches, the collectives between them on the host:
+//   phase 1  the exchange, written whole in one launch, in 32-bit words
+//            where a segment's column sums fit them (the wrapper's choice
+//            from P maxc < 2^31: a segment keeps at most P rows), else in
+//            64-bit words: the keep bits and the uncertainty bits of the
+//            rank's own pairs, 32 positions a word (a warp's ballot), zeros
+//            for the others' (blocks C ...), and per segment the column sums
+//            of the rank's own kept rows (block c); every bit and sum has one
+//            contributor, so the host's all-reduce (SUM) is exact;
+//   phase 2  per segment, the mean from the all-reduced sums and the count
+//            of the kept bits, then over the rank's own kept rows: its first
+//            minimum (v, position), that row's (dist2, mag), the smallest v
+//            of its rows whose (dist2, mag) differ from the first's, and the
 //            guard, into rank_part (int64 [C, 6]); the host all-gathers the
 //            ranks' partials;
 //   phase 3  per segment, the first minimum over the ranks and the tie
@@ -120,11 +128,38 @@ struct SegArgs {
   long long row_lo;        // the counts hold store rows [row_lo, row_hi)
   long long row_hi;
   int phase;               // 1, 2 or 3
-  long long* num;          // [C, d] the column sums (phases 1, 2)
   long long* rank_part;    // [C, 6] the rank's partials (phase 2)
   const long long* parts;  // [n_parts, C, 6] every rank's (phase 3)
   int n_parts;
+  // the exchange (phases 1, 2): keep bits [nw], uncertainty bits [nw]
+  // (nw = ceil(P / 32) words), column sums [C, d]; 32- or 64-bit words
+  void* xbuf;
+  int wide;
+  const long long* own_cs;       // phase 1: [>= P] the rank's pairs in [0, p]
+  const unsigned char* own_keep;  // [k] the filter's bits of the rank's pairs
+  const unsigned char* own_unc;
 };
+
+// Word i of the exchange, either width.
+__device__ __forceinline__ long long xword(const SegArgs& a, long long i) {
+  return a.wide ? static_cast<const long long*>(a.xbuf)[i]
+                : static_cast<long long>(static_cast<const int*>(a.xbuf)[i]);
+}
+
+__device__ __forceinline__ void xstore(const SegArgs& a, long long i, long long v) {
+  if (a.wide) {
+    static_cast<long long*>(a.xbuf)[i] = v;
+  } else {
+    static_cast<int*>(a.xbuf)[i] = static_cast<int>(v);
+  }
+}
+
+// Whether position p is kept: the keep flags, or in the block mode's phase
+// 2 the exchanged keep bits.
+__device__ __forceinline__ bool kept_at(const SegArgs& a, long long p) {
+  if (a.keep) return a.keep[p] != 0;
+  return (xword(a, p >> 5) >> (p & 31)) & 1;
+}
 
 // A rank's partial of a segment (phase 2 of the block mode): its first
 // minimum's v (bits) and position (P for none), that row's dist2 and mag
@@ -179,8 +214,10 @@ __device__ __forceinline__ int list_kept(const SegArgs& a, long long base, long 
   const int lane = threadIdx.x & (kWarpSize - 1);
   const int warp = threadIdx.x / kWarpSize;
   const long long p = base + threadIdx.x;
-  bool kept = p < hi && a.keep[p];
+  bool kept = p < hi;
   if (BLOCK && kept) kept = a.rows[p] >= a.row_lo && a.rows[p] < a.row_hi;
+  // the block mode's phase 1: the rank's own filter bits
+  if (kept) kept = BLOCK && a.phase == 1 ? a.own_keep[a.own_cs[p] - 1] != 0 : kept_at(a, p);
   const unsigned bk = __ballot_sync(kFullMask, kept);
   __syncthreads();  // the previous chunk's lists are read no more
   if (lane == 0) wk[warp] = __popc(bk);
@@ -308,6 +345,26 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (c >= a.n_segs) return;
   }
+  if (BLOCK && a.phase == 1 && c >= a.n_segs) {
+    // the exchange's bits: a warp's 32 positions a word, zeros for the
+    // pairs of other ranks
+    const long long p = (c - a.n_segs) * kTile + threadIdx.x;
+    bool kb = false, ub = false;
+    if (p < P && a.rows[p] >= a.row_lo && a.rows[p] < a.row_hi) {
+      const long long i = a.own_cs[p] - 1;
+      kb = a.own_keep[i] != 0;
+      ub = a.own_unc[i] != 0;
+    }
+    const unsigned bk = __ballot_sync(kFullMask, kb);
+    const unsigned bu = __ballot_sync(kFullMask, ub);
+    const long long nw = (P + 31) / 32;
+    const long long w = p >> 5;
+    if (lane == 0 && w < nw) {
+      xstore(a, w, static_cast<long long>(bk));  // a 32-bit word keeps the bits
+      xstore(a, nw + w, static_cast<long long>(bu));
+    }
+    return;
+  }
   if (BLOCK && a.phase == 3) {
     __shared__ long long f_s;
     if (threadIdx.x == 0) {
@@ -331,10 +388,11 @@ __global__ void __launch_bounds__(kThreads)
   // (a thread owns its words across chunks, so no atomics); the block
   // mode's phase 2 has the sums in num and counts every kept row
   long long cnt = 0;
+  const long long xnum = 2 * ((P + 31) / 32);  // the exchange's column sums
   if (BLOCK && a.phase == 2) {
-    for (long long p = lo + threadIdx.x; p < hi; p += kThreads) cnt += a.keep[p] != 0;
+    for (long long p = lo + threadIdx.x; p < hi; p += kThreads) cnt += kept_at(a, p);
     cnt = block_sum(cnt, red);
-    for (int e = threadIdx.x; e < d; e += kThreads) num_s[e] = a.num[c * d + e];
+    for (int e = threadIdx.x; e < d; e += kThreads) num_s[e] = xword(a, xnum + c * d + e);
   }
   for (long long base = lo; base < hi && !(BLOCK && a.phase == 2); base += kTile) {
     const int nk = list_kept<BLOCK>(a, base, hi, t_row, nullptr, wk);
@@ -370,7 +428,7 @@ __global__ void __launch_bounds__(kThreads)
 
   __syncthreads();  // every word's sums complete
   if (BLOCK && a.phase == 1) {
-    for (int e = threadIdx.x; e < d; e += kThreads) a.num[c * d + e] = num_s[e];
+    for (int e = threadIdx.x; e < d; e += kThreads) xstore(a, xnum + c * d + e, num_s[e]);
     return;
   }
 
@@ -420,7 +478,7 @@ __global__ void __launch_bounds__(kThreads)
     double sv = inf;
     for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
       const long long r = a.rows[p];
-      if (!a.keep[p] || r < a.row_lo || r >= a.row_hi) continue;
+      if (!kept_at(a, p) || r < a.row_lo || r >= a.row_hi) continue;
       if (d2_out[p] == fd2 && mag_out[p] == fmg) continue;
       if (v_out[p] < sv) sv = v_out[p];
     }
@@ -476,10 +534,12 @@ int launch(SegArgs a, const CandArgs& x, long long scratch_len, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (BLOCK && (a.phase < 1 || a.phase > 3 || a.row_lo < 0 || a.row_hi < a.row_lo ||
-                (a.phase != 3 && !a.num) || (a.phase == 2 && !a.rank_part) ||
+                (a.phase != 3 && !a.xbuf) || (a.phase == 1 && !a.own_cs) ||
+                (a.phase == 2 && !a.rank_part) ||
                 (a.phase == 3 && (!a.parts || a.n_parts < 1)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (BLOCK) a.keep = nullptr;  // phase 1 reads own_keep, phase 2 the exchanged bits
   const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
   auto kernel = vec ? &closest_mean_kernel<T, true, CAND, BLOCK>
@@ -490,7 +550,9 @@ int launch(SegArgs a, const CandArgs& x, long long scratch_len, void* stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long grid = a.n_segs > 0 ? a.n_segs : 1;
+  // the block mode's phase 1: a block a segment, then the bits' blocks
+  const long long grid = (a.n_segs > 0 ? a.n_segs : 1) +
+                         (BLOCK && a.phase == 1 ? (a.n_pairs + kTile - 1) / kTile : 0);
   kernel<<<dim3(static_cast<unsigned>(grid)), dim3(kThreads), shm,
            static_cast<cudaStream_t>(stream)>>>(a, x);
   return static_cast<int>(cudaGetLastError());
@@ -580,11 +642,13 @@ MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u16, uint16_t)
 #undef MC2_CANDIDATES_ENTRY
 
 // The block mode: the phase instantiation's arguments (counts: the rank's
-// rows [row_lo, row_hi); mags: every store row's; rows: global), then
-// row_lo, row_hi, the phase (1, 2, 3), num int64 [C, d], rank_part int64
-// [C, 6], parts int64 [n_parts, C, 6].  Phase 1 writes num, phase 2 reads it
-// and writes rank_part (and the scratch), phase 3 reads parts and writes
-// first, unc and the candidates.
+// rows [row_lo, row_hi); mags: every store row's; rows: global; keep: not
+// read), then row_lo, row_hi, the phase (1, 2, 3), rank_part int64 [C, 6],
+// parts int64 [n_parts, C, 6], the exchange xbuf (int64 words with wide,
+// else int32: 2 ceil(P / 32) + C d of them), own_cs int64 [>= P], own_keep
+// and own_unc uint8 [k].  Phase 1 reads the own_* arrays and writes xbuf,
+// phase 2 reads the all-reduced xbuf and writes rank_part (and the scratch),
+// phase 3 reads parts and writes first, unc and the candidates.
 #define MC2_CANDIDATES_BLOCK_ENTRY(NAME, T)                                          \
   int NAME(const void* counts, int d, const void* mags, const void* rows,            \
            const void* seg, const void* keep, long long n_pairs, long long n_segs,   \
@@ -593,8 +657,9 @@ MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u16, uint16_t)
            const void* alive, const void* cen, const void* inv, const void* moff,    \
            const void* flat, const void* lens, const void* blen, const void* elen,   \
            void* arrive, void* cen_out, void* ca, void* cb, void* cs, void* ok,      \
-           long long row_lo, long long row_hi, int phase, void* num, void* rank_part, \
-           const void* parts, int n_parts, void* stream) {                           \
+           long long row_lo, long long row_hi, int phase, void* rank_part,           \
+           const void* parts, int n_parts, void* xbuf, int wide, const void* own_cs, \
+           const void* own_keep, const void* own_unc, void* stream) {                \
     SegArgs a{counts,                                                                \
               d,                                                                     \
               static_cast<const double*>(mags),                                      \
@@ -611,10 +676,14 @@ MC2_CANDIDATES_ENTRY(mc2_closest_candidates_u16, uint16_t)
               row_lo,                                                                \
               row_hi,                                                                \
               phase,                                                                 \
-              static_cast<long long*>(num),                                          \
               static_cast<long long*>(rank_part),                                    \
               static_cast<const long long*>(parts),                                  \
-              n_parts};                                                              \
+              n_parts,                                                               \
+              xbuf,                                                                  \
+              wide,                                                                  \
+              static_cast<const long long*>(own_cs),                                 \
+              static_cast<const unsigned char*>(own_keep),                           \
+              static_cast<const unsigned char*>(own_unc)};                           \
     const CandArgs x{S,                                                              \
                      delta,                                                          \
                      final_pass,                                                     \

@@ -279,6 +279,22 @@ inline cudaError_t coop_capacity(const void* kernel, size_t shm, int* cap,
   return cudaSuccess;
 }
 
+// Launch `kernel` plainly on `stream`: min(max(want, 1), kMaxGrid) blocks of
+// kThreads threads, shm bytes of dynamic shared memory (its limit raised
+// above 32 KB, beside the kernels' few KB of static shared memory).  For
+// kernels whose blocks never wait for each other.
+inline cudaError_t plain_launch(const void* kernel, long long want, size_t shm, void** args,
+                                cudaStream_t stream) {
+  if (shm > 32 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
+    if (e != cudaSuccess) return e;
+  }
+  const long long g = want < 1 ? 1 : (want < kMaxGrid ? want : kMaxGrid);
+  return cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(g)), dim3(kThreads), args, shm,
+                          stream);
+}
+
 // Launch `kernel` cooperatively on `stream`: min(want, capacity) blocks of
 // `threads` threads, shm bytes of dynamic shared memory.
 inline cudaError_t coop_launch(const void* kernel, long long want, size_t shm,

@@ -84,20 +84,40 @@
 // The block mode (BLOCK, mc2_window_step_block_u8/u16) runs the same step on
 // a rank of a row-sharded store (parallel/multihost_session.py): the counts
 // hold only the store rows [row_lo, row_hi), at row - row_lo, while the
-// moments, the window's decisions (gathered from every rank) and the loop
-// state are every rank's alike.  Three launches, the collectives between
-// them on the host:
-//   phase 1  sections 1-3 above, every rank alike, but only the rank's own
-//            positives' rows are summed, into `part` (int64 [d], zero
-//            between steps) in place of msum; the min case's seed row goes
-//            there too on its owner; the trip gets (bits, npos, 0, the min
-//            case's seed or cur_d).  Then the host all-reduces `part` (SUM);
-//   phase 2  msum += part (absorb) or msum = part (min case), part back to
-//            zero; when absorbing, closest-to-mean over the rank's own
-//            members: the rank's first minimum (v, position), its (dist2,
-//            mag), the smallest v of its members whose (dist2, mag) differ
-//            from that first's, and the mean's guard, into `rank_part`
-//            (int64 [6]).  Then the host all-gathers the ranks' partials;
+// moments, the window's decisions and the loop state are every rank's
+// alike.  A rank knows its own candidates' statistics and decisions from the
+// center form of the fused kernel, and so its own positives (s >= pos_edge)
+// and its own first maximum of dist, before any collective.  Three
+// launches, two collectives between them on the host:
+//   phase 1  the exchange (step_exchange_kernel), written whole in one
+//            launch, int64 [xbuf_words(W, d, G)]: the statistics [W, 3] and
+//            (s, dist, s_err, dist_err) [4, W] at the rank's own window
+//            positions, zeros elsewhere; the column sums [d] of the rank's
+//            own positives; and per rank g a seed slot of 1 + ceil(d
+//            sizeof(T) / 8) words, slot `rank` holding its own first
+//            maximum's window position + 1 and that row's bytes, the others
+//            zero.  Every value has one contributor, so the host's
+//            all-reduce (SUM) is exact and gives every rank the window's
+//            statistics and decisions, its positives' column sums, and the
+//            window's first maximum's row in its owner's slot (the first
+//            maximum over the window is its owner's own first maximum);
+//   phase 2  sections 1-5 above over the all-reduced exchange, no grid
+//            barrier: the decisions, the case and the member slots, then,
+//            when absorbing, every block forms the mean from msum plus the
+//            column sums itself (msum's addend is complete when the launch
+//            starts) and takes the members it can read without waiting for
+//            another block: the earlier members [0, mcnt) strided over the
+//            grid, and the positives of its own tiles, whose member slots it
+//            wrote itself; only the rank's own rows, into the per-member
+//            scratch.  The last block to arrive (the arrival count) writes
+//            the rank's closest-to-mean partial into `rank_part` (int64 [6]:
+//            its first minimum's v (bits) and member position, that member's
+//            (dist2, mag), the smallest v of its members whose (dist2, mag)
+//            differ from that first's, and the mean's guard) and only then
+//            msum += the column sums: every other block has read msum before
+//            it arrived.  The min case's seed row comes from the slot whose
+//            position is the window's first maximum's.  Then the host
+//            all-gathers the ranks' partials;
 //   phase 3  one block: the first minimum over the ranks (the smallest v,
 //            then position), and the tie guard from the partials: a member
 //            within tie_margin of the minimum whose (dist2, mag) differ from
@@ -105,9 +125,11 @@
 //            rank as its first's v where its first's integers differ from
 //            the global first's and as its own smallest differing v
 //            otherwise, lies within tie_margin; trip[2..3] as above.
-// With one block covering every row the trip and the state are bit for bit
-// the one-launch kernel's.  A model with full-vector singles (`full`) needs
-// rows for the tie guard of section 2 and is not taken in block mode.
+// Phases 1 and 2 are plain launches (no block waits for another); a step has
+// two collectives.  With one block covering every row the trip and the state
+// are bit for bit the one-launch kernel's.  A model with full-vector singles
+// (`full`) needs rows for the tie guard of section 2 and is not taken in
+// block mode.
 //
 // Built by nvcc for sm_90a (ops/_build.py) and bound through ctypes: the
 // entry points launch on the given stream, allocate nothing, do not
@@ -161,10 +183,16 @@ struct StepArgs {
   long long row_lo;        // the counts hold store rows [row_lo, row_hi)
   long long row_hi;
   int phase;               // 1, 2 or 3
-  long long* part;         // [d] the rank's partial column sums, 0 between steps
+  long long* xbuf;         // the exchange, int64 [xbuf_words(W, d, G)] (phases 1, 2)
+  int rank;                // this rank, of n_ranks
+  int n_ranks;
+  const long long* own_pos;    // phase 1: [k] the rank's candidates' window positions, rising
+  const long long* own_rows;   // [k] their rows in the block (row - row_lo)
+  long long n_own;             // k
+  const long long* own_stats;  // [k, 3]
+  const double* own_dec;       // [5, k]: s, prob, dist, s_err, dist_err
   long long* rank_part;    // [6] the rank's closest-to-mean partial (phase 2)
-  const long long* parts;  // [n_parts, 6] every rank's, gathered (phase 3)
-  int n_parts;
+  const long long* parts;  // [n_ranks, 6] every rank's, gathered (phase 3)
 };
 
 // The rank's partial of closest-to-mean (phase 2 of the block mode): its
@@ -173,6 +201,17 @@ struct StepArgs {
 // members whose (dist2, mag) differ from the first's (+inf for none), and
 // whether the mean's guard fired.
 constexpr int kPart = 6;
+
+// The exchange's regions (int64 words): statistics [W, 3] at 0, (s, dist,
+// s_err, dist_err) [4, W] at 3 W, the positives' column sums [d] at 7 W,
+// then n_ranks seed slots of seed_slot(d, size) words each.
+__host__ __device__ inline long long seed_slot(int d, int size) {
+  return 1 + (static_cast<long long>(d) * size + 7) / 8;
+}
+
+__host__ __device__ inline long long xbuf_words(long long w, int d, int size, int n_ranks) {
+  return 7 * w + d + n_ranks * seed_slot(d, size);
+}
 
 // Whether rows x and y hold the same d counts (VEC: 16-byte aligned rows
 // of whole 16-byte words).
@@ -205,7 +244,7 @@ __device__ void block_pick(const StepArgs& a) {
   double mv = inf;
   long long fp = count, fd2 = -1, fmg = -1;
   int unc = 0;
-  for (int g = 0; g < a.n_parts; ++g) {
+  for (int g = 0; g < a.n_ranks; ++g) {
     const long long* p = a.parts + kPart * g;
     const double v = __longlong_as_double(p[0]);
     if (before<false>(v, p[1], mv, fp)) {
@@ -218,7 +257,7 @@ __device__ void block_pick(const StepArgs& a) {
   }
   if (fp < count) {
     double t = inf;  // the smallest v of a member whose integers differ
-    for (int g = 0; g < a.n_parts; ++g) {
+    for (int g = 0; g < a.n_ranks; ++g) {
       const long long* p = a.parts + kPart * g;
       const bool differs = p[1] < count && (p[2] != fd2 || p[3] != fmg);
       const double v = differs ? __longlong_as_double(p[0]) : __longlong_as_double(p[4]);
@@ -229,6 +268,134 @@ __device__ void block_pick(const StepArgs& a) {
   }
   trip[2] = unc;
   trip[3] = (unc || fp >= count) ? *a.cur_d : a.members[fp];
+}
+
+// The block mode's phase 1: the exchange, written whole.  Blocks [0, Bp)
+// cover the window positions (thread t zeroes position t if another rank
+// owns it and writes the rank's own candidate t at own_pos[t]: every word
+// has one writer), the next Bc blocks the column sums of the rank's own
+// positives (a thread owns its 4-byte word of the rows, or its column,
+// across the tiles of own candidates, as section 3 sums them), the last Bs
+// blocks the seed slots (the blocks that cover slot `rank` find the rank's
+// own first maximum of dist themselves).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) step_exchange_kernel(const StepArgs a) {
+  __shared__ long long pos_rows[kTile];
+  __shared__ int wcnt[kWarps];
+  __shared__ double red_v[kWarps];
+  __shared__ long long red_p[kWarps];
+  const T* counts = static_cast<const T*>(a.counts);
+  const int d = a.d;
+  const long long W = a.n_cand;
+  const long long k = a.n_own;
+  const int lane = threadIdx.x & (kWarpSize - 1);
+  const int warp = threadIdx.x / kWarpSize;
+  constexpr int kPer = VEC ? 4 / sizeof(T) : 1;
+  const int words = d / kPer;  // a thread's share: a 4-byte word, or a column
+  const long long bp_blocks = (W + kTile - 1) / kTile;
+  const long long bc_blocks = (words + kThreads - 1) / kThreads;
+  long long* x = a.xbuf;
+  long long b = blockIdx.x;
+  if (b < bp_blocks) {
+    const long long t = b * kTile + threadIdx.x;
+    if (t < W) {
+      const long long r = a.order[a.cand[t]];
+      if (r < a.row_lo || r >= a.row_hi) {
+        x[3 * t] = x[3 * t + 1] = x[3 * t + 2] = 0;
+#pragma unroll
+        for (int j = 3; j < 7; ++j) x[j * W + t] = 0;
+      }
+    }
+    if (t < k) {
+      const long long p = a.own_pos[t];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) x[3 * p + j] = a.own_stats[3 * t + j];
+      x[3 * W + p] = __double_as_longlong(a.own_dec[t]);
+      x[4 * W + p] = __double_as_longlong(a.own_dec[2 * k + t]);
+      x[5 * W + p] = __double_as_longlong(a.own_dec[3 * k + t]);
+      x[6 * W + p] = __double_as_longlong(a.own_dec[4 * k + t]);
+    }
+    return;
+  }
+  b -= bp_blocks;
+  if (b < bc_blocks) {
+    const int w = static_cast<int>(b) * kThreads + threadIdx.x;
+    long long sum[kPer] = {};
+    for (long long base = 0; base < k; base += kTile) {
+      const long long i = base + threadIdx.x;
+      const bool pos = i < k && a.own_dec[i] >= a.pos_edge;
+      const unsigned ballot = __ballot_sync(kFullMask, pos);
+      if (lane == 0) wcnt[warp] = __popc(ballot);
+      __syncthreads();
+      int in_tile = __popc(ballot & ((1u << lane) - 1u)), n_tile = 0;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        if (v < warp) in_tile += wcnt[v];
+        n_tile += wcnt[v];
+      }
+      if (pos) pos_rows[in_tile] = a.own_rows[i];
+      __syncthreads();  // pos_rows complete
+      if (w < words) {
+        if constexpr (VEC) {
+          unsigned acc[kPer] = {}, acc16[2] = {};  // <= 256 rows: both fit
+          for (int r = 0; r < n_tile; r += kBatch) {  // kBatch loads in flight
+            unsigned xw[kBatch];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              xw[u] = r + u < n_tile ? __ldg(reinterpret_cast<const unsigned*>(
+                                                 counts + pos_rows[r + u] * d) + w)
+                                     : 0u;
+            }
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) add_word<T>(xw[u], acc, acc16);
+          }
+          fold16<T>(acc, acc16);
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) sum[j] += acc[j];
+        } else {
+          for (int r = 0; r < n_tile; ++r) sum[0] += counts[pos_rows[r] * d + w];
+        }
+      }
+      __syncthreads();  // before wcnt and pos_rows are reused
+    }
+    if (w < words) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) x[7 * W + static_cast<long long>(w) * kPer + j] = sum[j];
+    }
+    return;
+  }
+  b -= bc_blocks;
+  const long long sw = seed_slot(d, sizeof(T));
+  const long long w = b * kThreads + threadIdx.x;
+  const long long mine = static_cast<long long>(a.rank) * sw;  // slot `rank`: [mine, mine + sw)
+  long long bp = -1;
+  if (k > 0 && b * kThreads < mine + sw && (b + 1) * kThreads > mine) {  // uniform
+    double bv = 0.0;
+    for (long long i = threadIdx.x; i < k; i += kThreads) {
+      const double v = a.own_dec[2 * k + i];
+      if (bp < 0 || v > bv) {  // positions rise within a thread: first maximum
+        bv = v;
+        bp = i;
+      }
+    }
+    block_first<true>(bv, bp, red_v, red_p);
+  }
+  if (w >= a.n_ranks * sw) return;
+  long long val = 0;
+  if (bp >= 0 && w >= mine && w < mine + sw) {
+    if (w == mine) {
+      val = a.own_pos[bp] + 1;
+    } else {
+      const long long nbytes = static_cast<long long>(d) * sizeof(T);
+      const long long off = 8 * (w - mine - 1);
+      const unsigned char* row =
+          reinterpret_cast<const unsigned char*>(counts + a.own_rows[bp] * d);
+      for (int u = 0; u < 8; ++u) {
+        if (off + u < nbytes) val |= static_cast<long long>(row[off + u]) << (8 * u);
+      }
+    }
+  }
+  x[7 * W + d + w] = val;
 }
 
 template <typename T, bool VEC, bool BLOCK>
@@ -242,7 +409,6 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
   __shared__ long long pos_rows[kTile];  // a tile's positives' store rows
   __shared__ int last_s;
 
-  cg::grid_group grid = cg::this_grid();
   const T* counts = static_cast<const T*>(a.counts);
   const int d = a.d;
   const int lane = threadIdx.x & (kWarpSize - 1);
@@ -267,14 +433,15 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     if (b == 0) block_pick(a);
     return;
   }
-  long long npos = 0;
-  if (!BLOCK || a.phase == 1) {  // sections 1-3, the block mode's phase 1
+  // the block mode's phase 2: the window's statistics and decisions and the
+  // positives' column sums from the all-reduced exchange
+  const long long* colsum = BLOCK ? a.xbuf + 7 * W : nullptr;
 
   // 1. every block decides the whole window itself (W is a few thousand on
   // the main path, and the repeated reads hit L2), so that no grid barrier
   // comes before the case: the positives in all and before the block's
   // tiles, the margin gate, the first maximum
-  long long pre = 0;
+  long long npos = 0, pre = 0;
   int unc = 0;
   double bv = 0.0;
   long long bp = -1;
@@ -330,7 +497,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
   }
 
   // 3. the case: state updates of the block's candidates, member slots, and
-  // the positives' column sums into msum
+  // (one-launch kernel) the positives' column sums into msum
   const long long bits = (unc ? 1 : 0) | (tie ? 2 : 0);
   const bool absorb = bits == 0 && npos > 0;
   const bool is_min = bits == 0 && npos == 0;
@@ -362,15 +529,12 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       }
       if (pa) {
         a.members[slot + in_tile] = c;
-        const long long r = a.order[c];
-        // block mode: the rank sums only the rows it holds
-        pos_rows[in_tile] = !BLOCK ? r : (r >= a.row_lo && r < a.row_hi ? r - a.row_lo : -1);
+        if (!BLOCK) pos_rows[in_tile] = a.order[c];
       }
     }
     __syncthreads();  // pos_rows complete
-    if (n_tile > 0) {
-      unsigned long long* msum =
-          reinterpret_cast<unsigned long long*>(BLOCK ? a.part : a.msum);
+    if (!BLOCK && n_tile > 0) {
+      unsigned long long* msum = reinterpret_cast<unsigned long long*>(a.msum);
       if (VEC) {
         constexpr int kPer = 4 / sizeof(T);
         const int words = d / kPer;
@@ -380,7 +544,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
             unsigned x[kBatch];
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
-              x[u] = k + u < n_tile && (!BLOCK || pos_rows[k + u] >= 0)
+              x[u] = k + u < n_tile
                          ? __ldg(reinterpret_cast<const unsigned*>(counts + pos_rows[k + u] * d) +
                                  w)
                          : 0u;
@@ -397,9 +561,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       } else {
         for (int e = threadIdx.x; e < d; e += kThreads) {
           unsigned acc = 0;
-          for (int k = 0; k < n_tile; ++k) {
-            if (!BLOCK || pos_rows[k] >= 0) acc += counts[pos_rows[k] * d + e];
-          }
+          for (int k = 0; k < n_tile; ++k) acc += counts[pos_rows[k] * d + e];
           if (acc) atomicAdd(msum + e, static_cast<unsigned long long>(acc));
         }
       }
@@ -407,15 +569,28 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     slot += n_tile;
     __syncthreads();  // before wcnt and pos_rows are reused
   }
-  if (!absorb || BLOCK) {
+  if (!absorb) {
     if (is_min && b == 0) {
-      const long long r = a.order[a.cand[bp]];
       if (!BLOCK) {
-        const T* row = counts + r * d;
+        const T* row = counts + a.order[a.cand[bp]] * d;
         for (int e = threadIdx.x; e < d; e += kThreads) a.msum[e] = row[e];
-      } else if (r >= a.row_lo && r < a.row_hi) {  // the seed's owner
-        const T* row = counts + (r - a.row_lo) * d;
-        for (int e = threadIdx.x; e < d; e += kThreads) a.part[e] = row[e];
+      } else {
+        // the seed's row, from the slot of its owner: the one whose own
+        // first maximum is the window's
+        const long long sw = seed_slot(d, sizeof(T));
+        const long long* seeds = a.xbuf + 7 * W + d;
+        __shared__ int g_s;
+        if (threadIdx.x == 0) {
+          g_s = -1;
+          for (int g = 0; g < a.n_ranks && g_s < 0; ++g) {
+            if (seeds[g * sw] == bp + 1) g_s = g;
+          }
+        }
+        __syncthreads();
+        if (g_s >= 0) {
+          const T* row = reinterpret_cast<const T*>(seeds + g_s * sw + 1);
+          for (int e = threadIdx.x; e < d; e += kThreads) a.msum[e] = row[e];
+        }
       }
     }
     if (b == 0 && threadIdx.x == 0) {
@@ -426,25 +601,10 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     }
     return;  // uniform over the grid: no block waits at a later barrier
   }
-  }  // sections 1-3
-
-  // block mode, phase 2: msum from the all-reduced partial sums, which go
-  // back to zero
-  if (BLOCK) {
-    const long long bits_c = trip[0];
-    npos = trip[1];
-    const bool absorb_c = bits_c == 0 && npos > 0;
-    const bool min_c = bits_c == 0 && npos == 0;
-    for (long long e = static_cast<long long>(b) * kThreads + threadIdx.x; e < d;
-         e += static_cast<long long>(G) * kThreads) {
-      const long long x = a.part[e];
-      a.part[e] = 0;
-      if (absorb_c) a.msum[e] += x;
-      if (min_c) a.msum[e] = x;
-    }
-    if (!absorb_c) return;  // uniform over the grid
+  if (!BLOCK) {
+    cg::this_grid().sync();  // msum and the member list complete
   }
-  grid.sync();
+  // (block mode: __syncthreads above published the block's member slots)
 
   // 4. closest-to-mean: the mean in shared memory, then one warp per member
   const long long count = a.mcnt + npos;
@@ -453,7 +613,8 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     long long sfloor = 0;
     int guard = 0;
     for (int e = threadIdx.x; e < d; e += kThreads) {
-      const BinMean m = bin_mean(a.msum[e], count, inv, a.maxc);
+      const long long num = BLOCK ? a.msum[e] + colsum[e] : a.msum[e];
+      const BinMean m = bin_mean(num, count, inv, a.maxc);
       sfloor += m.q;
       guard |= m.guard;
       r_s[e] = static_cast<T>(m.r);
@@ -462,13 +623,12 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     guard = __syncthreads_or(guard);
     double best_v = __longlong_as_double(0x7ff0000000000000LL);  // +inf
     long long best_p = count;
-    for (long long q = static_cast<long long>(b) * kWarps + warp; q < count;
-         q += static_cast<long long>(G) * kWarps) {
+    auto member = [&](long long q) {
       long long row = a.order[a.members[q]];
       if (BLOCK) {
         if (row < a.row_lo || row >= a.row_hi) {  // another rank's member
           if (lane == 0) d2_out[q] = -1;
-          continue;
+          return;
         }
         row -= a.row_lo;
       }
@@ -486,6 +646,17 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
         best_v = v;
         best_p = q;
       }
+    };
+    // the block mode reads only the member slots it can see: the earlier
+    // members over the grid, then the positives of its own tiles, whose
+    // slots [mcnt + pre, slot) it wrote itself (and above every earlier one)
+    const long long spread = BLOCK ? a.mcnt : count;
+    for (long long q = static_cast<long long>(b) * kWarps + warp; q < spread;
+         q += static_cast<long long>(G) * kWarps) {
+      member(q);
+    }
+    if (BLOCK) {
+      for (long long q = a.mcnt + pre + warp; q < slot; q += kWarps) member(q);
     }
     block_first<false>(best_v, best_p, red_v, red_p);
     if (threadIdx.x == 0) {
@@ -532,6 +703,8 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     long long dummy = 0;
     block_first<false>(sv, dummy, red_v, red_p);
     unc_m = __syncthreads_or(unc_m);
+    // every block has formed its mean: msum takes the column sums now
+    for (int e = threadIdx.x; e < d; e += kThreads) a.msum[e] += colsum[e];
     if (threadIdx.x == 0) {
       long long* r = a.rank_part;
       r[0] = __double_as_longlong(mv);
@@ -540,6 +713,10 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       r[3] = fmg;
       r[4] = __double_as_longlong(sv);
       r[5] = unc_m;
+      trip[0] = 0;
+      trip[1] = npos;
+      trip[2] = 0;
+      trip[3] = *a.cur_d;
       *done = 0;
     }
     return;
@@ -563,30 +740,79 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
   }
 }
 
-template <typename T, bool BLOCK>
+template <typename T>
+bool vec_rows(const StepArgs& a) {
+  return (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
+}
+
+template <typename T>
 int launch(StepArgs a, long long scratch_len, void* stream) {
   if (a.d <= 0 || a.n_cand <= 0 || a.n < a.n_cand || a.mcnt < 0 ||
       a.mcnt + a.n_cand > a.n || !a.s_err || !a.dist_err ||
       scratch_len < 4 + kSlots * kMaxGrid + 3 * (a.n + 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (BLOCK && (a.full || a.phase < 1 || a.phase > 3 || a.row_lo < 0 ||
-                a.row_hi < a.row_lo || !a.part || !a.rank_part ||
-                (a.phase == 3 && (!a.parts || a.n_parts < 1)))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool vec = (static_cast<size_t>(a.d) * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
-  const void* kernel = vec ? reinterpret_cast<const void*>(&window_step_kernel<T, true, BLOCK>)
-                           : reinterpret_cast<const void*>(&window_step_kernel<T, false, BLOCK>);
+  const void* kernel = vec_rows<T>(a)
+                           ? reinterpret_cast<const void*>(&window_step_kernel<T, true, false>)
+                           : reinterpret_cast<const void*>(&window_step_kernel<T, false, false>);
   const long long tiles = (a.n_cand + kTile - 1) / kTile;
   const long long rows = (a.mcnt + a.n_cand + kMemberRowsPerBlock - 1) / kMemberRowsPerBlock;
-  // the block mode's phases: the candidates' tiles, the members, one block
-  const long long want = !BLOCK ? (tiles > rows ? tiles : rows)
-                                : (a.phase == 1 ? tiles : (a.phase == 2 ? rows : 1));
   void* args[] = {&a};
-  const cudaError_t e = coop_launch(kernel, want, static_cast<size_t>(a.d) * sizeof(T),
-                                    args, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = coop_launch(kernel, tiles > rows ? tiles : rows,
+                                    static_cast<size_t>(a.d) * sizeof(T), args,
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The block mode's phases: 1 the exchange, 2 the step over it, 3 the pick.
+template <typename T>
+int launch_block(StepArgs a, long long scratch_len, long long xbuf_len, void* stream) {
+  const long long W = a.n_cand;
+  const bool bad_common = a.d <= 0 || W <= 0 || a.n < W || a.row_lo < 0 ||
+                          a.row_hi < a.row_lo || a.n_ranks < 1 || a.rank < 0 ||
+                          a.rank >= a.n_ranks;
+  const bool bad_x = !a.xbuf || xbuf_len < xbuf_words(W, a.d, sizeof(T), a.n_ranks);
+  bool bad = bad_common;
+  if (a.phase == 1) {
+    bad |= bad_x || a.n_own < 0 || a.n_own > W ||
+           (a.n_own > 0 && (!a.own_pos || !a.own_rows || !a.own_stats || !a.own_dec));
+  } else if (a.phase == 2) {
+    bad |= bad_x || a.mcnt < 0 || a.mcnt + W > a.n || !a.rank_part ||
+           scratch_len < 4 + kSlots * kMaxGrid + 3 * (a.n + 1);
+  } else if (a.phase == 3) {
+    bad |= !a.parts || scratch_len < 4;
+  } else {
+    bad = true;
+  }
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = vec_rows<T>(a);
+  void* args[] = {&a};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (a.phase == 1) {
+    const long long words = vec ? a.d * static_cast<long long>(sizeof(T)) / 4 : a.d;
+    const long long grid = (W + kTile - 1) / kTile + (words + kThreads - 1) / kThreads +
+                           (a.n_ranks * seed_slot(a.d, sizeof(T)) + kThreads - 1) / kThreads;
+    const void* kernel = vec ? reinterpret_cast<const void*>(&step_exchange_kernel<T, true>)
+                             : reinterpret_cast<const void*>(&step_exchange_kernel<T, false>);
+    e = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, 0, st);
+  } else {
+    const void* kernel = vec ? reinterpret_cast<const void*>(&window_step_kernel<T, true, true>)
+                             : reinterpret_cast<const void*>(&window_step_kernel<T, false, true>);
+    // phase 2: the candidates' tiles or the earlier members, 64 a block
+    const long long tiles = (W + kTile - 1) / kTile;
+    const long long rows = (a.mcnt + kMemberRowsPerBlock - 1) / kMemberRowsPerBlock;
+    const long long want = a.phase == 3 ? 1 : (tiles > rows ? tiles : rows);
+    if (a.phase == 2) {
+      a.stats = a.xbuf;
+      a.s = reinterpret_cast<const double*>(a.xbuf + 3 * W);
+      a.dist = reinterpret_cast<const double*>(a.xbuf + 4 * W);
+      a.s_err = reinterpret_cast<const double*>(a.xbuf + 5 * W);
+      a.dist_err = reinterpret_cast<const double*>(a.xbuf + 6 * W);
+    }
+    e = plain_launch(kernel, want, static_cast<size_t>(a.d) * sizeof(T), args, st);
+  }
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -599,6 +825,12 @@ long long mc2_window_step_scratch_len(long long n) {
   return 4 + kSlots * kMaxGrid + 3 * (n + 1);
 }
 
+// int64 words of the block mode's exchange for a window of w candidates,
+// rows of d counts of `size` bytes, n_ranks ranks
+long long mc2_window_step_xbuf_len(long long w, int d, int size, int n_ranks) {
+  return xbuf_words(w, d, size, n_ranks);
+}
+
 #define MC2_STEP_ENTRY(NAME, T)                                                         \
   int NAME(const void* counts, int d, const void* mags, const void* selfdot,            \
            const void* lens, const void* stddevs, const void* order, const void* cand,  \
@@ -608,37 +840,38 @@ long long mc2_window_step_scratch_len(long long n) {
            void* alive, void* assign, void* astep, void* members, void* msum,           \
            const void* cur_d, long long cid, long long stepc, long long mcnt,           \
            void* scratch, long long scratch_len, long long n, void* stream) {           \
-    StepArgs a{counts,                                                                  \
-               d,                                                                       \
-               static_cast<const double*>(mags),                                        \
-               static_cast<const double*>(selfdot),                                     \
-               static_cast<const double*>(lens),                                        \
-               static_cast<const double*>(stddevs),                                     \
-               static_cast<const long long*>(order),                                    \
-               static_cast<const long long*>(cand),                                     \
-               n_cand,                                                                  \
-               static_cast<const double*>(s),                                           \
-               static_cast<const double*>(dist),                                        \
-               static_cast<const double*>(s_err),                                       \
-               static_cast<const double*>(dist_err),                                    \
-               full,                                                                    \
-               static_cast<const long long*>(stats),                                    \
-               pos_edge,                                                                \
-               margin,                                                                  \
-               tie_margin,                                                              \
-               maxc,                                                                    \
-               static_cast<unsigned char*>(alive),                                      \
-               static_cast<long long*>(assign),                                         \
-               static_cast<long long*>(astep),                                          \
-               static_cast<long long*>(members),                                        \
-               static_cast<long long*>(msum),                                           \
-               static_cast<const long long*>(cur_d),                                    \
-               cid,                                                                     \
-               stepc,                                                                   \
-               mcnt,                                                                    \
-               static_cast<long long*>(scratch),                                        \
-               n};                                                                      \
-    return launch<T, false>(a, scratch_len, stream);                                    \
+    StepArgs a{};                                                                       \
+    a.counts = counts;                                                                  \
+    a.d = d;                                                                            \
+    a.mags = static_cast<const double*>(mags);                                          \
+    a.selfdot = static_cast<const double*>(selfdot);                                    \
+    a.lens = static_cast<const double*>(lens);                                          \
+    a.stddevs = static_cast<const double*>(stddevs);                                    \
+    a.order = static_cast<const long long*>(order);                                     \
+    a.cand = static_cast<const long long*>(cand);                                       \
+    a.n_cand = n_cand;                                                                  \
+    a.s = static_cast<const double*>(s);                                                \
+    a.dist = static_cast<const double*>(dist);                                          \
+    a.s_err = static_cast<const double*>(s_err);                                        \
+    a.dist_err = static_cast<const double*>(dist_err);                                  \
+    a.full = full;                                                                      \
+    a.stats = static_cast<const long long*>(stats);                                     \
+    a.pos_edge = pos_edge;                                                              \
+    a.margin = margin;                                                                  \
+    a.tie_margin = tie_margin;                                                          \
+    a.maxc = maxc;                                                                      \
+    a.alive = static_cast<unsigned char*>(alive);                                       \
+    a.assign = static_cast<long long*>(assign);                                         \
+    a.astep = static_cast<long long*>(astep);                                           \
+    a.members = static_cast<long long*>(members);                                       \
+    a.msum = static_cast<long long*>(msum);                                             \
+    a.cur_d = static_cast<const long long*>(cur_d);                                     \
+    a.cid = cid;                                                                        \
+    a.stepc = stepc;                                                                    \
+    a.mcnt = mcnt;                                                                      \
+    a.scratch = static_cast<long long*>(scratch);                                       \
+    a.n = n;                                                                            \
+    return launch<T>(a, scratch_len, stream);                                           \
   }
 
 MC2_STEP_ENTRY(mc2_window_step_u8, uint8_t)
@@ -646,59 +879,63 @@ MC2_STEP_ENTRY(mc2_window_step_u16, uint16_t)
 
 #undef MC2_STEP_ENTRY
 
-// The block mode: the same arguments (counts: the rank's rows [row_lo,
-// row_hi); the moments: every store row's), then the block's, and the
-// phase (1, 2, 3); part int64 [d], zero before phase 1; rank_part int64
-// [6]; parts int64 [n_parts, 6], read in phase 3.
+// The block mode, one phase a call (counts: the rank's rows [row_lo,
+// row_hi); the moments: every store row's).  Phase 1 reads order, cand, the
+// rank's own candidates (own_pos, own_rows, own_stats [k, 3], own_dec
+// [5, k]) and pos_edge, and writes the exchange `xbuf`; phase 2 reads the
+// all-reduced xbuf and the state and writes the state, the trip (in the
+// scratch) and rank_part [6]; phase 3 reads parts [n_ranks, 6] and writes
+// trip[2..3].
 #define MC2_STEP_BLOCK_ENTRY(NAME, T)                                                   \
   int NAME(const void* counts, int d, const void* mags, const void* selfdot,            \
            const void* lens, const void* stddevs, const void* order, const void* cand,  \
-           long long n_cand, const void* s, const void* dist, const void* s_err,        \
-           const void* dist_err, int full, const void* stats,                           \
-           double pos_edge, double margin, double tie_margin, long long maxc,           \
-           void* alive, void* assign, void* astep, void* members, void* msum,           \
-           const void* cur_d, long long cid, long long stepc, long long mcnt,           \
-           void* scratch, long long scratch_len, long long n, long long row_lo,         \
-           long long row_hi, int phase, void* part, void* rank_part, const void* parts, \
-           int n_parts, void* stream) {                                                 \
-    StepArgs a{counts,                                                                  \
-               d,                                                                       \
-               static_cast<const double*>(mags),                                        \
-               static_cast<const double*>(selfdot),                                     \
-               static_cast<const double*>(lens),                                        \
-               static_cast<const double*>(stddevs),                                     \
-               static_cast<const long long*>(order),                                    \
-               static_cast<const long long*>(cand),                                     \
-               n_cand,                                                                  \
-               static_cast<const double*>(s),                                           \
-               static_cast<const double*>(dist),                                        \
-               static_cast<const double*>(s_err),                                       \
-               static_cast<const double*>(dist_err),                                    \
-               full,                                                                    \
-               static_cast<const long long*>(stats),                                    \
-               pos_edge,                                                                \
-               margin,                                                                  \
-               tie_margin,                                                              \
-               maxc,                                                                    \
-               static_cast<unsigned char*>(alive),                                      \
-               static_cast<long long*>(assign),                                         \
-               static_cast<long long*>(astep),                                          \
-               static_cast<long long*>(members),                                        \
-               static_cast<long long*>(msum),                                           \
-               static_cast<const long long*>(cur_d),                                    \
-               cid,                                                                     \
-               stepc,                                                                   \
-               mcnt,                                                                    \
-               static_cast<long long*>(scratch),                                        \
-               n,                                                                       \
-               row_lo,                                                                  \
-               row_hi,                                                                  \
-               phase,                                                                   \
-               static_cast<long long*>(part),                                           \
-               static_cast<long long*>(rank_part),                                      \
-               static_cast<const long long*>(parts),                                    \
-               n_parts};                                                                \
-    return launch<T, true>(a, scratch_len, stream);                                     \
+           long long n_cand, double pos_edge, double margin, double tie_margin,         \
+           long long maxc, void* alive, void* assign, void* astep, void* members,       \
+           void* msum, const void* cur_d, long long cid, long long stepc,               \
+           long long mcnt, void* scratch, long long scratch_len, long long n,           \
+           long long row_lo, long long row_hi, int phase, const void* own_pos,          \
+           const void* own_rows, long long n_own, const void* own_stats,                \
+           const void* own_dec, void* xbuf, long long xbuf_len, int rank, int n_ranks,  \
+           void* rank_part, const void* parts, void* stream) {                          \
+    StepArgs a{};                                                                       \
+    a.counts = counts;                                                                  \
+    a.d = d;                                                                            \
+    a.mags = static_cast<const double*>(mags);                                          \
+    a.selfdot = static_cast<const double*>(selfdot);                                    \
+    a.lens = static_cast<const double*>(lens);                                          \
+    a.stddevs = static_cast<const double*>(stddevs);                                    \
+    a.order = static_cast<const long long*>(order);                                     \
+    a.cand = static_cast<const long long*>(cand);                                       \
+    a.n_cand = n_cand;                                                                  \
+    a.pos_edge = pos_edge;                                                              \
+    a.margin = margin;                                                                  \
+    a.tie_margin = tie_margin;                                                          \
+    a.maxc = maxc;                                                                      \
+    a.alive = static_cast<unsigned char*>(alive);                                       \
+    a.assign = static_cast<long long*>(assign);                                         \
+    a.astep = static_cast<long long*>(astep);                                           \
+    a.members = static_cast<long long*>(members);                                       \
+    a.msum = static_cast<long long*>(msum);                                             \
+    a.cur_d = static_cast<const long long*>(cur_d);                                     \
+    a.cid = cid;                                                                        \
+    a.stepc = stepc;                                                                    \
+    a.mcnt = mcnt;                                                                      \
+    a.scratch = static_cast<long long*>(scratch);                                       \
+    a.n = n;                                                                            \
+    a.row_lo = row_lo;                                                                  \
+    a.row_hi = row_hi;                                                                  \
+    a.phase = phase;                                                                    \
+    a.own_pos = static_cast<const long long*>(own_pos);                                 \
+    a.own_rows = static_cast<const long long*>(own_rows);                               \
+    a.n_own = n_own;                                                                    \
+    a.own_stats = static_cast<const long long*>(own_stats);                             \
+    a.own_dec = static_cast<const double*>(own_dec);                                    \
+    a.xbuf = static_cast<long long*>(xbuf);                                             \
+    a.rank = rank;                                                                      \
+    a.n_ranks = n_ranks;                                                                \
+    a.rank_part = static_cast<long long*>(rank_part);                                   \
+    a.parts = static_cast<const long long*>(parts);                                     \
+    return launch_block<T>(a, scratch_len, xbuf_len, stream);                           \
   }
 
 MC2_STEP_BLOCK_ENTRY(mc2_window_step_block_u8, uint8_t)

@@ -32,12 +32,14 @@ member count.  Per iteration:
 
 `closest_candidates_block` is closest_candidates on a rank of a row-sharded
 store (the kernel's block mode, parallel/multihost_session.py): three
-launches with the collectives between them (phase 1, the column sums of
-the rank's own kept rows; the host all-reduces them; phase 2, the rank's
-partial of each segment's closest-to-mean; the host all-gathers them;
-phase 3, the pick and the candidates step), the layout, the keep flags and
-the state every rank's alike.  `closest_candidates_blocks` runs G blocks in
-one process, the collectives' sums and gathers done in place.
+launches with the collectives between them (phase 1, the exchange from the
+filter's bits of the rank's own pairs: the keep and uncertainty bits and the
+column sums of its own kept rows, int32 where a segment's sums fit; the host
+all-reduces it; phase 2, the rank's partial of each segment's
+closest-to-mean; the host all-gathers them; phase 3, the pick and the
+candidates step), the layout and the state every rank's alike.
+`closest_candidates_blocks` runs G blocks in one process, the exchange
+summed and the partials stacked as the collectives do it.
 """
 from __future__ import annotations
 
@@ -334,7 +336,7 @@ def _closest_lib():
     cand = [p, i32, p, p, p, p, i64, i64, i64, ctypes.c_double, p, i64, p, p, i64, i32,
             i32] + [p] * 14
     for names, extra in ((_CAND_ENTRY, []),
-                         (_CAND_BLOCK_ENTRY, [i64, i64, i32, p, p, p, i32])):
+                         (_CAND_BLOCK_ENTRY, [i64, i64, i32, p, p, i32, p, i32, p, p, p])):
         for name in names.values():
             fn = getattr(lib, name)
             if fn.argtypes is None:
@@ -423,27 +425,99 @@ def closest_candidates(counts: torch.Tensor, mags: torch.Tensor,
 closest_candidates.launches = 0  # kernel launches since the last reset
 
 
-def closest_candidates_block(phase: int, blk: RowBlock, keep: torch.Tensor,
-                             st: PhaseState, rows: PhaseRows, delta: int, lay: Layout,
-                             n_alive: int, n_pairs: int, out: Candidates, *,
-                             tie_margin: float, final: bool = False,
-                             num: Optional[torch.Tensor] = None,
+def exchange_words(n_pairs: int, n_alive: int, d: int) -> int:
+    """Words of closest_candidates_block's exchange: the keep bits and the
+    uncertainty bits of P = n_pairs positions (32 a word), then the column
+    sums [C, D]."""
+    return 2 * -(-n_pairs // 32) + n_alive * d
+
+
+def exchange_dtype(n_pairs: int, maxc: int) -> torch.dtype:
+    """The exchange's word: int32 where every segment's column sums fit it
+    (a segment keeps at most P rows of counts <= maxc: P maxc < 2^31), else
+    int64."""
+    return torch.int32 if n_pairs * maxc < 2 ** 31 else torch.int64
+
+
+def _bits_words(bits: torch.Tensor, dtype) -> torch.Tensor:
+    """bool [P] -> the words of 32 positions each (bit p % 32 of word p // 32),
+    as `dtype` (int32 keeps the 32 bits as its two's complement)."""
+    nw = -(-len(bits) // 32)
+    pad = torch.zeros(nw * 32, dtype=torch.int64, device=bits.device)
+    pad[:len(bits)] = bits.to(torch.int64)
+    w = (pad.view(nw, 32) << torch.arange(32, device=bits.device)).sum(dim=1)
+    if dtype == torch.int32:
+        w = w - ((w >> 31) << 32)
+    return w.to(dtype)
+
+
+def _words_bits(words: torch.Tensor, n_pairs: int) -> torch.Tensor:
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return ((w[:, None] >> torch.arange(32, device=w.device)) & 1).view(-1)[:n_pairs].bool()
+
+
+def candidates_exchange_ref(blk: RowBlock, rows: torch.Tensor, seg: torch.Tensor,
+                            n_alive: int, own_cs: torch.Tensor, own_keep: torch.Tensor,
+                            own_unc: torch.Tensor, xbuf: torch.Tensor) -> None:
+    """Phase 1 of the block mode in plain PyTorch: the exchange (the dtype of
+    xbuf) over the P = len(rows) pairs: the keep and uncertainty bits of the
+    rank's own pairs (member row in the block; bit i of the filter's
+    own_keep / own_unc at own_cs[p] - 1), zeros elsewhere, then
+    block_sums_ref of the own kept rows."""
+    n_pairs, d = len(rows), blk.counts.shape[1]
+    nw = -(-n_pairs // 32)
+    idx = torch.nonzero((rows >= blk.lo) & (rows < blk.hi)).view(-1)
+    keep_p = torch.zeros(n_pairs, dtype=torch.bool, device=rows.device)
+    unc_p = torch.zeros_like(keep_p)
+    keep_p[idx] = own_keep[own_cs[idx] - 1]
+    unc_p[idx] = own_unc[own_cs[idx] - 1]
+    x = xbuf[:exchange_words(n_pairs, n_alive, d)]
+    x[:nw] = _bits_words(keep_p, x.dtype)
+    x[nw:2 * nw] = _bits_words(unc_p, x.dtype)
+    x[2 * nw:] = block_sums_ref(blk, rows, seg, keep_p, n_alive).view(-1).to(x.dtype)
+
+
+def candidates_partials_ref(blk: RowBlock, rows: torch.Tensor, seg: torch.Tensor,
+                            n_alive: int, xbuf: torch.Tensor) -> torch.Tensor:
+    """Phase 2 of the block mode in plain PyTorch: block_partials_ref over
+    the rank's kept rows, with the keep bits, counts and column sums of the
+    all-reduced exchange; int64 [C, PART]."""
+    n_pairs, d = len(rows), blk.counts.shape[1]
+    nw = -(-n_pairs // 32)
+    keep = _words_bits(xbuf[:nw], n_pairs)
+    cnt = torch.zeros(n_alive, dtype=torch.int64, device=rows.device).index_add_(
+        0, seg, keep.to(torch.int64))
+    num = xbuf[2 * nw:2 * nw + n_alive * d].view(n_alive, d).to(torch.int64)
+    return block_partials_ref(blk, rows, seg, keep, n_alive, num, cnt)
+
+
+def closest_candidates_block(phase: int, blk: RowBlock, st: PhaseState, rows: PhaseRows,
+                             delta: int, lay: Layout, n_alive: int, n_pairs: int,
+                             out: Candidates, *, tie_margin: float, final: bool = False,
+                             xbuf: Optional[torch.Tensor] = None,
+                             own_cs: Optional[torch.Tensor] = None,
+                             own_keep: Optional[torch.Tensor] = None,
+                             own_unc: Optional[torch.Tensor] = None,
                              rank_part: Optional[torch.Tensor] = None,
                              parts: Optional[torch.Tensor] = None):
     """One phase (1, 2 or 3) of closest_candidates on a rank of a row-sharded
     store (module docstring): `blk` holds the rank's rows, the layout's
-    member rows lay.b_rows are global.  Phase 1 writes the column sums of
-    the rank's own kept rows into num[:C] (int64 [>= C, D]), which the
-    caller all-reduces (SUM); phase 2 reads them and writes the rank's
-    partials into rank_part[:C] (int64 [>= C, 6]), which the caller
+    member rows lay.b_rows are global.  Phase 1 writes the exchange `xbuf`
+    (int32 or int64, its dtype the word, 1-D [>= exchange_words(P, C, D)];
+    int32 only where exchange_dtype allows it) from the filter's bits of the
+    rank's own pairs: own_keep and own_unc (bool [k]) of the pairs whose
+    member row the block holds, in position order, own_cs (int64 [>= P]) the
+    number of such pairs in [0, p]; the caller all-reduces xbuf (SUM), whose
+    uncertainty bits are the filter's.  Phase 2 reads it and writes the
+    rank's partials into rank_part[:C] (int64 [>= C, 6]), which the caller
     all-gathers into `parts` (int64 [G, C, 6]); phase 3 returns (first,
     unc) as closest_candidates and writes `out` as it does.  Phases 1 and 2
     return None.
 
     On CUDA one launch of csrc/closest_mean.cu's block mode a phase, on the
     current stream, without syncing (phases 1 and 2 launch nothing at C =
-    0); on the CPU the plain versions (block_sums_ref, block_partials_ref,
-    pick_ref, then phase_candidates_ref)."""
+    0); on the CPU the plain versions (candidates_exchange_ref,
+    candidates_partials_ref, pick_ref, then phase_candidates_ref)."""
     n, n_slots, dev = _check_state("closest_candidates_block", st, rows)
     m = delta * n_alive
     if phase not in (1, 2, 3):
@@ -454,8 +528,8 @@ def closest_candidates_block(phase: int, blk: RowBlock, keep: torch.Tensor,
     _check("closest_candidates_block", [
         ("out.cen", out.cen, torch.int64, n_slots), ("out.a", out.a, torch.int64, m),
         ("out.b", out.b, torch.int64, m), ("out.seg", out.seg, torch.int64, m),
-        ("out.ok", out.ok, torch.bool, m), ("out.arrive", out.arrive, torch.int32, m),
-        ("keep", keep, torch.bool, n_pairs)], dev)
+        ("out.ok", out.ok, torch.bool, m), ("out.arrive", out.arrive, torch.int32, m)],
+        dev)
     _check_layout("closest_candidates_block", lay, n, n_slots, 0, dev)
     counts, d = blk.counts, blk.counts.shape[1]
     if counts.dtype not in _CAND_BLOCK_ENTRY or counts.dim() != 2 or counts.device != dev:
@@ -467,28 +541,38 @@ def closest_candidates_block(phase: int, blk: RowBlock, keep: torch.Tensor,
         raise ValueError(f"closest_candidates_block: mags must be float64 [>= {n}] on {dev}")
     if not 0 <= blk.lo <= blk.hi <= n_rows or counts.shape[0] < blk.hi - blk.lo:
         raise ValueError(f"closest_candidates_block: rows [{blk.lo}, {blk.hi}) do not fit")
-    want = {1: ("num", num, (n_alive, d)), 2: ("rank_part", rank_part, (n_alive, PART)),
-            3: ("parts", parts, None)}[phase]
-    name, t, shape = want
-    if phase == 2 and (num is None or num.shape[0] < n_alive or num.shape[1:] != (d,)):
-        raise ValueError("closest_candidates_block: phase 2 reads num [>= C, D]")
-    if t is None or t.dtype != torch.int64 or t.device != dev or not t.is_contiguous():
-        raise ValueError(f"closest_candidates_block: {name} must be contiguous int64 on {dev}")
-    if shape is not None and (t.shape[0] < shape[0] or t.shape[1:] != shape[1:]):
-        raise ValueError(f"closest_candidates_block: {name} must be [>= {shape[0]}, "
-                         f"{shape[1]}], got {tuple(t.shape)}")
-    if phase == 3 and (t.dim() != 3 or t.shape[1] != n_alive or t.shape[2] != PART):
-        raise ValueError(f"closest_candidates_block: parts must be [G, {n_alive}, {PART}], "
-                         f"got {tuple(t.shape)}")
+    if phase in (1, 2):
+        if (xbuf is None or xbuf.dtype not in (torch.int32, torch.int64) or xbuf.dim() != 1
+                or xbuf.device != dev or not xbuf.is_contiguous()
+                or len(xbuf) < exchange_words(n_pairs, n_alive, d)):
+            raise ValueError(f"closest_candidates_block: xbuf must be contiguous int32/int64 "
+                             f"[>= {exchange_words(n_pairs, n_alive, d)}] on {dev}")
+        if xbuf.dtype == torch.int32 and exchange_dtype(n_pairs, blk.maxc) != torch.int32:
+            raise ValueError(f"closest_candidates_block: P maxc = {n_pairs * blk.maxc} is "
+                             f"past the int32 sums")
+    if phase == 1:
+        k = 0 if own_keep is None else len(own_keep)
+        _check("closest_candidates_block", [
+            ("own_cs", own_cs, torch.int64, n_pairs),
+            ("own_keep", own_keep, torch.bool, k), ("own_unc", own_unc, torch.bool, k)], dev)
+        if len(own_unc) != k:
+            raise ValueError("closest_candidates_block: own_keep and own_unc differ in length")
+    if phase == 2 and (rank_part is None or rank_part.dtype != torch.int64
+                       or rank_part.device != dev or not rank_part.is_contiguous()
+                       or rank_part.shape[0] < n_alive or rank_part.shape[1:] != (PART,)):
+        raise ValueError(f"closest_candidates_block: rank_part must be contiguous int64 "
+                         f"[>= {n_alive}, {PART}] on {dev}")
+    if phase == 3 and (parts is None or parts.dtype != torch.int64 or parts.device != dev
+                       or not parts.is_contiguous() or parts.dim() != 3
+                       or parts.shape[1] != n_alive or parts.shape[2] != PART):
+        raise ValueError(f"closest_candidates_block: parts must be contiguous int64 "
+                         f"[G, {n_alive}, {PART}] on {dev}")
     b, sg = lay.b_rows[:n_pairs], lay.seg[:n_pairs]
     if dev.type == "cpu":
         if phase == 1:
-            num[:n_alive] = block_sums_ref(blk, b, sg, keep, n_alive)
+            candidates_exchange_ref(blk, b, sg, n_alive, own_cs, own_keep, own_unc, xbuf)
         elif phase == 2:
-            cnt = torch.zeros(n_alive, dtype=torch.int64, device=dev).index_add_(
-                0, sg, keep.to(torch.int64))
-            rank_part[:n_alive] = block_partials_ref(blk, b, sg, keep, n_alive,
-                                                     num[:n_alive], cnt)
+            rank_part[:n_alive] = candidates_partials_ref(blk, b, sg, n_alive, xbuf)
         else:
             first, unc = pick_ref(parts, n_pairs, tie_margin)
             phase_candidates_ref(st, rows, delta, lay, first, n_alive, n_pairs, out, final)
@@ -497,19 +581,19 @@ def closest_candidates_block(phase: int, blk: RowBlock, keep: torch.Tensor,
     first = torch.empty(n_alive, dtype=torch.int64, device=dev)
     unc = torch.empty(n_alive, dtype=torch.bool, device=dev)
     scratch = torch.empty(3 * n_pairs if phase == 2 else 0, dtype=torch.int64, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     with torch.cuda.device(dev):
         rc = getattr(_closest_lib(), _CAND_BLOCK_ENTRY[counts.dtype])(
             counts.data_ptr(), d, blk.mags.data_ptr(), b.data_ptr(), sg.data_ptr(),
-            keep.data_ptr(), n_pairs, n_alive, int(blk.maxc), float(tie_margin),
+            None, n_pairs, n_alive, int(blk.maxc), float(tie_margin),
             scratch.data_ptr(), scratch.numel(), first.data_ptr(), unc.data_ptr(),
             n_slots, int(delta), int(final),
             *_ptrs(st.alive, st.cen, lay.inv, lay.moff, lay.flat, rows.lens,
                    rows.blen, rows.elen, out.arrive, out.cen, out.a, out.b, out.seg,
-                   out.ok), int(blk.lo), int(blk.hi), int(phase),
-            num.data_ptr() if num is not None else None,
-            rank_part.data_ptr() if rank_part is not None else None,
-            parts.data_ptr() if parts is not None else None,
-            parts.shape[0] if parts is not None else 0, _stream(dev))
+                   out.ok), int(blk.lo), int(blk.hi), int(phase), ptr(rank_part),
+            ptr(parts), parts.shape[0] if parts is not None else 0, ptr(xbuf),
+            int(xbuf is not None and xbuf.dtype == torch.int64), ptr(own_cs),
+            ptr(own_keep), ptr(own_unc), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"closest_candidates block kernel launch failed (phase {phase}): "
                            f"cudaError {rc}")
@@ -521,29 +605,49 @@ def closest_candidates_block(phase: int, blk: RowBlock, keep: torch.Tensor,
 closest_candidates_block.launches = 0  # kernel launches since the last reset
 
 
+def own_pairs(blk: RowBlock, rows: torch.Tensor, keep: torch.Tensor,
+              unc: Optional[torch.Tensor] = None):
+    """(own_cs, own_keep, own_unc) of the block's pairs (member row in the
+    block) among rows [P], from the whole filter's keep (and uncertainty)
+    bits: what the rank's filter gives for its own pairs."""
+    own = (rows >= blk.lo) & (rows < blk.hi)
+    unc = torch.zeros_like(keep) if unc is None else unc
+    return torch.cumsum(own, 0, dtype=torch.int64), keep[own], unc[own]
+
+
 def closest_candidates_blocks(blocks, keep, st, rows, delta, lay, n_alive, n_pairs,
-                              outs, *, tie_margin: float, final: bool = False):
+                              outs, *, tie_margin: float, final: bool = False,
+                              unc=None, dtype=None, exchanges=None):
     """closest_candidates over G row blocks in one process, as G ranks run
-    it: each block's phase 1, the column sums added (the all-reduce), each
-    block's phase 2, the partials stacked (the all-gather), each block's
-    phase 3 into its own `outs[g]` (each with its own arrival counters).
-    Returns each block's (first, unc)."""
+    it: each block's phase 1 from the filter's bits of its own pairs
+    (`own_pairs` of keep and unc, bool [P]; unc zeros by default) into an
+    exchange of `dtype` (exchange_dtype by default); the exchanges summed
+    (the all-reduce); each block's phase 2; the partials stacked (the
+    all-gather); each block's phase 3 into its own `outs[g]` (each with its
+    own arrival counters).  Returns each block's (first, unc); the summed
+    exchange is appended to the list `exchanges` where one is given."""
     dev = st.cen.device
     d = blocks[0].counts.shape[1]
     C = n_alive
-    nums = [torch.zeros((C, d), dtype=torch.int64, device=dev) for _ in blocks]
+    dtype = dtype or exchange_dtype(n_pairs, blocks[0].maxc)
+    L = exchange_words(n_pairs, C, d)
+    xbufs = [torch.zeros(L, dtype=dtype, device=dev) for _ in blocks]
     rank_parts = [torch.zeros((C, PART), dtype=torch.int64, device=dev) for _ in blocks]
-    args = (keep, st, rows, delta, lay, n_alive, n_pairs)
+    args = (st, rows, delta, lay, n_alive, n_pairs)
+    kw = dict(tie_margin=tie_margin, final=final)
+    b = lay.b_rows[:n_pairs]
     for g, blk in enumerate(blocks):
-        closest_candidates_block(1, blk, *args, outs[g], tie_margin=tie_margin,
-                                 final=final, num=nums[g])
-    total = torch.stack(nums).sum(dim=0)
+        cs, k, u = own_pairs(blk, b, keep, unc)
+        closest_candidates_block(1, blk, *args, outs[g], xbuf=xbufs[g], own_cs=cs,
+                                 own_keep=k, own_unc=u, **kw)
+    total = torch.stack(xbufs).sum(dim=0, dtype=dtype)
+    if exchanges is not None:
+        exchanges.append(total)
     for g, blk in enumerate(blocks):
-        closest_candidates_block(2, blk, *args, outs[g], tie_margin=tie_margin,
-                                 final=final, num=total, rank_part=rank_parts[g])
+        closest_candidates_block(2, blk, *args, outs[g], xbuf=total, rank_part=rank_parts[g],
+                                 **kw)
     gathered = torch.stack(rank_parts)
-    return [closest_candidates_block(3, blk, *args, outs[g], tie_margin=tie_margin,
-                                     final=final, parts=gathered)
+    return [closest_candidates_block(3, blk, *args, outs[g], parts=gathered, **kw)
             for g, blk in enumerate(blocks)]
 
 

@@ -33,13 +33,16 @@ absorbing the member closest to the new mean.  Returns trip = int64 [4]
 
 `window_step_block` is the same step on a rank of a row-sharded store (the
 kernel's block mode, parallel/multihost_session.py): its counts hold only
-the rank's rows (a RowBlock), the window's decisions, the moments and the
-state are every rank's alike, and the step is three launches with the
-collectives between them (phase 1, the case and the rank's partial column
-sums; the host all-reduces them; phase 2, msum and the rank's
-closest-to-mean partial; the host all-gathers them; phase 3, the pick).
-`window_step_blocks` runs G blocks in one process, the collectives' sums
-and gathers done in place.  Plain version `window_step_block_ref`.
+the rank's rows (a RowBlock), the moments and the state are every rank's
+alike, and the step is three launches with two collectives between them:
+phase 1 writes the exchange from the rank's own candidates (their
+statistics and decisions at their window positions, their positives'
+column sums, the rank's first maximum's row in its seed slot; zeros
+elsewhere), which the host all-reduces; phase 2, the decisions, the case,
+msum and the rank's closest-to-mean partial in one launch; the host
+all-gathers the partials; phase 3, the pick.  `window_step_blocks` runs G
+blocks in one process, the exchange summed and the partials stacked as the
+collectives do it.  Plain version `window_step_block_ref`.
 """
 from __future__ import annotations
 
@@ -83,10 +86,10 @@ def _lib():
             fn.restype = ctypes.c_int
         for name in _BLOCK_ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, p, p, p, p,
-                           ctypes.c_int, p, f64, f64, f64, i64, p, p, p, p, p, p,
-                           i64, i64, i64, p, i64, i64, i64, i64, ctypes.c_int, p, p, p,
-                           ctypes.c_int, p]
+            fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, f64, f64, f64, i64,
+                           p, p, p, p, p, p, i64, i64, i64, p, i64, i64, i64, i64,
+                           ctypes.c_int, p, p, i64, p, p, p, i64, ctypes.c_int,
+                           ctypes.c_int, p, p, p]
             fn.restype = ctypes.c_int
         lib.mc2_window_step_scratch_len.argtypes = [i64]
         lib.mc2_window_step_scratch_len.restype = i64
@@ -353,139 +356,237 @@ window_step.launches = 0  # kernel launches since the last reset
 # -- the block mode -------------------------------------------------------------
 
 
-def _check_block(phase: int, blk: RowBlock, order, cand, s, dist, stats, state: StepState,
-                 cur_d, mcnt: int, s_err, dist_err, part, rank_part, parts):
+def seed_slot(d: int, itemsize: int) -> int:
+    """int64 words of one rank's seed slot in the exchange: its first
+    maximum's window position + 1, then that row's d counts as bytes."""
+    return 1 + -(-d * itemsize // 8)
+
+
+def step_xbuf_len(n_cand: int, d: int, itemsize: int, n_ranks: int) -> int:
+    """int64 words of the block mode's exchange for a window of n_cand
+    candidates (csrc/window_absorb.cu xbuf_words): the statistics [W, 3],
+    (s, dist, s_err, dist_err) [4, W], the positives' column sums [d], then
+    n_ranks seed slots."""
+    return 7 * n_cand + d + n_ranks * seed_slot(d, itemsize)
+
+
+def _check_block(phase: int, blk: RowBlock, order, cand, state: StepState, cur_d,
+                 mcnt: int, scratch, xbuf, rank: int, n_ranks: int, own, rank_part,
+                 parts):
     counts = blk.counts
+    dev = counts.device
     if phase not in (1, 2, 3):
         raise ValueError(f"the block mode's phase is 1, 2 or 3, got {phase}")
-    n_rows = len(blk.mags)
+    if counts.dtype not in _ENTRY or counts.dim() != 2 or not counts.is_contiguous():
+        raise ValueError("the block's counts must be contiguous uint8/uint16 [rows, D]")
+    n_rows, d = len(blk.mags), counts.shape[1]
     if not 0 <= blk.lo <= blk.hi <= n_rows or counts.shape[0] < blk.hi - blk.lo:
         raise ValueError(f"block rows [{blk.lo}, {blk.hi}) do not fit {n_rows} store rows "
                          f"and {counts.shape[0]} count rows")
-    _check_step(blk, order, cand, s, dist, stats, state, cur_d, mcnt, s_err, dist_err,
-                n_rows)
-    want = [("part", part, (counts.shape[1],)), ("rank_part", rank_part, (PART,))]
-    if phase == 3:
-        if parts is None or parts.dim() != 2:
-            raise ValueError("phase 3 needs every rank's partials, int64 [G, 6]")
-        want.append(("parts", parts, (parts.shape[0], PART)))
-    for name, t, shape in want:
-        if t.dtype != torch.int64 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be int64 {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device != counts.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {counts.device}")
-
-
-def window_step_block_ref(phase: int, blk: RowBlock, order, cand, s, dist, stats,
-                          state: StepState, cur_d, *, cid: int, stepc: int, mcnt: int,
-                          pos_edge: float, margin: float, tie_margin: float,
-                          s_err: torch.Tensor, dist_err: torch.Tensor, trip: torch.Tensor,
-                          part: torch.Tensor, rank_part: torch.Tensor,
-                          parts: Optional[torch.Tensor] = None) -> None:
-    """One phase of the block mode in plain PyTorch, on the CPU: phase 1 the
-    decisions and the case (`_decide`, `_absorb_case`, `_min_case`), the
-    block's positives' column sums added to `part` (the min case's seed
-    row, on its owner); phase 2 msum from `part`, `part` zeroed, and
-    `block_partials_ref` over the block's members into `rank_part`; phase 3
-    `pick_ref` over `parts`.  `trip` (int64 [4]) as the kernel's.  Runs
-    on any device (the wrapper runs it on the CPU)."""
-    n_cand = len(cand)
-    lo, hi = blk.lo, blk.hi
-    i64 = dict(dtype=torch.int64, device=cand.device)
-    bits, npos = int(trip[0]), int(trip[1])
-    absorb, is_min = bits == 0 and npos > 0, bits == 0 and npos == 0
+    if not 0 <= rank < n_ranks:
+        raise ValueError(f"rank {rank} is not one of {n_ranks}")
+    n, n_cand = len(order), len(cand)
+    want = [("order", order, torch.int64, (n,)), ("cand", cand, torch.int64, (n_cand,)),
+            ("scratch", scratch, torch.int64, None)]
+    if phase in (2, 3):
+        want += [("members", state.members, torch.int64, (n + 1,)),
+                 ("cur_d", cur_d, torch.int64, (1,))]
+    if phase in (1, 2):
+        want.append(("xbuf", xbuf, torch.int64,
+                     (step_xbuf_len(n_cand, d, counts.element_size(), n_ranks),)))
     if phase == 1:
-        rows = order[cand]
-        pos, bits_t, best = _decide(blk.counts, rows, s, dist, stats, tuple(blk[1:5]),
-                                    pos_edge=pos_edge, margin=margin,
-                                    tie_margin=tie_margin, s_err=s_err,
-                                    dist_err=dist_err, full=False)
-        bits, npos = int(bits_t), int(pos.sum())
-        absorb, is_min = bits == 0 and npos > 0, bits == 0 and npos == 0
-        seed = cand[best.clamp(max=n_cand - 1)]
-        was = int(cur_d[0])
-        pa = pos & absorb
-        _absorb_case(state, cand, pa, cid, stepc, mcnt)
-        own = torch.nonzero(pa & (rows >= lo) & (rows < hi)).view(-1)
-        for c in range(0, len(own), _REF_CHUNK):
-            part += _rows_i64(blk.counts, rows[own[c:c + _REF_CHUNK]] - lo).sum(dim=0)
-        _min_case(state, seed, torch.tensor(is_min, device=cand.device), cid, stepc)
-        seed_row = int(order[seed])
-        if is_min and lo <= seed_row < hi:
-            part.copy_(_rows_i64(blk.counts, torch.tensor([seed_row - lo], **i64))[0])
-        trip.copy_(torch.tensor([bits, npos, 0, int(seed) if is_min else was], **i64))
-    elif phase == 2:
-        x = part.clone()
-        part.zero_()
-        if absorb:
-            state.msum.add_(x)
-        elif is_min:
-            state.msum.copy_(x)
-        if absorb:
+        own_pos, own_rows, own_stats, own_dec = own
+        k = len(own_pos)
+        want += [("own_pos", own_pos, torch.int64, (k,)),
+                 ("own_rows", own_rows, torch.int64, (k,)),
+                 ("own_stats", own_stats, torch.int64, (k, 3)),
+                 ("own_dec", own_dec, torch.float64, (5, k))]
+    if phase == 2:
+        for name, t in zip(StepState._fields, state):
+            want.append((name, t, torch.bool if name == "alive" else torch.int64,
+                         (d,) if name == "msum" else (n + 1,) if name == "members"
+                         else (n,)))
+        want.append(("rank_part", rank_part, torch.int64, (PART,)))
+    if phase == 3:
+        want.append(("parts", parts, torch.int64, (n_ranks, PART)))
+    for name, t, dtype, shape in want:
+        if t is None or t.dtype != dtype or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} on {dev}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if not 1 <= n_cand <= n - mcnt or mcnt < 0:
+        raise ValueError(f"need 1 <= W <= n - mcnt, got W = {n_cand}, n = {n}, "
+                         f"mcnt = {mcnt}")
+    if phase == 1 and len(own[0]) > n_cand:
+        raise ValueError(f"{len(own[0])} own candidates of a window of {n_cand}")
+
+
+def _row_bytes(counts: torch.Tensor, row: int, words: int) -> torch.Tensor:
+    """Row `row`'s counts as `words` int64 words of their bytes (zero
+    padded), as the kernel packs a seed slot."""
+    raw = torch.zeros(8 * words, dtype=torch.uint8, device=counts.device)
+    b = counts[row].contiguous().view(torch.uint8)
+    raw[:len(b)] = b
+    return raw.view(torch.int64)
+
+
+def _bytes_row(words: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """The d counts of type `dtype` packed in int64 `words`, as int64."""
+    raw = words.contiguous().view(torch.uint8)
+    if dtype == torch.uint16:   # no uint16 arithmetic: as int16 and masked
+        return raw[:2 * d].view(torch.int16).to(torch.int64) & 0xFFFF
+    return raw[:d].to(torch.int64)
+
+
+def step_exchange_ref(blk: RowBlock, order, cand, own_pos, own_rows, own_stats, own_dec, *,
+                      pos_edge: float, rank: int, n_ranks: int, xbuf: torch.Tensor) -> None:
+    """Phase 1 of the block mode in plain PyTorch: the exchange xbuf
+    (step_xbuf_len words) from the rank's k own candidates (window
+    positions own_pos, rising; block rows own_rows; their statistics [k, 3]
+    and decisions [5, k] from the fused kernel's center form)."""
+    counts = blk.counts
+    n_cand, d = len(cand), counts.shape[1]
+    sw = seed_slot(d, counts.element_size())
+    x = xbuf[:step_xbuf_len(n_cand, d, counts.element_size(), n_ranks)]
+    x.zero_()
+    x[:3 * n_cand].view(n_cand, 3)[own_pos] = own_stats
+    x[3 * n_cand:7 * n_cand].view(4, n_cand)[:, own_pos] = own_dec[[0, 2, 3, 4]].view(
+        torch.int64)
+    pos = torch.nonzero(own_dec[0] >= pos_edge).view(-1)
+    for c in range(0, len(pos), _REF_CHUNK):
+        x[7 * n_cand:7 * n_cand + d] += _rows_i64(counts, own_rows[pos[c:c + _REF_CHUNK]]).sum(
+            dim=0)
+    if len(own_pos):
+        best = int(torch.argmax(own_dec[2]))   # the first maximum
+        slot = x[7 * n_cand + d + rank * sw:7 * n_cand + d + (rank + 1) * sw]
+        slot[0] = own_pos[best] + 1
+        slot[1:] = _row_bytes(counts, int(own_rows[best]), sw - 1)
+
+
+def window_step_block_ref(phase: int, blk: RowBlock, order, cand, state: StepState, cur_d,
+                          *, cid: int, stepc: int, mcnt: int, pos_edge: float,
+                          margin: float, tie_margin: float, trip: torch.Tensor,
+                          xbuf: Optional[torch.Tensor] = None, rank: int = 0,
+                          n_ranks: int = 1, own=None, rank_part=None,
+                          parts: Optional[torch.Tensor] = None) -> None:
+    """One phase of the block mode in plain PyTorch, on the CPU: phase 1
+    `step_exchange_ref` (own = (own_pos, own_rows, own_stats, own_dec));
+    phase 2 from the all-reduced exchange the decisions and the case
+    (`_decide`, `_absorb_case`, `_min_case`), msum (+= the column sums, or
+    the seed's row from its owner's slot), and `block_partials_ref` over the
+    block's members into `rank_part`; phase 3 `pick_ref` over `parts`.
+    `trip` (int64 [4]) as the kernel's.  Runs on any device (the wrapper
+    runs it on the CPU)."""
+    counts = blk.counts
+    n_cand, d = len(cand), counts.shape[1]
+    i64 = dict(dtype=torch.int64, device=cand.device)
+    if phase == 1:
+        step_exchange_ref(blk, order, cand, *own, pos_edge=pos_edge, rank=rank,
+                          n_ranks=n_ranks, xbuf=xbuf)
+        return
+    if phase == 3:
+        bits, npos = int(trip[0]), int(trip[1])
+        if bits == 0 and npos > 0:
             count = mcnt + npos
-            rows = order[state.members[:count]]
-            rank_part.copy_(block_partials_ref(
-                blk, rows, torch.zeros(count, **i64),
-                torch.ones(count, dtype=torch.bool, device=cand.device), 1,
-                state.msum[None], torch.tensor([count], **i64))[0])
-    elif absorb:
+            first, unc = pick_ref(parts[:, None], count, tie_margin)
+            f, u = int(first[0]), bool(unc[0])
+            trip[2] = int(u)
+            trip[3] = int(cur_d[0]) if u or f >= count else int(state.members[f])
+        return
+    x = xbuf
+    stats = x[:3 * n_cand].view(n_cand, 3)
+    s, dist, s_err, dist_err = x[3 * n_cand:7 * n_cand].view(torch.float64).view(4, n_cand)
+    colsum = x[7 * n_cand:7 * n_cand + d]
+    rows = order[cand]
+    pos, bits_t, best = _decide(counts, rows, s, dist, stats, tuple(blk[1:5]),
+                                pos_edge=pos_edge, margin=margin, tie_margin=tie_margin,
+                                s_err=s_err, dist_err=dist_err, full=False)
+    bits, npos = int(bits_t), int(pos.sum())
+    absorb, is_min = bits == 0 and npos > 0, bits == 0 and npos == 0
+    seed = cand[best.clamp(max=n_cand - 1)]
+    was = int(cur_d[0])
+    _absorb_case(state, cand, pos & absorb, cid, stepc, mcnt)
+    _min_case(state, seed, torch.tensor(is_min, device=cand.device), cid, stepc)
+    if is_min:
+        sw = seed_slot(d, counts.element_size())
+        seeds = x[7 * n_cand + d:7 * n_cand + d + n_ranks * sw].view(n_ranks, sw)
+        owner = torch.nonzero(seeds[:, 0] == best + 1).view(-1)
+        if len(owner):
+            state.msum.copy_(_bytes_row(seeds[int(owner[0]), 1:], d, counts.dtype))
+    if absorb:
         count = mcnt + npos
-        first, unc = pick_ref(parts[:, None], count, tie_margin)
-        f, u = int(first[0]), bool(unc[0])
-        trip[2] = int(u)
-        trip[3] = int(cur_d[0]) if u or f >= count else int(state.members[f])
+        new_sum = state.msum + colsum
+        rank_part.copy_(block_partials_ref(
+            blk, order[state.members[:count]], torch.zeros(count, **i64),
+            torch.ones(count, dtype=torch.bool, device=cand.device), 1, new_sum[None],
+            torch.tensor([count], **i64))[0])
+        state.msum.copy_(new_sum)
+    trip.copy_(torch.tensor([bits, npos, 0, int(seed) if is_min else was], **i64))
 
 
 def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torch.Tensor,
-                      s: torch.Tensor, dist: torch.Tensor, stats: torch.Tensor,
                       state: StepState, cur_d: torch.Tensor, *, cid: int, stepc: int,
                       mcnt: int, pos_edge: float, margin: float, tie_margin: float,
-                      s_err: torch.Tensor, dist_err: torch.Tensor, scratch: torch.Tensor,
-                      part: torch.Tensor, rank_part: torch.Tensor,
+                      scratch: torch.Tensor, xbuf: Optional[torch.Tensor] = None,
+                      rank: int = 0, n_ranks: int = 1, own_pos=None, own_rows=None,
+                      own_stats=None, own_dec=None, rank_part=None,
                       parts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One phase (1, 2 or 3) of the step on a rank of a row-sharded store
-    (module docstring): `blk` holds the rank's rows, `order` maps flat
-    positions to store rows, the rest is window_step's, with no `full` (a
-    model with full-vector singles needs rows for its tie guard).  `part`
-    (int64 [D], zero before phase 1 and left zero by phase 2) takes the
-    block's partial column sums, which the caller all-reduces (SUM) before
-    phase 2; `rank_part` (int64 [6]) takes phase 2's partial, which the
-    caller all-gathers into `parts` (int64 [G, 6]) for phase 3.  Returns
-    the trip, a view of `scratch` (step_scratch(n)), complete after phase
-    3.
+    """One phase (1, 2 or 3) of the step on rank `rank` of `n_ranks` over a
+    row-sharded store (module docstring): `blk` holds the rank's rows,
+    `order` maps flat positions to store rows, the window's candidates
+    `cand`, state and cur_d are window_step's, with no `full` (a model with
+    full-vector singles needs rows for its tie guard).
+
+    Phase 1 writes the exchange `xbuf` (int64 [step_xbuf_len(W, D, count
+    size, n_ranks)]) from the rank's own candidates: own_pos (int64 [k],
+    their window positions, rising), own_rows (int64 [k], their rows in the
+    block), own_stats (int64 [k, 3]) and own_dec (float64 [5, k]), the
+    fused kernel's center form over them; the caller all-reduces xbuf
+    (SUM).  Phase 2 reads it, applies the step to the state and writes the
+    rank's closest-to-mean partial into `rank_part` (int64 [6]), which the
+    caller all-gathers into `parts` (int64 [n_ranks, 6]) for phase 3.
+    Returns the trip, a view of `scratch` (step_scratch(n)), complete after
+    phase 3.
 
     On CUDA one launch of csrc/window_absorb.cu's block mode a phase, on
     the current stream, without syncing; on the CPU window_step_block_ref."""
-    _check_block(phase, blk, order, cand, s, dist, stats, state, cur_d, mcnt, s_err,
-                 dist_err, part, rank_part, parts)
+    k = 0 if own_pos is None else len(own_pos)
+    dev = blk.counts.device
+    if phase == 1 and k == 0:   # no own candidate: empty views
+        own_pos = own_rows = torch.zeros(0, dtype=torch.int64, device=dev)
+        own_stats = torch.zeros((0, 3), dtype=torch.int64, device=dev)
+        own_dec = torch.zeros((5, 0), dtype=torch.float64, device=dev)
+    own = (own_pos, own_rows, own_stats, own_dec)
+    _check_block(phase, blk, order, cand, state, cur_d, mcnt, scratch,
+                 None if xbuf is None else xbuf[:step_xbuf_len(
+                     len(cand), blk.counts.shape[1], blk.counts.element_size(), n_ranks)],
+                 rank, n_ranks, own, rank_part, parts)
     kw = dict(cid=int(cid), stepc=int(stepc), mcnt=int(mcnt), pos_edge=float(pos_edge),
               margin=float(margin), tie_margin=float(tie_margin))
     counts = blk.counts
     if counts.device.type == "cpu":
-        window_step_block_ref(phase, blk, order, cand, s, dist, stats, state, cur_d,
-                              s_err=s_err, dist_err=dist_err, trip=scratch[:4], part=part,
+        window_step_block_ref(phase, blk, order, cand, state, cur_d, trip=scratch[:4],
+                              xbuf=xbuf, rank=rank, n_ranks=n_ranks, own=own,
                               rank_part=rank_part, parts=parts, **kw)
         return scratch[:4]
     n = len(order)
     lib = _lib()
     need = lib.mc2_window_step_scratch_len(n)
-    if (scratch.dtype != torch.int64 or scratch.device != counts.device
-            or scratch.numel() < need or not scratch.is_contiguous()):
+    if phase == 2 and scratch.numel() < need:
         raise ValueError(f"scratch must be int64 [>= {need}] on {counts.device}")
+    ptr = lambda t: t.data_ptr() if t is not None else None
     stream = torch.cuda.current_stream(counts.device).cuda_stream
     with torch.cuda.device(counts.device):
         rc = getattr(lib, _BLOCK_ENTRY[counts.dtype])(
             counts.data_ptr(), counts.shape[1], blk.mags.data_ptr(),
             blk.selfdot.data_ptr(), blk.lens.data_ptr(), blk.stddevs.data_ptr(),
-            order.data_ptr(), cand.data_ptr(), len(cand), s.data_ptr(), dist.data_ptr(),
-            s_err.data_ptr(), dist_err.data_ptr(), 0, stats.data_ptr(), kw["pos_edge"],
-            kw["margin"], kw["tie_margin"], int(blk.maxc),
-            *(t.data_ptr() for t in state), cur_d.data_ptr(), kw["cid"], kw["stepc"],
-            kw["mcnt"], scratch.data_ptr(), scratch.numel(), n, int(blk.lo), int(blk.hi),
-            int(phase), part.data_ptr(), rank_part.data_ptr(),
-            parts.data_ptr() if parts is not None else None,
-            parts.shape[0] if parts is not None else 0, stream)
+            order.data_ptr(), cand.data_ptr(), len(cand), kw["pos_edge"], kw["margin"],
+            kw["tie_margin"], int(blk.maxc), *(t.data_ptr() for t in state),
+            cur_d.data_ptr(), kw["cid"], kw["stepc"], kw["mcnt"], scratch.data_ptr(),
+            scratch.numel(), n, int(blk.lo), int(blk.hi), int(phase), ptr(own_pos),
+            ptr(own_rows), k, ptr(own_stats), ptr(own_dec), ptr(xbuf),
+            xbuf.numel() if xbuf is not None else 0, int(rank), int(n_ranks),
+            ptr(rank_part), ptr(parts), stream)
     if rc != 0:
         raise RuntimeError(f"window_step block kernel launch failed (phase {phase}): "
                            f"cudaError {rc}")
@@ -496,30 +597,44 @@ def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torc
 window_step_block.launches = 0  # kernel launches since the last reset
 
 
-def window_step_blocks(blocks, states, scratches, parts, order, cand, s, dist, stats,
+def own_candidates(blk: RowBlock, order, cand, stats, dec):
+    """(own_pos, own_rows, own_stats, own_dec) of the window's candidates
+    whose rows the block holds, from the whole window's statistics [W, 3]
+    and decisions [5, W] (what the rank's center form gives for them)."""
+    rows = order[cand]
+    pos = torch.nonzero((rows >= blk.lo) & (rows < blk.hi)).view(-1)
+    return pos, rows[pos] - blk.lo, stats[pos].contiguous(), dec[:, pos].contiguous()
+
+
+def window_step_blocks(blocks, states, scratches, xbufs, order, cand, s, dist, stats,
                        cur_ds, **kw):
     """The step over G row blocks in one process, as G ranks run it: each
-    block's phase 1 with its own state copy, scratch and partial sums
-    `parts[g]`; the partial sums added and given to every block, as the
-    all-reduce gives them; each block's phase 2; the partials stacked, as
-    the all-gather stacks them; each block's phase 3.  cur_ds[g] is block
-    g's center (its own trip's last entry or a tensor of its own).  Returns
-    each block's trip."""
+    block's phase 1 from its own candidates (`own_candidates` of the
+    window's statistics and decisions) into its exchange `xbufs[g]`; the
+    exchanges summed and given to every block, as the all-reduce gives them;
+    each block's phase 2 with its own state copy and scratch; the partials
+    stacked, as the all-gather stacks them; each block's phase 3.  cur_ds[g]
+    is block g's center (its own trip's last entry or a tensor of its own).
+    Returns each block's trip."""
     G = len(blocks)
-    rank_parts = [torch.zeros(PART, dtype=torch.int64, device=blocks[0].counts.device)
-                  for _ in range(G)]
-    args = (order, cand, s, dist, stats)
+    dev = blocks[0].counts.device
+    rank_parts = [torch.zeros(PART, dtype=torch.int64, device=dev) for _ in range(G)]
+    s_err, dist_err = kw.pop("s_err"), kw.pop("dist_err")
+    dec = torch.stack([s, torch.zeros_like(s), dist, s_err, dist_err])
+    L = step_xbuf_len(len(cand), blocks[0].counts.shape[1], blocks[0].counts.element_size(),
+                      G)
     for g in range(G):
-        window_step_block(1, blocks[g], *args, states[g], cur_ds[g], scratch=scratches[g],
-                          part=parts[g], rank_part=rank_parts[g], **kw)
-    total = torch.stack(parts).sum(dim=0)
+        pos, rows, st, dc = own_candidates(blocks[g], order, cand, stats, dec)
+        window_step_block(1, blocks[g], order, cand, states[g], cur_ds[g],
+                          scratch=scratches[g], xbuf=xbufs[g], rank=g, n_ranks=G, own_pos=pos,
+                          own_rows=rows, own_stats=st, own_dec=dc, **kw)
+    total = torch.stack([x[:L] for x in xbufs]).sum(dim=0)
     for g in range(G):
-        parts[g].copy_(total)
-        window_step_block(2, blocks[g], *args, states[g], cur_ds[g], scratch=scratches[g],
-                          part=parts[g], rank_part=rank_parts[g], **kw)
+        xbufs[g][:L].copy_(total)
+        window_step_block(2, blocks[g], order, cand, states[g], cur_ds[g],
+                          scratch=scratches[g], xbuf=xbufs[g], rank=g, n_ranks=G,
+                          rank_part=rank_parts[g], **kw)
     gathered = torch.stack(rank_parts)
-    return [window_step_block(3, blocks[g], *args, states[g], cur_ds[g],
-                              scratch=scratches[g], part=parts[g],
-                              rank_part=rank_parts[g], parts=gathered, **kw)
+    return [window_step_block(3, blocks[g], order, cand, states[g], cur_ds[g],
+                              scratch=scratches[g], rank=g, n_ranks=G, parts=gathered, **kw)
             for g in range(G)]
-

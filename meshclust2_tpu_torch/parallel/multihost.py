@@ -410,12 +410,25 @@ def run_multihost(args):
 
 def _session_line(acc, phase) -> str:
     """The device session's counters: the accumulator's steps, windows,
-    pairs and guarded aborts, the phase's iterations, pairs and abort."""
+    pairs and guarded aborts, the phase's iterations, pairs and abort; the
+    block modes' steps and passes with their collectives ({collectives:
+    how many}) and the block modes' kernel launches."""
     if acc is None:
         return "no session"
+    from ..ops.phase import closest_candidates_block
+    from ..ops.window_absorb import window_step_block
+
+    per = lambda c: "{" + ", ".join(f"{k}: {v}" for k, v in sorted(c.items())) + "}"
+    # a one-rank session has no block mode
     return (f"accumulator steps {acc.total_steps}, windows {acc.last_windows}, pairs "
             f"{acc.last_pairs}, aborts {acc.aborts}; phase iterations "
-            f"{phase.last_iterations}, pairs {phase.scored_pairs}, abort {phase.last_abort}")
+            f"{phase.last_iterations}, pairs {phase.scored_pairs}, abort {phase.last_abort}; "
+            f"block mode: steps {getattr(acc, 'block_steps', 0)}, collectives a step "
+            f"{per(getattr(acc, 'step_collectives', {}))}, passes "
+            f"{getattr(phase, 'block_passes', 0)}, collectives a pass "
+            f"{per(getattr(phase, 'pass_collectives', {}))}, launches window_absorb_block "
+            f"{window_step_block.launches}, closest_candidates_block "
+            f"{closest_candidates_block.launches}")
 
 
 def _digest(engine, clusters) -> str:

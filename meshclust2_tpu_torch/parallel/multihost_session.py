@@ -16,26 +16,36 @@ The port writes that partition out.  Each rank holds
 The accumulate loop (`ShardedAccumulator`) is the port's host-driven step
 loop (cluster/device_loop.py) with, each step: the center's row
 broadcast from its owner into every rank's slot; the center form of the
-fused pair-statistics kernel on the candidates the rank owns, the
-statistics and decisions all-reduced back into window order (each
-position is one rank's, the others add zeros: exact); then the step
-kernel's block mode (ops/window_absorb.py:window_step_block), whose
-partial column sums are all-reduced between its phases 1 and 2 and whose
-closest-to-mean partials are all-gathered for phase 3's pick.  A step
-without candidates seeds its cluster with the seed's row, all-reduced from
-its owner.  The window bounds and the one read a step stay as they are:
-every rank computes them alike.
+fused pair-statistics kernel on the candidates the rank owns; then the
+step kernel's block mode (ops/window_absorb.py:window_step_block): its
+phase 1 writes the exchange from those candidates alone (their statistics
+and decisions at their window positions, their positives' column sums,
+the rank's first maximum's row; each value one rank's, the others add
+zeros: exact), one all-reduce, its phase 2 decides the window and applies
+the step, one all-gather of the closest-to-mean partials, phase 3 picks.
+Two collectives a step.  A step without candidates seeds its cluster with
+the seed's row, all-reduced from its owner.  The window bounds and the one
+read a step stay as they are: every rank computes them alike.
 
 The update phase (`ShardedPhase`) is the port's TorchDevicePhaseUpdater
 with, each iteration: the layout and the replay on every rank alike (slot
 metadata only); the filter's pairs that a rank's block holds the member of
-scored by the pair form against the center rows in its tail, the keep and
-uncertainty bits all-reduced; closest_candidates' block mode
-(ops/phase.py:closest_candidates_block), its int64 segment sums
-all-reduced and its partials all-gathered; the new centers' rows gathered
-into every rank's tail, one all-reduce of their bytes (each row is one
-rank's); the merge decisions on every rank alike over the tail (both rows
-of a merge candidate are centers), so they need no collective.
+scored by the pair form against the center rows in its tail;
+closest_candidates' block mode (ops/phase.py:closest_candidates_block):
+its phase 1 writes the exchange (those pairs' keep and uncertainty bits
+and the column sums of the rank's kept rows per segment, int32 where the
+sums fit), one all-reduce, phase 2, one all-gather of the partials, phase
+3; the new centers' rows gathered into every rank's tail, one all-reduce of
+their bytes (each row is one rank's); the merge decisions on every rank
+alike over the tail (both rows of a merge candidate are centers), so they
+need no collective.  Three collectives a pass.
+
+On a one-rank mesh the block modes are the one-block case, bit for bit the
+one-launch kernels, and the collectives are no-ops: the session there is
+`OneRankAccumulator` and the single-device TorchDevicePhaseUpdater over the
+rank's block, which holds every row at its own index (window_step,
+closest_candidates), and launches what the single-device session
+launches.
 
 Every collective's inputs come from replicated values and every rank takes
 the same branches, so the collectives stay in step.  A guarded abort
@@ -46,6 +56,7 @@ that fell back alone would leave its peers at a collective.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import numpy as np
@@ -60,24 +71,32 @@ from ..cluster.device_store import DeviceStore
 from ..cluster.device_update import TorchDeviceUpdater
 from ..ops.closest_mean import PART, RowBlock
 from ..ops.pair_stats import has_vector, pair_stats_decision
-from ..ops.phase import PhaseState, closest_candidates_block
-from ..ops.window_absorb import (StepState, _rows_i64, step_scratch,
+from ..ops.phase import (PhaseState, closest_candidates_block, exchange_dtype,
+                         exchange_words)
+from ..ops.window_absorb import (StepState, _rows_i64, step_scratch, step_xbuf_len,
                                  window_step_block)
 from .mesh import Mesh, all_gather, block_bounds
 
 
 class Collectives:
-    """The three collectives of the session over the mesh; a one-rank mesh
-    runs none of them (the same bits)."""
+    """The three collectives of the session over the mesh, each counted
+    where it communicates (`sums`, `gathers`, `broadcasts`); a one-rank
+    mesh runs none of them (the same bits)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        self.sums = self.gathers = self.broadcasts = 0
+
+    @property
+    def calls(self) -> int:
+        return self.sums + self.gathers + self.broadcasts
 
     def sum_(self, t: torch.Tensor) -> None:
         """All-reduce SUM in place (every position one rank's, the others
         zero, in every use here: exact for any dtype as bytes)."""
         if self.mesh.world > 1 and t.numel():
             dist.all_reduce(t)
+            self.sums += 1
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's `t`, stacked in rank order: [world, *t.shape]."""
@@ -85,7 +104,14 @@ class Collectives:
             return t[None].contiguous()
         if not t.numel():
             return t.new_zeros((self.mesh.world,) + tuple(t.shape))
+        self.gathers += 1
         return all_gather(self.mesh, t[None])
+
+    def broadcast(self, t: torch.Tensor, src: int) -> None:
+        """`t` from rank src into every rank's, in place."""
+        if self.mesh.world > 1:
+            dist.broadcast(t, src)
+            self.broadcasts += 1
 
 
 class ShardedRows:
@@ -132,41 +158,60 @@ def _check_model(params) -> None:
                                     "tie guards compare rows)")
 
 
-class ShardedAccumulator(TorchDeviceAccumulator):
-    """The accumulate loop over a row-sharded store (module docstring).
-    `store` is the rank's block with its center slot (mesh_scorer.py:
-    block_store); `fetch` serves the host's rows."""
+class OneRankAccumulator(TorchDeviceAccumulator):
+    """The accumulate loop of a one-rank mesh: `store` is the rank's block
+    with its center slot (mesh_scorer.py:block_store), every row at its own
+    index, so the single-device step runs on it; `fetch` serves the host's
+    rows."""
 
+    # the session fails the run rather than fall back: on two or more ranks
     # a rank that fell back to the host alone would wait at a collective
     no_fallback = True
 
-    def __init__(self, meta, model, sim: float, rows: ShardedRows, store, fetch,
-                 coll: Collectives):
+    def __init__(self, meta, model, sim: float, store, fetch):
         super().__init__(meta, model, sim, store)
         _check_model(self.params)
-        self.rows = rows
-        self.coll = coll
         self._fetch = fetch
-        self._slot = store.counts.shape[0] - 1
-        self._slot_row = -1
-        self._blk = rows.block(store.counts)
 
     def _rows_host(self, rows: np.ndarray) -> np.ndarray:
         return self._fetch(np.asarray(rows, dtype=np.int64))
 
+
+class ShardedAccumulator(OneRankAccumulator):
+    """The accumulate loop over a row-sharded store of two or more ranks
+    (module docstring).  `store` is the rank's block with its center slot.
+    `block_steps` counts the steps through the block mode,
+    `step_collectives` how many steps made how many collectives after the
+    center's broadcast."""
+
+    def __init__(self, meta, model, sim: float, rows: ShardedRows, store, fetch,
+                 coll: Collectives):
+        super().__init__(meta, model, sim, store, fetch)
+        self.rows = rows
+        self.coll = coll
+        self._slot = store.counts.shape[0] - 1
+        self._slot_row = -1
+        self._blk = rows.block(store.counts)
+        self.block_steps = 0
+        self.step_collectives: Counter = Counter()
+
     def _warm(self) -> None:
-        """The rank's buffers, then each kernel once on a throwaway one-row
-        pool of a row the rank holds (no collective)."""
+        """The rank's buffers, then each phase of the block mode once on a
+        throwaway one-row pool of a row the rank holds, as a one-rank
+        exchange (no collective)."""
+        self.block_steps = 0
+        self.step_collectives = Counter()
         n = len(self._s["order"])
         dev, d = self.device, self.store.counts.shape[1]
+        size = self.store.counts.element_size()
         i64 = dict(dtype=torch.int64, device=dev)
         order = self._s["order"]
         self._own = (order >= self.rows.lo) & (order < self.rows.hi)
         self._own_pos = torch.zeros(n + 1, **i64)    # slot n a sink
         self._own_rows = torch.zeros(n + 1, **i64)
         self._own_k = 0
-        self._part = torch.zeros(d, **i64)
         self._rank_part = torch.zeros(PART, **i64)
+        self._xbuf = torch.zeros(step_xbuf_len(n, d, size, self.coll.mesh.world), **i64)
         self._slot_t = torch.tensor([self._slot], **i64)
         self._slot_row = -1
         if self.rows.hi == self.rows.lo:
@@ -176,20 +221,19 @@ class ShardedAccumulator(TorchDeviceAccumulator):
         stats, dec = pair_stats_decision(self.store, self.params, z, z)
         state = StepState(torch.ones(1, dtype=torch.bool, device=dev), z - 1, z.clone(),
                           torch.zeros(2, **i64), torch.zeros(d, **i64))
-        scratch = step_scratch(1, dev)
-        part, rank_part = torch.zeros(d, **i64), torch.zeros(PART, **i64)
-        kw = self._step_kw(0, 1, 0, dec)
+        rank_part = torch.zeros(PART, **i64)
+        kw = dict(scratch=step_scratch(1, dev), xbuf=torch.zeros(step_xbuf_len(1, d, size, 1),
+                                                                 **i64),
+                  own_pos=z, own_rows=z, own_stats=stats, own_dec=dec, rank_part=rank_part,
+                  parts=rank_part[None], **self._step_kw(0, 1, 0))
         for phase in (1, 2, 3):
-            window_step_block(phase, self._blk, one, z, dec[0], dec[2], stats, state, z,
-                              scratch=scratch, part=part, rank_part=rank_part,
-                              parts=rank_part[None] if phase == 3 else None, **kw)
+            window_step_block(phase, self._blk, one, z, state, z, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def _step_kw(self, cid: int, stepc: int, mcnt: int, dec) -> dict:
+    def _step_kw(self, cid: int, stepc: int, mcnt: int) -> dict:
         return dict(cid=cid, stepc=stepc, mcnt=mcnt, pos_edge=self.pos_edge,
-                    margin=self.margin, tie_margin=self.tie_margin, s_err=dec[3],
-                    dist_err=dec[4])
+                    margin=self.margin, tie_margin=self.tie_margin)
 
     def run(self, bv, carry=None):
         # the scorer's host steps between runs may have reused the slot
@@ -219,8 +263,7 @@ class ShardedAccumulator(TorchDeviceAccumulator):
         rows, st = self.rows, self.store
         if rows.lo <= row < rows.hi:
             st.counts[self._slot] = st.counts[row - rows.lo]
-        if rows.mesh.world > 1:
-            dist.broadcast(st.counts[self._slot].view(torch.uint8), rows.owner(row))
+        self.coll.broadcast(st.counts[self._slot].view(torch.uint8), rows.owner(row))
         for m, t in zip(rows.moments, (st.mags, st.selfdot, st.lens, st.stddevs)):
             t[self._slot] = m[row]
         self._slot_row = row
@@ -229,32 +272,31 @@ class ShardedAccumulator(TorchDeviceAccumulator):
               mcnt: int, cur: int) -> torch.Tensor:
         """One step over the window's n_cand candidates on the sharded store
         (module docstring): the rank's candidates through the center form,
-        the statistics and decisions all-reduced into window order, then the
-        step kernel's three phases around their collectives."""
+        then the block mode's three phases around the exchange's all-reduce
+        and the partials' all-gather."""
         self._center(cur)
-        dev = self.device
+        calls = self.coll.calls
+        mesh = self.coll.mesh
         k = self._own_k
-        # int64 [8, W]: the statistics, then the decisions' float64 bits
-        buf = torch.zeros((8, n_cand), dtype=torch.int64, device=dev)
+        stats = dec = None
         if k:
             stats, dec = pair_stats_decision(self.store, self.params, self._own_rows[:k],
                                              self._slot_t)
-            pos = self._own_pos[:k]
-            buf[:3, pos] = stats.T
-            buf[3:, pos] = dec.view(torch.int64)
-        self.coll.sum_(buf)
-        stats = buf[:3].T.contiguous()
-        dec = buf[3:].view(torch.float64)
         state = StepState(self._alive, self._assign, self._astep, self._members,
                           self._msum)
-        args = (self._blk, self._s["order"], self._cand[:n_cand], dec[0], dec[2], stats,
-                state, cur_d)
-        kw = dict(scratch=self._scratch, part=self._part, rank_part=self._rank_part,
-                  **self._step_kw(cid, stepc, mcnt, dec))
-        window_step_block(1, *args, **kw)
-        self.coll.sum_(self._part)
-        window_step_block(2, *args, **kw)
-        return window_step_block(3, *args, parts=self.coll.gather(self._rank_part), **kw)
+        args = (self._blk, self._s["order"], self._cand[:n_cand], state, cur_d)
+        kw = dict(scratch=self._scratch, xbuf=self._xbuf, rank=mesh.rank,
+                  n_ranks=mesh.world, **self._step_kw(cid, stepc, mcnt))
+        window_step_block(1, *args, own_pos=self._own_pos[:k], own_rows=self._own_rows[:k],
+                          own_stats=stats, own_dec=dec, **kw)
+        counts = self.store.counts
+        self.coll.sum_(self._xbuf[:step_xbuf_len(n_cand, counts.shape[1],
+                                                 counts.element_size(), mesh.world)])
+        window_step_block(2, *args, rank_part=self._rank_part, **kw)
+        trip = window_step_block(3, *args, parts=self.coll.gather(self._rank_part), **kw)
+        self.block_steps += 1
+        self.step_collectives[self.coll.calls - calls] += 1
+        return trip
 
     def _seed(self, seed: torch.Tensor, cid: int, stepc: int) -> None:
         """A step without candidates: the seed leaves the pool and opens
@@ -272,9 +314,11 @@ class ShardedAccumulator(TorchDeviceAccumulator):
 
 
 class ShardedPhase(TorchDevicePhaseUpdater):
-    """The update phase over a row-sharded store (module docstring).  Its
-    store is the rank's block with a tail of one row a cluster slot, built
-    at a run's start; `updater` (the decisions) works on it."""
+    """The update phase over a row-sharded store of two or more ranks
+    (module docstring).  Its store is the rank's block with a tail of one
+    row a cluster slot, built at a run's start; `updater` (the decisions)
+    works on it.  `block_passes` counts the passes through the block mode,
+    `pass_collectives` how many passes made how many collectives."""
 
     def __init__(self, meta, model, sim: float, rows: ShardedRows, coll: Collectives,
                  delta: int = 5, iterations: int = 15):
@@ -282,6 +326,8 @@ class ShardedPhase(TorchDevicePhaseUpdater):
         self.coll = coll
         self.model = model
         self._tail = 0
+        self.block_passes = 0
+        self.pass_collectives: Counter = Counter()
         super().__init__(meta, model, sim, self._store(1), delta=delta,
                          iterations=iterations)
         _check_model(self.updater.params)
@@ -301,6 +347,11 @@ class ShardedPhase(TorchDevicePhaseUpdater):
         self._blk = rows.block(store.counts)
         return store
 
+    def warm_up(self) -> None:
+        super().warm_up()
+        self.block_passes = 0
+        self.pass_collectives = Counter()
+
     def _begin(self, cur: PhaseState) -> None:
         """A store whose tail fits the state's slots, the run's buffers, and
         the current centers' rows gathered into the tail."""
@@ -314,8 +365,11 @@ class ShardedPhase(TorchDevicePhaseUpdater):
         bound = (2 * self.delta + 1) * n
         self._bound = torch.arange(bound, **i64)
         self._own_pos = torch.zeros(bound + 1, **i64)   # slot bound a sink
+        self._own_cs = torch.zeros(bound, **i64)
         self._own_k = 0
-        self._num = torch.zeros((S, d), **i64)
+        # the exchange at its widest: int64 words, viewed as int32 where the
+        # sums fit
+        self._xbuf = torch.zeros(exchange_words(bound, S, d), **i64)
         self._rank_part = torch.zeros((S, PART), **i64)
         width = d * self.store.counts.element_size()
         self._bytes = torch.zeros((S, width), dtype=torch.uint8, device=dev)
@@ -336,45 +390,52 @@ class ShardedPhase(TorchDevicePhaseUpdater):
 
     def _layout_extra(self, lay) -> list:
         """The layout's pairs whose member this rank holds: their positions
-        into _own_pos; their count goes with the read."""
+        into _own_pos, their running count into _own_cs; their count goes
+        with the read."""
         bound = len(self._bound)
         b = lay.b_rows[:bound]
         own = (self._bound < lay.hdr[1]) & (b >= self.rows.lo) & (b < self.rows.hi)
-        ocs = torch.cumsum(own, 0, dtype=torch.int64)
-        self._own_pos.scatter_(0, torch.where(own, ocs - 1, bound), self._bound)
-        return [ocs[-1:]]
+        torch.cumsum(own, 0, dtype=torch.int64, out=self._own_cs)
+        self._own_pos.scatter_(0, torch.where(own, self._own_cs - 1, bound), self._bound)
+        return [self._own_cs[-1:]]
 
     def _take_extra(self, values: list) -> None:
         self._own_k = int(values[0])
 
     def _filter(self, cur: PhaseState, rows, delta: int, lay, n_alive: int,
                 n_pairs: int, cand, final: bool = False):
-        """The filter over the rank's pairs against the tail's centers, the
-        keep and uncertainty bits all-reduced, closest_candidates' block
-        mode around its collectives, then the new centers' rows into the
-        tail."""
+        """The filter over the rank's pairs against the tail's centers, then
+        closest_candidates' block mode: its exchange (the filter's bits and
+        the kept rows' column sums) all-reduced, its partials all-gathered;
+        then the new centers' rows into the tail."""
+        calls = self.coll.calls
         dev = self.device
         nb = self.rows.hi - self.rows.lo
         k = self._own_k
-        bits = torch.zeros((2, n_pairs), dtype=torch.uint8, device=dev)
         if k:
             pos = self._own_pos[:k]
             a = nb + lay.inv[lay.seg[pos]]            # the center's tail row
             keep_o, unc_o = self.updater.filter_keep(a, lay.b_rows[pos] - self.rows.lo)
-            bits[0, pos] = keep_o.to(torch.uint8)
-            bits[1, pos] = unc_o.to(torch.uint8)
-        self.coll.sum_(bits)
-        keep = bits[0].bool()
-        unc = bits[1].bool().any().view(1)
-        C = n_alive
-        args = (self._blk, keep, cur, rows, delta, lay, n_alive, n_pairs, cand)
+        else:
+            keep_o = unc_o = torch.zeros(0, dtype=torch.bool, device=dev)
+        C, d = n_alive, self.store.counts.shape[1]
+        x = self._xbuf
+        if exchange_dtype(n_pairs, self.rows.maxc) == torch.int32:
+            x = x.view(torch.int32)
+        x = x[:exchange_words(n_pairs, C, d)]
+        args = (self._blk, cur, rows, delta, lay, n_alive, n_pairs, cand)
         kw = dict(tie_margin=self.tie_margin, final=final)
-        closest_candidates_block(1, *args, num=self._num, **kw)
-        self.coll.sum_(self._num[:C])
-        closest_candidates_block(2, *args, num=self._num, rank_part=self._rank_part, **kw)
+        closest_candidates_block(1, *args, xbuf=x, own_cs=self._own_cs, own_keep=keep_o,
+                                 own_unc=unc_o, **kw)
+        self.coll.sum_(x)
+        nw = -(-n_pairs // 32)
+        unc = x[nw:2 * nw].any().view(1)            # the filter's uncertainty
+        closest_candidates_block(2, *args, xbuf=x, rank_part=self._rank_part, **kw)
         _, cunc = closest_candidates_block(
             3, *args, parts=self.coll.gather(self._rank_part[:C]), **kw)
         self._gather_tail(cand.cen)
+        self.block_passes += 1
+        self.pass_collectives[self.coll.calls - calls] += 1
         return unc, cunc.any().view(1)
 
     def _merge(self, cand, lay, m: int, n_alive: int):
@@ -409,8 +470,9 @@ def build_multihost_session(meta, model, sim: float, mesh: Mesh, store, fetch,
     metadata (self_dots, maxc), `fetch` the host's rows, `scorer` the
     MultihostScorer of the engine's host steps.  Uploads the moments, builds
     the kernels and warms the loop and the phase (collective calls: every
-    rank builds its session at once).  Raises DeviceLoopUnsupported for a
-    model with full-vector singles."""
+    rank builds its session at once); one rank's is the single-device
+    accumulator and phase over its block.  Raises DeviceLoopUnsupported
+    for a model with full-vector singles."""
     dev = mesh.device
     moments = torch.from_numpy(np.stack([
         np.asarray(a, dtype=np.float64)
@@ -421,8 +483,14 @@ def build_multihost_session(meta, model, sim: float, mesh: Mesh, store, fetch,
     bv = BVec(meta.lengths, BIN_SIZE)
     bv.insert_all(meta.lengths)
     bv.insert_finalize(meta.lengths)
-    acc = ShardedAccumulator(meta, model, sim, rows, store, fetch, coll)
-    phase = ShardedPhase(meta, model, sim, rows, coll, delta=delta, iterations=iterations)
+    if mesh.world == 1:
+        acc = OneRankAccumulator(meta, model, sim, store, fetch)
+        phase = TorchDevicePhaseUpdater(meta, model, sim, store, delta=delta,
+                                        iterations=iterations)
+    else:
+        acc = ShardedAccumulator(meta, model, sim, rows, store, fetch, coll)
+        phase = ShardedPhase(meta, model, sim, rows, coll, delta=delta,
+                             iterations=iterations)
     acc.ensure_ready(bv)
     phase.warm_up()
     return MultihostSession(acc, phase, scorer, bv)

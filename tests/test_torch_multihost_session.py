@@ -8,6 +8,11 @@ bounded), and the port's `graft_entry` (Part D):
   accumulator counters (steps, windows, pairs, guarded aborts) and phase
   counters (iterations, pairs, abort) equal to the port's single-device
   default path on the same file, and every rank's clustering digest equal;
+- the block modes' collectives (the counters on `Collectives`): at 2 and 4
+  ranks every scan step through the block mode makes 2 (the exchange's
+  all-reduce, the partials' all-gather) and every pass of the phase 3 (the
+  exchange, the partials, the new centers' rows); one rank runs no
+  block-mode phase and no collective;
 - 2 ranks on small.fasta with every decision uncertain (MC2_DD_MARGIN=1e9):
   the accumulate loop and the phase abort, the host resolves them through
   MultihostScorer and fetched rows, and the CLSTR is still the JAX host
@@ -97,6 +102,18 @@ def session_counters(stdout: str) -> dict:
                     map(int, m.groups())))
 
 
+def block_counters(stdout: str) -> dict:
+    """The block modes' steps and passes, and {collectives: how many} of
+    each, from the session's line."""
+    m = re.search(r"block mode: steps (\d+), collectives a step \{([^}]*)\}, passes (\d+), "
+                  r"collectives a pass \{([^}]*)\}", stdout)
+    assert m, stdout[-2000:]
+    per = lambda t: {int(k): int(v) for k, v in
+                     (kv.split(": ") for kv in t.split(", ") if kv)}
+    return dict(steps=int(m.group(1)), per_step=per(m.group(2)), passes=int(m.group(3)),
+                per_pass=per(m.group(4)))
+
+
 def single_device(name: str, tmp, monkeypatch, env=None) -> dict:
     """The port's single-device default path on the same file (the CPU):
     its engine, accumulator and phase counters."""
@@ -147,6 +164,23 @@ def test_session_equals_jax_host_and_the_single_device_path(runs, key, tmp_path,
     if name == "med2000":
         assert want["engine"] == (146, 165_218, 305, 6)
         assert want["session"]["steps"] == 393 and want["session"]["phase_pairs"] == 116_481
+
+
+@pytest.mark.parametrize("key", ["small1", "small2", "small4", "med2"])
+def test_block_mode_collectives(runs, key):
+    """A scan step through the block mode makes 2 collectives and a pass 3
+    at 2 and 4 ranks; one rank takes the one-launch kernels: no block-mode
+    phase, no collective."""
+    _, nprocs, _ = JOBS[key]
+    for _, so, _, _ in runs[key][1]:
+        got = block_counters(so)
+        if nprocs == 1:
+            assert got == dict(steps=0, per_step={}, passes=0, per_pass={})
+            continue
+        assert got["steps"] > 0 and got["per_step"] == {2: got["steps"]}
+        assert got["passes"] > 0 and got["per_pass"] == {3: got["passes"]}
+        # every window of the run went through a block-mode step
+        assert got["steps"] == session_counters(so)["windows"]
 
 
 def test_guarded_aborts_resume_on_the_host(runs, tmp_path, monkeypatch):
