@@ -1,0 +1,8 @@
+"""fastcar's output lines (the span `search.write`), the mean a search job
+of the window."""
+from metrics._jobs import search_jobs
+from metrics._spans import mean_s
+
+
+def read(run):
+    return mean_s(search_jobs(run), ("search.write",))

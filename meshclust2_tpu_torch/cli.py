@@ -56,7 +56,12 @@ Clock stamps follow the JAX package: on the recover path the store upload,
 the kernel builds and one warm-up call of each batch happen before the
 `read_in_points` stamp, so the window from it to `done` holds clustering
 only (BASELINE.md methodology); a training run stamps `data_generation` and
-`GLM` inside that window and builds its session after training.
+`GLM` inside that window and builds its session after training.  The run's
+clock (utils/clock.py) is the current one while it runs: its spans time
+set-up (`setup.read`, `setup.count`, `setup.session` with `session.upload`
+and `session.warm`), the engine's layers below, and the CLSTR write
+(`update.write`); under `--profile` each span is also a range of the
+trace.
 """
 from __future__ import annotations
 
@@ -84,7 +89,7 @@ from .model.weights import PredictorModel, load_weights, save_weights
 from .ops.device_features import loop_refusal, scorer_refusal
 from .runtime import resolve_device
 from .train.device_tables import TableStats
-from .utils.clock import Clock
+from .utils.clock import Clock, span
 from .utils.progress import Progress
 
 MUT_SINGLE = 1
@@ -270,12 +275,14 @@ def _session(ps: PointSet, model: CompiledModel, device, sim: float,
         print(f"meshclust2-torch: {why} in the accumulate loop and update "
               f"batches: every batch goes through the device scorer",
               file=sys.stderr)
-    session = TorchDeviceSession(
-        ps, model, device, sim,
-        update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"),
-        device_loop=not os.environ.get("MC2_NO_DEVICE_LOOP"),
-        delta=delta, iterations=iterations)
-    session.warm_up()
+    with span("session.upload"):
+        session = TorchDeviceSession(
+            ps, model, device, sim,
+            update_batch=not os.environ.get("MC2_NO_DEVICE_UPDATE_BATCH"),
+            device_loop=not os.environ.get("MC2_NO_DEVICE_LOOP"),
+            delta=delta, iterations=iterations)
+    with span("session.warm"):
+        session.warm_up()
     return session
 
 
@@ -289,6 +296,9 @@ def run(argv: Optional[List[str]] = None) -> ClusterRun:
         return _dispatch(args)
     import torch.profiler as tp
 
+    from .utils.clock import prepare_ranges
+
+    prepare_ranges()   # the spans' ranges, set up outside the trace
     activities = [tp.ProfilerActivity.CPU]
     if args.device == "cuda":
         activities.append(tp.ProfilerActivity.CUDA)
@@ -328,7 +338,9 @@ def _dispatch(args) -> ClusterRun:
         from .native import set_num_threads
 
         set_num_threads(args.threads)
-    return _run(args, train_files, notrain_files, device, Clock())
+    # the run's clock is the current one until it returns
+    with Clock(annotate=bool(args.profile)) as clock:
+        return _run(args, train_files, notrain_files, device, clock)
 
 
 def _run(args, train_files: List[str], notrain_files: List[str], device,
@@ -346,9 +358,10 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
     all_files = train_files + notrain_files
     records_cache = {}
     prog = Progress(len(all_files), "Reading in sequences")  # CRunner.cpp:58
-    for f in all_files:
-        records_cache[f] = read_fasta(f, args.single_file)
-        prog.step()
+    with span("setup.read"):
+        for f in all_files:
+            records_cache[f] = read_fasta(f, args.single_file)
+            prog.step()
     prog.end()
     per_file_records = [records_cache[f] for f in all_files]
 
@@ -372,10 +385,11 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
     bits = {"uint8_t": 8, "uint16_t": 16, "uint32_t": 32, "uint64_t": 64}[datatype]
     print(f"Using {bits} bit histograms")  # CRunner.cpp:109-121
 
-    train_ps, all_ps = load_sorted_points(
-        train_files, notrain_files, k, datatype, args.single_file,
-        keep_seqs_train=recovered is None, records_cache=records_cache,
-        count_device=device)
+    with span("setup.count"):
+        train_ps, all_ps = load_sorted_points(
+            train_files, notrain_files, k, datatype, args.single_file,
+            keep_seqs_train=recovered is None, records_cache=records_cache,
+            count_device=device)
     records_cache.clear()
 
     session = None
@@ -383,8 +397,9 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
     if recovered is not None and all_ps is not None and all_ps.n:
         # the device bring-up before the read_in_points stamp (recover path)
         model = CompiledModel(recovered.classifier, bias=args.bias)
-        session = _session(all_ps, model, device, similarity,
-                           args.delta, args.iterations)
+        with span("setup.session"):
+            session = _session(all_ps, model, device, similarity,
+                               args.delta, args.iterations)
     clock.stamp("read_in_points")
 
     if all_ps is None or all_ps.n == 0:
@@ -427,8 +442,9 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
             return ClusterRun(rc=0, clock=clock, trained=trained,
                               tables=tables)
         model = CompiledModel(trained.classifier, bias=args.bias)
-        session = _session(all_ps, model, device, similarity,
-                           args.delta, args.iterations)
+        with span("setup.session"):
+            session = _session(all_ps, model, device, similarity,
+                               args.delta, args.iterations)
 
     # clustering runs on all points, sequences dropped
     all_ps.seqs = None
@@ -450,7 +466,8 @@ def _run(args, train_files: List[str], notrain_files: List[str], device,
     if acc is not None and acc.error is not None:
         raise RuntimeError("the device accumulate loop failed; the engine "
                            "finished on the host") from acc.error
-    write_clstr(args.output, engine.to_output(clusters))
+    with span("update.write"):
+        write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
     return ClusterRun(rc=0, engine=engine, scorer=scorer, updater=updater,

@@ -47,6 +47,7 @@ from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.device_features import check_fused
 from ..ops.pair_stats import has_vector, pair_stats_decision
 from ..ops.window_absorb import StepState, _rows_i64, step_scratch, window_step
+from ..utils.clock import span
 from .bvec import BVec
 
 
@@ -447,6 +448,71 @@ class TorchDeviceAccumulator:
     def _launch(self, carry: dict):
         host = self._ready[0]
         n = host["n"]
+        with span("accumulate.upload"):
+            cid, stepc, cur, centers, mcnt, cur_d = self._upload(carry, n)
+
+        abort = cause = iters = wins = pairs = 0
+        done = bool(carry["done0"])
+        _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
+        while not done and iters < 2 * n + 16:
+            iters += 1
+            wins += have
+            pairs += n_cand
+            if n_cand == 0:
+                # no candidate: the cluster closes at its center, and the
+                # first row of the pool seeds the next (or the pool is empty)
+                centers.append(cur)
+                if total == 0:
+                    cid += 1
+                    stepc += 1
+                    done = True
+                    break
+                with span("accumulate.seed"):
+                    cur_d = (torch.searchsorted(self._crank0, 1) - 1).view(1)
+                    self._seed(cur_d, cid + 1, stepc)
+                cid += 1
+                stepc += 1
+                mcnt = 1
+                _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
+                continue
+            with span("accumulate.scan"):
+                trip = self._scan(n_cand, cur_d, cid, stepc, mcnt, cur)
+            cur_next = trip[3:]
+            bits, npos, unc, cur_n, n_cand, have, total = \
+                self._window(cur_next, trip)
+            if bits:
+                abort, cause = 1, bits
+                break
+            stepc += 1
+            if npos == 0:
+                centers.append(cur)
+                cid += 1
+                mcnt = 1
+            else:
+                mcnt += npos
+                if unc:
+                    abort = 2
+                    break
+            cur, cur_d = cur_n, cur_next
+
+        with span("accumulate.consume"):
+            row_pack = ((self._assign + 1) << 33) | (self._astep << 1) \
+                | self._alive.to(torch.int64)
+            center_arr = np.zeros(n, np.int64)
+            center_arr[:len(centers)] = centers
+            packed = np.concatenate([
+                np.array([abort, cid, cur, iters, wins, pairs, cause, 0], np.int64),
+                row_pack.cpu().numpy(), center_arr])
+            self.total_steps += iters
+            self.aborts += abort != 0
+            self.window_aborts += abort == 1
+            return self.consume(packed, host)
+
+    def _upload(self, carry: dict, n: int):
+        """The loop state of `carry` on the card in one upload: the pool's
+        alive flags, every row's cluster and stamp, the open cluster's
+        members and column sums, the center.  Returns the host's part:
+        (cid, stepc, cur, centers, mcnt, cur_d)."""
         d = self.store.counts.shape[1]
         alive = np.asarray(carry["alive0"])[:n]
         assign = np.asarray(carry["assign0"])[:n].astype(np.int64)
@@ -468,67 +534,27 @@ class TorchDeviceAccumulator:
         self._alive = flat[:n].bool()
         self._assign, self._astep, self._members, self._msum, cur_d = \
             torch.split(flat[n:], [n, n, n + 1, d, 1])
-
-        abort = cause = iters = wins = pairs = 0
-        done = bool(carry["done0"])
-        _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
-        while not done and iters < 2 * n + 16:
-            iters += 1
-            wins += have
-            pairs += n_cand
-            if n_cand == 0:
-                # no candidate: the cluster closes at its center, and the
-                # first row of the pool seeds the next (or the pool is empty)
-                centers.append(cur)
-                if total == 0:
-                    cid += 1
-                    stepc += 1
-                    done = True
-                    break
-                cur_d = (torch.searchsorted(self._crank0, 1) - 1).view(1)
-                self._seed(cur_d, cid + 1, stepc)
-                cid += 1
-                stepc += 1
-                mcnt = 1
-                _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
-                continue
-            trip = self._scan(n_cand, cur_d, cid, stepc, mcnt, cur)
-            cur_next = trip[3:]
-            bits, npos, unc, cur_n, n_cand, have, total = \
-                self._window(cur_next, trip)
-            if bits:
-                abort, cause = 1, bits
-                break
-            stepc += 1
-            if npos == 0:
-                centers.append(cur)
-                cid += 1
-                mcnt = 1
-            else:
-                mcnt += npos
-                if unc:
-                    abort = 2
-                    break
-            cur, cur_d = cur_n, cur_next
-
-        row_pack = ((self._assign + 1) << 33) | (self._astep << 1) \
-            | self._alive.to(torch.int64)
-        center_arr = np.zeros(n, np.int64)
-        center_arr[:len(centers)] = centers
-        packed = np.concatenate([
-            np.array([abort, cid, cur, iters, wins, pairs, cause, 0], np.int64),
-            row_pack.cpu().numpy(), center_arr])
-        self.total_steps += iters
-        self.aborts += abort != 0
-        self.window_aborts += abort == 1
-        return self.consume(packed, host)
+        return cid, stepc, cur, centers, mcnt, cur_d
 
     def _window(self, cur_d: torch.Tensor, trip: Optional[torch.Tensor]
                 ) -> Tuple[int, ...]:
         """The candidates of the window of flat position cur_d into
         `_cand[:W]`, then the step's one read: (bits, npos, closest-to-mean
         uncertain) from the step's `trip` (zeros without), cur, W, whether
-        the window exists, and the pool's size.
+        the window exists, and the pool's size.  Issuing the window's
+        operations is the span `accumulate.window`, the read (the host's
+        wait on the card) `accumulate.read`."""
+        with span("accumulate.window"):
+            parts = self._window_ops(cur_d, trip)
+        with span("accumulate.read"):
+            got = torch.cat(parts).tolist()
+        self._take_extra(got[7:])
+        return tuple(got[:7])
+
+    def _window_ops(self, cur_d: torch.Tensor, trip: Optional[torch.Tensor]
+                    ) -> list:
+        """The window's operations, issued: the tensors of the step's one
+        read.
 
         device_loop.py:_build_program.body (l. 1358-1405): ranks from the
         alive cumsum; the bvec's in-bin lower bound with `high` starting at
@@ -568,10 +594,8 @@ class TorchDeviceAccumulator:
         have = (total > 0) & (gf[1:] > gf[:1])
         if trip is None:
             trip = torch.zeros(3, dtype=torch.int64, device=self.device)
-        got = torch.cat([trip[:3], cur_d, csum[-1:], have.to(torch.int64), total]
-                        + self._window_extra(mask, csum)).tolist()
-        self._take_extra(got[7:])
-        return tuple(got[:7])
+        return [trip[:3], cur_d, csum[-1:], have.to(torch.int64), total] \
+            + self._window_extra(mask, csum)
 
     def _window_extra(self, mask: torch.Tensor, csum: torch.Tensor) -> list:
         """Tensors the step's one read also carries, from the window's mask

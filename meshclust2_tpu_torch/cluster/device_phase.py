@@ -40,7 +40,6 @@ the one-dispatch conversion of the accumulator's state (DeviceCombined):
 """
 from __future__ import annotations
 
-import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -51,6 +50,7 @@ from ..model.classifier import CompiledModel
 from ..ops.device_features import loop_refusal
 from ..ops.phase import (PhaseRows, PhaseState, closest_candidates, merge_replay,
                          new_candidates, new_layout, new_state, phase_layout)
+from ..utils.clock import span, timed
 from .device_loop import DeviceLoopUnsupported
 from .device_store import DeviceStore
 from .device_update import TorchDeviceUpdater
@@ -69,7 +69,8 @@ class PhaseResult(NamedTuple):
 class TorchDevicePhaseUpdater:
     """The whole update phase over a shared DeviceStore: `run`,
     `init_arrays`, `warm_up`, and the counters `last_iterations`,
-    `last_seconds` (run's wall time, ending in its last read), `last_abort`
+    `last_seconds` (run's wall time, ending in its last read: the span
+    `update.phase`), `last_abort`
     and `last_hist` (the last run's abort code and counts), and
     `scored_pairs` (length-passed pairs sent to the card, an aborted
     iteration's included).  The decisions (the band tests, closest_mean
@@ -229,25 +230,9 @@ class TorchDevicePhaseUpdater:
         n_alive, n_pairs = self._read_layout(lay)
         abort, it, pairs, sent = 0, it0, 0, 0
         while not (it >= iterations or (it >= 3 and n_alive == hist[it - 3])):
-            unc, cunc = self._filter(cur, rows, delta, lay, n_alive, n_pairs, cand)
-            m = delta * n_alive
-            flags = [unc, cunc]
-            if m:
-                ok = cand.ok[:m]
-                munc, any_m, best, amb = self._merge(cand, lay, m, n_alive)
-                flags += [munc.any().view(1), amb.any().view(1)]
-                t_dst = self._targets(any_m, best, lay.inv, n_alive, n_slots)
-                merged = ok.sum().view(1)
-            else:
-                t_dst = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
-                merged = torch.zeros(1, dtype=torch.int64, device=dev)
-            merge_replay(cur, t_dst, nxt)
-            nxt = nxt._replace(cen=cand.cen)
-            phase_layout(nxt, rows, delta, lay)
-            # the iteration's one read
-            got = torch.cat([torch.cat(flags).any().view(1).to(torch.int64),
-                             merged, lay.hdr] + self._layout_extra(lay)).tolist()
-            self._take_extra(got[4:])
+            with span("update.pass"):
+                got, nxt = self._pass(cur, nxt, rows, delta, lay, n_alive,
+                                      n_pairs, cand)
             sent += n_pairs + got[1]
             if got[0]:
                 abort = 1
@@ -261,16 +246,19 @@ class TorchDevicePhaseUpdater:
             hist.append(n_alive)
         if abort == 0:
             # the delta = 0 pass: each cluster's own members
-            phase_layout(cur, rows, 0, lay)
-            n_alive, n_pairs = self._read_layout(lay)
-            unc, cunc = self._filter(cur, rows, 0, lay, n_alive, n_pairs, cand,
-                                     final=True)
+            with span("update.pass"):
+                phase_layout(cur, rows, 0, lay)
+                n_alive, n_pairs = self._read_layout(lay)
+                unc, cunc = self._filter(cur, rows, 0, lay, n_alive, n_pairs,
+                                         cand, final=True)
+                bad = torch.cat([unc, cunc]).any().view(1).to(torch.int64)
+                # the center of each slot: the final pass's unless it was
+                # uncertain
+                cen = torch.where(bad.bool(), cur.cen, cand.cen)
+                packed = torch.cat([bad, cur.assign, cur.seq, cen,
+                                    cur.alive.to(torch.int64),
+                                    cur.clen]).cpu().numpy()
             sent += n_pairs
-            bad = torch.cat([unc, cunc]).any().view(1).to(torch.int64)
-            # the center of each slot: the final pass's unless it was uncertain
-            cen = torch.where(bad.bool(), cur.cen, cand.cen)
-            packed = torch.cat([bad, cur.assign, cur.seq, cen,
-                                cur.alive.to(torch.int64), cur.clen]).cpu().numpy()
             if packed[0]:
                 abort = 2
             else:
@@ -281,19 +269,53 @@ class TorchDevicePhaseUpdater:
                                 cur.alive.to(torch.int64), cur.clen]).cpu().numpy()
         return abort, it, pairs, sent, packed
 
+    def _pass(self, cur: PhaseState, nxt: PhaseState, rows: PhaseRows,
+              delta: int, lay, n_alive: int, n_pairs: int, cand):
+        """One iteration from `cur` into `nxt` and its one read: (the
+        read's values: any uncertainty, the merge's length-passed pairs,
+        the next C and P, then `_layout_extra`'s; nxt with the new
+        centers)."""
+        dev = self.device
+        n_slots = len(cur.cen)
+        unc, cunc = self._filter(cur, rows, delta, lay, n_alive, n_pairs, cand)
+        m = delta * n_alive
+        flags = [unc, cunc]
+        if m:
+            ok = cand.ok[:m]
+            munc, any_m, best, amb = self._merge(cand, lay, m, n_alive)
+            flags += [munc.any().view(1), amb.any().view(1)]
+            t_dst = self._targets(any_m, best, lay.inv, n_alive, n_slots)
+            merged = ok.sum().view(1)
+        else:
+            t_dst = torch.full((n_slots,), -1, dtype=torch.int64, device=dev)
+            merged = torch.zeros(1, dtype=torch.int64, device=dev)
+        merge_replay(cur, t_dst, nxt)
+        nxt = nxt._replace(cen=cand.cen)
+        phase_layout(nxt, rows, delta, lay)
+        got = torch.cat([torch.cat(flags).any().view(1).to(torch.int64),
+                         merged, lay.hdr] + self._layout_extra(lay)).tolist()
+        self._take_extra(got[4:])
+        return got, nxt
+
     def run(self, clusters, it0: int = 0,
             hist0: Optional[Sequence[int]] = None) -> PhaseResult:
         """The phase from `clusters` (objects with .center_row and .members,
         natural rows, reference order; iteration it0, the counts after the
         iterations before it in hist0).  Returns the PhaseResult; the
-        clusters in slot order."""
-        t0 = time.perf_counter()
-        n, n_slots = self.ps.n, len(clusters)
+        clusters in slot order.  Its span is `update.phase`, each pass's
+        `update.pass`."""
         hist = [int(h) for h in ([] if hist0 is None else hist0)][:it0]
         if len(hist) != it0:
             raise ValueError(f"hist0 must hold the {it0} counts before it0")
+        with timed("update.phase") as whole:
+            res = self._run(clusters, it0, hist)
+        self.last_seconds = whole.seconds
+        return res
+
+    def _run(self, clusters, it0: int, hist: List[int]) -> PhaseResult:
+        n, n_slots = self.ps.n, len(clusters)
         if n == 0:
-            self.last_iterations, self.last_seconds = 0, time.perf_counter() - t0
+            self.last_iterations = 0
             return PhaseResult(0, it0, hist, [], 0)
         cur = self.init_arrays(clusters)
         abort, it, pairs, sent, packed = self._phase(
@@ -304,7 +326,6 @@ class TorchDevicePhaseUpdater:
         self.scored_pairs += sent
         self.last_iterations = it - it0
         self.last_abort, self.last_hist = abort, hist
-        self.last_seconds = time.perf_counter() - t0
         return PhaseResult(abort=abort, it=it, hist=hist, clusters=out, pairs=pairs)
 
 

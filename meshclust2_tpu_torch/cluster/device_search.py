@@ -31,6 +31,10 @@ goes to the oracle when:
   - either sum is not finite.
 s_err, the fused kernel's bound on a sum of a model with full-vector
 singles, is 0 for any other model.
+
+Spans (utils/clock.py): `search.upload` (the store and the updaters),
+`search.sums` (the sums and their reads), `search.recheck` (the oracle's
+re-checks).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from ..features import host as H
 from ..kmer.counting import PointSet
 from ..model import thresholds as TH
 from ..model.classifier import CompiledModel
+from ..utils.clock import span
 from .device_store import DeviceStore
 from .device_update import TorchDeviceUpdater
 from .engine import HostScorer, c_round
@@ -128,10 +133,12 @@ def printed_may_differ(s: np.ndarray, eps) -> np.ndarray:
 
 def _sums(upd: TorchDeviceUpdater, a: np.ndarray, b: np.ndarray):
     """(s, s_err) of the pairs; s_err is read back only for a model with
-    full-vector singles (0 for any other)."""
-    if upd.full:
-        return upd.score_sums(a, b, with_err=True)
-    return upd.score_sums(a, b), 0.0
+    full-vector singles (0 for any other).  The span `search.sums`, its
+    reads included."""
+    with span("search.sums"):
+        if upd.full:
+            return upd.score_sums(a, b, with_err=True)
+        return upd.score_sums(a, b), 0.0
 
 
 class TorchDeviceSearch:
@@ -144,9 +151,10 @@ class TorchDeviceSearch:
 
     def __init__(self, combined: PointSet, model_c: Optional[CompiledModel],
                  model_r: Optional[CompiledModel], device):
-        store = DeviceStore.from_pointset(combined, device)
-        self.upd_c = TorchDeviceUpdater(model_c, store) if model_c else None
-        self.upd_r = TorchDeviceUpdater(model_r, store) if model_r else None
+        with span("search.upload"):
+            store = DeviceStore.from_pointset(combined, device)
+            self.upd_c = TorchDeviceUpdater(model_c, store) if model_c else None
+            self.upd_r = TorchDeviceUpdater(model_r, store) if model_r else None
         self.rechecked_c = 0
         self.rechecked_r = 0
 
@@ -162,7 +170,8 @@ class TorchDeviceSearch:
             unc = ~np.isfinite(s) | (np.abs(s - edge) <= thr)
             idx = np.nonzero(unc)[0]
             if len(idx):
-                keep[idx] = oracle.keep(a[idx], b[idx])
+                with span("search.recheck"):
+                    keep[idx] = oracle.keep(a[idx], b[idx])
             self.rechecked_c += len(idx)
         sim = np.ones(len(a))
         if self.upd_r is not None and keep.any():
@@ -173,7 +182,8 @@ class TorchDeviceSearch:
                              self.upd_r.margin * np.maximum(np.abs(s_r), 1.0))
             idx = np.nonzero(printed_may_differ(s_r, eps))[0]
             if len(idx):
-                vals[idx] = oracle.value(a[sel[idx]], b[sel[idx]])
+                with span("search.recheck"):
+                    vals[idx] = oracle.value(a[sel[idx]], b[sel[idx]])
             self.rechecked_r += len(idx)
             sim = np.zeros(len(a))
             sim[sel] = vals

@@ -33,7 +33,6 @@ in one copy.
 from __future__ import annotations
 
 import os
-import time
 from typing import List, Tuple
 
 import numpy as np
@@ -44,11 +43,16 @@ from ..model.classifier import CompiledModel, model_to_torch
 from ..ops.closest_mean import closest_mean
 from ..ops.device_features import check_fused
 from ..ops.pair_stats import has_vector, pair_stats_decision
+from ..utils.clock import current, span
 from .device_loop import resolve_margins
 from .device_store import DeviceStore
 
 # pairs a launch of `score_sums` (fastcar's search slices)
 SEARCH_SLICE = 1 << 24
+
+# the spans of the batches, each call ending in its read: merge_segmented,
+# filter_closest
+_SPANS = ("update.score", "update.closest")
 
 
 class TorchDeviceUpdater:
@@ -72,11 +76,8 @@ class TorchDeviceUpdater:
     def _reset_counters(self) -> None:
         self.scored_pairs = 0
         self.rechecked_pairs = 0
-        # MC2_DEVICE_PROF accounting (host wall time, each call ends in a sync)
-        self.t_score = 0.0
-        self.t_closest = 0.0
-        self.n_score = 0
-        self.n_closest = 0
+        # the batches' spans so far, which prof_line counts from
+        self._spans0 = _span_totals()
         # the largest segment of a filter_closest call, positions and kept
         # rows (counted under MC2_DEVICE_PROF only: ~0.5 ms of host time a
         # call at 100,000 pairs)
@@ -84,8 +85,12 @@ class TorchDeviceUpdater:
         self.max_kept = 0
 
     def prof_line(self) -> str:
-        return (f"device update: score {self.t_score:.2f}s/{self.n_score} "
-                f"calls, closest {self.t_closest:.2f}s/{self.n_closest} "
+        """The MC2_DEVICE_PROF line: the batches' spans (seconds and calls)
+        since the last reset, pairs, the largest segment."""
+        (ts, ns), (tc, nc) = ((t - t0, n - n0) for (t, n), (t0, n0)
+                              in zip(_span_totals(), self._spans0))
+        return (f"device update: score {ts:.2f}s/{ns} "
+                f"calls, closest {tc:.2f}s/{nc} "
                 f"calls, {self.scored_pairs} pairs "
                 f"({self.rechecked_pairs} host-rechecked), largest segment "
                 f"{self.max_segment} positions, {self.max_kept} kept")
@@ -141,15 +146,12 @@ class TorchDeviceUpdater:
         b = np.asarray(b_rows, dtype=np.int64)
         out = np.empty((2, len(a)))
         rows = slice(0, 4, 3) if with_err else slice(0, 1)   # s (and s_err)
-        t0 = time.perf_counter()
         for s in range(0, len(a), slice_pairs):
             ai, bi = self._upload(a[s:s + slice_pairs], b[s:s + slice_pairs])
             _, dec = pair_stats_decision(self.store, self.params, ai, bi)
             got = dec[rows].cpu().numpy()
             out[:len(got), s:s + len(ai)] = got
-            self.n_score += 1
         self.scored_pairs += len(a)
-        self.t_score += time.perf_counter() - t0
         return (out[0], out[1]) if with_err else out[0]
 
     def filter_keep(self, a_idx: torch.Tensor, b: torch.Tensor):
@@ -184,15 +186,13 @@ class TorchDeviceUpdater:
         if P == 0:
             return (np.zeros(0, bool), np.zeros(0, bool),
                     np.full(C, 0, np.int64), np.zeros(C, bool))
-        t0 = time.perf_counter()
-        cen, b, sg = self._upload(cen_rows, b_rows, seg)
-        keep, unc, first, cunc = self.filter_device(cen[sg], b, sg, C)
-        buf = torch.cat([first.view(torch.uint8), keep.view(torch.uint8),
-                         unc.view(torch.uint8), cunc.view(torch.uint8)]
-                        ).cpu().numpy()
+        with span("update.closest"):
+            cen, b, sg = self._upload(cen_rows, b_rows, seg)
+            keep, unc, first, cunc = self.filter_device(cen[sg], b, sg, C)
+            buf = torch.cat([first.view(torch.uint8), keep.view(torch.uint8),
+                             unc.view(torch.uint8), cunc.view(torch.uint8)]
+                            ).cpu().numpy()
         self.scored_pairs += P
-        self.t_closest += time.perf_counter() - t0
-        self.n_closest += 1
         if os.environ.get("MC2_DEVICE_PROF"):
             seg = np.asarray(seg)
             self.max_segment = max(self.max_segment, int(np.bincount(seg).max()))
@@ -268,15 +268,13 @@ class TorchDeviceUpdater:
         if P == 0:
             return (np.zeros(0, bool), np.zeros(C, bool),
                     np.full(C, -1, np.int64), np.zeros(C, bool))
-        t0 = time.perf_counter()
-        cen, j, sg = self._upload(cen_rows, jj, seg)
-        unc, any_m, best, amb = self.merge_device(cen[j], cen[sg], sg, C)
-        buf = torch.cat([best.view(torch.uint8), unc.view(torch.uint8),
-                         any_m.view(torch.uint8), amb.view(torch.uint8)]
-                        ).cpu().numpy()
+        with span("update.score"):
+            cen, j, sg = self._upload(cen_rows, jj, seg)
+            unc, any_m, best, amb = self.merge_device(cen[j], cen[sg], sg, C)
+            buf = torch.cat([best.view(torch.uint8), unc.view(torch.uint8),
+                             any_m.view(torch.uint8), amb.view(torch.uint8)]
+                            ).cpu().numpy()
         self.scored_pairs += P
-        self.t_score += time.perf_counter() - t0
-        self.n_score += 1
         return (buf[8 * C:8 * C + P].view(bool),
                 buf[8 * C + P:8 * C + P + C].view(bool),
                 buf[:8 * C].view(np.int64),
@@ -285,6 +283,13 @@ class TorchDeviceUpdater:
 
 # rows a slice of `_rows_equal` compares (bounds its [slice, D] gathers)
 _EQ_SLICE = 1 << 15
+
+
+def _span_totals() -> list:
+    """(seconds, calls) of each of _SPANS on the current clock."""
+    c = current()
+    return [(c.seconds(k), c.calls(k)) if c is not None else (0.0, 0)
+            for k in _SPANS]
 
 
 def _rows_equal(counts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -408,29 +408,30 @@ class MeanShiftEngine:
         # relaunch (~0.3-0.5 s even with diff fetches): start at 128 and
         # escalate when the device re-aborts quickly (tie-dense regions)
         host_steps = 128
-        import time as _time
+        from ..utils.clock import timed
 
         while (state is not None and resumes < max_resumes
                and getattr(acc, "_ready", None) is not None):
-            t_res = _time.time()
             if os.environ.get("MC2_DEVICE_PROF"):
                 print(f"device accumulate: abort stage {state.stage} "
                       f"(cause {getattr(acc, 'last_abort_cause', 0)}) "
                       f"after {len(state.clusters_done)} clusters; "
                       f"host resolves {host_steps} steps")
-            clusters_done, current, last, bv2 = self._resolve_steps(
-                state, host_steps)
-            if last is None:
-                return clusters_done
-            alive_rows = (np.concatenate([b for b in bv2.bins])
-                          if bv2.size() else np.zeros(0, np.int64))
-            carry = acc.make_carry(
-                [(c.center_row, c.members) for c in clusters_done],
-                current, last, alive_rows)
+            with timed("accumulate.resolve") as resolve:
+                clusters_done, current, last, bv2 = self._resolve_steps(
+                    state, host_steps)
+                if last is None:
+                    return clusters_done
+                alive_rows = (np.concatenate([b for b in bv2.bins])
+                              if bv2.size() else np.zeros(0, np.int64))
+                carry = acc.make_carry(
+                    [(c.center_row, c.members) for c in clusters_done],
+                    current, last, alive_rows)
             if os.environ.get("MC2_DEVICE_PROF"):
-                print(f"device accumulate: resolve+carry {(_time.time() - t_res):.2f}s")
+                print(f"device accumulate: resolve+carry {resolve.seconds:.2f}s")
             try:
-                raw, state = launch(bv2, carry=carry)
+                with timed("accumulate.relaunch") as relaunch:
+                    raw, state = launch(bv2, carry=carry)
             except Exception as e:  # noqa: BLE001 - any device failure
                 # the resolved host state is exact: finish on the host
                 if no_fallback:
@@ -451,9 +452,9 @@ class MeanShiftEngine:
             # one ~0.3-0.5 s device round trip per step — but per-step
             # host cost varies 30x with window size (1 ms at 100k, ~30 ms
             # in the 1M tie-dense tail), so budget TIME, not steps: aim
-            # for ~1 s of resolution per abort
-            resolve_secs = _time.time() - t_res
-            rate = host_steps / max(resolve_secs, 1e-3)
+            # for ~1 s of resolution per abort, timed over the resolution
+            # and the relaunch it bought
+            rate = host_steps / max(resolve.seconds + relaunch.seconds, 1e-3)
             budget = int(max(16, min(4096, rate)))
             if getattr(acc, "last_steps", 0) >= 512:
                 host_steps = min(128, budget)
@@ -869,6 +870,7 @@ class MeanShiftEngine:
     def update_phase(self, clusters: List[Cluster], checkpoint: Optional[str] = None,
                      start_it: int = 0,
                      num_clusters: Optional[List[int]] = None) -> None:
+        from ..utils.clock import span
         from ..utils.progress import Progress
 
         num_clusters = list(num_clusters) if num_clusters else []
@@ -917,10 +919,12 @@ class MeanShiftEngine:
             for it in range(start_it, self.iterations):
                 if it >= 3 and len(clusters) == num_clusters[it - 3]:
                     break
-                new_centers = self._batched_mean_shift_update(clusters, self.delta)
-                for c, nc in zip(clusters, new_centers):
-                    c.center_row = nc
-                self._merge_pass(clusters, self.delta)
+                with span("update.pass"):
+                    new_centers = self._batched_mean_shift_update(clusters,
+                                                                  self.delta)
+                    for c, nc in zip(clusters, new_centers):
+                        c.center_row = nc
+                    self._merge_pass(clusters, self.delta)
                 num_clusters.append(len(clusters))
                 self.stats.update_iterations += 1
                 prog.step()
@@ -928,9 +932,10 @@ class MeanShiftEngine:
                     self._save_checkpoint(checkpoint, clusters, "update", it + 1,
                                           num_clusters)
             prog.end()
-            new_centers = self._batched_mean_shift_update(clusters, 0)
-            for c, nc in zip(clusters, new_centers):
-                c.center_row = nc
+            with span("update.pass"):
+                new_centers = self._batched_mean_shift_update(clusters, 0)
+                for c, nc in zip(clusters, new_centers):
+                    c.center_row = nc
             import os as _os
 
             updater = self._get_device_updater()

@@ -36,7 +36,6 @@ from __future__ import annotations
 import argparse
 import math
 import sys
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -54,6 +53,7 @@ from .model.weights import (PRED_MODE_CLASS, PRED_MODE_REGR, PredictorModel,
                             load_weights, save_weights)
 from .ops.device_features import loop_refusal
 from .runtime import resolve_device
+from .utils.clock import Clock, span
 
 FEAT_SETS = {"fast": F.PRED_FEAT_FAST, "slow": F.PRED_FEAT_FAST | F.PRED_FEAT_DIV}
 MODES = {"c": PRED_MODE_CLASS, "r": PRED_MODE_REGR,
@@ -137,6 +137,18 @@ def load_chunks(files: List[str], k: int, datatype: str, chunk: int,
         yield build_point_set(buf, k, datatype, count_device=count_device)
 
 
+def _drawn(chunks):
+    """The chunks of `chunks`, each draw (reading and counting) in a
+    `search.load` span."""
+    it = iter(chunks)
+    while True:
+        with span("search.load"):
+            ps = next(it, None)
+        if ps is None:
+            return
+        yield ps
+
+
 @dataclass
 class SearchStats:
     """What the search did over a run."""
@@ -147,9 +159,10 @@ class SearchStats:
     rechecked_c: int = 0         # classifier pairs the oracle re-decided
     rechecked_r: int = 0         # regression values the oracle re-computed
     host_reasons: List[str] = field(default_factory=list)  # refused blocks
-    # host wall seconds of `search`: the window pairs' index arrays, their
-    # scoring (on the device, or by the host route, re-checks included),
-    # the output lines
+    # host wall seconds of `search` over the run, the totals of its spans:
+    # the window pairs' index arrays (`search.pairs`), their scoring on the
+    # device or by the host route, re-checks included (`search.score`),
+    # the output lines (`search.write`)
     pairs_seconds: float = 0.0
     score_seconds: float = 0.0
     write_seconds: float = 0.0
@@ -173,67 +186,63 @@ def search(
     the models' `loop_refusal`, is None), else by the host route."""
     from .native import sort_perm
 
-    t0 = time.perf_counter()
-    order = sort_perm(db_ps.lengths.astype(np.uint64))
-    db = db_ps.subset(order)
-    # per-query windows: quirky bin_search for the start (reference
-    # semantics), one vectorized searchsorted for the ends (db.lengths is
-    # ascending, so the reference's linear `while lengths[end] <= end_length`
-    # walk lands on the same index)
-    q_lens = q_ps.lengths
-    end_lengths = (q_lens / similarity).astype(np.int64)
-    starts = np.array(
-        [bin_search(db.lengths, int(l * similarity)) for l in q_lens],
-        dtype=np.int64,
-    )
-    ends = np.maximum(
-        starts, np.searchsorted(db.lengths, end_lengths, side="right")
-    )
-    per_q = ends - starts
-    total = int(per_q.sum())
-    stats.blocks += 1
-    stats.pairs += total
-    if total == 0:
-        stats.pairs_seconds += time.perf_counter() - t0
-        return 0
-    q_arr = np.repeat(np.arange(q_ps.n, dtype=np.int64), per_q)
-    a_arr = np.repeat(starts, per_q) + (
-        np.arange(total, dtype=np.int64)
-        - np.repeat(np.cumsum(per_q) - per_q, per_q)
-    )
-    # one combined point set, db rows first and the queries after, serves
-    # the store on the card and the host route's scorers alike
-    combined = concat_point_sets([db, q_ps])
-    b_arr = q_arr + db.n
-    oracle = HostOracle(combined, model_c, model_r)
-    t1 = time.perf_counter()
-    stats.pairs_seconds += t1 - t0
-    why = host_why or store_refusal(combined)
-    if why is not None:
-        if host_why is None:   # the models' reason is printed once, by _run
-            print(f"fastcar-torch: {why}: searching on the host scorer",
-                  file=sys.stderr)
-        stats.host_reasons.append(why)
-        keep, sim = host_search(oracle, a_arr, b_arr)
-    else:
-        dev = TorchDeviceSearch(combined, model_c, model_r, device)
-        keep, sim = dev.search(a_arr, b_arr, oracle)
-        stats.device_blocks += 1
-        stats.rechecked_c += dev.rechecked_c
-        stats.rechecked_r += dev.rechecked_r
-    t2 = time.perf_counter()
-    stats.score_seconds += t2 - t1
+    with span("search.pairs"):
+        order = sort_perm(db_ps.lengths.astype(np.uint64))
+        db = db_ps.subset(order)
+        # per-query windows: quirky bin_search for the start (reference
+        # semantics), one vectorized searchsorted for the ends (db.lengths
+        # is ascending, so the reference's linear `while lengths[end] <=
+        # end_length` walk lands on the same index)
+        q_lens = q_ps.lengths
+        end_lengths = (q_lens / similarity).astype(np.int64)
+        starts = np.array(
+            [bin_search(db.lengths, int(l * similarity)) for l in q_lens],
+            dtype=np.int64,
+        )
+        ends = np.maximum(
+            starts, np.searchsorted(db.lengths, end_lengths, side="right")
+        )
+        per_q = ends - starts
+        total = int(per_q.sum())
+        stats.blocks += 1
+        stats.pairs += total
+        if total == 0:
+            return 0
+        q_arr = np.repeat(np.arange(q_ps.n, dtype=np.int64), per_q)
+        a_arr = np.repeat(starts, per_q) + (
+            np.arange(total, dtype=np.int64)
+            - np.repeat(np.cumsum(per_q) - per_q, per_q)
+        )
+        # one combined point set, db rows first and the queries after,
+        # serves the store on the card and the host route's scorers alike
+        combined = concat_point_sets([db, q_ps])
+        b_arr = q_arr + db.n
+        oracle = HostOracle(combined, model_c, model_r)
+    with span("search.score"):
+        why = host_why or store_refusal(combined)
+        if why is not None:
+            if host_why is None:   # the models' reason is printed once, by _run
+                print(f"fastcar-torch: {why}: searching on the host scorer",
+                      file=sys.stderr)
+            stats.host_reasons.append(why)
+            keep, sim = host_search(oracle, a_arr, b_arr)
+        else:
+            dev = TorchDeviceSearch(combined, model_c, model_r, device)
+            keep, sim = dev.search(a_arr, b_arr, oracle)
+            stats.device_blocks += 1
+            stats.rechecked_c += dev.rechecked_c
+            stats.rechecked_r += dev.rechecked_r
     n_pos = 0
-    for i in np.nonzero(keep)[0]:
-        n_pos += 1
-        s = sim[i]
-        if s > 0:
-            qh = q_ps.headers[int(q_arr[i])]
-            dh = db.headers[int(a_arr[i])]
-            if do_format:
-                qh, dh = format_header(qh), format_header(dh)
-            out.write(f"{qh}{delim}{dh}{delim}{100 * s:g}\n")
-    stats.write_seconds += time.perf_counter() - t2
+    with span("search.write"):
+        for i in np.nonzero(keep)[0]:
+            n_pos += 1
+            s = sim[i]
+            if s > 0:
+                qh = q_ps.headers[int(q_arr[i])]
+                dh = db.headers[int(a_arr[i])]
+                if do_format:
+                    qh, dh = format_header(qh), format_header(dh)
+                out.write(f"{qh}{delim}{dh}{delim}{100 * s:g}\n")
     return n_pos
 
 
@@ -256,7 +265,8 @@ def mem_used(prefix: str) -> None:
 class FastcarRun:
     rc: int
     positives: int = 0
-    search_seconds: float = 0.0      # `before loop` to `after loop`
+    search_seconds: float = 0.0      # `before loop` to `after loop`: the
+    #                                  span `search`
     stats: SearchStats = field(default_factory=SearchStats)
     trained: Optional[PredictorModel] = None   # the model a training run made
 
@@ -268,10 +278,13 @@ def run(argv: Optional[List[str]] = None) -> FastcarRun:
     if not args.files or not args.query:
         build_parser().print_help()
         return FastcarRun(rc=1)
-    return _run(args, resolve_device(args.device))
+    device = resolve_device(args.device)
+    # the run's clock is the current one until it returns
+    with Clock() as clock:
+        return _run(args, device, clock)
 
 
-def _run(args, device) -> FastcarRun:
+def _run(args, device, clock: Clock) -> FastcarRun:
     similarity = args.identity
     mode = MODES[args.mode]
 
@@ -388,20 +401,23 @@ def _run(args, device) -> FastcarRun:
     for t in range(1, max(args.threads, 1)):
         open(f"{args.output}{t}", "w").close()
     mem_used("before loop")  # FC_Runner.cpp:571
-    t0 = time.perf_counter()
-    with open(f"{args.output}0", "w") as out:
-        for q_ps in load_chunks(args.query, k, datatype, args.chunk, device):
-            for db_ps in load_chunks(args.files, k, datatype, args.chunk, device):
+    with clock.span("search"), open(f"{args.output}0", "w") as out:
+        for q_ps in _drawn(load_chunks(args.query, k, datatype, args.chunk,
+                                       device)):
+            for db_ps in _drawn(load_chunks(args.files, k, datatype,
+                                            args.chunk, device)):
                 n_pos += search(
                     db_ps, q_ps, model_c, model_r,
                     similarity if similarity > 0 else model.id_cutoff,
                     out, delim, not args.noformat, device, stats, host_why,
                 )
             mem_used("mid loop")  # FC_Runner.cpp:602
-    seconds = time.perf_counter() - t0
+    stats.pairs_seconds, stats.score_seconds, stats.write_seconds = (
+        clock.seconds(name)
+        for name in ("search.pairs", "search.score", "search.write"))
     mem_used("after loop")  # FC_Runner.cpp:604
     print(f"# of predicted positive: {n_pos}")
-    return FastcarRun(rc=0, positives=n_pos, search_seconds=seconds,
+    return FastcarRun(rc=0, positives=n_pos, search_seconds=clock.seconds("search"),
                       stats=stats, trained=trained)
 
 

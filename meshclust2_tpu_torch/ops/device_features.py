@@ -28,7 +28,6 @@ engine's host-driven loops.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -42,6 +41,7 @@ from ..kmer.counting import PointSet
 from ..model.classifier import (PLANE_SINGLES, SINGLE_CODES, STATS_SINGLES,
                                 VECTOR_SINGLES, CompiledModel, model_to_torch)
 from .pair_stats import pair_stats_decision
+from ..utils.clock import timed
 from .plane_singles import NEEDS, Planes, plane_singles, rank_dtype, table_len
 
 # the singles the scorer computes: those the fused kernel derives from its
@@ -147,14 +147,19 @@ class TorchDeviceFeatureEngine:
     are stored as the integers 2 dev.  The counterpart of
     meshclust2_tpu/ops/device_features.py:DeviceFeatureEngine.__init__
     (lines 86-132) and _n2_plane (lines 174-189), which keep float32 copies.
-    `seconds` is the build's host time, upload included."""
+    `seconds` is the build's host time, upload included (the span
+    `session.planes`)."""
 
     # rows per host step: _expected_counts makes a [rows, D, k] float64
     # temporary
     ROW_CHUNK = 1024
 
     def __init__(self, ps: PointSet, singles, store: DeviceStore):
-        t0 = time.perf_counter()
+        with timed("session.planes") as built:
+            self._build(ps, singles, store)
+        self.seconds = built.seconds
+
+    def _build(self, ps: PointSet, singles, store: DeviceStore) -> None:
         self.flags = tuple(s for s in singles if s in PLANE_SINGLES)
         device = store.counts.device
         d = ps.dim
@@ -204,7 +209,6 @@ class TorchDeviceFeatureEngine:
             **{name: up(a) for name, a in host.items()})
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        self.seconds = time.perf_counter() - t0
 
 
 def recheck_rules(prob: np.ndarray, dist: np.ndarray, s_err: np.ndarray,
@@ -273,6 +277,7 @@ class TorchDeviceScorer:
         self.rechecked_pairs = 0
         # pairs each of rules (i), (ii), (iii) sent to the oracle (a pair
         # may count under several), and the host seconds of the re-checks
+        # (the span `scorer.recheck`)
         self.rechecked_by_rule = np.zeros(3, dtype=np.int64)
         self.recheck_seconds = 0.0
 
@@ -323,9 +328,9 @@ class TorchDeviceScorer:
         idx = np.nonzero(rules[0] | rules[1] | rules[2])[0]
         if len(idx):
             self.rechecked_pairs += len(idx)
-            t0 = time.perf_counter()
-            p2, d2 = self._host.score(a[idx], b[idx])
-            self.recheck_seconds += time.perf_counter() - t0
+            with timed("scorer.recheck") as recheck:
+                p2, d2 = self._host.score(a[idx], b[idx])
+            self.recheck_seconds += recheck.seconds
             prob[idx] = p2
             dist[idx] = d2
         return prob, dist

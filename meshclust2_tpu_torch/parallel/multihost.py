@@ -327,8 +327,6 @@ def run_multihost(args):
     --recover or for a model outside MESH_SUPPORTED (the JAX mesh scorer
     raises on one)."""
     from ..cli import ClusterRun
-    from ..cluster.engine import MeanShiftEngine
-    from ..io.clstr import write_clstr
     from ..model.classifier import CompiledModel
     from ..model.weights import load_weights
     from ..runtime import resolve_device
@@ -353,8 +351,25 @@ def run_multihost(args):
     formed = not dist.is_initialized()
     pid, _ = initialize_from_env(device)
     mesh = make_mesh(device)
-    clock = Clock()
-    meta, block = build_global_points(args.files, pred.k, pred.datatype, mesh)
+    # the run's clock is the current one until the clustering returns
+    with Clock(annotate=bool(args.profile)) as clock:
+        res = _cluster(args, pred, model, mesh, pid, clock)
+    if formed:
+        dist.barrier()
+        dist.destroy_process_group()
+    return res
+
+
+def _cluster(args, pred, model, mesh: Mesh, pid: int, clock):
+    """The clustering of run_multihost on its process group: the points,
+    the route, the engine, rank 0's CLSTR."""
+    from ..cli import ClusterRun
+    from ..cluster.engine import MeanShiftEngine
+    from ..io.clstr import write_clstr
+    from ..utils.clock import span
+
+    with span("setup.count"):
+        meta, block = build_global_points(args.files, pred.k, pred.datatype, mesh)
     sim = pred.id_cutoff
     session = scorer = None
     why = refusal(meta)
@@ -364,19 +379,22 @@ def run_multihost(args):
         print(f"meshclust2-torch: --multihost: {why}: clustering on the host scorer "
               f"over the row-sharded store (FetchOracle)", file=sys.stderr)
     else:
-        store, m = kernel_store(meta, block, mesh)
-        del block
-        fetch = RowFetch(mesh, store.counts, meta.n)
-        scorer = MultihostScorer(meta, model, mesh, store, m, fetch)
-        scorer.warm_up()
-        if os.environ.get("MC2_NO_DEVICE_SESSION"):
+        with span("setup.session"):
+            store, m = kernel_store(meta, block, mesh)
+            del block
+            fetch = RowFetch(mesh, store.counts, meta.n)
+            scorer = MultihostScorer(meta, model, mesh, store, m, fetch)
+            scorer.warm_up()
+            if not os.environ.get("MC2_NO_DEVICE_SESSION"):
+                from .multihost_session import build_multihost_session
+
+                session = build_multihost_session(
+                    meta, model, sim, mesh, store, fetch, scorer,
+                    delta=args.delta, iterations=args.iterations)
+        if session is None:
             print("meshclust2-torch: --multihost runs MultihostScorer per-window scoring "
                   "(MC2_NO_DEVICE_SESSION=1)", file=sys.stderr)
         else:
-            from .multihost_session import build_multihost_session
-
-            session = build_multihost_session(meta, model, sim, mesh, store, fetch, scorer,
-                                              delta=args.delta, iterations=args.iterations)
             print("meshclust2-torch: --multihost runs the device session over the "
                   "row-sharded store", file=sys.stderr)
     clock.stamp("read_in_points")
@@ -386,7 +404,8 @@ def run_multihost(args):
     engine._host_oracle_cached = getattr(scorer, "_host", scorer)
     clusters = engine.run(clock=clock)
     if pid == 0:
-        write_clstr(args.output, engine.to_output(clusters))
+        with span("update.write"):
+            write_clstr(args.output, engine.to_output(clusters))
     clock.stamp("update")
     clock.stamp("done")
     acc = session.accumulator if session is not None else None
@@ -401,9 +420,6 @@ def run_multihost(args):
               f"{getattr(scorer, 'rechecked_by_rule', np.zeros(3, np.int64)).tolist()}, "
               f"fetches {fetch.calls} ({fetch.rows} rows, {fetch.remote_rows} remote), "
               f"output {_digest(engine, clusters)}, {_session_line(acc, phase)}")
-    if formed:
-        dist.barrier()
-        dist.destroy_process_group()
     return ClusterRun(rc=0, engine=engine, scorer=scorer, accumulator=acc, phase=phase,
                       clock=clock)
 
