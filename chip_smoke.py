@@ -142,7 +142,7 @@ PLANE10K_COUNTERS = {"markov": (561, 747_763, 1_119, 8),
 MARGIN, TIE_MARGIN = 1e-8, 1e-12
 # the kernel sources, one nvcc each
 SOURCES = ("pair_stats", "closest_mean", "window_absorb", "plane_singles", "phase",
-           "kmer_count")
+           "kmer_count", "window_select")
 # the kernels each path must launch (their wrappers' counts), and those it
 # must not: the clustering paths take their statistics from the fused
 # kernel, training's tables from the statistics alone
@@ -219,10 +219,18 @@ NEEDS["multihost_session"] = ("pair_stats_decision", "window_absorb", "closest_c
 FORBIDS["multihost_session"] = ("pair_stats", "pair_stats_decision_full", "closest_mean",
                                 "plane_singles", "pair_stats_decision_plane", "kmer_count",
                                 "window_absorb_block", "closest_candidates_block")
+# the accumulate loop's window and seed (ops/window_select.py): every path
+# that runs the step kernel launches it, no other
+for _path in NEEDS:
+    if "window_absorb" in NEEDS[_path]:
+        NEEDS[_path] += ("window_select",)
+    else:
+        FORBIDS[_path] += ("window_select",)
 # the kernels whose launches the one-rank session (m3) and the default path
 # (f) share to the launch; their pair_stats_decision launches differ by their
 # warm-ups alone (the default session's scorer and updater, MultihostScorer's)
-SAME_LAUNCHES = ("window_absorb", "closest_candidates", "phase_layout", "merge_replay")
+SAME_LAUNCHES = ("window_absorb", "closest_candidates", "phase_layout", "merge_replay",
+                 "window_select")
 WARM_UP_DIFF = 4
 # the training run of this slice: the JAX CLI's default training flags
 TRAIN_FLAGS = ["--id", "0.9", "--kmer", "5", "--feat", "fast",
@@ -2672,7 +2680,7 @@ def profile_flag_phase(torch_cli, wrappers, launches, weights, fasta, tmp, ref_s
     kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel")
     by_kernel = {k: sum(n for name, n in kernels.items() if k in name)
                  for k in ("pair_stats_kernel", "window_step_kernel", "layout_kernel",
-                           "replay_kernel")}
+                           "replay_kernel", "window_select_kernel")}
     missing = [k for k, n in by_kernel.items() if n == 0]
     if missing:
         raise AssertionError(f"--profile's trace holds no CUDA events of {missing}; "
@@ -2720,6 +2728,7 @@ def main() -> int:
                                                 closest_candidates_block, merge_replay,
                                                 phase_layout)
     from meshclust2_tpu_torch.ops.kmer_count import kmer_count
+    from meshclust2_tpu_torch.ops.window_select import WindowSelect
     from meshclust2_tpu_torch.cluster import device_phase
     from meshclust2_tpu_torch.cluster.device_phase import TorchDevicePhaseUpdater
     from meshclust2_tpu_torch.cluster.device_store import DeviceStore
@@ -2733,7 +2742,8 @@ def main() -> int:
                 "phase_layout": phase_layout, "closest_candidates": closest_candidates,
                 "merge_replay": merge_replay, "kmer_count": kmer_count,
                 "window_absorb_block": window_step_block,
-                "closest_candidates_block": closest_candidates_block}
+                "closest_candidates_block": closest_candidates_block,
+                "window_select": WindowSelect}
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
 

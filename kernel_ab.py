@@ -3,7 +3,7 @@
 repository, on one card, in turns.
 
     python3 kernel_ab.py ROOT [ROOT ...] [--order 0,1,1,0] [--out FILE]
-                         [--phase | --kmer | --block]
+                         [--phase | --kmer | --block | --window]
 
 Each run is a process of its own that imports the port of one checkout
 (`meshclust2_tpu_torch` from that root), builds its kernels into the
@@ -52,6 +52,17 @@ pair-statistics library and a SHA-256 of each fast instantiation's SASS
 (cuobjdump), keyed by (count type, NV, NARROW), so that two checkouts'
 fast kernels can be compared.
 
+With --window it times the accumulate step's window and seed
+(cluster/device_loop.py: a checkout's torch operations, `_window_ops` after
+`_seed`, or the one launch of ops/window_select.py) on seeded pools of the
+clustering cells' sizes (WINDOW_SHAPES: 10,000 and 100,000 rows of lengths
+800-1,499 in bins of 1,000, half of them alive, `window_pool`), each from
+the same state: the device time of what a step issues (by CUDA events
+behind a busy wait), the host's time to issue it, and the whole call with
+the step's read (host clock, medians of 21); the one launch is held
+against its plain twin bit for bit, and every checkout's reads (the seven
+integers and the candidates' sum) must agree.
+
 With --block it times the row-sharded session's step and pass
 (parallel/multihost_session.py) as the sequence a rank runs from its own
 candidates' statistics (the step) or its own pairs' filter bits (the pass)
@@ -95,6 +106,9 @@ PHASE_DELTA = 5
 KMER_SHAPES = {"10k": 10_000, "100k": 100_000}
 # the seed of --kmer's 2 Mbp record
 KMER_SEED = 20261018
+# --window's pools: the two clustering cells' sizes, and their seed
+WINDOW_SHAPES = {"10k": 10_000, "100k": 100_000}
+WINDOW_SEED = 20261019
 
 
 def phase_bytes(n: int, n_slots: int, n_alive: int, n_pairs: int, delta: int) -> dict:
@@ -771,6 +785,122 @@ def one_block(root: str) -> dict:
     return out
 
 
+def window_pool(np, torch, dev, n: int):
+    """--window's pool: n seeded rows of lengths 800-1,499 and 1,024 counts
+    of 1-39 in the benchmark's bins of 1,000, an accumulator over them on
+    the card, half of them alive at random, and a center."""
+    from meshclust2_tpu_torch.cluster.bvec import BVec
+    from meshclust2_tpu_torch.cluster.device_loop import TorchDeviceAccumulator
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.kmer.counting import PointSet
+    from meshclust2_tpu_torch.model.classifier import CompiledModel
+    from meshclust2_tpu_torch.model.weights import load_weights
+
+    w = load_weights(os.path.join("tests", "fixtures", "med2000_weights.txt"))
+    rng = np.random.default_rng(WINDOW_SEED + n)
+    counts = rng.integers(1, 40, (n, D), dtype=np.uint8)
+    lengths = np.sort(rng.integers(800, 1_500, n)).astype(np.int64)
+    ps = PointSet(k=5, headers=[f"s{i}" for i in range(n)], counts=counts,
+                  one_mers=rng.integers(1, 400, (n, 4)).astype(np.uint64), lengths=lengths,
+                  mags=counts.astype(np.int64).sum(axis=1), stddevs=rng.random(n) + 0.5,
+                  ids=np.arange(n))
+    bv = BVec(ps.lengths, 1_000)
+    bv.insert_all(ps.lengths)
+    bv.insert_finalize(ps.lengths)
+    acc = TorchDeviceAccumulator(ps, CompiledModel(w.classifier), w.id_cutoff,
+                                 DeviceStore.from_pointset(ps, dev))
+    acc.ensure_ready(bv)
+    alive = rng.random(n) < 0.5
+    carry = {"alive0": alive, "assign0": np.where(alive, -1, 0), "astep0": np.zeros(n, np.int64),
+             "centers0": np.zeros(n, np.int64), "cid0": 1, "stepc0": n + 2,
+             "cur0": int(rng.integers(n // 3, 2 * n // 3)),
+             "msum0": np.zeros(D, np.int64), "done0": False}
+    return acc, carry
+
+
+def one_window(root: str) -> dict:
+    """--window: the accumulate step's window and seed of checkout `root` at
+    WINDOW_SHAPES, in the checkout's own design."""
+    sys.path.insert(0, root)
+    import time
+
+    import numpy as np
+    import torch
+    import meshclust2_tpu_torch
+    assert os.path.dirname(os.path.dirname(meshclust2_tpu_torch.__file__)) == root
+    from meshclust2_tpu_torch.cluster.device_loop import TorchDeviceAccumulator
+    from meshclust2_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    fused = hasattr(TorchDeviceAccumulator, "_seed_window")
+    out = {"root": root, "card": torch.cuda.get_device_name(0), "fast_kernels": {},
+           "ptxas": [], "us": {}, "shapes": {}, "fused": fused}
+    if fused:
+        out["ptxas"] = [ln.strip() for ln in _build.load("window_select").log.splitlines()
+                        if "registers" in ln or "spill" in ln or "entry function" in ln]
+    for shape, n in WINDOW_SHAPES.items():
+        acc, carry = window_pool(np, torch, dev, n)
+        cur_d = acc._upload(carry, n)[-1]
+        trip = torch.tensor([0, 0, 0, carry["cur0"]], dtype=torch.int64, device=dev)
+        state = [acc._alive, acc._assign, acc._astep, acc._members, acc._msum, acc._crank0]
+        acc._window(cur_d, None)   # the ranks of this state, as the loop has them
+        saved = [t.clone() for t in state]
+
+        def restore():
+            for t, t0 in zip(state, saved):
+                t.copy_(t0)
+
+        if fused:
+            issue = {"window": lambda: acc._sel.window(trip.data_ptr() + 24, trip.data_ptr()),
+                     "seed": lambda: acc._sel.seed(7, n + 9)}
+            step = {"window": lambda: acc._window(trip[3:], trip),
+                    "seed": lambda: acc._seed_window(7, n + 9)}
+        else:
+            def old_seed(read):
+                seed = (torch.searchsorted(acc._crank0, 1) - 1).view(1)
+                acc._seed(seed, 7, n + 9)
+                return acc._window(seed, None) if read else acc._window_ops(seed, None)
+
+            issue = {"window": lambda: acc._window_ops(trip[3:], trip),
+                     "seed": lambda: old_seed(False)}
+            step = {"window": lambda: acc._window(trip[3:], trip),
+                    "seed": lambda: old_seed(True)}
+        reads = {}
+        for mode in ("window", "seed"):
+            restore()
+            got = step[mode]()
+            reads[mode] = list(got if mode == "window" else got[1] if fused else got)
+            reads[mode].append(int(acc._cand[:reads[mode][4]].sum()))
+            if fused:   # the kernel against its plain twin on the same state
+                cand = acc._cand[:reads[mode][4]].clone()
+                after = [t.clone() for t in state[:5]]
+                restore()
+                if mode == "window":
+                    want = torch.cat(acc._window_ops(trip[3:], trip)).tolist()
+                else:
+                    seed = (torch.searchsorted(acc._crank0, 1) - 1).view(1)
+                    acc._seed(seed, 7, n + 9)
+                    want = torch.cat(acc._window_ops(seed, None)).tolist()
+                if (want != reads[mode][:7] or not torch.equal(cand, acc._cand[:want[4]])
+                        or not all(torch.equal(a, b) for a, b in zip(after, state[:5]))):
+                    raise AssertionError(f"{root}: window_select differs from its plain "
+                                         f"twin ({shape}, {mode}): {reads[mode]} != {want}")
+            out["us"][f"{mode} {shape} device"] = device_us(issue[mode], setup=restore)
+            walls = {"issue": [], "step": []}
+            for _ in range(21):
+                for kind, fn in (("issue", issue[mode]), ("step", step[mode])):
+                    restore()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    walls[kind].append((time.perf_counter() - t0) * 1e6)
+                    torch.cuda.synchronize()
+            out["us"][f"{mode} {shape} issue"] = statistics.median(walls["issue"])
+            out["us"][f"{mode} {shape} step"] = statistics.median(walls["step"])
+        out["shapes"][shape] = dict(n=n, reads=reads)
+    return out
+
+
 def one_kmer(root: str) -> dict:
     """The k-mer kernel's timings of checkout `root` at KMER_SHAPES."""
     sys.path.insert(0, root)
@@ -883,12 +1013,14 @@ def main(argv=None) -> int:
                       help="time the k-mer histogram kernel at KMER_SHAPES")
     mode.add_argument("--block", action="store_true",
                       help="time the row-sharded session's step and pass sequences")
+    mode.add_argument("--window", action="store_true",
+                      help="time the accumulate step's window and seed at WINDOW_SHAPES")
     args = ap.parse_args(argv)
     flag = (["--phase"] if args.phase else ["--kmer"] if args.kmer
-            else ["--block"] if args.block else [])
+            else ["--block"] if args.block else ["--window"] if args.window else [])
     if args.one:
         run = (one_phase if args.phase else one_kmer if args.kmer
-               else one_block if args.block else one)
+               else one_block if args.block else one_window if args.window else one)
         print(json.dumps(run(os.path.abspath(args.roots[0]))), flush=True)
         return 0
     roots = [os.path.abspath(r) for r in args.roots]
@@ -904,7 +1036,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"kernel_ab: the run of {roots[i]} exited {proc.returncode}")
         got = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(got)
-        extra = (f"shapes {got['shapes']}" if args.phase or args.kmer or args.block
+        extra = (f"shapes {got['shapes']}" if flag
                  else f"plane store {got['plane_store_bytes']:,} bytes")
         print(f"run {len(runs)}: {roots[i]}: " + ", ".join(
             f"{k} {v:.2f}" for k, v in got["us"].items()) + f"; {extra}; {got['card']}",
@@ -912,7 +1044,7 @@ def main(argv=None) -> int:
     # a cached build has no ptxas log: its resources are compared where
     # both runs compiled
     ok = True
-    if args.phase or args.kmer or args.block:
+    if flag:
         for root in roots:
             print(f"ptxas, {root}: " + "; ".join(next(
                 (r["ptxas"] for r in runs if r["root"] == root and r["ptxas"]), [])))
@@ -925,7 +1057,12 @@ def main(argv=None) -> int:
         if diff:
             print(f"fast instantiations differ ({r['root']} vs {runs[0]['root']}): {diff}")
             ok = False
-    if not (args.phase or args.kmer or args.block):
+    if args.window:
+        for r in runs[1:]:
+            if r["shapes"] != runs[0]["shapes"]:
+                print(f"the windows' reads differ ({r['root']} vs {runs[0]['root']})")
+                ok = False
+    if not flag:
         print(f"fast instantiations (count type, NV, NARROW): {len(first)}, same SASS and "
               f"ptxas resources in every run: {ok}; " + "; ".join(
                   f"{k}: {v[0]}" for k, v in sorted(first.items())), flush=True)

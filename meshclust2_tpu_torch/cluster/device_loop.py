@@ -7,12 +7,14 @@ dispatch, because its chip sits behind a slow link; on a locally attached
 card the loop stays in Python and the state stays on the card: the pool's
 alive flags, every row's cluster and absorb stamp, the open cluster's
 member list and column sums, the current center.  Each step launches the
-window bounds, the pair-statistics kernel with the float64 epilogue fused
-in (one launch), then one step kernel (ops/window_absorb.py:window_step)
-that decides the window, applies its case to the state under the decision
-flags and moves the center to the member closest to the mean; the host reads back one
-small packed vector: the step's decision and the next window's size, so
-it learns the case only at that one read.
+pair-statistics kernel with the float64 epilogue fused in (one launch),
+then one step kernel (ops/window_absorb.py:window_step) that decides the
+window, applies its case to the state under the decision flags and moves
+the center to the member closest to the mean, then the next window's
+kernel (ops/window_select.py, which also seeds the next cluster in a step
+without candidates); the host reads back one small packed vector: the
+step's decision and the next window's size, so it learns the case only at
+that one read.
 
 The host half of the JAX accumulator is copied here, none of it device
 code: the margins (`resolve_margins`), the exact-integer envelope
@@ -44,6 +46,7 @@ import torch
 from ..kmer.counting import PointSet
 from ..model import thresholds as TH
 from ..model.classifier import CompiledModel, model_to_torch
+from ..ops import window_select
 from ..ops.device_features import check_fused
 from ..ops.pair_stats import has_vector, pair_stats_decision
 from ..ops.window_absorb import StepState, _rows_i64, step_scratch, window_step
@@ -169,6 +172,7 @@ class TorchDeviceAccumulator:
         # a model with full-vector singles: an exact tie needs equal rows
         self.full = has_vector(self.params)
         self._ready = None
+        self._sel: Optional[window_select.WindowSelect] = None
         self.error: Optional[BaseException] = None
         self.total_steps = self.aborts = self.window_aborts = 0
         self.last_steps = self.last_windows = self.last_pairs = 0
@@ -395,9 +399,22 @@ class TorchDeviceAccumulator:
         self._cand = torch.zeros(n + 1, dtype=torch.int64, device=d)
         self._scratch = step_scratch(n, d)   # the step kernel's, once
         self._ready = (host, dev)
+        self._sel = self._select_kernel()
         self._warm()
         self.total_steps = self.aborts = self.window_aborts = 0
         self.error = None
+
+    def _select_kernel(self, **extra) -> Optional[window_select.WindowSelect]:
+        """The window's kernel over this pool's buffers on a card (None on
+        the CPU, where `_window_ops` and `_seed` run, and for an empty
+        pool); `extra`: WindowSelect's `rows` and `own` for a row-sharded
+        store."""
+        S = self._s
+        if self.device.type != "cuda" or not len(S["order"]):
+            return None
+        return window_select.WindowSelect(
+            self.store.counts, S["order"], S["lens"], S["key"], S["tab"], S["bin_start"],
+            self._crank0, self._cand, **extra)
 
     def _warm(self) -> None:
         """One step of each kernel on a throwaway one-row pool."""
@@ -406,6 +423,8 @@ class TorchDeviceAccumulator:
         order = self._s["order"][:1]
         if not len(order):
             return
+        if self._sel is not None:
+            window_select.warm(st.counts)
         z = torch.zeros(1, dtype=torch.int64, device=dev)
         rows = order[z]
         stats, dec = pair_stats_decision(st, self.params, rows, rows)
@@ -467,13 +486,11 @@ class TorchDeviceAccumulator:
                     stepc += 1
                     done = True
                     break
-                with span("accumulate.seed"):
-                    cur_d = (torch.searchsorted(self._crank0, 1) - 1).view(1)
-                    self._seed(cur_d, cid + 1, stepc)
+                cur_d, (_, _, _, cur, n_cand, have, total) = \
+                    self._seed_window(cid + 1, stepc)
                 cid += 1
                 stepc += 1
                 mcnt = 1
-                _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
                 continue
             with span("accumulate.scan"):
                 trip = self._scan(n_cand, cur_d, cid, stepc, mcnt, cur)
@@ -534,6 +551,9 @@ class TorchDeviceAccumulator:
         self._alive = flat[:n].bool()
         self._assign, self._astep, self._members, self._msum, cur_d = \
             torch.split(flat[n:], [n, n, n + 1, d, 1])
+        if self._sel is not None:
+            self._sel.bind(self._alive, self._assign, self._astep, self._members,
+                           self._msum)
         return cid, stepc, cur, centers, mcnt, cur_d
 
     def _window(self, cur_d: torch.Tensor, trip: Optional[torch.Tensor]
@@ -541,20 +561,46 @@ class TorchDeviceAccumulator:
         """The candidates of the window of flat position cur_d into
         `_cand[:W]`, then the step's one read: (bits, npos, closest-to-mean
         uncertain) from the step's `trip` (zeros without), cur, W, whether
-        the window exists, and the pool's size.  Issuing the window's
-        operations is the span `accumulate.window`, the read (the host's
-        wait on the card) `accumulate.read`."""
+        the window exists, and the pool's size.  Issuing the window (one
+        launch of ops/window_select.py on a card, `_window_ops` on the CPU)
+        is the span `accumulate.window`, the read (the host's wait on the
+        card) `accumulate.read`."""
         with span("accumulate.window"):
-            parts = self._window_ops(cur_d, trip)
+            if self._sel is None:
+                rd = torch.cat(self._window_ops(cur_d, trip))
+            else:
+                rd = self._sel.window(cur_d.data_ptr(),
+                                      0 if trip is None else trip.data_ptr())
+        return self._read(rd)
+
+    def _seed_window(self, cid: int, stepc: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+        """A step without candidates in a pool that is not empty: its first
+        alive row opens cluster cid at stamp stepc (`_seed`), then the
+        window of that seed as `_window`'s.  Returns the seed's flat
+        position on the card and the read.  Issuing both (one launch on a
+        card) is the span `accumulate.seed`."""
+        with span("accumulate.seed"):
+            if self._sel is None:
+                cur_d = (torch.searchsorted(self._crank0, 1) - 1).view(1)
+                self._seed(cur_d, cid, stepc)
+                rd = torch.cat(self._window_ops(cur_d, None))
+            else:
+                rd = self._sel.seed(cid, stepc)
+                cur_d = self._sel.center
+            self._seed_sum()
+        return cur_d, self._read(rd)
+
+    def _read(self, rd: torch.Tensor) -> Tuple[int, ...]:
+        """The step's one read of the window's integers `rd`."""
         with span("accumulate.read"):
-            got = torch.cat(parts).tolist()
+            got = rd.tolist()
         self._take_extra(got[7:])
         return tuple(got[:7])
 
     def _window_ops(self, cur_d: torch.Tensor, trip: Optional[torch.Tensor]
                     ) -> list:
         """The window's operations, issued: the tensors of the step's one
-        read.
+        read.  The plain twin of ops/window_select.py, on the CPU.
 
         device_loop.py:_build_program.body (l. 1358-1405): ranks from the
         alive cumsum; the bvec's in-bin lower bound with `high` starting at
@@ -631,9 +677,14 @@ class TorchDeviceAccumulator:
         return self._step(S["order"], cand, dec, stats, state, cur_d, cid,
                           stepc, mcnt)
 
+    def _seed_sum(self) -> None:
+        """After a seed: msum from every rank's part (a row-sharded
+        store's collective)."""
+
     def _seed(self, seed: torch.Tensor, cid: int, stepc: int) -> None:
         """A step without candidates: flat position `seed` leaves the pool
-        and opens cluster cid at stamp stepc, alone in the member list."""
+        and opens cluster cid at stamp stepc, alone in the member list (the
+        seed mode's plain twin, on the CPU)."""
         self._alive[seed] = False
         self._assign[seed] = cid
         self._astep[seed] = stepc

@@ -69,6 +69,7 @@ from ..cluster.device_phase import TorchDevicePhaseUpdater
 from ..cluster.device_session import BIN_SIZE
 from ..cluster.device_store import DeviceStore
 from ..cluster.device_update import TorchDeviceUpdater
+from ..ops import window_select
 from ..ops.closest_mean import PART, RowBlock
 from ..ops.pair_stats import has_vector, pair_stats_decision
 from ..ops.phase import (PhaseState, closest_candidates_block, exchange_dtype,
@@ -196,9 +197,9 @@ class ShardedAccumulator(OneRankAccumulator):
         self.step_collectives: Counter = Counter()
 
     def _warm(self) -> None:
-        """The rank's buffers, then each phase of the block mode once on a
-        throwaway one-row pool of a row the rank holds, as a one-rank
-        exchange (no collective)."""
+        """The rank's buffers, the window's kernel once, then each phase of
+        the block mode once on a throwaway one-row pool of a row the rank
+        holds, as a one-rank exchange (no collective)."""
         self.block_steps = 0
         self.step_collectives = Counter()
         n = len(self._s["order"])
@@ -207,13 +208,13 @@ class ShardedAccumulator(OneRankAccumulator):
         i64 = dict(dtype=torch.int64, device=dev)
         order = self._s["order"]
         self._own = (order >= self.rows.lo) & (order < self.rows.hi)
-        self._own_pos = torch.zeros(n + 1, **i64)    # slot n a sink
-        self._own_rows = torch.zeros(n + 1, **i64)
         self._own_k = 0
         self._rank_part = torch.zeros(PART, **i64)
         self._xbuf = torch.zeros(step_xbuf_len(n, d, size, self.coll.mesh.world), **i64)
         self._slot_t = torch.tensor([self._slot], **i64)
         self._slot_row = -1
+        if self._sel is not None:
+            window_select.warm(self.store.counts)
         if self.rows.hi == self.rows.lo:
             return
         one = torch.tensor([self.rows.lo], **i64)
@@ -230,6 +231,16 @@ class ShardedAccumulator(OneRankAccumulator):
             window_step_block(phase, self._blk, one, z, state, z, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def _select_kernel(self):
+        """The window's kernel with the rank's own candidates: their window
+        positions into _own_pos, their block rows into _own_rows (slot n of
+        each the plain twin's scatter sink)."""
+        n = len(self._s["order"])
+        self._own_pos = torch.zeros(n + 1, dtype=torch.int64, device=self.device)
+        self._own_rows = torch.zeros(n + 1, dtype=torch.int64, device=self.device)
+        return super()._select_kernel(rows=(self.rows.lo, self.rows.hi),
+                                      own=(self._own_pos, self._own_rows))
 
     def _step_kw(self, cid: int, stepc: int, mcnt: int) -> dict:
         return dict(cid=cid, stepc=stepc, mcnt=mcnt, pos_edge=self.pos_edge,
@@ -300,7 +311,8 @@ class ShardedAccumulator(OneRankAccumulator):
 
     def _seed(self, seed: torch.Tensor, cid: int, stepc: int) -> None:
         """A step without candidates: the seed leaves the pool and opens
-        cluster cid alone; msum is its row, from its owner."""
+        cluster cid alone; msum is its row where the rank owns it, zeros
+        elsewhere (`_seed_sum` adds the ranks' parts)."""
         self._alive[seed] = False
         self._assign[seed] = cid
         self._astep[seed] = stepc
@@ -310,6 +322,8 @@ class ShardedAccumulator(OneRankAccumulator):
         own = ((row >= rows.lo) & (row < rows.hi)).to(torch.int64)
         local = (row - rows.lo).clamp(0, self.store.counts.shape[0] - 1)
         self._msum.copy_((_rows_i64(self.store.counts, local) * own[:, None])[0])
+
+    def _seed_sum(self) -> None:
         self.coll.sum_(self._msum)
 
 

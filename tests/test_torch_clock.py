@@ -171,18 +171,26 @@ def run_cli(fixtures_dir, tmp_path, name, *extra, pool="small"):
 def test_cli_spans_cover_the_accumulate_and_set_up_parts(fixtures_dir, tmp_path,
                                                          monkeypatch):
     reads = []
-    window = TorchDeviceAccumulator._window
+    window, seed_window = TorchDeviceAccumulator._window, TorchDeviceAccumulator._seed_window
 
     def counted(self, *a):
-        reads.append(1)
+        reads.append("window")
         return window(self, *a)
 
+    def seeded(self, *a):
+        reads.append("seed")
+        return seed_window(self, *a)
+
     monkeypatch.setattr(TorchDeviceAccumulator, "_window", counted)
+    monkeypatch.setattr(TorchDeviceAccumulator, "_seed_window", seeded)
     res, _, rec = run_cli(fixtures_dir, tmp_path, "out.clstr")
     assert rec.run == res.clock.run and rec.stamps == res.clock.stamps
     spans = rec.spans
-    # one read a call of the step's window, each after its issue
-    assert spans["accumulate.read"][1] == spans["accumulate.window"][1] == len(reads)
+    # one read a call of the step's window or of a seed with its window,
+    # each after its issue
+    assert spans["accumulate.read"][1] == len(reads)
+    assert spans["accumulate.window"][1] == reads.count("window")
+    assert spans.get("accumulate.seed", (0, 0))[1] == reads.count("seed")
     assert len(reads) >= res.accumulator.total_steps > 0
     # a step scans its window, or seeds the next cluster, or ends the pool
     steps = spans["accumulate.scan"][1] + spans.get("accumulate.seed", (0, 0))[1]

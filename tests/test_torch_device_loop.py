@@ -146,6 +146,122 @@ def test_window_equals_host_bvec(med_acc, seed):
     assert checked > 50
 
 
+def set_state(acc, alive):
+    """The loop state of a pool with these alive flags (the dead rows in
+    cluster 7 at stamp 3, the member list and msum filled with junk)."""
+    n, d = len(alive), acc.store.counts.shape[1]
+    acc._alive = torch.from_numpy(alive).clone()
+    acc._assign = torch.from_numpy(np.where(alive, -1, 7).astype(np.int64))
+    acc._astep = torch.from_numpy(np.where(alive, 0, 3).astype(np.int64))
+    acc._members = torch.arange(n + 1, dtype=torch.int64)
+    acc._msum = torch.full((d,), 5, dtype=torch.int64)
+
+
+def state_copy(acc):
+    return [t.clone() for t in (acc._alive, acc._assign, acc._astep, acc._members,
+                                acc._msum)]
+
+
+def host_window(ps, order, bin_start, bounds, alive, sim, cur):
+    """The host BVec's window of flat position cur over the alive rows
+    (cluster/engine.py:221-236): its rows in flat order and whether the
+    window exists."""
+    pool = BVec(ps.lengths, 37)
+    pool.begin_bounds = list(bounds)
+    pool._bounds_arr = np.asarray(pool.begin_bounds, dtype=np.int64)
+    pool._lengths = np.asarray(ps.lengths, dtype=np.int64)
+    pool.bins = [order[b0:b1][alive[b0:b1]] for b0, b1 in
+                 zip(bin_start[:-1], bin_start[1:])]
+    pool.marks = [np.zeros(len(b), bool) for b in pool.bins]
+    length = int(ps.lengths[order[cur]])
+    begin, end = int(length * sim), int(length / sim)
+    front, back, back_empty = pool.get_range(begin, end)
+    rows = np.zeros(0, np.int64) if back_empty else pool.window(front, back)[0]
+    lens = ps.lengths[rows]
+    return rows[(lens >= begin) & (lens <= end)], len(rows) > 0
+
+
+@pytest.mark.parametrize("keep", [0.9, 0.5, 0.1, 0.01])
+@pytest.mark.parametrize("edges", [False, True])
+def test_seed_window_equals_seed_then_window_ops(med_acc, keep, edges):
+    """The plain twin's seed mode (`_seed_window`, what a step without
+    candidates runs on the CPU) against the present sequence: the first
+    alive row through `_seed`, then `_window_ops` of it.  The read,
+    `_cand[:W]` and the state after the seed are equal, the seed's stamps
+    and msum are its own, and the window is the host BVec's; with `edges`
+    the first and last bins are empty."""
+    acc, ps, bv, sim = med_acc
+    host = acc._ready[0]
+    order, bin_start = host["order"], host["bin_start"]
+    rng = np.random.default_rng(int(keep * 100) + edges)
+    n = ps.n
+    for _ in range(3):
+        alive = rng.random(n) < keep
+        if edges:
+            alive[:bin_start[1]] = False
+            alive[bin_start[-2]:] = False
+        if not alive.any():
+            alive[rng.integers(0, n)] = True
+        set_state(acc, alive)
+        acc._window(torch.tensor([int(rng.integers(0, n))]), None)  # the step before
+        start = state_copy(acc)
+        cid, stepc = int(rng.integers(1, 50)), int(rng.integers(2, 4 * n))
+        cur_d, got = acc._seed_window(cid, stepc)
+        after, cand = state_copy(acc), acc._cand[:got[4]].clone()
+
+        acc._alive, acc._assign, acc._astep, acc._members, acc._msum = start
+        first = int(np.flatnonzero(alive)[0])
+        seed = torch.tensor([first])
+        acc._seed(seed, cid, stepc)
+        want = torch.cat(acc._window_ops(seed, None)).tolist()
+        assert got == tuple(want[:7]) and int(cur_d) == first == got[3]
+        assert torch.equal(cand, acc._cand[:want[4]])
+        for x, y in zip(after, state_copy(acc)):
+            assert torch.equal(x, y)
+        alive_t, assign, astep, members, msum = after
+        assert not alive_t[first] and int(assign[first]) == cid
+        assert int(astep[first]) == stepc and int(members[0]) == first
+        assert torch.equal(msum, torch.from_numpy(
+            ps.counts[order[first]].astype(np.int64)))
+        alive[first] = False
+        rows, have = host_window(ps, order, bin_start, bv.begin_bounds, alive, sim, first)
+        np.testing.assert_array_equal(order[cand.numpy()], rows)
+        assert got[4:] == (len(rows), int(have), int(alive.sum()))
+
+
+def test_seed_window_one_row_pool(fixtures_dir):
+    """A pool of one row: the seed takes it, and the window of a pool that
+    is empty reads W = 0, no window, total 0."""
+    w = load_weights(os.path.join(fixtures_dir, "med2000_weights.txt"))
+    _, ps = load_sorted_points([os.path.join(fixtures_dir, "med2000.fasta")],
+                               [], w.k, w.datatype, False)
+    one = ps.subset(np.array([700]))
+    bv = BVec(one.lengths, 37)
+    bv.insert_all(one.lengths)
+    bv.insert_finalize(one.lengths)
+    acc = TorchDeviceAccumulator(one, CompiledModel(w.classifier), w.id_cutoff,
+                                 DeviceStore.from_pointset(one, "cpu"))
+    acc.ensure_ready(bv)
+    set_state(acc, np.ones(1, bool))
+    assert acc._window(torch.tensor([0]), None) == (0, 0, 0, 0, 0, 0, 1)
+    cur_d, got = acc._seed_window(4, 11)
+    assert got == (0, 0, 0, 0, 0, 0, 0) and int(cur_d) == 0
+    assert [int(t[0]) for t in state_copy(acc)[:4]] == [0, 4, 11, 0]
+    assert torch.equal(acc._msum, torch.from_numpy(one.counts[0].astype(np.int64)))
+
+
+def test_seed_window_empties_the_pool(med_acc):
+    """The last alive row of a pool seeds: the pool empties (total 0)."""
+    acc, ps, _, _ = med_acc
+    alive = np.zeros(ps.n, bool)
+    alive[1_234] = True
+    set_state(acc, alive)
+    acc._window(torch.tensor([5]), None)
+    cur_d, got = acc._seed_window(2, 3)
+    assert got[3:] == (1_234, 0, 0, 0) and int(cur_d) == 1_234
+    assert not acc._alive.any() and int(acc._assign[1_234]) == 2
+
+
 def test_session_sets_the_device_loop_flag_with_an_accumulator(fixtures_dir):
     """The session's accumulator is the engine's one switch of the device
     loop: no scorer flag, and without an accumulator the engine's
