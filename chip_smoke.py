@@ -23,7 +23,11 @@ still gives its reference.  The phase's three kernels (phase_layout,
 closest_candidates: its closest-to-mean with the candidates step folded in,
 and merge_replay) are held against their plain versions on the 10k default
 path's own state after accumulate and timed beside their bounds (d6), and
-torch.profiler times the phase alone on that state (h2).  The k-mer
+torch.profiler times the phase alone on that state (h2).  The accumulate
+loop's window kernel (window_select: the window, and the seed before it, in
+one launch) is held bit for bit against its plain twin on the 10k default
+path's loop state before a scan window and before a seed, and on a seeded
+100k pool, and timed beside its bound (d7).  The k-mer
 histogram kernel (MC2_DEVICE_COUNT's build) is held byte for byte against
 its plain version and the native counter on the 10k set, a saturating
 record, records with N runs, a 2 Mbp record split at 1 Mbp, a homopolymer
@@ -229,6 +233,9 @@ for _path in NEEDS:
 # the kernels whose launches the one-rank session (m3) and the default path
 # (f) share to the launch; their pair_stats_decision launches differ by their
 # warm-ups alone (the default session's scorer and updater, MultihostScorer's)
+# (d7): the scan window and the seed of the 10k default path's accumulate
+# loop whose loop state window_select is held and timed on
+WINDOW_AT = 200
 SAME_LAUNCHES = ("window_absorb", "closest_candidates", "phase_layout", "merge_replay",
                  "window_select")
 WARM_UP_DIFF = 4
@@ -774,6 +781,87 @@ def phase_kernel_checks(ph, clusters, card: str) -> dict:
                 f"{rec['closest_candidates']['device_us']:.2f} us; {card}")
     wide_phase_checks(dev, rec, card)
     rec["closest_candidates_block"] = block_rec
+    return rec
+
+
+def window_cases(acc, recorded: dict, n: int) -> dict:
+    """(d7)'s cases over accumulator `acc`: the window and the seed that
+    `recorded` holds ({mode: (loop state, call)}, the loop state the
+    accumulator's six tensors as they stood before the call)."""
+    return {f"{mode} {n // 1000}k": (acc, state, call)
+            for mode, (state, call) in recorded.items()}
+
+
+def window_kernel_checks(cases: dict, card: str) -> dict:
+    """(d7) window_select (ops/window_select.py) against its plain twin
+    (cluster/device_loop.py: `_window_ops`, after `_seed` in a seed step) on
+    the card, each case from copies of one loop state (alive, assign,
+    astep, members, msum, and the ranks a seed reads): exact on the read,
+    cand[:W], the ranks, and alive, assign, astep, members and msum; then
+    the kernel's time (CUDA events), its device time behind a busy wait,
+    the twin's time, and the bound: the alive flags read and the n + 1
+    ranks written, the window's lengths read and its candidates written,
+    and a seed's row read and msum written."""
+    import torch
+
+    rec = {}
+    for name, (acc, state, call) in cases.items():
+        tensors = [acc._alive, acc._assign, acc._astep, acc._members, acc._msum,
+                   acc._crank0]
+
+        def restore():
+            for t, t0 in zip(tensors, state):
+                t.copy_(t0)
+
+        if "trip" in call:
+            center, trip = call["center"], call["trip"]
+
+            def kernel():
+                return acc._sel.window(center.data_ptr(), trip.data_ptr())
+
+            def plain():
+                return torch.cat(acc._window_ops(center, trip))
+        else:
+            cid, stepc = call["cid"], call["stepc"]
+
+            def kernel():
+                return acc._sel.seed(cid, stepc)
+
+            def plain():
+                seed = (torch.searchsorted(acc._crank0, 1) - 1).view(1)
+                acc._seed(seed, cid, stepc)
+                return torch.cat(acc._window_ops(seed, None))
+
+        got = []
+        for fn in (kernel, plain):
+            restore()
+            rd = fn().tolist()
+            got.append((rd, acc._cand[:rd[4]].clone(), [t.clone() for t in tensors]))
+        (rd, cand, after), (want, cand_p, after_p) = got
+        if rd != want or not torch.equal(cand, cand_p):
+            raise AssertionError(f"window_select ({name}): read {rd} != {want}, or "
+                                 f"cand[:W] differs from its plain twin")
+        for f, a, b in zip(("alive", "assign", "astep", "members", "msum", "crank"),
+                           after, after_p):
+            if not torch.equal(a, b):
+                raise AssertionError(f"window_select ({name}): {f} differs from its "
+                                     f"plain twin")
+        n, W = len(acc._alive), rd[4]
+        d = acc.store.counts.shape[1]
+        nbytes = n + 8 * (n + 1) + 16 * W
+        if "cid" in call:
+            nbytes += d * acc.store.counts.element_size() + 8 * d
+        b_ms, b_by = bound_ms(nbytes, 0)
+        r = rec[name] = dict(ms=cuda_ms(kernel, reps=50, setup=restore),
+                             plain_ms=cuda_ms(plain, reps=10, setup=restore),
+                             device_us=device_us(kernel, setup=restore), bound_ms=b_ms,
+                             bound_by=b_by, n=n, W=W, total=rd[6])
+        restore()
+        phase("d7", f"window_select, {name} (n = {n}, {rd[6]} alive, W = {W}, center "
+                    f"{rd[3]}): == plain twin (read, cand[:W], ranks, loop state); kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (median, CUDA events), "
+                    f"device {r['device_us']:.2f} us (CUDA events behind a busy wait), bound "
+                    f"{b_ms:.6f} ms ({b_by}, {nbytes} bytes); {card}")
     return rec
 
 
@@ -2730,6 +2818,7 @@ def main() -> int:
     from meshclust2_tpu_torch.ops.kmer_count import kmer_count
     from meshclust2_tpu_torch.ops.window_select import WindowSelect
     from meshclust2_tpu_torch.cluster import device_phase
+    from meshclust2_tpu_torch.cluster.device_loop import TorchDeviceAccumulator
     from meshclust2_tpu_torch.cluster.device_phase import TorchDevicePhaseUpdater
     from meshclust2_tpu_torch.cluster.device_store import DeviceStore
     from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
@@ -3486,6 +3575,31 @@ def main() -> int:
                                       for c in clusters]))
             return real_run(self, clusters, *args, **kwargs)
 
+        # the loop state before the WINDOW_AT-th scan window and seed of the
+        # default path's accumulate loop, for (d7)
+        win10k, win_calls = {}, Counter()
+        real_window = TorchDeviceAccumulator._window
+        real_seed_window = TorchDeviceAccumulator._seed_window
+
+        def loop_state(acc):
+            return [t.clone() for t in (acc._alive, acc._assign, acc._astep, acc._members,
+                                        acc._msum, acc._crank0)]
+
+        def recording_window(self, cur_d, trip):
+            if trip is not None:
+                win_calls["window"] += 1
+                if win_calls["window"] == WINDOW_AT:
+                    win10k["acc"] = self
+                    win10k["window"] = (loop_state(self), dict(center=cur_d.clone(),
+                                                               trip=trip.clone()))
+            return real_window(self, cur_d, trip)
+
+        def recording_seed_window(self, cid, stepc):
+            win_calls["seed"] += 1
+            if win_calls["seed"] == WINDOW_AT:
+                win10k["seed"] = (loop_state(self), dict(cid=cid, stepc=stepc))
+            return real_seed_window(self, cid, stepc)
+
         # the counting part of set-up (the CLI's build_point_set calls)
         count_s = []
         real_bps = torch_cli.build_point_set
@@ -3507,11 +3621,16 @@ def main() -> int:
             default = path == "default"
             device_phase.closest_candidates = recording if default else closest_candidates
             TorchDevicePhaseUpdater.run = recording_run if default else real_run
+            TorchDeviceAccumulator._window = recording_window if default else real_window
+            TorchDeviceAccumulator._seed_window = (recording_seed_window if default
+                                                   else real_seed_window)
             try:
                 res = run_path(torch_cli, path, argv)
             finally:
                 device_phase.closest_candidates = closest_candidates
                 TorchDevicePhaseUpdater.run = real_run
+                TorchDeviceAccumulator._window = real_window
+                TorchDeviceAccumulator._seed_window = real_seed_window
             launches[path] = {name: fn.launches for name, fn in wrappers.items()}
             if res.rc != 0:
                 raise AssertionError(f"port CLI exited {res.rc} on the 10k "
@@ -3569,6 +3688,33 @@ def main() -> int:
                         f"{k} {launches['default'][k]}" for k in (
                             "phase_layout", "closest_candidates", "merge_replay",
                             "closest_mean")))
+
+        # (d7) window_select against its plain twin on the 10k default path's
+        # loop state before its WINDOW_AT-th scan window and seed, and on
+        # kernel_ab.py's seeded 100k pool (half alive) at its center, and
+        # its seed with the first half of the pool gone
+        if set(win10k) != {"acc", "window", "seed"}:
+            raise AssertionError(f"the 10k default path's accumulate loop ran "
+                                 f"{dict(win_calls)} scan windows and seeds")
+        from kernel_ab import window_pool
+
+        acc100k, carry100k = window_pool(np, torch, dev, 100_000)
+
+        def state100k(alive):   # the loop state and its ranks
+            acc100k._window(acc100k._upload(dict(carry100k, alive0=alive), 100_000)[-1],
+                            None)
+            return loop_state(acc100k)
+
+        trip100k = torch.tensor([0, 2, 0, carry100k["cur0"]], dtype=torch.int64, device=dev)
+        alive100k = carry100k["alive0"]
+        win100k = {"window": (state100k(alive100k), dict(center=trip100k[3:].clone(),
+                                                         trip=trip100k)),
+                   "seed": (state100k(alive100k & (np.arange(100_000) >= 50_000)),
+                            dict(cid=7, stepc=100_009))}
+        win_timing = window_kernel_checks(
+            {**window_cases(win10k.pop("acc"), win10k, 10_000),
+             **window_cases(acc100k, win100k, 100_000)}, card)
+        del acc100k, win100k
 
         # (k) the k-mer histogram kernel against its plain version and the
         # native counter, and its time on the 10k set's records
@@ -3952,6 +4098,10 @@ def main() -> int:
     # the candidates, the replay
     pl, pc, pr, pcb = (phase_timing[k] for k in ("phase_layout", "closest_candidates",
                                                  "merge_replay", "closest_candidates_block"))
+    # window_select at (d7)'s cases: the 10k default path's scan window and
+    # seed, and the seeded 100k pool's
+    ws, ws_seed, ws100k, ws100k_seed = (win_timing[k] for k in (
+        "window 10k", "seed 10k", "window 100k", "seed 100k"))
     # launches: each record's path (training, then clustering with the
     # trained model; the last record: fastcar's search, at its largest
     # slice); library_ms: no PyTorch call computes any of these functions
@@ -4172,6 +4322,37 @@ def main() -> int:
         "device_us": pr["device_us"],
         "wide_slots": pr["wide_slots"],
         "wide_device_us": pr["wide_device_us"],
+    }, {
+        "name": "window_select",
+        "path": "clustering, 10k default path (f); held and timed at its loop state "
+                "before a scan window and a seed, and on a seeded 100k pool (d7)",
+        "route": "cuda",
+        "source": "meshclust2_tpu_torch/csrc/window_select.cu",
+        "replaces": "meshclust2_tpu/cluster/device_loop.py:1358",
+        "launches": launches["default"]["window_select"],
+        "max_abs_err": 0,
+        "ms": ws["ms"],
+        "plain_ms": ws["plain_ms"],
+        "bound_ms": ws["bound_ms"],
+        "bound_by": ws["bound_by"],
+        "library_ms": None,
+        "device_us": ws["device_us"],
+        "n": ws["n"],
+        "W": ws["W"],
+        "seed_ms": ws_seed["ms"],
+        "seed_plain_ms": ws_seed["plain_ms"],
+        "seed_device_us": ws_seed["device_us"],
+        "seed_bound_ms": ws_seed["bound_ms"],
+        "n_100k": ws100k["n"],
+        "W_100k": ws100k["W"],
+        "ms_100k": ws100k["ms"],
+        "plain_ms_100k": ws100k["plain_ms"],
+        "device_us_100k": ws100k["device_us"],
+        "bound_ms_100k": ws100k["bound_ms"],
+        "seed_ms_100k": ws100k_seed["ms"],
+        "seed_plain_ms_100k": ws100k_seed["plain_ms"],
+        "seed_device_us_100k": ws100k_seed["device_us"],
+        "seed_bound_ms_100k": ws100k_seed["bound_ms"],
     }, {
         "name": "kmer_count",
         "path": "clustering, 10k default path with MC2_DEVICE_COUNT=1 (k2); timed "

@@ -407,8 +407,8 @@ class TorchDeviceAccumulator:
     def _select_kernel(self, **extra) -> Optional[window_select.WindowSelect]:
         """The window's kernel over this pool's buffers on a card (None on
         the CPU, where `_window_ops` and `_seed` run, and for an empty
-        pool); `extra`: WindowSelect's `rows` and `own` for a row-sharded
-        store."""
+        pool, which `_launch` finishes without a window); `extra`:
+        WindowSelect's `rows` and `own` for a row-sharded store."""
         S = self._s
         if self.device.type != "cuda" or not len(S["order"]):
             return None
@@ -471,8 +471,9 @@ class TorchDeviceAccumulator:
             cid, stepc, cur, centers, mcnt, cur_d = self._upload(carry, n)
 
         abort = cause = iters = wins = pairs = 0
-        done = bool(carry["done0"])
-        _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
+        done = bool(carry["done0"])   # an empty pool: no window to take
+        if not done:
+            _, _, _, cur, n_cand, have, total = self._window(cur_d, None)
         while not done and iters < 2 * n + 16:
             iters += 1
             wins += have
@@ -566,11 +567,11 @@ class TorchDeviceAccumulator:
         is the span `accumulate.window`, the read (the host's wait on the
         card) `accumulate.read`."""
         with span("accumulate.window"):
-            if self._sel is None:
-                rd = torch.cat(self._window_ops(cur_d, trip))
-            else:
+            if self.device.type == "cuda":
                 rd = self._sel.window(cur_d.data_ptr(),
                                       0 if trip is None else trip.data_ptr())
+            else:
+                rd = torch.cat(self._window_ops(cur_d, trip))
         return self._read(rd)
 
     def _seed_window(self, cid: int, stepc: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -580,13 +581,13 @@ class TorchDeviceAccumulator:
         position on the card and the read.  Issuing both (one launch on a
         card) is the span `accumulate.seed`."""
         with span("accumulate.seed"):
-            if self._sel is None:
+            if self.device.type == "cuda":
+                rd = self._sel.seed(cid, stepc)
+                cur_d = self._sel.center
+            else:
                 cur_d = (torch.searchsorted(self._crank0, 1) - 1).view(1)
                 self._seed(cur_d, cid, stepc)
                 rd = torch.cat(self._window_ops(cur_d, None))
-            else:
-                rd = self._sel.seed(cid, stepc)
-                cur_d = self._sel.center
             self._seed_sum()
         return cur_d, self._read(rd)
 

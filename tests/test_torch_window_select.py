@@ -7,7 +7,8 @@ TorchDeviceAccumulator._window_ops after `_seed` (cluster/device_loop.py).
   between grid barriers), and driven through ops/window_select.py's
   argument block: on med2000's pool (bins of 37, one block) and on seeded
   pools of 12,000 rows (bins of 1,000: three blocks, and two blocks of 32
-  positions a thread where the emulated card holds only two).
+  positions a thread where the emulated card holds only two) and of 30,000
+  (eight blocks).
 - On the card (marked cuda) WindowSelect itself on the 10k and 100k
   shapes of the benchmark's pools (bins of 1,000).
 
@@ -336,6 +337,16 @@ def test_emulated_equals_twin_on_12k_blocks(emu, acc12k, capacity, edges):
     finally:
         emu.emu_set_capacity(1024)
     assert sum(r[4] > 100 for r in reads) > 3
+
+
+@pytest.mark.parametrize("edges", [False, True])
+def test_emulated_equals_twin_on_30k_eight_blocks(emu, edges):
+    """30,000 rows: eight blocks, the last one short, and windows that
+    span several blocks."""
+    acc = seeded_acc(30_000, 17, bin_size=3_000)
+    reads = pool_cases(acc, Kernel(acc, emu), np.random.default_rng(3 + edges),
+                       keeps=(0.9, 0.3), centers=3, edges=edges)
+    assert sum(r[4] > 1_000 for r in reads) > 2
 
 
 def test_emulated_special_cases(emu, med_acc, acc12k):
