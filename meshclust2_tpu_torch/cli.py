@@ -58,10 +58,11 @@ the kernel builds and one warm-up call of each batch happen before the
 only (BASELINE.md methodology); a training run stamps `data_generation` and
 `GLM` inside that window and builds its session after training.  The run's
 clock (utils/clock.py) is the current one while it runs: its spans time
-set-up (`setup.read`, `setup.count`, `setup.session` with `session.upload`
-and `session.warm`), the engine's layers below, and the CLSTR write
-(`update.write`); under `--profile` each span is also a range of the
-trace.
+set-up (`setup.read`, `setup.count` with the rows' moments `setup.moments`,
+`setup.session` with `session.upload` and `session.warm`, and each check of
+the store's integer envelope `session.envelope`), the engine's layers
+below, and the CLSTR write (`update.write`); under `--profile` each span is
+also a range of the trace.
 """
 from __future__ import annotations
 

@@ -49,7 +49,8 @@ from ..model.classifier import CompiledModel, model_to_torch
 from ..ops import window_select
 from ..ops.device_features import check_fused
 from ..ops.pair_stats import has_vector, pair_stats_decision
-from ..ops.window_absorb import StepState, _rows_i64, step_scratch, window_step
+from ..ops.window_absorb import (StepState, _rows_i64, step_scratch, tie_keys,
+                                  window_step)
 from ..utils.clock import span
 from .bvec import BVec
 
@@ -115,14 +116,16 @@ def envelope_check_vals(maxc: int, maxmag: int, maxlen: int,
 
 def envelope_check(ps):
     """Raise DeviceLoopUnsupported outside the exact-arithmetic envelope
-    shared by the device paths; returns every row's self dot product."""
-    maxc = int(ps.counts.max()) if ps.n else 0
-    maxmag = int(ps.mags.max()) if ps.n else 0
-    self_dots = np.einsum(
-        "ij,ij->i", ps.counts.astype(np.int64), ps.counts.astype(np.int64)
-    )
-    envelope_check_vals(maxc, maxmag, int(ps.lengths.max()) if ps.n else 0,
-                        self_dots)
+    shared by the device paths; returns every row's self dot product.  A
+    full pass over the histograms: the span `session.envelope` counts them."""
+    with span("session.envelope"):
+        maxc = int(ps.counts.max()) if ps.n else 0
+        maxmag = int(ps.mags.max()) if ps.n else 0
+        self_dots = np.einsum(
+            "ij,ij->i", ps.counts.astype(np.int64), ps.counts.astype(np.int64)
+        )
+        envelope_check_vals(maxc, maxmag, int(ps.lengths.max()) if ps.n else 0,
+                            self_dots)
     return self_dots
 
 
@@ -171,6 +174,8 @@ class TorchDeviceAccumulator:
         self.params = model_to_torch(model, self.device)
         # a model with full-vector singles: an exact tie needs equal rows
         self.full = has_vector(self.params)
+        # the fields a near candidate shares with the best in an exact tie
+        self.tie = tie_keys(self.params.singles, self.params.combos)
         self._ready = None
         self._sel: Optional[window_select.WindowSelect] = None
         self.error: Optional[BaseException] = None
@@ -440,12 +445,13 @@ class TorchDeviceAccumulator:
               mcnt) -> torch.Tensor:
         """window_step over the fused kernel's decisions `dec` [5, W]: its
         bounds go to the gates (they are 0 for a model without full-vector
-        singles), and `full` asks for row identity in exact ties."""
+        singles), `full` asks for row identity in exact ties, and `tie`
+        names the fields an exact tie shares (`tie_keys`)."""
         return window_step(self.store, order, cand, dec[0], dec[2], stats, state,
                            cur_d, cid=cid, stepc=stepc, mcnt=mcnt,
                            pos_edge=self.pos_edge, margin=self.margin,
                            tie_margin=self.tie_margin, s_err=dec[3],
-                           dist_err=dec[4], full=self.full,
+                           dist_err=dec[4], full=self.full, tie=self.tie,
                            scratch=self._scratch)
 
     # -- the loop ----------------------------------------------------------------

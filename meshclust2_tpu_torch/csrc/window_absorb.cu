@@ -10,11 +10,14 @@
 //                                              margin * max(|s[p]|, |pos_edge|, 1))
 //        best   = the first position of the largest dist
 //        bit 2  = some candidate within max(8 (dist_err[p] + dist_err[best]),
-//                 tie_margin * max(|dist[best]|, 1)) of the best whose (stats,
-//                 mags, selfdot, lens, stddev) differ from the best's, or,
-//                 for a model with full-vector singles (full), whose row
-//                 differs in a count: the host's float64 could rank them
-//                 apart (meshclust2_tpu/cluster/device_loop.py l. 1118,
+//                 tie_margin * max(|dist[best]|, 1)) of the best whose dist
+//                 differs from the best's or whose keys do (`tie`, a mask of
+//                 the kTie* fields: those the model's dist reads, so that
+//                 equal keys give the host equal dists too; by default the
+//                 statistics, mags, selfdot, lens and stddev), or, for a
+//                 model with full-vector singles (full), whose row differs
+//                 in a count: the host's float64 could rank them apart
+//                 (meshclust2_tpu/cluster/device_loop.py l. 1118,
 //                 1140-1147).  s_err and dist_err are the fused kernel's
 //                 bounds (0 for other models, where the gates reduce to
 //                 the relative margins).
@@ -147,6 +150,12 @@ constexpr int kBatch = 8;                // rows a thread loads at once
 // the scratch: trip (4), then per-block partials and the blocks-done count,
 // then v / dist2 / mag per member
 constexpr int kSlots = 4;
+// the tie guard's keys (StepArgs::tie): the candidate's statistics and
+// moments, and two exact integers some singles read alone, selfdot - 2 dot
+// (the squared euclidean distance less the center's selfdot) and mags -
+// 2 summin (the manhattan distance less the center's magnitude)
+constexpr int kTieSummin = 1, kTieDot = 2, kTieEmd = 4, kTieMag = 8, kTieSelfdot = 16,
+              kTieLen = 32, kTieStd = 64, kTieNorm2 = 128, kTieManh = 256;
 
 struct StepArgs {
   const void* counts;
@@ -163,6 +172,7 @@ struct StepArgs {
   const double* s_err;     // [W]
   const double* dist_err;  // [W]
   int full;                // 1: an exact tie needs equal rows
+  int tie;                 // the kTie* keys an exact tie needs equal
   const long long* stats;  // [W, 3]
   double pos_edge;
   double margin;
@@ -478,6 +488,7 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
     const double bm = a.mags[br], bsd = a.selfdot[br], bl = a.lens[br], bd = a.stddevs[br];
     const double base = __dmul_rn(a.tie_margin, fmax(fabs(bv), 1.0));
     const double bde = a.dist_err[bp];
+    const int keys = a.tie;
 #pragma unroll 4
     for (long long p = threadIdx.x; p < W; p += kThreads) {
       const double v = a.dist[p];
@@ -485,9 +496,21 @@ __global__ void __launch_bounds__(kThreads) window_step_kernel(const StepArgs a)
       if (!(fabs(__dsub_rn(v, bv)) <= thr)) continue;
       const long long r = a.order[a.cand[p]];
       const long long* st = a.stats + 3 * p;
-      bool same = v == bv && st[0] == b0 && st[1] == b1 && st[2] == b2 &&
-                  a.mags[r] == bm && a.selfdot[r] == bsd && a.lens[r] == bl &&
-                  a.stddevs[r] == bd;
+      bool same = v == bv && (!(keys & kTieSummin) || st[0] == b0) &&
+                  (!(keys & kTieDot) || st[1] == b1) && (!(keys & kTieEmd) || st[2] == b2) &&
+                  (!(keys & kTieMag) || a.mags[r] == bm) &&
+                  (!(keys & kTieSelfdot) || a.selfdot[r] == bsd) &&
+                  (!(keys & kTieLen) || a.lens[r] == bl) &&
+                  (!(keys & kTieStd) || a.stddevs[r] == bd);
+      // exact integers below 2^53 in float64: the subtractions are exact
+      if (same && (keys & kTieNorm2)) {
+        same = __dsub_rn(a.selfdot[r], 2.0 * static_cast<double>(st[1])) ==
+               __dsub_rn(bsd, 2.0 * static_cast<double>(b1));
+      }
+      if (same && (keys & kTieManh)) {
+        same = __dsub_rn(a.mags[r], 2.0 * static_cast<double>(st[0])) ==
+               __dsub_rn(bm, 2.0 * static_cast<double>(b0));
+      }
       // the statistics and moments do not determine a full-vector single:
       // only the few near candidates compare their rows with the best's
       if (same && a.full) same = rows_equal<T, VEC>(counts + r * d, counts + br * d, d);
@@ -839,7 +862,7 @@ long long mc2_window_step_xbuf_len(long long w, int d, int size, int n_ranks) {
            double pos_edge, double margin, double tie_margin, long long maxc,           \
            void* alive, void* assign, void* astep, void* members, void* msum,           \
            const void* cur_d, long long cid, long long stepc, long long mcnt,           \
-           void* scratch, long long scratch_len, long long n, void* stream) {           \
+           void* scratch, long long scratch_len, long long n, int tie, void* stream) {  \
     StepArgs a{};                                                                       \
     a.counts = counts;                                                                  \
     a.d = d;                                                                            \
@@ -855,6 +878,7 @@ long long mc2_window_step_xbuf_len(long long w, int d, int size, int n_ranks) {
     a.s_err = static_cast<const double*>(s_err);                                        \
     a.dist_err = static_cast<const double*>(dist_err);                                  \
     a.full = full;                                                                      \
+    a.tie = tie;                                                                        \
     a.stats = static_cast<const long long*>(stats);                                     \
     a.pos_edge = pos_edge;                                                              \
     a.margin = margin;                                                                  \
@@ -896,7 +920,7 @@ MC2_STEP_ENTRY(mc2_window_step_u16, uint16_t)
            long long row_lo, long long row_hi, int phase, const void* own_pos,          \
            const void* own_rows, long long n_own, const void* own_stats,                \
            const void* own_dec, void* xbuf, long long xbuf_len, int rank, int n_ranks,  \
-           void* rank_part, const void* parts, void* stream) {                          \
+           void* rank_part, const void* parts, int tie, void* stream) {                 \
     StepArgs a{};                                                                       \
     a.counts = counts;                                                                  \
     a.d = d;                                                                            \
@@ -935,6 +959,7 @@ MC2_STEP_ENTRY(mc2_window_step_u16, uint16_t)
     a.n_ranks = n_ranks;                                                                \
     a.rank_part = static_cast<long long*>(rank_part);                                   \
     a.parts = static_cast<const long long*>(parts);                                     \
+    a.tie = tie;                                                                        \
     return launch_block<T>(a, scratch_len, xbuf_len, stream);                           \
   }
 

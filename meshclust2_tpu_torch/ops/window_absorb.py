@@ -17,9 +17,11 @@ pair statistics against the center:
     bits    = 1 when some s[p] lies within max(8 s_err[p], margin *
               max(|s|, |pos_edge|, 1)) of the edge, | 2 when some candidate
               lies within max(8 (dist_err[p] + dist_err[best]), tie_margin *
-              max(|dist[best]|, 1)) of the best dist while its (stats, mags,
-              selfdot, lens, stddev) differ from the best's, or, with
-              `full` (a model with full-vector singles), its row does;
+              max(|dist[best]|, 1)) of the best dist while its dist or its
+              keys differ from the best's (`tie`: the fields the model's
+              dist reads, `tie_keys`; by default its stats, mags, selfdot,
+              lens and stddev), or, with `full` (a model with full-vector
+              singles), its row does;
               s_err and dist_err are the fused kernel's bounds (0 for
               other models, where the gates reduce to the margins);
     best    = the first position of the largest dist;
@@ -51,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..features import flags as F
 from .closest_mean import (PART, RowBlock, _rows_i64, block_partials_ref, closest_mean_ref,
                            pick_ref)
 
@@ -60,6 +63,41 @@ _REF_CHUNK = 16384
 _ENTRY = {torch.uint8: "mc2_window_step_u8", torch.uint16: "mc2_window_step_u16"}
 _BLOCK_ENTRY = {torch.uint8: "mc2_window_step_block_u8",
                 torch.uint16: "mc2_window_step_block_u16"}
+
+
+# the tie guard's keys: a near candidate whose keys and dist equal the
+# best's ties it exactly, on the host too.  Besides the statistics and the
+# moments, two exact integers that some singles read alone: selfdot - 2 dot
+# (the squared euclidean distance less the center's selfdot) and mags - 2
+# summin (the manhattan distance less the center's magnitude); the kernel's
+# kTie* constants
+(TIE_SUMMIN, TIE_DOT, TIE_EMD, TIE_MAG, TIE_SELFDOT, TIE_LEN, TIE_STD, TIE_NORM2,
+ TIE_MANH) = (1 << i for i in range(9))
+TIE_ALL = TIE_SUMMIN | TIE_DOT | TIE_EMD | TIE_MAG | TIE_SELFDOT | TIE_LEN | TIE_STD
+# what each single's value is a function of, in the fused kernel and on the
+# host alike (features/host.py, native/score_impl.h)
+_SINGLE_TIE = {
+    F.FEAT_MANHATTAN: TIE_MANH, F.FEAT_EUCLIDEAN: TIE_NORM2,
+    F.FEAT_INTERSECTION: TIE_SUMMIN | TIE_MAG, F.FEAT_KULCZYNSKI2: TIE_SUMMIN | TIE_MAG,
+    F.FEAT_SIMRATIO: TIE_DOT | TIE_NORM2, F.FEAT_NORMALIZED_VECTORS: TIE_DOT | TIE_SELFDOT,
+    F.FEAT_PEARSON_COEFF: TIE_DOT | TIE_MAG | TIE_SELFDOT,
+    F.FEAT_D2z: TIE_DOT | TIE_MAG | TIE_STD,
+    F.FEAT_EUCLIDEAN_Z: TIE_DOT | TIE_MAG | TIE_SELFDOT | TIE_STD,
+    F.FEAT_EMD: TIE_EMD, F.FEAT_LENGTHD: TIE_LEN}
+
+
+def tie_keys(singles, combos) -> int:
+    """The tie guard's keys for a model (its singles' flags and its combos
+    (kind, single indices)): those of the singles of the first combo, whose
+    value is the dist; TIE_ALL where one of them is not a statistics' single
+    (a full-vector single compares rows as well, `full`).  Without combos
+    the dist is a constant: no key."""
+    keys = 0
+    for i in (combos[0][1] if combos else ()):
+        if singles[i] not in _SINGLE_TIE:
+            return TIE_ALL
+        keys |= _SINGLE_TIE[singles[i]]
+    return keys
 
 
 class StepState(NamedTuple):
@@ -82,14 +120,14 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, p, p, p, p,
                            ctypes.c_int, p, f64, f64, f64, i64, p, p, p, p, p, p,
-                           i64, i64, i64, p, i64, i64, p]
+                           i64, i64, i64, p, i64, i64, ctypes.c_int, p]
             fn.restype = ctypes.c_int
         for name in _BLOCK_ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, i64, f64, f64, f64, i64,
                            p, p, p, p, p, p, i64, i64, i64, p, i64, i64, i64, i64,
                            ctypes.c_int, p, p, i64, p, p, p, i64, ctypes.c_int,
-                           ctypes.c_int, p, p, p]
+                           ctypes.c_int, p, p, ctypes.c_int, p]
             fn.restype = ctypes.c_int
         lib.mc2_window_step_scratch_len.argtypes = [i64]
         lib.mc2_window_step_scratch_len.restype = i64
@@ -143,7 +181,7 @@ def _check(counts, rows, s, dist, stats, s_err, dist_err, moments, n_rows=None):
 def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs,
                       *, pos_edge: float, margin: float, tie_margin: float,
                       s_err: torch.Tensor, dist_err: torch.Tensor,
-                      full: bool = False
+                      full: bool = False, tie: int = TIE_ALL
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decisions of one window in plain PyTorch, the same float64
     operations as the step kernel's: (pos bool [W], the positives' int64
@@ -155,7 +193,7 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
     dev = counts.device
     pos, bits, best = _decide(counts, rows, s, dist, stats, (mags, selfdot, lens, stddevs),
                               pos_edge=pos_edge, margin=margin, tie_margin=tie_margin,
-                              s_err=s_err, dist_err=dist_err, full=full)
+                              s_err=s_err, dist_err=dist_err, full=full, keys=tie)
     # CUDA has no uint16 gather: gather the same bits as int16 and mask
     src, mask = ((counts.view(torch.int16), 0xFFFF)
                  if counts.dtype == torch.uint16 else (counts, 0xFF))
@@ -168,10 +206,12 @@ def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs
 
 
 def _decide(counts, rows, s, dist, stats, moments, *, pos_edge: float, margin: float,
-            tie_margin: float, s_err: torch.Tensor, dist_err: torch.Tensor, full: bool):
+            tie_margin: float, s_err: torch.Tensor, dist_err: torch.Tensor, full: bool,
+            keys: int):
     """The window's decisions, the step kernel's float64 operations: (pos
     bool [W], bits int64, best int64; best is W when W is 0).  The moments
-    are indexed by the global rows; `counts` is read only with `full`."""
+    are indexed by the global rows; `counts` is read only with `full`; `keys`
+    the tie guard's."""
     n_cand = len(rows)
     dev = s.device
     mags, selfdot, lens, stddevs = moments
@@ -188,9 +228,15 @@ def _decide(counts, rows, s, dist, stats, moments, *, pos_edge: float, margin: f
         tie_thr = torch.fmax(8 * (dist_err + dist_err[best]),
                              tie_margin * bv.abs().clamp(min=1.0))
         near = (dist - bv).abs() <= tie_thr
-        same = (dist == bv) & (stats == stats[best]).all(dim=1)
-        for m in (mags, selfdot, lens, stddevs):
-            same &= m[rows] == m[rows[best]]
+        sd, dot = selfdot[rows], stats[:, 1].to(torch.float64)
+        ma, summin = mags[rows], stats[:, 0].to(torch.float64)
+        same = dist == bv
+        for key, col in ((TIE_SUMMIN, stats[:, 0]), (TIE_DOT, stats[:, 1]),
+                         (TIE_EMD, stats[:, 2]), (TIE_MAG, ma), (TIE_SELFDOT, sd),
+                         (TIE_LEN, lens[rows]), (TIE_STD, stddevs[rows]),
+                         (TIE_NORM2, sd - 2 * dot), (TIE_MANH, ma - 2 * summin)):
+            if keys & key:
+                same &= col == col[best]
         if full:
             # the statistics and moments do not determine a full-vector
             # single: the near candidates' rows must equal the best's
@@ -232,7 +278,8 @@ def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
 def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
                     cur_d, *, cid: int, stepc: int, mcnt: int, pos_edge: float,
                     margin: float, tie_margin: float, s_err: torch.Tensor,
-                    dist_err: torch.Tensor, full: bool = False) -> torch.Tensor:
+                    dist_err: torch.Tensor, full: bool = False,
+                    tie: int = TIE_ALL) -> torch.Tensor:
     """The step in plain PyTorch: `window_absorb_ref`, both cases under
     the decision flags, and `closest_mean_ref`'s one-segment mode over the
     first mcnt + W member slots with the first mcnt + npos kept.
@@ -247,7 +294,7 @@ def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
     pos, colsum, info = window_absorb_ref(
         counts, order[cand], s, dist, stats, store.mags, store.selfdot,
         store.lens, store.stddevs, pos_edge=pos_edge, margin=margin,
-        tie_margin=tie_margin, s_err=s_err, dist_err=dist_err, full=full)
+        tie_margin=tie_margin, s_err=s_err, dist_err=dist_err, full=full, tie=tie)
     bits, npos, best = info[0:1], info[1:2], info[2:3]
     ok = bits == 0
     absorb = ok & (npos > 0)
@@ -302,14 +349,15 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
                 cur_d: torch.Tensor, *, cid: int, stepc: int, mcnt: int,
                 pos_edge: float, margin: float, tie_margin: float,
                 s_err: torch.Tensor, dist_err: torch.Tensor, full: bool = False,
-                scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+                tie: int = TIE_ALL, scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One accumulate step's tail (module docstring) over a DeviceStore
     `store`, the pool's flat-order `order` (int64 [n], flat position ->
     store row), the W >= 1 candidates `cand` with their float64 [W] s and
     dist and int64 [W, 3] statistics, `state` (updated in place) and the
     center's flat position `cur_d` (int64 [1]) -> trip int64 [4].  s_err
     and dist_err (float64 [W]) are the fused kernel's bounds; `full` asks
-    for row identity in an exact tie.
+    for row identity in an exact tie, and `tie` gives the keys it compares
+    (`tie_keys`).
 
     On CUDA one cooperative launch on the current stream, without syncing;
     `scratch` comes from `step_scratch(n)` (allocated here when None), and
@@ -323,7 +371,7 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
     counts = store.counts
     if counts.device.type == "cpu":
         return window_step_ref(store, order, cand, s, dist, stats, state, cur_d,
-                               s_err=s_err, dist_err=dist_err, full=full, **kw)
+                               s_err=s_err, dist_err=dist_err, full=full, tie=tie, **kw)
     n = len(order)
     lib = _lib()
     need = lib.mc2_window_step_scratch_len(n)
@@ -343,7 +391,7 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
             kw["pos_edge"], kw["margin"], kw["tie_margin"], int(store.maxc),
             *(t.data_ptr() for t in state), cur_d.data_ptr(), kw["cid"],
             kw["stepc"], kw["mcnt"], scratch.data_ptr(), scratch.numel(), n,
-            stream)
+            int(tie), stream)
     if rc != 0:
         raise RuntimeError(f"window_step kernel launch failed: cudaError {rc}")
     window_step.launches += 1
@@ -468,7 +516,7 @@ def window_step_block_ref(phase: int, blk: RowBlock, order, cand, state: StepSta
                           margin: float, tie_margin: float, trip: torch.Tensor,
                           xbuf: Optional[torch.Tensor] = None, rank: int = 0,
                           n_ranks: int = 1, own=None, rank_part=None,
-                          parts: Optional[torch.Tensor] = None) -> None:
+                          parts: Optional[torch.Tensor] = None, tie: int = TIE_ALL) -> None:
     """One phase of the block mode in plain PyTorch, on the CPU: phase 1
     `step_exchange_ref` (own = (own_pos, own_rows, own_stats, own_dec));
     phase 2 from the all-reduced exchange the decisions and the case
@@ -500,7 +548,7 @@ def window_step_block_ref(phase: int, blk: RowBlock, order, cand, state: StepSta
     rows = order[cand]
     pos, bits_t, best = _decide(counts, rows, s, dist, stats, tuple(blk[1:5]),
                                 pos_edge=pos_edge, margin=margin, tie_margin=tie_margin,
-                                s_err=s_err, dist_err=dist_err, full=False)
+                                s_err=s_err, dist_err=dist_err, full=False, keys=tie)
     bits, npos = int(bits_t), int(pos.sum())
     absorb, is_min = bits == 0 and npos > 0, bits == 0 and npos == 0
     seed = cand[best.clamp(max=n_cand - 1)]
@@ -530,12 +578,12 @@ def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torc
                       scratch: torch.Tensor, xbuf: Optional[torch.Tensor] = None,
                       rank: int = 0, n_ranks: int = 1, own_pos=None, own_rows=None,
                       own_stats=None, own_dec=None, rank_part=None,
-                      parts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      parts: Optional[torch.Tensor] = None, tie: int = TIE_ALL) -> torch.Tensor:
     """One phase (1, 2 or 3) of the step on rank `rank` of `n_ranks` over a
     row-sharded store (module docstring): `blk` holds the rank's rows,
     `order` maps flat positions to store rows, the window's candidates
-    `cand`, state and cur_d are window_step's, with no `full` (a model with
-    full-vector singles needs rows for its tie guard).
+    `cand`, state, cur_d and `tie` are window_step's, with no `full` (a
+    model with full-vector singles needs rows for its tie guard).
 
     Phase 1 writes the exchange `xbuf` (int64 [step_xbuf_len(W, D, count
     size, n_ranks)]) from the rank's own candidates: own_pos (int64 [k],
@@ -567,7 +615,7 @@ def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torc
     if counts.device.type == "cpu":
         window_step_block_ref(phase, blk, order, cand, state, cur_d, trip=scratch[:4],
                               xbuf=xbuf, rank=rank, n_ranks=n_ranks, own=own,
-                              rank_part=rank_part, parts=parts, **kw)
+                              rank_part=rank_part, parts=parts, tie=tie, **kw)
         return scratch[:4]
     n = len(order)
     lib = _lib()
@@ -586,7 +634,7 @@ def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torc
             scratch.numel(), n, int(blk.lo), int(blk.hi), int(phase), ptr(own_pos),
             ptr(own_rows), k, ptr(own_stats), ptr(own_dec), ptr(xbuf),
             xbuf.numel() if xbuf is not None else 0, int(rank), int(n_ranks),
-            ptr(rank_part), ptr(parts), stream)
+            ptr(rank_part), ptr(parts), int(tie), stream)
     if rc != 0:
         raise RuntimeError(f"window_step block kernel launch failed (phase {phase}): "
                            f"cudaError {rc}")

@@ -244,7 +244,7 @@ class ShardedAccumulator(OneRankAccumulator):
 
     def _step_kw(self, cid: int, stepc: int, mcnt: int) -> dict:
         return dict(cid=cid, stepc=stepc, mcnt=mcnt, pos_edge=self.pos_edge,
-                    margin=self.margin, tie_margin=self.tie_margin)
+                    margin=self.margin, tie_margin=self.tie_margin, tie=self.tie)
 
     def run(self, bv, carry=None):
         # the scorer's host steps between runs may have reused the slot

@@ -32,7 +32,8 @@ from meshclust2_tpu_torch.model.classifier import model_to_torch
 from meshclust2_tpu_torch.ops.closest_mean import closest_mean_ref
 from meshclust2_tpu_torch.ops.pair_stats import pair_stats_decision, pair_stats_ref
 from meshclust2_tpu_torch.ops.window_absorb import (
-    StepState, window_absorb_ref, window_step, window_step_ref)
+    TIE_ALL, TIE_DOT, TIE_EMD, TIE_MANH, TIE_NORM2, TIE_SELFDOT, StepState, tie_keys,
+    window_absorb_ref, window_step, window_step_ref)
 
 torch.set_num_threads(2)
 
@@ -133,6 +134,56 @@ def test_ties():
     assert port_absorb(counts, rows, s, dist, stats, moments, -1e9)[2][0] == 2
     dist[6] = 0.9 * (1 - 4 * TIE_MARGIN)
     assert port_absorb(counts, rows, s, dist, stats, moments, -1e9)[2][0] == 0
+
+
+def test_ties_compare_the_keys_the_dist_reads():
+    """With a model's keys (tie_keys: its dist is its first combo's value),
+    a near candidate whose dist and keys equal the best's ties it exactly
+    though other fields differ; one whose keys differ still sets bit 2."""
+    counts, rows, s, dist, stats, moments = window_case(4, 50, 64, np.uint8, 8)
+    stats, moments = stats.copy(), [m.copy() for m in moments]
+    mags, selfdot = moments[0], moments[1]
+    dist[:] = 0.5
+    dist[2] = dist[5] = 0.9
+    rows[5] = 49 if rows[2] != 49 else 48
+    # candidate 5: another row, the best's selfdot - 2 dot and mags - 2 summin
+    stats[5] = stats[2] + [3, 7, 11]
+    selfdot[rows[5]] = selfdot[rows[2]] + 14
+    mags[rows[5]] = mags[rows[2]] + 6
+
+    def bits(keys):
+        t = torch.from_numpy
+        zero = torch.zeros(len(rows), dtype=torch.float64)
+        return int(window_absorb_ref(
+            t(counts), t(rows), t(s), t(dist), t(stats), *(t(m) for m in moments),
+            pos_edge=-1e9, margin=MARGIN, tie_margin=TIE_MARGIN, s_err=zero,
+            dist_err=zero, tie=keys)[2][0])
+
+    assert bits(TIE_ALL) == 2
+    assert bits(TIE_NORM2) == bits(TIE_MANH) == bits(TIE_NORM2 | TIE_MANH) == 0
+    assert bits(TIE_NORM2 | TIE_EMD) == bits(TIE_DOT) == bits(TIE_SELFDOT) == 2
+    assert bits(0) == 0
+    stats[5, 1] += 1      # another squared distance
+    assert bits(TIE_NORM2) == 2 and bits(TIE_MANH) == 0
+
+
+@pytest.mark.parametrize("name,want", [
+    ("bench10k_weights.txt", None), ("med2000_weights.txt", None),
+    ("../../benchmark/configs/mc2-fast-id90-k7.weights.txt", TIE_NORM2)])
+def test_tie_keys_are_the_first_combos_singles(fixtures_dir, name, want):
+    """The keys of a model are those of its first combo's singles: the k = 7
+    benchmark model's first combo is euclidean alone."""
+    import os
+
+    from meshclust2_tpu_torch.model.weights import load_weights as torch_weights
+    from meshclust2_tpu_torch.model.classifier import CompiledModel as TorchModel
+
+    model = TorchModel(torch_weights(os.path.join(fixtures_dir, name)).classifier)
+    keys = tie_keys(model.singles, model.combos)
+    assert keys and not keys & ~(TIE_ALL | TIE_NORM2 | TIE_MANH)
+    if want is not None:
+        assert keys == want
+    assert tie_keys(model.singles, ()) == 0
 
 
 def test_column_sum_of_positives():
