@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step    # the step kernel's checks alone: (c4), (m4)
 
 Builds the port's CUDA kernels from meshclust2_tpu_torch/csrc (one nvcc
 per source, in parallel), holds each against its plain PyTorch version and
@@ -109,6 +110,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
+# the long-record deployment's model (k = 7, its dist euclidean alone)
+K7_WEIGHTS = os.path.join(ROOT, "benchmark", "configs", "mc2-fast-id90-k7.weights.txt")
 
 # the port's three paths and the switches (the JAX package's own) that
 # select them
@@ -611,6 +614,147 @@ def step_case(rng, n: int, kind: str, w=None, mcnt=None, npos=None,
                 assign=assign, astep=astep, members=members, mem=mem,
                 cur_d=np.array([mem[0]], np.int64), cid=cid, stepc=n + 7,
                 mcnt=mcnt, edge=edge, tie_margin=tie_margin)
+
+
+def step_inputs(case, counts, moments, dev, tie: int, key_tie: int = 0):
+    """A step_case on the card: (args, kw) for window_step under the tie
+    guard's keys `tie`.  With key_tie (a mask of the kTie* fields), the
+    case's best dist is tied exactly by the next candidate, which shares the
+    best's fields in key_tie and differs in every other field."""
+    import torch
+    from meshclust2_tpu_torch.cluster.device_store import DeviceStore
+    from meshclust2_tpu_torch.ops import window_absorb as WA
+    from meshclust2_tpu_torch.ops.pair_stats import pair_stats
+
+    c64 = counts.astype(np.int64)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    counts_d = up(counts)
+    if counts.dtype == np.uint8 and counts.shape[1] == 256:
+        raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
+        counts_d = raw[1:].view(counts.shape).copy_(counts_d)  # off 16 bytes
+    lens, stddevs = (m.clone() for m in moments)
+    store = DeviceStore(counts=counts_d,
+                        mags=up(c64.sum(axis=1).astype(np.float64)),
+                        selfdot=up((c64 * c64).sum(axis=1).astype(np.float64)),
+                        lens=lens, stddevs=stddevs, maxc=int(counts.max()))
+    order, cand = up(case["order"]), up(case["cand"])
+    cur_d = up(case["cur_d"])
+    center = order[cur_d].expand(len(cand)).contiguous()
+    stats = pair_stats(store.counts, order[cand], center)
+    dist = case["dist"].copy()
+    if key_tie:
+        top = int(np.argmax(dist))
+        other = (top + 1) % len(dist)
+        dist[other] = dist[top]
+        rt, ro = order[cand[top]], order[cand[other]]
+        stats[other] = stats[top] + torch.tensor([3, 7, 11], device=dev)
+        for key, col in ((WA.TIE_SUMMIN, 0), (WA.TIE_DOT, 1), (WA.TIE_EMD, 2)):
+            if key_tie & key:
+                stats[other, col] = stats[top, col]
+        for key, m, off in ((WA.TIE_MAG, store.mags, 5), (WA.TIE_SELFDOT, store.selfdot, 14),
+                            (WA.TIE_LEN, lens, 1), (WA.TIE_STD, stddevs, 0.25)):
+            m[ro] = m[rt] + (0 if key_tie & key else off)
+        # the exact integers: selfdot - 2 dot and mags - 2 summin
+        two = lambda col: 2 * (stats[other, col] - stats[top, col]).to(torch.float64)
+        if key_tie & WA.TIE_NORM2:
+            store.selfdot[ro] = store.selfdot[rt] + two(1)
+        if key_tie & WA.TIE_MANH:
+            store.mags[ro] = store.mags[rt] + two(0)
+    state = WA.StepState(up(case["alive"]), up(case["assign"]), up(case["astep"]),
+                         up(case["members"]),
+                         up(c64[case["order"][case["mem"]]].sum(axis=0)))
+    args = (store, order, cand, up(case["s"]), up(dist), stats, state, cur_d)
+    # the fused kernel's bounds of a model without full-vector singles
+    zero = torch.zeros(len(cand), dtype=torch.float64, device=dev)
+    kw = dict(cid=case["cid"], stepc=case["stepc"], mcnt=case["mcnt"],
+              pos_edge=case["edge"], margin=MARGIN, tie_margin=case["tie_margin"],
+              s_err=zero, dist_err=zero.clone(), tie=tie)
+    return args, kw
+
+
+def fresh(args):
+    """args with a copy of the state (the step updates it in place)."""
+    from meshclust2_tpu_torch.ops.window_absorb import StepState
+
+    return args[:6] + (StepState(*(t.clone() for t in args[6])),) + args[7:]
+
+
+def step_check(args, kw, what, scratch=None):
+    """Kernel and plain version on copies of the same state: the kernel's
+    trip and their largest difference over every output, or raise."""
+    import torch
+    from meshclust2_tpu_torch.ops.window_absorb import (StepState, window_step,
+                                                        window_step_ref)
+
+    got, plain = fresh(args), fresh(args)
+    trip = window_step(*got, **kw, scratch=scratch).clone()
+    torch.cuda.synchronize()
+    want = window_step_ref(*plain, **kw)
+    pairs = [("trip", trip, want)] + [
+        (name, g[:-1], w[:-1]) if name == "members" else (name, g, w)
+        for name, g, w in zip(StepState._fields, got[6], plain[6])]
+    for name, g, w in pairs:
+        if not torch.equal(g, w):
+            raise AssertionError(f"window_step differs in {name}: {what}")
+    return trip, max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                     for _, g, w in pairs)
+
+
+def step_kernel_checks(rng, dev, tie10k: int) -> int:
+    """(c4) the step kernel against its plain version, bit for bit on the
+    trip and every state tensor: STEP_KINDS at uint8/uint16 and D in
+    16..4096 under `tie10k` (the 10k default path's model's keys), and at
+    D = 16,384 uint8 under the keys of the long-record model
+    (K7_WEIGHTS: TIE_NORM2); at each shape an exact dist tie whose
+    model's keys agree and whose other fields differ, which the model's
+    keys take as exact (no bit 2) and TIE_ALL does not (bit 2).  Returns
+    the largest difference (0: any other raises)."""
+    import torch
+    from meshclust2_tpu_torch.model.classifier import CompiledModel
+    from meshclust2_tpu_torch.model.weights import load_weights
+    from meshclust2_tpu_torch.ops.window_absorb import TIE_ALL, TIE_NORM2, tie_keys
+
+    k7 = CompiledModel(load_weights(K7_WEIGHTS).classifier)
+    tie_k7 = tie_keys(k7.singles, k7.combos)
+    if tie_k7 != TIE_NORM2 or tie10k == TIE_ALL:
+        raise AssertionError(f"the models' keys: 10k {tie10k}, k = 7 {tie_k7}")
+    wa_err = 0
+    n_cases = 0
+    trips = Counter()
+    shapes = [(dtype, d, tie10k) for dtype in (np.uint8, np.uint16)
+              for d in (16, 256, 1024, 4096)] + [(np.uint8, 16_384, tie_k7)]
+    for dtype, d, tie in shapes:
+        n = 3_000 if d <= 1024 else 600
+        counts = rng.integers(0, np.iinfo(dtype).max + 1, (n, d)).astype(dtype)
+        moments = [torch.from_numpy(rng.random(n) * 30).to(dev) for _ in range(2)]
+        what = f"{dtype.__name__} D={d} keys {tie}"
+        for step_kind in STEP_KINDS:
+            args, kw = step_inputs(step_case(rng, n, step_kind), counts, moments, dev, tie)
+            trip, err = step_check(args, kw, f"{what} {step_kind}")
+            wa_err = max(wa_err, err)
+            t = trip.tolist()
+            trips["bits %d" % t[0] if t[0] else
+                  ("min" if t[1] == 0 else "absorb, unc" if t[2] else "absorb")] += 1
+            n_cases += 1
+        case = step_case(rng, n, "absorb")
+        for keys, want in ((tie, 0), (TIE_ALL, 2)):
+            args, kw = step_inputs(case, counts, moments, dev, keys, key_tie=tie)
+            trip, err = step_check(args, kw, f"{what} key tie under {keys}")
+            if int(trip[0]) & 2 != want:
+                raise AssertionError(f"{what}: an exact tie on the keys {tie} under the "
+                                     f"keys {keys}: trip {trip.tolist()}")
+            wa_err = max(wa_err, err)
+            trips[f"key tie, bits {int(trip[0])}"] += 1
+            n_cases += 1
+    phase("c4", f"window_step kernel == plain (trip, alive, assign, astep, members, "
+                f"msum) bit for bit in {n_cases} steps (uint8/uint16, D in "
+                f"16/256/1024/4096, pools of 3,000 / 600, {'/'.join(STEP_KINDS)}, "
+                f"an unaligned store at D = 256, under the 10k model's tie keys "
+                f"{tie10k}; D = 16,384 uint8, pool 600, under the k = 7 model's "
+                f"{tie_k7}; at each shape an exact dist tie that shares the model's "
+                f"keys, under them and under every field, {TIE_ALL}); cases seen "
+                f"{dict(sorted(trips.items()))}")
+    return wa_err
 
 
 def profile_path(torch_cli, path: str, argv):
@@ -1165,6 +1309,35 @@ def setup_stages_main(argv) -> int:
         raise AssertionError(f"--setup-stages {mode}: rc {res.rc}, counters "
                              f"{counters(res)}")
     print(json.dumps({"stamp": res.clock.stamps["read_in_points"], "stages": dict(secs)}))
+    return 0
+
+
+def step_main() -> int:
+    """`chip_smoke.py --step`: the step kernel's checks alone, (c4) and
+    (m4) as the whole smoke makes them, after building the two kernels they
+    launch."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from meshclust2_tpu_torch.model.classifier import CompiledModel
+    from meshclust2_tpu_torch.model.weights import load_weights
+    from meshclust2_tpu_torch.ops import _build
+    from meshclust2_tpu_torch.ops.window_absorb import step_scratch, tie_keys
+    from meshclust2_tpu_torch.runtime import card_name_and_power, resolve_device
+
+    dev = resolve_device("cuda")
+    card = card_name_and_power()
+    print(card, flush=True)
+    for src in ("pair_stats", "window_absorb"):
+        built = _build.load(src)
+        phase("b", f"built {os.path.relpath(built.path, ROOT)} (nvcc {built.seconds:.3f} s)")
+    model = CompiledModel(load_weights(os.path.join(FIX, "bench10k_weights.txt")).classifier)
+    tie10k = tie_keys(model.singles, model.combos)
+    rng = np.random.default_rng(20261016)
+    step_kernel_checks(rng, dev, tie10k)
+    store = rng.integers(1, 40, (10_000, 1024)).astype(np.uint8)
+    moments = [torch.from_numpy(rng.random(10_000) * 30).to(dev) for _ in range(2)]
+    step_block_checks(step_case(rng, 10_000, "absorb", w=1_571, mcnt=9, npos=15), store,
+                      moments, step_scratch(10_000, dev), dev, card, tie10k)
     return 0
 
 
@@ -2144,14 +2317,15 @@ def plain_step_block(phase_, blk, order, cand, state, cur_d, *, scratch, own_pos
     return scratch[:4]
 
 
-def step_block_checks(step_inputs, fresh, case, counts, moments, scratch, dev,
-                      card: str) -> dict:
+def step_block_checks(case, counts, moments, scratch, dev, card: str, tie: int) -> dict:
     """(m4) the step kernel's block mode at a 10k accumulate shape, G = 4 and
     G = 1 row blocks in this process (step_block_run): every phase's kernel
     against its plain version on the same inputs (each block's exchange,
     the summed exchange, each block's state, trip and partial after phase 2,
     each trip after phase 3), and the trips and states against the one-block
-    kernel and the plain one-launch step, bit for bit.  Timed: the fused
+    kernel and the plain one-launch step, bit for bit, under the tie
+    guard's keys `tie`, on the case and on the case with an exact dist tie
+    that shares those keys (step_inputs' key_tie).  Timed: the fused
     phase 2 alone (one rank of 4), and the sequence of 4 ranks in this
     process beside its plain version and the bound of the work of the 4
     ranks' phases (the step's bytes once, each rank's exchange written and
@@ -2162,39 +2336,40 @@ def step_block_checks(step_inputs, fresh, case, counts, moments, scratch, dev,
         StepState, seed_slot, step_xbuf_len, window_step, window_step_block,
         window_step_ref)
 
-    args, kw = step_inputs(case, counts, moments)
-    one, plain = fresh(args), fresh(args)
-    trip = window_step(*one, **kw, scratch=scratch).clone()
-    want = window_step_ref(*plain, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(trip, want) or trip.tolist()[:2] != [0, 15]:
-        raise AssertionError(f"the one-block step {trip} != plain {want}, or no absorb of 15")
     runs = {}
-    for G in (4, 1):
-        blocks = row_blocks(args[0], G)
-        got = step_block_run(blocks, args, kw, fresh, window_step_block)
-        ref = step_block_run(blocks, args, kw, fresh, plain_step_block)
+    for key_tie in (tie, 0):   # the plain case last: it is timed
+        args, kw = step_inputs(case, counts, moments, dev, tie, key_tie=key_tie)
+        one, plain = fresh(args), fresh(args)
+        trip = window_step(*one, **kw, scratch=scratch).clone()
+        want = window_step_ref(*plain, **kw)
         torch.cuda.synchronize()
-        for key in ("x", "part", "trip2", "trip"):
-            for g, (a, b) in enumerate(zip(got[key], ref[key])):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"step block mode, G = {G}, block {g}: {key} of "
-                                         f"the kernel != its plain version")
-        if not torch.equal(got["sum"], ref["sum"]):
-            raise AssertionError(f"step block mode, G = {G}: the summed exchanges differ")
-        for g in range(G):
-            for name, a, b, c, e in zip(StepState._fields, got["state2"][g],
-                                        ref["state2"][g], one[6], plain[6]):
-                k = slice(0, -1) if name == "members" else slice(None)
-                if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
-                        and torch.equal(a[k], e[k])):
-                    raise AssertionError(f"step block mode, G = {G}, block {g}: {name} "
-                                         f"differs from the plain version's or the "
-                                         f"one-block kernel's")
-            if not (torch.equal(got["trip"][g], trip) and torch.equal(got["trip"][g], want)):
-                raise AssertionError(f"step block mode, G = {G}, block {g}: trip "
-                                     f"{got['trip'][g]} != {trip}")
-        runs[G] = got
+        if not torch.equal(trip, want) or trip.tolist()[:2] != [0, 15]:
+            raise AssertionError(f"the one-block step {trip} != plain {want}, or no absorb of 15")
+        for G in (4, 1):
+            blocks = row_blocks(args[0], G)
+            got = step_block_run(blocks, args, kw, fresh, window_step_block)
+            ref = step_block_run(blocks, args, kw, fresh, plain_step_block)
+            torch.cuda.synchronize()
+            for key in ("x", "part", "trip2", "trip"):
+                for g, (a, b) in enumerate(zip(got[key], ref[key])):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"step block mode, G = {G}, block {g}: {key} of "
+                                             f"the kernel != its plain version")
+            if not torch.equal(got["sum"], ref["sum"]):
+                raise AssertionError(f"step block mode, G = {G}: the summed exchanges differ")
+            for g in range(G):
+                for name, a, b, c, e in zip(StepState._fields, got["state2"][g],
+                                            ref["state2"][g], one[6], plain[6]):
+                    k = slice(0, -1) if name == "members" else slice(None)
+                    if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
+                            and torch.equal(a[k], e[k])):
+                        raise AssertionError(f"step block mode, G = {G}, block {g}: {name} "
+                                             f"differs from the plain version's or the "
+                                             f"one-block kernel's")
+                if not (torch.equal(got["trip"][g], trip) and torch.equal(got["trip"][g], want)):
+                    raise AssertionError(f"step block mode, G = {G}, block {g}: trip "
+                                         f"{got['trip'][g]} != {trip}")
+            runs[G] = got
     # timing: the 4 ranks' sequence in this process, and phase 2 alone
     G = 4
     blocks = row_blocks(args[0], G)
@@ -2253,8 +2428,9 @@ def step_block_checks(step_inputs, fresh, case, counts, moments, scratch, dev,
     rec["max_abs_err"] = 0
     phase("m4", f"window_step block mode, W={w}, 15 positive, {mcnt} + 15 members, D={d} "
                 f"uint8, pool {n}: G = 4 and G = 1 row blocks (the exchanges summed and "
-                f"the partials stacked as the collectives combine them): each phase == its "
-                f"plain version (exchanges, states, partials, trips), trip and state == "
+                f"the partials stacked as the collectives combine them), under the 10k "
+                f"model's tie keys {tie}, as drawn and with an exact dist tie that shares "
+                f"them: each phase == its plain version (exchanges, states, partials, trips), trip and state == "
                 f"the one-block kernel == plain, bit for bit; exchange {rec['exchange_bytes']}"
                 f" bytes a rank (int64: statistics, decisions, column sums, {G} seed slots "
                 f"of {seed_slot(d, 1)} words); the 4 ranks' sequence in this process: "
@@ -2794,6 +2970,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--setup-stages"]:
         return setup_stages_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--step"]:
+        return step_main()
     sys.path.insert(0, ROOT)
     from meshclust2_tpu_torch import cli as torch_cli
     from meshclust2_tpu_torch.cluster.engine import distance_d
@@ -2809,8 +2987,8 @@ def main() -> int:
         center_block_stats, derive_singles, narrow_sums, pair_stats,
         pair_stats_decision, pair_stats_decision_ref, pair_stats_ref)
     from meshclust2_tpu_torch.ops.window_absorb import (
-        StepState, step_scratch, window_step, window_step_block, window_step_blocks,
-        window_step_ref)
+        StepState, step_scratch, tie_keys, window_step, window_step_block,
+        window_step_blocks, window_step_ref)
     from meshclust2_tpu_torch.ops.plane_singles import plane_singles, plane_singles_ref
     from meshclust2_tpu_torch.ops.phase import (closest_candidates,
                                                 closest_candidates_block, merge_replay,
@@ -3064,77 +3242,11 @@ def main() -> int:
                 f"nothing kept; an unaligned store); {n_unc} segments uncertain")
 
     # (c4) the step kernel = its plain version on every output (the trip,
-    # alive, assign, astep, members but the plain version's sink, msum)
-    def step_inputs(case, counts, moments):
-        """A step_case on the card: (args, kw) for window_step."""
-        c64 = counts.astype(np.int64)
-        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        counts_d = up(counts)
-        if counts.dtype == np.uint8 and counts.shape[1] == 256:
-            raw = torch.empty(counts.nbytes + 1, dtype=torch.uint8, device=dev)
-            counts_d = raw[1:].view(counts.shape).copy_(counts_d)  # off 16 bytes
-        store = DeviceStore(counts=counts_d,
-                            mags=up(c64.sum(axis=1).astype(np.float64)),
-                            selfdot=up((c64 * c64).sum(axis=1).astype(np.float64)),
-                            lens=moments[0], stddevs=moments[1],
-                            maxc=int(counts.max()))
-        order, cand = up(case["order"]), up(case["cand"])
-        cur_d = up(case["cur_d"])
-        center = order[cur_d].expand(len(cand)).contiguous()
-        stats = pair_stats(store.counts, order[cand], center)
-        state = StepState(up(case["alive"]), up(case["assign"]), up(case["astep"]),
-                          up(case["members"]),
-                          up(c64[case["order"][case["mem"]]].sum(axis=0)))
-        args = (store, order, cand, up(case["s"]), up(case["dist"]), stats, state,
-                cur_d)
-        # the fused kernel's bounds of a model without full-vector singles
-        zero = torch.zeros(len(cand), dtype=torch.float64, device=dev)
-        kw = dict(cid=case["cid"], stepc=case["stepc"], mcnt=case["mcnt"],
-                  pos_edge=case["edge"], margin=MARGIN,
-                  tie_margin=case["tie_margin"], s_err=zero, dist_err=zero.clone())
-        return args, kw
-
-    def fresh(args):
-        """args with a copy of the state (the step updates it in place)."""
-        return args[:6] + (StepState(*(t.clone() for t in args[6])),) + args[7:]
-
-    def step_check(args, kw, what, scratch=None):
-        """Kernel and plain version on copies of the same state; their
-        largest difference over every output, or raise."""
-        got, plain = fresh(args), fresh(args)
-        trip = window_step(*got, **kw, scratch=scratch).clone()
-        torch.cuda.synchronize()
-        want = window_step_ref(*plain, **kw)
-        pairs = [("trip", trip, want)] + [
-            (name, g[:-1], w[:-1]) if name == "members" else (name, g, w)
-            for name, g, w in zip(StepState._fields, got[6], plain[6])]
-        for name, g, w in pairs:
-            if not torch.equal(g, w):
-                raise AssertionError(f"window_step differs in {name}: {what}")
-        return trip, max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                         for _, g, w in pairs)
-
-    wa_err = 0
-    n_cases = 0
-    trips = Counter()
-    for dtype in (np.uint8, np.uint16):
-        for d in (16, 256, 1024, 4096):
-            n = 3_000 if d <= 1024 else 600
-            counts = rng.integers(0, np.iinfo(dtype).max + 1, (n, d)).astype(dtype)
-            moments = [torch.from_numpy(rng.random(n) * 30).to(dev) for _ in range(2)]
-            for step_kind in STEP_KINDS:
-                args, kw = step_inputs(step_case(rng, n, step_kind), counts, moments)
-                trip, err = step_check(args, kw, f"{dtype.__name__} D={d} {step_kind}")
-                wa_err = max(wa_err, err)
-                t = trip.tolist()
-                trips["bits %d" % t[0] if t[0] else
-                      ("min" if t[1] == 0 else "absorb, unc" if t[2] else "absorb")] += 1
-                n_cases += 1
-    phase("c4", f"window_step kernel == plain (trip, alive, assign, astep, members, "
-                f"msum) bit for bit in {n_cases} steps (uint8/uint16, D in "
-                f"16/256/1024/4096, pools of 3,000 / 600, {'/'.join(STEP_KINDS)}, "
-                f"an unaligned store at D = 256); cases seen "
-                f"{dict(sorted(trips.items()))}")
+    # alive, assign, astep, members but the plain version's sink, msum),
+    # under the tie guard's keys of the 10k default path's model, and at
+    # D = 16,384 under those of the long-record model
+    tie10k = tie_keys(bench_model.singles, bench_model.combos)
+    wa_err = step_kernel_checks(rng, dev, tie10k)
 
     # (c5) the FULL instantiation against its plain version and the port's
     # numpy host oracle
@@ -3288,7 +3400,7 @@ def main() -> int:
     step_timing = {}
     for w, mcnt in ((1_571, 9), (2_048, 9), (1_571, 2_000), (2_048, 2_000)):
         case = step_case(rng, 10_000, "absorb", w=w, mcnt=mcnt, npos=15)
-        args, skw = step_inputs(case, store_np, st_moments)
+        args, skw = step_inputs(case, store_np, st_moments, dev, tie10k)
         trip, _ = step_check(args, skw, f"10k shape W={w} members={mcnt}", scratch)
         if trip.tolist()[:2] != [0, 15]:
             raise AssertionError(f"the timed step is no absorb of 15: {trip}")
@@ -3316,9 +3428,9 @@ def main() -> int:
     # (m4) the step kernel's block mode at the same 10k shape, G = 4 row
     # blocks in this process and G = 1, against the one-block kernel and the
     # plain version; the one-rank session's three launches timed
-    step_block = step_block_checks(step_inputs, fresh, step_case(
-        rng, 10_000, "absorb", w=1_571, mcnt=9, npos=15), store_np, st_moments, scratch,
-        dev, card)
+    step_block = step_block_checks(step_case(rng, 10_000, "absorb", w=1_571, mcnt=9,
+                                             npos=15), store_np, st_moments, scratch,
+                                   dev, card, tie10k)
 
     # (d4) the FULL kernel at the main path's shapes, on the same store: the
     # 10k mean window (center form, W = 1,571) and P = 98,304, for both

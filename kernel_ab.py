@@ -523,13 +523,16 @@ def block_step(out: dict, redesigned: bool, np, torch, dev) -> None:
     i64 = dict(dtype=torch.int64, device=dev)
     store, order, cand, s, dist, state0, cur_d, kw = block_step_inputs(
         np, torch, dev, DeviceStore)
+    if hasattr(WA, "TIE_ALL"):   # a tree before the keyed tie guard takes no keys
+        kw["tie"] = WA.TIE_ALL
     n, w, d = N, W, D
     center = order[cur_d].expand(w).contiguous()
     stats = pair_stats(store.counts, order[cand], center)
     dec = torch.stack([s, torch.zeros_like(s), dist, kw["s_err"], kw["dist_err"]])
     plain_state = WA.StepState(*(t.clone() for t in state0))
     want = WA.window_step_ref(store, order, cand, s, dist, stats, plain_state, cur_d, **kw)
-    base = {k: kw[k] for k in ("cid", "stepc", "mcnt", "pos_edge", "margin", "tie_margin")}
+    base = {k: kw[k] for k in ("cid", "stepc", "mcnt", "pos_edge", "margin", "tie_margin",
+                               "tie") if k in kw}
     rows = order[cand]
     for G in (1, 4):
         blocks = _blocks_of(store, G)

@@ -13,8 +13,9 @@
 //                 tie_margin * max(|dist[best]|, 1)) of the best whose dist
 //                 differs from the best's or whose keys do (`tie`, a mask of
 //                 the kTie* fields: those the model's dist reads, so that
-//                 equal keys give the host equal dists too; by default the
-//                 statistics, mags, selfdot, lens and stddev), or, for a
+//                 equal keys give the host equal dists too; all of the
+//                 statistics, mags, selfdot, lens and stddev where a single
+//                 is not one of the statistics'), or, for a
 //                 model with full-vector singles (full), whose row differs
 //                 in a count: the host's float64 could rank them apart
 //                 (meshclust2_tpu/cluster/device_loop.py l. 1118,

@@ -19,8 +19,9 @@ pair statistics against the center:
               lies within max(8 (dist_err[p] + dist_err[best]), tie_margin *
               max(|dist[best]|, 1)) of the best dist while its dist or its
               keys differ from the best's (`tie`: the fields the model's
-              dist reads, `tie_keys`; by default its stats, mags, selfdot,
-              lens and stddev), or, with `full` (a model with full-vector
+              dist reads, `tie_keys`; TIE_ALL, its stats, mags, selfdot,
+              lens and stddev, where a single is not one of the
+              statistics'), or, with `full` (a model with full-vector
               singles), its row does;
               s_err and dist_err are the fused kernel's bounds (0 for
               other models, where the gates reduce to the margins);
@@ -180,8 +181,8 @@ def _check(counts, rows, s, dist, stats, s_err, dist_err, moments, n_rows=None):
 
 def window_absorb_ref(counts, rows, s, dist, stats, mags, selfdot, lens, stddevs,
                       *, pos_edge: float, margin: float, tie_margin: float,
-                      s_err: torch.Tensor, dist_err: torch.Tensor,
-                      full: bool = False, tie: int = TIE_ALL
+                      s_err: torch.Tensor, dist_err: torch.Tensor, tie: int,
+                      full: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decisions of one window in plain PyTorch, the same float64
     operations as the step kernel's: (pos bool [W], the positives' int64
@@ -278,8 +279,8 @@ def _check_step(store, order, cand, s, dist, stats, state: StepState, cur_d,
 def window_step_ref(store, order, cand, s, dist, stats, state: StepState,
                     cur_d, *, cid: int, stepc: int, mcnt: int, pos_edge: float,
                     margin: float, tie_margin: float, s_err: torch.Tensor,
-                    dist_err: torch.Tensor, full: bool = False,
-                    tie: int = TIE_ALL) -> torch.Tensor:
+                    dist_err: torch.Tensor, tie: int, full: bool = False
+                    ) -> torch.Tensor:
     """The step in plain PyTorch: `window_absorb_ref`, both cases under
     the decision flags, and `closest_mean_ref`'s one-segment mode over the
     first mcnt + W member slots with the first mcnt + npos kept.
@@ -348,8 +349,8 @@ def window_step(store, order: torch.Tensor, cand: torch.Tensor, s: torch.Tensor,
                 dist: torch.Tensor, stats: torch.Tensor, state: StepState,
                 cur_d: torch.Tensor, *, cid: int, stepc: int, mcnt: int,
                 pos_edge: float, margin: float, tie_margin: float,
-                s_err: torch.Tensor, dist_err: torch.Tensor, full: bool = False,
-                tie: int = TIE_ALL, scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+                s_err: torch.Tensor, dist_err: torch.Tensor, tie: int, full: bool = False,
+                scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One accumulate step's tail (module docstring) over a DeviceStore
     `store`, the pool's flat-order `order` (int64 [n], flat position ->
     store row), the W >= 1 candidates `cand` with their float64 [W] s and
@@ -513,10 +514,10 @@ def step_exchange_ref(blk: RowBlock, order, cand, own_pos, own_rows, own_stats, 
 
 def window_step_block_ref(phase: int, blk: RowBlock, order, cand, state: StepState, cur_d,
                           *, cid: int, stepc: int, mcnt: int, pos_edge: float,
-                          margin: float, tie_margin: float, trip: torch.Tensor,
+                          margin: float, tie_margin: float, tie: int, trip: torch.Tensor,
                           xbuf: Optional[torch.Tensor] = None, rank: int = 0,
                           n_ranks: int = 1, own=None, rank_part=None,
-                          parts: Optional[torch.Tensor] = None, tie: int = TIE_ALL) -> None:
+                          parts: Optional[torch.Tensor] = None) -> None:
     """One phase of the block mode in plain PyTorch, on the CPU: phase 1
     `step_exchange_ref` (own = (own_pos, own_rows, own_stats, own_dec));
     phase 2 from the all-reduced exchange the decisions and the case
@@ -575,10 +576,10 @@ def window_step_block_ref(phase: int, blk: RowBlock, order, cand, state: StepSta
 def window_step_block(phase: int, blk: RowBlock, order: torch.Tensor, cand: torch.Tensor,
                       state: StepState, cur_d: torch.Tensor, *, cid: int, stepc: int,
                       mcnt: int, pos_edge: float, margin: float, tie_margin: float,
-                      scratch: torch.Tensor, xbuf: Optional[torch.Tensor] = None,
+                      tie: int, scratch: torch.Tensor, xbuf: Optional[torch.Tensor] = None,
                       rank: int = 0, n_ranks: int = 1, own_pos=None, own_rows=None,
                       own_stats=None, own_dec=None, rank_part=None,
-                      parts: Optional[torch.Tensor] = None, tie: int = TIE_ALL) -> torch.Tensor:
+                      parts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One phase (1, 2 or 3) of the step on rank `rank` of `n_ranks` over a
     row-sharded store (module docstring): `blk` holds the rank's rows,
     `order` maps flat positions to store rows, the window's candidates

@@ -7,11 +7,16 @@ pools-long-10k.json) at 240 records, clustered by the port's CLI on the
 recover path with the committed weights (the kernels' plain versions), is
 held against the benchmark's plain reference: the same histograms and
 CLSTR, and the sampled GLM sums within the configuration's limit; upstream's
-auto-k picks 7 on it; the run's clock has the set-up's row passes.
+auto-k picks 7 on it; the run's clock has the set-up's row passes.  The
+same pool, and one with a group of single-site mutants of one template
+whose windows hold exact euclidean ties of candidates with other dot
+products and self dots, give the JAX package's --device host run's CLSTR
+byte for byte: the step's tie guard, which compares only the fields the
+model's dist reads, takes those ties as the host does.
 
 On a card (marked cuda, skipped without one): the kernels of the step and of
 the phase at D = 16,384 uint8, each against its plain version bit for bit.
-This file imports no JAX.
+Only the comparison with the JAX package imports it, inside its test.
 """
 import json
 import os
@@ -59,6 +64,71 @@ def pool(tmp_path_factory):
                                 TRAFFIC["len_hi"], TRAFFIC["rate_lo"],
                                 TRAFFIC["rate_hi"]))
     return str(path)
+
+
+def _mutant_group(seed: int, n: int, length: int) -> bytes:
+    """n records of one random template of `length` bp, each with 1-3
+    substitutions: their squared euclidean distances to one another are
+    small integers that often tie exactly, from other dot products and
+    self dots."""
+    rng = np.random.default_rng(seed)
+    tmpl = rng.integers(0, 4, length)
+    out = []
+    for j in range(n):
+        seq = tmpl.copy()
+        pos = rng.choice(length, int(rng.integers(1, 4)), replace=False)
+        seq[pos] = (seq[pos] + rng.integers(1, 4, len(pos))) % 4
+        out.append(f">sub_{j}\n" + "".join("ACGT"[b] for b in seq) + "\n")
+    return "".join(out).encode()
+
+
+@pytest.fixture(scope="module")
+def tie_pool(pool, tmp_path_factory):
+    """The 240-record pool and 20 single-site mutants of a 9,000 bp
+    template."""
+    path = tmp_path_factory.mktemp("ties") / "pool.fasta"
+    with open(pool, "rb") as f:
+        path.write_bytes(f.read() + _mutant_group(2, 20, 9_000))
+    return str(path)
+
+
+@pytest.mark.parametrize("which", ["traffic", "ties"])
+def test_cli_equals_the_jax_host_run_at_k7(which, pool, tie_pool, tmp_path):
+    """The port's CLI on the CPU and the JAX package's --device host run
+    give the same CLSTR, byte for byte.  On the pool with mutants the
+    port's steps meet exact dist ties of candidates whose dot or self dot
+    differ from the best's, which the model's keys (its dist is euclidean
+    alone: selfdot - 2 dot) take as exact and every field would not."""
+    from meshclust2_tpu.cli import main as jax_main
+    from meshclust2_tpu_torch.ops import window_absorb as WA
+
+    path = tie_pool if which == "ties" else pool
+    real = WA.window_absorb_ref
+    narrowed = []
+
+    def absorb(counts, rows, s, dist, stats, mags, selfdot, *rest, **kw):
+        out = real(counts, rows, s, dist, stats, mags, selfdot, *rest, **kw)
+        every = real(counts, rows, s, dist, stats, mags, selfdot, *rest,
+                     **dict(kw, tie=WA.TIE_ALL))
+        if int(every[2][0]) & 2 and not int(out[2][0]) & 2:
+            best = int(out[2][2])
+            tied = dist == dist[best]
+            tied[best] = False
+            other = (stats[:, 1] != stats[best, 1]) | (selfdot[rows] != selfdot[rows[best]])
+            narrowed.append(bool((tied & other).any()))
+        return out
+
+    argv = ["--recover", WEIGHTS, "--delta", str(CONFIG["options"]["delta"]),
+            "--iterations", str(CONFIG["options"]["iterations"])]
+    port, jax = tmp_path / "port.clstr", tmp_path / "jax.clstr"
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(WA, "window_absorb_ref", absorb)
+        res = cli.run(["--device", "cpu", *argv, "--output", str(port), path])
+    assert res.rc == 0 and res.accumulator.error is None
+    assert jax_main(["--device", "host", *argv, "--output", str(jax), path]) == 0
+    assert port.read_bytes() == jax.read_bytes()
+    if which == "ties":
+        assert any(narrowed)
 
 
 def test_auto_k_picks_7_and_the_configuration_states_its_weights(pool):

@@ -36,7 +36,7 @@ from meshclust2_tpu_torch.model.weights import ModelBlock
 from meshclust2_tpu_torch.ops.pair_stats import (
     pair_stats, pair_stats_decision, pair_stats_decision_ref, pair_stats_ref,
     vector_singles_ref)
-from meshclust2_tpu_torch.ops.window_absorb import window_absorb_ref
+from meshclust2_tpu_torch.ops.window_absorb import TIE_ALL, window_absorb_ref
 
 torch.set_num_threads(2)
 
@@ -239,7 +239,7 @@ def test_window_gates_take_the_bounds_and_full_ties_need_equal_rows():
         m[3] = m[2]
     s = torch.tensor([3.0, -2.0, 0.25 + 1e-6, -4.0], dtype=torch.float64)
     dist = torch.tensor([0.1, 0.2, 0.5, 0.5], dtype=torch.float64)
-    kw = dict(pos_edge=0.25, margin=1e-8, tie_margin=1e-12)
+    kw = dict(pos_edge=0.25, margin=1e-8, tie_margin=1e-12, tie=TIE_ALL)
     zero = torch.zeros(4, dtype=torch.float64)
     moments = (store.mags, store.selfdot, store.lens, store.stddevs)
 

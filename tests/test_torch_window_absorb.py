@@ -79,7 +79,7 @@ def port_absorb(counts, rows, s, dist, stats, moments, edge, margin=MARGIN,
     pos, colsum, info = window_absorb_ref(
         t(counts), t(rows), t(s), t(dist), t(stats), *(t(m) for m in moments),
         pos_edge=edge, margin=margin, tie_margin=tie_margin, s_err=zero,
-        dist_err=zero)
+        dist_err=zero, tie=TIE_ALL)
     assert pos.dtype == torch.bool and colsum.dtype == info.dtype == torch.int64
     return pos.numpy(), colsum.numpy(), info.numpy()
 
@@ -221,7 +221,8 @@ def test_med2000_windows_agree_with_host_scorer(fixtures_dir):
         pos, colsum, info = window_absorb_ref(
             store.counts, a, s, dist, stats, store.mags, store.selfdot,
             store.lens, store.stddevs, pos_edge=edge, margin=margin,
-            tie_margin=tie_margin, s_err=dec[3], dist_err=dec[4])
+            tie_margin=tie_margin, s_err=dec[3], dist_err=dec[4],
+            tie=tie_keys(model.singles, model.combos))
         prob, hdist = host.score(rows, np.array([center]))
         if info[0] & 1 == 0:
             np.testing.assert_array_equal(pos.numpy(), c_round(prob) > 0)
@@ -266,7 +267,7 @@ def test_wrapper_rejects(case):
     with pytest.raises((TypeError, ValueError)):
         window_absorb_ref(counts, rows, s, dist, stats, *moments, pos_edge=0.0,
                           margin=MARGIN, tie_margin=TIE_MARGIN, s_err=s_err,
-                          dist_err=dist_err)
+                          dist_err=dist_err, tie=TIE_ALL)
 
 
 # -- the whole step ------------------------------------------------------------
@@ -343,7 +344,7 @@ def step_case(seed, dtype, d, kind, n=120, device="cpu"):
     # the fused kernel's bounds of a model without full-vector singles
     zero = torch.zeros(w, dtype=torch.float64, device=device)
     kw = dict(cid=cid, stepc=stepc, mcnt=mcnt, pos_edge=EDGE, margin=MARGIN,
-              tie_margin=tie_margin, s_err=zero, dist_err=zero.clone())
+              tie_margin=tie_margin, s_err=zero, dist_err=zero.clone(), tie=TIE_ALL)
     return args, kw
 
 
@@ -353,7 +354,7 @@ def clone_state(args):
 
 
 def earlier_step(store, order, cand, s, dist, stats, state, cur_d, *, cid, stepc,
-                 mcnt, pos_edge, margin, tie_margin, s_err, dist_err):
+                 mcnt, pos_edge, margin, tie_margin, s_err, dist_err, tie):
     """The accumulator's scan tail before the step kernel, transcribed: the
     decisions, the gated torch updates, the one-segment closest-to-mean,
     and the min case's gated seed.  Returns ((bits, npos, unc), next
@@ -364,7 +365,7 @@ def earlier_step(store, order, cand, s, dist, stats, state, cur_d, *, cid, stepc
     pos, colsum, info = window_absorb_ref(
         counts, order[cand], s, dist, stats, store.mags, store.selfdot,
         store.lens, store.stddevs, pos_edge=pos_edge, margin=margin,
-        tie_margin=tie_margin, s_err=s_err, dist_err=dist_err)
+        tie_margin=tie_margin, s_err=s_err, dist_err=dist_err, tie=tie)
     bits, npos, best = info[0:1], info[1:2], info[2:3]
     ok = bits == 0
     absorb = ok & (npos > 0)
